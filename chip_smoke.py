@@ -6,22 +6,34 @@
 Phases (any failure fails the run, exit code 1; without a CUDA device it
 exits 2 before any result):
 
-1. environment: the card's name and power limit; both kernel sources built
-   from ``k8s_dra_driver_torch/csrc`` with ``nvcc`` (ptxas report printed);
-2. kernels against their plain PyTorch versions on the card, at the
+1. environment: the card's name and power limit; the three kernel sources
+   built from ``k8s_dra_driver_torch/csrc`` with ``nvcc``, all started
+   together (ptxas report printed);
+2. serving kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (FLAGSHIP_MODERN: Hq 16 / Hkv 4 / d 64, L 8,
    block 16, B 8, ragged lengths up to 1024; int4 at M 8 and 256 over the
    four block matrices), with each tolerance and its reason, and each
    kernel's time beside the plain version's, a one-call PyTorch yardstick
    the port never calls, and the least time the card could take;
-3. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
+3. the flash kernels (forward, dQ, dK/dV) the same way, at the training
+   path's shapes (B·H 64, S 256 and 1024, D 64, causal and full, f32 and
+   bf16), timed at B·H 64, S 1024, causal, bf16 beside SDPA's forward and
+   its backward through autograd;
+4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
    pool) through ``PagedServeEngine.pump``: every stream checked
    teacher-forced against the plain dense decode path;
-4. the same with int4 block weights;
-5. the same in f32 at reduced depth.
+5. the same with int4 block weights;
+6. the same in f32 at reduced depth;
+7. training FLAGSHIP_MODERN at full width in bf16 through
+   ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
+   step 0's loss and gradients against ``attention="dense"``, then 8 steps
+   on one batch with the loss falling and the flash kernels' launches
+   counted, the step time, and the device time by kernel of one step;
+8. training in f32 at 2 layers: flash against dense over 3 steps.
 
 The line before the last lists the kernels with their launch counts on the
-serving path and their times; the last line is the JSON device record.
+path that runs them (serving or training) and their times; the last line is
+the JSON device record.
 """
 
 from __future__ import annotations
@@ -52,11 +64,28 @@ KERNELS = {
         route="cuda", source="k8s_dra_driver_torch/csrc/paged_attention.cu",
         replaces="k8s_dra_driver_tpu/ops/paged_attention.py:64",
     ),
+    "paged_attention_window": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/paged_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/paged_attention.py:396",
+    ),
     "int4_matmul": dict(
         route="cuda", source="k8s_dra_driver_torch/csrc/int4_matmul.cu",
         replaces="k8s_dra_driver_tpu/ops/int4_matmul.py:41",
     ),
+    "flash_fwd": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/flash_attention.py:31",
+    ),
+    "flash_bwd_dq": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/flash_attention.py:137",
+    ),
+    "flash_bwd_dkv": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/flash_attention.py:179",
+    ),
 }
+KERNEL_SOURCES = ["int4_matmul", "paged_attention", "flash_attention"]
 
 
 def log(*a):
@@ -120,7 +149,7 @@ def phase_environment(torch):
     log("nvidia-smi:", card)
     log("torch", torch.__version__, "cuda", torch.version.cuda)
     t0 = time.perf_counter()
-    _build.build(["int4_matmul", "paged_attention"])
+    _build.build(KERNEL_SOURCES)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, report in _build.ptxas_reports.items():
         log(f"--- ptxas -v: {name}.cu")
@@ -233,7 +262,11 @@ def phase_kernels(torch, timer: Timer):
         qs = q.permute(0, 2, 1, 3)                                      # [B, Hq, 1, d]
         kpos = torch.arange(kg.shape[2], device=DEV)
         mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]
-        ms_lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask))
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+
+        ms_lib = timer.ms(sdpa)
+        ms_wlib = timer.ms(sdpa)  # the same yardstick, timed beside the read-only kernel
         ww = _paged_work(lengths, 1, 16, 4, 64, 16, 2, append=False)
         b_ms, b_by = bound(w[0], w[1], "bfloat16")
         bw_ms, bw_by = bound(ww[0], ww[1], "bfloat16")
@@ -241,11 +274,16 @@ def phase_kernels(torch, timer: Timer):
             f"{ms_p * 1e3:.1f} us, sdpa {ms_lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
             f"({b_by}, {w[0] / 1e6:.2f} MB, {w[1] / 1e6:.1f} MFLOP)")
         log(f"  paged window bf16 B=8 nq=1 {label}: kernel {ms_wk * 1e3:.1f} us, plain "
-            f"{ms_wp * 1e3:.1f} us, bound {bw_ms * 1e3:.2f} us ({bw_by})")
+            f"{ms_wp * 1e3:.1f} us, sdpa {ms_wlib * 1e3:.1f} us, bound {bw_ms * 1e3:.2f} us "
+            f"({bw_by})")
         if label == "ctx512":
             results["paged_attention"] = dict(
                 ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=worst["append"],
+            )
+            results["paged_attention_window"] = dict(
+                ms=ms_wk, plain_ms=ms_wp, library_ms=ms_wlib, bound_ms=bw_ms,
+                bound_by=bw_by, max_abs_err=worst["window"],
             )
 
     # int4: the four block matrices of FLAGSHIP_MODERN at M = 8 and 256
@@ -300,6 +338,236 @@ def phase_kernels(torch, timer: Timer):
                 )
     results["int4_matmul"]["max_abs_err"] = worst_i4
     return results
+
+
+FLASH_TOL = {
+    "float32": (1e-4, "f32 sums in another order (64-key tiles against one pass); TF32 off"),
+    "bfloat16": (3e-2, "bf16 outputs rounded once; P rounded to bf16 against the running "
+                       "max in the kernel, against the row's max in the plain version"),
+}
+
+
+def _flash_work(bh, s, d, itemsize, causal):
+    """(bytes, operations) of the forward, dQ and dK/dV at these shapes:
+    each input read once, each output written once (lse and delta f32);
+    2 operations per multiply-add over the (query, key) pairs attended."""
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    slab = bh * s * d * itemsize
+    rows = bh * s * 4
+    return {
+        "flash_fwd": (3 * slab + slab + rows, 4 * pairs * d),         # QK, PV
+        "flash_bwd_dq": (4 * slab + 2 * rows + slab, 6 * pairs * d),  # QK, dO.V, dS.K
+        "flash_bwd_dkv": (4 * slab + 2 * rows + 2 * slab, 8 * pairs * d),  # + P.dO, dS.Q
+    }
+
+
+def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: int = 64):
+    """The three flash kernels against their plain versions at the training
+    path's shapes (B·H = 4 x 16 heads, D 64), then timed at the main path's
+    (S 1024, causal, bf16) beside the plain versions and SDPA."""
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        rtol, why = FLASH_TOL[dname]
+        log(f"flash tolerance {dname}: max|err| <= {rtol} * max(1, max|plain|) ({why}); "
+            f"lse within {FLASH_TOL['float32'][0]} * max(1, max|lse|)")
+        for s in seqs:
+            for causal in (True, False):
+                g = torch.Generator(device=DEV).manual_seed(SEED + s + causal)
+                q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=DEV).to(dtype)
+                                 for _ in range(4))
+                out, lse = fa._forward_bhsd(q, k, v, causal)
+                out_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
+                # the backward kernels and their plain versions see the same
+                # inputs: the plain forward's out and lse
+                dq = fa._backward_bhsd(q, k, v, out_p, lse_p, dout, causal)
+                dq_p = fa.flash_backward_plain(q, k, v, out_p, lse_p, dout, causal)
+                sync(torch)
+                errs = {}
+                for name, got, want, tol in (
+                    ("out", out, out_p, rtol), ("lse", lse, lse_p, FLASH_TOL["float32"][0]),
+                    ("dq", dq[0], dq_p[0], rtol), ("dk", dq[1], dq_p[1], rtol),
+                    ("dv", dq[2], dq_p[2], rtol),
+                ):
+                    err = (got.float() - want.float()).abs().max().item()
+                    limit = tol * max(1.0, want.float().abs().max().item())
+                    errs[name] = err
+                    if not err <= limit:
+                        raise AssertionError(
+                            f"flash {name} disagrees ({dname}, S={s}, causal={causal}): "
+                            f"{err} > {limit}")
+                log(f"  flash {dname} BH={bh} S={s} D={d} causal={causal}: max_abs_err "
+                    + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+                if dtype == torch.bfloat16:
+                    worst["flash_fwd"] = max(worst["flash_fwd"], errs["out"])
+                    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
+                    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"], errs["dv"])
+
+    # times at the main path's shape
+    s = seqs[-1]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=DEV).to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = fa._forward_bhsd(q, k, v, True)
+    delta = fa._delta(dout, out)
+    ms = {
+        "flash_fwd": (timer.ms(lambda: fa._forward_bhsd(q, k, v, True)),
+                      timer.ms(lambda: fa.flash_forward_plain(q, k, v, True))),
+        "flash_bwd_dq": (timer.ms(lambda: fa._dq_bhsd(q, k, v, lse, dout, delta, True)),
+                         timer.ms(lambda: fa._dq_plain(q, k, v, lse, dout, delta, True))),
+        "flash_bwd_dkv": (timer.ms(lambda: fa._dkv_bhsd(q, k, v, lse, dout, delta, True)),
+                          timer.ms(lambda: fa._dkv_plain(q, k, v, lse, dout, delta, True))),
+    }
+    # yardsticks the port never calls: SDPA's forward, and its backward
+    # through autograd (dQ, dK and dV together) on [B, H, S, D] = [4, 16, S, 64]
+    qs, ks, vs = (x.reshape(-1, 16, s, d).detach().requires_grad_() for x in (q, k, v))
+    ms_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    do_sdpa = dout.reshape(-1, 16, s, d)
+    ms_sdpa_bwd = timer.ms(
+        lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do_sdpa, retain_graph=True)
+    )
+    work = _flash_work(bh, s, d, 2, True)
+    results = {}
+    for name in names:
+        b_ms, b_by = bound(*work[name], "bfloat16")
+        lib = ms_sdpa if name == "flash_fwd" else ms_sdpa_bwd
+        results[name] = dict(ms=ms[name][0], plain_ms=ms[name][1], library_ms=lib,
+                             bound_ms=b_ms, bound_by=b_by, max_abs_err=worst[name])
+        log(f"  {name} bf16 BH={bh} S={s} D={d} causal: kernel {ms[name][0] * 1e3:.1f} us, "
+            f"plain {ms[name][1] * 1e3:.1f} us, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} "
+            f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+            f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP)")
+    log(f"  sdpa backward covers dQ and dK/dV together: kernels "
+        f"{(ms['flash_bwd_dq'][0] + ms['flash_bwd_dkv'][0]) * 1e3:.1f} us against "
+        f"{ms_sdpa_bwd * 1e3:.1f} us")
+    return results
+
+
+def train_flops(cfg, batch: int, seq: int) -> int:
+    """Model FLOPs of one train step as ``bench.py``'s ``_train_mfu``
+    counts them: 6 per weight per token (no credit for the remat
+    re-forward) plus 12·B·S²·d per layer for attention."""
+    from k8s_dra_driver_torch.models.burnin import block_matrix_shapes
+
+    block = sum(a * b for a, b in block_matrix_shapes(cfg).values())
+    weights = cfg.n_layers * block + cfg.vocab_size * cfg.d_model
+    return 6 * weights * batch * seq + 12 * batch * seq * seq * cfg.d_model * cfg.n_layers
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+TRAIN_TOL = {
+    # (loss relative, gradient leaf relative L2, why)
+    "bfloat16": (1e-3, 5e-2, "both paths in bf16, rounded at other points (dense: bf16 "
+                 "scores before the f32 softmax; flash: f32 scores, P rounded per tile); a "
+                 "CPU rehearsal at 2 layers put each within ~1.3% (rel L2) of f32"),
+    "float32": (1e-5, 1e-4, "f32 throughout, TF32 off; the two attentions sum in another "
+                "order"),
+}
+
+
+def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
+    """bf16 training of ``cfg`` at S = max_seq through the flash kernels;
+    returns the kernels' launch counts over the ``steps`` main-path steps."""
+    from k8s_dra_driver_torch.models import burnin
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    s = cfg.max_seq
+    tokens = torch.from_numpy(
+        np.random.RandomState(SEED + 3).randint(0, cfg.vocab_size, size=(b, s))
+    ).to(DEV)
+    loss_tol, grad_tol, why = TRAIN_TOL["bfloat16"]
+
+    # step 0: flash against dense on the same params and batch
+    params = burnin.init_params(torch.Generator(device=DEV).manual_seed(SEED + 5), cfg)
+    lf, gf = burnin.value_and_grad(
+        lambda p, t: burnin.loss_fn(p, t, cfg, fa.flash_attention), params, tokens)
+    ld, gd = burnin.value_and_grad(lambda p, t: burnin.loss_fn(p, t, cfg), params, tokens)
+    rel_loss = abs(lf.item() - ld.item()) / abs(ld.item())
+    rels = [_rel_l2(x, y) for x, y in zip(burnin.param_leaves(gf), burnin.param_leaves(gd))]
+    log(f"train bf16 step 0: loss flash {lf.item():.6f} dense {ld.item():.6f} (rel "
+        f"{rel_loss:.3g}, tolerance {loss_tol}); gradient leaves rel L2 worst "
+        f"{max(rels):.4g}, median {sorted(rels)[len(rels) // 2]:.4g} (tolerance {grad_tol}: "
+        f"{why})")
+    if not (rel_loss <= loss_tol and max(rels) <= grad_tol):
+        raise AssertionError("bf16 flash training step 0 disagrees with dense")
+    del params, gf, gd
+
+    fns = burnin.build_train_step(cfg, attention="flash", remat="blocks", lr=3e-4, device=DEV)
+    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
+    sync(torch)
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
+    sync(torch)
+    counts = dict(fa.launches)
+    losses = [x.item() for x in losses]
+    log(f"train bf16 B={b} S={s} L={cfg.n_layers}: losses over {steps} steps on one batch "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"train bf16: launches {counts} (expected forward 2*L*steps = "
+        f"{2 * cfg.n_layers * steps}, dQ and dK/dV L*steps = {cfg.n_layers * steps})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("bf16 training loss did not fall")
+    if counts != {"flash_fwd": 2 * cfg.n_layers * steps,
+                  "flash_bwd_dq": cfg.n_layers * steps,
+                  "flash_bwd_dkv": cfg.n_layers * steps}:
+        raise AssertionError(f"flash launch counts {counts} are not the main path's")
+
+    # step time on the device's clock, warmed up by the steps above
+    n = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    for _ in range(n):
+        fns.step(params, state, tokens)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    flops = train_flops(cfg, b, s)
+    bound_ms = flops / PEAK_OPS["bfloat16"] * 1e3
+    log(f"train bf16: {ms:.2f} ms per step ({b * s / ms * 1e3:.0f} tokens/s), "
+        f"{flops / 1e12:.3f} TFLOP per step as _train_mfu counts it -> "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {flops / ms / 1e9 / 989:.4f} of 989 TFLOP/s "
+        f"(bound {bound_ms:.2f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_window(torch, "train bf16: profile of one step",
+                   lambda: fns.step(params, state, tokens), top=12, host_top=8)
+    return counts
+
+
+def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
+    """``cfg`` in f32 at 2 layers: flash against dense, step by step, from
+    the same params on the same batch."""
+    from k8s_dra_driver_torch.models import burnin
+
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    s = cfg.max_seq
+    tokens = torch.from_numpy(
+        np.random.RandomState(SEED + 4).randint(0, cfg.vocab_size, size=(b, s))
+    ).to(DEV)
+    loss_tol, param_tol, why = TRAIN_TOL["float32"]
+    runs = {}
+    for attention in ("flash", "dense"):
+        fns = burnin.build_train_step(cfg, attention=attention, device=DEV)
+        params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 6))
+        losses = [fns.step(params, state, tokens)[2].item() for _ in range(steps)]
+        runs[attention] = (losses, params)
+    (lf, pf), (ld, pd) = runs["flash"], runs["dense"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(lf, ld))
+    prel = max(_rel_l2(x, y) for x, y in zip(burnin.param_leaves(pf), burnin.param_leaves(pd)))
+    log(f"train f32 L=2: losses flash {' '.join(f'{x:.6f}' for x in lf)}; dense "
+        f"{' '.join(f'{x:.6f}' for x in ld)}; worst rel {rel:.3g} (tolerance {loss_tol}); "
+        f"params after {steps} steps rel L2 worst {prel:.3g} (tolerance {param_tol}: {why})")
+    if not (rel <= loss_tol and prel <= param_tol and lf[-1] < lf[0]):
+        raise AssertionError("f32 flash training disagrees with dense")
 
 
 def _traffic(vocab: int, n: int, max_prompt: int, max_new: int, seed: int):
@@ -424,26 +692,48 @@ def steady_decode(torch, label, cfg, params, *, cache_dtype, bursts=4):
     log(f"{label}: steady decode B=8 ctx~{mean_ctx:.0f}: {ms:.3f} ms per step "
         f"({8 / ms * 1e3:.0f} tokens/s); bound {b_ms * 1e3:.1f} us "
         f"({weights / 1e6:.1f} MB parameters + {kv / 1e6:.1f} MB K/V per step)")
+    profile_window(torch, f"{label}: profile of one 8-step burst", eng.step_burst)
+
+
+def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0):
+    """Run ``fn`` once under ``torch.profiler`` and print the device's busy
+    time over the window and the kernels that take it (and, with
+    ``host_top``, the host ops with the most self CPU time).  Only events
+    that ran on the device are summed: a CPU op's own device time repeats
+    the time of the kernels it launched, so the sum over all events counts
+    those kernels twice (printed beside, for comparison with earlier runs
+    that summed it)."""
     try:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.step_burst()
+            fn()
             sync(torch)
             window_us = (time.perf_counter() - t0) * 1e6
-        rows = []
+        rows, host, all_events = [], [], 0.0
         for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            if dev_us > 0:
+            dev_us = getattr(ev, "self_device_time_total", 0)
+            all_events += dev_us
+            if ev.device_type == DeviceType.CUDA and dev_us > 0:
                 rows.append((dev_us, ev.count, ev.key))
+            elif ev.device_type == DeviceType.CPU:
+                host.append((ev.self_cpu_time_total, ev.count, ev.key))
         busy = sum(r_[0] for r_ in rows)
-        log(f"{label}: profile of one 8-step burst: window {window_us:.0f} us, device busy "
-            f"{busy:.0f} us ({busy / window_us:.3f} of the window)")
-        for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        if busy <= 0:
+            log(f"{label}: the profile holds no device events")
+            return
+        log(f"{label}: window {window_us:.0f} us, device busy {busy:.0f} us "
+            f"({busy / window_us:.3f} of the window; the sum over all events, CPU ops "
+            f"included, is {all_events:.0f} us)")
+        for dev_us, count, key in sorted(rows, reverse=True)[:top]:
             log(f"    {dev_us:9.0f} us  {dev_us / busy:.3f}  x{count:<5d} {key[:90]}")
+        if host_top:
+            log(f"{label}: host ops by self CPU time ({sum(r_[1] for r_ in host)} ops, "
+                f"{sum(r_[0] for r_ in host):.0f} us under the profiler)")
+            for cpu_us, count, key in sorted(host, reverse=True)[:host_top]:
+                log(f"    {cpu_us:9.0f} us  x{count:<5d} {key[:90]}")
     except Exception as exc:  # the profiler is a reading aid, not a check
         log(f"{label}: profile not taken: {type(exc).__name__}: {exc}")
 
@@ -488,6 +778,7 @@ def main() -> int:
         return 1
     timer = Timer(torch)
     kernel_numbers = run("kernels", lambda: phase_kernels(torch, timer)) or {}
+    kernel_numbers.update(run("flash kernels", lambda: phase_flash_kernels(torch, timer)) or {})
 
     cfg = burnin.FLAGSHIP_MODERN
     reqs = _traffic(cfg.vocab_size, 16, 256, 128, SEED)
@@ -517,13 +808,25 @@ def main() -> int:
     run("serve bf16", serve_bf16)
     run("serve int4", serve_int4)
     run("serve f32", serve_f32)
+    del params
+
+    def train_bf16():
+        launches["train"] = phase_train_bf16(torch, cfg)
+
+    run("train bf16", train_bf16)
+    run("train f32", lambda: phase_train_f32(torch, cfg))
 
     if failed:
         log(f"chip_smoke: failed phases {failed}")
         return 1
+    # each kernel's launches on the path that runs it: paged append on the
+    # bf16 serving run, int4 on the int4 serving run, flash on the bf16
+    # training run; the read-only paged kernel is on neither path (0)
     main_counts = {
         "paged_attention": launches["bf16"]["paged_attention"],
+        "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": launches["int4"]["int4_matmul"],
+        **launches["train"],
     }
     log(f"card: {card}")
     kernels = []

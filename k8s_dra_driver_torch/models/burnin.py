@@ -14,17 +14,29 @@ angles in f32, half-split (NeoX) pairs; tanh-approximated GELU (JAX's
 default); tied logits contracted in the parameter dtype and cast to f32
 afterwards; masked attention scores are ``-1e30``.  Mixture-of-experts
 blocks are not ported yet.
+
+The training half is the single-device branch of the reference's
+``build_train_step``: ``forward`` with per-block rematerialization
+(``torch.utils.checkpoint``), ``loss_fn``, ``make_optimizer`` (optax's
+``adamw`` and ``clip_by_global_norm``, written out) and ``make_sgd_step``
+(gradient accumulation with the interleaved microbatch split).  The step
+updates params and optimizer state IN PLACE (the reference's step is pure
+and donates its buffers instead).  ``remat="dots"``, meshes, LoRA and MoE
+training raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from k8s_dra_driver_torch.device import params_device, resolve_device
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
 
 _DTYPES = {
@@ -230,15 +242,307 @@ def reference_attention(q, k, v, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens ``[B, S]`` int -> logits ``[B, S, V]`` f32."""
-    b, s = tokens.shape
+def _full_attention(q, k, v):
+    return reference_attention(q, k, v, causal=True)
+
+
+def _block(x, p, cfg: ModelConfig, attn_fn=_full_attention):
+    b, s, d = x.shape
+    q, k, v = qkv_proj(x, p, cfg)
+    # GQA k/v are widened to one head per query head: every attention
+    # backend sees the MHA shape
+    attn = attn_fn(q, repeat_kv(k, cfg), repeat_kv(v, cfg)).reshape(b, s, d)
+    x = x + _mm(attn, p["attn_out"])
+    return mlp_residual(x, p)
+
+
+def _wrap_remat(block, remat: str):
+    """``"blocks"``: recompute every block intermediate in the backward
+    (``torch.utils.checkpoint``, non-reentrant; the block draws no random
+    numbers, so no RNG state is kept); ``"none"``: save everything.  The
+    reference's ``"dots"`` policy (save matmul outputs) is not ported."""
+    if remat == "blocks":
+        return functools.partial(
+            checkpoint, block, use_reentrant=False, preserve_rng_state=False
+        )
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save matmul outputs, recompute the rest) is not ported "
+            "yet; use 'blocks' or 'none'"
+        )
+    if remat == "none":
+        return block
+    raise ValueError(f"remat must be blocks|dots|none, got {remat!r}")
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, attn_fn=None,
+            remat: str = "blocks") -> torch.Tensor:
+    """tokens ``[B, S]`` int -> logits ``[B, S, V]`` f32.  ``attn_fn``
+    defaults to the plain causal attention; ``remat`` changes memory and
+    time, never the numbers."""
+    s = tokens.shape[1]
     x = params["embed"][tokens]
     if not cfg.rope:
         x = x + params["pos_embed"][:s]
+    block = _wrap_remat(
+        functools.partial(_block, cfg=cfg, attn_fn=attn_fn or _full_attention), remat
+    )
     for p in params["blocks"]:
-        q, k, v = qkv_proj(x, p, cfg)
-        attn = reference_attention(q, repeat_kv(k, cfg), repeat_kv(v, cfg))
-        x = x + _mm(attn.reshape(b, s, cfg.d_model), p["attn_out"])
-        x = mlp_residual(x, p)
+        x = block(x, p)
     return tied_logits(x, params)
+
+
+def shift_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL, the shift taken in the loss."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()
+    return torch.mean(-torch.gather(logp, -1, targets[..., None]))
+
+
+def loss_fn(params, tokens, cfg: ModelConfig, attn_fn=None, remat: str = "blocks"):
+    return shift_nll(forward(params, tokens, cfg, attn_fn, remat=remat), tokens)
+
+
+def param_leaves(tree) -> list:
+    """The leaves of a params tree in the reference's tree order (dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in param_leaves(v)]
+    if not (isinstance(tree, torch.Tensor) and tree.is_floating_point()):
+        raise ValueError(f"training takes float tensor params, got {type(tree).__name__}")
+    return [tree]
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure with the next leaves of the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        built = {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+        return {k: built[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_unflatten(v, leaves) for v in tree]
+    return next(leaves)
+
+
+def value_and_grad(loss_fn_, params, tokens):
+    """``(loss, grads)`` of ``loss_fn_(params, tokens)``: the loss detached,
+    the gradients a tree like ``params`` in the params' dtypes (zeros for a
+    leaf the loss does not reach).  ``params`` are not changed."""
+    leaves = param_leaves(params)
+    live = [t.detach().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        loss = loss_fn_(_unflatten(params, iter(live)), tokens)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+    return loss.detach(), _unflatten(params, iter(grads))
+
+
+def make_sgd_step(loss_fn_, opt, accum_steps: int = 1):
+    """``step(params, opt_state, tokens) -> (params, opt_state, loss)``:
+    gradients of ``loss_fn_``, then ``opt``'s update, IN PLACE on params
+    and state (the same objects come back).  ``accum_steps > 1`` splits the
+    batch into that many microbatches, interleaved (microbatch i takes rows
+    i, i + accum_steps, ...), sums their gradients in f32, averages and
+    casts them to the params' dtypes, and updates once.  No host read: the
+    loss comes back as a device tensor."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def step(params, opt_state, tokens):
+        if accum_steps == 1:
+            loss, grads = value_and_grad(loss_fn_, params, tokens)
+            grads = param_leaves(grads)
+        else:
+            if tokens.shape[0] % accum_steps:
+                raise ValueError(
+                    f"batch {tokens.shape[0]} not divisible by accum_steps {accum_steps}"
+                )
+            micro = tokens.reshape(-1, accum_steps, *tokens.shape[1:]).transpose(0, 1)
+            leaves = param_leaves(params)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grad_sum = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
+            for mb in micro:
+                loss, grads = value_and_grad(loss_fn_, params, mb)
+                loss_sum = loss_sum + loss
+                for acc, g in zip(grad_sum, param_leaves(grads)):
+                    acc.add_(g)
+            inv = 1.0 / accum_steps
+            loss = loss_sum * inv
+            grads = [(g * inv).to(t.dtype) for g, t in zip(grad_sum, leaves)]
+        opt.update_(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return step
+
+
+class AdamW:
+    """The reference's ``make_optimizer``: optax's ``adamw(schedule,
+    b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)`` (weight decay on every
+    leaf, norms and embedding included), after ``clip_by_global_norm``
+    when ``grad_clip > 0``.  Written out rather than ``torch.optim.AdamW``
+    so that each step keeps optax's arithmetic: its moments in the params'
+    dtype, its bias corrections and update order, its schedule counted from
+    0 (the first update uses ``schedule(0)``, 0 under warmup), and its
+    clipping, which divides by the bare global norm (torch's
+    ``clip_grad_norm_`` adds 1e-6) and decides on the device, with no host
+    read.  The update is in place."""
+
+    b1, b2, eps, weight_decay = 0.9, 0.95, 1e-8, 0.01
+
+    def __init__(self, lr: float = 3e-4, warmup_steps: int = 0, decay_steps: int = 0,
+                 grad_clip: float = 0.0):
+        self.lr, self.warmup_steps, self.decay_steps = lr, warmup_steps, decay_steps
+        self.grad_clip = grad_clip
+
+    def learning_rate(self, count: int) -> float:
+        """optax's ``warmup_cosine_decay_schedule(0, lr, warmup, decay,
+        lr * 0.1)`` at ``count`` (constant ``lr`` without a schedule)."""
+        if not self.warmup_steps:
+            return self.lr
+        w, d = self.warmup_steps, self.decay_steps
+        if count < w:
+            return (0.0 - self.lr) * (1 - count / w) + self.lr
+        alpha = (self.lr * 0.1) / self.lr
+        t = min(count - w, d - w)
+        cosine = 0.5 * (1 + math.cos(math.pi * t / (d - w)))
+        return self.lr * ((1 - alpha) * cosine + alpha)
+
+    def init(self, params) -> dict:
+        """``{"count": 0, "mu": [...], "nu": [...]}``, the moments zeros in
+        each leaf's dtype, in the order of the params' leaves."""
+        leaves = param_leaves(params)
+        return {
+            "count": 0,
+            "mu": [torch.zeros_like(t) for t in leaves],
+            "nu": [torch.zeros_like(t) for t in leaves],
+        }
+
+    @torch.no_grad()
+    def update_(self, params, grads, state) -> None:
+        """One update of ``params`` and ``state`` in place from ``grads``
+        (a list in leaf order, or a tree like ``params``)."""
+        leaves = param_leaves(params)
+        grads = param_leaves(grads) if isinstance(grads, dict) else list(grads)
+        if self.grad_clip > 0:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            keep = norm < self.grad_clip
+            grads = [
+                torch.where(keep, g, (g / norm.to(g.dtype)) * self.grad_clip) for g in grads
+            ]
+        lr = self.learning_rate(state["count"])
+        count = state["count"] + 1
+        # the bias corrections in f32, as optax computes them
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
+        # optax's formulas, each rounded as optax rounds it, over all leaves
+        # at once (multi-tensor ops: a few launches per step, not ~18 per leaf)
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, self.b1)                      # mu = (1-b1) g + b1 mu
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - self.b1))
+        g2 = torch._foreach_mul(grads, grads)                 # nu = (1-b2) g^2 + b2 nu
+        torch._foreach_mul_(g2, 1 - self.b2)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, g2)
+        den = torch._foreach_div(nu, bc2)                     # sqrt(nu_hat) + eps
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(mu, bc1)                       # mu_hat / den
+        torch._foreach_div_(u, den)
+        torch._foreach_add_(u, torch._foreach_mul(leaves, self.weight_decay))
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(leaves, u)
+        state["count"] = count
+
+
+def make_optimizer(lr: float = 3e-4, warmup_steps: int = 0, decay_steps: int = 0,
+                   grad_clip: float = 0.0) -> AdamW:
+    """AdamW with linear warmup into cosine decay (both 0: constant lr; a
+    partial spec is an error, as in the reference) and global-norm clipping
+    before the update (``grad_clip > 0``)."""
+    if warmup_steps or decay_steps:
+        if not (warmup_steps > 0 and decay_steps > warmup_steps):
+            raise ValueError(
+                "schedule needs warmup_steps > 0 and decay_steps > "
+                f"warmup_steps (got {warmup_steps}, {decay_steps}); "
+                "leave both 0 for constant lr"
+            )
+    return AdamW(lr, warmup_steps, decay_steps, grad_clip)
+
+
+@dataclass
+class TrainStepFns:
+    init: callable
+    step: callable
+
+
+def build_train_step(
+    cfg: ModelConfig,
+    mesh=None,
+    lr: float = 3e-4,
+    sequence_parallel: str = "auto",
+    attention: str = "dense",
+    accum_steps: int = 1,
+    remat: str = "blocks",
+    device="cuda",
+) -> TrainStepFns:
+    """``(init, step)`` for single-device training on ``device`` (default
+    the card; raises without one unless ``device="cpu"``).
+
+    ``init(generator) -> (params, opt_state)`` draws the params on the
+    generator's device.  ``step(params, opt_state, tokens) -> (params,
+    opt_state, loss)`` updates params and optimizer state IN PLACE and
+    returns the same objects with the loss as a device tensor (no host
+    read).  ``attention``: ``"dense"`` (plain PyTorch) or ``"flash"`` (the
+    CUDA flash kernels, forward and backward; their plain versions on the
+    CPU).  ``remat``: ``"blocks"`` or ``"none"``.  A mesh (the reference's
+    sharded, ring and Ulysses branches) is not ported yet."""
+    valid = ("auto", "ring", "ulysses", "none")
+    if sequence_parallel not in valid:
+        raise ValueError(f"sequence_parallel must be one of {valid}, got {sequence_parallel!r}")
+    if mesh is None and sequence_parallel in ("ring", "ulysses"):
+        raise ValueError(
+            f"sequence_parallel={sequence_parallel!r} requires a mesh; "
+            "single-device training has no seq axis"
+        )
+    if attention not in ("dense", "flash"):
+        raise ValueError(f"attention must be 'dense' or 'flash', got {attention!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh training (sharded, ring and Ulysses attention) is not ported yet; "
+            "pass mesh=None for one device"
+        )
+    _wrap_remat(_block, remat)  # an unknown or unported policy raises here
+    dev = resolve_device(device)
+    opt = make_optimizer(lr)
+    attn_fn = None
+    if attention == "flash":
+        from k8s_dra_driver_torch.ops.flash_attention import flash_attention
+
+        attn_fn = flash_attention
+
+    def init(generator: torch.Generator):
+        params = init_params(generator, cfg)
+        params_device(params, dev)
+        return params, opt.init(params)
+
+    sgd = make_sgd_step(
+        lambda params, tokens: loss_fn(params, tokens, cfg, attn_fn, remat=remat),
+        opt, accum_steps=accum_steps,
+    )
+
+    def step(params, opt_state, tokens):
+        params_device(params, dev)
+        return sgd(params, opt_state, torch.as_tensor(tokens, device=dev))
+
+    return TrainStepFns(init=init, step=step)
+
+
+def sample_tokens(generator: torch.Generator, cfg: ModelConfig, batch: int,
+                  seq: int) -> torch.Tensor:
+    """Uniform random tokens ``[batch, seq]`` int32 on the generator's
+    device."""
+    return torch.randint(
+        0, cfg.vocab_size, (batch, seq), generator=generator,
+        device=generator.device, dtype=torch.int32,
+    )

@@ -56,3 +56,29 @@ def params_from_jax(tree, device="cuda"):
         return _leaf(node, dev)
 
     return walk(tree)
+
+
+def params_to_numpy(params):
+    """The inverse of :func:`params_from_jax` for float params: the port's
+    params tree (dicts and lists of tensors) as numpy arrays on the host,
+    bf16 kept bf16 (numpy's ``bfloat16`` extension dtype, which JAX's
+    arrays use too).  Reading the arrays waits for the device."""
+
+    def leaf(t):
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"params_to_numpy takes tensors, got {type(t).__name__}")
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return leaf(node)
+
+    return walk(params)

@@ -82,11 +82,12 @@ def build(names) -> None:
                 _finish_build(n, s)
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
+def load(name: str, launchers: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.  Each
-    source exports ``int <name>(...)`` (the launch, returning the CUDA error
-    code) and ``const char* <name>_error_string(int)``; both are declared
-    here once, the launch with ``argtypes``."""
+    source exports its launches, ``int <launcher>(...)`` returning the CUDA
+    error code, and ``const char* <name>_error_string(int)``; all are
+    declared here once, each launch with its ``launchers[launcher]``
+    argtypes."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
@@ -94,16 +95,17 @@ def load(name: str, argtypes) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(str(library_path(name)))
-                launch = getattr(lib, name)
-                launch.argtypes, launch.restype = list(argtypes), ctypes.c_int
+                for fn, argtypes in launchers.items():
+                    launch = getattr(lib, fn)
+                    launch.argtypes, launch.restype = list(argtypes), ctypes.c_int
                 err = getattr(lib, f"{name}_error_string")
                 err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
                 _libs[name] = lib
     return lib
 
 
-def check(name: str, rc: int) -> None:
-    """Raise when the launch of ``csrc/<name>.cu`` returned a CUDA error."""
+def check(name: str, rc: int, launcher: str | None = None) -> None:
+    """Raise when a launch of ``csrc/<name>.cu`` returned a CUDA error."""
     if rc != 0:
         what = getattr(_libs[name], f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({what})")
+        raise RuntimeError(f"{launcher or name} launch failed: CUDA error {rc} ({what})")

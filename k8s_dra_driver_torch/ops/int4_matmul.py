@@ -74,7 +74,7 @@ def _launch(x2, packed, scale, group_size: int) -> torch.Tensor:
         if t.device != x2.device or not t.is_contiguous():
             raise ValueError("int4 kernel operands must be contiguous on x's device")
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    rc = _build.load("int4_matmul", _ARGTYPES).int4_matmul(
+    rc = _build.load("int4_matmul", {"int4_matmul": _ARGTYPES}).int4_matmul(
         _DTYPE_CODES[x2.dtype], x2.data_ptr(), packed.data_ptr(), scale.data_ptr(),
         out.data_ptr(), m, k, n, group_size,
         torch.cuda.current_stream(x2.device).cuda_stream,

@@ -193,7 +193,7 @@ def _launch(q, new_k, new_v, k_pool, v_pool, block_table, pos, write_mask, appen
         extra = (nk.data_ptr(), nv.data_ptr(), wm.data_ptr())
     else:
         extra = (None, None, None)
-    rc = _build.load("paged_attention", _ARGTYPES).paged_attention(
+    rc = _build.load("paged_attention", {"paged_attention": _ARGTYPES}).paged_attention(
         _DTYPE_CODES[k_pool.dtype], int(append), d,
         qk.data_ptr(), extra[0], extra[1], k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), pos32.data_ptr(), extra[2], out.data_ptr(), int(out_f32),

@@ -1,6 +1,6 @@
 """The PyTorch port's CUDA kernels on the card: each against its plain
-PyTorch version, and the paged engine on the card against the same engine
-on the CPU.  Every test here is marked ``gpu`` and skips without a card.
+PyTorch version, the paged engine and the flash train step on the card
+against the same on the CPU.  Every test here is marked ``gpu`` and skips without a card.
 The file imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -8,7 +8,12 @@ The file imports no JAX, so it runs where only PyTorch is installed:
 Tolerances: float32 within 1e-5 (sums in another order; TF32 off); bf16
 within 3e-2 (outputs of magnitude ~1 rounded to bf16, probabilities
 rounded before normalisation in the kernel and after it in the plain
-version); appended pool bytes and greedy streams identical."""
+version); appended pool bytes and greedy streams identical.  Flash
+kernels: f32 within 1e-4 and bf16 within 3e-2, each times max(1, the plain
+result's largest magnitude) (f32 sums over 64-key tiles against one pass;
+bf16 outputs rounded once, P rounded against the running max in the kernel
+and against the row's max in the plain version); train-step losses within
+1e-5 relative of the CPU's."""
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ import torch
 from k8s_dra_driver_torch.models import burnin as tb
 from k8s_dra_driver_torch.models import paged as tp
 from k8s_dra_driver_torch.models import quant as tq
+from k8s_dra_driver_torch.ops import flash_attention as tfa
 from k8s_dra_driver_torch.ops import int4_matmul as ti4
 from k8s_dra_driver_torch.ops import paged_attention as tpa
 
@@ -128,3 +134,89 @@ def _to(params, dev):
     out = {k: leaf(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [{k: leaf(v) for k, v in blk.items()} for blk in params["blocks"]]
     return out
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _close(got, want, dtype, what):
+    tol = FLASH_TOL[dtype] * max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, f"{what}: max_abs_err {err} > {tol}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(64, 16), (100, 32), (200, 64), (130, 128)])
+def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
+    """Forward (out, lse), dQ and dK/dV each against its plain version on
+    the same inputs, ragged S included (the last tile masked)."""
+    g = torch.Generator(device="cpu").manual_seed(s + d)
+    q, k, v, dout = (torch.randn((3, s, d), generator=g).to(cuda, dtype) for _ in range(4))
+    before = dict(tfa.launches)
+    out, lse = tfa._forward_bhsd(q, k, v, causal)
+    want_out, want_lse = tfa.flash_forward_plain(q, k, v, causal)
+    _close(out, want_out, dtype, "out")
+    _close(lse, want_lse, torch.float32, "lse")
+    got = tfa._backward_bhsd(q, k, v, want_out, want_lse, dout, causal)
+    want = tfa.flash_backward_plain(q, k, v, want_out, want_lse, dout, causal)
+    torch.cuda.synchronize()
+    for x, y, name in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == dtype
+        _close(x, y, dtype, name)
+    assert {n: tfa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_flash_forward_keeps_f32_partials_over_bf16(cuda):
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q, k, v = (torch.randn((2, 96, 64), generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    out, _ = tfa._forward_bhsd(q, k, v, True, out_dtype=torch.float32)
+    want, _ = tfa.flash_forward_plain(q, k, v, True, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    _close(out, want, torch.bfloat16, "out f32")
+
+
+def test_flash_autograd_launches_the_kernels(cuda):
+    """``flash_attention`` on [B, S, H, D]: the backward through FlashCore
+    launches dQ and dK/dV and agrees with the plain formulas."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v, w = (torch.randn((2, 128, 4, 32), generator=g).to(cuda) for _ in range(4))
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    tfa.launches.update({n: 0 for n in tfa.launches})
+    out = tfa.flash_attention(q, k, v)
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    bq, bk, bv = (tfa.to_bh(x.detach()) for x in (q, k, v))
+    o, lse = tfa.flash_forward_plain(bq, bk, bv, True)
+    want = tfa.flash_backward_plain(bq, bk, bv, o, lse, tfa.to_bh(w), True)
+    for x, y, name in zip(got, want, ("dq", "dk", "dv")):
+        _close(x, tfa.from_bh(y, 2, 4), torch.float32, name)
+
+
+def test_flash_kernel_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((2, 64, 24), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._forward_bhsd(q, q, q, True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa._forward_bhsd(q[..., :16].half(), q[..., :16].half(), q[..., :16].half(), True)
+
+
+def test_flash_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two f32 steps of ``build_train_step(attention="flash")`` on the card
+    (kernels) and on the CPU (plain versions) from the same params: equal
+    losses within 1e-5 relative; the card's step launched the forward
+    kernel twice per layer per step (remat recomputes it) and each
+    backward kernel once."""
+    cfg = tb.ModelConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                         n_layers=2, d_ff=128, max_seq=64, rope=True, dtype=torch.float32)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, 128, size=(2, 64)))
+    losses = {}
+    for dev in ("cpu", cuda):
+        fns = tb.build_train_step(cfg, attention="flash", device=dev)
+        params = _to(tb.init_params(torch.Generator(device="cpu").manual_seed(0), cfg), dev)
+        state = tb.make_optimizer().init(params)
+        tfa.launches.update({n: 0 for n in tfa.launches})
+        losses[str(dev)] = [fns.step(params, state, toks)[2].item() for _ in range(2)]
+    assert tfa.launches == {"flash_fwd": 2 * 2 * 2, "flash_bwd_dq": 2 * 2, "flash_bwd_dkv": 2 * 2}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
