@@ -380,13 +380,14 @@ class AdamW:
     """The reference's ``make_optimizer``: optax's ``adamw(schedule,
     b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)`` (weight decay on every
     leaf, norms and embedding included), after ``clip_by_global_norm``
-    when ``grad_clip > 0``.  Written out rather than ``torch.optim.AdamW``
-    so that each step keeps optax's arithmetic: its moments in the params'
-    dtype, its bias corrections and update order, its schedule counted from
-    0 (the first update uses ``schedule(0)``, 0 under warmup), and its
-    clipping, which divides by the bare global norm (torch's
-    ``clip_grad_norm_`` adds 1e-6) and decides on the device, with no host
-    read.  The update is in place."""
+    when ``grad_clip > 0``: moments in the params' dtype, the schedule
+    counted from 0 (the first update uses ``schedule(0)``, 0 under warmup),
+    clipping by the bare global norm.  The update is in place and reads
+    nothing back to the host.  ``torch.optim.AdamW`` with a ``LambdaLR`` and
+    ``clip_grad_norm_`` matches optax as closely on the CPU, but its foreach
+    update reads its step count with ``.item()`` every step, and
+    ``capturable=True``, which keeps the count on the device, refuses CPU
+    tensors, so no CPU test could show that step free of host reads."""
 
     b1, b2, eps, weight_decay = 0.9, 0.95, 1e-8, 0.01
 

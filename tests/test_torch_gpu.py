@@ -9,11 +9,17 @@ Tolerances: float32 within 1e-5 (sums in another order; TF32 off); bf16
 within 3e-2 (outputs of magnitude ~1 rounded to bf16, probabilities
 rounded before normalisation in the kernel and after it in the plain
 version); appended pool bytes and greedy streams identical.  Flash
-kernels: f32 within 1e-4 and bf16 within 3e-2, each times max(1, the plain
-result's largest magnitude) (f32 sums over 64-key tiles against one pass;
-bf16 outputs rounded once, P rounded against the running max in the kernel
-and against the row's max in the plain version); train-step losses within
-1e-5 relative of the CPU's."""
+kernels: out, dq, dk and dv each elementwise within step * (|plain| +
+mag) + 2^-16 * mag_f32.  mag is the same sum over absolute terms (sum_k
+p|v| / l, scale sum_k |ds||k|, scale sum_q |ds||q|, sum_q p|dout|);
+mag_f32 is mag for out and dv; for dq and dk it takes p (|dout||v| +
+|dout||out|), the absolute size of the two f32 dots whose difference dS
+is, in place of |dS| (the order of f32 sums decides dS near 0).  step is 2^-16 in f32 (sums in another order)
+and one bf16 step, 2^-7 + 2^-16, in bf16 (P rounded on each side against
+another max in the forward; in the backward, f32 sums in another order
+move a rounding of P or dS to the next bf16 value; each output rounded
+once).  lse within 2^-16 (1 + |lse|).
+Train-step losses within 1e-5 relative of the CPU's."""
 
 import numpy as np
 import pytest
@@ -136,13 +142,43 @@ def _to(params, dev):
     return out
 
 
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+FLASH_STEP = {torch.float32: 2 ** -16, torch.bfloat16: 2 ** -7 + 2 ** -16}
 
 
-def _close(got, want, dtype, what):
-    tol = FLASH_TOL[dtype] * max(1.0, want.float().abs().max().item())
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol, f"{what}: max_abs_err {err} > {tol}"
+def _flash_close(q, k, v, causal, got, want, step, dout=None):
+    """``got``/``want``: (out, lse), or (out, lse, dq, dk, dv) with the
+    backward run on want's out and lse, each element within step * (|plain|
+    + mag) + 2^-16 * mag_f32 (the module's docstring)."""
+    out_p, lse_p = want[:2]
+    mag = tfa.flash_forward_plain(q, k, v.abs(), causal, out_dtype=torch.float32)[0]
+    limits = [step * (out_p.float().abs() + mag) + 2 ** -16 * mag, 2 ** -16 * (1 + lse_p.abs())]
+    if dout is not None:
+        d32, v32, q32, k32 = (x.float() for x in (dout, v, q, k))
+        p = torch.exp(tfa._scores(q, k, causal) - lse_p[..., None])
+        dp = torch.einsum("bqd,bkd->bqk", d32, v32)
+        ds = (p * (dp - tfa._delta(dout, out_p)[..., None])).to(q.dtype).float().abs()
+        dots = p * (torch.einsum("bqd,bkd->bqk", d32.abs(), v32.abs())
+                    + (d32 * out_p.float()).abs().sum(-1)[..., None])
+        sc = tfa._scale(q.shape[-1])
+        w = step * ds + 2 ** -16 * dots
+        dq_p, dk_p, dv_p = (x.float().abs() for x in want[2:])
+        limits += [
+            step * dq_p + sc * torch.einsum("bqk,bkd->bqd", w, k32.abs()),
+            step * dk_p + sc * torch.einsum("bqk,bqd->bkd", w, q32.abs()),
+            step * dv_p + (step + 2 ** -16) * torch.einsum(
+                "bqk,bqd->bkd", p.to(dout.dtype).float(), d32.abs()),
+        ]
+    for name, g_, w_, limit in zip(("out", "lse", "dq", "dk", "dv"), got, want, limits):
+        err = (g_.float() - w_.float()).abs()
+        over = int((err > limit).sum())
+        assert over == 0, (f"{name}: {over} elements over their limit; max_abs_err "
+                           f"{err.max().item()}, max|plain| {w_.float().abs().max().item()}")
+
+
+def _bit_equal(got, want, name):
+    differ = int((got != want).sum())
+    assert differ == 0, (f"{name}: {differ} elements differ, by up to "
+                         f"{(got.float() - want.float()).abs().max().item()}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -156,14 +192,12 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
     before = dict(tfa.launches)
     out, lse = tfa._forward_bhsd(q, k, v, causal)
     want_out, want_lse = tfa.flash_forward_plain(q, k, v, causal)
-    _close(out, want_out, dtype, "out")
-    _close(lse, want_lse, torch.float32, "lse")
     got = tfa._backward_bhsd(q, k, v, want_out, want_lse, dout, causal)
     want = tfa.flash_backward_plain(q, k, v, want_out, want_lse, dout, causal)
     torch.cuda.synchronize()
-    for x, y, name in zip(got, want, ("dq", "dk", "dv")):
-        assert x.dtype == dtype
-        _close(x, y, dtype, name)
+    assert all(x.dtype == dtype for x in got)
+    _flash_close(q, k, v, causal, (out, lse, *got), (want_out, want_lse, *want),
+                 FLASH_STEP[dtype], dout)
     assert {n: tfa.launches[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
@@ -171,15 +205,16 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
 def test_flash_forward_keeps_f32_partials_over_bf16(cuda):
     g = torch.Generator(device="cpu").manual_seed(9)
     q, k, v = (torch.randn((2, 96, 64), generator=g).to(cuda, torch.bfloat16) for _ in range(3))
-    out, _ = tfa._forward_bhsd(q, k, v, True, out_dtype=torch.float32)
-    want, _ = tfa.flash_forward_plain(q, k, v, True, out_dtype=torch.float32)
+    out, lse = tfa._forward_bhsd(q, k, v, True, out_dtype=torch.float32)
+    want, want_lse = tfa.flash_forward_plain(q, k, v, True, out_dtype=torch.float32)
     assert out.dtype == torch.float32
-    _close(out, want, torch.bfloat16, "out f32")
+    _flash_close(q, k, v, True, (out, lse), (want, want_lse), FLASH_STEP[torch.bfloat16])
 
 
 def test_flash_autograd_launches_the_kernels(cuda):
     """``flash_attention`` on [B, S, H, D]: the backward through FlashCore
-    launches dQ and dK/dV and agrees with the plain formulas."""
+    launches dQ and dK/dV, and its gradients are the kernels' own on the
+    saved forward, bit for bit."""
     g = torch.Generator(device="cpu").manual_seed(5)
     q, k, v, w = (torch.randn((2, 128, 4, 32), generator=g).to(cuda) for _ in range(4))
     q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
@@ -188,10 +223,10 @@ def test_flash_autograd_launches_the_kernels(cuda):
     got = torch.autograd.grad((out * w).sum(), (q, k, v))
     assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     bq, bk, bv = (tfa.to_bh(x.detach()) for x in (q, k, v))
-    o, lse = tfa.flash_forward_plain(bq, bk, bv, True)
-    want = tfa.flash_backward_plain(bq, bk, bv, o, lse, tfa.to_bh(w), True)
+    o, lse = tfa._forward_bhsd(bq, bk, bv, True)
+    want = tfa._backward_bhsd(bq, bk, bv, o, lse, tfa.to_bh(w), True)
     for x, y, name in zip(got, want, ("dq", "dk", "dv")):
-        _close(x, tfa.from_bh(y, 2, 4), torch.float32, name)
+        _bit_equal(x, tfa.from_bh(y, 2, 4), name)
 
 
 def test_flash_kernel_raises_instead_of_falling_back(cuda):
