@@ -11,18 +11,21 @@ exits 2 before any result):
    together (ptxas report printed);
 2. serving kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (FLAGSHIP_MODERN: Hq 16 / Hkv 4 / d 64, L 8,
-   block 16, B 8, ragged lengths up to 1024; int4 at M 8 and 256 over the
-   four block matrices), with each tolerance and its reason, and each
-   kernel's time beside the plain version's, a one-call PyTorch yardstick
-   the port never calls, and the least time the card could take;
+   block 16, B 8, ragged lengths up to 1024; int4 at M 8 (the split-K
+   kernel) and 256 (the wgmma kernel in bf16) over the four block
+   matrices, elementwise, repeated calls bit for bit), with each tolerance
+   and its reason, and each kernel's time beside the plain version's, a
+   one-call PyTorch yardstick the port never calls, and the least time the
+   card could take;
 3. the flash kernels (forward, dQ, dK/dV) the same way, at the training
    path's shapes (B·H 64, S 256 and 1024, D 64, causal and full, f32 and
    bf16), timed at B·H 64, S 1024, causal, bf16 beside SDPA's forward and
-   its backward through autograd;
+   its backward through autograd, and the f32 forward beside SDPA in f32;
 4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
    pool) through ``PagedServeEngine.pump``: every stream checked
    teacher-forced against the plain dense decode path;
-5. the same with int4 block weights;
+5. the same with int4 block weights (decode steps through the split-K int4
+   kernel, admissions through the wgmma one; both must launch);
 6. the same in f32 at reduced depth;
 7. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
@@ -68,11 +71,23 @@ KERNELS = {
         route="cuda", source="k8s_dra_driver_torch/csrc/paged_attention.cu",
         replaces="k8s_dra_driver_tpu/ops/paged_attention.py:396",
     ),
+    # one CUDA source, two kernels chosen by M and dtype: the split-K GEMV
+    # (bf16 decode, M <= 16; f32 at every M) and the wgmma GEMM (bf16 prefill)
     "int4_matmul": dict(
         route="cuda", source="k8s_dra_driver_torch/csrc/int4_matmul.cu",
         replaces="k8s_dra_driver_tpu/ops/int4_matmul.py:41",
     ),
+    "int4_matmul_prefill": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/int4_matmul.cu",
+        replaces="k8s_dra_driver_tpu/ops/int4_matmul.py:41",
+    ),
+    # the forward: TMA + wgmma for bf16 (the training path), f32 FMAs on the
+    # CUDA cores for f32 (the f32 training phase)
     "flash_fwd": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/flash_attention.py:31",
+    ),
+    "flash_fwd_f32": dict(
         route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
         replaces="k8s_dra_driver_tpu/ops/flash_attention.py:31",
     ),
@@ -196,8 +211,6 @@ def _paged_work(lengths, nq, hq, hkv, d, bs, itemsize, append):
 def phase_kernels(torch, timer: Timer):
     import torch.nn.functional as F
 
-    from k8s_dra_driver_torch.models import quant
-    from k8s_dra_driver_torch.ops import int4_matmul as i4
     from k8s_dra_driver_torch.ops import paged_attention as pa
 
     results = {}
@@ -285,58 +298,106 @@ def phase_kernels(torch, timer: Timer):
                 bound_by=bw_by, max_abs_err=worst["window"],
             )
 
-    # int4: the four block matrices of FLAGSHIP_MODERN at M = 8 and 256
+    results.update(phase_int4(torch, timer))
+    return results
+
+
+INT4_STEP = {
+    # every int4 output element is held to step * |plain| + 2^-16 * mag,
+    # mag = |x| @ |dequant(W)| in f32: both sides sum the same f32 products
+    # in another order, then round the output once
+    "float32": (0.0, "f32 sums in another order (split-K slices, shuffle trees); TF32 off"),
+    "bfloat16": (2 ** -7 + 2 ** -16, "one bf16 step: the f32 sums, in another order, may "
+                                     "round the output to the neighbouring bf16 value"),
+}
+
+
+def int4_check(x, packed, scale, got, want, step):
+    """(max |err|, the limit at that element, max |plain|, RMS of plain,
+    elements over their limit)."""
+    import torch
+
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+
+    w = i4.dequant_int4(packed, scale, 64, x.dtype).float()
+    mag = x.float().abs() @ w.abs()
+    limit = step * want.float().abs() + 2 ** -16 * mag
+    err = (got.float() - want.float()).abs()
+    worst = int(err.argmax())
+    w32 = want.float()
+    return (err.max().item(), limit.flatten()[worst].item(), w32.abs().max().item(),
+            w32.square().mean().sqrt().item(), int((err > limit).sum().item()))
+
+
+def phase_int4(torch, timer: Timer, ms=(8, 256)):
+    """Both int4 kernels at the serving path's shapes (the four block
+    matrices of FLAGSHIP_MODERN; M 8 at decode, 256 at the prompt bucket)
+    against the plain version, elementwise, in bf16 and f32; identity rows
+    through both; repeated calls bit for bit; then timed in bf16 beside
+    the plain version and ``torch.matmul`` on the dequantized weight."""
+    from k8s_dra_driver_torch.models import quant
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+
     g = torch.Generator(device=DEV).manual_seed(SEED + 2)
     shapes = {"qkv": (1024, 1536), "attn_out": (1024, 1024),
               "mlp_up": (1024, 4096), "mlp_down": (4096, 1024)}
-    log("int4 tolerance bf16: max|err| <= 1e-2 * max(1, max|plain|) (one bf16 ulp of the "
-        "output: f32 sums in another order before the final rounding); f32: 1e-4 relative")
-    worst_i4 = 0.0
+    for dname, (step, why) in INT4_STEP.items():
+        log(f"int4 tolerance {dname}: |err| <= {step:.4g} * |plain| + 2^-16 * mag per element, "
+            f"mag = |x| @ |dequant(W)| ({why})")
+    worst = {"int4_splitk": 0.0, "int4_wgmma": 0.0}
+    results = {}
     for name, (k, n) in shapes.items():
         wq = quant.Quantized4Matrix.quantize(
             (torch.randn((k, n), generator=g, device=DEV) * k ** -0.5).to(torch.bfloat16)
         )
         w_deq = wq.dequant()
         if name == "qkv":
-            # x = identity rows: the kernel's dequantized weights, read exactly
+            # x = identity rows: the kernels' dequantized weights, read exactly
             eye = torch.eye(k, dtype=torch.bfloat16, device=DEV)
-            got = i4.int4_matmul(eye, wq.packed, wq.scale, 64)
-            exact = bool(torch.equal(got, w_deq))
-            log(f"  int4 dequant through the kernel bit-identical to dequant(): {exact}")
-            if not exact:
-                raise AssertionError("int4 kernel's dequantized weights differ")
-            x32 = torch.randn((8, k), generator=g, device=DEV)
-            w32 = quant.Quantized4Matrix(wq.packed, wq.scale, 64, torch.float32)
-            o = i4.int4_matmul(x32, w32.packed, w32.scale, 64)
-            op = i4.int4_matmul_plain(x32, w32.packed, w32.scale, 64)
-            e32 = ((o - op).abs().max() / op.abs().max().clamp(min=1)).item()
-            log(f"  int4 f32 M=8 {name}: rel err {e32:.3g}")
-            if e32 > 1e-4:
-                raise AssertionError("int4 kernel disagrees in f32")
-        for m in (8, 256):
+            for rows in (8, k):
+                got = i4.int4_matmul(eye[:rows], wq.packed, wq.scale, 64)
+                exact = bool(torch.equal(got, w_deq[:rows]))
+                log(f"  int4 dequant through {i4.kernel_for(rows, torch.bfloat16)} ({rows} "
+                    f"identity rows) bit-identical to dequant(): {exact}")
+                if not exact:
+                    raise AssertionError("int4 kernel's dequantized weights differ")
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for m in ms:
+                x = torch.randn((m, k), generator=g, device=DEV).to(dtype)
+                kern = i4.kernel_for(m, dtype)
+                o = i4.int4_matmul(x, wq.packed, wq.scale, 64)
+                op = i4.int4_matmul_plain(x, wq.packed, wq.scale, 64)
+                again = i4.int4_matmul(x, wq.packed, wq.scale, 64)
+                sync(torch)
+                err, limit, top, rms, over = int4_check(x, wq.packed, wq.scale, o, op,
+                                                        INT4_STEP[dname][0])
+                same = bool(torch.equal(o, again))
+                log(f"  int4 {name} {dname} M={m} ({kern}): max_abs_err {err:.3g}, limit there "
+                    f"{limit:.3g}, max|plain| {top:.3g}, rms {rms:.3g}; elements over the limit "
+                    f"{over}; a second call bit-identical: {same}")
+                if over or not same:
+                    raise AssertionError(f"int4 {kern} disagrees ({name}, {dname}, M={m})")
+                if dtype == torch.bfloat16:
+                    worst[kern] = max(worst[kern], err)
+        for m in ms:
             x = torch.randn((m, k), generator=g, device=DEV).to(torch.bfloat16)
-            o = i4.int4_matmul(x, wq.packed, wq.scale, 64)
-            op = i4.int4_matmul_plain(x, wq.packed, wq.scale, 64)
-            sync(torch)
-            scale = max(1.0, op.float().abs().max().item())
-            err = (o.float() - op.float()).abs().max().item()
-            if err > 1e-2 * scale:
-                raise AssertionError(f"int4 kernel disagrees ({name}, M={m}): {err}")
-            worst_i4 = max(worst_i4, err)
+            kern = i4.kernel_for(m, torch.bfloat16)
             ms_k = timer.ms(lambda: i4.int4_matmul(x, wq.packed, wq.scale, 64))
             ms_p = timer.ms(lambda: i4.int4_matmul_plain(x, wq.packed, wq.scale, 64))
             ms_lib = timer.ms(lambda: torch.matmul(x, w_deq))
             moved = m * k * 2 + k * n // 2 + (k // 64) * n * 4 + m * n * 2
             b_ms, b_by = bound(moved, 2 * m * k * n, "bfloat16")
-            log(f"  int4 {name} M={m} K={k} N={n}: max_abs_err {err:.3g}, kernel "
-                f"{ms_k * 1e3:.1f} us, plain {ms_p * 1e3:.1f} us, matmul(dequantized) "
-                f"{ms_lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}, {moved / 1e6:.2f} MB)")
-            if name == "mlp_up" and m == 8:
-                results["int4_matmul"] = dict(
-                    ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms, bound_by=b_by,
-                )
-    results["int4_matmul"]["max_abs_err"] = worst_i4
-    return results
+            log(f"  int4 {name} M={m} K={k} N={n} ({kern}): kernel {ms_k * 1e3:.1f} us, plain "
+                f"{ms_p * 1e3:.1f} us, matmul(dequantized) {ms_lib * 1e3:.1f} us, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}, {moved / 1e6:.2f} MB, {2 * m * k * n / 1e9:.3f} "
+                f"GFLOP)")
+            if name == "mlp_up":
+                results[kern] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms,
+                                     bound_by=b_by)
+    for kern in worst:
+        results[kern]["max_abs_err"] = worst[kern]
+    return {"int4_matmul": results["int4_splitk"], "int4_matmul_prefill": results["int4_wgmma"]}
 
 
 FLASH_STEP = {
@@ -426,7 +487,7 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    worst = dict.fromkeys(names, 0.0)
+    worst = dict.fromkeys(names + ("flash_fwd_f32",), 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         step, why = FLASH_STEP[dname]
@@ -459,7 +520,9 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
                     if over:
                         raise AssertionError(f"flash {name} disagrees ({case}): {over} elements "
                                              f"over their limit")
-                if dtype == torch.bfloat16:
+                if dtype == torch.float32:
+                    worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], errs["out"])
+                else:
                     worst["flash_fwd"] = max(worst["flash_fwd"], errs["out"])
                     worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
                     worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"], errs["dv"])
@@ -502,6 +565,19 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
     log(f"  sdpa backward covers dQ and dK/dV together: kernels "
         f"{(ms['flash_bwd_dq'][0] + ms['flash_bwd_dkv'][0]) * 1e3:.1f} us against "
         f"{ms_sdpa_bwd * 1e3:.1f} us")
+
+    # the f32 forward (flash_fwd_fma) at the same shape, beside SDPA in f32
+    q, k, v = (x.float() for x in (q, k, v))
+    ms_k = timer.ms(lambda: fa._forward_bhsd(q, k, v, True))
+    ms_p = timer.ms(lambda: fa.flash_forward_plain(q, k, v, True))
+    qs, ks, vs = (x.reshape(-1, 16, s, d) for x in (q, k, v))
+    ms_lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    b_ms, b_by = bound(*_flash_work(bh, s, d, 4, True)["flash_fwd"], "float32")
+    results["flash_fwd_f32"] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms,
+                                    bound_by=b_by, max_abs_err=worst["flash_fwd_f32"])
+    log(f"  flash_fwd f32 (flash_fwd_fma) BH={bh} S={s} D={d} causal: kernel "
+        f"{ms_k * 1e3:.1f} us, plain {ms_p * 1e3:.1f} us, sdpa fwd f32 {ms_lib * 1e3:.1f} us, "
+        f"bound {b_ms * 1e3:.2f} us ({b_by})")
     return results
 
 
@@ -561,20 +637,25 @@ def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
     params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
     sync(torch)
     fa.launches.update(dict.fromkeys(fa.launches, 0))
+    fa.fwd_launches.update(dict.fromkeys(fa.fwd_launches, 0))
     losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
     sync(torch)
     counts = dict(fa.launches)
+    fwd = dict(fa.fwd_launches)
     losses = [x.item() for x in losses]
     log(f"train bf16 B={b} S={s} L={cfg.n_layers}: losses over {steps} steps on one batch "
         + " ".join(f"{x:.4f}" for x in losses))
-    log(f"train bf16: launches {counts} (expected forward 2*L*steps = "
-        f"{2 * cfg.n_layers * steps}, dQ and dK/dV L*steps = {cfg.n_layers * steps})")
+    log(f"train bf16: launches {counts}, forward by kernel {fwd} (expected forward "
+        f"2*L*steps = {2 * cfg.n_layers * steps}, all flash_fwd_wgmma; dQ and dK/dV L*steps = "
+        f"{cfg.n_layers * steps})")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("bf16 training loss did not fall")
     if counts != {"flash_fwd": 2 * cfg.n_layers * steps,
                   "flash_bwd_dq": cfg.n_layers * steps,
-                  "flash_bwd_dkv": cfg.n_layers * steps}:
-        raise AssertionError(f"flash launch counts {counts} are not the main path's")
+                  "flash_bwd_dkv": cfg.n_layers * steps} or fwd != {
+                      "flash_fwd_wgmma": 2 * cfg.n_layers * steps, "flash_fwd_fma": 0}:
+        raise AssertionError(f"flash launch counts {counts} {fwd} are not the main path's")
+    counts["flash_fwd"] = fwd["flash_fwd_wgmma"]
 
     # step time on the device's clock, warmed up by the steps above
     n = 5
@@ -595,7 +676,8 @@ def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
         f"(bound {bound_ms:.2f} ms); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_window(torch, "train bf16: profile of one step",
-                   lambda: fns.step(params, state, tokens), top=12, host_top=8)
+                   lambda: fns.step(params, state, tokens), top=12, host_top=8,
+                   watch=("flash_fwd_wgmma", "flash_bwd"))
     return counts
 
 
@@ -603,6 +685,7 @@ def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
     """``cfg`` in f32 at 2 layers: flash against dense, step by step, from
     the same params on the same batch."""
     from k8s_dra_driver_torch.models import burnin
+    from k8s_dra_driver_torch.ops import flash_attention as fa
 
     cfg = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
     s = cfg.max_seq
@@ -614,16 +697,25 @@ def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
     for attention in ("flash", "dense"):
         fns = burnin.build_train_step(cfg, attention=attention, device=DEV)
         params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 6))
+        sync(torch)
+        fa.fwd_launches.update(dict.fromkeys(fa.fwd_launches, 0))
         losses = [fns.step(params, state, tokens)[2].item() for _ in range(steps)]
         runs[attention] = (losses, params)
+        if attention == "flash":
+            fwd = dict(fa.fwd_launches)
     (lf, pf), (ld, pd) = runs["flash"], runs["dense"]
     rel = max(abs(x - y) / abs(y) for x, y in zip(lf, ld))
     prel = max(_rel_l2(x, y) for x, y in zip(burnin.param_leaves(pf), burnin.param_leaves(pd)))
     log(f"train f32 L=2: losses flash {' '.join(f'{x:.6f}' for x in lf)}; dense "
         f"{' '.join(f'{x:.6f}' for x in ld)}; worst rel {rel:.3g} (tolerance {loss_tol}); "
         f"params after {steps} steps rel L2 worst {prel:.3g} (tolerance {param_tol}: {why})")
+    log(f"train f32 L=2: forward launches by kernel {fwd} (expected 2*L*steps = "
+        f"{2 * cfg.n_layers * steps}, all flash_fwd_fma)")
     if not (rel <= loss_tol and prel <= param_tol and lf[-1] < lf[0]):
         raise AssertionError("f32 flash training disagrees with dense")
+    if fwd != {"flash_fwd_wgmma": 0, "flash_fwd_fma": 2 * cfg.n_layers * steps}:
+        raise AssertionError(f"f32 forward launches {fwd} are not the f32 path's")
+    return {"flash_fwd_f32": fwd["flash_fwd_fma"]}
 
 
 def _traffic(vocab: int, n: int, max_prompt: int, max_new: int, seed: int):
@@ -665,13 +757,17 @@ def phase_serve(torch, label, cfg, params, reqs, *, cache_dtype, logit_tol):
     sync(torch)
     pa.launches["append"] = pa.launches["window"] = 0
     i4.launches = 0
+    i4.kernel_launches.update(dict.fromkeys(i4.kernel_launches, 0))
     t0 = time.perf_counter()
     comps = eng.pump(reqs)
     sync(torch)
     wall = time.perf_counter() - t0
     counts = {"paged_attention": pa.launches["append"],
               "paged_attention_window": pa.launches["window"],
-              "int4_matmul": i4.launches}
+              "int4_matmul": i4.kernel_launches["int4_splitk"],
+              "int4_matmul_prefill": i4.kernel_launches["int4_wgmma"]}
+    if i4.launches != sum(i4.kernel_launches.values()):
+        raise AssertionError(f"{label}: int4 launches {i4.launches} are not the kernels' sum")
     generated = sum(len(c.generated) for c in comps)
     if len(comps) != len(reqs):
         raise AssertionError(f"{label}: {len(comps)} completions for {len(reqs)} requests")
@@ -748,13 +844,15 @@ def steady_decode(torch, label, cfg, params, *, cache_dtype, bursts=4):
     log(f"{label}: steady decode B=8 ctx~{mean_ctx:.0f}: {ms:.3f} ms per step "
         f"({8 / ms * 1e3:.0f} tokens/s); bound {b_ms * 1e3:.1f} us "
         f"({weights / 1e6:.1f} MB parameters + {kv / 1e6:.1f} MB K/V per step)")
-    profile_window(torch, f"{label}: profile of one 8-step burst", eng.step_burst)
+    profile_window(torch, f"{label}: profile of one 8-step burst", eng.step_burst,
+                   watch=("int4_",))
 
 
-def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0):
+def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
-    ``host_top``, the host ops with the most self CPU time).  Only events
+    ``host_top``, the host ops with the most self CPU time; with ``watch``,
+    the device time of the kernels whose names hold each string).  Only events
     that ran on the device are summed: a CPU op's own device time repeats
     the time of the kernels it launched, so the sum over all events counts
     those kernels twice (printed beside, for comparison with earlier runs
@@ -785,6 +883,11 @@ def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0):
             f"included, is {all_events:.0f} us)")
         for dev_us, count, key in sorted(rows, reverse=True)[:top]:
             log(f"    {dev_us:9.0f} us  {dev_us / busy:.3f}  x{count:<5d} {key[:90]}")
+        for name in watch:
+            hits = [r_ for r_ in rows if name in r_[2]]
+            log(f"{label}: kernels named {name}: {sum(r_[0] for r_ in hits):.0f} us over "
+                f"{sum(r_[1] for r_ in hits)} launches "
+                f"({sum(r_[0] for r_ in hits) / busy:.3f} of the device time)")
         if host_top:
             log(f"{label}: host ops by self CPU time ({sum(r_[1] for r_ in host)} ops, "
                 f"{sum(r_[0] for r_ in host):.0f} us under the profiler)")
@@ -850,8 +953,10 @@ def main() -> int:
         launches["int4"] = phase_serve(
             torch, "serve int4", cfg, p4, reqs, cache_dtype=torch.bfloat16, logit_tol=0.25,
         )
-        if launches["int4"]["int4_matmul"] == 0:
-            raise AssertionError("the int4 kernel was never launched")
+        # decode steps (M = 8) go through the split-K kernel, admissions
+        # (M = prompt bucket 256) through the wgmma kernel
+        if launches["int4"]["int4_matmul"] == 0 or launches["int4"]["int4_matmul_prefill"] == 0:
+            raise AssertionError(f"an int4 kernel was never launched: {launches['int4']}")
 
     def serve_f32():
         cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
@@ -869,20 +974,26 @@ def main() -> int:
     def train_bf16():
         launches["train"] = phase_train_bf16(torch, cfg)
 
+    def train_f32():
+        launches["train_f32"] = phase_train_f32(torch, cfg)
+
     run("train bf16", train_bf16)
-    run("train f32", lambda: phase_train_f32(torch, cfg))
+    run("train f32", train_f32)
 
     if failed:
         log(f"chip_smoke: failed phases {failed}")
         return 1
     # each kernel's launches on the path that runs it: paged append on the
-    # bf16 serving run, int4 on the int4 serving run, flash on the bf16
-    # training run; the read-only paged kernel is on neither path (0)
+    # bf16 serving run, both int4 kernels on the int4 serving run, flash on
+    # the bf16 training run and the f32 forward on the f32 training run; the
+    # read-only paged kernel is on no path (0)
     main_counts = {
         "paged_attention": launches["bf16"]["paged_attention"],
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": launches["int4"]["int4_matmul"],
+        "int4_matmul_prefill": launches["int4"]["int4_matmul_prefill"],
         **launches["train"],
+        **launches["train_f32"],
     }
     log(f"card: {card}")
     kernels = []

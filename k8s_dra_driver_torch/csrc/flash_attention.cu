@@ -1,7 +1,8 @@
 // Flash attention, forward and backward, for Hopper.
 //
 // Replaces the three TPU kernels of k8s_dra_driver_tpu/ops/flash_attention.py:
-//   flash_fwd      <- `_flash_kernel` (causal or full attention with the online
+//   flash_fwd_wgmma (bf16) and flash_fwd (f32)
+//                  <- `_flash_kernel` (causal or full attention with the online
 //                     softmax; also returns lse = m + log l),
 //   flash_bwd_dq   <- `_dq_kernel`  (dQ, recomputing P from lse),
 //   flash_bwd_dkv  <- `_dkv_kernel` (dK and dV, recomputing P from lse).
@@ -27,34 +28,52 @@
 // blocks run in no order, so each block owns its output tile and loops over
 // the other sequence axis itself:
 //   fwd, dq: one block per (bh, 64-row q tile), looping over 64-key tiles up
-//            to the diagonal (causal) or to S;
+//            to the diagonal (causal) or to S, the longest q tiles first;
 //   dkv:     one block per (bh, 64-key tile), looping over q tiles from the
 //            diagonal on (causal) or from 0.
 // dQ and dK/dV stay two passes, as in Pallas, so every output element is
-// written by exactly one block: no atomics, deterministic gradients.  Tiles
-// live in shared memory as f32 (rows padded to D+1 floats so the lanes of a
-// half-warp that read 16 different rows hit 16 different banks); each of the
-// 256 threads owns a 4x4 block of the 64x64 score tile and a 4 x D/16 block
-// of the output tile in registers.  Row reductions of the online softmax run
-// over the 16 lanes of a half-warp with shuffles.
+// written by exactly one block: no atomics, deterministic gradients.
 //
-// What bounds it on this card.  At the training shape (BH 64, S 1024, D 64,
+// What bounds them on this card.  At the training shape (BH 64, S 1024, D 64,
 // bf16, causal) the forward moves 33.8 MB and does 8.6 GFLOP, dQ 42.5 MB and
 // 12.9 GFLOP, dK/dV 50.9 MB and 17.2 GFLOP: at 989 TFLOP/s and 3.35 TB/s the
 // least times are 10.1, 13.0 and 17.4 us, operations-bound for both backward
-// passes and nearly so for the forward.  This simple version does its
-// products with f32 FMAs on the CUDA cores from shared memory (two shared
-// loads per two FMAs in the inner loops), so it is bound by shared-memory
-// bandwidth and the CUDA cores' rate, far from the tensor cores' bound.  The
-// redesign that closes the gap keeps the dtype in shared memory, feeds
-// `wgmma` (64-row warpgroup products, P kept in registers as the A operand)
-// from TMA-loaded K/V tiles in a multi-stage ring, and overlaps the softmax
-// of one tile with the products of the next; f32 inputs would then need the
-// TF32 path or stay on this one.
+// passes and nearly so for the forward.  Only the tensor cores come near it.
+//
+// The bf16 forward (flash_fwd_wgmma_kernel) runs both products there.  One
+// warpgroup per block owns 64 query rows.  TMA brings the q tile once and
+// the k/v tiles through a 2-stage ring in shared memory, 128-byte swizzled
+// (64-byte, 32-byte at D 32, 16), each stage guarded by an mbarrier; while
+// the block works on tile j, the TMA load of tile j + 1 is in flight, and
+// tile j + 2 is requested as soon as tile j's stage is read.  S = Q K^T is an
+// m64n64k16 wgmma per 16 of D with both operands in shared memory and f32
+// accumulators; the scores are scaled after the dot and masked at -1e30 on
+// the diagonal tile and past S only.  The online softmax runs on the
+// accumulator fragment in registers (a row's 64 scores lie in 4 lanes, so
+// its max and sum take two shuffles); l sums the unrounded p in f32.  P is
+// rounded to bf16 in registers and is, as it stands, the A operand of the
+// P V wgmma (m64nDk16, 4 steps of 16 keys), whose B operand, V, is read
+// MN-major from shared memory through the transpose bit.  out = acc / l is
+// rounded once (f32 under out_f32); lse = m + log l.  The thread that issues
+// TMA is the consumer warpgroup's own thread 0, not a separate producer
+// warp: each block waits on its products before its softmax, and
+// blocks of 96 registers and 41 KB at D 64 overlap each other on an SM
+// instead.
+//
+// The f32 forward (flash_fwd_kernel) and both backward kernels do their
+// products as f32 FMAs on the CUDA cores, from tiles converted to f32 in
+// shared memory (rows padded to D+1 floats so the lanes of a half-warp that
+// read 16 different rows hit 16 different banks); each of the 256 threads
+// owns a 4x4 block of the 64x64 score tile and a 4 x D/16 block of the
+// output tile in registers.  For f32 that is the design, not a stopgap: the
+// tensor cores would run f32 as TF32, far outside the 2^-16 limit.  The
+// backward's bf16 redesign on wgmma reuses the forward's TMA ring.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -226,6 +245,195 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         static_cast<T*>(out)[row + tx + TX * j] = from_f<T>(val);
     }
     if (tx == 0) lse[(size_t)bh * S + qp] = m[i] + logf(l[i]);
+  }
+}
+
+// ---- the bf16 forward on the tensor cores ---------------------------------------
+//
+// One block = one warpgroup = one (bh, 64-row q tile).  Tiles are [64 rows x D]
+// bf16 in shared memory as D / P panels of [64 rows x P] (P = min(D, 64)
+// elements, rows of 2P bytes, swizzled as TMA writes them), 1024-aligned.
+
+template <int D>
+struct Tiles {
+  static constexpr int P = D < 64 ? D : 64;       // panel width, elements
+  static constexpr int ROWB = 2 * P;              // bytes per panel row
+  static constexpr int PANEL = 64 * ROWB;         // bytes per panel
+  static constexpr int BYTES = (D / P) * PANEL;   // bytes per [64 x D] tile
+  static constexpr uint32_t SBO = 8 * ROWB;       // one swizzle atom: 8 rows
+  static constexpr uint64_t LAYOUT = hopper::layout_of(ROWB);
+  static constexpr size_t SMEM = 1024 + 5 * BYTES + 64;  // q, k[2], v[2], barriers
+};
+
+// o (+)= p . v for one 16-key step: A = p's bf16 pairs, B = v MN-major
+template <int D>
+__device__ __forceinline__ void pv_step(float* o, const uint32_t* a, uint64_t desc_v) {
+  if constexpr (D == 16) hopper::wgmma_rs_n16(o, a, desc_v);
+  else if constexpr (D == 32) hopper::wgmma_rs_n32(o, a, desc_v);
+  else if constexpr (D == 64) hopper::wgmma_rs_n64(o, a, desc_v);
+  else hopper::wgmma_rs_n128(o, a, desc_v);
+}
+
+// qmap, kmap, vmap read [BH, S, D] bf16 in boxes of [1 x 64 rows x P];
+// rows at or past S read as 0.  grid (BH, ceil(S / 64)), 128 threads.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, void* __restrict__ out,
+                       float* __restrict__ lse, int out_f32, int S, int causal, float scale) {
+  using Tl = Tiles<D>;
+  constexpr int NP = D / Tl::P;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_s = base;                        // [64 x D]
+  uint8_t* k_s = base + Tl::BYTES;            // [2][64 x D]
+  uint8_t* v_s = base + 3 * Tl::BYTES;        // [2][64 x D]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 5 * Tl::BYTES);  // k/v stages, then q
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * BQ;
+  int n_kt = (S + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, qt + 1);
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(&bar[i], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&bar[2], Tl::BYTES);
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_3d(q_s + p * Tl::PANEL, &qmap, &bar[2], p * Tl::P, q0, bh);
+    for (int s = 0; s < 2 && s < n_kt; ++s) {
+      hopper::mbar_expect_tx(&bar[s], 2 * Tl::BYTES);
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_3d(k_s + s * Tl::BYTES + p * Tl::PANEL, &kmap, &bar[s], p * Tl::P,
+                            s * BK, bh);
+        hopper::tma_load_3d(v_s + s * Tl::BYTES + p * Tl::PANEL, &vmap, &bar[s], p * Tl::P,
+                            s * BK, bh);
+      }
+    }
+  }
+
+  // accumulator fragments (m64nN, f32): register 4 c + 2 h + e holds row
+  // 16 warp + lane / 4 + 8 h, column 8 c + 2 (lane % 4) + e
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_a = hopper::smem_addr(q_s);
+  hopper::mbar_wait(&bar[2], 0);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1, k0 = kt * BK;
+    hopper::mbar_wait(&bar[s], (kt >> 1) & 1);
+    const uint32_t k_a = hopper::smem_addr(k_s + s * Tl::BYTES);
+    const uint32_t v_a = hopper::smem_addr(v_s + s * Tl::BYTES);
+
+    // scores: q . k^T, both K-major, D / 16 steps of 16 along D
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / (Tl::P / 16)) * Tl::PANEL + (kk % (Tl::P / 16)) * 32;
+      hopper::wgmma_ss_n64(sc, hopper::make_desc(q_a + off, 16, Tl::SBO, Tl::LAYOUT),
+                           hopper::make_desc(k_a + off, 16, Tl::SBO, Tl::LAYOUT), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::reg_fence<32>(sc);
+
+    // scale after the dot; mask the diagonal tile and keys at or past S
+    const bool edge = (causal && kt == qt) || k0 + BK > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      const int qp = row0 + 8 * ((i / 2) % 2);
+      float x = sc[i] * scale;
+      if (edge && (kp >= S || (causal && kp > qp))) x = NEG_INF;
+      sc[i] = x;
+    }
+    // online softmax on the fragment: a row's 64 scores lie in the 4 lanes
+    // that share lane / 4; l sums the unrounded p in f32
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * h], sc[4 * c + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      const float corr = expf(m[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(sc[4 * c + 2 * h + e] - m_new);
+          sc[4 * c + 2 * h + e] = p;
+          sum += p;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[h] = l[h] * corr + sum;
+      m[h] = m_new;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c + 2 * h] *= corr;
+        o[4 * c + 2 * h + 1] *= corr;
+      }
+    }
+
+    // p rounded to bf16 as the A operand of p . v, 16 keys a step: the
+    // score fragment's columns 16 kk .. 16 kk + 15 are A's fragment as is
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[kk][r] = hopper::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      pv_step<D>(o, a[kk], hopper::make_desc(v_a + kk * 16 * Tl::ROWB, Tl::PANEL, Tl::SBO,
+                                             Tl::LAYOUT));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::reg_fence<D / 2>(o);
+
+    __syncthreads();  // stage s is read; refill it with tile kt + 2
+    if (tid == 0 && kt + 2 < n_kt) {
+      hopper::mbar_expect_tx(&bar[s], 2 * Tl::BYTES);
+      for (int p = 0; p < NP; ++p) {
+        hopper::tma_load_3d(k_s + s * Tl::BYTES + p * Tl::PANEL, &kmap, &bar[s], p * Tl::P,
+                            (kt + 2) * BK, bh);
+        hopper::tma_load_3d(v_s + s * Tl::BYTES + p * Tl::PANEL, &vmap, &bar[s], p * Tl::P,
+                            (kt + 2) * BK, bh);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = row0 + 8 * h;
+    if (qp >= S) continue;
+    const size_t row = ((size_t)bh * S + qp) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * (lane % 4);
+      const float v0 = o[4 * c + 2 * h] / l[h], v1 = o[4 * c + 2 * h + 1] / l[h];
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + row + col) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + row + col) =
+            hopper::pack_bf16(v0, v1);
+    }
+    if (lane % 4 == 0) lse[(size_t)bh * S + qp] = m[h] + logf(l[h]);
   }
 }
 
@@ -489,6 +697,29 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
+                     int out_f32, int BH, int S, int causal, float scale, cudaStream_t stream) {
+  using Tl = Tiles<D>;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)S, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)S * D * 2};
+  const uint32_t box[3] = {(uint32_t)Tl::P, (uint32_t)BK, 1};
+  for (int i = 0; i < 3; ++i) {
+    if (reinterpret_cast<uintptr_t>(src[i]) % 16 ||
+        !hopper::make_map(&maps[i], src[i], 3, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  static bool ready = false;
+  cudaError_t err = allow_smem(kernel, Tl::SMEM, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_of(BH, S), 128, Tl::SMEM, stream>>>(maps[0], maps[1], maps[2], out,
+                                                    (float*)lse, out_f32, S, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int BH, int S, int causal, float scale,
@@ -544,14 +775,35 @@ bool bad_shape(int BH, int S) { return BH < 1 || S < 1 || (S + BQ - 1) / BQ > 65
 
 extern "C" {
 
-// out [BH, S, d] in the input dtype, or float32 when out_f32 != 0; lse
-// [BH, S] float32.  Each launcher returns the CUDA error code of its launch
-// (0 = launched).
+// The forward on the CUDA cores, float32 q, k, v (dtype 0; bfloat16 goes to
+// flash_fwd_wgmma).  out [BH, S, d] float32; lse [BH, S] float32.  Each
+// launcher returns the CUDA error code of its launch (0 = launched).
 int flash_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* out,
               void* lse, int out_f32, int BH, int S, int causal, float scale, void* stream) {
+  if (bad_shape(BH, S) || dtype != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 16: return launch_fwd<float, 16>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+    case 32: return launch_fwd<float, 32>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+    case 64: return launch_fwd<float, 64>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+    case 128: return launch_fwd<float, 128>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward on the tensor cores, bfloat16 q, k, v (16-byte aligned).  out
+// [BH, S, d] bfloat16, or float32 when out_f32 != 0; lse [BH, S] float32.
+int flash_fwd_wgmma(int d, const void* q, const void* k, const void* v, void* out, void* lse,
+                    int out_f32, int BH, int S, int causal, float scale, void* stream) {
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
-  FA_DISPATCH(launch_fwd, q, k, v, out, lse, out_f32, BH, S, causal, scale,
-              (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 16: return launch_fwd_wgmma<16>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+    case 32: return launch_fwd_wgmma<32>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+    case 64: return launch_fwd_wgmma<64>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+    case 128: return launch_fwd_wgmma<128>(q, k, v, out, lse, out_f32, BH, S, causal, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // dq [BH, S, d] in the input dtype; lse and delta [BH, S] float32.

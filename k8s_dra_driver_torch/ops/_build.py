@@ -4,7 +4,8 @@ Each ``k8s_dra_driver_torch/csrc/<name>.cu`` is compiled on first use by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface under ``build/torch_kernels/`` at the repository root, and loaded
 with ``ctypes``.  The library's file name carries a hash of its source, so
-an edited kernel is rebuilt and a stale one is never loaded.  Nothing here
+an edited kernel is rebuilt and a stale one is never loaded; the hash covers
+the shared headers (``csrc/*.cuh``) too.  Nothing here
 runs at import time: the CPU tests import every module without ``nvcc``.
 """
 
@@ -43,7 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -5,7 +5,11 @@ q/k/v are ``[B, S, H, D]`` at :func:`flash_attention` and ``[B·H, S, D]``
 (``csrc/flash_attention.cu``, whose header says what bounds them and how):
 
 * ``flash_fwd`` behind :func:`_forward_bhsd`: the attention and its
-  ``lse = m + log l`` residual, ``[B·H, S]`` f32;
+  ``lse = m + log l`` residual, ``[B·H, S]`` f32.  Two kernels by a static
+  rule on the dtype (:func:`forward_kernel_for`): bf16 runs
+  ``flash_fwd_wgmma`` (TMA and ``wgmma`` on the tensor cores), f32 runs
+  ``flash_fwd_fma`` (f32 FMAs on the CUDA cores; the tensor cores would run
+  f32 as TF32, far outside its 2^-16 limit);
 * ``flash_bwd_dq`` and ``flash_bwd_dkv`` behind :func:`_backward_bhsd`: dQ,
   then dK/dV, each recomputing P from lse.  ``delta = rowsum(dout · out)``
   is computed here, outside the kernels, as in the JAX package.
@@ -39,6 +43,9 @@ _LAUNCHERS = {
     # (dtype, d, q, k, v, out, lse, out_f32, BH, S, causal, scale, stream)
     "flash_fwd": [ctypes.c_int] * 2 + _VOIDS * 5 + [ctypes.c_int] * 4
     + [ctypes.c_float] + _VOIDS,
+    # (d, q, k, v, out, lse, out_f32, BH, S, causal, scale, stream)
+    "flash_fwd_wgmma": [ctypes.c_int] + _VOIDS * 5 + [ctypes.c_int] * 4
+    + [ctypes.c_float] + _VOIDS,
     # (dtype, d, q, k, v, dout, lse, delta, dq, BH, S, causal, scale, stream)
     "flash_bwd_dq": [ctypes.c_int] * 2 + _VOIDS * 7 + [ctypes.c_int] * 3
     + [ctypes.c_float] + _VOIDS,
@@ -48,8 +55,16 @@ _LAUNCHERS = {
 }
 
 # Kernel launches since the counts were last set to 0 (the plain versions
-# do not count).
+# do not count).  ``launches["flash_fwd"]`` counts both forward kernels,
+# ``fwd_launches`` each one; set them to 0 together.
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+fwd_launches = {"flash_fwd_wgmma": 0, "flash_fwd_fma": 0}
+
+
+def forward_kernel_for(dtype) -> str:
+    """The forward kernel that takes ``dtype``: ``flash_fwd_wgmma`` for
+    bfloat16, ``flash_fwd_fma`` for float32."""
+    return "flash_fwd_wgmma" if dtype == torch.bfloat16 else "flash_fwd_fma"
 
 
 def to_bh(x):
@@ -152,6 +167,12 @@ def _rows(t, q):
     return t.contiguous()
 
 
+def _aligned(t):
+    """``t``, copied when its data does not start on a 16-byte boundary
+    (TMA reads from one)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _common(q):
     bh, s, d = q.shape
     return _DTYPE_CODES[q.dtype], d, bh, s, _scale(d), torch.cuda.current_stream(q.device).cuda_stream
@@ -161,16 +182,21 @@ def _launch_fwd(q, k, v, causal, out_dtype):
     check_kernel_shape(q, k, v)
     if out_dtype not in (None, q.dtype, torch.float32):
         raise ValueError(f"flash forward writes q's dtype or float32, not {out_dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     code, d, bh, s, scale, stream = _common(q)
     out = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    rc = _build.load("flash_attention", _LAUNCHERS).flash_fwd(
-        code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        int(out.dtype == torch.float32), bh, s, int(causal), scale, stream,
-    )
-    _build.check("flash_attention", rc, "flash_fwd")
+    name = forward_kernel_for(q.dtype)
+    lib = _build.load("flash_attention", _LAUNCHERS)
+    args = (d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            int(out.dtype == torch.float32), bh, s, int(causal), scale, stream)
+    if name == "flash_fwd_wgmma":
+        rc = lib.flash_fwd_wgmma(*args)
+    else:
+        rc = lib.flash_fwd(code, *args)
+    _build.check("flash_attention", rc, name)
     launches["flash_fwd"] += 1
+    fwd_launches[name] += 1
     return out, lse
 
 

@@ -154,3 +154,11 @@ def test_kernel_rule_rejects_what_the_cuda_kernels_do_not_take():
         tf.check_kernel_shape(ok, ok.bfloat16())
     with pytest.raises(ValueError, match=r"\[BH, S, D\]"):
         tf.check_kernel_shape(torch.zeros((1, 2, 8, 64)))
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "flash_fwd_wgmma"),
+                                        (torch.float32, "flash_fwd_fma")])
+def test_forward_kernel_rule_is_static_on_dtype(dtype, name):
+    """bf16 takes the tensor-core forward; f32 stays on the CUDA cores (the
+    tensor cores would run it as TF32)."""
+    assert tf.forward_kernel_for(dtype) == name

@@ -8,7 +8,11 @@ The file imports no JAX, so it runs where only PyTorch is installed:
 Tolerances: float32 within 1e-5 (sums in another order; TF32 off); bf16
 within 3e-2 (outputs of magnitude ~1 rounded to bf16, probabilities
 rounded before normalisation in the kernel and after it in the plain
-version); appended pool bytes and greedy streams identical.  Flash
+version); appended pool bytes and greedy streams identical.  int4: each
+element within step * |plain| + 2^-16 * mag, mag = |x| @ |dequant(W)|,
+step one bf16 step (2^-7 + 2^-16) in bf16 and 0 in f32 (f32 sums in
+another order, then one rounding of the output); identity rows give the
+dequantized weights bit for bit.  Flash
 kernels: out, dq, dk and dv each elementwise within step * (|plain| +
 mag) + 2^-16 * mag_f32.  mag is the same sum over absolute terms (sum_k
 p|v| / l, scale sum_k |ds||k|, scale sum_q |ds||q|, sum_q p|dout|);
@@ -85,6 +89,30 @@ def test_paged_kernel_raises_instead_of_falling_back(cuda):
         tpa.paged_window_attention(q, k[0], v[0], table, pos)
 
 
+INT4_STEP = {torch.float32: 0.0, torch.bfloat16: 2 ** -7 + 2 ** -16}
+
+
+def _int4_close(x, packed, scale, got, want):
+    """Each element within step * |plain| + 2^-16 * mag, mag = |x| @
+    |dequant(W)| (the module's docstring)."""
+    w = ti4.dequant_int4(packed, scale, 64, x.dtype).float()
+    mag = x.float().abs() @ w.abs()
+    limit = INT4_STEP[x.dtype] * want.float().abs() + 2 ** -16 * mag
+    err = (got.float() - want.float()).abs()
+    over = int((err > limit).sum())
+    assert over == 0, (f"{over} elements over their limit; max_abs_err {err.max().item()}, "
+                       f"max|plain| {want.float().abs().max().item()}")
+
+
+def _int4_counts(fn):
+    before = dict(ti4.kernel_launches)
+    total = ti4.launches
+    out = fn()
+    moved = {n: ti4.kernel_launches[n] - before[n] for n in before}
+    assert ti4.launches - total == sum(moved.values())
+    return out, moved
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [1, 8, 40])
 def test_int4_kernel_matches_plain(cuda, dtype, m):
@@ -97,12 +125,51 @@ def test_int4_kernel_matches_plain(cuda, dtype, m):
     want = ti4.int4_matmul_plain(x, packed, scale, 64)
     torch.cuda.synchronize()
     assert ti4.launches == before + 1
-    tol = TOL[dtype] * max(1.0, want.float().abs().max().item())
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=TOL[dtype])
+    _int4_close(x, packed, scale, got, want)
+    # identity rows read the kernels' dequantized weights exactly: 8 rows
+    # through the split-K kernel, all 256 through the wgmma one (bf16)
     eye = torch.eye(256, dtype=dtype, device=cuda)
+    assert torch.equal(ti4.int4_matmul(eye[:8], packed, scale, 64), w.dequant()[:8].to(cuda))
     assert torch.equal(ti4.int4_matmul(eye, packed, scale, 64), w.dequant().to(cuda))
     with pytest.raises(ValueError, match="int4 kernel takes"):
         ti4.int4_matmul(x[:, :128], packed[:32, :100].contiguous(), scale[:2, :100].contiguous(), 64)
+
+
+# the four block matrices of FLAGSHIP_MODERN, then K whose last split holds
+# fewer groups than the others (192 in the wgmma kernel, 704 in both)
+INT4_SHAPES = [(1024, 1536), (1024, 1024), (1024, 4096), (4096, 1024), (192, 256), (704, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", INT4_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 40, 256, 300])
+def test_int4_kernels_hold_elementwise_limits(cuda, dtype, k, n, m):
+    """Both kernels against the plain version at every M the rule sends
+    them; the counter of the kernel the rule names moves, the other not."""
+    g = torch.Generator(device="cpu").manual_seed(k + n + m)
+    w = tq.Quantized4Matrix.quantize((torch.randn((k, n), generator=g) * k ** -0.5).to(dtype))
+    packed, scale = w.packed.to(cuda), w.scale.to(cuda)
+    x = torch.randn((m, k), generator=g).to(cuda, dtype)
+    got, moved = _int4_counts(lambda: ti4.int4_matmul(x, packed, scale, 64))
+    want = ti4.int4_matmul_plain(x, packed, scale, 64)
+    torch.cuda.synchronize()
+    name = "int4_splitk" if dtype == torch.float32 or m <= 16 else "int4_wgmma"
+    assert ti4.kernel_for(m, dtype) == name
+    assert moved == {n_: int(n_ == name) for n_ in moved}
+    _int4_close(x, packed, scale, got, want)
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_int4_kernels_give_the_same_bits_every_call(cuda, m):
+    """The split-K sums meet in a fixed order: repeated calls agree bit
+    for bit (mlp_down, the most splits)."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    w = tq.Quantized4Matrix.quantize((torch.randn((4096, 1024), generator=g) / 64).to(torch.bfloat16))
+    packed, scale = w.packed.to(cuda), w.scale.to(cuda)
+    x = torch.randn((m, 4096), generator=g).to(cuda, torch.bfloat16)
+    first = ti4.int4_matmul(x, packed, scale, 64)
+    for _ in range(3):
+        assert torch.equal(ti4.int4_matmul(x, packed, scale, 64), first)
 
 
 @pytest.mark.parametrize("bits", [None, 4])
@@ -190,6 +257,7 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
     g = torch.Generator(device="cpu").manual_seed(s + d)
     q, k, v, dout = (torch.randn((3, s, d), generator=g).to(cuda, dtype) for _ in range(4))
     before = dict(tfa.launches)
+    fwd_before = dict(tfa.fwd_launches)
     out, lse = tfa._forward_bhsd(q, k, v, causal)
     want_out, want_lse = tfa.flash_forward_plain(q, k, v, causal)
     got = tfa._backward_bhsd(q, k, v, want_out, want_lse, dout, causal)
@@ -200,12 +268,18 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
                  FLASH_STEP[dtype], dout)
     assert {n: tfa.launches[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    fwd = "flash_fwd_wgmma" if dtype == torch.bfloat16 else "flash_fwd_fma"
+    assert tfa.forward_kernel_for(dtype) == fwd
+    assert {n: tfa.fwd_launches[n] - fwd_before[n] for n in fwd_before} == {
+        n: int(n == fwd) for n in fwd_before}
 
 
 def test_flash_forward_keeps_f32_partials_over_bf16(cuda):
     g = torch.Generator(device="cpu").manual_seed(9)
     q, k, v = (torch.randn((2, 96, 64), generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    before = tfa.fwd_launches["flash_fwd_wgmma"]
     out, lse = tfa._forward_bhsd(q, k, v, True, out_dtype=torch.float32)
+    assert tfa.fwd_launches["flash_fwd_wgmma"] == before + 1
     want, want_lse = tfa.flash_forward_plain(q, k, v, True, out_dtype=torch.float32)
     assert out.dtype == torch.float32
     _flash_close(q, k, v, True, (out, lse), (want, want_lse), FLASH_STEP[torch.bfloat16])

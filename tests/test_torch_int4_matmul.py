@@ -91,3 +91,41 @@ def test_kernel_shape_rule_takes_every_flagship_matrix(k, n, gs, ok):
     else:
         with pytest.raises(ValueError, match="int4 kernel takes"):
             ti4.check_kernel_shape(k, n, gs)
+
+
+@pytest.mark.parametrize("m,dtype,name", [
+    (1, torch.bfloat16, "int4_splitk"), (8, torch.bfloat16, "int4_splitk"),
+    (16, torch.bfloat16, "int4_splitk"), (17, torch.bfloat16, "int4_wgmma"),
+    (256, torch.bfloat16, "int4_wgmma"), (1, torch.float32, "int4_splitk"),
+    (256, torch.float32, "int4_splitk"),
+])
+def test_kernel_rule_is_static_on_m_and_dtype(m, dtype, name):
+    """float32 never reaches the tensor-core kernel (it would run as TF32)."""
+    assert ti4.kernel_for(m, dtype) == name
+
+
+FLAGSHIP = [(1024, 1536), (1024, 1024), (1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.parametrize("k,n", FLAGSHIP + [(192, 256), (704, 4096)])
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 256])
+def test_splitk_plan_covers_k_in_one_cluster(k, n, m):
+    """Splits cover every group once, at most one cluster of them, and the
+    grid stays within three quarters of two blocks on each of 132 SMs
+    unless it has one split."""
+    g, splits = ti4.splitk_plan(m, k, n, 132)
+    groups = k // 64
+    assert (splits - 1) * g < groups <= splits * g
+    assert splits <= ti4.MAX_SPLITS
+    blocks = -(-n // ti4.SPLITK_TILE_N) * -(-m // ti4.SPLITK_ROWS) * splits
+    assert blocks <= 198 or splits == 1
+
+
+@pytest.mark.parametrize("k,n", FLAGSHIP + [(192, 256), (704, 4096)])
+@pytest.mark.parametrize("m", [17, 40, 256, 300])
+def test_wgmma_plan_covers_k_and_m(k, n, m):
+    g, splits, mt = ti4.wgmma_plan(m, k, n, 132)
+    groups = k // 64
+    assert 1 <= mt <= 4 and mt == min(4, -(-m // 64))
+    assert (splits - 1) * g < groups <= splits * g
+    assert splits <= ti4.MAX_SPLITS
