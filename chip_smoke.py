@@ -8,7 +8,8 @@ exits 2 before any result):
 
 1. environment: the card's name and power limit; the three kernel sources
    built from ``k8s_dra_driver_torch/csrc`` with ``nvcc``, all started
-   together (ptxas report printed);
+   together (ptxas report printed; the D 64 bf16 backward kernels must not
+   spill);
 2. serving kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (FLAGSHIP_MODERN: Hq 16 / Hkv 4 / d 64, L 8,
    block 16, B 8, ragged lengths up to 1024; int4 at M 8 (the split-K
@@ -20,7 +21,7 @@ exits 2 before any result):
 3. the flash kernels (forward, dQ, dK/dV) the same way, at the training
    path's shapes (B·H 64, S 256 and 1024, D 64, causal and full, f32 and
    bf16), timed at B·H 64, S 1024, causal, bf16 beside SDPA's forward and
-   its backward through autograd, and the f32 forward beside SDPA in f32;
+   its backward through autograd, and the f32 kernels beside SDPA in f32;
 4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
    pool) through ``PagedServeEngine.pump``: every stream checked
    teacher-forced against the plain dense decode path;
@@ -31,8 +32,10 @@ exits 2 before any result):
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``, then 8 steps
    on one batch with the loss falling and the flash kernels' launches
-   counted, the step time, and the device time by kernel of one step;
-8. training in f32 at 2 layers: flash against dense over 3 steps.
+   counted (bf16 through the wgmma kernels only), the step time, and the
+   device time by kernel of one step;
+8. training in f32 at 2 layers: flash against dense over 3 steps (through
+   the fma kernels only).
 
 The line before the last lists the kernels with their launch counts on the
 path that runs them (serving or training) and their times; the last line is
@@ -81,8 +84,8 @@ KERNELS = {
         route="cuda", source="k8s_dra_driver_torch/csrc/int4_matmul.cu",
         replaces="k8s_dra_driver_tpu/ops/int4_matmul.py:41",
     ),
-    # the forward: TMA + wgmma for bf16 (the training path), f32 FMAs on the
-    # CUDA cores for f32 (the f32 training phase)
+    # each flash pass: TMA + wgmma for bf16 (the training path), f32 FMAs
+    # on the CUDA cores for f32 (the f32 training phase)
     "flash_fwd": dict(
         route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
         replaces="k8s_dra_driver_tpu/ops/flash_attention.py:31",
@@ -99,7 +102,17 @@ KERNELS = {
         route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
         replaces="k8s_dra_driver_tpu/ops/flash_attention.py:179",
     ),
+    "flash_bwd_dq_f32": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/flash_attention.py:137",
+    ),
+    "flash_bwd_dkv_f32": dict(
+        route="cuda", source="k8s_dra_driver_torch/csrc/flash_attention.cu",
+        replaces="k8s_dra_driver_tpu/ops/flash_attention.py:179",
+    ),
 }
+# kernels whose ptxas report must show 0 bytes of spill stores
+NO_SPILL = ("flash_bwd_dq_wgmma_kernelILi64E", "flash_bwd_dkv_wgmma_kernelILi64E")
 KERNEL_SOURCES = ["int4_matmul", "paged_attention", "flash_attention"]
 
 
@@ -166,11 +179,22 @@ def phase_environment(torch):
     t0 = time.perf_counter()
     _build.build(KERNEL_SOURCES)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    spills = {}
     for name, report in _build.ptxas_reports.items():
         log(f"--- ptxas -v: {name}.cu")
+        entry = ""
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("   ", line.strip())
+            if "Compiling entry" in line:
+                entry = line
+            elif "spill stores" in line and any(k in entry for k in NO_SPILL):
+                key = entry.split("'")[1]
+                stores = int(line.split("bytes spill stores")[0].split(",")[-1])
+                spills[key] = max(spills.get(key, 0), stores)
+    log(f"spill stores of the D 64 bf16 backward kernels: {spills}")
+    if len(spills) != len(NO_SPILL) or any(spills.values()):
+        raise AssertionError(f"the D 64 bf16 backward kernels spill or were not reported: {spills}")
     return card
 
 
@@ -479,15 +503,15 @@ def _flash_work(bh, s, d, itemsize, causal):
 
 
 def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: int = 64):
-    """The three flash kernels against their plain versions at the training
+    """The flash kernels against their plain versions at the training
     path's shapes (B·H = 4 x 16 heads, D 64), then timed at the main path's
-    (S 1024, causal, bf16) beside the plain versions and SDPA."""
+    (S 1024, causal) in bf16 and f32 beside the plain versions and SDPA."""
     import torch.nn.functional as F
 
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    worst = dict.fromkeys(names + ("flash_fwd_f32",), 0.0)
+    worst = dict.fromkeys(names + tuple(n + "_f32" for n in names), 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         step, why = FLASH_STEP[dname]
@@ -520,64 +544,57 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
                     if over:
                         raise AssertionError(f"flash {name} disagrees ({case}): {over} elements "
                                              f"over their limit")
-                if dtype == torch.float32:
-                    worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], errs["out"])
-                else:
-                    worst["flash_fwd"] = max(worst["flash_fwd"], errs["out"])
-                    worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"])
-                    worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"], errs["dv"])
+                tag = "_f32" if dtype == torch.float32 else ""
+                for name, err in (("flash_fwd", errs["out"]), ("flash_bwd_dq", errs["dq"]),
+                                  ("flash_bwd_dkv", max(errs["dk"], errs["dv"]))):
+                    worst[name + tag] = max(worst[name + tag], err)
 
-    # times at the main path's shape
+    # times at the main path's shape, in bf16 (the training path) and f32,
+    # beside yardsticks the port never calls: SDPA's forward, and its
+    # backward through autograd (dQ, dK and dV together) on [B, H, S, D] =
+    # [4, 16, S, 64]
     s = seqs[-1]
     g = torch.Generator(device=DEV).manual_seed(SEED + 11)
-    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=DEV).to(torch.bfloat16)
-                     for _ in range(4))
-    out, lse = fa._forward_bhsd(q, k, v, True)
-    delta = fa._delta(dout, out)
-    ms = {
-        "flash_fwd": (timer.ms(lambda: fa._forward_bhsd(q, k, v, True)),
-                      timer.ms(lambda: fa.flash_forward_plain(q, k, v, True))),
-        "flash_bwd_dq": (timer.ms(lambda: fa._dq_bhsd(q, k, v, lse, dout, delta, True)),
-                         timer.ms(lambda: fa._dq_plain(q, k, v, lse, dout, delta, True))),
-        "flash_bwd_dkv": (timer.ms(lambda: fa._dkv_bhsd(q, k, v, lse, dout, delta, True)),
-                          timer.ms(lambda: fa._dkv_plain(q, k, v, lse, dout, delta, True))),
-    }
-    # yardsticks the port never calls: SDPA's forward, and its backward
-    # through autograd (dQ, dK and dV together) on [B, H, S, D] = [4, 16, S, 64]
-    qs, ks, vs = (x.reshape(-1, 16, s, d).detach().requires_grad_() for x in (q, k, v))
-    ms_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    do_sdpa = dout.reshape(-1, 16, s, d)
-    ms_sdpa_bwd = timer.ms(
-        lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do_sdpa, retain_graph=True)
-    )
-    work = _flash_work(bh, s, d, 2, True)
+    inputs = [torch.randn((bh, s, d), generator=g, device=DEV).to(torch.bfloat16)
+              for _ in range(4)]
     results = {}
-    for name in names:
-        b_ms, b_by = bound(*work[name], "bfloat16")
-        lib = ms_sdpa if name == "flash_fwd" else ms_sdpa_bwd
-        results[name] = dict(ms=ms[name][0], plain_ms=ms[name][1], library_ms=lib,
-                             bound_ms=b_ms, bound_by=b_by, max_abs_err=worst[name])
-        log(f"  {name} bf16 BH={bh} S={s} D={d} causal: kernel {ms[name][0] * 1e3:.1f} us, "
-            f"plain {ms[name][1] * 1e3:.1f} us, sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} "
-            f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
-            f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP)")
-    log(f"  sdpa backward covers dQ and dK/dV together: kernels "
-        f"{(ms['flash_bwd_dq'][0] + ms['flash_bwd_dkv'][0]) * 1e3:.1f} us against "
-        f"{ms_sdpa_bwd * 1e3:.1f} us")
-
-    # the f32 forward (flash_fwd_fma) at the same shape, beside SDPA in f32
-    q, k, v = (x.float() for x in (q, k, v))
-    ms_k = timer.ms(lambda: fa._forward_bhsd(q, k, v, True))
-    ms_p = timer.ms(lambda: fa.flash_forward_plain(q, k, v, True))
-    qs, ks, vs = (x.reshape(-1, 16, s, d) for x in (q, k, v))
-    ms_lib = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
-    b_ms, b_by = bound(*_flash_work(bh, s, d, 4, True)["flash_fwd"], "float32")
-    results["flash_fwd_f32"] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms,
-                                    bound_by=b_by, max_abs_err=worst["flash_fwd_f32"])
-    log(f"  flash_fwd f32 (flash_fwd_fma) BH={bh} S={s} D={d} causal: kernel "
-        f"{ms_k * 1e3:.1f} us, plain {ms_p * 1e3:.1f} us, sdpa fwd f32 {ms_lib * 1e3:.1f} us, "
-        f"bound {b_ms * 1e3:.2f} us ({b_by})")
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        tag = "_f32" if dtype == torch.float32 else ""
+        q, k, v, dout = (x.to(dtype) for x in inputs)
+        out, lse = fa._forward_bhsd(q, k, v, True)
+        delta = fa._delta(dout, out)
+        ms = {
+            "flash_fwd": (timer.ms(lambda: fa._forward_bhsd(q, k, v, True)),
+                          timer.ms(lambda: fa.flash_forward_plain(q, k, v, True))),
+            "flash_bwd_dq": (timer.ms(lambda: fa._dq_bhsd(q, k, v, lse, dout, delta, True)),
+                             timer.ms(lambda: fa._dq_plain(q, k, v, lse, dout, delta, True))),
+            "flash_bwd_dkv": (timer.ms(lambda: fa._dkv_bhsd(q, k, v, lse, dout, delta, True)),
+                              timer.ms(lambda: fa._dkv_plain(q, k, v, lse, dout, delta, True))),
+        }
+        qs, ks, vs = (x.reshape(-1, 16, s, d).detach().requires_grad_() for x in (q, k, v))
+        ms_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+        o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        do_sdpa = dout.reshape(-1, 16, s, d)
+        ms_sdpa_bwd = timer.ms(
+            lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do_sdpa, retain_graph=True)
+        )
+        work = _flash_work(bh, s, d, q.element_size(), True)
+        kern = dict(zip(names, (fa.forward_kernel_for(dtype), *fa.backward_kernel_for(dtype))))
+        for name in names:
+            b_ms, b_by = bound(*work[name], dname)
+            lib = ms_sdpa if name == "flash_fwd" else ms_sdpa_bwd
+            results[name + tag] = dict(ms=ms[name][0], plain_ms=ms[name][1], library_ms=lib,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       max_abs_err=worst[name + tag])
+            log(f"  {name} {dname} ({kern[name]}) BH={bh} S={s} D={d} causal: kernel "
+                f"{ms[name][0] * 1e3:.1f} us, plain {ms[name][1] * 1e3:.1f} us, sdpa "
+                f"{'fwd' if name == 'flash_fwd' else 'bwd'} {lib * 1e3:.1f} us, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}, {work[name][0] / 1e6:.1f} MB, "
+                f"{work[name][1] / 1e9:.2f} GFLOP)")
+        log(f"  sdpa {dname} backward covers dQ and dK/dV together: kernels "
+            f"{(ms['flash_bwd_dq'][0] + ms['flash_bwd_dkv'][0]) * 1e3:.1f} us against "
+            f"{ms_sdpa_bwd * 1e3:.1f} us")
     return results
 
 
@@ -636,26 +653,28 @@ def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
     fns = burnin.build_train_step(cfg, attention="flash", remat="blocks", lr=3e-4, device=DEV)
     params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
     sync(torch)
-    fa.launches.update(dict.fromkeys(fa.launches, 0))
-    fa.fwd_launches.update(dict.fromkeys(fa.fwd_launches, 0))
+    for c in (fa.launches, fa.fwd_launches, fa.bwd_launches):
+        c.update(dict.fromkeys(c, 0))
     losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
     sync(torch)
     counts = dict(fa.launches)
-    fwd = dict(fa.fwd_launches)
+    fwd, bwd = dict(fa.fwd_launches), dict(fa.bwd_launches)
     losses = [x.item() for x in losses]
     log(f"train bf16 B={b} S={s} L={cfg.n_layers}: losses over {steps} steps on one batch "
         + " ".join(f"{x:.4f}" for x in losses))
-    log(f"train bf16: launches {counts}, forward by kernel {fwd} (expected forward "
-        f"2*L*steps = {2 * cfg.n_layers * steps}, all flash_fwd_wgmma; dQ and dK/dV L*steps = "
-        f"{cfg.n_layers * steps})")
+    log(f"train bf16: launches {counts}, by kernel {fwd} {bwd} (expected forward 2*L*steps = "
+        f"{2 * cfg.n_layers * steps}, all flash_fwd_wgmma; dQ and dK/dV L*steps = "
+        f"{cfg.n_layers * steps}, all flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("bf16 training loss did not fall")
-    if counts != {"flash_fwd": 2 * cfg.n_layers * steps,
-                  "flash_bwd_dq": cfg.n_layers * steps,
-                  "flash_bwd_dkv": cfg.n_layers * steps} or fwd != {
-                      "flash_fwd_wgmma": 2 * cfg.n_layers * steps, "flash_fwd_fma": 0}:
-        raise AssertionError(f"flash launch counts {counts} {fwd} are not the main path's")
-    counts["flash_fwd"] = fwd["flash_fwd_wgmma"]
+    n = cfg.n_layers * steps
+    if counts != {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n} or fwd != {
+            "flash_fwd_wgmma": 2 * n, "flash_fwd_fma": 0} or bwd != {
+            "flash_bwd_dq_wgmma": n, "flash_bwd_dq_fma": 0,
+            "flash_bwd_dkv_wgmma": n, "flash_bwd_dkv_fma": 0}:
+        raise AssertionError(f"flash launch counts {counts} {fwd} {bwd} are not the main path's")
+    counts = {"flash_fwd": fwd["flash_fwd_wgmma"], "flash_bwd_dq": bwd["flash_bwd_dq_wgmma"],
+              "flash_bwd_dkv": bwd["flash_bwd_dkv_wgmma"]}
 
     # step time on the device's clock, warmed up by the steps above
     n = 5
@@ -677,7 +696,8 @@ def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_window(torch, "train bf16: profile of one step",
                    lambda: fns.step(params, state, tokens), top=12, host_top=8,
-                   watch=("flash_fwd_wgmma", "flash_bwd"))
+                   watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+                          "flash_bwd"))
     return counts
 
 
@@ -698,24 +718,30 @@ def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
         fns = burnin.build_train_step(cfg, attention=attention, device=DEV)
         params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 6))
         sync(torch)
-        fa.fwd_launches.update(dict.fromkeys(fa.fwd_launches, 0))
+        for c in (fa.fwd_launches, fa.bwd_launches):
+            c.update(dict.fromkeys(c, 0))
         losses = [fns.step(params, state, tokens)[2].item() for _ in range(steps)]
         runs[attention] = (losses, params)
         if attention == "flash":
-            fwd = dict(fa.fwd_launches)
+            fwd, bwd = dict(fa.fwd_launches), dict(fa.bwd_launches)
     (lf, pf), (ld, pd) = runs["flash"], runs["dense"]
     rel = max(abs(x - y) / abs(y) for x, y in zip(lf, ld))
     prel = max(_rel_l2(x, y) for x, y in zip(burnin.param_leaves(pf), burnin.param_leaves(pd)))
     log(f"train f32 L=2: losses flash {' '.join(f'{x:.6f}' for x in lf)}; dense "
         f"{' '.join(f'{x:.6f}' for x in ld)}; worst rel {rel:.3g} (tolerance {loss_tol}); "
         f"params after {steps} steps rel L2 worst {prel:.3g} (tolerance {param_tol}: {why})")
-    log(f"train f32 L=2: forward launches by kernel {fwd} (expected 2*L*steps = "
-        f"{2 * cfg.n_layers * steps}, all flash_fwd_fma)")
+    n = cfg.n_layers * steps
+    log(f"train f32 L=2: launches by kernel {fwd} {bwd} (expected forward 2*L*steps = "
+        f"{2 * n}, all flash_fwd_fma; dQ and dK/dV L*steps = {n}, all flash_bwd_dq_fma and "
+        f"flash_bwd_dkv_fma)")
     if not (rel <= loss_tol and prel <= param_tol and lf[-1] < lf[0]):
         raise AssertionError("f32 flash training disagrees with dense")
-    if fwd != {"flash_fwd_wgmma": 0, "flash_fwd_fma": 2 * cfg.n_layers * steps}:
-        raise AssertionError(f"f32 forward launches {fwd} are not the f32 path's")
-    return {"flash_fwd_f32": fwd["flash_fwd_fma"]}
+    if fwd != {"flash_fwd_wgmma": 0, "flash_fwd_fma": 2 * n} or bwd != {
+            "flash_bwd_dq_wgmma": 0, "flash_bwd_dq_fma": n,
+            "flash_bwd_dkv_wgmma": 0, "flash_bwd_dkv_fma": n}:
+        raise AssertionError(f"f32 flash launches {fwd} {bwd} are not the f32 path's")
+    return {"flash_fwd_f32": fwd["flash_fwd_fma"], "flash_bwd_dq_f32": bwd["flash_bwd_dq_fma"],
+            "flash_bwd_dkv_f32": bwd["flash_bwd_dkv_fma"]}
 
 
 def _traffic(vocab: int, n: int, max_prompt: int, max_new: int, seed: int):

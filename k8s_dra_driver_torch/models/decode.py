@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from k8s_dra_driver_torch.device import params_device
+from k8s_dra_driver_torch.device import params_device, resolve_device
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     mlp_residual,
@@ -34,7 +34,10 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.float32, device="cpu") -> KVCache:
+               dtype=torch.float32, device="cuda") -> KVCache:
+    """Zeroed K/V on ``device`` (the card by default; raises without one
+    unless the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),

@@ -36,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from k8s_dra_driver_torch.device import params_device
+from k8s_dra_driver_torch.device import params_device, resolve_device
 from k8s_dra_driver_torch.models import decode, serve
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
@@ -62,7 +62,10 @@ class PagedKVCache(NamedTuple):
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
-                     dtype=torch.float32, device="cpu") -> PagedKVCache:
+                     dtype=torch.float32, device="cuda") -> PagedKVCache:
+    """A zeroed pool on ``device`` (the card by default; raises without
+    one unless the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, n_blocks, cfg.kv_heads, cfg.head_dim, block_size)
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),

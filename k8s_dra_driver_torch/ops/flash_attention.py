@@ -1,18 +1,19 @@
 """Flash attention with its backward (``k8s_dra_driver_tpu/ops/flash_attention.py``).
 
 q/k/v are ``[B, S, H, D]`` at :func:`flash_attention` and ``[B·H, S, D]``
-(:func:`to_bh`) below it.  Three kernels, one CUDA source
-(``csrc/flash_attention.cu``, whose header says what bounds them and how):
+(:func:`to_bh`) below it.  Three passes, one CUDA source
+(``csrc/flash_attention.cu``, whose header says what bounds them and how),
+each with two kernels chosen by a static rule on the dtype: bf16 runs the
+``*_wgmma`` kernel (TMA and ``wgmma`` on the tensor cores), f32 the
+``*_fma`` kernel (f32 FMAs on the CUDA cores; the tensor cores would run
+f32 as TF32, far outside its 2^-16 limit):
 
-* ``flash_fwd`` behind :func:`_forward_bhsd`: the attention and its
-  ``lse = m + log l`` residual, ``[B·H, S]`` f32.  Two kernels by a static
-  rule on the dtype (:func:`forward_kernel_for`): bf16 runs
-  ``flash_fwd_wgmma`` (TMA and ``wgmma`` on the tensor cores), f32 runs
-  ``flash_fwd_fma`` (f32 FMAs on the CUDA cores; the tensor cores would run
-  f32 as TF32, far outside its 2^-16 limit);
-* ``flash_bwd_dq`` and ``flash_bwd_dkv`` behind :func:`_backward_bhsd`: dQ,
-  then dK/dV, each recomputing P from lse.  ``delta = rowsum(dout · out)``
-  is computed here, outside the kernels, as in the JAX package.
+* ``flash_fwd`` behind :func:`_forward_bhsd` (:func:`forward_kernel_for`):
+  the attention and its ``lse = m + log l`` residual, ``[B·H, S]`` f32;
+* ``flash_bwd_dq`` and ``flash_bwd_dkv`` behind :func:`_backward_bhsd`
+  (:func:`backward_kernel_for`): dQ, then dK/dV, each recomputing P from
+  lse.  ``delta = rowsum(dout · out)`` is computed here, outside the
+  kernels, as in the JAX package.
 
 :class:`FlashCore` is the ``torch.autograd.Function`` that ties them
 together (the JAX package's ``_flash_core`` custom VJP).  For CUDA tensors
@@ -37,34 +38,44 @@ from k8s_dra_driver_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _VOIDS = [ctypes.c_void_p]
+# (d, q, k, v, out, lse, out_f32, BH, S, causal, scale, stream)
+_FWD_ARGS = [ctypes.c_int] + _VOIDS * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + _VOIDS
+# (d, q, k, v, dout, lse, delta, dq, BH, S, causal, scale, stream)
+_DQ_ARGS = [ctypes.c_int] + _VOIDS * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] + _VOIDS
+# (d, q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale, stream)
+_DKV_ARGS = [ctypes.c_int] + _VOIDS * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] + _VOIDS
 _LAUNCHERS = {
-    # (dtype, d, q, k, v, out, lse, out_f32, BH, S, causal, scale, stream)
-    "flash_fwd": [ctypes.c_int] * 2 + _VOIDS * 5 + [ctypes.c_int] * 4
-    + [ctypes.c_float] + _VOIDS,
-    # (d, q, k, v, out, lse, out_f32, BH, S, causal, scale, stream)
-    "flash_fwd_wgmma": [ctypes.c_int] + _VOIDS * 5 + [ctypes.c_int] * 4
-    + [ctypes.c_float] + _VOIDS,
-    # (dtype, d, q, k, v, dout, lse, delta, dq, BH, S, causal, scale, stream)
-    "flash_bwd_dq": [ctypes.c_int] * 2 + _VOIDS * 7 + [ctypes.c_int] * 3
-    + [ctypes.c_float] + _VOIDS,
-    # (dtype, d, q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale, stream)
-    "flash_bwd_dkv": [ctypes.c_int] * 2 + _VOIDS * 8 + [ctypes.c_int] * 3
-    + [ctypes.c_float] + _VOIDS,
+    **{f"flash_fwd_{r}": _FWD_ARGS for r in ("fma", "wgmma")},
+    **{f"flash_bwd_dq_{r}": _DQ_ARGS for r in ("fma", "wgmma")},
+    **{f"flash_bwd_dkv_{r}": _DKV_ARGS for r in ("fma", "wgmma")},
 }
 
 # Kernel launches since the counts were last set to 0 (the plain versions
-# do not count).  ``launches["flash_fwd"]`` counts both forward kernels,
-# ``fwd_launches`` each one; set them to 0 together.
+# do not count).  ``launches`` counts each pass over both its kernels,
+# ``fwd_launches`` and ``bwd_launches`` each kernel; set them to 0 together.
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 fwd_launches = {"flash_fwd_wgmma": 0, "flash_fwd_fma": 0}
+bwd_launches = {"flash_bwd_dq_wgmma": 0, "flash_bwd_dq_fma": 0,
+                "flash_bwd_dkv_wgmma": 0, "flash_bwd_dkv_fma": 0}
+
+
+def _route(dtype) -> str:
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def forward_kernel_for(dtype) -> str:
     """The forward kernel that takes ``dtype``: ``flash_fwd_wgmma`` for
     bfloat16, ``flash_fwd_fma`` for float32."""
-    return "flash_fwd_wgmma" if dtype == torch.bfloat16 else "flash_fwd_fma"
+    return f"flash_fwd_{_route(dtype)}"
+
+
+def backward_kernel_for(dtype) -> tuple[str, str]:
+    """The (dQ, dK/dV) kernels that take ``dtype``: ``flash_bwd_dq_wgmma``
+    and ``flash_bwd_dkv_wgmma`` for bfloat16, ``flash_bwd_dq_fma`` and
+    ``flash_bwd_dkv_fma`` for float32."""
+    return f"flash_bwd_dq_{_route(dtype)}", f"flash_bwd_dkv_{_route(dtype)}"
 
 
 def to_bh(x):
@@ -147,7 +158,7 @@ def check_kernel_shape(q, *others) -> None:
         raise ValueError(
             f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}"
         )
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
     for t in others:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -173,9 +184,14 @@ def _aligned(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _common(q):
+def _launch(name, *args, q, causal):
+    """Launch kernel ``name`` on ``args`` (its operands' data pointers and flags)
+    for ``[BH, S, D]`` operands shaped like ``q``; raises when it is refused."""
     bh, s, d = q.shape
-    return _DTYPE_CODES[q.dtype], d, bh, s, _scale(d), torch.cuda.current_stream(q.device).cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(_build.load("flash_attention", _LAUNCHERS), name)(
+        d, *args, bh, s, int(causal), _scale(d), stream)
+    _build.check("flash_attention", rc, name)
 
 
 def _launch_fwd(q, k, v, causal, out_dtype):
@@ -183,50 +199,41 @@ def _launch_fwd(q, k, v, causal, out_dtype):
     if out_dtype not in (None, q.dtype, torch.float32):
         raise ValueError(f"flash forward writes q's dtype or float32, not {out_dtype}")
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
-    code, d, bh, s, scale, stream = _common(q)
     out = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
-    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     name = forward_kernel_for(q.dtype)
-    lib = _build.load("flash_attention", _LAUNCHERS)
-    args = (d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            int(out.dtype == torch.float32), bh, s, int(causal), scale, stream)
-    if name == "flash_fwd_wgmma":
-        rc = lib.flash_fwd_wgmma(*args)
-    else:
-        rc = lib.flash_fwd(code, *args)
-    _build.check("flash_attention", rc, name)
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            int(out.dtype == torch.float32), q=q, causal=causal)
     launches["flash_fwd"] += 1
     fwd_launches[name] += 1
     return out, lse
 
 
-def _launch_dq(q, k, v, lse, dout, delta, causal):
+def _bwd_operands(q, k, v, lse, dout, delta):
+    """(q, k, v, dout, lse, delta) as the backward kernels take them:
+    contiguous, 16-byte aligned, lse and delta checked."""
     check_kernel_shape(q, k, v, dout)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    lse, delta = _rows(lse, q), _rows(delta, q)
-    code, d, bh, s, scale, stream = _common(q)
-    dq = torch.empty_like(q)
-    rc = _build.load("flash_attention", _LAUNCHERS).flash_bwd_dq(
-        code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), bh, s, int(causal), scale, stream,
-    )
-    _build.check("flash_attention", rc, "flash_bwd_dq")
+    q, k, v, dout = (_aligned(t.contiguous()) for t in (q, k, v, dout))
+    return q, k, v, dout, _rows(lse, q), _rows(delta, q)
+
+
+def _launch_dq(q, k, v, lse, dout, delta, causal):
+    ops = _bwd_operands(q, k, v, lse, dout, delta)  # alive until the launch is queued
+    dq = torch.empty_like(ops[0])
+    name = backward_kernel_for(dq.dtype)[0]
+    _launch(name, *(t.data_ptr() for t in (*ops, dq)), q=dq, causal=causal)
     launches["flash_bwd_dq"] += 1
+    bwd_launches[name] += 1
     return dq
 
 
 def _launch_dkv(q, k, v, lse, dout, delta, causal):
-    check_kernel_shape(q, k, v, dout)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    lse, delta = _rows(lse, q), _rows(delta, q)
-    code, d, bh, s, scale, stream = _common(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _build.load("flash_attention", _LAUNCHERS).flash_bwd_dkv(
-        code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, int(causal), scale, stream,
-    )
-    _build.check("flash_attention", rc, "flash_bwd_dkv")
+    ops = _bwd_operands(q, k, v, lse, dout, delta)
+    dk, dv = torch.empty_like(ops[0]), torch.empty_like(ops[0])
+    name = backward_kernel_for(dk.dtype)[1]
+    _launch(name, *(t.data_ptr() for t in (*ops, dk, dv)), q=dk, causal=causal)
     launches["flash_bwd_dkv"] += 1
+    bwd_launches[name] += 1
     return dk, dv
 
 

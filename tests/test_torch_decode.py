@@ -61,7 +61,7 @@ def test_ragged_chunk_with_inactive_row_matches(weights):
     jp, tparams = weights
     seq = _prompt(b=3, p=10, seed=3)
     jcache = jd.init_cache(JCFG, 3, 16)
-    tcache = td.init_cache(TCFG, 3, 16)
+    tcache = td.init_cache(TCFG, 3, 16, device="cpu")
     jl, jcache = jd.decode_chunk(jp, jcache, jnp.asarray(seq), 0, cfg=JCFG)
     tl, tcache = td.decode_chunk(tparams, tcache, torch.from_numpy(seq).long(), 0, cfg=TCFG)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
@@ -82,7 +82,7 @@ def test_ragged_chunk_with_inactive_row_matches(weights):
 def test_teacher_forced_decode_reproduces_forward(weights):
     _, tparams = weights
     seq = torch.from_numpy(_prompt(p=12, seed=4)).long()
-    cache = td.init_cache(TCFG, 2, 12)
+    cache = td.init_cache(TCFG, 2, 12, device="cpu")
     steps = []
     for pos in range(12):
         logits, cache = td.decode_step(tparams, cache, seq[:, pos], pos, cfg=TCFG)

@@ -162,3 +162,15 @@ def test_forward_kernel_rule_is_static_on_dtype(dtype, name):
     """bf16 takes the tensor-core forward; f32 stays on the CUDA cores (the
     tensor cores would run it as TF32)."""
     assert tf.forward_kernel_for(dtype) == name
+
+
+@pytest.mark.parametrize("dtype,names", [
+    (torch.bfloat16, ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")),
+    (torch.float32, ("flash_bwd_dq_fma", "flash_bwd_dkv_fma")),
+])
+def test_backward_kernel_rule_is_static_on_dtype(dtype, names):
+    """bf16 takes the tensor-core dQ and dK/dV kernels; f32 stays on the
+    CUDA cores (the tensor cores would run it as TF32).  Each name has its
+    own counter and launcher."""
+    assert tf.backward_kernel_for(dtype) == names
+    assert all(n in tf.bwd_launches and n in tf._LAUNCHERS for n in names)

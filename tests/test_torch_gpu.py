@@ -250,14 +250,19 @@ def _bit_equal(got, want, name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,d", [(64, 16), (100, 32), (200, 64), (130, 128)])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1024])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
     """Forward (out, lse), dQ and dK/dV each against its plain version on
-    the same inputs, ragged S included (the last tile masked)."""
-    g = torch.Generator(device="cpu").manual_seed(s + d)
-    q, k, v, dout = (torch.randn((3, s, d), generator=g).to(cuda, dtype) for _ in range(4))
+    the same inputs (the backward on the plain forward's out and lse),
+    every element within its limit, at every head dim and at S with one
+    row, one whole tile, a ragged last tile or many tiles; the kernels the
+    dtype rule names launch (bf16: the wgmma ones, f32: the fma ones) and
+    the others do not."""
+    g = torch.Generator(device="cpu").manual_seed(7 * s + d)
+    q, k, v, dout = (torch.randn((2, s, d), generator=g).to(cuda, dtype) for _ in range(4))
     before = dict(tfa.launches)
-    fwd_before = dict(tfa.fwd_launches)
+    by_kernel = {**tfa.fwd_launches, **tfa.bwd_launches}
     out, lse = tfa._forward_bhsd(q, k, v, causal)
     want_out, want_lse = tfa.flash_forward_plain(q, k, v, causal)
     got = tfa._backward_bhsd(q, k, v, want_out, want_lse, dout, causal)
@@ -268,10 +273,10 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
                  FLASH_STEP[dtype], dout)
     assert {n: tfa.launches[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
-    fwd = "flash_fwd_wgmma" if dtype == torch.bfloat16 else "flash_fwd_fma"
-    assert tfa.forward_kernel_for(dtype) == fwd
-    assert {n: tfa.fwd_launches[n] - fwd_before[n] for n in fwd_before} == {
-        n: int(n == fwd) for n in fwd_before}
+    names = (tfa.forward_kernel_for(dtype), *tfa.backward_kernel_for(dtype))
+    assert all(n.endswith("wgmma" if dtype == torch.bfloat16 else "fma") for n in names)
+    after = {**tfa.fwd_launches, **tfa.bwd_launches}
+    assert {n: after[n] - by_kernel[n] for n in after} == {n: int(n in names) for n in after}
 
 
 def test_flash_forward_keeps_f32_partials_over_bf16(cuda):
@@ -303,12 +308,79 @@ def test_flash_autograd_launches_the_kernels(cuda):
         _bit_equal(x, tfa.from_bh(y, 2, 4), name)
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+def test_flash_core_backward_runs_the_dtypes_kernels(cuda, dtype, route):
+    """A ``FlashCore`` backward launches the dQ and dK/dV kernels of its
+    dtype once each and the other route's never."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v, w = (torch.randn((4, 192, 64), generator=g).to(cuda, dtype) for _ in range(4))
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+    out = tfa.FlashCore.apply(q, k, v, True)
+    tfa.bwd_launches.update(dict.fromkeys(tfa.bwd_launches, 0))
+    torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    assert tfa.backward_kernel_for(dtype) == (f"flash_bwd_dq_{route}", f"flash_bwd_dkv_{route}")
+    assert tfa.bwd_launches == {n: int(n.endswith(route)) for n in tfa.bwd_launches}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_gives_the_same_bits_every_call(cuda, dtype, d):
+    """Every dQ, dK and dV element is written by one block, summed in a
+    fixed order: repeated calls agree bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    q, k, v, dout = (torch.randn((8, 1024, d), generator=g).to(cuda, dtype) for _ in range(4))
+    out, lse = tfa._forward_bhsd(q, k, v, True)
+    first = tfa._backward_bhsd(q, k, v, out, lse, dout, True)
+    for _ in range(2):
+        for x, y, name in zip(tfa._backward_bhsd(q, k, v, out, lse, dout, True), first,
+                              ("dq", "dk", "dv")):
+            _bit_equal(x, y, name)
+
+
 def test_flash_kernel_raises_instead_of_falling_back(cuda):
-    q = torch.zeros((2, 64, 24), device=cuda)
+    """A head dim or dtype no kernel takes raises, forward and backward; a
+    misaligned base, which TMA refuses, is refused by the wgmma launchers
+    themselves, and the wrapper hands them an aligned copy instead of
+    dropping to another kernel."""
+    z = torch.zeros((2, 64, 24), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._forward_bhsd(q, q, q, True)
+        tfa._forward_bhsd(z, z, z, True)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        tfa._forward_bhsd(q[..., :16].half(), q[..., :16].half(), q[..., :16].half(), True)
+        tfa._forward_bhsd(z[..., :16].half(), z[..., :16].half(), z[..., :16].half(), True)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q, k, v, dout = (torch.randn((2, 96, 64), generator=g).to(cuda, torch.bfloat16)
+                     for _ in range(4))
+    out, lse = tfa._forward_bhsd(q, k, v, True)
+    delta = tfa._delta(dout, out)
+    for bad in (q.half(), q.float()):
+        with pytest.raises(ValueError, match="float32 or bfloat16|share"):
+            tfa._dq_bhsd(bad, k, v, lse, dout, delta, True)
+        with pytest.raises(ValueError, match="float32 or bfloat16|share"):
+            tfa._dkv_bhsd(bad, k, v, lse, dout, delta, True)
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    shifted = buf[1:1 + q.numel()].view(q.shape).copy_(q)  # 2 bytes past a 16-byte boundary
+    assert shifted.data_ptr() % 16
+    lib = tfa._build.load("flash_attention", tfa._LAUNCHERS)
+    stream = torch.cuda.current_stream().cuda_stream
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    ptrs = (shifted.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    scale = tfa._scale(64)
+    for name, outs in (("flash_bwd_dq_wgmma", (dq,)), ("flash_bwd_dkv_wgmma", (dk, dv))):
+        rc = getattr(lib, name)(64, *ptrs, *(o.data_ptr() for o in outs), 2, 96, 1, scale,
+                                stream)
+        assert rc != 0
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tfa._build.check("flash_attention", rc, name)
+    before = dict(tfa.bwd_launches)
+    got = tfa._backward_bhsd(shifted, k, v, out, lse, dout, True, delta=delta)
+    assert {n: tfa.bwd_launches[n] - before[n] for n in before} == {
+        "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1, "flash_bwd_dq_fma": 0,
+        "flash_bwd_dkv_fma": 0}
+    for x, y, name in zip(got, tfa._backward_bhsd(q, k, v, out, lse, dout, True, delta=delta),
+                          ("dq", "dk", "dv")):
+        _bit_equal(x, y, name)
 
 
 def test_flash_train_step_on_the_card_matches_the_cpu(cuda):

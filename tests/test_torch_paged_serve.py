@@ -129,7 +129,7 @@ def test_paged_prefill_and_step_match_jax(weights):
     prompt = np.random.RandomState(5).randint(0, 128, size=(2, 13)).astype(np.int32)
     table = np.array([[3, 1, 6, 0], [2, 5, 4, 7]], np.int32)
     jcache = jp.init_paged_cache(JCFG, 8, 8)
-    tcache = tp.init_paged_cache(TCFG, 8, 8)
+    tcache = tp.init_paged_cache(TCFG, 8, 8, device="cpu")
     jcache, jlast = jp.paged_prefill(jparams, jnp.asarray(prompt), jcache, jnp.asarray(table),
                                      cfg=JCFG)
     tcache, tlast = tp.paged_prefill(tparams, torch.from_numpy(prompt).long(), tcache,
@@ -216,3 +216,19 @@ def test_unported_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="preemption"):
         eng.pump([(list(range(1, 8)), 20)] * 3)
     assert ts.sample_next(torch.tensor([[1.0, 3.0, 3.0]])).tolist() == [1]
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: td.init_cache(TCFG, 2, 8, **kw),
+    lambda **kw: tp.init_paged_cache(TCFG, 4, 8, **kw),
+], ids=["init_cache", "init_paged_cache"])
+def test_cache_constructors_default_to_the_card(make, monkeypatch):
+    """Both cache constructors follow the device rule: with no device
+    argument they build on the card, and without one they raise; the CPU
+    only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    cache = make(device="cpu")
+    assert cache.k.device.type == cache.v.device.type == "cpu"
+    assert not cache.k.any() and not cache.v.any()
