@@ -12,7 +12,9 @@ exits 2 before any result):
    spill);
 2. serving kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (FLAGSHIP_MODERN: Hq 16 / Hkv 4 / d 64, L 8,
-   block 16, B 8, ragged lengths up to 1024; int4 at M 8 (the split-K
+   block 16, B 8, context 512, ragged lengths up to 1024 and rows at the
+   paged kernel's split boundaries, elementwise; the paged append call
+   timed for each split size of a sweep; int4 at M 8 (the split-K
    kernel) and 256 (the wgmma kernel in bf16) over the four block
    matrices, elementwise, repeated calls bit for bit), with each tolerance
    and its reason, and each kernel's time beside the plain version's, a
@@ -177,6 +179,10 @@ def phase_environment(torch):
     log("nvidia-smi:", card)
     log("torch", torch.__version__, "cuda", torch.version.cuda)
     t0 = time.perf_counter()
+    # built from the sources every run: a library left by an earlier run
+    # would be loaded without a ptxas report to check
+    for name in KERNEL_SOURCES:
+        _build.library_path(name).unlink(missing_ok=True)
     _build.build(KERNEL_SOURCES)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     spills = {}
@@ -232,6 +238,45 @@ def _paged_work(lengths, nq, hq, hkv, d, bs, itemsize, append):
     return moved, ops
 
 
+PAGED_STEP = {
+    # every paged output element is held to
+    #   min(step * (|plain| + mag) + 2^-16 * mag, cap),
+    # mag the plain version's softmax weights applied to |V| in f32, so an
+    # element summed from large terms gets their rounding and a large one
+    # its own; cap is the absolute limit this check held before, so no
+    # element is held more loosely than it was
+    "float32": (2 ** -16, 1e-4, "f32 sums in another order: splits merged by their (m, l) "
+                                "against one softmax over the row"),
+    "bfloat16": (2 ** -7 + 2 ** -16, 3e-2, "one bf16 step: P rounded to bf16 on each side, in "
+                                           "the kernel against its split's max before "
+                                           "normalisation, in the plain version after it, both "
+                                           "within one step of mag; the output rounded once"),
+}
+
+
+def paged_check(got, want, mag, step, cap):
+    """(max |err|, the limit at that element, max |plain|, elements over
+    their limit)."""
+    if mag.shape != want.shape:
+        raise AssertionError(f"mag {tuple(mag.shape)} does not match {tuple(want.shape)}")
+    limit = (step * (want.float().abs() + mag) + 2 ** -16 * mag).clamp(max=cap)
+    err = (got.float() - want.float()).abs()
+    worst = int(err.argmax())
+    return (err.max().item(), limit.flatten()[worst].item(), want.float().abs().max().item(),
+            int((err > limit).sum().item()))
+
+
+def _workspace_bytes(lengths, nq, hq, hkv, d, bs, mb):
+    """(bytes of the live splits' partials, each written once and read
+    once; bytes allocated) of one paged call."""
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    pages, n_splits = pa.split_schedule(bs, mb)
+    row = hkv * (hq // hkv) * nq * (d + 2) * 4
+    live = sum(-(-min(-(-(max(n - nq, 0) + nq) // bs), mb) // pages) for n in lengths)
+    return live * row, len(lengths) * n_splits * row
+
+
 def phase_kernels(torch, timer: Timer):
     import torch.nn.functional as F
 
@@ -239,46 +284,74 @@ def phase_kernels(torch, timer: Timer):
 
     results = {}
     ragged = [1, 1024] + np.random.RandomState(SEED).randint(2, 1024, size=6).tolist()
-    tol = {
-        torch.float32: (1e-4, "f32 sums in another order (online softmax over 64-key tiles)"),
-        torch.bfloat16: (3e-2, "bf16 output rounding plus P rounded to bf16 before "
-                               "normalisation in the kernel, after it in the plain version"),
-    }
+    split = pa.split_schedule(16, 64)[0] * 16
+    # rows at the split boundaries: with nq 4, pos = split - 1 leaves the
+    # second split masked for query 0, and pos = split - 2 puts the window
+    # across a page and a split boundary
+    edges = [1, split - 1, split, split + 1, split + 2, split + 3, 1024, 2 * split + 3]
     worst = {"append": 0.0, "window": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        atol, why = tol[dtype]
-        log(f"paged tolerance {dtype}: atol {atol} ({why})")
+        dname = str(dtype).split(".")[-1]
+        step, cap, why = PAGED_STEP[dname]
+        log(f"paged tolerance {dname}: |err| <= min({step:.4g} * (|plain| + mag) + 2^-16 * mag, "
+            f"{cap:g}) per element, mag = the plain softmax weights applied to |V| in f32 "
+            f"({why}; {cap:g} is the earlier absolute limit)")
         for nq in (1, 4):
-            kp, vp, table, pos, q, nk, nv = _paged_case(torch, dtype, nq, ragged)
-            wmask = (torch.arange(8, device=DEV) % 3 != 1).to(torch.int32)
-            layer = 3
-            k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-            out_k, _, _ = pa.paged_append_attention(q, nk, nv, k1, v1, table, pos, layer, write_mask=wmask)
-            out_p = pa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, layer, write_mask=wmask)
-            sync(torch)
-            err = (out_k.float() - out_p.float()).abs().max().item()
-            pools_equal = bool(torch.equal(k1[:, 1:], k2[:, 1:]) and torch.equal(v1[:, 1:], v2[:, 1:]))
-            log(f"  append {dtype} nq={nq} lengths={ragged}: max_abs_err {err:.3g}, "
-                f"pools equal outside block 0: {pools_equal}")
-            if err > atol or not pools_equal:
-                raise AssertionError(f"paged append kernel disagrees ({dtype}, nq={nq})")
-            # window / decode: the window keys are in the pool now (k2, v2)
-            out_w = pa.paged_window_attention(q, k2[layer], v2[layer], table, pos)
-            out_wp = pa.paged_window_attention_plain(q, k2[layer], v2[layer], table, pos)
-            errw = (out_w.float() - out_wp.float()).abs().max().item()
-            log(f"  window {dtype} nq={nq}: max_abs_err {errw:.3g}")
-            if errw > atol:
-                raise AssertionError(f"paged window kernel disagrees ({dtype}, nq={nq})")
-            if nq == 1:
-                lens = pos + 1
-                out_d = pa.paged_decode_attention(q[:, 0], k2[layer], v2[layer], table, lens)
-                errd = (out_d.float() - out_wp[:, 0].float()).abs().max().item()
-                log(f"  decode {dtype}: max_abs_err {errd:.3g}")
-                if errd > atol:
-                    raise AssertionError(f"paged decode kernel disagrees ({dtype})")
-            if dtype == torch.bfloat16:
-                worst["append"] = max(worst["append"], err)
-                worst["window"] = max(worst["window"], errw)
+            for label, lengths in (("ctx512", [512] * 8), ("ragged", ragged), ("edges", edges)):
+                kp, vp, table, pos, q, nk, nv = _paged_case(torch, dtype, nq, lengths)
+                wmask = (torch.arange(8, device=DEV) % 3 != 1).to(torch.int32)
+                layer = 3
+                mag = pa.paged_append_attention_plain(
+                    q.float(), nk.float(), nv.float().abs(), kp.float(), vp.float().abs(),
+                    table, pos, layer, write_mask=wmask,
+                )
+                k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+                del kp, vp
+                out_k, _, _ = pa.paged_append_attention(q, nk, nv, k1, v1, table, pos, layer,
+                                                        write_mask=wmask)
+                out_p = pa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, layer,
+                                                        write_mask=wmask)
+                again, _, _ = pa.paged_append_attention(q, nk, nv, k1, v1, table, pos, layer,
+                                                        write_mask=wmask)
+                sync(torch)
+                err, limit, top, over = paged_check(out_k, out_p, mag, step, cap)
+                same = bool(torch.equal(again, out_k))
+                pools_equal = bool(torch.equal(k1[:, 1:], k2[:, 1:])
+                                   and torch.equal(v1[:, 1:], v2[:, 1:]))
+                case = f"{dname} nq={nq} {label} lengths={lengths}"
+                log(f"  append {case}: max_abs_err {err:.3g}, limit there {limit:.3g}, "
+                    f"max|plain| {top:.3g}; elements over the limit {over}; a second call "
+                    f"bit-identical: {same}; pools equal outside block 0: {pools_equal}")
+                if over or not same or not pools_equal:
+                    raise AssertionError(f"paged append kernel disagrees ({case})")
+                del k1, v1
+                # window / decode: the window keys are in the pool now (k2, v2)
+                mag_w = pa.paged_window_attention_plain(
+                    q.float(), k2[layer].float(), v2[layer].float().abs(), table, pos
+                )
+                out_w = pa.paged_window_attention(q, k2[layer], v2[layer], table, pos)
+                out_wp = pa.paged_window_attention_plain(q, k2[layer], v2[layer], table, pos)
+                same_w = bool(torch.equal(
+                    pa.paged_window_attention(q, k2[layer], v2[layer], table, pos), out_w))
+                errw, limitw, topw, overw = paged_check(out_w, out_wp, mag_w, step, cap)
+                log(f"  window {case}: max_abs_err {errw:.3g}, limit there {limitw:.3g}, "
+                    f"max|plain| {topw:.3g}; elements over the limit {overw}; a second call "
+                    f"bit-identical: {same_w}")
+                if overw or not same_w:
+                    raise AssertionError(f"paged window kernel disagrees ({case})")
+                if nq == 1:
+                    lens = pos + 1
+                    out_d = pa.paged_decode_attention(q[:, 0], k2[layer], v2[layer], table, lens)
+                    errd, limitd, _, overd = paged_check(out_d, out_wp[:, 0], mag_w[:, 0], step,
+                                                          cap)
+                    log(f"  decode {case}: max_abs_err {errd:.3g}, limit there {limitd:.3g}; "
+                        f"elements over the limit {overd}")
+                    if overd:
+                        raise AssertionError(f"paged decode kernel disagrees ({case})")
+                if dtype == torch.bfloat16:
+                    worst["append"] = max(worst["append"], err)
+                    worst["window"] = max(worst["window"], errw)
+                del k2, v2
 
     # times at the serving shape: B=8, bf16, nq=1, context 512 (and ragged)
     for label, lengths in (("ctx512", [512] * 8), ("ragged", ragged)):
@@ -306,13 +379,31 @@ def phase_kernels(torch, timer: Timer):
         ww = _paged_work(lengths, 1, 16, 4, 64, 16, 2, append=False)
         b_ms, b_by = bound(w[0], w[1], "bfloat16")
         bw_ms, bw_by = bound(ww[0], ww[1], "bfloat16")
+        ws_live, ws_alloc = _workspace_bytes(lengths, 1, 16, 4, 64, 16, 64)
         log(f"  paged append bf16 B=8 nq=1 {label}: kernel {ms_k * 1e3:.1f} us, plain "
             f"{ms_p * 1e3:.1f} us, sdpa {ms_lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
-            f"({b_by}, {w[0] / 1e6:.2f} MB, {w[1] / 1e6:.1f} MFLOP)")
+            f"({b_by}, {w[0] / 1e6:.2f} MB, {w[1] / 1e6:.1f} MFLOP); workspace "
+            f"{ws_live / 1e3:.1f} KB of live partials, each written once and read once "
+            f"({ws_alloc / 1e3:.1f} KB allocated)")
         log(f"  paged window bf16 B=8 nq=1 {label}: kernel {ms_wk * 1e3:.1f} us, plain "
             f"{ms_wp * 1e3:.1f} us, sdpa {ms_lib * 1e3:.1f} us, bound {bw_ms * 1e3:.2f} us "
             f"({bw_by})")
         if label == "ctx512":
+            # what the events see besides the kernels, and each launch's
+            # own device time on a cold L2
+            floor = timer.ms(lambda: None)
+            log(f"  timer floor (nothing between the events): {floor * 1e3:.1f} us")
+
+            def append():
+                pa.paged_append_attention(q, nk, nv, kp, vp, table, pos, layer)
+
+            def cold_call():
+                timer.flush.zero_()
+                append()
+
+            for what, fn in (("after an L2 flush", cold_call), ("warm, run again", append)):
+                profile_window(torch, f"  paged append bf16 B=8 nq=1 ctx512 {what}", fn, top=0,
+                               watch=("paged_attention_partial", "paged_attention_merge"))
             results["paged_attention"] = dict(
                 ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=worst["append"],
@@ -321,9 +412,32 @@ def phase_kernels(torch, timer: Timer):
                 ms=ms_wk, plain_ms=ms_wp, library_ms=ms_lib, bound_ms=bw_ms,
                 bound_by=bw_by, max_abs_err=worst["window"],
             )
+    paged_split_sweep(torch, timer)
 
     results.update(phase_int4(torch, timer))
     return results
+
+
+def paged_split_sweep(torch, timer: Timer, keys=(32, 64, 128)):
+    """The append call's time at B=8, bf16, nq=1 for each split size, at
+    context 512 and at the steady-decode context ~152, the module's split
+    size restored after."""
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    kept = pa.SPLIT_KEYS
+    cases = {n: _paged_case(torch, torch.bfloat16, 1, [n] * 8) for n in (512, 152)}
+    try:
+        for split_keys in keys:
+            pa.SPLIT_KEYS = split_keys
+            times = []
+            for n, (kp, vp, table, pos, q, nk, nv) in cases.items():
+                ms = timer.ms(lambda: pa.paged_append_attention(q, nk, nv, kp, vp, table, pos, 3))
+                times.append(f"ctx {n} {ms * 1e3:.1f} us")
+            log(f"  paged split sweep: {split_keys} keys per split "
+                f"({pa.split_schedule(16, 64)[0]} pages): {', '.join(times)}"
+                f"{' (the module constant)' if split_keys == kept else ''}")
+    finally:
+        pa.SPLIT_KEYS = kept
 
 
 INT4_STEP = {
@@ -871,7 +985,7 @@ def steady_decode(torch, label, cfg, params, *, cache_dtype, bursts=4):
         f"({8 / ms * 1e3:.0f} tokens/s); bound {b_ms * 1e3:.1f} us "
         f"({weights / 1e6:.1f} MB parameters + {kv / 1e6:.1f} MB K/V per step)")
     profile_window(torch, f"{label}: profile of one 8-step burst", eng.step_burst,
-                   watch=("int4_",))
+                   watch=("paged_", "int4_"))
 
 
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):

@@ -9,7 +9,9 @@ its pool blocks in order.  Window query ``j`` (of ``nq``) sits at position
 
 Three entry points share one CUDA source (``csrc/paged_attention.cu``,
 whose header says what bounds it and how), compiled with and without its
-``APPEND`` flag:
+``APPEND`` flag.  Each call is a split-K decode: one launch attends each
+range of ``pages_per_split`` pages of a row into a float32 workspace, a
+second merges a row's ranges in a fixed order:
 
 * :func:`paged_append_attention` — the serving step: store each row's
   ``nq`` new k/v into layer ``layer`` of the stacked pools IN PLACE (rows
@@ -35,19 +37,20 @@ import torch
 from k8s_dra_driver_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-TILE_KEYS = 64  # keys per shared-memory tile the kernel aims for
+SPLIT_KEYS = 64  # keys per split; 64 won a sweep of 32/64/128 on an H100 (chip_smoke)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # paged_attention(dtype, append, d, q, new_k, new_v, k_pool, v_pool, table,
-# pos, write_mask, out, out_f32, B, hkv, groups, nq, bs, max_blocks,
-# pages_per_tile, scale, stream)
+# pos, write_mask, workspace, out, out_f32, B, hkv, groups, nq, bs,
+# max_blocks, pages_per_split, n_splits, scale, stream)
 _ARGTYPES = (
-    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
-# Kernel launches by instantiation since the counts were last set to 0
-# (the plain versions do not count): "append" for paged_append_attention,
-# "window" for paged_window_attention / paged_decode_attention.
+# Kernel calls by instantiation since the counts were last set to 0, one
+# per wrapper call (its two CUDA launches count once; the plain versions do
+# not count): "append" for paged_append_attention, "window" for
+# paged_window_attention / paged_decode_attention.
 launches = {"append": 0, "window": 0}
 
 
@@ -126,8 +129,11 @@ def paged_append_attention_plain(
     return _attend_gathered(q, kb, vb, pos)
 
 
-def pages_per_tile(block_size: int) -> int:
-    return max(1, TILE_KEYS // block_size)
+def split_schedule(block_size: int, max_blocks: int) -> tuple[int, int]:
+    """(pages per split, splits per row) for a table of ``max_blocks``
+    blocks: from shapes only, so no call reads ``pos`` on the host."""
+    pages = max(1, SPLIT_KEYS // block_size)
+    return pages, -(-max_blocks // pages)
 
 
 def check_kernel_shape(d: int, nq: int, block_size: int, append: bool) -> None:
@@ -147,8 +153,9 @@ def _i32(t, dev):
 
 
 def _launch(q, new_k, new_v, k_pool, v_pool, block_table, pos, write_mask, append):
-    """One kernel launch over ONE layer's pools ``[N, Hkv, d, bs]`` (views
-    into the stacked pools are fine: they are contiguous)."""
+    """One kernel call (partial, then merge) over ONE layer's pools
+    ``[N, Hkv, d, bs]`` (views into the stacked pools are fine: they are
+    contiguous)."""
     b, nq, hq, d = q.shape
     n_pool, hkv, d_pool, bs = k_pool.shape
     dev = k_pool.device
@@ -161,6 +168,8 @@ def _launch(q, new_k, new_v, k_pool, v_pool, block_table, pos, write_mask, appen
         raise ValueError(f"paged attention kernel takes float32 or bfloat16 pools, got {k_pool.dtype}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged attention kernel needs contiguous pools")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged attention kernel needs 16-byte aligned pools (cp.async)")
     if q.device != dev or block_table.device != dev or pos.device != dev:
         raise ValueError("paged attention operands must share the pools' device")
     # the kernel reads table row b and pos[b] for every b < B: a short table
@@ -181,24 +190,27 @@ def _launch(q, new_k, new_v, k_pool, v_pool, block_table, pos, write_mask, appen
     )
     table = _i32(block_table, dev)
     pos32 = _i32(pos, dev)
+    pages, n_splits = split_schedule(bs, table.shape[1])
+    # each split's (acc [d], m, l) per query row, written and read only for
+    # a row's live splits
+    workspace = torch.empty(
+        (b, hkv, n_splits, (hq // hkv) * nq, d + 2), dtype=torch.float32, device=dev
+    )
     if append:
         nk = new_k.to(k_pool.dtype).contiguous()
         nv = new_v.to(k_pool.dtype).contiguous()
         if tuple(nk.shape) != (b, nq, hkv, d) or tuple(nv.shape) != (b, nq, hkv, d):
             raise ValueError(f"new k/v must be {(b, nq, hkv, d)}, got {tuple(nk.shape)}")
-        wm = (
-            torch.ones((b,), dtype=torch.int32, device=dev)
-            if write_mask is None else _i32(write_mask, dev)
-        )
-        extra = (nk.data_ptr(), nv.data_ptr(), wm.data_ptr())
+        wm = None if write_mask is None else _i32(write_mask, dev)  # None: every row writes
+        extra = (nk.data_ptr(), nv.data_ptr(), None if wm is None else wm.data_ptr())
     else:
         extra = (None, None, None)
     rc = _build.load("paged_attention", {"paged_attention": _ARGTYPES}).paged_attention(
         _DTYPE_CODES[k_pool.dtype], int(append), d,
         qk.data_ptr(), extra[0], extra[1], k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), pos32.data_ptr(), extra[2], out.data_ptr(), int(out_f32),
-        b, hkv, hq // hkv, nq, bs, table.shape[1], pages_per_tile(bs), _scale(d),
-        torch.cuda.current_stream(dev).cuda_stream,
+        table.data_ptr(), pos32.data_ptr(), extra[2], workspace.data_ptr(), out.data_ptr(),
+        int(out_f32), b, hkv, hq // hkv, nq, bs, table.shape[1], pages, n_splits,
+        _scale(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("paged_attention", rc)
     launches["append" if append else "window"] += 1

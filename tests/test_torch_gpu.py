@@ -5,10 +5,15 @@ The file imports no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances: float32 within 1e-5 (sums in another order; TF32 off); bf16
-within 3e-2 (outputs of magnitude ~1 rounded to bf16, probabilities
-rounded before normalisation in the kernel and after it in the plain
-version); appended pool bytes and greedy streams identical.  int4: each
+Tolerances: paged attention elementwise within step * (|plain| + mag) +
+2^-16 * mag, mag the plain version's softmax weights applied to |V| in
+f32, step one bf16 step (2^-7 + 2^-16) in bf16 (P rounded to bf16 on each
+side: in the kernel against its split's max before normalisation, in the
+plain version after it; both within one step of mag) and 2^-16 in f32
+(sums in another order: splits merged by their (m, l); TF32 off), and
+never above the limit these tests held before, atol + rtol * |plain|
+with atol = rtol = 3e-2 in bf16 and 1e-5 in f32;
+appended pool bytes and greedy streams identical.  int4: each
 element within step * |plain| + 2^-16 * mag, mag = |x| @ |dequant(W)|,
 step one bf16 step (2^-7 + 2^-16) in bf16 and 0 in f32 (f32 sums in
 another order, then one rounding of the output); identity rows give the
@@ -38,7 +43,8 @@ from k8s_dra_driver_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.gpu
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+PAGED_STEP = {torch.float32: 2 ** -16, torch.bfloat16: 2 ** -7 + 2 ** -16}
+PAGED_CAP = {torch.float32: 1e-5, torch.bfloat16: 3e-2}  # the earlier atol = rtol
 
 
 @pytest.fixture
@@ -58,27 +64,84 @@ def _pools(dev, dtype, *, layers=2, hkv=2, d=16, bs=8, b=3, mb=6, seed=0):
     return k, v, table, g
 
 
+def _paged_close(got, want, mag):
+    """Each element within step * (|plain| + mag) + 2^-16 * mag (the
+    module's docstring)."""
+    assert mag.shape == want.shape
+    limit = PAGED_STEP[want.dtype] * (want.float().abs() + mag) + 2 ** -16 * mag
+    limit = torch.minimum(limit, PAGED_CAP[want.dtype] * (1 + want.float().abs()))
+    err = (got.float() - want.float()).abs()
+    over = int((err > limit).sum())
+    assert over == 0, (f"{over} elements over their limit; max_abs_err {err.max().item()}, "
+                       f"max|plain| {want.float().abs().max().item()}")
+
+
+def _window_positions(spec, nq, split):
+    """Row positions; "edges" puts rows at the kernel's split boundaries
+    (``split`` keys per split) in a table of 1024 positions."""
+    if spec != "edges":
+        return spec
+    if nq == 1:  # contexts 1, split - 1, split, split + 1 and 1024
+        return [0, split - 2, split - 1, split, 1023]
+    # pos = split - 1: the second split holds only keys masked for query 0;
+    # pos = split - 2: the window crosses a page and a split boundary
+    return [split - 1, split - 2, 0, 1024 - nq, 2 * split + 5]
+
+
+# (d, bs, mb, nq, positions): the small pools, then D 64 and 128 at the
+# serving block size, a row of 1024 positions, rows at the split boundaries
+PAGED_CASES = [
+    (16, 8, 6, 1, [0, 20, 47]), (16, 8, 6, 3, [6, 14, 45]),
+    (32, 4, 40, 3, [0, 62, 130]),  # bf16 rows of 8 bytes: P.V one element at a time
+    (64, 16, 64, 1, "edges"), (128, 16, 64, 1, "edges"),
+    (64, 16, 64, 4, "edges"), (128, 16, 64, 4, "edges"),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nq,pos", [(1, [0, 20, 47]), (3, [6, 14, 45])])
-def test_append_kernel_matches_plain(cuda, dtype, nq, pos):
-    k, v, table, g = _pools(cuda, dtype)
-    b, hq, d = 3, 8, 16
+@pytest.mark.parametrize(
+    "d,bs,mb,nq,pos", PAGED_CASES,
+    ids=[f"paged-d{c[0]}-nq{c[3]}{'-edges' if c[4] == 'edges' else ''}" for c in PAGED_CASES],
+)
+def test_append_kernel_matches_plain(cuda, dtype, d, bs, mb, nq, pos):
+    split = tpa.split_schedule(bs, mb)[0] * bs
+    pos = _window_positions(pos, nq, split)
+    b, hq = len(pos), 8
+    k, v, table, g = _pools(cuda, dtype, d=d, bs=bs, b=b, mb=mb)
     q = torch.randn((b, nq, hq, d), generator=g).to(cuda, dtype)
     nk = torch.randn((b, nq, 2, d), generator=g).to(cuda, dtype)
     nv = torch.randn((b, nq, 2, d), generator=g).to(cuda, dtype)
     pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
-    wmask = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    wmask = (torch.arange(b, device=cuda) % 3 != 1).to(torch.int32)  # row 1 does not write
     k2, v2 = k.clone(), v.clone()
+    mag = tpa.paged_append_attention_plain(
+        q.float(), nk.float(), nv.float().abs(), k.float(), v.float().abs(), table, pos, 1,
+        write_mask=wmask,
+    )
     before = tpa.launches["append"]
     out, _, _ = tpa.paged_append_attention(q, nk, nv, k, v, table, pos, 1, write_mask=wmask)
     want = tpa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, 1, write_mask=wmask)
     torch.cuda.synchronize()
     assert tpa.launches["append"] == before + 1
-    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    _paged_close(out, want, mag)
     assert torch.equal(k[:, 1:], k2[:, 1:]) and torch.equal(v[:, 1:], v2[:, 1:])
+    again, _, _ = tpa.paged_append_attention(q, nk, nv, k, v, table, pos, 1, write_mask=wmask)
+    assert torch.equal(again, out)
     got_w = tpa.paged_window_attention(q, k2[1], v2[1], table, pos)
     want_w = tpa.paged_window_attention_plain(q, k2[1], v2[1], table, pos)
-    torch.testing.assert_close(got_w.float(), want_w.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    mag_w = tpa.paged_window_attention_plain(
+        q.float(), k2[1].float(), v2[1].float().abs(), table, pos
+    )
+    _paged_close(got_w, want_w, mag_w)
+    assert torch.equal(tpa.paged_window_attention(q, k2[1], v2[1], table, pos), got_w)
+    # no write_mask: every row writes (layer 0, untouched so far on both sides)
+    mag = tpa.paged_append_attention_plain(
+        q.float(), nk.float(), nv.float().abs(), k2.float(), v2.float().abs(), table, pos, 0
+    )
+    out, _, _ = tpa.paged_append_attention(q, nk, nv, k, v, table, pos, 0)
+    want = tpa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, 0)
+    _paged_close(out, want, mag)
+    assert torch.equal(k[:, 1:], k2[:, 1:]) and torch.equal(v[:, 1:], v2[:, 1:])
 
 
 def test_paged_kernel_raises_instead_of_falling_back(cuda):
@@ -87,6 +150,10 @@ def test_paged_kernel_raises_instead_of_falling_back(cuda):
     pos = torch.zeros((3,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_window_attention(q, k[0], v[0], table, pos)
+    k, v, table, g = _pools(cuda, torch.float32)
+    shifted = torch.zeros(k[0].numel() + 1, device=cuda)[1:].view(k[0].shape)  # 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        tpa.paged_window_attention(q[..., :16].contiguous(), shifted, v[0], table, pos)
 
 
 INT4_STEP = {torch.float32: 0.0, torch.bfloat16: 2 ** -7 + 2 ** -16}

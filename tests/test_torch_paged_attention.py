@@ -130,3 +130,14 @@ def test_kernel_states_its_own_rule():
             t["q"], t["nk"], t["nv"], t["k"], t["v"], torch.from_numpy(table),
             torch.from_numpy(pos), 2,
         )
+
+
+@pytest.mark.parametrize("block_size", [1, 4, 16, 128])
+def test_split_schedule_covers_the_table_from_shapes_alone(block_size):
+    """The kernel's splits: each of at most SPLIT_KEYS keys (one block when
+    a block is larger), enough of them to cover every table entry and no
+    split past the table's end."""
+    for max_blocks in (1, 5, 64, 65):
+        pages, n_splits = tpa.split_schedule(block_size, max_blocks)
+        assert 1 <= pages <= 128 and pages * block_size <= max(tpa.SPLIT_KEYS, block_size)
+        assert (n_splits - 1) * pages < max_blocks <= n_splits * pages
