@@ -8,8 +8,9 @@ exits 2 before any result):
 
 1. environment: the card's name and power limit; the three kernel sources
    built from ``k8s_dra_driver_torch/csrc`` with ``nvcc``, all started
-   together (ptxas report printed; the D 64 bf16 backward kernels must not
-   spill);
+   together (ptxas report printed; the D 64 backward kernels, bf16 and
+   f32, must not spill; the f32 backward's registers and shared memory
+   printed);
 2. serving kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (FLAGSHIP_MODERN: Hq 16 / Hkv 4 / d 64, L 8,
    block 16, B 8, context 512, ragged lengths up to 1024 and rows at the
@@ -23,7 +24,8 @@ exits 2 before any result):
 3. the flash kernels (forward, dQ, dK/dV) the same way, at the training
    path's shapes (B·H 64, S 256 and 1024, D 64, causal and full, f32 and
    bf16), timed at B·H 64, S 1024, causal, bf16 beside SDPA's forward and
-   its backward through autograd, and the f32 kernels beside SDPA in f32;
+   its backward through autograd, and the f32 kernels beside SDPA in f32
+   (one profiled f32 backward; the f32 backward also at D 128);
 4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
    pool) through ``PagedServeEngine.pump``: every stream checked
    teacher-forced against the plain dense decode path;
@@ -113,8 +115,10 @@ KERNELS = {
         replaces="k8s_dra_driver_tpu/ops/flash_attention.py:179",
     ),
 }
-# kernels whose ptxas report must show 0 bytes of spill stores
-NO_SPILL = ("flash_bwd_dq_wgmma_kernelILi64E", "flash_bwd_dkv_wgmma_kernelILi64E")
+# kernels whose ptxas report must show 0 bytes of spill stores: the D 64
+# backward kernels, bf16 and f32
+NO_SPILL = ("flash_bwd_dq_wgmma_kernelILi64E", "flash_bwd_dkv_wgmma_kernelILi64E",
+            "flash_bwd_dq_fma_kernelILi64E", "flash_bwd_dkv_fma_kernelILi64E")
 KERNEL_SOURCES = ["int4_matmul", "paged_attention", "flash_attention"]
 
 
@@ -185,7 +189,7 @@ def phase_environment(torch):
         _build.library_path(name).unlink(missing_ok=True)
     _build.build(KERNEL_SOURCES)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    spills = {}
+    spills, regs = {}, {}
     for name, report in _build.ptxas_reports.items():
         log(f"--- ptxas -v: {name}.cu")
         entry = ""
@@ -194,14 +198,40 @@ def phase_environment(torch):
                 log("   ", line.strip())
             if "Compiling entry" in line:
                 entry = line
-            elif "spill stores" in line and any(k in entry for k in NO_SPILL):
+            elif any(k in entry for k in NO_SPILL):
                 key = entry.split("'")[1]
-                stores = int(line.split("bytes spill stores")[0].split(",")[-1])
-                spills[key] = max(spills.get(key, 0), stores)
-    log(f"spill stores of the D 64 bf16 backward kernels: {spills}")
+                if "spill stores" in line:
+                    stores = int(line.split("bytes spill stores")[0].split(",")[-1])
+                    spills[key] = max(spills.get(key, 0), stores)
+                elif "registers" in line:
+                    regs[key] = int(line.split("Used")[1].split("registers")[0])
+    log(f"spill stores of the D 64 backward kernels (bf16, f32): {spills}")
+    fma_smem = flash_fma_smem()
+    for k in NO_SPILL[2:]:
+        key = next((e for e in regs if k in e), None)
+        kind = "dkv" if "dkv" in k else "dq"
+        log(f"  {k}: {regs.get(key)} registers, {spills.get(key)} bytes of spill stores; "
+            f"dynamic shared memory by head dim {fma_smem[kind]} bytes (a block may have "
+            f"232448)")
     if len(spills) != len(NO_SPILL) or any(spills.values()):
-        raise AssertionError(f"the D 64 bf16 backward kernels spill or were not reported: {spills}")
+        raise AssertionError(f"the D 64 backward kernels spill or were not reported: {spills}")
+    if max(max(v.values()) for v in fma_smem.values()) > 232448:
+        raise AssertionError(f"an f32 backward kernel asks for too much shared memory: {fma_smem}")
     return card
+
+
+def flash_fma_smem():
+    """{"dq"/"dkv": {head dim: bytes of dynamic shared memory}} of the f32
+    backward kernels, as their launchers ask for it."""
+    import ctypes
+
+    from k8s_dra_driver_torch.ops import _build
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    fn = _build.load("flash_attention", fa._LAUNCHERS).flash_bwd_fma_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return {kind: {d: fn(d, int(kind == "dkv")) for d in fa.KERNEL_HEAD_DIMS}
+            for kind in ("dq", "dkv")}
 
 
 def _paged_case(torch, dtype, nq, lengths, *, L=8, hq=16, hkv=4, d=64, bs=16, mb=64, seed=1):
@@ -694,7 +724,7 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
             lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), do_sdpa, retain_graph=True)
         )
         work = _flash_work(bh, s, d, q.element_size(), True)
-        kern = dict(zip(names, (fa.forward_kernel_for(dtype), *fa.backward_kernel_for(dtype))))
+        kern = dict(zip(names, kern_names(fa, dtype)))
         for name in names:
             b_ms, b_by = bound(*work[name], dname)
             lib = ms_sdpa if name == "flash_fwd" else ms_sdpa_bwd
@@ -705,11 +735,52 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
                 f"{ms[name][0] * 1e3:.1f} us, plain {ms[name][1] * 1e3:.1f} us, sdpa "
                 f"{'fwd' if name == 'flash_fwd' else 'bwd'} {lib * 1e3:.1f} us, bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}, {work[name][0] / 1e6:.1f} MB, "
-                f"{work[name][1] / 1e9:.2f} GFLOP)")
+                f"{work[name][1] / 1e9:.2f} GFLOP; the kernel at {b_ms / ms[name][0]:.3f} "
+                f"of the bound's rate)")
         log(f"  sdpa {dname} backward covers dQ and dK/dV together: kernels "
             f"{(ms['flash_bwd_dq'][0] + ms['flash_bwd_dkv'][0]) * 1e3:.1f} us against "
             f"{ms_sdpa_bwd * 1e3:.1f} us")
+        if dtype == torch.float32:
+            profile_window(
+                torch, f"  flash f32 backward (dQ, dK/dV) BH={bh} S={s} D={d} causal",
+                lambda: (fa._dq_bhsd(q, k, v, lse, dout, delta, True),
+                         fa._dkv_bhsd(q, k, v, lse, dout, delta, True)),
+                top=2, watch=kern_names(fa, dtype)[1:])
+    flash_f32_backward_d128(torch, timer, bh, s)
     return results
+
+
+def kern_names(fa, dtype):
+    return (fa.forward_kernel_for(dtype), *fa.backward_kernel_for(dtype))
+
+
+def flash_f32_backward_d128(torch, timer: Timer, bh: int, s: int, d: int = 128):
+    """The f32 backward pair at D 128 (S ``s``, causal), where its shared
+    memory is tightest, timed beside SDPA's f32 backward on the same
+    inputs."""
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=DEV) for _ in range(4))
+    out, lse = fa._forward_bhsd(q, k, v, True)
+    delta = fa._delta(dout, out)
+    ms = {"flash_bwd_dq": timer.ms(lambda: fa._dq_bhsd(q, k, v, lse, dout, delta, True)),
+          "flash_bwd_dkv": timer.ms(lambda: fa._dkv_bhsd(q, k, v, lse, dout, delta, True))}
+    qs, ks, vs = (x.reshape(-1, 16, s, d).detach().requires_grad_() for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    ms_sdpa = timer.ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout.reshape(-1, 16, s, d),
+                                                   retain_graph=True))
+    work = _flash_work(bh, s, d, 4, True)
+    for name, kern in zip(ms, fa.backward_kernel_for(torch.float32)):
+        b_ms, b_by = bound(*work[name], "float32")
+        log(f"  {name} float32 ({kern}) BH={bh} S={s} D={d} causal: kernel "
+            f"{ms[name] * 1e3:.1f} us, sdpa bwd {ms_sdpa * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
+            f"us ({b_by}, {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP; the "
+            f"kernel at {b_ms / ms[name]:.3f} of the bound's rate)")
+    log(f"  sdpa float32 backward at D {d} covers dQ and dK/dV together: kernels "
+        f"{sum(ms.values()) * 1e3:.1f} us against {ms_sdpa * 1e3:.1f} us")
 
 
 def train_flops(cfg, batch: int, seq: int) -> int:

@@ -15,7 +15,8 @@
 // `to_bh` layout), lse and delta are [BH, S] f32 (one value per row, not the
 // TPU's 128-lane broadcast).  The wgmma kernels take bfloat16 q, k, v, dout
 // with 16-byte-aligned bases (TMA reads from nothing else), the fma kernels
-// float32; dq/dk/dv come out in the input dtype, and the bf16 forward may
+// float32, the backward ones with 16-byte-aligned bases too (cp.async reads 16
+// bytes at a time); dq/dk/dv come out in the input dtype, and the bf16 forward may
 // write out in float32 (`out_f32`, the ring composition's partials).  Head
 // dims 16, 32, 64, 128.  Any S: the ragged last tile is masked here.
 //
@@ -76,16 +77,67 @@
 //
 // The f32 kernels (flash_fwd_fma_kernel, flash_bwd_dq_fma_kernel,
 // flash_bwd_dkv_fma_kernel) do their products as f32 FMAs on the CUDA cores,
-// from tiles in shared memory (rows padded to D+1 floats so the lanes of a
-// half-warp that read 16 different rows hit 16 different banks); each of the
-// 256 threads owns a 4x4 block of the 64x64 score tile and a 4 x D/16 block of
-// the output tile in registers.  For f32 that is the design, not a stopgap:
-// the tensor cores would run f32 as TF32, far outside the 2^-16 limit.  Their
-// bound is 67 TFLOP/s of f32 FMAs.
+// 256 threads a block.  For f32 that is the design, not a stopgap: the tensor
+// cores take f32 only as TF32 (a 10-bit mantissa), far outside the 2^-16
+// limit.  Their bound is 67 TFLOP/s of f32 FMAs: at the training shape in f32,
+// 128.3 us for the forward, 192.5 us for dQ and 256.7 us for dK/dV.
+//
+// The forward reads its operands one float at a time from tiles padded to
+// D+1 floats (the lanes of a half-warp that read 16 different rows hit 16
+// different banks), loaded synchronously (load_tile); each thread owns a 4x4
+// block of the 64x64 score tile and a 4 x D/16 block of the output.
+//
+// The backward pair is built around what an SM sustains.  Measured on an
+// H100 (bench/fma_bench.py), a loop of f32 FMAs fed from shared memory runs at
+// 57% of the FMA rate with 4x4 blocks of two products a thread, 61% with one
+// 8x4 block and 68% with 8x8, whether it reads one float or four at a time;
+// so the per-thread block sets the ceiling, and the rest of the time goes to
+// the phases between the products (exp, barriers, copies), which need other
+// warps to hide them.
+//   * Groups.  A block is two groups of 128 threads, one per score product:
+//     dQ's group A computes S = Q K^T, B dP = dO V^T; dK/dV's A computes
+//     S^T = K Q^T, B dP^T = V dO^T.  A thread owns an 8x4 block of its
+//     group's 64x64 tile (rows ty + 8 i, columns tx + 16 j): per 4 elements
+//     of D, 8 + 4 float4 loads for 128 FMAs on 32 independent chains.  A
+//     writes p = 2^(s scale log2 e - lse log2 e) (one MUFU op; 0 where
+//     masked, the masks evaluated only on tiles that cross the diagonal or
+//     S) to a shared P tile; B then turns it into ds = p (dp - delta) in
+//     place (dQ) or into a dS^T tile (dK/dV).  This exchange sits on the
+//     critical path of every tile, so it is kept short: lse and delta are in
+//     registers, not reread from shared memory per element.  The second products split
+//     the same way: in dK/dV A does dV = P^T dO and B dK = dS^T Q; in dQ A
+//     sums dS K over the first 32 keys of each tile and B over the last 32,
+//     and B's sums join A's through shared memory once, at the end, in a
+//     fixed order.  Each thread owns 8 output rows (ty + 8 i) and D/16
+//     columns read and written V = min(4, D/16) at a time.
+//   * Two blocks an SM at D <= 64 (256 threads, <= 128 registers, ~105 KB
+//     of shared memory each), so that one block's exp, exchange and barriers
+//     overlap the other's products.
+//   * Copies.  Tiles land by 16-byte cp.async in rows padded to D+4 floats (a
+//     multiple of 16 bytes); rows at or past S are zero-filled through the
+//     copy's src-size operand, and the masks stay explicit on the fragment
+//     all the same (p = 0 there, not exp(0 - lse)).  The block's own tiles
+//     (Q and dO for dQ; K and V for dK/dV) land once.  dQ keeps K in a
+//     2-stage ring (tile j + 1 is copied while tile j is used, released by
+//     cp.async.wait_group and one barrier) and V in one buffer, refilled as
+//     soon as the score products have read it.  dK/dV holds one Q/dO tile,
+//     with its 64 lse and delta values copied 4 bytes at a time, refilled
+//     after the second products: a second stage would not fit beside a
+//     second block, and the other block covers the copy.
+//   * Banks.  A warp is an 8 (tx) x 4 (ty) patch of its group's thread grid,
+//     so an LDS.128 reads 4 rows or 8 rows of a tile, or 8 neighbouring
+//     vectors of one row; (D+4)/4 is odd, so their 16-byte words fall in
+//     distinct bank quads.  The P/dS tiles have rows of 72 floats, which put
+//     a warp's 32 scalar stores (4 rows x 8 columns) on 32 distinct banks.
+//   * Shared memory: dQ holds Q, dO, 2 K tiles, V and dS: 43, 63, 103 and 183
+//     KB at D 16, 32, 64, 128; dK/dV holds K, V, Q, dO, P^T, dS^T, lse and
+//     delta: 56.5, 72.5, 104.5 and 168.5 KB.  At D 128 one block fits an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "hopper.cuh"
 
@@ -93,12 +145,14 @@ namespace {
 
 constexpr int BQ = 64;               // query rows per tile
 constexpr int BK = 64;               // key rows per tile
-constexpr int TX = 16, TY = 16;      // thread grid of an f32 block
+constexpr int TX = 16, TY = 16;      // thread grid of the f32 forward
 constexpr int THREADS = TX * TY;
 constexpr int RM = BQ / TY;          // tile rows per thread (4)
 constexpr int CM = BK / TX;          // score columns per thread (4)
-constexpr int LP = 65;               // padded row stride of the 64-wide p/ds tiles
+constexpr int LP = 65;               // padded row stride of the forward's 64-wide p tile
+constexpr int LS = 72;               // padded row stride of the backward's p/ds tiles
 constexpr float NEG_INF = -1e30f;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may have
 
 static_assert(BQ == BK, "the causal tile walks below assume square tiles");
 
@@ -244,33 +298,208 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- the f32 backward: cp.async tiles, float4 reads, one product per group ---
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by one MUFU instruction, results under 2^-126 flushed to 0 (exp2f
+// spends a few more instructions on them: 14 us of dQ's time at the
+// training shape on an H100)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int SV = 4;  // elements of D a score product reads at once (one float4)
+
+// A backward block is two groups of 128 threads, one for each of the two
+// score products; a thread owns a BR x BC block of its group's 64 x 64 score
+// tile, rows ty + GY i and columns tx + GX j.
+constexpr int GROUP = THREADS / 2;
+constexpr int BR = 8, BC = 4;
+constexpr int GY = BQ / BR, GX = BK / BC;  // 8 x 16 threads
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy this thread has issued has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [row0, row0 + 64) of one [S, D] f32 slab into shared memory with row
+// stride D + 4, by 16-byte cp.async; rows at or past S are zero-filled
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int row0,
+                                          int S) {
+  constexpr int C = D / 4;  // 16-byte pieces per row
+#pragma unroll
+  for (int it = 0; it < BQ * C / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / C, c = i % C, g = row0 + r;
+    cp_async16(dst + r * (D + 4) + 4 * c, src + (size_t)(g < S ? g : 0) * D + 4 * c, g < S);
+  }
+}
+
+// V consecutive floats (V = 1, 2, 4) as one load or store
+template <int V>
+__device__ __forceinline__ void load_vec(float (&r)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x, r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&r)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    *p = r[0];
+  }
+}
+
+// a thread's output columns V tx + GX V h + u: V features as one vector,
+// D / GX / V vectors a row
+template <int D> __host__ __device__ constexpr int out_vec() { return D >= 64 ? 4 : D / GX; }
+
+// blocks an SM runs at once: 2 where shared memory allows (D <= 64)
+template <int D> __host__ __device__ constexpr int bwd_blocks() { return D <= 64 ? 2 : 1; }
+
+// One score product, s[i][j] += a_i . b_j over D: a_i = a + GY i (D+4) is one
+// of the thread's rows, b_j = b + GX j (D+4) one of its columns; SV
+// consecutive elements of each come as one vector, and each sum runs over D
+// in order.
+template <int D>
+__device__ __forceinline__ void score_product(float (&s)[BR][BC], const float* a,
+                                              const float* b) {
+  constexpr int LD = D + 4;
+#pragma unroll 1  // more would push D 64 past 128 registers
+  for (int e = 0; e < D; e += SV) {
+    float ar[BR][SV], br[BC][SV];
+#pragma unroll
+    for (int i = 0; i < BR; ++i) load_vec<SV>(ar[i], a + i * GY * LD + e);
+#pragma unroll
+    for (int j = 0; j < BC; ++j) load_vec<SV>(br[j], b + j * GX * LD + e);
+#pragma unroll
+    for (int u = 0; u < SV; ++u)
+#pragma unroll
+      for (int i = 0; i < BR; ++i)
+#pragma unroll
+        for (int j = 0; j < BC; ++j) s[i][j] = fmaf(ar[i][u], br[j][u], s[i][j]);
+  }
+}
+
+// One second product over N rows of a [N x D] tile x:
+//   acc[i][V h + u] += sum_{r < N} w_i[r] x[r (D+4) + GX V h + u],
+// w_i = w + GY i LS one of the thread's rows of a P or dS tile, read 4
+// entries at a time as one float4; x points at the thread's first output
+// column and is read as V-wide vectors; each sum runs over r in order.
+template <int D, int N>
+__device__ __forceinline__ void tile_product(float (&acc)[BR][D / GX], const float* w,
+                                             const float* x) {
+  constexpr int LD = D + 4, V = out_vec<D>(), NV = D / GX / V;
+#pragma unroll 1
+  for (int r = 0; r < N; r += 4) {
+    float wr[BR][4];
+#pragma unroll
+    for (int i = 0; i < BR; ++i) load_vec<4>(wr[i], w + i * GY * LS + r);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float xr[NV][V];
+#pragma unroll
+      for (int h = 0; h < NV; ++h) load_vec<V>(xr[h], x + (r + u) * LD + GX * V * h);
+#pragma unroll
+      for (int i = 0; i < BR; ++i)
+#pragma unroll
+        for (int h = 0; h < NV; ++h)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[i][h * V + e] = fmaf(wr[i][u], xr[h][e], acc[i][h * V + e]);
+    }
+  }
+}
+
+// the thread's rows (row0 + ty + GY i) of a [64 x D] output tile, scaled, to
+// global memory; rows at or past S are not written
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[BR][D / GX], int row0,
+                                           int S, int tx, int ty, float scale) {
+  constexpr int V = out_vec<D>(), NV = D / GX / V;
+#pragma unroll
+  for (int i = 0; i < BR; ++i) {
+    const int g = row0 + ty + GY * i;
+    if (g >= S) continue;
+#pragma unroll
+    for (int h = 0; h < NV; ++h) {
+      float o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = scale * acc[i][h * V + e];
+      store_vec<V>(out + (size_t)g * D + V * tx + GX * V * h, o);
+    }
+  }
+}
+
+// a group's thread grid: each of its 4 warps is an 8 x 4 patch, tx in
+// [8 (w % 2), +8), ty in [4 (w / 2 % 2), +4), so a warp reads 4 rows and 8
+// columns of the score tiles
+__device__ __forceinline__ int bwd_tx() { return threadIdx.x % 8 + 8 * (threadIdx.x / 32 % 2); }
+__device__ __forceinline__ int bwd_ty() { return threadIdx.x % 32 / 8 + 4 * (threadIdx.x / 64 % 2); }
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, bwd_blocks<D>())
 flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dq, int S, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int EC = D / TX;
+  constexpr int LD = D + 4, TILE = BQ * LD, EC = D / GX;
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+  // group A: S = Q K^T, then dQ over keys [0, 32) of each tile; group B:
+  // dP = dO V^T, then dQ over keys [32, 64)
+  const bool a = threadIdx.x < GROUP;
+  const int tx = bwd_tx(), ty = bwd_ty();
   extern __shared__ float smem[];
-  float* q_s = smem;             // [BQ][LD]
-  float* do_s = q_s + BQ * LD;   // [BQ][LD]
-  float* k_s = do_s + BQ * LD;   // [BK][LD]
-  float* v_s = k_s + BK * LD;    // [BK][LD]
-  float* ds_s = v_s + BK * LD;   // [BQ][LP]
+  float* q_s = smem;              // [BQ][LD]
+  float* do_s = q_s + TILE;       // [BQ][LD]
+  float* k_s = do_s + TILE;       // [2 stages][BK][LD]
+  float* v_s = k_s + 2 * TILE;    // [BK][LD]
+  float* ds_s = v_s + TILE;       // [BQ][LS], p, then ds
   const size_t base = (size_t)bh * S * D;
-  load_tile<D>(q_s, q + base, q0, S, BQ);
-  load_tile<D>(do_s, dout + base, q0, S, BQ);
+  copy_tile<D>(q_s, q + base, q0, S);
+  copy_tile<D>(do_s, dout + base, q0, S);
+  copy_tile<D>(k_s, k + base, 0, S);
+  copy_tile<D>(v_s, v + base, 0, S);
+  cp_async_commit();
 
-  float lse_r[RM], delta_r[RM], acc[RM][EC];
+  // A keeps its rows' lse log2 e (p = 2^(s scale log2 e - lse log2 e)), B
+  // their delta
+  const float sl2 = scale * LOG2E;
+  float row_r[BR], acc[BR][EC];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qp = q0 + ty + TY * i;
-    lse_r[i] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
-    delta_r[i] = qp < S ? delta[(size_t)bh * S + qp] : 0.f;
+  for (int i = 0; i < BR; ++i) {
+    const int qp = q0 + ty + GY * i;
+    row_r[i] = qp >= S ? 0.f : a ? lse[(size_t)bh * S + qp] * LOG2E : delta[(size_t)bh * S + qp];
 #pragma unroll
     for (int c = 0; c < EC; ++c) acc[i][c] = 0.f;
   }
@@ -278,196 +507,165 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int n_kt = key_tiles(q0, S, causal);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(k_s, k + base, k0, S, BK);
-    load_tile<D>(v_s, v + base, k0, S, BK);
-    __syncthreads();
+    const float* k_t = k_s + (kt & 1) * TILE;
+    cp_async_wait_all();
+    __syncthreads();  // K and V of tile kt are in; iteration kt - 1 no longer reads ds_s or k_t's twin
+    if (kt + 1 < n_kt) {
+      copy_tile<D>(k_s + ((kt + 1) & 1) * TILE, k + base, k0 + BK, S);
+      cp_async_commit();
+    }
 
-    float s[RM][CM], dp[RM][CM];
+    float x[BR][BC] = {};  // A: s, B: dp
+    score_product<D>(x, (a ? q_s : do_s) + ty * LD, (a ? k_t : v_s) + tx * LD);
+    float* ds_t = ds_s + ty * LS + tx;  // the thread's (0, 0) entry
+    if (a) {
+      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+      for (int i = 0; i < BR; ++i) {
+        const int qp = q0 + ty + GY * i;
 #pragma unroll
-      for (int j = 0; j < CM; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < D; ++e) {
-      float qa[RM], da[RM], kb[CM], vb[CM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        qa[i] = q_s[(ty + TY * i) * LD + e];
-        da[i] = do_s[(ty + TY * i) * LD + e];
+        for (int j = 0; j < BC; ++j) {
+          const int kp = k0 + tx + GX * j;
+          const bool masked = edge && (kp >= S || (causal && kp > qp));
+          ds_t[GY * i * LS + GX * j] = masked ? 0.f : exp2_ftz(fmaf(x[i][j], sl2, -row_r[i]));
+        }
       }
+    }
+    __syncthreads();  // p is in; V of tile kt is read
+    if (kt + 1 < n_kt) {
+      copy_tile<D>(v_s, v + base, k0 + BK, S);
+      cp_async_commit();
+    }
+    if (!a) {
 #pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        kb[j] = k_s[(tx + TX * j) * LD + e];
-        vb[j] = v_s[(tx + TX * j) * LD + e];
-      }
+      for (int i = 0; i < BR; ++i)
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CM; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+        for (int j = 0; j < BC; ++j) {
+          float* e = ds_t + GY * i * LS + GX * j;
+          *e = *e * (x[i][j] - row_r[i]);
         }
     }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qp = q0 + ty + TY * i;
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        const int kp = k0 + tx + TX * j;
-        const bool masked = kp >= S || (causal && kp > qp);
-        const float p = masked ? 0.f : expf(s[i][j] * scale - lse_r[i]);
-        ds_s[(ty + TY * i) * LP + tx + TX * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float kb[EC];
-#pragma unroll
-      for (int j = 0; j < EC; ++j) kb[j] = k_s[c * LD + tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float d = ds_s[(ty + TY * i) * LP + c];
-#pragma unroll
-        for (int j = 0; j < EC; ++j) acc[i][j] = fmaf(d, kb[j], acc[i][j]);
-      }
-    }
+    __syncthreads();  // ds is in
+    const int kh = a ? 0 : BK / 2;
+    tile_product<D, BK / 2>(acc, ds_s + ty * LS + kh, k_t + kh * LD + out_vec<D>() * tx);
   }
 
+  // B's sums meet A's through shared memory, A's first: q_s and do_s were
+  // last read before the loop's last barrier
+  float* part = smem;  // [BR * EC][GROUP]
+  const int t = threadIdx.x % GROUP;
+  if (!a) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qp = q0 + ty + TY * i;
-    if (qp >= S) continue;
-    const size_t row = base + (size_t)qp * D;
+    for (int i = 0; i < BR; ++i)
 #pragma unroll
-    for (int j = 0; j < EC; ++j) dq[row + tx + TX * j] = scale * acc[i][j];
+      for (int c = 0; c < EC; ++c) part[(i * EC + c) * GROUP + t] = acc[i][c];
+  }
+  __syncthreads();
+  if (a) {
+#pragma unroll
+    for (int i = 0; i < BR; ++i)
+#pragma unroll
+      for (int c = 0; c < EC; ++c) acc[i][c] += part[(i * EC + c) * GROUP + t];
+    store_rows<D>(dq + base, acc, q0, S, tx, ty, scale);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, bwd_blocks<D>())
 flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv, int S, int causal,
                          float scale) {
-  constexpr int LD = D + 1;
-  constexpr int EC = D / TX;
+  constexpr int LD = D + 4, TILE = BQ * LD, EC = D / GX;
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * BK;  // the first key tiles see the most q tiles
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  // group A: S^T = K Q^T, then dV = P^T dO; group B: dP^T = V dO^T, then
+  // dK = dS^T Q.  A thread's rows are keys, its score columns queries.
+  const bool a = threadIdx.x < GROUP;
+  const int tx = bwd_tx(), ty = bwd_ty();
   extern __shared__ float smem[];
   float* k_s = smem;               // [BK][LD]
-  float* v_s = k_s + BK * LD;      // [BK][LD]
-  float* q_s = v_s + BK * LD;      // [BQ][LD]
-  float* do_s = q_s + BQ * LD;     // [BQ][LD]
-  float* pt_s = do_s + BQ * LD;    // [BK][LP], p^T
-  float* dst_s = pt_s + BK * LP;   // [BK][LP], ds^T
-  float* lse_s = dst_s + BK * LP;  // [BQ]
+  float* v_s = k_s + TILE;         // [BK][LD]
+  float* q_s = v_s + TILE;         // [BQ][LD]
+  float* do_s = q_s + TILE;        // [BQ][LD]
+  float* pt_s = do_s + TILE;       // [BK][LS], p^T
+  float* dst_s = pt_s + BK * LS;   // [BK][LS], ds^T
+  float* lse_s = dst_s + BK * LS;  // [BQ]
   float* delta_s = lse_s + BQ;     // [BQ]
   const size_t base = (size_t)bh * S * D;
-  load_tile<D>(k_s, k + base, k0, S, BK);
-  load_tile<D>(v_s, v + base, k0, S, BK);
 
-  // this thread's rows are keys k0 + ty + TY*i, its score columns queries
-  float dk_acc[RM][EC], dv_acc[RM][EC];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < EC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  // q tile qt: its q, dout, lse and delta
+  auto copy_q_tile = [&](int qt) {
+    const int q0 = qt * BQ;
+    copy_tile<D>(q_s, q + base, q0, S);
+    copy_tile<D>(do_s, dout + base, q0, S);
+    if (threadIdx.x < 2 * BQ) {
+      const int qp = q0 + threadIdx.x % BQ;
+      cp_async4(lse_s + threadIdx.x,
+                (threadIdx.x < BQ ? lse : delta) + (size_t)bh * S + (qp < S ? qp : 0), qp < S);
+    }
+    cp_async_commit();
+  };
 
   // causal: q tiles whose last row reaches k0, i.e. from the diagonal tile on
   const int qt0 = causal ? k0 / BQ : 0;
   const int n_qt = (S + BQ - 1) / BQ;
+  copy_tile<D>(k_s, k + base, k0, S);
+  copy_tile<D>(v_s, v + base, k0, S);
+  copy_q_tile(qt0);
+
+  const float sl2 = scale * LOG2E;
+  float acc[BR][EC];  // A: dv, B: dk
+#pragma unroll
+  for (int i = 0; i < BR; ++i)
+#pragma unroll
+    for (int c = 0; c < EC; ++c) acc[i][c] = 0.f;
+
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<D>(q_s, q + base, q0, S, BQ);
-    load_tile<D>(do_s, dout + base, q0, S, BQ);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const int qp = q0 + r;
-      lse_s[r] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
-      delta_s[r] = qp < S ? delta[(size_t)bh * S + qp] : 0.f;
-    }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // q tile qt is in
 
-    float st[RM][CM], dpt[RM][CM];
+    float x[BR][BC] = {};  // A: s^T, B: dp^T
+    score_product<D>(x, (a ? k_s : v_s) + ty * LD, (a ? q_s : do_s) + tx * LD);
+    // A: lse log2 e of the thread's columns, B: their delta (read once: the
+    // stores below may alias them for the compiler)
+    float col_r[BC];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int c = 0; c < BC; ++c)
+      col_r[c] = a ? lse_s[tx + GX * c] * LOG2E : delta_s[tx + GX * c];
+    if (a) {
+      const bool edge = q0 + BQ > S || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-      for (int j = 0; j < CM; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < D; ++e) {
-      float ka[RM], va[RM], qb[CM], db[CM];
+      for (int i = 0; i < BR; ++i) {
+        const int kp = k0 + ty + GY * i;
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        ka[i] = k_s[(ty + TY * i) * LD + e];
-        va[i] = v_s[(ty + TY * i) * LD + e];
-      }
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        qb[j] = q_s[(tx + TX * j) * LD + e];
-        db[j] = do_s[(tx + TX * j) * LD + e];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CM; ++j) {
-          st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
-          dpt[i][j] = fmaf(va[i], db[j], dpt[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int kp = k0 + ty + TY * i;
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        const int r = tx + TX * j;
-        const int qp = q0 + r;
-        const bool masked = qp >= S || (causal && kp > qp);
-        const float p = masked ? 0.f : expf(st[i][j] * scale - lse_s[r]);
-        pt_s[(ty + TY * i) * LP + r] = p;
-        dst_s[(ty + TY * i) * LP + r] = p * (dpt[i][j] - delta_s[r]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float qb[EC], db[EC];
-#pragma unroll
-      for (int j = 0; j < EC; ++j) {
-        qb[j] = q_s[r * LD + tx + TX * j];
-        db[j] = do_s[r * LD + tx + TX * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float p = pt_s[(ty + TY * i) * LP + r];
-        const float d = dst_s[(ty + TY * i) * LP + r];
-#pragma unroll
-        for (int j = 0; j < EC; ++j) {
-          dv_acc[i][j] = fmaf(p, db[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(d, qb[j], dk_acc[i][j]);
+        for (int c = 0; c < BC; ++c) {
+          const int r = tx + GX * c, qp = q0 + r;
+          const bool masked = edge && (qp >= S || (causal && kp > qp));
+          pt_s[(ty + GY * i) * LS + r] = masked ? 0.f : exp2_ftz(fmaf(x[i][c], sl2, -col_r[c]));
         }
       }
     }
-  }
-
+    __syncthreads();  // p^T is in
+    if (!a) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kp = k0 + ty + TY * i;
-    if (kp >= S) continue;
-    const size_t row = base + (size_t)kp * D;
+      for (int i = 0; i < BR; ++i)
 #pragma unroll
-    for (int j = 0; j < EC; ++j) {
-      dk[row + tx + TX * j] = scale * dk_acc[i][j];
-      dv[row + tx + TX * j] = dv_acc[i][j];
+        for (int c = 0; c < BC; ++c) {
+          const int e = (ty + GY * i) * LS + tx + GX * c;
+          dst_s[e] = pt_s[e] * (x[i][c] - col_r[c]);
+        }
+    }
+    __syncthreads();  // ds^T is in
+    tile_product<D, BQ>(acc, (a ? pt_s : dst_s) + ty * LS, (a ? do_s : q_s) + out_vec<D>() * tx);
+    if (qt + 1 < n_qt) {
+      __syncthreads();  // q tile qt and p^T/ds^T are read
+      copy_q_tile(qt + 1);
     }
   }
+  store_rows<D>((a ? dv : dk) + base, acc, k0, S, tx, ty, a ? 1.f : scale);
 }
 
 // ---- bf16 on the tensor cores ---------------------------------------------------
@@ -940,12 +1138,18 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int D> constexpr size_t fwd_fma_smem() {
   return sizeof(float) * (3 * BQ * (D + 1) + BQ * LP);
 }
+// dQ: Q, dO, K in 2 stages, V and dS; dK/dV: K, V, Q, dO, P^T, dS^T, lse and delta
 template <int D> constexpr size_t dq_fma_smem() {
-  return sizeof(float) * (4 * BQ * (D + 1) + BQ * LP);
+  return sizeof(float) * (5 * BQ * (D + 4) + BQ * LS);
 }
 template <int D> constexpr size_t dkv_fma_smem() {
-  return sizeof(float) * (4 * BQ * (D + 1) + 2 * BK * LP + 2 * BQ);
+  return sizeof(float) * (4 * BQ * (D + 4) + 2 * BK * LS + 2 * BQ);
 }
+// two blocks an SM at D 64: the SM's 228 KB hold two blocks and 1 KB each
+static_assert(2 * (dq_fma_smem<64>() + 1024) <= 233472 && 2 * (dkv_fma_smem<64>() + 1024) <= 233472,
+              "two f32 backward blocks must fit one SM's shared memory at D 64");
+static_assert(dq_fma_smem<128>() <= MAX_SMEM && dkv_fma_smem<128>() <= MAX_SMEM,
+              "the f32 backward's tiles must fit one block's shared memory");
 template <int D> constexpr size_t fwd_wgmma_smem() { return Tiles<D>::smem(5, 64); }
 template <int D> constexpr size_t dq_wgmma_smem() { return Tiles<D>::smem(6, 64); }
 template <int D> constexpr size_t dkv_wgmma_smem() {
@@ -953,17 +1157,28 @@ template <int D> constexpr size_t dkv_wgmma_smem() {
 }
 
 // Most instantiations need more than the default 48 KB of dynamic shared
-// memory; the attribute is set once per kernel.
+// memory; the attribute is set once per kernel.  `most_shared` also asks for
+// the whole carveout of the SM's 256 KB as shared memory, so that two blocks
+// of ~105 KB fit on one SM.
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
+cudaError_t allow_smem(K kernel, size_t bytes, bool* done, bool most_shared = false) {
   if (*done) return cudaSuccess;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && most_shared)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess) *done = true;
   return err;
 }
 
 dim3 grid_of(int BH, int S) { return dim3(BH, (S + BQ - 1) / BQ); }
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
 
 // bf16 [BH, S, D] tensor maps in boxes of [1 x 64 rows x P]; false when a
 // base is not 16-byte aligned or the driver refuses a map
@@ -1011,9 +1226,10 @@ template <int D>
 int launch_dq_fma(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, int BH, int S, int causal,
                   float scale, cudaStream_t stream) {
+  if (!aligned16({q, k, v, dout, dq})) return (int)cudaErrorInvalidValue;
   auto kernel = flash_bwd_dq_fma_kernel<D>;
   static bool ready = false;
-  cudaError_t err = allow_smem(kernel, dq_fma_smem<D>(), &ready);
+  cudaError_t err = allow_smem(kernel, dq_fma_smem<D>(), &ready, true);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid_of(BH, S), THREADS, dq_fma_smem<D>(), stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
@@ -1025,9 +1241,10 @@ template <int D>
 int launch_dkv_fma(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv, int BH, int S,
                    int causal, float scale, cudaStream_t stream) {
+  if (!aligned16({q, k, v, dout, dk, dv})) return (int)cudaErrorInvalidValue;
   auto kernel = flash_bwd_dkv_fma_kernel<D>;
   static bool ready = false;
-  cudaError_t err = allow_smem(kernel, dkv_fma_smem<D>(), &ready);
+  cudaError_t err = allow_smem(kernel, dkv_fma_smem<D>(), &ready, true);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid_of(BH, S), THREADS, dkv_fma_smem<D>(), stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
@@ -1087,7 +1304,8 @@ extern "C" {
 
 // Each launcher returns the CUDA error code of its launch (0 = launched);
 // lse and delta are [BH, S] float32.  The _fma launchers take float32
-// operands, the _wgmma ones bfloat16 with 16-byte-aligned bases.
+// operands, the _wgmma ones bfloat16; both backward routes take 16-byte-aligned
+// bases only.
 
 // out [BH, S, d] float32
 int flash_fwd_fma(int d, const void* q, const void* k, const void* v, void* out, void* lse,
@@ -1136,6 +1354,12 @@ int flash_bwd_dkv_wgmma(int d, const void* q, const void* k, const void* v, cons
   if (bad_shape(BH, S)) return (int)cudaErrorInvalidValue;
   BY_HEAD_DIM(launch_dkv_wgmma<D>(q, k, v, dout, lse, delta, dk, dv, BH, S, causal, scale,
                                   (cudaStream_t)stream));
+}
+
+// bytes of dynamic shared memory the f32 backward kernel at head dim d asks
+// for: dQ's when dkv == 0, dK/dV's otherwise
+int flash_bwd_fma_smem(int d, int dkv) {
+  BY_HEAD_DIM((int)(dkv ? dkv_fma_smem<D>() : dq_fma_smem<D>()));
 }
 
 const char* flash_attention_error_string(int code) {

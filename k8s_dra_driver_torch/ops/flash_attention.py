@@ -180,7 +180,7 @@ def _rows(t, q):
 
 def _aligned(t):
     """``t``, copied when its data does not start on a 16-byte boundary
-    (TMA reads from one)."""
+    (TMA, and the f32 backward's 16-byte cp.async, read from one)."""
     return t.clone() if t.data_ptr() % 16 else t
 
 

@@ -389,26 +389,55 @@ def test_flash_core_backward_runs_the_dtypes_kernels(cuda, dtype, route):
     assert tfa.bwd_launches == {n: int(n.endswith(route)) for n in tfa.bwd_launches}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
-def test_flash_backward_gives_the_same_bits_every_call(cuda, dtype, d):
+# S 129 and 257: an odd number of tiles with a ragged last one, so the f32
+# kernels' 2-stage ring wraps onto a partial tile
+RING_CASES = [(16, 129), (16, 257), (128, 129), (128, 257)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,s", RING_CASES)
+def test_flash_f32_backward_ring_wraps(cuda, causal, d, s):
+    """The f32 dQ and dK/dV kernels against their plain versions (on the
+    plain forward's out and lse) where the ring wraps onto a ragged tile,
+    every element within the limits of ``test_flash_kernels_match_plain``;
+    only the fma backward kernels launch."""
+    g = torch.Generator(device="cpu").manual_seed(3 * s + d + causal)
+    q, k, v, dout = (torch.randn((3, s, d), generator=g).to(cuda) for _ in range(4))
+    out, lse = tfa.flash_forward_plain(q, k, v, causal)
+    before = dict(tfa.bwd_launches)
+    got = tfa._backward_bhsd(q, k, v, out, lse, dout, causal)
+    want = tfa.flash_backward_plain(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert {n: tfa.bwd_launches[n] - before[n] for n in before} == {
+        "flash_bwd_dq_fma": 1, "flash_bwd_dkv_fma": 1, "flash_bwd_dq_wgmma": 0,
+        "flash_bwd_dkv_wgmma": 0}
+    _flash_close(q, k, v, causal, (out, lse, *got), (out, lse, *want),
+                 FLASH_STEP[torch.float32], dout)
+
+
+@pytest.mark.parametrize("dtype,d,s,causal", [
+    *((dt, d, 1024, True) for dt in (torch.float32, torch.bfloat16) for d in (64, 128)),
+    *((torch.float32, d, s, c) for d, s in RING_CASES for c in (True, False)),
+])
+def test_flash_backward_gives_the_same_bits_every_call(cuda, dtype, d, s, causal):
     """Every dQ, dK and dV element is written by one block, summed in a
-    fixed order: repeated calls agree bit for bit."""
+    fixed order: repeated calls agree bit for bit (in f32 also where the
+    ring wraps onto a ragged tile)."""
     g = torch.Generator(device="cpu").manual_seed(d)
-    q, k, v, dout = (torch.randn((8, 1024, d), generator=g).to(cuda, dtype) for _ in range(4))
-    out, lse = tfa._forward_bhsd(q, k, v, True)
-    first = tfa._backward_bhsd(q, k, v, out, lse, dout, True)
+    q, k, v, dout = (torch.randn((8, s, d), generator=g).to(cuda, dtype) for _ in range(4))
+    out, lse = tfa._forward_bhsd(q, k, v, causal)
+    first = tfa._backward_bhsd(q, k, v, out, lse, dout, causal)
     for _ in range(2):
-        for x, y, name in zip(tfa._backward_bhsd(q, k, v, out, lse, dout, True), first,
+        for x, y, name in zip(tfa._backward_bhsd(q, k, v, out, lse, dout, causal), first,
                               ("dq", "dk", "dv")):
             _bit_equal(x, y, name)
 
 
 def test_flash_kernel_raises_instead_of_falling_back(cuda):
     """A head dim or dtype no kernel takes raises, forward and backward; a
-    misaligned base, which TMA refuses, is refused by the wgmma launchers
-    themselves, and the wrapper hands them an aligned copy instead of
-    dropping to another kernel."""
+    misaligned base, which TMA and 16-byte cp.async refuse, is refused by the
+    backward launchers themselves, and the wrapper hands them an aligned copy
+    instead of dropping to another kernel."""
     z = torch.zeros((2, 64, 24), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tfa._forward_bhsd(z, z, z, True)
@@ -440,6 +469,18 @@ def test_flash_kernel_raises_instead_of_falling_back(cuda):
         assert rc != 0
         with pytest.raises(RuntimeError, match="launch failed"):
             tfa._build.check("flash_attention", rc, name)
+    # the f32 backward reads by 16-byte cp.async: its launchers refuse a
+    # misaligned base too
+    q32, k32, v32, dout32 = (x.float() for x in (q, k, v, dout))
+    buf32 = torch.empty(q32.numel() + 4, device=cuda)
+    shifted32 = buf32[1:1 + q32.numel()].view(q32.shape).copy_(q32)  # 4 bytes past
+    ptrs32 = (shifted32.data_ptr(), k32.data_ptr(), v32.data_ptr(), dout32.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    dq32, dk32, dv32 = (torch.empty_like(q32) for _ in range(3))
+    for name, outs in (("flash_bwd_dq_fma", (dq32,)), ("flash_bwd_dkv_fma", (dk32, dv32))):
+        rc = getattr(lib, name)(64, *ptrs32, *(o.data_ptr() for o in outs), 2, 96, 1, scale,
+                                stream)
+        assert rc != 0
     before = dict(tfa.bwd_launches)
     got = tfa._backward_bhsd(shifted, k, v, out, lse, dout, True, delta=delta)
     assert {n: tfa.bwd_launches[n] - before[n] for n in before} == {
