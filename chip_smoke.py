@@ -9,8 +9,8 @@ exits 2 before any result):
 1. environment: the card's name and power limit; the three kernel sources
    built from ``k8s_dra_driver_torch/csrc`` with ``nvcc``, all started
    together (ptxas report printed; the D 64 backward kernels, bf16 and
-   f32, must not spill; the f32 backward's registers and shared memory
-   printed);
+   f32, and the D 64 f32 forward must not spill; the f32 kernels' registers
+   and shared memory printed);
 2. serving kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (FLAGSHIP_MODERN: Hq 16 / Hkv 4 / d 64, L 8,
    block 16, B 8, context 512, ragged lengths up to 1024 and rows at the
@@ -25,7 +25,7 @@ exits 2 before any result):
    path's shapes (B·H 64, S 256 and 1024, D 64, causal and full, f32 and
    bf16), timed at B·H 64, S 1024, causal, bf16 beside SDPA's forward and
    its backward through autograd, and the f32 kernels beside SDPA in f32
-   (one profiled f32 backward; the f32 backward also at D 128);
+   (one profiled f32 backward; the f32 kernels also at D 128);
 4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
    pool) through ``PagedServeEngine.pump``: every stream checked
    teacher-forced against the plain dense decode path;
@@ -116,9 +116,12 @@ KERNELS = {
     ),
 }
 # kernels whose ptxas report must show 0 bytes of spill stores: the D 64
-# backward kernels, bf16 and f32
+# backward kernels, bf16 and f32, and the D 64 f32 forward
 NO_SPILL = ("flash_bwd_dq_wgmma_kernelILi64E", "flash_bwd_dkv_wgmma_kernelILi64E",
-            "flash_bwd_dq_fma_kernelILi64E", "flash_bwd_dkv_fma_kernelILi64E")
+            "flash_fwd_fma_kernelILi64E", "flash_bwd_dq_fma_kernelILi64E",
+            "flash_bwd_dkv_fma_kernelILi64E")
+# the f32 kernels' passes, as flash_fma_smem numbers them
+FMA_PASSES = {"fwd": 0, "dq": 1, "dkv": 2}
 KERNEL_SOURCES = ["int4_matmul", "paged_attention", "flash_attention"]
 
 
@@ -205,33 +208,32 @@ def phase_environment(torch):
                     spills[key] = max(spills.get(key, 0), stores)
                 elif "registers" in line:
                     regs[key] = int(line.split("Used")[1].split("registers")[0])
-    log(f"spill stores of the D 64 backward kernels (bf16, f32): {spills}")
+    log(f"spill stores of the D 64 backward kernels (bf16, f32) and f32 forward: {spills}")
     fma_smem = flash_fma_smem()
     for k in NO_SPILL[2:]:
         key = next((e for e in regs if k in e), None)
-        kind = "dkv" if "dkv" in k else "dq"
+        kind = next(n for n in FMA_PASSES if f"_{n}_fma" in k)
         log(f"  {k}: {regs.get(key)} registers, {spills.get(key)} bytes of spill stores; "
             f"dynamic shared memory by head dim {fma_smem[kind]} bytes (a block may have "
             f"232448)")
     if len(spills) != len(NO_SPILL) or any(spills.values()):
-        raise AssertionError(f"the D 64 backward kernels spill or were not reported: {spills}")
+        raise AssertionError(f"the D 64 flash kernels spill or were not reported: {spills}")
     if max(max(v.values()) for v in fma_smem.values()) > 232448:
-        raise AssertionError(f"an f32 backward kernel asks for too much shared memory: {fma_smem}")
+        raise AssertionError(f"an f32 flash kernel asks for too much shared memory: {fma_smem}")
     return card
 
 
 def flash_fma_smem():
-    """{"dq"/"dkv": {head dim: bytes of dynamic shared memory}} of the f32
-    backward kernels, as their launchers ask for it."""
+    """{"fwd"/"dq"/"dkv": {head dim: bytes of dynamic shared memory}} of the
+    f32 kernels, as their launchers ask for it."""
     import ctypes
 
     from k8s_dra_driver_torch.ops import _build
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
-    fn = _build.load("flash_attention", fa._LAUNCHERS).flash_bwd_fma_smem
+    fn = _build.load("flash_attention", fa._LAUNCHERS).flash_fma_smem
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return {kind: {d: fn(d, int(kind == "dkv")) for d in fa.KERNEL_HEAD_DIMS}
-            for kind in ("dq", "dkv")}
+    return {kind: {d: fn(d, n) for d in fa.KERNEL_HEAD_DIMS} for kind, n in FMA_PASSES.items()}
 
 
 def _paged_case(torch, dtype, nq, lengths, *, L=8, hq=16, hkv=4, d=64, bs=16, mb=64, seed=1):
@@ -746,7 +748,7 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
                 lambda: (fa._dq_bhsd(q, k, v, lse, dout, delta, True),
                          fa._dkv_bhsd(q, k, v, lse, dout, delta, True)),
                 top=2, watch=kern_names(fa, dtype)[1:])
-    flash_f32_backward_d128(torch, timer, bh, s)
+    flash_f32_d128(torch, timer, bh, s)
     return results
 
 
@@ -754,10 +756,10 @@ def kern_names(fa, dtype):
     return (fa.forward_kernel_for(dtype), *fa.backward_kernel_for(dtype))
 
 
-def flash_f32_backward_d128(torch, timer: Timer, bh: int, s: int, d: int = 128):
-    """The f32 backward pair at D 128 (S ``s``, causal), where its shared
-    memory is tightest, timed beside SDPA's f32 backward on the same
-    inputs."""
+def flash_f32_d128(torch, timer: Timer, bh: int, s: int, d: int = 128):
+    """The f32 kernels at D 128 (S ``s``, causal), where their shared memory
+    is tightest: the forward beside SDPA's f32 forward, the backward pair
+    beside SDPA's f32 backward, on the same inputs."""
     import torch.nn.functional as F
 
     from k8s_dra_driver_torch.ops import flash_attention as fa
@@ -766,21 +768,25 @@ def flash_f32_backward_d128(torch, timer: Timer, bh: int, s: int, d: int = 128):
     q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=DEV) for _ in range(4))
     out, lse = fa._forward_bhsd(q, k, v, True)
     delta = fa._delta(dout, out)
-    ms = {"flash_bwd_dq": timer.ms(lambda: fa._dq_bhsd(q, k, v, lse, dout, delta, True)),
+    ms = {"flash_fwd": timer.ms(lambda: fa._forward_bhsd(q, k, v, True)),
+          "flash_bwd_dq": timer.ms(lambda: fa._dq_bhsd(q, k, v, lse, dout, delta, True)),
           "flash_bwd_dkv": timer.ms(lambda: fa._dkv_bhsd(q, k, v, lse, dout, delta, True))}
     qs, ks, vs = (x.reshape(-1, 16, s, d).detach().requires_grad_() for x in (q, k, v))
+    ms_fwd = timer.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
     o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    ms_sdpa = timer.ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout.reshape(-1, 16, s, d),
-                                                   retain_graph=True))
+    ms_bwd = timer.ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout.reshape(-1, 16, s, d),
+                                                  retain_graph=True))
     work = _flash_work(bh, s, d, 4, True)
-    for name, kern in zip(ms, fa.backward_kernel_for(torch.float32)):
+    for name, kern in zip(ms, kern_names(fa, torch.float32)):
         b_ms, b_by = bound(*work[name], "float32")
+        fwd = name == "flash_fwd"
         log(f"  {name} float32 ({kern}) BH={bh} S={s} D={d} causal: kernel "
-            f"{ms[name] * 1e3:.1f} us, sdpa bwd {ms_sdpa * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
+            f"{ms[name] * 1e3:.1f} us, sdpa {'fwd' if fwd else 'bwd'} "
+            f"{(ms_fwd if fwd else ms_bwd) * 1e3:.1f} us, bound {b_ms * 1e3:.2f} "
             f"us ({b_by}, {work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP; the "
             f"kernel at {b_ms / ms[name]:.3f} of the bound's rate)")
     log(f"  sdpa float32 backward at D {d} covers dQ and dK/dV together: kernels "
-        f"{sum(ms.values()) * 1e3:.1f} us against {ms_sdpa * 1e3:.1f} us")
+        f"{(ms['flash_bwd_dq'] + ms['flash_bwd_dkv']) * 1e3:.1f} us against {ms_bwd * 1e3:.1f} us")
 
 
 def train_flops(cfg, batch: int, seq: int) -> int:

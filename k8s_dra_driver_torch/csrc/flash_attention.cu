@@ -76,62 +76,99 @@
 // dV's columns, each recomputing the score tiles (1.5x the products).
 //
 // The f32 kernels (flash_fwd_fma_kernel, flash_bwd_dq_fma_kernel,
-// flash_bwd_dkv_fma_kernel) do their products as f32 FMAs on the CUDA cores,
-// 256 threads a block.  For f32 that is the design, not a stopgap: the tensor
-// cores take f32 only as TF32 (a 10-bit mantissa), far outside the 2^-16
-// limit.  Their bound is 67 TFLOP/s of f32 FMAs: at the training shape in f32,
-// 128.3 us for the forward, 192.5 us for dQ and 256.7 us for dK/dV.
+// flash_bwd_dkv_fma_kernel) do their products as f32 FMAs on the CUDA cores.
+// For f32 that is the design, not a stopgap: the tensor cores take f32 only
+// as TF32 (a 10-bit mantissa), far outside the 2^-16 limit.  Their bound is
+// 67 TFLOP/s of f32 FMAs: at the training shape in f32, 128.3 us for the
+// forward, 192.5 us for dQ and 256.7 us for dK/dV.
 //
-// The forward reads its operands one float at a time from tiles padded to
-// D+1 floats (the lanes of a half-warp that read 16 different rows hit 16
-// different banks), loaded synchronously (load_tile); each thread owns a 4x4
-// block of the 64x64 score tile and a 4 x D/16 block of the output.
-//
-// The backward pair is built around what an SM sustains.  Measured on an
-// H100 (bench/fma_bench.py), a loop of f32 FMAs fed from shared memory runs at
+// The three are built around what an SM sustains.  Measured on an H100
+// (bench/fma_bench.py), a loop of f32 FMAs fed from shared memory runs at
 // 57% of the FMA rate with 4x4 blocks of two products a thread, 61% with one
 // 8x4 block and 68% with 8x8, whether it reads one float or four at a time;
 // so the per-thread block sets the ceiling, and the rest of the time goes to
 // the phases between the products (exp, barriers, copies), which need other
-// warps to hide them.
-//   * Groups.  A block is two groups of 128 threads, one per score product:
-//     dQ's group A computes S = Q K^T, B dP = dO V^T; dK/dV's A computes
-//     S^T = K Q^T, B dP^T = V dO^T.  A thread owns an 8x4 block of its
-//     group's 64x64 tile (rows ty + 8 i, columns tx + 16 j): per 4 elements
-//     of D, 8 + 4 float4 loads for 128 FMAs on 32 independent chains.  A
-//     writes p = 2^(s scale log2 e - lse log2 e) (one MUFU op; 0 where
-//     masked, the masks evaluated only on tiles that cross the diagonal or
-//     S) to a shared P tile; B then turns it into ds = p (dp - delta) in
-//     place (dQ) or into a dS^T tile (dK/dV).  This exchange sits on the
-//     critical path of every tile, so it is kept short: lse and delta are in
-//     registers, not reread from shared memory per element.  The second products split
-//     the same way: in dK/dV A does dV = P^T dO and B dK = dS^T Q; in dQ A
-//     sums dS K over the first 32 keys of each tile and B over the last 32,
-//     and B's sums join A's through shared memory once, at the end, in a
-//     fixed order.  Each thread owns 8 output rows (ty + 8 i) and D/16
-//     columns read and written V = min(4, D/16) at a time.
-//   * Two blocks an SM at D <= 64 (256 threads, <= 128 registers, ~105 KB
-//     of shared memory each), so that one block's exp, exchange and barriers
-//     overlap the other's products.
-//   * Copies.  Tiles land by 16-byte cp.async in rows padded to D+4 floats (a
+// warps to hide them.  What they share:
+//   * Groups of 128 threads.  A thread owns an 8x4 block of its group's
+//     64x64 score tile (8 rows, columns tx + 16 j): per 4 elements of D, 8 +
+//     4 float4 loads for 128 FMAs on 32 independent chains.  In the second
+//     products it owns the same 8 rows of the output and D/16 of its
+//     columns, read and written V = min(4, D/16) at a time.
+//   * p = 2^(s scale log2 e - c log2 e), one MUFU op, with c the row's
+//     running max (forward) or its lse (backward); 0 where masked, the masks
+//     evaluated only on tiles that cross the diagonal or S.
+//   * Tiles read by 16-byte cp.async land in rows padded to D+4 floats (a
 //     multiple of 16 bytes); rows at or past S are zero-filled through the
-//     copy's src-size operand, and the masks stay explicit on the fragment
-//     all the same (p = 0 there, not exp(0 - lse)).  The block's own tiles
-//     (Q and dO for dQ; K and V for dK/dV) land once.  dQ keeps K in a
-//     2-stage ring (tile j + 1 is copied while tile j is used, released by
-//     cp.async.wait_group and one barrier) and V in one buffer, refilled as
-//     soon as the score products have read it.  dK/dV holds one Q/dO tile,
-//     with its 64 lse and delta values copied 4 bytes at a time, refilled
-//     after the second products: a second stage would not fit beside a
-//     second block, and the other block covers the copy.
+//     copy's src-size operand (TMA fills them with zeros itself), and the
+//     masks stay explicit on the fragment all the same (p = 0 there, not
+//     exp(0 - lse)).  (D+4)/4 is odd, so the 16-byte words of 8 neighbouring
+//     rows at one column fall in distinct bank quads.
+//   * Two blocks an SM at D <= 64 (the carveout set to the most shared
+//     memory), so that one block's exp, exchange and barriers overlap the
+//     other's products; one at D 128.
+//
+// The forward is one group per (bh, 64-row q tile), 128 threads.
+//   * Rows.  A warp owns 16 consecutive rows (a thread's rows are ty + 2 i,
+//     its half-warp taking the even or the odd ones), so a row's 64 scores
+//     lie in the 16 lanes of one half-warp: the row max is 4 shuffles, the
+//     thread that owns a row in S owns it in O, so m, l and the correction
+//     stay in its registers, and P goes from S to P.V through shared memory
+//     rows that only the warp writes and reads, behind a __syncwarp instead
+//     of a block barrier.  A thread keeps its 4 columns' share of l; the 16
+//     shares are summed once, at the end, in a fixed order.
+//   * Copies.  Q lands once, by cp.async.  K and V come by TMA (one thread
+//     issues whole tiles, no per-thread copy instructions) through a 2-stage
+//     ring, each stage behind an mbarrier.  At the top of iteration j the
+//     threads wait for tile j's barrier, then one block barrier says that
+//     iteration j - 1 no longer reads the other stage, which is then refilled
+//     with tile j + 1 while tile j is used.  Per-thread 16-byte cp.async of
+//     the same tiles, tried first, cost the products several percent of the
+//     kernel's time in copy instructions.
+//   * Banks.  A warp reads Q by 2 rows at a time (one wavefront), K by 16
+//     rows at one column and V by 16 neighbouring vectors of one row (two
+//     wavefronts each, the fewest 256 bytes allow).  So V is stored as TMA
+//     writes it unswizzled, dense rows of D floats, and K swizzled in panels
+//     of 128-byte rows (64 at D 16): the 16-byte unit u of row r sits at unit
+//     u ^ (r % 8) (u ^ (r / 2 % 4)), and a thread's 4 K rows share that key.
+//     The P tile's rows are 80 floats apart (80 mod 32 = 16), which puts a
+//     warp's 32 scalar stores (2 rows x 16 columns) on 32 distinct banks.
+//   * Each product loop takes two steps (8 elements of D, or 8 keys) an
+//     iteration, so that one step's loads are in flight during the other's
+//     FMAs: 168 registers at D 64, which two 128-thread blocks an SM allow.
+//   * m is kept as the largest raw dot q.k, so lse = m scale + log l is the
+//     Pallas kernel's m + log l; out = acc / l, rounded once.
+//   * Shared memory: 2 K and 2 V tiles, Q, P and 1 KB of alignment: 42, 62,
+//     102 and 182 KB at D 16, 32, 64, 128.
+//
+// The backward pair:
+//   * Groups.  A block is two groups, one per score product: dQ's group A
+//     computes S = Q K^T, B dP = dO V^T; dK/dV's A computes S^T = K Q^T, B
+//     dP^T = V dO^T; a thread's rows are ty + 8 i.  A writes p to a shared
+//     P tile; B then turns it into ds = p (dp - delta) in place (dQ) or into
+//     a dS^T tile (dK/dV).  This exchange sits on the critical path of every
+//     tile, so it is kept short: lse and delta are in registers, not reread
+//     from shared memory per element.  The second products split the same
+//     way: in dK/dV A does dV = P^T dO and B dK = dS^T Q; in dQ A sums dS K
+//     over the first 32 keys of each tile and B over the last 32, and B's
+//     sums join A's through shared memory once, at the end, in a fixed
+//     order.
+//   * Two blocks an SM at D <= 64 take <= 128 registers a thread (256
+//     threads a block) and ~105 KB of shared memory each.
+//   * Copies.  The block's own tiles (Q and dO for dQ; K and V for dK/dV)
+//     land once.  dQ keeps K in a 2-stage ring (tile j + 1 is copied while
+//     tile j is used, released by cp.async.wait_group and one barrier) and V
+//     in one buffer, refilled as soon as the score products have read it.
+//     dK/dV holds one Q/dO tile, with its 64 lse and delta values copied 4
+//     bytes at a time, refilled after the second products: a second stage
+//     would not fit beside a second block, and the other block covers the
+//     copy.
 //   * Banks.  A warp is an 8 (tx) x 4 (ty) patch of its group's thread grid,
 //     so an LDS.128 reads 4 rows or 8 rows of a tile, or 8 neighbouring
-//     vectors of one row; (D+4)/4 is odd, so their 16-byte words fall in
-//     distinct bank quads.  The P/dS tiles have rows of 72 floats, which put
+//     vectors of one row.  The P/dS tiles have rows of 72 floats, which put
 //     a warp's 32 scalar stores (4 rows x 8 columns) on 32 distinct banks.
 //   * Shared memory: dQ holds Q, dO, 2 K tiles, V and dS: 43, 63, 103 and 183
 //     KB at D 16, 32, 64, 128; dK/dV holds K, V, Q, dO, P^T, dS^T, lse and
-//     delta: 56.5, 72.5, 104.5 and 168.5 KB.  At D 128 one block fits an SM.
+//     delta: 56.5, 72.5, 104.5 and 168.5 KB.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -145,20 +182,25 @@ namespace {
 
 constexpr int BQ = 64;               // query rows per tile
 constexpr int BK = 64;               // key rows per tile
-constexpr int TX = 16, TY = 16;      // thread grid of the f32 forward
-constexpr int THREADS = TX * TY;
-constexpr int RM = BQ / TY;          // tile rows per thread (4)
-constexpr int CM = BK / TX;          // score columns per thread (4)
-constexpr int LP = 65;               // padded row stride of the forward's 64-wide p tile
-constexpr int LS = 72;               // padded row stride of the backward's p/ds tiles
 constexpr float NEG_INF = -1e30f;
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may have
 
 static_assert(BQ == BK, "the causal tile walks below assume square tiles");
 
-// ---- f32 on the CUDA cores ----------------------------------------------------
+// ---- f32 on the CUDA cores: what the three kernels share ----------------------
 
-// reductions over the 16 lanes of a half-warp (the lanes that share ty)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by one MUFU instruction, results under 2^-126 flushed to 0 (exp2f
+// spends a few more instructions on them: 14 us of dQ's time at the
+// training shape on an H100)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// reductions over the 16 lanes of a half-warp
 __device__ __forceinline__ float half_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -171,153 +213,16 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-// rows [row0, row0 + rows) of one [S, D] slab into shared memory with row
-// stride D + 1; rows at or past S are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0,
-                                          int S, int rows) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, e = i % D;
-    const int g = row0 + r;
-    dst[r * (D + 1) + e] = g < S ? src[(size_t)g * D + e] : 0.f;
-  }
-}
-
-// number of 64-key tiles a q tile starting at q0 attends
-__device__ __forceinline__ int key_tiles(int q0, int S, int causal) {
-  int n = (S + BK - 1) / BK;
-  if (causal) n = min(n, (q0 + BQ - 1) / BK + 1);
-  return n;
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int S, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int EC = D / TX;  // output features per thread
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  extern __shared__ float smem[];
-  float* q_s = smem;            // [BQ][LD]
-  float* k_s = q_s + BQ * LD;   // [BK][LD]
-  float* v_s = k_s + BK * LD;   // [BK][LD]
-  float* p_s = v_s + BK * LD;   // [BQ][LP]
-  const size_t base = (size_t)bh * S * D;
-  load_tile<D>(q_s, q + base, q0, S, BQ);
-
-  float m[RM], l[RM], acc[RM][EC];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < EC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_kt = key_tiles(q0, S, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's k/v/p are no longer read
-    load_tile<D>(k_s, k + base, k0, S, BK);
-    load_tile<D>(v_s, v + base, k0, S, BK);
-    __syncthreads();
-
-    float s[RM][CM];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CM; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < D; ++e) {
-      float qa[RM], kb[CM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qa[i] = q_s[(ty + TY * i) * LD + e];
-#pragma unroll
-      for (int j = 0; j < CM; ++j) kb[j] = k_s[(tx + TX * j) * LD + e];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CM; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qp = q0 + ty + TY * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        const int kp = k0 + tx + TX * j;
-        float x = s[i][j] * scale;
-        if (kp >= S || (causal && kp > qp)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = half_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CM; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        p_s[(ty + TY * i) * LP + tx + TX * j] = p;
-      }
-      sum = half_sum(sum);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < EC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vb[EC];
-#pragma unroll
-      for (int j = 0; j < EC; ++j) vb[j] = v_s[c * LD + tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float p = p_s[(ty + TY * i) * LP + c];
-#pragma unroll
-        for (int j = 0; j < EC; ++j) acc[i][j] = fmaf(p, vb[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qp = q0 + ty + TY * i;
-    if (qp >= S) continue;
-    const size_t row = base + (size_t)qp * D;
-#pragma unroll
-    for (int j = 0; j < EC; ++j) out[row + tx + TX * j] = acc[i][j] / l[i];
-    if (tx == 0) lse[(size_t)bh * S + qp] = m[i] + logf(l[i]);
-  }
-}
-
-// ---- the f32 backward: cp.async tiles, float4 reads, one product per group ---
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x by one MUFU instruction, results under 2^-126 flushed to 0 (exp2f
-// spends a few more instructions on them: 14 us of dQ's time at the
-// training shape on an H100)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 constexpr int SV = 4;  // elements of D a score product reads at once (one float4)
 
-// A backward block is two groups of 128 threads, one for each of the two
-// score products; a thread owns a BR x BC block of its group's 64 x 64 score
-// tile, rows ty + GY i and columns tx + GX j.
-constexpr int GROUP = THREADS / 2;
+// A group is 128 threads; a thread owns a BR x BC block of its group's 64 x
+// 64 score tile, rows RS apart and columns tx + GX j.  A backward block is
+// two groups, the forward's one.
+constexpr int GROUP = 128;
+constexpr int THREADS = 2 * GROUP;
 constexpr int BR = 8, BC = 4;
 constexpr int GY = BQ / BR, GX = BK / BC;  // 8 x 16 threads
+constexpr int LS = 72;  // row stride of the backward's P/dS tiles
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_addr(dst)),
@@ -341,14 +246,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // rows [row0, row0 + 64) of one [S, D] f32 slab into shared memory with row
-// stride D + 4, by 16-byte cp.async; rows at or past S are zero-filled
-template <int D>
+// stride D + 4, by 16-byte cp.async from NT threads; rows at or past S are
+// zero-filled
+template <int D, int NT = THREADS>
 __device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int row0,
                                           int S) {
   constexpr int C = D / 4;  // 16-byte pieces per row
+  static_assert(BQ * C % NT == 0, "a tile's pieces must split evenly over the threads");
 #pragma unroll
-  for (int it = 0; it < BQ * C / THREADS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
+  for (int it = 0; it < BQ * C / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
     const int r = i / C, c = i % C, g = row0 + r;
     cp_async16(dst + r * (D + 4) + 4 * c, src + (size_t)(g < S ? g : 0) * D + 4 * c, g < S);
   }
@@ -383,62 +290,247 @@ __device__ __forceinline__ void store_vec(float* p, const float (&r)[V]) {
 // D / GX / V vectors a row
 template <int D> __host__ __device__ constexpr int out_vec() { return D >= 64 ? 4 : D / GX; }
 
-// blocks an SM runs at once: 2 where shared memory allows (D <= 64)
-template <int D> __host__ __device__ constexpr int bwd_blocks() { return D <= 64 ? 2 : 1; }
+// where element e of a padded row sits: at e
+struct Padded {
+  __device__ int operator()(int e) const { return e; }
+};
 
-// One score product, s[i][j] += a_i . b_j over D: a_i = a + GY i (D+4) is one
-// of the thread's rows, b_j = b + GX j (D+4) one of its columns; SV
-// consecutive elements of each come as one vector, and each sum runs over D
-// in order.
-template <int D>
-__device__ __forceinline__ void score_product(float (&s)[BR][BC], const float* a,
-                                              const float* b) {
+// One score product, s[i][j] += a_i . b_j over D: a_i = a + RS i (D+4) is
+// one of the thread's rows, b_j = b + GX j LB one of its columns, its element
+// e at b_j + col(e); SV consecutive elements of each come as one vector, U
+// steps of SV a loop iteration, and each sum runs over D in order.
+template <int D, int RS = GY, int U = 1, int LB = D + 4, typename Col = Padded>
+__device__ __forceinline__ void score_product(float (&s)[BR][BC], const float* a, const float* b,
+                                              Col col = Col()) {
   constexpr int LD = D + 4;
-#pragma unroll 1  // more would push D 64 past 128 registers
-  for (int e = 0; e < D; e += SV) {
-    float ar[BR][SV], br[BC][SV];
+  static_assert(D % (U * SV) == 0, "the unrolled steps must divide D");
+#pragma unroll 1  // more would push the backward at D 64 past 128 registers
+  for (int e0 = 0; e0 < D; e0 += U * SV) {
 #pragma unroll
-    for (int i = 0; i < BR; ++i) load_vec<SV>(ar[i], a + i * GY * LD + e);
+    for (int uu = 0; uu < U; ++uu) {
+      const int e = e0 + uu * SV;
+      const float* be = b + col(e);
+      float ar[BR][SV], br[BC][SV];
 #pragma unroll
-    for (int j = 0; j < BC; ++j) load_vec<SV>(br[j], b + j * GX * LD + e);
+      for (int i = 0; i < BR; ++i) load_vec<SV>(ar[i], a + i * RS * LD + e);
 #pragma unroll
-    for (int u = 0; u < SV; ++u)
+      for (int j = 0; j < BC; ++j) load_vec<SV>(br[j], be + j * GX * LB);
 #pragma unroll
-      for (int i = 0; i < BR; ++i)
+      for (int u = 0; u < SV; ++u)
 #pragma unroll
-        for (int j = 0; j < BC; ++j) s[i][j] = fmaf(ar[i][u], br[j][u], s[i][j]);
-  }
-}
-
-// One second product over N rows of a [N x D] tile x:
-//   acc[i][V h + u] += sum_{r < N} w_i[r] x[r (D+4) + GX V h + u],
-// w_i = w + GY i LS one of the thread's rows of a P or dS tile, read 4
-// entries at a time as one float4; x points at the thread's first output
-// column and is read as V-wide vectors; each sum runs over r in order.
-template <int D, int N>
-__device__ __forceinline__ void tile_product(float (&acc)[BR][D / GX], const float* w,
-                                             const float* x) {
-  constexpr int LD = D + 4, V = out_vec<D>(), NV = D / GX / V;
-#pragma unroll 1
-  for (int r = 0; r < N; r += 4) {
-    float wr[BR][4];
+        for (int i = 0; i < BR; ++i)
 #pragma unroll
-    for (int i = 0; i < BR; ++i) load_vec<4>(wr[i], w + i * GY * LS + r);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float xr[NV][V];
-#pragma unroll
-      for (int h = 0; h < NV; ++h) load_vec<V>(xr[h], x + (r + u) * LD + GX * V * h);
-#pragma unroll
-      for (int i = 0; i < BR; ++i)
-#pragma unroll
-        for (int h = 0; h < NV; ++h)
-#pragma unroll
-          for (int e = 0; e < V; ++e)
-            acc[i][h * V + e] = fmaf(wr[i][u], xr[h][e], acc[i][h * V + e]);
+          for (int j = 0; j < BC; ++j) s[i][j] = fmaf(ar[i][u], br[j][u], s[i][j]);
     }
   }
 }
+
+// One second product over N rows of a [N x D] tile x with rows LX floats
+// apart:
+//   acc[i][V h + u] += sum_{r < N} w_i[r] x[r LX + GX V h + u],
+// w_i = w + RS i LW one of the thread's rows of a P or dS tile (row stride
+// LW), read 4 entries at a time as one float4; x points at the thread's first
+// output column and is read as V-wide vectors; U steps of 4 rows a loop
+// iteration, and each sum runs over r in order.
+template <int D, int N, int RS = GY, int LW = LS, int U = 1, int LX = D + 4>
+__device__ __forceinline__ void tile_product(float (&acc)[BR][D / GX], const float* w,
+                                             const float* x) {
+  constexpr int V = out_vec<D>(), NV = D / GX / V;
+  static_assert(N % (4 * U) == 0, "the unrolled steps must divide N");
+#pragma unroll 1
+  for (int r0 = 0; r0 < N; r0 += 4 * U) {
+#pragma unroll
+    for (int uu = 0; uu < U; ++uu) {
+      const int r = r0 + 4 * uu;
+      float wr[BR][4];
+#pragma unroll
+      for (int i = 0; i < BR; ++i) load_vec<4>(wr[i], w + i * RS * LW + r);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float xr[NV][V];
+#pragma unroll
+        for (int h = 0; h < NV; ++h) load_vec<V>(xr[h], x + (r + u) * LX + GX * V * h);
+#pragma unroll
+        for (int i = 0; i < BR; ++i)
+#pragma unroll
+          for (int h = 0; h < NV; ++h)
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[i][h * V + e] = fmaf(wr[i][u], xr[h][e], acc[i][h * V + e]);
+      }
+    }
+  }
+}
+
+// p, a pointer into shared memory, moved up to the next multiple of 1024
+// bytes; offset from p rather than rebuilt from an integer, so that the
+// compiler still reads through it with shared-memory loads
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
+}
+
+// blocks an SM runs at once: 2 where shared memory allows (D <= 64)
+template <int D> __host__ __device__ constexpr int fma_blocks() { return D <= 64 ? 2 : 1; }
+
+// number of 64-key tiles a q tile starting at q0 attends
+__device__ __forceinline__ int key_tiles(int q0, int S, int causal) {
+  int n = (S + BK - 1) / BK;
+  if (causal) n = min(n, (q0 + BQ - 1) / BK + 1);
+  return n;
+}
+
+// ---- the f32 forward: one group per 64-row q tile, K/V by TMA through a 2-stage ring
+
+constexpr int FR = 2;   // a forward thread's rows are ty + FR i
+constexpr int LP = 80;  // row stride of the forward's P tile
+constexpr int FU = 2;   // steps of the forward's product loops an iteration
+
+// The forward's K and V tiles, [64 x D] f32 each as TMA writes them.  K is
+// D / PW panels of [64 rows x PW floats] (rows of 128 bytes, 64 at D 16),
+// swizzled: the 16-byte unit u of row r sits at unit u ^ key(r), key(r) =
+// r % 8 (128-byte rows) or r / 2 % 4 (64-byte rows).  V is dense rows of D
+// floats.
+template <int D>
+struct FwdTiles {
+  static constexpr int PW = D < 32 ? D : 32;  // panel width, floats
+  static constexpr int PANEL = BK * PW;       // floats a panel
+  static constexpr int FLOATS = BK * D;       // floats a tile
+  static constexpr int BYTES = 4 * FLOATS;
+};
+
+// where element e of a swizzled K row with key `key` sits
+template <int D>
+struct SwizzledCol {
+  int key;
+  __device__ int operator()(int e) const {
+    using T = FwdTiles<D>;
+    return e / T::PW * T::PANEL + ((e % T::PW / 4) ^ key) * 4;
+  }
+};
+
+// K and V tile j of head bh into k_s and v_s, completing on bar (one
+// thread)
+template <int D>
+__device__ __forceinline__ void fwd_load_kv(float* k_s, float* v_s, const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap, uint64_t* bar, int j,
+                                            int bh) {
+  using T = FwdTiles<D>;
+  hopper::mbar_expect_tx(bar, 2 * T::BYTES);
+#pragma unroll
+  for (int p = 0; p < D / T::PW; ++p)
+    hopper::tma_load_3d(k_s + p * T::PANEL, kmap, bar, p * T::PW, j * BK, bh);
+  hopper::tma_load_3d(v_s, vmap, bar, 0, j * BK, bh);
+}
+
+// kmap reads [BH, S, D] f32 in boxes of [1 x 64 rows x PW], swizzled; vmap
+// in boxes of [1 x 64 rows x D]; rows at or past S read as 0.  q is read
+// by 16-byte cp.async.  grid (BH, ceil(S / 64)), 128 threads.
+template <int D>
+__global__ void __launch_bounds__(GROUP, fma_blocks<D>())
+flash_fwd_fma_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const float* __restrict__ q,
+                     float* __restrict__ out, float* __restrict__ lse, int S, int causal,
+                     float scale) {
+  using T = FwdTiles<D>;
+  constexpr int LD = D + 4, EC = D / GX, V = out_vec<D>(), NV = EC / V;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
+  // warp w owns rows [16 w, 16 w + 16): half-warp h the rows 16 w + h + 2 i
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int tx = lane % 16, ty = 16 * w + lane / 16;
+  extern __shared__ uint8_t smem_raw[];
+  float* k_s = reinterpret_cast<float*>(align_1024(smem_raw));  // [2 stages][64 x D]
+  float* v_s = k_s + 2 * T::FLOATS;                             // [2 stages][64 x D]
+  float* q_s = v_s + 2 * T::FLOATS;                             // [BQ][LD]
+  float* p_s = q_s + BQ * LD;                                   // [BQ][LP]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(p_s + BQ * LP);   // [2 stages]
+  const size_t base = (size_t)bh * S * D;
+  const int n_kt = key_tiles(q0, S, causal);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar[0], 1);
+    hopper::mbar_init(&bar[1], 1);
+    hopper::mbar_init_fence();
+    fwd_load_kv<D>(k_s, v_s, &kmap, &vmap, &bar[0], 0, bh);
+  }
+  copy_tile<D, GROUP>(q_s, q + base, q0, S);
+  cp_async_commit();
+
+  // per row: m the largest raw dot q . k so far (p = 2^(s sl2 - m sl2)), l
+  // this thread's columns' share of the row's sum of p
+  const float sl2 = scale * LOG2E;
+  float m[BR], l[BR], acc[BR][EC];
+#pragma unroll
+  for (int i = 0; i < BR; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < EC; ++c) acc[i][c] = 0.f;
+  }
+  const float* qa = q_s + ty * LD;
+  // the thread's K rows tx + GX j share their swizzle key
+  const SwizzledCol<D> kcol{T::PW == 32 ? tx % 8 : tx / 2 % 4};
+  cp_async_wait_all();
+  __syncthreads();  // Q is in; the barriers are initialised
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK, s = kt & 1;
+    hopper::mbar_wait(&bar[s], (kt >> 1) & 1);
+    __syncthreads();  // tile kt is in; iteration kt - 1 no longer reads the other stage
+    if (threadIdx.x == 0 && kt + 1 < n_kt)
+      fwd_load_kv<D>(k_s + (s ^ 1) * T::FLOATS, v_s + (s ^ 1) * T::FLOATS, &kmap, &vmap,
+                     &bar[s ^ 1], kt + 1, bh);
+
+    float x[BR][BC] = {};
+    score_product<D, FR, FU, T::PW>(x, qa, k_s + s * T::FLOATS + tx * T::PW, kcol);
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    float* p_t = p_s + ty * LP + tx;  // the thread's (0, 0) entry
+#pragma unroll
+    for (int i = 0; i < BR; ++i) {
+      const int qp = q0 + ty + FR * i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < BC; ++j) {
+        const int kp = k0 + tx + GX * j;
+        if (edge && (kp >= S || (causal && kp > qp))) x[i][j] = NEG_INF;
+        mx = fmaxf(mx, x[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mx));
+      const float mb = m_new * sl2;
+      const float corr = exp2_ftz(fmaf(m[i], sl2, -mb));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BC; ++j) {
+        const float p = exp2_ftz(fmaf(x[i][j], sl2, -mb));
+        sum += p;
+        p_t[FR * i * LP + GX * j] = p;
+      }
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < EC; ++c) acc[i][c] *= corr;
+    }
+    __syncwarp();  // the warp's rows of p are in
+    tile_product<D, BK, FR, LP, FU, D>(acc, p_s + ty * LP, v_s + s * T::FLOATS + V * tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < BR; ++i) {
+    const float l_row = half_sum(l[i]);  // every lane takes part
+    const int qp = q0 + ty + FR * i;
+    if (qp >= S) continue;
+    float* row = out + base + (size_t)qp * D + V * tx;
+#pragma unroll
+    for (int h = 0; h < NV; ++h) {
+      float o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = acc[i][h * V + e] / l_row;
+      store_vec<V>(row + GX * V * h, o);
+    }
+    if (tx == 0) lse[(size_t)bh * S + qp] = m[i] * scale + logf(l_row);
+  }
+}
+
+// ---- the f32 backward: one product per group ----------------------------------
 
 // the thread's rows (row0 + ty + GY i) of a [64 x D] output tile, scaled, to
 // global memory; rows at or past S are not written
@@ -467,7 +559,7 @@ __device__ __forceinline__ int bwd_tx() { return threadIdx.x % 8 + 8 * (threadId
 __device__ __forceinline__ int bwd_ty() { return threadIdx.x % 32 / 8 + 4 * (threadIdx.x / 64 % 2); }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, bwd_blocks<D>())
+__global__ void __launch_bounds__(THREADS, fma_blocks<D>())
 flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
@@ -571,7 +663,7 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, bwd_blocks<D>())
+__global__ void __launch_bounds__(THREADS, fma_blocks<D>())
 flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
@@ -687,10 +779,6 @@ struct Tiles {
   // the base aligned to 1024, `tiles` tiles, then `extra` bytes (barriers)
   static constexpr size_t smem(int tiles, size_t extra) { return 1024 + tiles * BYTES + extra; }
 };
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 // TMA of rows row0 .. row0 + 63 of head bh from two [BH, S, D] tensors into
 // two tiles, completing on one barrier; rows at or past S read as 0
@@ -1135,8 +1223,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---- host -------------------------------------------------------------------------
 
+// forward: K and V in 2 stages from a 1024-aligned base, Q, P, the stages'
+// barriers
 template <int D> constexpr size_t fwd_fma_smem() {
-  return sizeof(float) * (3 * BQ * (D + 1) + BQ * LP);
+  return 1024 + sizeof(float) * (4 * BQ * D + BQ * (D + 4) + BQ * LP) + 2 * sizeof(uint64_t);
 }
 // dQ: Q, dO, K in 2 stages, V and dS; dK/dV: K, V, Q, dO, P^T, dS^T, lse and delta
 template <int D> constexpr size_t dq_fma_smem() {
@@ -1146,10 +1236,13 @@ template <int D> constexpr size_t dkv_fma_smem() {
   return sizeof(float) * (4 * BQ * (D + 4) + 2 * BK * LS + 2 * BQ);
 }
 // two blocks an SM at D 64: the SM's 228 KB hold two blocks and 1 KB each
-static_assert(2 * (dq_fma_smem<64>() + 1024) <= 233472 && 2 * (dkv_fma_smem<64>() + 1024) <= 233472,
-              "two f32 backward blocks must fit one SM's shared memory at D 64");
-static_assert(dq_fma_smem<128>() <= MAX_SMEM && dkv_fma_smem<128>() <= MAX_SMEM,
-              "the f32 backward's tiles must fit one block's shared memory");
+static_assert(2 * (fwd_fma_smem<64>() + 1024) <= 233472 &&
+                  2 * (dq_fma_smem<64>() + 1024) <= 233472 &&
+                  2 * (dkv_fma_smem<64>() + 1024) <= 233472,
+              "two f32 blocks of each kernel must fit one SM's shared memory at D 64");
+static_assert(fwd_fma_smem<128>() <= MAX_SMEM && dq_fma_smem<128>() <= MAX_SMEM &&
+                  dkv_fma_smem<128>() <= MAX_SMEM,
+              "the f32 kernels' tiles must fit one block's shared memory");
 template <int D> constexpr size_t fwd_wgmma_smem() { return Tiles<D>::smem(5, 64); }
 template <int D> constexpr size_t dq_wgmma_smem() { return Tiles<D>::smem(6, 64); }
 template <int D> constexpr size_t dkv_wgmma_smem() {
@@ -1194,16 +1287,33 @@ bool tile_maps(CUtensorMap* maps, const void* const* src, int n, int BH, int S) 
   return true;
 }
 
+// the forward's f32 [BH, S, D] tensor maps: k in swizzled boxes of [1 x 64
+// rows x PW], v in boxes of [1 x 64 rows x D]
+template <int D>
+bool fwd_fma_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k, const void* v, int BH,
+                  int S) {
+  constexpr int PW = FwdTiles<D>::PW;
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)S, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)D * 4, (uint64_t)S * D * 4};
+  const uint32_t kbox[3] = {(uint32_t)PW, (uint32_t)BK, 1}, vbox[3] = {(uint32_t)D, (uint32_t)BK, 1};
+  return hopper::encode_map(kmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, k, 3, dims, strides, kbox,
+                            PW == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B) &&
+         hopper::encode_map(vmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, v, 3, dims, strides, vbox,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 template <int D>
 int launch_fwd_fma(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
                    int S, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  if (!aligned16({q, k, v, out}) || !fwd_fma_maps<D>(&kmap, &vmap, k, v, BH, S))
+    return (int)cudaErrorInvalidValue;
   auto kernel = flash_fwd_fma_kernel<D>;
   static bool ready = false;
-  cudaError_t err = allow_smem(kernel, fwd_fma_smem<D>(), &ready);
+  cudaError_t err = allow_smem(kernel, fwd_fma_smem<D>(), &ready, true);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid_of(BH, S), THREADS, fwd_fma_smem<D>(), stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, S, causal,
-      scale);
+  kernel<<<grid_of(BH, S), GROUP, fwd_fma_smem<D>(), stream>>>(
+      kmap, vmap, (const float*)q, (float*)out, (float*)lse, S, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1356,10 +1466,11 @@ int flash_bwd_dkv_wgmma(int d, const void* q, const void* k, const void* v, cons
                                   (cudaStream_t)stream));
 }
 
-// bytes of dynamic shared memory the f32 backward kernel at head dim d asks
-// for: dQ's when dkv == 0, dK/dV's otherwise
-int flash_bwd_fma_smem(int d, int dkv) {
-  BY_HEAD_DIM((int)(dkv ? dkv_fma_smem<D>() : dq_fma_smem<D>()));
+// bytes of dynamic shared memory the f32 kernel of `pass` (0 forward, 1 dQ,
+// 2 dK/dV) asks for at head dim d
+int flash_fma_smem(int d, int pass) {
+  BY_HEAD_DIM((int)(pass == 0 ? fwd_fma_smem<D>() : pass == 1 ? dq_fma_smem<D>()
+                                                               : dkv_fma_smem<D>()));
 }
 
 const char* flash_attention_error_string(int code) {

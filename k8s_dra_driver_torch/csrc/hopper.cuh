@@ -236,21 +236,29 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (2 or 3) dims, innermost first; strides in
-// bytes of dims 1.., box sizes in elements; rows of box[0] * 2 bytes are
-// swizzled to match layout_of(box[0] * 2).  Out-of-bounds elements read as 0.
-inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `rank` (2 or 3) dims of `type`, innermost first; strides
+// in bytes of dims 1.., box sizes in elements; rows in shared memory swizzled
+// by `sw`.  Out-of-bounds elements read as 0.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle sw) {
   auto fn = encode_fn();
   if (!fn) return false;
   const uint32_t ones[3] = {1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map (encode_map) whose rows of box[0] * 2 bytes are swizzled
+// to match layout_of(box[0] * 2).
+inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                     const uint64_t* strides, const uint32_t* box) {
   const int row_bytes = box[0] * 2;
   const CUtensorMapSwizzle sw = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box, sw);
 }
 
 }  // namespace hopper

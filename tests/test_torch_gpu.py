@@ -317,13 +317,15 @@ def _bit_equal(got, want, name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1024])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 200, 257, 1024])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_kernels_match_plain(cuda, dtype, causal, s, d):
     """Forward (out, lse), dQ and dK/dV each against its plain version on
     the same inputs (the backward on the plain forward's out and lse),
     every element within its limit, at every head dim and at S with one
-    row, one whole tile, a ragged last tile or many tiles; the kernels the
+    row, one whole tile, a ragged last tile, many tiles, or an odd number of
+    tiles with a ragged last one (S 129, 257: the f32 kernels' 2-stage K/V
+    rings wrap onto a partial tile); the kernels the
     dtype rule names launch (bf16: the wgmma ones, f32: the fma ones) and
     the others do not."""
     g = torch.Generator(device="cpu").manual_seed(7 * s + d)
@@ -433,11 +435,28 @@ def test_flash_backward_gives_the_same_bits_every_call(cuda, dtype, d, s, causal
             _bit_equal(x, y, name)
 
 
+@pytest.mark.parametrize("d,s,causal", [
+    *((d, 1024, True) for d in (64, 128)),
+    *((d, s, c) for d, s in RING_CASES for c in (True, False)),
+])
+def test_flash_f32_forward_gives_the_same_bits_every_call(cuda, d, s, causal):
+    """Every out and lse element of the f32 forward is written by one block,
+    its sums in a fixed order (the row sum over a half-warp's lanes too):
+    repeated calls agree bit for bit, also where the K/V ring wraps onto a
+    ragged tile."""
+    g = torch.Generator(device="cpu").manual_seed(d + s)
+    q, k, v = (torch.randn((8, s, d), generator=g).to(cuda) for _ in range(3))
+    first = tfa._forward_bhsd(q, k, v, causal)
+    for _ in range(2):
+        for x, y, name in zip(tfa._forward_bhsd(q, k, v, causal), first, ("out", "lse")):
+            _bit_equal(x, y, name)
+
+
 def test_flash_kernel_raises_instead_of_falling_back(cuda):
     """A head dim or dtype no kernel takes raises, forward and backward; a
     misaligned base, which TMA and 16-byte cp.async refuse, is refused by the
-    backward launchers themselves, and the wrapper hands them an aligned copy
-    instead of dropping to another kernel."""
+    backward launchers and the f32 forward's themselves, and the wrapper hands
+    them an aligned copy instead of dropping to another kernel."""
     z = torch.zeros((2, 64, 24), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tfa._forward_bhsd(z, z, z, True)
@@ -481,6 +500,9 @@ def test_flash_kernel_raises_instead_of_falling_back(cuda):
         rc = getattr(lib, name)(64, *ptrs32, *(o.data_ptr() for o in outs), 2, 96, 1, scale,
                                 stream)
         assert rc != 0
+    # and so does the f32 forward, which copies K and V the same way
+    assert lib.flash_fwd_fma(64, *ptrs32[:3], dq32.data_ptr(), lse.data_ptr(), 1, 2, 96, 1, scale,
+                             stream) != 0
     before = dict(tfa.bwd_launches)
     got = tfa._backward_bhsd(shifted, k, v, out, lse, dout, True, delta=delta)
     assert {n: tfa.bwd_launches[n] - before[n] for n in before} == {
