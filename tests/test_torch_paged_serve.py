@@ -2,10 +2,16 @@
 package's ``PagedServeEngine(attn_impl="xla")``, on the CPU, with the same
 weights and seeded traffic.
 
-Tolerances: greedy token streams, stall counts and host syncs identical;
-float32 logits within atol = rtol = 1e-4; pool entries within 1e-5
-outside the null block 0 (the JAX plain path diverts inactive rows'
-writes there, the port does not write them at all)."""
+Tolerances: greedy token streams, completion statuses, stall counts and
+host syncs identical; float32 logits within atol = rtol = 1e-4; pool
+entries outside the null block 0 (the JAX plain path diverts inactive
+rows' writes there, the port does not write them at all) within atol =
+rtol = 1e-5 in a float32 pool, and in a bfloat16 pool within one bf16
+step of the JAX entry, (2^-7 + 2^-16) * |JAX| + 2^-16: the limit PR 3
+set for bf16 results elementwise, step * |plain| plus 2^-16 of the
+entry's size (K/V entries are O(1)).  Each entry is one rounding to
+bf16 of a float32 projection that the two packages sum in another
+order, so the roundings may land one bf16 step apart."""
 
 import jax
 import jax.numpy as jnp
@@ -56,9 +62,15 @@ def _forbid_host_reads(monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, refuse)
 
 
+def _streams(comps):
+    return {c.request_id: (c.generated, c.status) for c in comps}
+
+
 def _serve_port(tparams, reqs, monkeypatch, **kw):
     """Serve through the port, counting bursts that reached the device and
-    refusing host reads inside each burst."""
+    refusing host reads inside each burst.  Returns the engine, its
+    completions as ``{request_id: (generated, status)}`` and the burst
+    count."""
     eng = tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **ENGINE, **kw)
     burst = tp._paged_pipelined_burst
 
@@ -78,8 +90,7 @@ def _serve_port(tparams, reqs, monkeypatch, **kw):
         return stepped
 
     eng.step_burst = counted
-    comps = eng.pump(reqs)
-    return eng, {c.request_id: c.generated for c in comps}, bursts
+    return eng, _streams(eng.pump(reqs)), bursts
 
 
 @pytest.mark.parametrize(
@@ -93,7 +104,7 @@ def test_engine_streams_identical_to_jax(weights, monkeypatch, sync_interval, n_
         params=jparams, cfg=JCFG, n_blocks=n_blocks, attn_impl="xla",
         sync_interval=sync_interval, preempt_on_stall=False, **ENGINE,
     )
-    want = {c.request_id: c.generated for c in je.pump(reqs)}
+    want = _streams(je.pump(reqs))
     te, got, bursts = _serve_port(
         tparams, reqs, monkeypatch, n_blocks=n_blocks, sync_interval=sync_interval,
         preempt_on_stall=False,
@@ -109,13 +120,72 @@ def test_engine_streams_identical_to_jax(weights, monkeypatch, sync_interval, n_
     )
 
 
+EOS = 24  # a token the seeded traffic emits mid-stream (requests 4-6 of _traffic())
+BF16_STEP = 2 ** -7 + 2 ** -16
+
+
+def _eos_deadline_traffic():
+    """``_traffic()`` with every odd request under a deadline of about
+    half its ``max_tokens``."""
+    return [
+        dict(prompt=p, max_tokens=m, deadline=(m // 2 + 1) if i % 2 else None)
+        for i, (p, m) in enumerate(_traffic())
+    ]
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "sync_interval,n_blocks", [(1, 40), (4, 40), (1, 9), (4, 9)],
+    ids=["sync1", "sync4", "sync1-tight", "sync4-tight"],
+)
+def test_engine_eos_deadlines_and_bf16_pool_identical_to_jax(
+    weights, monkeypatch, pool, sync_interval, n_blocks
+):
+    """eos inside a burst (the on-device stop mask), ``deadline_exceeded``
+    retirements and a bf16 pool, against the JAX engine: completions with
+    their statuses, host syncs and stalls identical; pool entries within
+    the module docstring's limit."""
+    jparams, tparams = weights
+    reqs = _eos_deadline_traffic()
+    jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
+                      "bf16": (jnp.bfloat16, torch.bfloat16)}[pool]
+    je = jp.PagedServeEngine(
+        params=jparams, cfg=JCFG, n_blocks=n_blocks, attn_impl="xla", eos_id=EOS,
+        cache_dtype=jdtype, sync_interval=sync_interval, preempt_on_stall=False, **ENGINE,
+    )
+    want = _streams(je.pump(reqs))
+    te, got, bursts = _serve_port(
+        tparams, reqs, monkeypatch, n_blocks=n_blocks, sync_interval=sync_interval,
+        eos_id=EOS, cache_dtype=tdtype, preempt_on_stall=False,
+    )
+    assert got == want
+    statuses = {status for _, status in got.values()}
+    assert statuses == {"ok", "deadline_exceeded"}
+    # some request stopped on eos before its budget
+    assert any(gen[-1] == EOS and len(gen) < reqs[rid]["max_tokens"]
+               for rid, (gen, _) in got.items())
+    assert te.stalled_steps == je.stalled_steps
+    if n_blocks == 9:
+        assert te.stalled_steps > 0  # the pool is tight enough to stall
+    assert te.host_syncs == je.host_syncs == bursts
+    assert te.free_blocks == te.reservable_blocks == n_blocks - 1
+    for name in ("k", "v"):
+        t_pool = getattr(te._cache, name).float().numpy()[:, 1:]
+        j_pool = np.asarray(getattr(je._cache, name), dtype=np.float32)[:, 1:]
+        if pool == "f32":
+            np.testing.assert_allclose(t_pool, j_pool, atol=1e-5, rtol=1e-5)
+        else:
+            over = np.abs(t_pool - j_pool) > BF16_STEP * np.abs(j_pool) + 2 ** -16
+            assert not over.any(), f"{int(over.sum())} {name} entries over one bf16 step"
+
+
 def test_int4_engine_streams_identical_to_jax(weights, monkeypatch):
     jparams, _ = weights
     j4 = jq.quantize_blocks(jparams, bits=4, kernel=False)
     reqs = _traffic(n=5, seed=4)
     je = jp.PagedServeEngine(params=j4, cfg=JCFG, n_blocks=40, attn_impl="xla",
                              sync_interval=4, **ENGINE)
-    want = {c.request_id: c.generated for c in je.pump(reqs)}
+    want = _streams(je.pump(reqs))
     t4 = params_from_jax(j4, device="cpu")
     assert isinstance(t4["blocks"][0]["qkv"], tq.Quantized4Matrix)
     _, got, _ = _serve_port(t4, reqs, monkeypatch, n_blocks=40, sync_interval=4)
