@@ -27,8 +27,15 @@ exits 2 before any result):
    its backward through autograd, and the f32 kernels beside SDPA in f32
    (one profiled f32 backward; the f32 kernels also at D 128);
 4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
-   pool) through ``PagedServeEngine.pump``: every stream checked
-   teacher-forced against the plain dense decode path;
+   pool) through ``PagedServeEngine.pump``, the engine's programs as CUDA
+   graphs (at most 4, each captured once; capture time and pool bytes
+   printed): every stream checked teacher-forced against the plain dense
+   decode path, and the run held against an eager twin engine
+   (``serve.disable_graphs()``): completions, statuses, host syncs, stalls,
+   final pool bytes outside the null block and every kernel launch count
+   identical; then steady
+   decode timed eager and graphed in alternating rounds in one process
+   (the graphed step must not be slower), with one profiled burst of each;
 5. the same with int4 block weights (decode steps through the split-K int4
    kernel, admissions through the wgmma one; both must launch);
 6. the same in f32 at reduced depth;
@@ -48,6 +55,7 @@ the JSON device record.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -957,37 +965,116 @@ def _dense_reference(params):
     return out
 
 
-def phase_serve(torch, label, cfg, params, reqs, *, cache_dtype, logit_tol):
-    """Serve ``reqs`` through the engine; check every stream teacher-forced
-    against the plain dense decode path.  Returns the paged and int4 launch
-    counts of the serving run."""
-    from k8s_dra_driver_torch.models import decode
-    from k8s_dra_driver_torch.models.paged import PagedServeEngine
-    from k8s_dra_driver_torch.ops import int4_matmul as i4
-    from k8s_dra_driver_torch.ops import paged_attention as pa
+def _zero_serving_counts():
+    from k8s_dra_driver_torch.models import serve
 
-    eng = PagedServeEngine(
+    counts = serve.launch_counts()
+    serve.add_launch_counts({key: -n for key, n in counts.items()})
+
+
+def _serving_engine(cfg, params, cache_dtype):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    return PagedServeEngine(
         params=params, cfg=cfg, n_slots=8, n_blocks=8 * 24 + 1, block_size=16,
         prompt_bucket=256, cache_dtype=cache_dtype, sync_interval=8,
         preempt_on_stall=False, device=DEV,
     )
-    sync(torch)
-    pa.launches["append"] = pa.launches["window"] = 0
-    i4.launches = 0
-    i4.kernel_launches.update(dict.fromkeys(i4.kernel_launches, 0))
-    t0 = time.perf_counter()
-    comps = eng.pump(reqs)
-    sync(torch)
-    wall = time.perf_counter() - t0
+
+
+def graph_pool_bytes(torch, graph) -> int:
+    """Bytes of the segments the caching allocator holds in ``graph``'s
+    private memory pool."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def graph_bookkeeping(torch, label, eng, max_graphs: int = 4):
+    """Print each of the engine's CUDA graphs (calls, capture time, pool
+    bytes); fail if there are more than ``max_graphs`` or a graph called
+    twice was not captured."""
+    graphs = eng.graphs
+    total = 0
+    for name, prog in graphs.items():
+        pool = graph_pool_bytes(torch, prog.graph) if prog.graph is not None else 0
+        total += pool
+        capture = ("not captured" if prog.capture_s is None
+                   else f"captured in {prog.capture_s * 1e3:.1f} ms")
+        log(f"{label}: graph {name!r}: {prog.calls} calls, {capture}, pool {pool / 2**20:.2f} MiB")
+    log(f"{label}: {len(graphs)} graphs, pools {total / 2**20:.2f} MiB together")
+    if not 0 < len(graphs) <= max_graphs:
+        raise AssertionError(f"{label}: {len(graphs)} graphs (want 1-{max_graphs})")
+    if any(p.graph is None for p in graphs.values() if p.calls >= 2):
+        raise AssertionError(f"{label}: a graph called twice was never captured")
+
+
+def phase_serve(torch, label, cfg, params, reqs, *, cache_dtype, logit_tol):
+    """Serve ``reqs`` through the engine, its programs as CUDA graphs (the
+    main path); check every stream teacher-forced against the plain dense
+    decode path, and the run against an eager twin engine
+    (``serve.disable_graphs()``) on the same requests: completions,
+    statuses, host syncs, stalls, final pool bytes outside the null block
+    and every kernel launch count identical.  Returns the paged and int4 launch counts of the
+    graphed run."""
+    from k8s_dra_driver_torch.models import decode, serve
+    from k8s_dra_driver_torch.models.paged import NULL_BLOCK
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    def drive(eager):
+        eng = _serving_engine(cfg, params, cache_dtype)
+        sync(torch)
+        _zero_serving_counts()
+        t0 = time.perf_counter()
+        with serve.disable_graphs() if eager else contextlib.nullcontext():
+            comps = eng.pump(reqs)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        if i4.launches != sum(i4.kernel_launches.values()):
+            raise AssertionError(f"{label}: int4 launches {i4.launches} are not the kernels' sum")
+        return eng, comps, wall, serve.launch_counts()
+
+    eng, comps, wall, all_counts = drive(eager=False)
     counts = {"paged_attention": pa.launches["append"],
               "paged_attention_window": pa.launches["window"],
               "int4_matmul": i4.kernel_launches["int4_splitk"],
               "int4_matmul_prefill": i4.kernel_launches["int4_wgmma"]}
-    if i4.launches != sum(i4.kernel_launches.values()):
-        raise AssertionError(f"{label}: int4 launches {i4.launches} are not the kernels' sum")
     generated = sum(len(c.generated) for c in comps)
     if len(comps) != len(reqs):
         raise AssertionError(f"{label}: {len(comps)} completions for {len(reqs)} requests")
+    log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s = "
+        f"{generated / wall:.1f} tokens/s (graphed); {eng.decode_steps} decode steps, "
+        f"{wall / max(eng.decode_steps, 1) * 1e3:.2f} ms wall per step (admissions included); "
+        f"host_syncs {eng.host_syncs}, stalled_steps {eng.stalled_steps}")
+    graph_bookkeeping(torch, label, eng)
+
+    twin, twin_comps, twin_wall, twin_counts = drive(eager=True)
+    log(f"{label}: eager twin: {twin_wall:.2f} s = {generated / twin_wall:.1f} tokens/s; "
+        f"host_syncs {twin.host_syncs}, stalled_steps {twin.stalled_steps}")
+    streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+    if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
+        raise AssertionError(f"{label}: graphed and eager completions differ")
+    if (eng.host_syncs, eng.stalled_steps) != (twin.host_syncs, twin.stalled_steps):
+        raise AssertionError(f"{label}: graphed and eager host syncs or stalls differ")
+    differ = sorted(
+        {int(b) for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v))
+         for b in torch.nonzero((a != b_).transpose(0, 1).flatten(1).any(1)).flatten().tolist()}
+    )
+    # the null block is the sink of prefill's stripes past a prompt's own
+    # blocks: one indexed write with repeated indices, whose winner PyTorch
+    # leaves unspecified; nothing reads it as history
+    log(f"{label}: pool blocks whose bytes differ between graphed and eager: {differ} "
+        f"(block {NULL_BLOCK} is the null block)")
+    if any(b != NULL_BLOCK for b in differ):
+        raise AssertionError(f"{label}: graphed and eager pools differ after the drain")
+    if all_counts != twin_counts:
+        raise AssertionError(
+            f"{label}: launch counts differ: graphed {all_counts}, eager {twin_counts}"
+        )
+    log(f"{label}: graphed == eager twin: {len(streams)} completions with statuses, host "
+        f"syncs, stalls, pool bytes outside the null block and launch counts {all_counts}")
+    del twin, twin_comps
 
     ref = _dense_reference(params)
     by_id = {c.request_id: c for c in comps}
@@ -1014,62 +1101,119 @@ def phase_serve(torch, label, cfg, params, reqs, *, cache_dtype, logit_tol):
             raise AssertionError(
                 f"{label}: request {rid} picked a token {gap:.4g} below the reference argmax"
             )
-    log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s = "
-        f"{generated / wall:.1f} tokens/s; {eng.decode_steps} decode steps, "
-        f"{wall / max(eng.decode_steps, 1) * 1e3:.2f} ms wall per step (admissions included); "
-        f"host_syncs {eng.host_syncs}, stalled_steps {eng.stalled_steps}")
     log(f"{label}: teacher-forced vs plain dense decode: exact argmax {exact}/{total} "
         f"({exact / total:.4f}), worst logit gap {worst_gap:.4g} (tolerance {logit_tol}: "
         f"{TOL_WHY[cache_dtype == torch.float32]})")
     log(f"{label}: launches {counts}")
     if counts["paged_attention"] == 0:
         raise AssertionError(f"{label}: the paged kernel was never launched")
+    del eng
     steady_decode(torch, label, cfg, params, cache_dtype=cache_dtype)
     return counts
 
 
-def steady_decode(torch, label, cfg, params, *, cache_dtype, bursts=4):
-    """Decode-only step time at the serving batch: 8 resident requests
-    (prompt 128; none retires inside the window), ``bursts`` bursts of 8
-    steps on the host clock around a synchronised window, then one more
-    burst under ``torch.profiler`` for the device's busy share and the
-    kernels that take its time.  The least time the card could take for a
-    step reads every stored parameter byte and each row's K/V once."""
-    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+def steady_decode(torch, label, cfg, params, *, cache_dtype, rounds=4, bursts=4):
+    """Decode-only step time at the serving batch, eager against graphed:
+    two engines with the same 8 resident requests (prompt 128; none retires
+    inside the window), one run eagerly (``serve.disable_graphs()``), one
+    with its programs as CUDA graphs.  After 3 warm-up bursts each (the
+    graphed engine's first call runs eagerly, its second captures), the two
+    alternate for ``rounds`` rounds of ``bursts`` 8-step bursts each, on
+    the host clock around a synchronised window (eager, graphed, eager,
+    ...; their streams stay identical, so their contexts match).  Then one
+    burst of each under ``torch.profiler``: the device's busy share, and
+    the paged call's device time per call inside the graph.  The least time
+    the card could take for a step reads every stored parameter byte and
+    each row's K/V once.  Fails if the graphed step is slower than the
+    eager one."""
+    from k8s_dra_driver_torch.models import serve
     from k8s_dra_driver_torch.models.quant import quantized_bytes
 
-    eng = PagedServeEngine(
-        params=params, cfg=cfg, n_slots=8, n_blocks=8 * 24 + 1, block_size=16,
-        prompt_bucket=256, cache_dtype=cache_dtype, sync_interval=8,
-        preempt_on_stall=False, device=DEV,
-    )
     r = np.random.RandomState(SEED + 7)
-    for _ in range(8):
-        eng.submit(r.randint(0, cfg.vocab_size, size=128).tolist(), max_tokens=8 * (bursts + 3))
-    eng.step_burst()  # warm-up burst
-    sync(torch)
-    t0 = time.perf_counter()
-    for _ in range(bursts):
-        eng.step_burst()
-    sync(torch)
-    ms = (time.perf_counter() - t0) / (8 * bursts) * 1e3
+    prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+    engines = {}
+    for mode in ("eager", "graphed"):
+        eng = _serving_engine(cfg, params, cache_dtype)
+        with serve.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            for p in prompts:
+                eng.submit(p, max_tokens=8 * (3 + rounds * bursts + 2))
+            for _ in range(3):  # warm-up bursts
+                eng.step_burst()
+        engines[mode] = eng
+    times = {"eager": [], "graphed": []}
+    for _ in range(rounds):
+        for mode, eng in engines.items():
+            with serve.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+                sync(torch)
+                t0 = time.perf_counter()
+                for _ in range(bursts):
+                    eng.step_burst()
+                sync(torch)
+            times[mode].append((time.perf_counter() - t0) / (8 * bursts) * 1e3)
     itemsize = torch.empty((), dtype=cache_dtype).element_size()
-    mean_ctx = 128 + 8 + 8 * bursts / 2
+    mean_ctx = 128 + 8 * 3 + 8 * rounds * bursts / 2
     kv = 8 * mean_ctx * 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * itemsize
     weights = quantized_bytes(params)[0]
     b_ms, _ = bound(weights + kv, 0, "bfloat16")
-    log(f"{label}: steady decode B=8 ctx~{mean_ctx:.0f}: {ms:.3f} ms per step "
-        f"({8 / ms * 1e3:.0f} tokens/s); bound {b_ms * 1e3:.1f} us "
-        f"({weights / 1e6:.1f} MB parameters + {kv / 1e6:.1f} MB K/V per step)")
-    profile_window(torch, f"{label}: profile of one 8-step burst", eng.step_burst,
-                   watch=("paged_", "int4_"))
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    for mode in ("eager", "graphed"):
+        log(f"{label}: steady decode B=8 ctx~{mean_ctx:.0f}, {mode}: "
+            f"{' / '.join(f'{t:.3f}' for t in times[mode])} ms per step by round "
+            f"(median {med[mode]:.3f} ms, {8 / med[mode] * 1e3:.0f} tokens/s)")
+    log(f"{label}: steady decode bound {b_ms * 1e3:.1f} us per step "
+        f"({weights / 1e6:.1f} MB parameters + {kv / 1e6:.1f} MB K/V); graphed / eager "
+        f"{med['graphed'] / med['eager']:.3f}")
+    eager, graphed = engines["eager"], engines["graphed"]
+    if [st.tokens for st in eager._slots] != [st.tokens for st in graphed._slots]:
+        raise AssertionError(f"{label}: the eager and graphed steady streams differ")
+    graph_bookkeeping(torch, f"{label} steady", graphed)
+    with serve.disable_graphs():
+        profile_window(torch, f"{label}: profile of one eager 8-step burst", eager.step_burst,
+                       watch=("paged_", "int4_"))
+    prof = profile_window(torch, f"{label}: profile of one graphed 8-step burst",
+                          graphed.step_burst, watch=("paged_", "int4_"))
+    if prof is not None:
+        partial = [r_ for r_ in prof["rows"] if "paged_attention_partial" in r_[2]]
+        merge = [r_ for r_ in prof["rows"] if "paged_attention_merge" in r_[2]]
+        calls = sum(r_[1] for r_ in partial)
+        if calls:
+            p_us = sum(r_[0] for r_ in partial) / calls
+            m_us = sum(r_[0] for r_ in merge) / calls
+            log(f"{label}: graphed burst: paged call {p_us + m_us:.2f} us of device time per "
+                f"call over {calls} calls (partial {p_us:.2f}, merge {m_us:.2f} us)")
+        busy_ms = prof["busy_us"] / 8 / 1e3
+        kernels = sum(r_[1] for r_ in prof["rows"])
+        log(f"{label}: graphed burst: device busy {busy_ms:.3f} ms per step over {kernels} "
+            f"kernels, {prof['busy_us'] / prof['window_us']:.3f} of the profiled window and "
+            f"{busy_ms / med['graphed']:.3f} of the unprofiled graphed step ({med['graphed']:.3f} ms)")
+    # the burst graph's span on the device, the gaps between its kernels
+    # included: three replays back to back, after every check (they move the
+    # device state on behind the engine's back; the engine is not used again)
+    burst = graphed.graphs.get("burst k=8")
+    if DEV == "cuda" and burst is not None and burst.graph is not None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sync(torch)
+        start.record()
+        for _ in range(3):
+            burst.graph.replay()
+        end.record()
+        end.synchronize()
+        span = start.elapsed_time(end) / 24
+        log(f"{label}: the burst graph replayed alone: {span:.3f} ms per step on the device "
+            f"(its kernels and the gaps between them); the rest of the graphed step, "
+            f"{med['graphed'] - span:.3f} ms, is the host's")
+    if med["graphed"] > med["eager"]:
+        raise AssertionError(f"{label}: the graphed step ({med['graphed']:.3f} ms) is slower "
+                             f"than the eager one ({med['eager']:.3f} ms)")
 
 
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
     ``host_top``, the host ops with the most self CPU time; with ``watch``,
-    the device time of the kernels whose names hold each string).  Only events
+    the device time of the kernels whose names hold each string).  Returns
+    ``{"window_us", "busy_us", "rows": [(device us, count, name)]}``, or
+    None when the profile holds no device events.  Only events
     that ran on the device are summed: a CPU op's own device time repeats
     the time of the kernels it launched, so the sum over all events counts
     those kernels twice (printed beside, for comparison with earlier runs
@@ -1094,7 +1238,7 @@ def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch
         busy = sum(r_[0] for r_ in rows)
         if busy <= 0:
             log(f"{label}: the profile holds no device events")
-            return
+            return None
         log(f"{label}: window {window_us:.0f} us, device busy {busy:.0f} us "
             f"({busy / window_us:.3f} of the window; the sum over all events, CPU ops "
             f"included, is {all_events:.0f} us)")
@@ -1110,8 +1254,10 @@ def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch
                 f"{sum(r_[0] for r_ in host):.0f} us under the profiler)")
             for cpu_us, count, key in sorted(host, reverse=True)[:host_top]:
                 log(f"    {cpu_us:9.0f} us  x{count:<5d} {key[:90]}")
+        return {"window_us": window_us, "busy_us": busy, "rows": rows}
     except Exception as exc:  # the profiler is a reading aid, not a check
         log(f"{label}: profile not taken: {type(exc).__name__}: {exc}")
+        return None
 
 
 def main() -> int:

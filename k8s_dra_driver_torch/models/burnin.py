@@ -178,7 +178,9 @@ def rope_rotate(x, positions, cfg: ModelConfig):
     hd = x.shape[-1]
     half = hd // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) * 2.0 / hd
-    freqs = torch.pow(torch.tensor(cfg.rope_base, dtype=torch.float32, device=x.device), exponent)
+    # the base filled on the device, not copied from the host (capturable)
+    base = torch.full((), cfg.rope_base, dtype=torch.float32, device=x.device)
+    freqs = torch.pow(base, exponent)
     angles = positions.float()[..., None] * freqs       # [..., S, half]
     cos = torch.cos(angles)[..., None, :]               # broadcast over heads
     sin = torch.sin(angles)[..., None, :]

@@ -96,7 +96,10 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
     ``(logits [B, S, V] f32, cache)`` with the cache updated in place."""
     b, s = tokens.shape
     dev = tokens.device
-    pos0 = torch.as_tensor(pos0, dtype=torch.long, device=dev).expand(b)
+    if isinstance(pos0, torch.Tensor):
+        pos0 = pos0.to(device=dev, dtype=torch.long).expand(b)
+    else:  # filled on the device: no host-to-device copy (capturable)
+        pos0 = torch.full((b,), pos0, dtype=torch.long, device=dev)
     positions = pos0[:, None] + torch.arange(s, device=dev)[None, :]    # [B, S]
     rows = torch.arange(b, device=dev)
     if active is not None:

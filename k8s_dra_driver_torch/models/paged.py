@@ -224,18 +224,19 @@ def _paged_pipelined_burst(params, cache, table, tokens, pos, active, stop_pos,
     return torch.stack(planes, dim=1), cache, last, pos, active
 
 
-def _paged_first_token(params, cache, table, prompt, plen: int, slot: int,
-                       *, cfg: ModelConfig):
+def _paged_first_token(params, cache, table, prompt, plen, slot, *, cfg: ModelConfig):
     """Admission tail: re-run the step for every slot at ``plen - 1`` with
     only ``slot`` active (an idempotent rewrite of the last prompt
-    position) and take its greedy token.  Returns ``(token 0-d, cache)``."""
+    position) and take its greedy token.  ``plen`` and ``slot`` are 0-d
+    int32 tensors, as the reference traces them, so one captured program
+    serves every admission.  Returns ``(token [1], cache)``."""
     n_slots = table.shape[0]
-    dev = table.device
-    tokens = prompt[0, plen - 1].to(torch.int32).expand(n_slots)
-    pos = torch.full((n_slots,), plen - 1, dtype=torch.int32, device=dev)
-    active = torch.arange(n_slots, device=dev) == slot
+    last = (plen - 1).view(1)
+    tokens = prompt[0].index_select(0, last).to(torch.int32).expand(n_slots)
+    pos = last.expand(n_slots)
+    active = torch.arange(n_slots, device=table.device) == slot
     tok, _, cache = _paged_step_all(params, cache, table, tokens, pos, active, cfg=cfg)
-    return tok[slot], cache
+    return tok.index_select(0, slot.view(1)), cache
 
 
 def paged_greedy_decode(params, prompt, steps: int, cfg: ModelConfig, *,
@@ -285,11 +286,20 @@ class PagedServeEngine:
       generates nothing) until a retirement frees blocks;
     * ``step_burst`` runs up to ``sync_interval`` device steps with ONE
       device-to-host readback (``host_syncs`` counts them; admissions'
-      first-token reads are not counted);
+      first-token reads are not counted); ``step`` is a burst of one;
     * retirement frees the slot's blocks at once.
 
     Runs on ``device`` (default the card; raises without one unless
-    ``device="cpu"``); ``params`` must live there.  With
+    ``device="cpu"``); ``params`` must live there.  On the card each of
+    the reference's compiled programs (prefill at the prompt bucket, the
+    first token, the burst at ``sync_interval`` and at 1) runs as a CUDA
+    graph (``serve.GraphedProgram``; at most four an engine, in
+    ``graphs``), eagerly inside ``serve.disable_graphs()``; on the CPU it
+    runs eagerly.  The device state those programs read and write
+    (block table, active mask, last token, position, stop depth, the
+    admission's prompt, prefill table row, length and slot) keeps one
+    address for the engine's life and is written in place; everything
+    else (allocation, growth, stalls, retirement) stays on the host.  With
     ``preempt_on_stall`` the reference would evict a request when every
     resident slot stalls: the port raises ``NotImplementedError`` there
     instead.  Not thread-safe; drive it from one loop.
@@ -343,10 +353,19 @@ class PagedServeEngine:
         self._cache = init_paged_cache(
             cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev
         )
-        self._upload_table()
-        zeros = lambda: torch.zeros((self.n_slots,), dtype=torch.int32, device=dev)  # noqa: E731
-        self._last, self._pos, self._stop_pos = zeros(), zeros(), zeros()
+        # the programs' device state: one address each for the engine's life
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._table = torch.full((self.n_slots, self._mb), NULL_BLOCK, **i32)
+        self._table_dirty = False  # _table_np changed since the last upload
+        self._active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
+        self._last, self._pos, self._stop_pos = (
+            torch.zeros((self.n_slots,), **i32) for _ in range(3)
+        )
+        self._prompt = torch.zeros((1, self.prompt_bucket), **i32)   # padded
+        self._prefill_row = torch.zeros((1, self._mbp), **i32)
+        self._admit = torch.zeros((2,), **i32)                       # (plen, slot)
         self._eos = -1 if self.eos_id is None else self.eos_id
+        self._programs: dict[str, serve.GraphedProgram] = {}
 
     # -- public API --------------------------------------------------------
     @property
@@ -382,32 +401,27 @@ class PagedServeEngine:
             raise serve.NoCapacity(
                 f"no free blocks ({need} needed, {self.free_blocks} free)"
             ) from None
-        dev = self.device
         try:
             self._owned[slot] = ids
             self._table_np[slot, :] = NULL_BLOCK
             self._table_np[slot, :need] = ids
-            self._upload_table()
-            padded_np = np.zeros((1, self.prompt_bucket), np.int32)
-            padded_np[0, : len(prompt)] = prompt
-            padded = torch.from_numpy(padded_np).to(dev)
+            self._table_dirty = True
+            self._sync_table()
+            padded = np.zeros((1, self.prompt_bucket), np.int32)
+            padded[0, : len(prompt)] = prompt
+            self._prompt.copy_(torch.from_numpy(padded))
             # prefill writes ceil(bucket/bs) stripes; entries past the owned
             # blocks are the null block, a scratch sink never attended
-            prefill_row = torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp].copy()).to(dev)
-            self._cache, _ = paged_prefill(
-                self.params, padded, self._cache, prefill_row, cfg=self.cfg
-            )
-            tok, self._cache = _paged_first_token(
-                self.params, self._cache, self._table, padded, len(prompt), slot,
-                cfg=self.cfg,
-            )
-            first_tok = int(tok)
+            self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
+            self._admit.copy_(torch.tensor([len(prompt), slot], dtype=torch.int32))
+            self._run("prefill", self._prefill)
+            first_tok = int(self._run("first token", self._first_token))
         except BaseException:
             # the slot was never occupied: return its blocks
             self._alloc.free(self._owned[slot])
             self._owned[slot] = []
             self._table_np[slot, :] = NULL_BLOCK
-            self._upload_table()
+            self._table_dirty = True
             raise
         request_id = self._next_id
         self._next_id += 1
@@ -422,30 +436,9 @@ class PagedServeEngine:
         return request_id
 
     def step(self) -> int:
-        """Advance every active, non-stalled slot one token; returns the
-        number of slots stepped."""
-        active, table_dirty = self._grow_or_preempt(lookahead=0)
-        if table_dirty:
-            self._upload_table()
-        if not active.any():
-            return 0
-        active_t = torch.from_numpy(active).to(self.device)
-        next_tok, bad, self._cache = _paged_step_all(
-            self.params, self._cache, self._table, self._last, self._pos,
-            active_t, cfg=self.cfg,
-        )
-        self._last = torch.where(active_t, next_tok, self._last)
-        self._pos = torch.where(active_t, self._pos + 1, self._pos)
-        toks, bads = torch.stack([next_tok, bad.to(torch.int32)]).cpu().numpy()
-        self.host_syncs += 1
-        self.decode_steps += 1
-        self._check_finite(active & bads.astype(bool))
-        for slot, st in enumerate(self._slots):
-            if st is None or not active[slot]:
-                continue
-            st.tokens.append(int(toks[slot]))
-            self._retire(slot)
-        return int(active.sum())
+        """Advance every active, non-stalled slot one token (a burst of
+        one step); returns the number of slots stepped."""
+        return self._burst(1, self._grow_or_preempt(lookahead=0))
 
     def step_burst(self) -> int:
         """Advance every participating slot up to ``sync_interval`` tokens
@@ -458,20 +451,21 @@ class PagedServeEngine:
         if all(st is None for st in self._slots):
             return 0
         k = self.sync_interval
-        active, table_dirty = self._grow_or_preempt(lookahead=k - 1)
+        active = self._grow_or_preempt(lookahead=k - 1)
         if not active.any():
             k = 1
-            active, dirty2 = self._grow_or_preempt(lookahead=0)
-            table_dirty = table_dirty or dirty2
-        if table_dirty:
-            self._upload_table()
+            active = self._grow_or_preempt(lookahead=0)
+        return self._burst(k, active)
+
+    def _burst(self, k: int, active) -> int:
+        """Run the K-step burst program for the slots in ``active`` (host
+        bool ``[n_slots]``, blocks already grown) with ONE readback, then
+        append each slot's tokens and retire the finished ones."""
+        self._sync_table()
         if not active.any():
             return 0
-        active_t = torch.from_numpy(active).to(self.device)
-        trace, self._cache, self._last, self._pos, _ = _paged_pipelined_burst(
-            self.params, self._cache, self._table, self._last, self._pos,
-            active_t, self._stop_pos, cfg=self.cfg, eos_id=self._eos, k=k,
-        )
+        self._active.copy_(torch.from_numpy(active))
+        trace = self._run(f"burst k={k}", self._burst_program(k))
         trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
         self.host_syncs += 1
         self.decode_steps += k
@@ -519,9 +513,8 @@ class PagedServeEngine:
         ``pos .. pos + lookahead`` (clamped to its remaining stream); slots
         the pool cannot serve stall.  The depth comes from the host-side
         invariant ``pos == len(tokens) - 1``, never from a device read.
-        Returns ``(active mask, table_dirty)``."""
+        Returns the host active mask."""
         active = np.zeros((self.n_slots,), bool)
-        table_dirty = False
         order = sorted(
             range(self.n_slots),
             key=lambda s: self._slots[s].request_id if self._slots[s] else 0,
@@ -543,16 +536,16 @@ class PagedServeEngine:
                     break
                 self._owned[slot].append(new_id)
                 self._table_np[slot, len(self._owned[slot]) - 1] = new_id
-                table_dirty = True
+                self._table_dirty = True
             if grew:
                 active[slot] = True
-        return active, table_dirty
+        return active
 
     def _grow_or_preempt(self, lookahead: int):
         """Block growth; where the reference would evict (every resident
         slot stalled and one is short enough to re-prefill) the port
         raises, since preemption is not ported yet."""
-        active, table_dirty = self._grow_active_slots(lookahead)
+        active = self._grow_active_slots(lookahead)
         if self.preempt_on_stall:
             resident = [s for s in range(self.n_slots) if self._slots[s] is not None]
             victims = [
@@ -564,10 +557,53 @@ class PagedServeEngine:
                     "every resident slot stalled on a full pool: preemption is "
                     "not ported yet (use a larger pool or preempt_on_stall=False)"
                 )
-        return active, table_dirty
+        return active
 
-    def _upload_table(self) -> None:
-        self._table = torch.from_numpy(self._table_np.copy()).to(self.device)
+    def _sync_table(self) -> None:
+        """Upload the host block table into ``_table`` in place, once for
+        however many changes since the last upload."""
+        if self._table_dirty:
+            self._table.copy_(torch.from_numpy(self._table_np))
+            self._table_dirty = False
+
+    # -- the programs (the reference's compiled ones) ------------------------
+    @property
+    def graphs(self) -> dict:
+        """The engine's CUDA graphs by program name (none on the CPU or
+        under ``serve.disable_graphs()``)."""
+        return dict(self._programs)
+
+    def _run(self, name: str, fn):
+        """Run program ``fn`` (no arguments: it reads the static buffers):
+        eagerly on the CPU and under ``serve.disable_graphs()``, else as the
+        engine's CUDA graph ``name``, captured on its second call."""
+        if self.device.type != "cuda" or not serve.graphs_enabled():
+            return fn()
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = self._programs[name] = serve.GraphedProgram(name, fn, self.device)
+        return prog()
+
+    def _prefill(self) -> None:
+        paged_prefill(self.params, self._prompt, self._cache, self._prefill_row, cfg=self.cfg)
+
+    def _first_token(self):
+        tok, _ = _paged_first_token(
+            self.params, self._cache, self._table, self._prompt, self._admit[0],
+            self._admit[1], cfg=self.cfg,
+        )
+        return tok
+
+    def _burst_program(self, k: int):
+        def burst():
+            trace, _, last, pos, _ = _paged_pipelined_burst(
+                self.params, self._cache, self._table, self._last, self._pos,
+                self._active, self._stop_pos, cfg=self.cfg, eos_id=self._eos, k=k,
+            )
+            self._last.copy_(last)
+            self._pos.copy_(pos)
+            return trace
+        return burst
 
     def _retire(self, slot: int) -> None:
         done = serve.completion_if_done(self._slots[slot], self.eos_id, self.cfg.max_seq)
@@ -577,4 +613,4 @@ class PagedServeEngine:
             self._alloc.free(self._owned[slot])
             self._owned[slot] = []
             self._table_np[slot, :] = NULL_BLOCK
-            self._upload_table()
+            self._table_dirty = True

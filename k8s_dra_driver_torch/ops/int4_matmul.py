@@ -44,6 +44,21 @@ launches = 0
 kernel_launches = {"int4_splitk": 0, "int4_wgmma": 0}
 
 
+def launch_counts() -> dict:
+    """Every counter of this module, ``{"launches": n, kernel name: n}``
+    (read by the CUDA-graph holder, ``models/serve.GraphedProgram``)."""
+    return {"launches": launches, **kernel_launches}
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (keys as :func:`launch_counts` gives them) to the
+    counters: a graph replay counts the launches its capture recorded."""
+    global launches
+    launches += delta.get("launches", 0)
+    for name in kernel_launches:
+        kernel_launches[name] += delta.get(name, 0)
+
+
 def dequant_int4(packed, scale, group_size: int, dtype) -> torch.Tensor:
     """``packed [K/2, N]`` uint8 + ``scale [K/gs, N]`` f32 -> ``[K, N]`` in
     ``dtype``: unpack the half-split nibbles, scale in f32, round once."""

@@ -54,6 +54,19 @@ _ARGTYPES = (
 launches = {"append": 0, "window": 0}
 
 
+def launch_counts() -> dict:
+    """A copy of the counters (read by the CUDA-graph holder,
+    ``models/serve.GraphedProgram``)."""
+    return dict(launches)
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (keys as :func:`launch_counts` gives them) to the
+    counters: a graph replay counts the launches its capture recorded."""
+    for key in launches:
+        launches[key] += delta.get(key, 0)
+
+
 def _scale(d: int) -> float:
     """1/sqrt(d) computed in f32, as the reference does."""
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))

@@ -30,13 +30,17 @@ move a rounding of P or dS to the next bf16 value; each output rounded
 once).  lse within 2^-16 (1 + |lse|).
 Train-step losses within 1e-5 relative of the CPU's."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from k8s_dra_driver_torch.models import burnin as tb
+from k8s_dra_driver_torch.models import decode as td
 from k8s_dra_driver_torch.models import paged as tp
 from k8s_dra_driver_torch.models import quant as tq
+from k8s_dra_driver_torch.models import serve as ts
 from k8s_dra_driver_torch.ops import flash_attention as tfa
 from k8s_dra_driver_torch.ops import int4_matmul as ti4
 from k8s_dra_driver_torch.ops import paged_attention as tpa
@@ -263,6 +267,112 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda, bits):
     assert eng.host_syncs == cpu.host_syncs and eng.stalled_steps == cpu.stalled_steps
     assert tpa.launches["append"] > 0
     assert (ti4.launches > 0) == bool(bits)
+
+
+def _small_engine_params(bits, dev):
+    cfg = tb.ModelConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                         n_layers=2, d_ff=128, max_seq=64, rope=True, dtype=torch.float32)
+    params = tb.init_params(torch.Generator().manual_seed(0), cfg)
+    if bits:
+        params = tq.quantize_blocks(params, bits=bits)
+    return cfg, _to(params, dev)
+
+
+def _tight_drive(eng, seed=8):
+    """Three slots, block 4, sync interval 4, 19 blocks
+    (``_TIGHT``): four admissions of prompt 9, one request retiring in the
+    first burst, 4-step bursts until the pool runs dry, then 1-step bursts
+    until every resident slot stalls (the CPU twin is
+    ``test_torch_paged_serve.tight_drive``)."""
+    r = np.random.RandomState(seed)
+    queue = [(r.randint(0, 128, size=9).tolist(), m) for m in (30, 2, 30, 30)]
+    while True:
+        while queue and eng.free_slots():
+            eng.submit(*queue.pop(0))
+        if eng.step_burst() == 0:
+            return eng.completions()
+
+
+_TIGHT = dict(n_slots=3, block_size=4, prompt_bucket=24, n_blocks=19, sync_interval=4)
+
+
+def _launch_counts():
+    return {**tpa.launch_counts(), **{f"int4.{k}": n for k, n in ti4.launch_counts().items()}}
+
+
+@pytest.mark.parametrize("bits", [None, 4])
+@pytest.mark.parametrize("case", ["sync1", "sync4", "tight"])
+def test_graphed_engine_matches_the_eager_engine(cuda, bits, case):
+    """The engine's programs as CUDA graphs against the same engine run
+    eagerly (``serve.disable_graphs()``): streams, statuses, host syncs,
+    stalls, pool bytes outside the null block and kernel launch counts
+    identical; at most four
+    graphs, each captured once; the tight pool runs the 1-step burst."""
+    cfg, params = _small_engine_params(bits, cuda)
+    r = np.random.RandomState(1)
+    reqs = [(r.randint(0, 128, size=r.randint(3, 20)).tolist(), int(r.randint(4, 20)))
+            for _ in range(6)]
+    if case == "tight":
+        kw, drive = _TIGHT, _tight_drive
+    else:
+        kw = dict(n_slots=3, n_blocks=12, block_size=8, prompt_bucket=24,
+                  sync_interval=1 if case == "sync1" else 4)
+        drive = lambda eng: eng.pump(reqs)  # noqa: E731
+
+    def serve(eager):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        eng = tp.PagedServeEngine(params=params, cfg=cfg, device=cuda,
+                                  preempt_on_stall=False, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = drive(eng)
+        torch.cuda.synchronize()
+        streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+        return eng, streams, _launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want
+    assert (graphed.host_syncs, graphed.stalled_steps) == (eager.host_syncs, eager.stalled_steps)
+    # outside the null block 0: prefill's stripes past a prompt's blocks
+    # all land there, in one indexed write whose winner is unspecified
+    assert torch.equal(graphed._cache.k[:, 1:], eager._cache.k[:, 1:])
+    assert torch.equal(graphed._cache.v[:, 1:], eager._cache.v[:, 1:])
+    assert counts == want_counts and counts["append"] > 0
+    assert (counts["int4.launches"] > 0) == bool(bits)
+    assert eager.graphs == {}
+    names = set(graphed.graphs)
+    assert 0 < len(names) <= 4
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    if case == "tight":
+        assert names == {"prefill", "first token", "burst k=4", "burst k=1"}
+        assert graphed.stalled_steps > 0
+        assert all(g.calls >= 3 for g in graphed.graphs.values())  # replays alone too
+
+
+def test_capture_of_a_host_read_raises(cuda, monkeypatch):
+    """A program that reads the device from the host cannot be captured:
+    the capture raises, names the program, and nothing runs eagerly in its
+    place (the paged kernel's count does not move)."""
+    cfg, params = _small_engine_params(None, cuda)
+
+    def finite_rows_with_a_host_read(logits):
+        torch.isfinite(logits).all().item()
+        return torch.isfinite(logits).all(dim=-1)
+
+    monkeypatch.setattr(td, "finite_rows", finite_rows_with_a_host_read)
+    eng = tp.PagedServeEngine(params=params, cfg=cfg, device=cuda, n_slots=3, n_blocks=12,
+                              block_size=8, prompt_bucket=24, sync_interval=4)
+    eng.submit([5, 6, 7], max_tokens=8)  # first call of each program: eager
+    before = tpa.launches["append"]
+    free = eng.free_blocks
+    with pytest.raises(ts.GraphCaptureError, match="first token"):
+        eng.submit([8, 9, 10, 11], max_tokens=8)  # second call: captured
+    assert tpa.launches["append"] == before
+    assert eng.free_blocks == free and eng.free_slots() == 2
+    assert eng.graphs["first token"].graph is None
+    torch.cuda.synchronize()
+    assert torch.ones(4, device=cuda).sum().item() == 4  # the card still works
 
 
 def _to(params, dev):

@@ -25,6 +25,8 @@ from k8s_dra_driver_torch.models import paged as tp
 from k8s_dra_driver_torch.models import quant as tq
 from k8s_dra_driver_torch.models import serve as ts
 from k8s_dra_driver_torch.models.weights import params_from_jax
+from k8s_dra_driver_torch.ops import int4_matmul as ti4
+from k8s_dra_driver_torch.ops import paged_attention as tpa
 from k8s_dra_driver_tpu.models import burnin as jb
 from k8s_dra_driver_tpu.models import paged as jp
 from k8s_dra_driver_tpu.models import quant as jq
@@ -68,18 +70,20 @@ def _streams(comps):
 
 def _serve_port(tparams, reqs, monkeypatch, **kw):
     """Serve through the port, counting bursts that reached the device and
-    refusing host reads inside each burst.  Returns the engine, its
-    completions as ``{request_id: (generated, status)}`` and the burst
-    count."""
+    refusing host reads inside each program the card captures as a graph
+    (prefill, first token, burst).  Returns the engine, its completions as
+    ``{request_id: (generated, status)}`` and the burst count."""
     eng = tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **ENGINE, **kw)
-    burst = tp._paged_pipelined_burst
 
-    def guarded(*a, **k):
-        with monkeypatch.context() as m:
-            _forbid_host_reads(m)
-            return burst(*a, **k)
+    def guard(fn):
+        def guarded(*a, **k):
+            with monkeypatch.context() as m:
+                _forbid_host_reads(m)
+                return fn(*a, **k)
+        return guarded
 
-    monkeypatch.setattr(tp, "_paged_pipelined_burst", guarded)
+    for name in ("_paged_pipelined_burst", "_paged_first_token", "paged_prefill"):
+        monkeypatch.setattr(tp, name, guard(getattr(tp, name)))
     bursts = 0
     step_burst = eng.step_burst
 
@@ -302,3 +306,156 @@ def test_cache_constructors_default_to_the_card(make, monkeypatch):
     cache = make(device="cpu")
     assert cache.k.device.type == cache.v.device.type == "cpu"
     assert not cache.k.any() and not cache.v.any()
+
+
+# -- what capture needs: static device state, eager CPU, counted replays --
+
+STATIC_BUFFERS = ("_table", "_active", "_last", "_pos", "_stop_pos", "_prompt",
+                  "_prefill_row", "_admit")
+
+
+def tight_drive(eng, seed=8):
+    """Three slots, block 4, sync interval 4, 19 blocks: four admissions
+    (prompt 9, so every 4-step burst crosses a block), one short request
+    retiring in the first burst, 4-step bursts until the pool runs dry,
+    then 1-step bursts until every resident slot stalls.  Returns the
+    completions."""
+    r = np.random.RandomState(seed)
+    queue = [(r.randint(0, 128, size=9).tolist(), m) for m in (30, 2, 30, 30)]
+    while True:
+        while queue and eng.free_slots():
+            eng.submit(*queue.pop(0))
+        if eng.step_burst() == 0:
+            return eng.completions()
+
+
+TIGHT = dict(n_slots=3, block_size=4, prompt_bucket=24, n_blocks=19, sync_interval=4,
+             preempt_on_stall=False)
+
+
+def test_engine_device_state_keeps_its_addresses(weights):
+    """Every tensor the engine's programs read or write keeps one address
+    through admissions, a retirement, stalls and both burst lengths: a
+    captured graph replays the addresses it saw.  On the CPU the programs
+    run eagerly and no graph exists."""
+    _, tparams = weights
+    eng = tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **TIGHT)
+    ptrs = {name: getattr(eng, name).data_ptr() for name in STATIC_BUFFERS}
+    ran = []
+    run = eng._run
+
+    def checked(name, fn):
+        assert {n: getattr(eng, n).data_ptr() for n in STATIC_BUFFERS} == ptrs
+        ran.append(name)
+        return run(name, fn)
+
+    eng._run = checked
+    comps = tight_drive(eng)
+    assert {n: getattr(eng, n).data_ptr() for n in STATIC_BUFFERS} == ptrs
+    assert sorted(set(ran)) == ["burst k=1", "burst k=4", "first token", "prefill"]
+    assert ran.count("burst k=1") >= 3 and ran.count("burst k=4") >= 3
+    assert ran.count("prefill") == ran.count("first token") == 4
+    assert [c.request_id for c in comps] == [1] and eng.stalled_steps > 0
+    assert eng.graphs == {}
+
+
+def test_disable_graphs_nests_restores_and_changes_nothing_on_the_cpu(weights):
+    _, tparams = weights
+    assert ts.graphs_enabled()
+    with ts.disable_graphs():
+        assert not ts.graphs_enabled()
+        with ts.disable_graphs():
+            assert not ts.graphs_enabled()
+        assert not ts.graphs_enabled()
+    assert ts.graphs_enabled()
+    with pytest.raises(KeyError), ts.disable_graphs():
+        raise KeyError("leaves through an exception")
+    assert ts.graphs_enabled()
+
+    def serve():
+        eng = tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **TIGHT)
+        comps = tight_drive(eng)
+        return eng, [(c.request_id, c.generated, c.status) for c in comps]
+
+    eng, want = serve()
+    with ts.disable_graphs():
+        eager, got = serve()
+    assert got == want
+    assert (eager.host_syncs, eager.stalled_steps) == (eng.host_syncs, eng.stalled_steps)
+    assert torch.equal(eager._cache.k, eng._cache.k) and torch.equal(eager._cache.v, eng._cache.v)
+    assert eng.graphs == eager.graphs == {}
+
+
+@pytest.fixture
+def zeroed_counters():
+    """The kernel launch counters at 0 for the test, restored after it."""
+    saved = ts.launch_counts()
+    ts.add_launch_counts({key: -n for key, n in saved.items()})
+    yield
+    now = ts.launch_counts()
+    ts.add_launch_counts({key: saved[key] - now[key] for key in saved})
+
+
+class _StandInGraph:
+    """What a captured CUDA graph does to the counters: a replay runs the
+    kernels and none of the wrappers' Python."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def _program(runs):
+    """A stand-in program that launches (counts) like one burst: two paged
+    calls and three int4 split-K calls."""
+
+    def fn():
+        runs.append(1)
+        tpa.add_launch_counts({"append": 2})
+        ti4.add_launch_counts({"launches": 3, "int4_splitk": 3})
+        return "output"
+
+    return fn
+
+
+def _counts():
+    return (tpa.launches["append"], ti4.launches, ti4.kernel_launches["int4_splitk"])
+
+
+def test_graphed_program_counts_each_call_once(zeroed_counters):
+    """The warm-up call runs eagerly and counts once; the capture's change
+    is taken back and added at every replay."""
+    runs, graphs = [], []
+
+    def capture(fn, device):
+        graphs.append(_StandInGraph())
+        return graphs[0], fn()  # capture runs the Python, launches nothing
+
+    prog = ts.GraphedProgram("stand-in", _program(runs), "cuda", capture=capture)
+    assert prog() == "output" and prog.graph is None and _counts() == (2, 3, 3)
+    for n in (2, 3, 4):
+        assert prog() == "output"
+        assert _counts() == (2 * n, 3 * n, 3 * n)
+    assert len(runs) == 2 and len(graphs) == 1     # warm-up + capture
+    assert graphs[0].replays == 3 and prog.calls == 4 and prog.capture_s >= 0
+
+
+def test_graphed_program_capture_failure_raises_and_leaves_counters(zeroed_counters):
+    """A capture that raises names the program, leaves the counters as they
+    were, runs nothing eagerly in its place, and is tried again next call."""
+    runs = []
+
+    def capture(fn, device):
+        fn()
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    prog = ts.GraphedProgram("burst k=4", _program(runs), "cuda", capture=capture)
+    prog()  # warm-up: eager, counted
+    assert _counts() == (2, 3, 3)
+    for _ in range(2):
+        with pytest.raises(ts.GraphCaptureError, match="burst k=4.*not permitted"):
+            prog()
+        assert _counts() == (2, 3, 3) and prog.graph is None
+    assert len(runs) == 3
