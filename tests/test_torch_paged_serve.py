@@ -7,11 +7,12 @@ host syncs identical; float32 logits within atol = rtol = 1e-4; pool
 entries outside the null block 0 (the JAX plain path diverts inactive
 rows' writes there, the port does not write them at all) within atol =
 rtol = 1e-5 in a float32 pool, and in a bfloat16 pool within one bf16
-step of the JAX entry, (2^-7 + 2^-16) * |JAX| + 2^-16: the limit PR 3
-set for bf16 results elementwise, step * |plain| plus 2^-16 of the
-entry's size (K/V entries are O(1)).  Each entry is one rounding to
-bf16 of a float32 projection that the two packages sum in another
-order, so the roundings may land one bf16 step apart."""
+step of the JAX entry, (2^-7 + 2^-16) * |JAX| + 2^-16: the elementwise
+bf16 limit the card tests hold kernels to (tests/test_torch_gpu.py),
+step * |plain| plus 2^-16 of the entry's size (K/V entries are O(1)).
+Each entry is one rounding to bf16 of a float32 projection that the two
+packages sum in another order, so the roundings may land one bf16 step
+apart."""
 
 import jax
 import jax.numpy as jnp
