@@ -41,12 +41,27 @@ exits 2 before any result):
 6. the same in f32 at reduced depth;
 7. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
-   step 0's loss and gradients against ``attention="dense"``, then 8 steps
-   on one batch with the loss falling and the flash kernels' launches
-   counted (bf16 through the wgmma kernels only), the step time, and the
-   device time by kernel of one step;
-8. training in f32 at 2 layers: flash against dense over 3 steps (through
-   the fma kernels only).
+   step 0's loss and gradients against ``attention="dense"``; then 8 steps
+   of the graphed step (one CUDA graph from the third call; the main path,
+   launch counts zeroed just before) on one batch with the loss falling and
+   the flash kernels' launches counted (bf16 through the wgmma kernels
+   only), held bit for bit (losses, params, count, moments) and in launch
+   counts against an eager twin (``serve.disable_graphs()``) from the same
+   seed; capture time, graph pool and peak memory; eager and graphed step
+   times in 4 alternating rounds of 5 steps in one process (tokens/s,
+   share of 989 TFLOP/s), and a profile of one step of each (the card's
+   busy share);
+8. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+   same init: bit-equal over 3 steps, the flash forward 2·L a step under
+   "dots" and "blocks" and L under "none", each policy's peak memory and
+   step time (alternating rounds);
+9. resume: the graphed bf16 step saved after 2 steps by
+   ``TrainCheckpointer``, step 3 run, the state restored into the step's
+   own tensors, step 3 run again: the same loss bit for bit, no new
+   capture;
+10. training in f32 at 2 layers: the graphed flash step against its eager
+    twin bit for bit and against dense over 3 steps (through the fma
+    kernels only).
 
 The line before the last lists the kernels with their launch counts on the
 path that runs them (serving or training) and their times; the last line is
@@ -822,16 +837,80 @@ TRAIN_TOL = {
 }
 
 
-def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
-    """bf16 training of ``cfg`` at S = max_seq through the flash kernels;
-    returns the kernels' launch counts over the ``steps`` main-path steps."""
+def _train_tokens(torch, cfg, b: int, seed: int):
+    return torch.from_numpy(
+        np.random.RandomState(seed).randint(0, cfg.vocab_size, size=(b, cfg.max_seq))
+    ).to(DEV)
+
+
+def _state_leaves(params, state) -> list:
+    """Every tensor a train step updates: params, count, both moments."""
     from k8s_dra_driver_torch.models import burnin
+
+    return [*burnin.param_leaves(params), state["count"], *state["mu"], *state["nu"]]
+
+
+def _differing(a: list, b: list) -> list:
+    """Positions where two lists of tensors are not bit-equal."""
+    return [i for i, (x, y) in enumerate(zip(a, b)) if not x.equal(y)]
+
+
+def _zero_flash_counts():
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    fa.add_launch_counts({k: -n for k, n in fa.launch_counts().items()})
+
+
+def alternating_rounds(torch, runs: dict, rounds: int = 4, per_round: int = 5) -> dict:
+    """ms per call of each of ``runs`` ({label: (fn, context)}) on the host
+    clock around a synchronised window of ``per_round`` calls, the runs
+    taking turns for ``rounds`` rounds in one process; {label: [ms by
+    round]}."""
+    times = {label: [] for label in runs}
+    for _ in range(rounds):
+        for label, (fn, context) in runs.items():
+            with context():
+                sync(torch)
+                t0 = time.perf_counter()
+                for _ in range(per_round):
+                    fn()
+                sync(torch)
+            times[label].append((time.perf_counter() - t0) / per_round * 1e3)
+    return times
+
+
+def _step_line(label, times, tokens_per_step, flops) -> float:
+    """Print one run's step times; returns the median ms."""
+    med = float(np.median(times))
+    log(f"{label}: {' / '.join(f'{t:.2f}' for t in times)} ms per step by round (median "
+        f"{med:.2f}, range {min(times):.2f}-{max(times):.2f}; {tokens_per_step / med * 1e3:.0f} "
+        f"tokens/s, {flops / med / 1e9:.1f} TFLOP/s = {flops / med / 1e9 / 989:.4f} of 989 "
+        f"TFLOP/s)")
+    return med
+
+
+def _graph_line(torch, label, fns):
+    prog = fns.graphed.program
+    if prog is None or prog.graph is None:
+        log(f"{label}: {fns.captures} capture(s); no graph held")
+        return
+    log(f"{label}: {fns.captures} capture(s); the step's graph captured in "
+        f"{prog.capture_s * 1e3:.1f} ms, called {prog.calls} times, pool "
+        f"{graph_pool_bytes(torch, prog.graph) / 2**20:.2f} MiB")
+
+
+def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
+    """bf16 training of ``cfg`` at S = max_seq through the flash kernels:
+    step 0 flash against dense, then the graphed step (the main path;
+    returns its flash launch counts) against an eager twin
+    (``serve.disable_graphs()``) from the same seed, bit for bit over
+    ``steps`` steps; both timed in alternating rounds; profiles of one
+    step of each."""
+    from k8s_dra_driver_torch.models import burnin, serve
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
     s = cfg.max_seq
-    tokens = torch.from_numpy(
-        np.random.RandomState(SEED + 3).randint(0, cfg.vocab_size, size=(b, s))
-    ).to(DEV)
+    tokens = _train_tokens(torch, cfg, b, SEED + 3)
     loss_tol, grad_tol, why = TRAIN_TOL["bfloat16"]
 
     # step 0: flash against dense on the same params and batch
@@ -849,21 +928,35 @@ def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
         raise AssertionError("bf16 flash training step 0 disagrees with dense")
     del params, gf, gd
 
-    fns = burnin.build_train_step(cfg, attention="flash", remat="blocks", lr=3e-4, device=DEV)
-    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
-    sync(torch)
-    for c in (fa.launches, fa.fwd_launches, fa.bwd_launches):
-        c.update(dict.fromkeys(c, 0))
-    losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
-    sync(torch)
-    counts = dict(fa.launches)
-    fwd, bwd = dict(fa.fwd_launches), dict(fa.bwd_launches)
-    losses = [x.item() for x in losses]
-    log(f"train bf16 B={b} S={s} L={cfg.n_layers}: losses over {steps} steps on one batch "
-        + " ".join(f"{x:.4f}" for x in losses))
+    runs = {}
+    for mode in ("graphed", "eager"):
+        fns = burnin.build_train_step(cfg, attention="flash", remat="blocks", lr=3e-4,
+                                      device=DEV)
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
+        sync(torch)
+        _zero_flash_counts()
+        with serve.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
+        sync(torch)
+        runs[mode] = dict(fns=fns, params=params, state=state, losses=torch.stack(losses),
+                          counts=(dict(fa.launches), dict(fa.fwd_launches),
+                                  dict(fa.bwd_launches)),
+                          peak=torch.cuda.max_memory_allocated() - base)
+    graphed, eager = runs["graphed"], runs["eager"]
+    counts, fwd, bwd = graphed["counts"]
+    losses = graphed["losses"].tolist()
+    log(f"train bf16 B={b} S={s} L={cfg.n_layers}: losses over {steps} graphed steps on one "
+        f"batch " + " ".join(f"{x:.4f}" for x in losses))
     log(f"train bf16: launches {counts}, by kernel {fwd} {bwd} (expected forward 2*L*steps = "
         f"{2 * cfg.n_layers * steps}, all flash_fwd_wgmma; dQ and dK/dV L*steps = "
         f"{cfg.n_layers * steps}, all flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma)")
+    _graph_line(torch, "train bf16", graphed["fns"])
+    log(f"train bf16: peak memory allocated over the {steps} steps: graphed "
+        f"{graphed['peak'] / 2**30:.2f} GiB, eager {eager['peak'] / 2**30:.2f} GiB (model, "
+        f"optimizer state and the step's transients)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("bf16 training loss did not fall")
     n = cfg.n_layers * steps
@@ -872,58 +965,216 @@ def phase_train_bf16(torch, cfg, steps: int = 8, b: int = 4):
             "flash_bwd_dq_wgmma": n, "flash_bwd_dq_fma": 0,
             "flash_bwd_dkv_wgmma": n, "flash_bwd_dkv_fma": 0}:
         raise AssertionError(f"flash launch counts {counts} {fwd} {bwd} are not the main path's")
-    counts = {"flash_fwd": fwd["flash_fwd_wgmma"], "flash_bwd_dq": bwd["flash_bwd_dq_wgmma"],
-              "flash_bwd_dkv": bwd["flash_bwd_dkv_wgmma"]}
+    if eager["counts"] != graphed["counts"]:
+        raise AssertionError(f"graphed and eager launch counts differ: {graphed['counts']} "
+                             f"{eager['counts']}")
+    if graphed["fns"].captures != 1 or eager["fns"].captures != 0:
+        raise AssertionError(f"captures: graphed {graphed['fns'].captures}, eager "
+                             f"{eager['fns'].captures} (want 1 and 0)")
 
-    # step time on the device's clock, warmed up by the steps above
-    n = 5
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.reset_peak_memory_stats()
-    start.record()
-    for _ in range(n):
-        fns.step(params, state, tokens)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / n
+    def bit_equal(when, losses=True):
+        loss_ok = not losses or graphed["losses"].equal(eager["losses"])
+        differ = _differing(_state_leaves(graphed["params"], graphed["state"]),
+                            _state_leaves(eager["params"], eager["state"]))
+        log(f"train bf16: graphed == eager twin {when}: losses {loss_ok}; params, count, mu "
+            f"and nu leaves that differ: {differ}")
+        if not loss_ok or differ:
+            raise AssertionError(f"the graphed and eager bf16 steps differ {when}")
+
+    bit_equal(f"after {steps} steps")
     flops = train_flops(cfg, b, s)
-    bound_ms = flops / PEAK_OPS["bfloat16"] * 1e3
-    log(f"train bf16: {ms:.2f} ms per step ({b * s / ms * 1e3:.0f} tokens/s), "
-        f"{flops / 1e12:.3f} TFLOP per step as _train_mfu counts it -> "
-        f"{flops / ms / 1e9:.1f} TFLOP/s, {flops / ms / 1e9 / 989:.4f} of 989 TFLOP/s "
-        f"(bound {bound_ms:.2f} ms); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_window(torch, "train bf16: profile of one step",
-                   lambda: fns.step(params, state, tokens), top=12, host_top=8,
-                   watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
-                          "flash_bwd"))
-    return counts
+    log(f"train bf16: {flops / 1e12:.3f} TFLOP per step as _train_mfu counts it (bound "
+        f"{flops / PEAK_OPS['bfloat16'] * 1e3:.2f} ms)")
+
+    def stepper(run):
+        return lambda: run["fns"].step(run["params"], run["state"], tokens)
+
+    rounds, per_round = 4, 5
+    times = alternating_rounds(torch, {
+        "eager": (stepper(eager), serve.disable_graphs),
+        "graphed": (stepper(graphed), contextlib.nullcontext),
+    }, rounds, per_round)
+    med = {mode: _step_line(f"train bf16 {mode}", t, b * s, flops) for mode, t in times.items()}
+    log(f"train bf16: graphed / eager {med['graphed'] / med['eager']:.3f} "
+        f"({med['eager'] / med['graphed']:.2f}x), {rounds} alternating rounds of {per_round} "
+        f"steps")
+    bit_equal(f"after {rounds * per_round} more steps each (params and state)", losses=False)
+    with serve.disable_graphs():
+        prof_e = profile_window(torch, "train bf16: profile of one eager step",
+                                stepper(eager), top=12, host_top=8,
+                                watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                                       "flash_bwd_dkv_wgmma"))
+    prof_g = profile_window(torch, "train bf16: profile of one graphed step", stepper(graphed),
+                            top=12, host_top=4,
+                            watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                                   "flash_bwd_dkv_wgmma"))
+    if prof_g is not None:
+        device_time_by_class("train bf16: graphed step", prof_g)
+        busy = prof_g["busy_us"] / 1e3
+        eager_busy = prof_e["busy_us"] / 1e3 if prof_e is not None else float("nan")
+        log(f"train bf16: device busy {busy:.2f} ms per graphed step, "
+            f"{busy / med['graphed']:.3f} of the unprofiled graphed step ({med['graphed']:.2f} "
+            f"ms); eager step {eager_busy:.2f} ms busy, {eager_busy / med['eager']:.3f} of "
+            f"{med['eager']:.2f} ms; graphed / eager device time {busy / eager_busy:.3f}")
+    return {"flash_fwd": fwd["flash_fwd_wgmma"], "flash_bwd_dq": bwd["flash_bwd_dq_wgmma"],
+            "flash_bwd_dkv": bwd["flash_bwd_dkv_wgmma"]}
 
 
-def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
-    """``cfg`` in f32 at 2 layers: flash against dense, step by step, from
-    the same params on the same batch."""
+# kernel classes by a string in the kernel's name, first match wins
+KERNEL_CLASSES = (
+    ("flash kernels", ("flash_",)),
+    ("cuBLAS products", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("AdamW (multi-tensor)", ("multi_tensor_apply",)),
+    ("softmax over the logits", ("SoftMax",)),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce",)),
+    ("index and scatter", ("index", "scatter", "gather")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def device_time_by_class(label, prof):
+    """Print a profile's device time summed by kernel class: every kernel
+    lands in one class (or "other")."""
+    sums: dict = {}
+    for dev_us, count, key in prof["rows"]:
+        cls = next((c for c, names in KERNEL_CLASSES if any(n in key for n in names)), "other")
+        us, n = sums.get(cls, (0.0, 0))
+        sums[cls] = (us + dev_us, n + count)
+    total = sum(us for us, _ in sums.values())
+    log(f"{label}: device time by kernel class, {total / 1e3:.2f} ms over "
+        f"{sum(n for _, n in sums.values())} launches: " + "; ".join(
+            f"{cls} {us / 1e3:.2f} ms ({us / total:.3f}, x{n})"
+            for cls, (us, n) in sorted(sums.items(), key=lambda kv: -kv[1][0])))
+
+
+REMATS = ("dots", "blocks", "none")
+
+
+def phase_remat(torch, cfg, steps: int = 3, b: int = 4):
+    """The graphed bf16 step at full width under each remat policy from the
+    same init: losses, params, count and moments bit-equal across the
+    three after ``steps`` steps; the flash forward 2·L a step under "dots"
+    and "blocks" (the recompute reruns it), L under "none"; each policy's
+    peak memory and step time (alternating rounds)."""
     from k8s_dra_driver_torch.models import burnin
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
+    tokens = _train_tokens(torch, cfg, b, SEED + 3)
+    runs = {}
+    for remat in REMATS:
+        fns = burnin.build_train_step(cfg, attention="flash", remat=remat, lr=3e-4, device=DEV)
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
+        _zero_flash_counts()
+        losses = torch.stack([fns.step(params, state, tokens)[2] for _ in range(steps)])
+        sync(torch)
+        runs[remat] = dict(fns=fns, params=params, state=state, losses=losses,
+                           fwd=fa.fwd_launches["flash_fwd_wgmma"],
+                           peak=torch.cuda.max_memory_allocated() - base)
+        _graph_line(torch, f"remat {remat}", fns)
+        log(f"remat {remat}: losses {' '.join(f'{x:.6f}' for x in losses.tolist())}; flash "
+            f"forward launches {runs[remat]['fwd']} over {steps} steps; peak memory allocated "
+            f"{runs[remat]['peak'] / 2**30:.2f} GiB (model, optimizer state and the step's "
+            f"transients)")
+    want_fwd = {"dots": 2, "blocks": 2, "none": 1}
+    for remat, run in runs.items():
+        if run["fwd"] != want_fwd[remat] * cfg.n_layers * steps or run["fns"].captures != 1:
+            raise AssertionError(f"remat {remat}: {run['fwd']} flash forward launches, "
+                                 f"{run['fns'].captures} captures")
+
+    def agree(when, losses=True):
+        ref = _state_leaves(runs["none"]["params"], runs["none"]["state"])
+        for remat in ("dots", "blocks"):
+            run = runs[remat]
+            loss_ok = not losses or run["losses"].equal(runs["none"]["losses"])
+            differ = _differing(_state_leaves(run["params"], run["state"]), ref)
+            log(f"remat {remat} == none {when}: losses {loss_ok}; leaves that differ {differ}")
+            if not loss_ok or differ:
+                raise AssertionError(f"remat {remat} and none differ {when}")
+
+    agree(f"after {steps} steps")
+    flops = train_flops(cfg, b, cfg.max_seq)
+    times = alternating_rounds(torch, {
+        remat: ((lambda r=run: r["fns"].step(r["params"], r["state"], tokens)),
+                contextlib.nullcontext)
+        for remat, run in runs.items()
+    })
+    for remat, t in times.items():
+        _step_line(f"remat {remat} graphed", t, b * cfg.max_seq, flops)
+    agree("after the timed rounds (params and state)", losses=False)
+
+
+def phase_resume(torch, cfg, b: int = 4):
+    """The reference's resume check on the graphed bf16 step at full width:
+    2 steps, save, step 3, restore into the same tensors, step 3 again:
+    the loss bit-equal, with no new capture."""
+    import shutil
+    from pathlib import Path
+
+    from k8s_dra_driver_torch.models import burnin
+    from k8s_dra_driver_torch.models.train_checkpoint import TrainCheckpointer
+
+    tokens = _train_tokens(torch, cfg, b, SEED + 3)
+    fns = burnin.build_train_step(cfg, attention="flash", lr=3e-4, device=DEV)
+    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
+    for _ in range(2):
+        fns.step(params, state, tokens)
+    where = Path(__file__).resolve().parent / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(where, ignore_errors=True)
+    ckpt = TrainCheckpointer(where, keep=1)
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(2, (params, state))
+        t_save = time.perf_counter() - t0
+        l3 = fns.step(params, state, tokens)[2].item()
+        captures = fns.captures
+        t0 = time.perf_counter()
+        ckpt.restore(like=(params, state))
+        sync(torch)
+        t_restore = time.perf_counter() - t0
+        l3b = fns.step(params, state, tokens)[2].item()
+    finally:
+        ckpt.close()
+        shutil.rmtree(where, ignore_errors=True)
+    log(f"resume: step 3 loss {l3!r}, again after the restore {l3b!r}; captures {captures} -> "
+        f"{fns.captures}; count {int(state['count'])}; save {t_save:.2f} s, restore into the "
+        f"step's tensors {t_restore:.2f} s")
+    if l3 != l3b or fns.captures != captures or captures != 1:
+        raise AssertionError("the resumed graphed step is not bit-exact or captured anew")
+
+
+def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
+    """``cfg`` in f32 at 2 layers: the graphed flash step (the f32 kernels'
+    main path) against its eager twin bit for bit, and against dense step
+    by step, from the same params on the same batch."""
+    from k8s_dra_driver_torch.models import burnin, serve
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
     cfg = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
-    s = cfg.max_seq
-    tokens = torch.from_numpy(
-        np.random.RandomState(SEED + 4).randint(0, cfg.vocab_size, size=(b, s))
-    ).to(DEV)
+    tokens = _train_tokens(torch, cfg, b, SEED + 4)
     loss_tol, param_tol, why = TRAIN_TOL["float32"]
     runs = {}
-    for attention in ("flash", "dense"):
+    for label, attention in (("flash", "flash"), ("flash eager", "flash"), ("dense", "dense")):
         fns = burnin.build_train_step(cfg, attention=attention, device=DEV)
         params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 6))
         sync(torch)
-        for c in (fa.fwd_launches, fa.bwd_launches):
-            c.update(dict.fromkeys(c, 0))
-        losses = [fns.step(params, state, tokens)[2].item() for _ in range(steps)]
-        runs[attention] = (losses, params)
-        if attention == "flash":
+        _zero_flash_counts()
+        with serve.disable_graphs() if label == "flash eager" else contextlib.nullcontext():
+            losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
+        sync(torch)
+        runs[label] = (torch.stack(losses), params, state, fns.captures)
+        if label == "flash":
             fwd, bwd = dict(fa.fwd_launches), dict(fa.bwd_launches)
-    (lf, pf), (ld, pd) = runs["flash"], runs["dense"]
+    (lf, pf, sf, cf), (le, pe, se, ce) = runs["flash"], runs["flash eager"]
+    differ = _differing(_state_leaves(pf, sf), _state_leaves(pe, se))
+    log(f"train f32 L=2: graphed == eager twin over {steps} steps: losses {lf.equal(le)}; leaves "
+        f"that differ {differ}; captures {cf} and {ce}")
+    if not lf.equal(le) or differ or (cf, ce) != (1, 0):
+        raise AssertionError("the graphed and eager f32 steps differ")
+    lf, ld, pd = lf.tolist(), runs["dense"][0].tolist(), runs["dense"][1]
     rel = max(abs(x - y) / abs(y) for x, y in zip(lf, ld))
     prel = max(_rel_l2(x, y) for x, y in zip(burnin.param_leaves(pf), burnin.param_leaves(pd)))
     log(f"train f32 L=2: losses flash {' '.join(f'{x:.6f}' for x in lf)}; dense "
@@ -1341,6 +1592,8 @@ def main() -> int:
         launches["train_f32"] = phase_train_f32(torch, cfg)
 
     run("train bf16", train_bf16)
+    run("remat policies", lambda: phase_remat(torch, cfg))
+    run("resume", lambda: phase_resume(torch, cfg))
     run("train f32", train_f32)
 
     if failed:

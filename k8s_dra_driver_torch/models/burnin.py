@@ -16,13 +16,16 @@ afterwards; masked attention scores are ``-1e30``.  Mixture-of-experts
 blocks are not ported yet.
 
 The training half is the single-device branch of the reference's
-``build_train_step``: ``forward`` with per-block rematerialization
-(``torch.utils.checkpoint``), ``loss_fn``, ``make_optimizer`` (optax's
-``adamw`` and ``clip_by_global_norm``, written out) and ``make_sgd_step``
-(gradient accumulation with the interleaved microbatch split).  The step
-updates params and optimizer state IN PLACE (the reference's step is pure
-and donates its buffers instead).  ``remat="dots"``, meshes, LoRA and MoE
-training raise ``NotImplementedError``.
+``build_train_step``: ``forward`` with the reference's rematerialization
+policies (``torch.utils.checkpoint``; ``"dots"`` through a selective
+checkpoint policy), ``loss_fn``, ``make_optimizer`` (optax's ``adamw`` and
+``clip_by_global_norm``, written out, its count, schedule and bias
+corrections on the device) and ``make_sgd_step`` (gradient accumulation
+with the interleaved microbatch split).  The step updates params and
+optimizer state IN PLACE (the reference's step is pure and donates its
+buffers instead) and, on the card, replays as one CUDA graph
+(:class:`GraphedTrainStep`, the reference's ``jax.jit``).  Meshes, LoRA and
+MoE training raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,9 +37,14 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
+from k8s_dra_driver_torch.models.graphs import GraphedProgram, cuda_capture, graphs_enabled
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
 
 _DTYPES = {
@@ -258,19 +266,36 @@ def _block(x, p, cfg: ModelConfig, attn_fn=_full_attention):
     return mlp_residual(x, p)
 
 
+# the products without batch dims: ``_mm(x, W)`` reaches ``aten.mm`` through
+# ``matmul``'s fold of x's leading dims (the reference's
+# ``dots_with_no_batch_dims_saveable``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _wrap_remat(block, remat: str):
-    """``"blocks"``: recompute every block intermediate in the backward
-    (``torch.utils.checkpoint``, non-reentrant; the block draws no random
-    numbers, so no RNG state is kept); ``"none"``: save everything.  The
-    reference's ``"dots"`` policy (save matmul outputs) is not ported."""
+    """The reference's remat policies, through ``torch.utils.checkpoint``
+    (non-reentrant; the block draws no random numbers, so no RNG state is
+    kept):
+
+    * ``"blocks"``: recompute every block intermediate in the backward;
+    * ``"dots"``: save the outputs of the products without batch dims
+      (``aten.mm``/``addmm``: the four weight products) and recompute the
+      rest, norms, RoPE, GELU and attention; the flash forward, launched
+      from ctypes where no dispatch mode sees it, reruns as the reference's
+      ``pallas_call`` does under its policy;
+    * ``"none"``: save everything."""
     if remat == "blocks":
         return functools.partial(
             checkpoint, block, use_reentrant=False, preserve_rng_state=False
         )
     if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save matmul outputs, recompute the rest) is not ported "
-            "yet; use 'blocks' or 'none'"
+        return functools.partial(
+            checkpoint, block, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots),
         )
     if remat == "none":
         return block
@@ -385,7 +410,10 @@ class AdamW:
     when ``grad_clip > 0``: moments in the params' dtype, the schedule
     counted from 0 (the first update uses ``schedule(0)``, 0 under warmup),
     clipping by the bare global norm.  The update is in place and reads
-    nothing back to the host.  ``torch.optim.AdamW`` with a ``LambdaLR`` and
+    nothing back to the host: the count is an int32 0-d tensor on the
+    params' device, as optax's is, and the schedule and bias corrections
+    are computed from it there, so a CUDA graph of the step replays each
+    step's own values.  ``torch.optim.AdamW`` with a ``LambdaLR`` and
     ``clip_grad_norm_`` matches optax as closely on the CPU, but its foreach
     update reads its step count with ``.item()`` every step, and
     ``capturable=True``, which keeps the count on the device, refuses CPU
@@ -398,25 +426,30 @@ class AdamW:
         self.lr, self.warmup_steps, self.decay_steps = lr, warmup_steps, decay_steps
         self.grad_clip = grad_clip
 
-    def learning_rate(self, count: int) -> float:
-        """optax's ``warmup_cosine_decay_schedule(0, lr, warmup, decay,
-        lr * 0.1)`` at ``count`` (constant ``lr`` without a schedule)."""
+    def schedule(self, count: torch.Tensor) -> torch.Tensor:
+        """The learning rate at ``count`` (an int32 0-d tensor) as an f32
+        0-d tensor on its device, computed in f32 as optax computes
+        ``warmup_cosine_decay_schedule``: the linear warmup
+        (``polynomial_schedule``) and the cosine decay joined with
+        ``where(count < warmup, ...)``."""
         if not self.warmup_steps:
-            return self.lr
+            return torch.full((), self.lr, dtype=torch.float32, device=count.device)
         w, d = self.warmup_steps, self.decay_steps
-        if count < w:
-            return (0.0 - self.lr) * (1 - count / w) + self.lr
+        frac = 1 - count.clamp(0, w) / w
+        warmup = (0.0 - self.lr) * frac + self.lr
+        t = torch.clamp(count - w, max=d - w)
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / (d - w)))
         alpha = (self.lr * 0.1) / self.lr
-        t = min(count - w, d - w)
-        cosine = 0.5 * (1 + math.cos(math.pi * t / (d - w)))
-        return self.lr * ((1 - alpha) * cosine + alpha)
+        decay = self.lr * ((1 - alpha) * cosine + alpha)
+        return torch.where(count < w, warmup, decay)
 
     def init(self, params) -> dict:
-        """``{"count": 0, "mu": [...], "nu": [...]}``, the moments zeros in
-        each leaf's dtype, in the order of the params' leaves."""
+        """``{"count", "mu", "nu"}``: the count an int32 0-d tensor (0) on
+        the params' device, the moments lists of zeros in each leaf's
+        dtype, in the order of the params' leaves."""
         leaves = param_leaves(params)
         return {
-            "count": 0,
+            "count": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
             "mu": [torch.zeros_like(t) for t in leaves],
             "nu": [torch.zeros_like(t) for t in leaves],
         }
@@ -424,7 +457,8 @@ class AdamW:
     @torch.no_grad()
     def update_(self, params, grads, state) -> None:
         """One update of ``params`` and ``state`` in place from ``grads``
-        (a list in leaf order, or a tree like ``params``)."""
+        (a list in leaf order, or a tree like ``params``).  Every tensor of
+        ``params`` and ``state`` keeps its object and its address."""
         leaves = param_leaves(params)
         grads = param_leaves(grads) if isinstance(grads, dict) else list(grads)
         if self.grad_clip > 0:
@@ -433,14 +467,28 @@ class AdamW:
             grads = [
                 torch.where(keep, g, (g / norm.to(g.dtype)) * self.grad_clip) for g in grads
             ]
-        lr = self.learning_rate(state["count"])
-        count = state["count"] + 1
-        # the bias corrections in f32, as optax computes them
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
-        # optax's formulas, each rounded as optax rounds it, over all leaves
-        # at once (multi-tensor ops: a few launches per step, not ~18 per leaf)
-        mu, nu = state["mu"], state["nu"]
+        count = state["count"]
+        neg_lr = -self.schedule(count)
+        # the bias corrections in f32 at count + 1, as optax computes them
+        step = (count + 1).float()
+        bc1, bc2 = 1 - torch.pow(self.b1, step), 1 - torch.pow(self.b2, step)
+        by_dtype: dict = {}
+        for i, t in enumerate(leaves):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            def pick(xs):
+                return [xs[i] for i in idx]
+
+            # optax casts the step size and the bias corrections to the
+            # dtype of the leaves they scale
+            self._adam(pick(leaves), pick(grads), pick(state["mu"]), pick(state["nu"]),
+                       neg_lr.to(dtype), bc1.to(dtype), bc2.to(dtype))
+        count.add_(1)
+
+    def _adam(self, leaves, grads, mu, nu, neg_lr, bc1, bc2) -> None:
+        """optax's formulas, each rounded as optax rounds it, over leaves of
+        one dtype at once (multi-tensor ops: a few launches per step, not
+        ~18 per leaf); the scalars are 0-d tensors of that dtype."""
         torch._foreach_mul_(mu, self.b1)                      # mu = (1-b1) g + b1 mu
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - self.b1))
         g2 = torch._foreach_mul(grads, grads)                 # nu = (1-b2) g^2 + b2 nu
@@ -453,9 +501,8 @@ class AdamW:
         u = torch._foreach_div(mu, bc1)                       # mu_hat / den
         torch._foreach_div_(u, den)
         torch._foreach_add_(u, torch._foreach_mul(leaves, self.weight_decay))
-        torch._foreach_mul_(u, -lr)
+        torch._foreach_mul_(u, neg_lr)
         torch._foreach_add_(leaves, u)
-        state["count"] = count
 
 
 def make_optimizer(lr: float = 3e-4, warmup_steps: int = 0, decay_steps: int = 0,
@@ -473,10 +520,70 @@ def make_optimizer(lr: float = 3e-4, warmup_steps: int = 0, decay_steps: int = 0
     return AdamW(lr, warmup_steps, decay_steps, grad_clip)
 
 
+def _state_tensors(params, opt_state) -> list:
+    """Every tensor a train step reads and updates in place."""
+    return [*param_leaves(params), opt_state["count"], *opt_state["mu"], *opt_state["nu"]]
+
+
+class GraphedTrainStep:
+    """The train step on the card as one CUDA graph, the counterpart of the
+    reference's ``jax.jit(step, donate_argnums=(0, 1))``:
+    ``step(params, opt_state, tokens) -> (params, opt_state, loss)`` through
+    a :class:`~k8s_dra_driver_torch.models.graphs.GraphedProgram` named
+    "train step" (the first call runs eagerly, the second captures and
+    replays, later calls replay).
+
+    A graph replays the addresses it captured.  The step updates params and
+    optimizer state in place, so they keep theirs: that is what the
+    reference's donation gives, with no second copy of the model.  Each
+    batch is copied into one token buffer (outside the graph) before the
+    replay, and the loss comes back as a copy, since the next replay
+    overwrites the graph's own.  Another params or state tensor, or another
+    token shape or dtype, starts a new program (eager, then captured) and
+    releases the old graph first; ``captures`` counts the captures made.  A
+    restore that writes into the same tensors
+    (``TrainCheckpointer.restore(like=...)``) needs none.  ``sgd`` is
+    :func:`make_sgd_step`'s step; ``capture`` the capturing function (a
+    stand-in in the CPU tests)."""
+
+    def __init__(self, sgd, device, capture=cuda_capture):
+        self._sgd, self._device, self._capture = sgd, device, capture
+        self._key = None
+        self._tokens = None
+        self.program: GraphedProgram | None = None
+        self.captures = 0
+
+    def __call__(self, params, opt_state, tokens):
+        tokens = torch.as_tensor(tokens)
+        key = (tuple(tokens.shape), tokens.dtype,
+               tuple(t.data_ptr() for t in _state_tensors(params, opt_state)))
+        if key != self._key:
+            self.program = self._tokens = None  # the old graph's pool goes first
+            buf = torch.empty_like(tokens, device=self._device)
+            sgd = self._sgd  # the program must not refer back to the holder
+            self.program = GraphedProgram(
+                "train step", lambda: sgd(params, opt_state, buf)[2], self._device,
+                capture=self._capture,
+            )
+            self._key, self._tokens = key, buf
+        self._tokens.copy_(tokens)
+        captured = self.program.graph is not None
+        loss = self.program()
+        self.captures += int(self.program.graph is not None and not captured)
+        return params, opt_state, loss.clone()
+
+
 @dataclass
 class TrainStepFns:
     init: callable
     step: callable
+    graphed: GraphedTrainStep  # the step's graph holder on the card
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs the step has captured (0 on the CPU and under
+        ``disable_graphs()``)."""
+        return self.graphed.captures
 
 
 def build_train_step(
@@ -496,10 +603,14 @@ def build_train_step(
     generator's device.  ``step(params, opt_state, tokens) -> (params,
     opt_state, loss)`` updates params and optimizer state IN PLACE and
     returns the same objects with the loss as a device tensor (no host
-    read).  ``attention``: ``"dense"`` (plain PyTorch) or ``"flash"`` (the
-    CUDA flash kernels, forward and backward; their plain versions on the
-    CPU).  ``remat``: ``"blocks"`` or ``"none"``.  A mesh (the reference's
-    sharded, ring and Ulysses branches) is not ported yet."""
+    read).  On the card the step replays as one CUDA graph
+    (:class:`GraphedTrainStep`) from its third call; it runs eagerly on the
+    CPU and inside ``graphs.disable_graphs()``.  ``attention``: ``"dense"``
+    (plain PyTorch) or ``"flash"`` (the CUDA flash kernels, forward and
+    backward; their plain versions on the CPU).  ``remat``: ``"blocks"``,
+    ``"dots"`` or ``"none"`` (:func:`_wrap_remat`; the same numbers under
+    each).  A mesh (the reference's sharded, ring and Ulysses branches) is
+    not ported yet."""
     valid = ("auto", "ring", "ulysses", "none")
     if sequence_parallel not in valid:
         raise ValueError(f"sequence_parallel must be one of {valid}, got {sequence_parallel!r}")
@@ -515,7 +626,7 @@ def build_train_step(
             "mesh training (sharded, ring and Ulysses attention) is not ported yet; "
             "pass mesh=None for one device"
         )
-    _wrap_remat(_block, remat)  # an unknown or unported policy raises here
+    _wrap_remat(_block, remat)  # an unknown policy raises here
     dev = resolve_device(device)
     opt = make_optimizer(lr)
     attn_fn = None
@@ -533,12 +644,15 @@ def build_train_step(
         lambda params, tokens: loss_fn(params, tokens, cfg, attn_fn, remat=remat),
         opt, accum_steps=accum_steps,
     )
+    graphed = GraphedTrainStep(sgd, dev)
 
     def step(params, opt_state, tokens):
         params_device(params, dev)
+        if dev.type == "cuda" and graphs_enabled():
+            return graphed(params, opt_state, tokens)
         return sgd(params, opt_state, torch.as_tensor(tokens, device=dev))
 
-    return TrainStepFns(init=init, step=step)
+    return TrainStepFns(init=init, step=step, graphed=graphed)
 
 
 def sample_tokens(generator: torch.Generator, cfg: ModelConfig, batch: int,

@@ -4,8 +4,9 @@
 ``quant.quantize_blocks``) of the JAX package returns — dicts and lists of
 arrays, with quantized leaves carrying ``.q``/``.scale`` (int8) or
 ``.packed``/``.scale``/``.group_size`` (int4) — and returns the port's
-params with the same keys and shapes.  Leaves are read through numpy
-(``np.asarray``), so nothing of JAX is imported here.
+params with the same keys and shapes; ``opt_state_from_jax`` does the same
+for the optimizer state.  Leaves are read through numpy (``np.asarray``),
+so nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import resolve_device
-from k8s_dra_driver_torch.models.burnin import torch_dtype
+from k8s_dra_driver_torch.models.burnin import param_leaves, torch_dtype
 from k8s_dra_driver_torch.models.quant import Quantized4Matrix, QuantizedMatrix
 
 
@@ -82,3 +83,34 @@ def params_to_numpy(params):
         return leaf(node)
 
     return walk(params)
+
+
+def _adam_state(node):
+    """The first node of an optax state tree with ``count``, ``mu`` and
+    ``nu`` (its ``ScaleByAdamState``), or None."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_jax(state, device="cuda") -> dict:
+    """The JAX package's optimizer state (optax's ``adamw`` from
+    ``make_optimizer``: its ``ScaleByAdamState``, alone in the ``chain`` or
+    after ``clip_by_global_norm``) as the port's ``AdamW`` state on
+    ``device``: ``count`` an int32 0-d tensor, ``mu`` and ``nu`` lists in the
+    order of the params' leaves.  The schedule's own count in optax's state
+    always equals Adam's, so the one count carries both."""
+    adam = _adam_state(state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    dev = resolve_device(device)
+    return {
+        "count": tensor_from_array(np.asarray(adam.count, dtype=np.int32), dev),
+        "mu": param_leaves(params_from_jax(adam.mu, dev)),
+        "nu": param_leaves(params_from_jax(adam.nu, dev)),
+    }

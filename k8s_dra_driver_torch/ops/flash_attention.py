@@ -59,6 +59,21 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 fwd_launches = {"flash_fwd_wgmma": 0, "flash_fwd_fma": 0}
 bwd_launches = {"flash_bwd_dq_wgmma": 0, "flash_bwd_dq_fma": 0,
                 "flash_bwd_dkv_wgmma": 0, "flash_bwd_dkv_fma": 0}
+_COUNTERS = (launches, fwd_launches, bwd_launches)  # their keys do not overlap
+
+
+def launch_counts() -> dict:
+    """Every counter of this module, the three dicts' keys in one (read by
+    the CUDA-graph holder, ``models/graphs.GraphedProgram``)."""
+    return {key: n for counter in _COUNTERS for key, n in counter.items()}
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (keys as :func:`launch_counts` gives them) to the
+    counters: a graph replay counts the launches its capture recorded."""
+    for counter in _COUNTERS:
+        for key in counter:
+            counter[key] += delta.get(key, 0)
 
 
 def _route(dtype) -> str:

@@ -46,7 +46,7 @@ kernel_launches = {"int4_splitk": 0, "int4_wgmma": 0}
 
 def launch_counts() -> dict:
     """Every counter of this module, ``{"launches": n, kernel name: n}``
-    (read by the CUDA-graph holder, ``models/serve.GraphedProgram``)."""
+    (read by the CUDA-graph holder, ``models/graphs.GraphedProgram``)."""
     return {"launches": launches, **kernel_launches}
 
 

@@ -56,7 +56,7 @@ launches = {"append": 0, "window": 0}
 
 def launch_counts() -> dict:
     """A copy of the counters (read by the CUDA-graph holder,
-    ``models/serve.GraphedProgram``)."""
+    ``models/graphs.GraphedProgram``)."""
     return dict(launches)
 
 

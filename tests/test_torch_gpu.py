@@ -641,3 +641,169 @@ def test_flash_train_step_on_the_card_matches_the_cpu(cuda):
         losses[str(dev)] = [fns.step(params, state, toks)[2].item() for _ in range(2)]
     assert tfa.launches == {"flash_fwd": 2 * 2 * 2, "flash_bwd_dq": 2 * 2, "flash_bwd_dkv": 2 * 2}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+# -- the train step as one CUDA graph ---------------------------------------
+
+_TRAIN_CFG = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2,
+                  d_ff=256, max_seq=128, rope=True)
+
+
+def _train_state(cfg, fns, seed=0):
+    return fns.init(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _state_leaves(params, state):
+    return [*tb.param_leaves(params), state["count"], *state["mu"], *state["nu"]]
+
+
+def _train_tokens(cfg, b=4, seed=2):
+    return torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                                size=(b, cfg.max_seq)))
+
+
+def _zero_flash():
+    tfa.add_launch_counts({k: -n for k, n in tfa.launch_counts().items()})
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_train_step_matches_the_eager_step(cuda, dtype, accum_steps):
+    """``build_train_step(...).step`` on the card replays one CUDA graph
+    from its third call: over 4 steps its losses, params, moments and count
+    equal an eager twin's (``serve.disable_graphs()``) bit for bit, with the
+    same flash launch counts; one capture, and the returned loss is a copy
+    the next replay leaves alone."""
+    cfg = tb.ModelConfig(dtype=dtype, **_TRAIN_CFG)
+    toks = _train_tokens(cfg)
+    runs = {}
+    for eager in (False, True):
+        fns = tb.build_train_step(cfg, attention="flash", accum_steps=accum_steps, device=cuda)
+        params, state = _train_state(cfg, fns)
+        _zero_flash()
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            losses = [fns.step(params, state, toks)[2] for _ in range(4)]
+        torch.cuda.synchronize()
+        assert int(state["count"]) == 4
+        runs[eager] = (fns, losses, _state_leaves(params, state), tfa.launch_counts())
+    (fns, losses, leaves, counts), (twin, want, want_leaves, want_counts) = runs[False], runs[True]
+    assert fns.captures == 1 and fns.graphed.program.graph is not None
+    assert twin.captures == 0 and twin.graphed.program is None
+    assert len({x.data_ptr() for x in losses}) == 4
+    for a, b in zip(losses, want):
+        _bit_equal(a, b, "loss")
+    for a, b in zip(leaves, want_leaves):
+        _bit_equal(a, b, "state")
+    assert counts == want_counts
+    n = cfg.n_layers * 4 * accum_steps
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert counts[f"flash_fwd_{route}"] == 2 * n
+    assert counts[f"flash_bwd_dq_{route}"] == counts[f"flash_bwd_dkv_{route}"] == n
+    assert losses[-1].item() < losses[0].item()
+
+
+def test_remat_policies_agree_in_the_graphed_step(cuda):
+    """"dots", "blocks" and "none" in the graphed bf16 step: 3 steps from
+    the same init give the same losses and params bit for bit; the flash
+    forward runs twice a layer a step under "dots" and "blocks" (the
+    recompute reruns it), once under "none"."""
+    cfg = tb.ModelConfig(dtype=torch.bfloat16, **_TRAIN_CFG)
+    toks = _train_tokens(cfg)
+    runs = {}
+    for remat in ("dots", "blocks", "none"):
+        fns = tb.build_train_step(cfg, attention="flash", remat=remat, device=cuda)
+        params, state = _train_state(cfg, fns)
+        _zero_flash()
+        losses = torch.stack([fns.step(params, state, toks)[2] for _ in range(3)])
+        torch.cuda.synchronize()
+        assert fns.captures == 1
+        runs[remat] = (losses, tb.param_leaves(params), dict(tfa.fwd_launches))
+    for remat in ("dots", "blocks"):
+        _bit_equal(runs[remat][0], runs["none"][0], f"{remat} losses")
+        for a, b in zip(runs[remat][1], runs["none"][1]):
+            _bit_equal(a, b, f"{remat} params")
+    per_step = {remat: runs[remat][2]["flash_fwd_wgmma"] // (3 * cfg.n_layers) for remat in runs}
+    assert per_step == {"dots": 2, "blocks": 2, "none": 1}
+
+
+def test_train_step_capture_of_a_host_read_raises(cuda, monkeypatch):
+    """A train step that reads the device from the host cannot be captured:
+    the capture raises GraphCaptureError naming the train step, nothing runs
+    eagerly in its place (params and count as the eager call left them),
+    and the card still works."""
+    cfg = tb.ModelConfig(dtype=torch.float32, **_TRAIN_CFG)
+    fns = tb.build_train_step(cfg, attention="flash", device=cuda)
+    params, state = _train_state(cfg, fns)
+    toks = _train_tokens(cfg)
+    real = tb.shift_nll
+
+    def shift_nll_with_a_host_read(logits, tokens):
+        loss = real(logits, tokens)
+        loss.item()
+        return loss
+
+    monkeypatch.setattr(tb, "shift_nll", shift_nll_with_a_host_read)
+    fns.step(params, state, toks)  # first call: eager
+    torch.cuda.synchronize()
+    before = [t.clone() for t in _state_leaves(params, state)]
+    with pytest.raises(ts.GraphCaptureError, match="train step"):
+        fns.step(params, state, toks)
+    torch.cuda.synchronize()
+    assert int(state["count"]) == 1 and fns.captures == 0
+    for a, b in zip(_state_leaves(params, state), before):
+        _bit_equal(a, b, "state after a failed capture")
+    assert torch.ones(4, device=cuda).sum().item() == 4
+
+
+def test_restore_in_place_replays_without_a_new_capture(cuda, tmp_path):
+    """The reference's resume test on the graphed step: 2 steps, save, step
+    3, restore into the same tensors, step 3 again: the same loss bit for
+    bit, from the graph already captured."""
+    from k8s_dra_driver_torch.models.train_checkpoint import TrainCheckpointer
+
+    cfg = tb.ModelConfig(dtype=torch.bfloat16, **_TRAIN_CFG)
+    fns = tb.build_train_step(cfg, attention="flash", device=cuda)
+    params, state = _train_state(cfg, fns)
+    toks = _train_tokens(cfg)
+    for _ in range(2):
+        fns.step(params, state, toks)
+    ckpt = TrainCheckpointer(tmp_path / "ckpt")
+    ckpt.save(2, (params, state))
+    _, _, l3 = fns.step(params, state, toks)
+    captures = fns.captures
+    ptrs = [t.data_ptr() for t in _state_leaves(params, state)]
+    assert ckpt.restore(like=(params, state)) == (params, state)
+    assert [t.data_ptr() for t in _state_leaves(params, state)] == ptrs
+    assert int(state["count"]) == 2
+    _, _, l3b = fns.step(params, state, toks)
+    _bit_equal(l3b, l3, "resumed loss")
+    assert fns.captures == captures == 1
+    ckpt.close()
+
+
+def test_graphed_train_step_replay_runs_the_flash_kernels(cuda):
+    """A replay's profile holds the three flash kernels of the dtype (the
+    forward twice a layer, dQ and dK/dV once), launched from inside the
+    graph."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = tb.ModelConfig(dtype=torch.bfloat16, **_TRAIN_CFG)
+    fns = tb.build_train_step(cfg, attention="flash", device=cuda)
+    params, state = _train_state(cfg, fns)
+    toks = _train_tokens(cfg)
+    for _ in range(2):
+        fns.step(params, state, toks)  # eager, then captured
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fns.step(params, state, toks)
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0) + ev.count
+    for name, per_layer in (("flash_fwd_wgmma", 2), ("flash_bwd_dq_wgmma", 1),
+                            ("flash_bwd_dkv_wgmma", 1)):
+        hits = sum(n for key, n in kernels.items() if name in key)
+        assert hits == per_layer * cfg.n_layers, (name, kernels)
+    assert fns.graphed.program.calls == 3
