@@ -39,7 +39,22 @@ exits 2 before any result):
 5. the same with int4 block weights (decode steps through the split-K int4
    kernel, admissions through the wgmma one; both must launch);
 6. the same in f32 at reduced depth;
-7. training FLAGSHIP_MODERN at full width in bf16 through
+7. the request lifecycle ("serve bf16 lifecycle"): FLAGSHIP_MODERN in
+   bf16, 8 slots, block 16, sync interval 8, top-k 50, on a 49-block pool:
+   16 seeded requests (odd ones sampled at temperature 0.8 with seeds,
+   priorities 0 and 1 by pairs), a cancel after the third burst and one
+   slot poisoned at one step through ``utils/faults``; the graphed run (the
+   main path) held against an eager twin in completions, statuses,
+   preemptions, quarantines, host syncs, stalls, pool bytes outside the
+   null block and launch counts; never-preempted streams equal a roomy
+   fault-free run's bit for bit (cancelled and quarantined ones are
+   prefixes); every token teacher-forced against the plain dense path
+   (greedy within 0.25 of the argmax, sampled within 0.25 / 0.8 of the
+   best perturbed score under the port's Gumbel noise); threefry's known
+   answers, bits and uniforms on the card equal to the CPU's; steady
+   decode all sampled against all greedy, and the sampling tail alone
+   (graphed, profiled) beside the greedy step;
+8. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -51,15 +66,15 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-8. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+9. the graphed bf16 step under remat "dots", "blocks" and "none" from the
    same init: bit-equal over 3 steps, the flash forward 2·L a step under
    "dots" and "blocks" and L under "none", each policy's peak memory and
    step time (alternating rounds);
-9. resume: the graphed bf16 step saved after 2 steps by
-   ``TrainCheckpointer``, step 3 run, the state restored into the step's
-   own tensors, step 3 run again: the same loss bit for bit, no new
-   capture;
-10. training in f32 at 2 layers: the graphed flash step against its eager
+10. resume: the graphed bf16 step saved after 2 steps by
+    ``TrainCheckpointer``, step 3 run, the state restored into the step's
+    own tensors, step 3 run again: the same loss bit for bit, no new
+    capture;
+11. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
@@ -1407,6 +1422,7 @@ def steady_decode(torch, label, cfg, params, *, cache_dtype, rounds=4, bursts=4)
     weights = quantized_bytes(params)[0]
     b_ms, _ = bound(weights + kv, 0, "bfloat16")
     med = {mode: float(np.median(t)) for mode, t in times.items()}
+    STEADY_MS.update({(label, mode): t for mode, t in med.items()})
     for mode in ("eager", "graphed"):
         log(f"{label}: steady decode B=8 ctx~{mean_ctx:.0f}, {mode}: "
             f"{' / '.join(f'{t:.3f}' for t in times[mode])} ms per step by round "
@@ -1456,6 +1472,343 @@ def steady_decode(torch, label, cfg, params, *, cache_dtype, rounds=4, bursts=4)
     if med["graphed"] > med["eager"]:
         raise AssertionError(f"{label}: the graphed step ({med['graphed']:.3f} ms) is slower "
                              f"than the eager one ({med['eager']:.3f} ms)")
+
+
+# the lifecycle phase's engine: the serving engine's geometry with top-k
+# sampling, and a pool small enough that the seeded traffic preempts
+LIFECYCLE = dict(n_slots=8, block_size=16, prompt_bucket=256, sync_interval=8, top_k=50)
+LIFECYCLE_POOL = 49  # blocks, the null block included
+LIFECYCLE_ROOMY = 8 * 14 + 1  # every slot at its longest stream (224 tokens)
+LIFECYCLE_TEMP = 0.8
+LIFECYCLE_POISON = dict(nan_logits_rate=1.0, slots=(2,), steps=(5,))
+STEADY_MS: dict = {}  # steady-decode medians by phase label and mode
+# the graphed bf16 steady decode step before the sampling tail joined it
+# (PERF.md section 5, the serving table)
+PRE_TAIL_BF16_STEP_MS = 1.229
+
+
+def _lifecycle_traffic(vocab: int, seed: int, n: int = 16):
+    """``n`` requests, prompts 16-96 tokens and 64-128 new ones; odd ones
+    sampled at ``LIFECYCLE_TEMP`` with explicit seeds, even ones greedy;
+    priorities 0 and 1 alternating by pairs, so each tier holds greedy
+    and sampled requests (and either kind may be evicted)."""
+    r = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        req = dict(prompt=r.randint(0, vocab, size=int(r.randint(16, 97))).tolist(),
+                   max_tokens=int(r.randint(64, 129)), priority=(i // 2) % 2)
+        if i % 2:
+            req.update(temperature=LIFECYCLE_TEMP, seed=1000 + i)
+        reqs.append(req)
+    return reqs
+
+
+def _lifecycle_engine(cfg, params, n_blocks, cache_dtype, fault_injector=None):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    return PagedServeEngine(params=params, cfg=cfg, n_blocks=n_blocks, cache_dtype=cache_dtype,
+                            device=DEV, fault_injector=fault_injector, **LIFECYCLE)
+
+
+def lifecycle_drive(eng, reqs, cancel_after: int | None = 3, max_bursts: int = 5000):
+    """Admit ``reqs`` FIFO as capacity frees and burst-step in between;
+    after burst ``cancel_after`` cancel the resident request with the
+    lowest id.  Runs until nothing is queued, resident or parked.  Returns
+    ``(completions, ids ever parked, the cancelled id)``."""
+    from k8s_dra_driver_torch.models import serve
+
+    queue, comps, parked, cancelled = list(reqs), [], set(), None
+    for burst in range(1, max_bursts + 1):
+        while queue and eng.free_slots():
+            try:
+                eng.submit(**queue[0])
+            except serve.NoCapacity:
+                break
+            queue.pop(0)
+        eng.step_burst()
+        parked |= {r["st"].request_id for r in eng._preempted}
+        if burst == cancel_after:
+            cancelled = min(st.request_id for st in eng._slots if st is not None)
+            eng.cancel(cancelled)
+        comps += eng.completions()
+        if not queue and eng.free_slots() == eng.n_slots and not eng._preempted:
+            return comps, parked, cancelled
+    raise AssertionError(f"the lifecycle run did not drain in {max_bursts} bursts")
+
+
+def _teacher_forced(torch, cfg, ref, req, c, cache_dtype, tol_greedy, tol_sampled):
+    """The completion's tokens against the plain dense path: greedy tokens
+    within ``tol_greedy`` of the dense argmax; each sampled token inside
+    the dense top-k (to ``tol_sampled``) with its perturbed score (the
+    dense logits over the temperature plus the port's Gumbel noise for its
+    key and position) within ``tol_sampled`` of the best perturbed score
+    among the tokens over the k-th value by more than ``tol_sampled``.
+    Returns ``(worst gap, tokens that are the dense draw, tokens)``."""
+    from k8s_dra_driver_torch.models import decode, prng
+
+    plen, n = len(req["prompt"]), len(c.generated)
+    seq = torch.tensor([c.tokens], device=DEV)
+    cache = decode.init_cache(cfg, 1, seq.shape[1], dtype=cache_dtype, device=DEV)
+    logits, _ = decode.decode_chunk(ref, cache, seq, 0, cfg=cfg)
+    logits = logits[0, plen - 1 : plen - 1 + n].float()        # predicts each generated token
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"non-finite reference logits for request {c.request_id}")
+    gen = torch.tensor(c.generated, device=DEV)
+    temp = req.get("temperature", 0.0)
+    if temp <= 0:
+        best = logits.max(dim=-1).values
+        gap = (best - logits.gather(1, gen[:, None])[:, 0]).max().item()
+        exact = int((logits.argmax(dim=-1) == gen).sum().item())
+        limit = tol_greedy
+    else:
+        scaled = logits / temp
+        kth = torch.topk(scaled, LIFECYCLE["top_k"], dim=-1).values[:, -1]
+        pos = torch.arange(plen - 1, plen - 1 + n, dtype=torch.int32, device=DEV)
+        keys = prng.prng_key(req["seed"]).to(DEV).expand(n, 2)
+        perturbed = scaled + prng.gumbel(prng.fold_in(keys, pos), (cfg.vocab_size,))
+        # the competitors: tokens in the engine's top-k whatever its logits
+        # within the tolerance; one within it of the k-th value may have
+        # fallen outside the engine's mask, and Gumbel noise is large
+        sure = scaled >= kth[:, None] + tol_sampled
+        best = torch.where(sure, perturbed, float("-inf")).max(dim=-1).values
+        picked = perturbed.gather(1, gen[:, None])[:, 0]
+        outside = (kth - scaled.gather(1, gen[:, None])[:, 0]).clamp_min(0)
+        gap = torch.maximum(best - picked, outside).max().item()
+        exact = int((torch.where(scaled >= kth[:, None], perturbed, float("-inf"))
+                     .argmax(dim=-1) == gen).sum().item())
+        limit = tol_sampled
+    if gap > limit:
+        raise AssertionError(
+            f"request {c.request_id} (temperature {temp}) picked a token {gap:.4g} below the "
+            f"dense path's choice (limit {limit:.4g})")
+    return gap, exact, n
+
+
+def _prng_on_the_card(torch):
+    """Threefry's known answers on the card; bits and uniforms for 8 keys
+    over [8, 32768] equal to the CPU's bit for bit."""
+    from k8s_dra_driver_torch.models import prng
+
+    mask = 0xFFFFFFFF
+    for key, count, want in [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                             ((mask, mask), (mask, mask), (0x1CB996FC, 0xBB002BE7)),
+                             ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                              (0xC4923A9C, 0x483DF7A0))]:
+        y0, y1 = prng.threefry2x32(torch.tensor(key, device=DEV),
+                                   torch.tensor([count[0]], device=DEV),
+                                   torch.tensor([count[1]], device=DEV))
+        if (int(y0), int(y1)) != want:
+            raise AssertionError(f"threefry{key, count} = {int(y0):#x}, {int(y1):#x}, want {want}")
+    keys = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 2**32, size=(8, 2), dtype=np.uint64).astype(np.int64))
+    shape = (8, 32768)
+    bits_equal = torch.equal(prng.random_bits(keys.to(DEV), shape).cpu(),
+                             prng.random_bits(keys, shape))
+    u_equal = torch.equal(prng.uniform(keys.to(DEV), shape).cpu(), prng.uniform(keys, shape))
+    g_dev, g_cpu = prng.gumbel(keys.to(DEV), shape).cpu(), prng.gumbel(keys, shape)
+    log(f"prng on the card: threefry's 3 known answers hold; random bits {bits_equal}, "
+        f"uniforms {u_equal} bit for bit against the CPU over 8 keys x {shape}; Gumbel noise "
+        f"max |card - cpu| {(g_dev - g_cpu).abs().max().item():.3g} (each device's own log)")
+    if not (bits_equal and u_equal):
+        raise AssertionError("random bits or uniforms on the card differ from the CPU's")
+
+
+def sampling_tail_cost(torch, cfg, greedy_step_ms: float):
+    """The sampling tail (``serve.sample_next`` at batch 8 over the vocab,
+    top-k 50) alone: one captured CUDA graph of 8 calls timed by events
+    (ms per call), one eager call and one graph replay under the profiler
+    (kernels per call, device time).  Prints its share of the greedy
+    step.  Returns the ms per call."""
+    from k8s_dra_driver_torch.models import graphs, serve
+
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    logits = torch.randn((8, cfg.vocab_size), generator=g, device=DEV) * 3
+    pos = torch.arange(100, 108, dtype=torch.int32, device=DEV)
+    temps = torch.full((8,), LIFECYCLE_TEMP, device=DEV)
+    keys = torch.arange(16, dtype=torch.int64, device=DEV).reshape(8, 2)
+    out = torch.zeros((8,), dtype=torch.int32, device=DEV)
+
+    def tail8():
+        for _ in range(8):
+            out.copy_(serve.sample_next(logits, pos, temps, keys, top_k=LIFECYCLE["top_k"]))
+
+    tail8()  # eager: builds the iota outside the capture
+    graph, _ = graphs.cuda_capture(tail8, torch.device(DEV))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(5):
+        sync(torch)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 8)
+    ms = float(np.median(times))
+    eager = profile_window(torch, "sampling tail: profile of one eager call",
+                           lambda: serve.sample_next(logits, pos, temps, keys,
+                                                     top_k=LIFECYCLE["top_k"]))
+    replay = profile_window(torch, "sampling tail: profile of one graph replay (8 calls)",
+                            graph.replay)
+    kernels = sum(r_[1] for r_ in eager["rows"]) if eager else None
+    dev_ms = replay["busy_us"] / 8 / 1e3 if replay else None
+    log(f"sampling tail at batch 8 x {cfg.vocab_size}, top-k {LIFECYCLE['top_k']}: "
+        f"{ms:.4f} ms per call in a CUDA graph ({' / '.join(f'{t:.4f}' for t in times)}), "
+        f"{kernels} kernels per call, device time {dev_ms} ms per call in the profiled replay; "
+        f"{ms / greedy_step_ms:.3f} of the greedy graphed step ({greedy_step_ms:.3f} ms)")
+    return ms
+
+
+def steady_sampled_vs_greedy(torch, cfg, params, cache_dtype, rounds=4, bursts=4):
+    """Steady decode at batch 8, graphed, all 8 slots sampled against all 8
+    greedy (the tail runs for both): 3 warm-up bursts each, then
+    ``rounds`` alternating rounds of ``bursts`` 8-step bursts on the host
+    clock.  Returns the medians in ms per step by mode."""
+    r = np.random.RandomState(SEED + 9)
+    prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+    engines = {}
+    for mode in ("greedy", "sampled"):
+        eng = _lifecycle_engine(cfg, params, LIFECYCLE_ROOMY + 32, cache_dtype)
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_tokens=8 * (3 + rounds * bursts + 2),
+                       temperature=LIFECYCLE_TEMP if mode == "sampled" else 0.0, seed=i)
+        for _ in range(3):
+            eng.step_burst()
+        engines[mode] = eng
+    times = {mode: [] for mode in engines}
+    for _ in range(rounds):
+        for mode, eng in engines.items():
+            sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(bursts):
+                eng.step_burst()
+            sync(torch)
+            times[mode].append((time.perf_counter() - t0) / (8 * bursts) * 1e3)
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    for mode in engines:
+        log(f"serve bf16 lifecycle: steady decode B=8, graphed, all {mode}: "
+            f"{' / '.join(f'{t:.3f}' for t in times[mode])} ms per step by round "
+            f"(median {med[mode]:.3f} ms)")
+    return med
+
+
+def phase_serve_lifecycle(torch, cfg, params, *, cache_dtype, tol_greedy=0.25):
+    """The paged engine's request lifecycle at full width in bf16: sampled
+    and greedy requests with priorities, a pool that preempts, a cancel
+    after the third burst and one slot poisoned at one step, graphed (the
+    main path) against an eager twin, against a roomy fault-free run, and
+    teacher-forced against the plain dense path; the PRNG on the card; the
+    sampling tail's cost.  Returns the paged append launches of the
+    graphed run."""
+    from k8s_dra_driver_torch.models import serve
+    from k8s_dra_driver_torch.models.paged import NULL_BLOCK
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+    from k8s_dra_driver_torch.utils import faults
+
+    label = "serve bf16 lifecycle"
+    reqs = _lifecycle_traffic(cfg.vocab_size, SEED + 11)
+    tol_sampled = tol_greedy / LIFECYCLE_TEMP
+
+    def drive(eager, n_blocks=LIFECYCLE_POOL, faulty=True):
+        inj = None
+        if faulty:
+            inj = faults.FaultInjector(SEED)
+            inj.arm(faults.FaultProfile(name="poison", **LIFECYCLE_POISON))
+        eng = _lifecycle_engine(cfg, params, n_blocks, cache_dtype, inj)
+        sync(torch)
+        _zero_serving_counts()
+        t0 = time.perf_counter()
+        with serve.disable_graphs() if eager else contextlib.nullcontext():
+            comps, parked, cancelled = lifecycle_drive(eng, reqs, 3 if faulty else None)
+        sync(torch)
+        return eng, comps, parked, cancelled, time.perf_counter() - t0, serve.launch_counts()
+
+    eng, comps, parked, cancelled, wall, counts = drive(eager=False)
+    append = pa.launches["append"]
+    statuses = {}
+    for c in comps:
+        statuses[c.status] = statuses.get(c.status, 0) + 1
+    log(f"{label}: pool {LIFECYCLE_POOL} blocks (null block included) of {LIFECYCLE['block_size']} "
+        f"tokens, {len(reqs)} requests, {sum(len(c.generated) for c in comps)} tokens in "
+        f"{wall:.2f} s (graphed); statuses {statuses}; preempted_count {eng.preempted_count} "
+        f"(requests parked {sorted(parked)}); quarantined {eng.quarantined}; cancelled "
+        f"{cancelled}; host_syncs {eng.host_syncs}, stalled_steps {eng.stalled_steps}")
+    log(f"{label}: paged append launches {append} (graphed run)")
+    if eng.preempted_count < 1 or len(eng.quarantined) != 1 or statuses.get("cancelled") != 1:
+        raise AssertionError(f"{label}: the run must preempt, quarantine one request and "
+                             f"cancel one: {eng.preempted_count}, {eng.quarantined}, {statuses}")
+    if len(comps) != len(reqs) or append == 0:
+        raise AssertionError(f"{label}: {len(comps)} completions, {append} paged launches")
+    graph_bookkeeping(torch, label, eng)
+
+    twin, twin_comps, _, _, twin_wall, twin_counts = drive(eager=True)
+    streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+    if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
+        raise AssertionError(f"{label}: graphed and eager completions differ")
+    for attr in ("preempted_count", "quarantined", "host_syncs", "stalled_steps"):
+        if getattr(eng, attr) != getattr(twin, attr):
+            raise AssertionError(f"{label}: graphed and eager {attr} differ: "
+                                 f"{getattr(eng, attr)} against {getattr(twin, attr)}")
+    for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v)):
+        if not torch.equal(a[:, NULL_BLOCK + 1:], b_[:, NULL_BLOCK + 1:]):
+            raise AssertionError(f"{label}: graphed and eager pools differ outside the null block")
+    if counts != twin_counts:
+        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
+    log(f"{label}: graphed == eager twin ({twin_wall:.2f} s eager): {len(streams)} completions "
+        f"with statuses, preempted_count, quarantined, host syncs, stalls, pool bytes outside "
+        f"the null block and launch counts {counts}")
+    del twin, twin_comps
+
+    roomy, roomy_comps, roomy_parked, _, _, _ = drive(eager=False, n_blocks=LIFECYCLE_ROOMY,
+                                                      faulty=False)
+    if roomy.preempted_count or roomy_parked or roomy.stalled_steps:
+        raise AssertionError(f"{label}: the roomy run stalled or preempted")
+    want = {c.request_id: c.generated for c in roomy_comps}
+    differ = []
+    for c in comps:
+        if c.request_id in parked:
+            differ += [c.request_id] if c.generated != want[c.request_id][: len(c.generated)] else []
+        elif c.status == "ok":
+            if c.generated != want[c.request_id]:
+                raise AssertionError(f"{label}: request {c.request_id}, never preempted, "
+                                     "differs from the roomy run")
+        elif c.generated != want[c.request_id][: len(c.generated)]:
+            raise AssertionError(f"{label}: {c.status} request {c.request_id} is not a "
+                                 "prefix of its roomy stream")
+    log(f"{label}: row independence: every never-preempted stream equals the roomy fault-free "
+        f"run's bit for bit, the cancelled and quarantined ones are prefixes of theirs; "
+        f"preempted streams differing from the roomy run: {len(differ)} of {len(parked)} "
+        f"{sorted(differ)} (held teacher-forced below)")
+    del roomy, roomy_comps
+
+    ref = _dense_reference(params)
+    worst = {"greedy": 0.0, "sampled": 0.0}
+    exact = {"greedy": [0, 0], "sampled": [0, 0]}
+    for c in comps:
+        req = reqs[c.request_id]
+        kind = "sampled" if req.get("temperature", 0.0) > 0 else "greedy"
+        gap, hit, n = _teacher_forced(torch, cfg, ref, req, c, cache_dtype, tol_greedy,
+                                      tol_sampled)
+        worst[kind] = max(worst[kind], gap)
+        exact[kind][0] += hit
+        exact[kind][1] += n
+    log(f"{label}: teacher-forced vs plain dense decode: greedy tokens the dense argmax "
+        f"{exact['greedy'][0]}/{exact['greedy'][1]}, worst logit gap {worst['greedy']:.4g} "
+        f"(tolerance {tol_greedy}); sampled tokens the dense draw {exact['sampled'][0]}/"
+        f"{exact['sampled'][1]}, worst perturbed-score gap {worst['sampled']:.4g} (tolerance "
+        f"{tol_sampled:.4g} = {tol_greedy} / temperature {LIFECYCLE_TEMP}: "
+        f"{TOL_WHY[False]})")
+    del eng, comps
+
+    _prng_on_the_card(torch)
+    med = steady_sampled_vs_greedy(torch, cfg, params, cache_dtype)
+    tail_ms = sampling_tail_cost(torch, cfg, med["greedy"])
+    old = STEADY_MS.get(("serve bf16", "graphed"))
+    log(f"{label}: the sampling tail costs {tail_ms:.4f} ms of the {med['greedy']:.3f} ms greedy "
+        f"step ({tail_ms / med['greedy']:.3f}); all sampled / all greedy "
+        f"{med['sampled'] / med['greedy']:.3f}; serve bf16 steady decode graphed "
+        f"{old if old is None else f'{old:.3f}'} ms this run against {PRE_TAIL_BF16_STEP_MS} "
+        f"ms recorded before the tail")
+    return {"paged_attention": append}
 
 
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
@@ -1580,9 +1933,14 @@ def main() -> int:
             torch, "serve f32", cfg32, p32, reqs32, cache_dtype=torch.float32, logit_tol=1e-3,
         )
 
+    def serve_lifecycle():
+        launches["lifecycle"] = phase_serve_lifecycle(torch, cfg, params,
+                                                      cache_dtype=torch.bfloat16)
+
     run("serve bf16", serve_bf16)
     run("serve int4", serve_int4)
     run("serve f32", serve_f32)
+    run("serve bf16 lifecycle", serve_lifecycle)
     del params
 
     def train_bf16():

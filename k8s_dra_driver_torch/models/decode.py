@@ -6,7 +6,8 @@ reference threads it functionally; here ``decode_chunk`` returns the same
 tensors it was given).  Attention masks by position instead of slicing,
 operands stay in the cache dtype with f32 accumulation.  Teacher-forced
 decode reproduces ``burnin.forward``'s logits: the contract the tests pin.
-Sampling (temperature > 0) is not ported yet.
+``sample_decode`` samples with ``jax.random``'s bits (``models/prng``);
+``greedy_decode`` is its temperature-0 case.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
+from k8s_dra_driver_torch.models import prng
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     mlp_residual,
@@ -171,10 +173,24 @@ def prefill(params, prompt, cfg: ModelConfig, max_seq: int, cache_dtype=torch.fl
 def greedy_decode(params, prompt, steps: int, cfg: ModelConfig,
                   cache_dtype=torch.float32, batch_prefill: bool = False,
                   device="cuda"):
-    """Greedy continuation: ``prompt [B, P]`` -> ``[B, P+steps]`` on
-    ``device`` (default the card; raises without one unless
-    ``device="cpu"``).  The prompt is consumed token by token (teacher
-    forcing) or, with ``batch_prefill``, by one parallel forward."""
+    """Greedy continuation: ``prompt [B, P]`` -> ``[B, P+steps]``, the
+    temperature-0 case of :func:`sample_decode`."""
+    return sample_decode(params, prompt, steps, cfg, key=prng.prng_key(0), temperature=0.0,
+                         cache_dtype=cache_dtype, batch_prefill=batch_prefill, device=device)
+
+
+def sample_decode(params, prompt, steps: int, cfg: ModelConfig, key, temperature: float = 1.0,
+                  top_k: int = 0, cache_dtype=torch.float32, batch_prefill: bool = False,
+                  device="cuda"):
+    """Continuation with temperature and optional top-k: ``prompt [B, P]``
+    -> ``[B, P+steps]`` on ``device`` (default the card; raises without
+    one unless ``device="cpu"``).  ``temperature <= 0`` is the argmax;
+    above it each step draws a categorical over the logits over the
+    temperature (masked below the ``top_k``-th value when ``top_k > 0``)
+    under the key ``split(key, P+steps-1)[pos]`` of its position, one key
+    for the whole batch, as the reference does.  The prompt is consumed
+    token by token (teacher forcing) or, with ``batch_prefill``, by one
+    parallel forward; both sample alike."""
     dev = params_device(params, device)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, p_len = prompt.shape
@@ -183,6 +199,17 @@ def greedy_decode(params, prompt, steps: int, cfg: ModelConfig,
         raise ValueError(
             f"prompt {p_len} + steps {steps} = {total} exceeds max_seq {cfg.max_seq}"
         )
+    keys = prng.split(torch.as_tensor(key, device=dev), max(total - 1, 1))
+
+    def pick(logits, pos):
+        if temperature <= 0.0:
+            return logits.argmax(dim=-1)
+        scaled = logits / float(np.float32(temperature))
+        if top_k > 0:
+            kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+            scaled = torch.where(scaled < kth, float("-inf"), scaled)
+        return (prng.gumbel(keys[pos], scaled.shape) + scaled).argmax(dim=-1)
+
     tokens = torch.cat(
         [prompt, torch.zeros((b, steps), dtype=prompt.dtype, device=dev)], dim=1
     )
@@ -193,10 +220,10 @@ def greedy_decode(params, prompt, steps: int, cfg: ModelConfig,
             return prompt
         # prefill's own shape: prompt queries never see keys past the prompt
         logits, cache = decode_chunk(params, cache, prompt, 0, cfg=cfg, k_window=p_len)
-        tokens[:, p_len] = logits[:, -1].argmax(dim=-1)
+        tokens[:, p_len] = pick(logits[:, -1], p_len - 1)
         start = p_len
     for pos in range(start, total - 1):
         logits, cache = decode_step(params, cache, tokens[:, pos], pos, cfg=cfg)
         if pos + 1 >= p_len:
-            tokens[:, pos + 1] = logits.argmax(dim=-1)
+            tokens[:, pos + 1] = pick(logits, pos)
     return tokens

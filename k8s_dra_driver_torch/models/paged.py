@@ -21,10 +21,11 @@ Every decode step goes through ``ops/paged_attention.paged_append_attention``
 write.  The reference's plain path instead diverts their writes to the
 null block, so pool bytes of the two packages agree outside block 0.
 
-Greedy streams equal the reference's (tested on the CPU).  Not ported yet
-(the engine raises ``NotImplementedError`` where the reference would act):
-sampled requests, preemption, quarantine of non-finite rows; and, absent
-from the engine's fields, chunked prefill, prefix sharing, speculative
+Streams equal the reference's, greedy and sampled (tested on the CPU):
+the sampling tail is ``serve.sample_next``, keyed per slot by
+``fold_in(base key, position)``, so a request preempted, parked and
+re-admitted continues exactly where it stopped.  Not ported yet, absent
+from the engine's fields: chunked prefill, prefix sharing, speculative
 rounds, LoRA, quantized KV pools, meshes, handoff and telemetry.
 """
 
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
-from k8s_dra_driver_torch.models import decode, serve
+from k8s_dra_driver_torch.models import decode, prng, serve
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     mlp_residual,
@@ -193,28 +194,37 @@ def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: Mode
     return cache, last_logits
 
 
-def _paged_step_all(params, cache, table, tokens, pos, active, *, cfg: ModelConfig):
-    """One greedy paged decode step for every slot at its own position.
-    Returns ``(next_token [B] int32, bad [B] bool — non-finite logits, cache)``."""
+def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, poison,
+                    *, cfg: ModelConfig, top_k: int):
+    """One paged decode step for every slot at its own position, then the
+    sampling tail (``serve.sample_next``).  ``poison [B]`` (the fault
+    window's NaN mask) turns rows' logits to NaN first; ``bad`` flags rows
+    whose logits are not finite.  Rows stay independent: a NaN row never
+    reaches another.  Returns ``(next_token [B] int32, bad [B] bool,
+    cache)``."""
     logits, cache = paged_decode_step(
         params, cache, table, tokens, pos, cfg=cfg, active=active
     )
+    logits = decode.poison_rows(logits, poison)
     bad = ~decode.finite_rows(logits)
-    return serve.sample_next(logits), bad, cache
+    return serve.sample_next(logits, pos, temps, keys, top_k=top_k), bad, cache
 
 
-def _paged_pipelined_burst(params, cache, table, tokens, pos, active, stop_pos,
-                           *, cfg: ModelConfig, eos_id: int, k: int):
+def _paged_pipelined_burst(params, cache, table, tokens, pos, active, temps, keys,
+                           stop_pos, poison, *, cfg: ModelConfig, top_k: int,
+                           eos_id: int, k: int):
     """K paged steps with no host read inside: each step samples, then the
     on-device stop mask (``decode.advance_decode_state``) retires rows that
-    hit eos or their stop depth; retired rows stop writing.  Returns
-    ``(trace [3, K, B] int32 — token/active/bad planes stacked for ONE
-    readback, cache, last, pos, active)``."""
+    hit eos or their stop depth; retired rows stop writing.  ``temps``,
+    ``keys`` and ``poison`` hold for the whole burst.  Returns ``(trace
+    [3, K, B] int32 — token/active/bad planes stacked for ONE readback,
+    cache, last, pos, active)``."""
     planes = []
     last = tokens
     for _ in range(k):
         next_tok, bad, cache = _paged_step_all(
-            params, cache, table, last, pos, active, cfg=cfg
+            params, cache, table, last, pos, active, temps, keys, poison,
+            cfg=cfg, top_k=top_k,
         )
         new_last, new_pos, new_active = decode.advance_decode_state(
             next_tok, last, pos, active, stop_pos, eos_id
@@ -224,18 +234,24 @@ def _paged_pipelined_burst(params, cache, table, tokens, pos, active, stop_pos,
     return torch.stack(planes, dim=1), cache, last, pos, active
 
 
-def _paged_first_token(params, cache, table, prompt, plen, slot, *, cfg: ModelConfig):
+def _paged_first_token(params, cache, table, prompt, plen, slot, temp, key,
+                       *, cfg: ModelConfig, top_k: int):
     """Admission tail: re-run the step for every slot at ``plen - 1`` with
     only ``slot`` active (an idempotent rewrite of the last prompt
-    position) and take its greedy token.  ``plen`` and ``slot`` are 0-d
-    int32 tensors, as the reference traces them, so one captured program
-    serves every admission.  Returns ``(token [1], cache)``."""
+    position) and sample its first token, every row at the admission's
+    temperature and base key as the reference does.  ``plen``, ``slot``
+    and ``temp`` are 0-d tensors and ``key`` a ``[2]`` one, as the
+    reference traces them, so one captured program serves every
+    admission.  Returns ``(token [1], cache)``."""
     n_slots = table.shape[0]
     last = (plen - 1).view(1)
     tokens = prompt[0].index_select(0, last).to(torch.int32).expand(n_slots)
     pos = last.expand(n_slots)
     active = torch.arange(n_slots, device=table.device) == slot
-    tok, _, cache = _paged_step_all(params, cache, table, tokens, pos, active, cfg=cfg)
+    tok, _, cache = _paged_step_all(
+        params, cache, table, tokens, pos, active, temp.expand(n_slots),
+        key.expand(n_slots, 2), None, cfg=cfg, top_k=top_k,
+    )
     return tok.index_select(0, slot.view(1)), cache
 
 
@@ -277,16 +293,30 @@ def paged_greedy_decode(params, prompt, steps: int, cfg: ModelConfig, *,
 
 @dataclasses.dataclass
 class PagedServeEngine:
-    """Continuous batching over the paged pool (greedy requests).
+    """Continuous batching over the paged pool.
 
     * ``submit`` admits when a slot AND the prompt's blocks (prompt + the
       first generated position) are free, prefilling the whole prompt;
+      each request has its temperature (0 or below: greedy), a seed for
+      its base key (default its request id) and a priority; ``top_k`` is
+      the engine's;
     * blocks grow on demand as a slot's next write crosses a block
-      boundary; when the pool is empty the slot STALLS (stays resident,
-      generates nothing) until a retirement frees blocks;
+      boundary, high priority first (older first within a tier); when the
+      pool is empty the slot STALLS (stays resident, generates nothing)
+      until a retirement frees blocks;
+    * with ``preempt_on_stall``, when every resident slot stalls, the
+      lowest-priority request short enough to re-prefill in one pass
+      (youngest within a tier) is evicted: its blocks free, its tokens,
+      temperature and key park, and it is re-admitted (high priority
+      first, FIFO within a tier) when a slot and its blocks are free,
+      before any new submit;
     * ``step_burst`` runs up to ``sync_interval`` device steps with ONE
       device-to-host readback (``host_syncs`` counts them; admissions'
       first-token reads are not counted); ``step`` is a burst of one;
+    * ``cancel`` retires a request "cancelled" (or unparks it); a slot
+      whose logits go non-finite retires "quarantined" (the fault window,
+      ``fault_injector``, can poison one), and at ``quarantine_limit``
+      distinct requests the engine raises "engine poisoned";
     * retirement frees the slot's blocks at once.
 
     Runs on ``device`` (default the card; raises without one unless
@@ -296,13 +326,12 @@ class PagedServeEngine:
     graph (``serve.GraphedProgram``; at most four an engine, in
     ``graphs``), eagerly inside ``serve.disable_graphs()``; on the CPU it
     runs eagerly.  The device state those programs read and write
-    (block table, active mask, last token, position, stop depth, the
-    admission's prompt, prefill table row, length and slot) keeps one
-    address for the engine's life and is written in place; everything
-    else (allocation, growth, stalls, retirement) stays on the host.  With
-    ``preempt_on_stall`` the reference would evict a request when every
-    resident slot stalls: the port raises ``NotImplementedError`` there
-    instead.  Not thread-safe; drive it from one loop.
+    (block table, active mask, last token, position, stop depth,
+    temperature, base key and poison mask per slot; the admission's
+    prompt, prefill table row, length, slot, temperature and key) keeps
+    one address for the engine's life and is written in place;
+    everything else (allocation, growth, stalls, preemption, retirement)
+    stays on the host.  Not thread-safe; drive it from one loop.
     """
 
     params: dict
@@ -313,10 +342,13 @@ class PagedServeEngine:
     prompt_bucket: int = 64
     cache_dtype: torch.dtype = torch.float32
     eos_id: int | None = None
+    top_k: int = 0           # 0 = no top-k mask; static, one program set
     sync_interval: int = 1
     # size the pool by bytes instead: n_blocks = pool_hbm_bytes // kv_block_bytes
     pool_hbm_bytes: int | None = None
     preempt_on_stall: bool = True
+    fault_injector: object | None = None  # utils/faults.FaultInjector
+    quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
     device: object = "cuda"
 
     def __post_init__(self):
@@ -325,8 +357,14 @@ class PagedServeEngine:
             raise ValueError(
                 f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
             )
+        if not 0 <= self.top_k <= cfg.vocab_size:
+            raise ValueError(
+                f"top_k ({self.top_k}) must be in [0, vocab_size={cfg.vocab_size}]"
+            )
         if self.sync_interval < 1:
             raise ValueError(f"sync_interval must be >= 1, got {self.sync_interval}")
+        if self.quarantine_limit < 1:
+            raise ValueError(f"quarantine_limit must be >= 1, got {self.quarantine_limit}")
         self.device = params_device(self.params, self.device)
         bs = self.block_size
         if self.pool_hbm_bytes is not None:
@@ -344,11 +382,16 @@ class PagedServeEngine:
         self._table_np = np.full((self.n_slots, self._mb), NULL_BLOCK, np.int32)
         self._owned: list[list[int]] = [[] for _ in range(self.n_slots)]
         self._slots: list = [None] * self.n_slots
+        self._prio: list[int] = [0] * self.n_slots
+        self._preempted: list[dict] = []  # parked requests, re-admission order
         self._next_id = 0
+        self._step_no = 0       # the fault window's step number
         self._completions: list = []
         self.stalled_steps = 0  # slot-steps skipped waiting for a block
         self.host_syncs = 0     # decode-loop readbacks (admissions excluded)
         self.decode_steps = 0   # device decode steps run by step/step_burst
+        self.preempted_count = 0  # evictions
+        self.quarantined: list[int] = []  # quarantined request ids
         dev = self.device
         self._cache = init_paged_cache(
             cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev
@@ -361,9 +404,15 @@ class PagedServeEngine:
         self._last, self._pos, self._stop_pos = (
             torch.zeros((self.n_slots,), **i32) for _ in range(3)
         )
+        self._temps = torch.zeros((self.n_slots,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((self.n_slots, 2), dtype=torch.int64, device=dev)
+        self._poison = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
+        self._poison_np = np.zeros((self.n_slots,), bool)  # what _poison holds
         self._prompt = torch.zeros((1, self.prompt_bucket), **i32)   # padded
         self._prefill_row = torch.zeros((1, self._mbp), **i32)
         self._admit = torch.zeros((2,), **i32)                       # (plen, slot)
+        self._admit_temp = torch.zeros((), dtype=torch.float32, device=dev)
+        self._admit_key = torch.zeros((2,), dtype=torch.int64, device=dev)
         self._eos = -1 if self.eos_id is None else self.eos_id
         self._programs: dict[str, serve.GraphedProgram] = {}
 
@@ -381,114 +430,98 @@ class PagedServeEngine:
         return sum(1 for s in self._slots if s is None)
 
     def submit(self, prompt: list[int], max_tokens: int, temperature: float = 0.0,
+               seed: int | None = None, priority: int = 0,
                deadline: int | None = None) -> int:
-        """Admit a greedy request; raises ``serve.NoCapacity`` (a
-        RuntimeError) when no slot or not enough blocks are free.  Returns
-        the request id."""
+        """Admit a request; raises ``serve.NoCapacity`` (a RuntimeError)
+        when no slot or not enough blocks are free, or while preempted
+        requests wait for re-admission (they go first).  ``temperature``
+        above 0 samples under the base key ``PRNGKey(seed)`` (default the
+        request id); ``priority`` (higher first) orders stalls, evictions
+        and re-admissions, never what is generated.  Returns the request
+        id."""
         serve.check_submit(
             prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
             temperature=temperature, deadline=deadline,
         )
-        free = [s for s in range(self.n_slots) if self._slots[s] is None]
-        if not free:
+        if self._preempted:
+            # parked requests hold no reservation: re-admit what fits,
+            # and refuse new work while any remain parked
+            self._readmit()
+            if self._preempted:
+                raise serve.NoCapacity(
+                    "no free slot (preempted requests pending re-admission)"
+                )
+        if self.free_slots() == 0:
             raise serve.NoCapacity("no free slot")
-        slot = free[0]
-        bs = self.block_size
-        need = blocks_needed(len(prompt) + 1, bs)
-        try:
-            ids = self._alloc.alloc(need)
-        except OutOfBlocks:
+        need = blocks_needed(len(prompt) + 1, self.block_size)
+        picked = self._pick_slot(need)
+        if picked is None:
             raise serve.NoCapacity(
                 f"no free blocks ({need} needed, {self.free_blocks} free)"
-            ) from None
+            )
+        slot, ids = picked
+        request_id = self._next_id
+        base_key = prng.prng_key(request_id if seed is None else seed)
+        self._prio[slot] = priority
         try:
-            self._owned[slot] = ids
-            self._table_np[slot, :] = NULL_BLOCK
-            self._table_np[slot, :need] = ids
-            self._table_dirty = True
-            self._sync_table()
-            padded = np.zeros((1, self.prompt_bucket), np.int32)
-            padded[0, : len(prompt)] = prompt
-            self._prompt.copy_(torch.from_numpy(padded))
-            # prefill writes ceil(bucket/bs) stripes; entries past the owned
-            # blocks are the null block, a scratch sink never attended
-            self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
+            self._prefill_slot(slot, ids, prompt)
             self._admit.copy_(torch.tensor([len(prompt), slot], dtype=torch.int32))
-            self._run("prefill", self._prefill)
+            self._admit_temp.fill_(temperature)
+            self._admit_key.copy_(base_key)
             first_tok = int(self._run("first token", self._first_token))
         except BaseException:
             # the slot was never occupied: return its blocks
-            self._alloc.free(self._owned[slot])
-            self._owned[slot] = []
-            self._table_np[slot, :] = NULL_BLOCK
-            self._table_dirty = True
+            self._release_blocks(slot)
             raise
-        request_id = self._next_id
         self._next_id += 1
         st = serve._Slot(
             request_id, list(prompt) + [first_tok], len(prompt), max_tokens, deadline
         )
         self._slots[slot] = st
-        self._last[slot] = first_tok
-        self._pos[slot] = len(prompt)
-        self._stop_pos[slot] = len(prompt) + serve._slot_budget(st) - 1
+        self._set_row(slot, st, temperature, base_key)
         self._retire(slot)  # max_tokens=1 or eos on the first token
         return request_id
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a request between steps: a resident one retires
+        "cancelled" with its tokens so far and its blocks refund; a parked
+        one unparks (it holds no blocks).  Returns whether the id was
+        found."""
+        for slot, st in enumerate(self._slots):
+            if st is not None and st.request_id == request_id:
+                serve._early_retire(self, slot, "cancelled", "cancelled by caller")
+                return True
+        for i, r in enumerate(self._preempted):
+            if r["st"].request_id == request_id:
+                self._preempted.pop(i)
+                serve._retire_parked(self, r["st"], "cancelled", "cancelled by caller")
+                return True
+        return False
 
     def step(self) -> int:
         """Advance every active, non-stalled slot one token (a burst of
         one step); returns the number of slots stepped."""
-        return self._burst(1, self._grow_or_preempt(lookahead=0))
+        return self._step(1)
 
     def step_burst(self) -> int:
         """Advance every participating slot up to ``sync_interval`` tokens
         with ONE device-to-host readback; returns the number of slots
-        stepped.  Blocks for the whole burst are grown up front; a slot the
-        pool cannot cover stalls for the burst, and if none can the burst
-        falls back to one step (the synchronous loop's growth)."""
-        if self.sync_interval <= 1:
-            return self.step()
-        if all(st is None for st in self._slots):
-            return 0
-        k = self.sync_interval
-        active = self._grow_or_preempt(lookahead=k - 1)
-        if not active.any():
-            k = 1
-            active = self._grow_or_preempt(lookahead=0)
-        return self._burst(k, active)
-
-    def _burst(self, k: int, active) -> int:
-        """Run the K-step burst program for the slots in ``active`` (host
-        bool ``[n_slots]``, blocks already grown) with ONE readback, then
-        append each slot's tokens and retire the finished ones."""
-        self._sync_table()
-        if not active.any():
-            return 0
-        self._active.copy_(torch.from_numpy(active))
-        trace = self._run(f"burst k={k}", self._burst_program(k))
-        trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
-        self.host_syncs += 1
-        self.decode_steps += k
-        trace_a = trace_a.astype(bool)
-        self._check_finite((trace_a & trace_b.astype(bool)).any(axis=0))
-        for j in range(k):
-            for slot, st in enumerate(self._slots):
-                if st is None or not trace_a[j][slot]:
-                    continue
-                st.tokens.append(int(trace_t[j][slot]))
-                self._retire(slot)
-        return int(active.sum())
+        stepped (or quarantined by the fault window).  Parked requests the
+        pool can hold re-admit first.  Blocks for the whole burst are
+        grown up front; a slot the pool cannot cover stalls for the burst,
+        and if none can the burst falls back to one step (the synchronous
+        loop's growth, preemption included)."""
+        return self._step(self.sync_interval)
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
+        """Step until nothing is resident or parked; raises "engine
+        wedged" when no slot can progress."""
         for _ in range(max_steps):
             if self.step_burst() == 0:
-                if self.free_slots() == self.n_slots:
+                if self.free_slots() == self.n_slots and not self._preempted:
                     return
-                raise RuntimeError(
-                    "engine wedged: resident slots, no progress "
-                    f"({self.free_blocks} free blocks)"
-                )
-        raise RuntimeError("serving loop did not drain")
+                raise serve._wedge_error(self, "engine wedged: resident slots, no progress")
+        raise serve._wedge_error(self, "serving loop did not drain")
 
     def pump(self, requests, max_steps: int = 100_000) -> list:
         """Admit ``requests`` (``(prompt, max_tokens)`` pairs or dicts of
@@ -501,23 +534,65 @@ class PagedServeEngine:
         return out
 
     # -- internals ---------------------------------------------------------
-    def _check_finite(self, bad_rows) -> None:
-        if bad_rows.any():
-            raise NotImplementedError(
-                "non-finite logits in slots "
-                f"{np.flatnonzero(bad_rows).tolist()}: quarantine is not ported yet"
-            )
+    def _step(self, k: int) -> int:
+        """Re-admit, open the fault window, grow (or preempt), run a
+        K-step burst (``step`` asks for K = 1)."""
+        single = k == 1
+        self._readmit()
+        self._step_no += 1
+        poison, quarantined = serve._inject_step_faults(self)
+        if all(st is None for st in self._slots):
+            return quarantined
+        active = self._grow_or_preempt(lookahead=k - 1)
+        if not active.any() and k > 1:
+            k = 1
+            active = self._grow_or_preempt(lookahead=0)
+        self._sync_table()
+        if not active.any():
+            return quarantined  # quarantining is progress, stalling is not
+        if (poison != self._poison_np).any():
+            self._poison.copy_(torch.from_numpy(poison))
+            self._poison_np = poison
+        return self._burst(k, active, single)
+
+    def _burst(self, k: int, active, single: bool) -> int:
+        """Run the K-step burst program for the slots in ``active`` (host
+        bool ``[n_slots]``, blocks already grown) with ONE readback, then
+        append each slot's tokens up to its first non-finite step, retire
+        the finished slots and quarantine the poisoned ones."""
+        self._active.copy_(torch.from_numpy(active))
+        trace = self._run(f"burst k={k}", self._burst_program(k))
+        trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
+        self.host_syncs += 1
+        self.decode_steps += k
+        trace_a = trace_a.astype(bool)
+        first_bad = serve._first_bad_steps(trace_a, trace_b.astype(bool))
+        for j in range(k):
+            for slot, st in enumerate(self._slots):
+                if st is None or not trace_a[j][slot] or j >= first_bad.get(slot, k):
+                    continue
+                st.tokens.append(int(trace_t[j][slot]))
+                self._retire(slot)
+        for slot in sorted(first_bad):
+            if self._slots[slot] is not None:
+                serve._quarantine_slot(
+                    self, slot, "nan_logits",
+                    "non-finite logits in decode step" if single
+                    else f"non-finite logits at burst step {first_bad[slot]}",
+                )
+        return int(active.sum())
 
     def _grow_active_slots(self, lookahead: int):
         """Ensure every resident slot owns blocks covering positions
-        ``pos .. pos + lookahead`` (clamped to its remaining stream); slots
-        the pool cannot serve stall.  The depth comes from the host-side
-        invariant ``pos == len(tokens) - 1``, never from a device read.
-        Returns the host active mask."""
+        ``pos .. pos + lookahead`` (clamped to its remaining stream), high
+        priority first and older first within a tier; slots the pool
+        cannot serve stall.  The depth comes from the host-side invariant
+        ``pos == len(tokens) - 1``, never from a device read.  Returns the
+        host active mask."""
         active = np.zeros((self.n_slots,), bool)
         order = sorted(
             range(self.n_slots),
-            key=lambda s: self._slots[s].request_id if self._slots[s] else 0,
+            key=lambda s: (-self._prio[s], self._slots[s].request_id if self._slots[s] else 0),
         )
         for slot in order:
             st = self._slots[slot]
@@ -542,22 +617,117 @@ class PagedServeEngine:
         return active
 
     def _grow_or_preempt(self, lookahead: int):
-        """Block growth; where the reference would evict (every resident
-        slot stalled and one is short enough to re-prefill) the port
-        raises, since preemption is not ported yet."""
+        """Block growth; with ``preempt_on_stall``, while every resident
+        slot stalls, evict one request and grow again.  Returns the host
+        active mask."""
         active = self._grow_active_slots(lookahead)
         if self.preempt_on_stall:
-            resident = [s for s in range(self.n_slots) if self._slots[s] is not None]
-            victims = [
-                s for s in resident
-                if len(self._slots[s].tokens) + 1 <= self.prompt_bucket
-            ]
-            if resident and not active[resident].any() and victims:
-                raise NotImplementedError(
-                    "every resident slot stalled on a full pool: preemption is "
-                    "not ported yet (use a larger pool or preempt_on_stall=False)"
-                )
+            while True:
+                resident = [s for s in range(self.n_slots) if self._slots[s] is not None]
+                if not resident or active[resident].any() or not self._preempt_one():
+                    break
+                active = self._grow_active_slots(lookahead)
         return active
+
+    def _preempt_one(self) -> bool:
+        """Evict the lowest-priority resident request still short enough to
+        re-prefill in one pass (the youngest within a tier): park its
+        tokens, temperature and base key (read back from the device) and
+        free its blocks.  Returns whether a request was evicted."""
+        victim, vslot = None, -1
+        for slot, st in enumerate(self._slots):
+            if st is None or len(st.tokens) + 1 > self.prompt_bucket:
+                continue  # grown past one-pass re-prefill: not resumable
+            if victim is None or (
+                (self._prio[slot], -st.request_id) < (self._prio[vslot], -victim.request_id)
+            ):
+                victim, vslot = st, slot
+        if victim is None:
+            return False
+        # a copy: on the CPU ``.cpu()`` would alias the row the slot's next
+        # request overwrites
+        self._preempted.append(dict(
+            st=victim, temp=float(self._temps[vslot].cpu()),
+            key=self._keys[vslot].to("cpu", copy=True), priority=self._prio[vslot],
+        ))
+        # re-admission: high priority first, FIFO within a tier (stable)
+        self._preempted.sort(key=lambda r: -r["priority"])
+        self._slots[vslot] = None
+        self._release_blocks(vslot)
+        self.preempted_count += 1
+        return True
+
+    def _readmit(self) -> None:
+        """Re-prefill parked requests, in queue order, while a slot and
+        their blocks are free: the parked tokens are the prompt, and the
+        next step samples the next token at the same position under the
+        same key, so the stream continues exactly.  A re-admission that
+        fails frees its blocks, delivers an "error" completion and
+        raises."""
+        while self._preempted:
+            r = self._preempted[0]
+            st = r["st"]
+            picked = self._pick_slot(blocks_needed(len(st.tokens) + 1, self.block_size))
+            if picked is None:
+                return  # stays parked; the head blocks the queue
+            slot, ids = picked
+            self._prio[slot] = r["priority"]
+            try:
+                self._prefill_slot(slot, ids, st.tokens)
+            except BaseException as exc:
+                self._release_blocks(slot)
+                self._preempted.pop(0)
+                serve._retire_parked(self, st, "error", f"{type(exc).__name__}: {exc}")
+                raise
+            self._preempted.pop(0)
+            self._slots[slot] = st
+            self._set_row(slot, st, r["temp"], r["key"])
+
+    def _pick_slot(self, need: int):
+        """The first free slot, with ``need`` blocks allocated to it, as
+        ``(slot, ids)``; None when no slot is free or the pool cannot
+        cover ``need`` (one pool: a second slot could not do better)."""
+        for slot in range(self.n_slots):
+            if self._slots[slot] is None:
+                try:
+                    return slot, self._alloc.alloc(need)
+                except OutOfBlocks:
+                    return None
+        return None
+
+    def _prefill_slot(self, slot: int, ids: list[int], tokens: list[int]) -> None:
+        """Point ``slot``'s table row at ``ids`` and prefill ``tokens`` into
+        them (the prefill program)."""
+        self._owned[slot] = ids
+        self._table_np[slot, :] = NULL_BLOCK
+        self._table_np[slot, : len(ids)] = ids
+        self._table_dirty = True
+        self._sync_table()
+        padded = np.zeros((1, self.prompt_bucket), np.int32)
+        padded[0, : len(tokens)] = tokens
+        self._prompt.copy_(torch.from_numpy(padded))
+        # prefill writes ceil(bucket/bs) stripes; entries past the owned
+        # blocks are the null block, a scratch sink never attended
+        self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
+        self._run("prefill", self._prefill)
+
+    def _set_row(self, slot: int, st, temperature: float, key) -> None:
+        """A resident slot's device row: last token, position (``len(tokens)
+        - 1``), stop depth (from the original prompt length and budget),
+        temperature and base key."""
+        self._last[slot] = st.tokens[-1]
+        self._pos[slot] = len(st.tokens) - 1
+        self._stop_pos[slot] = st.prompt_len + serve._slot_budget(st) - 1
+        self._temps[slot] = temperature
+        self._keys[slot] = key
+
+    def _release_blocks(self, slot: int) -> None:
+        """Refund ``slot``'s blocks and point its table row at the null
+        block (uploaded before the next program)."""
+        self._alloc.free(self._owned[slot])
+        self._owned[slot] = []
+        self._table_np[slot, :] = NULL_BLOCK
+        self._table_dirty = True
 
     def _sync_table(self) -> None:
         """Upload the host block table into ``_table`` in place, once for
@@ -590,7 +760,8 @@ class PagedServeEngine:
     def _first_token(self):
         tok, _ = _paged_first_token(
             self.params, self._cache, self._table, self._prompt, self._admit[0],
-            self._admit[1], cfg=self.cfg,
+            self._admit[1], self._admit_temp, self._admit_key, cfg=self.cfg,
+            top_k=self.top_k,
         )
         return tok
 
@@ -598,7 +769,8 @@ class PagedServeEngine:
         def burst():
             trace, _, last, pos, _ = _paged_pipelined_burst(
                 self.params, self._cache, self._table, self._last, self._pos,
-                self._active, self._stop_pos, cfg=self.cfg, eos_id=self._eos, k=k,
+                self._active, self._temps, self._keys, self._stop_pos, self._poison,
+                cfg=self.cfg, top_k=self.top_k, eos_id=self._eos, k=k,
             )
             self._last.copy_(last)
             self._pos.copy_(pos)
@@ -610,7 +782,4 @@ class PagedServeEngine:
         if done is not None:
             self._completions.append(done)
             self._slots[slot] = None
-            self._alloc.free(self._owned[slot])
-            self._owned[slot] = []
-            self._table_np[slot, :] = NULL_BLOCK
-            self._table_dirty = True
+            self._release_blocks(slot)

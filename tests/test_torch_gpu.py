@@ -28,7 +28,11 @@ and one bf16 step, 2^-7 + 2^-16, in bf16 (P rounded on each side against
 another max in the forward; in the backward, f32 sums in another order
 move a rounding of P or dS to the next bf16 value; each output rounded
 once).  lse within 2^-16 (1 + |lse|).
-Train-step losses within 1e-5 relative of the CPU's."""
+Train-step losses within 1e-5 relative of the CPU's.  PRNG: threefry's
+known answers, random bits and uniforms equal the CPU's bit for bit;
+Gumbel noise within 4 float32 ulps of its size, 2^-21 (1 + |g|) (each
+device's own ``log``).  The sampled, preempting engine graphed equals
+its eager twin in everything, as the greedy one does."""
 
 import contextlib
 
@@ -39,11 +43,13 @@ import torch
 from k8s_dra_driver_torch.models import burnin as tb
 from k8s_dra_driver_torch.models import decode as td
 from k8s_dra_driver_torch.models import paged as tp
+from k8s_dra_driver_torch.models import prng
 from k8s_dra_driver_torch.models import quant as tq
 from k8s_dra_driver_torch.models import serve as ts
 from k8s_dra_driver_torch.ops import flash_attention as tfa
 from k8s_dra_driver_torch.ops import int4_matmul as ti4
 from k8s_dra_driver_torch.ops import paged_attention as tpa
+from k8s_dra_driver_torch.utils import faults as tf
 
 pytestmark = pytest.mark.gpu
 
@@ -348,6 +354,90 @@ def test_graphed_engine_matches_the_eager_engine(cuda, bits, case):
         assert names == {"prefill", "first token", "burst k=4", "burst k=1"}
         assert graphed.stalled_steps > 0
         assert all(g.calls >= 3 for g in graphed.graphs.values())  # replays alone too
+
+
+def test_prng_on_the_card_equals_the_cpu(cuda):
+    """Threefry's known answers, random bits and uniforms for 8 keys over
+    ``[8, 32768]`` bit for bit, Gumbel noise within its limit."""
+    mask = 0xFFFFFFFF
+    for key, count, want in [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                             ((mask, mask), (mask, mask), (0x1CB996FC, 0xBB002BE7)),
+                             ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                              (0xC4923A9C, 0x483DF7A0))]:
+        y0, y1 = prng.threefry2x32(torch.tensor(key, device=cuda),
+                                   torch.tensor([count[0]], device=cuda),
+                                   torch.tensor([count[1]], device=cuda))
+        assert (int(y0), int(y1)) == want
+    keys = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 2**32, size=(8, 2), dtype=np.uint64).astype(np.int64))
+    shape = (8, 32768)
+    assert torch.equal(prng.random_bits(keys.to(cuda), shape).cpu(),
+                       prng.random_bits(keys, shape))
+    assert torch.equal(prng.uniform(keys.to(cuda), shape).cpu(), prng.uniform(keys, shape))
+    got, want = prng.gumbel(keys.to(cuda), shape).cpu(), prng.gumbel(keys, shape)
+    assert ((got - want).abs() <= 2**-21 * (1 + want.abs())).all()
+    pos = torch.arange(8, dtype=torch.int32) * 1000
+    assert torch.equal(prng.fold_in(keys.to(cuda), pos.to(cuda)).cpu(), prng.fold_in(keys, pos))
+
+
+def _lifecycle_drive(eng, reqs, cancel_after=2):
+    """Admit ``reqs`` as capacity frees, cancel the lowest resident request
+    id after ``cancel_after`` bursts, step until nothing is queued,
+    resident or parked.  Returns the completions."""
+    queue, comps, bursts = list(reqs), [], 0
+    while queue or eng.free_slots() < eng.n_slots or eng._preempted:
+        while queue and eng.free_slots():
+            try:
+                eng.submit(**queue[0])
+            except ts.NoCapacity:
+                break
+            queue.pop(0)
+        eng.step_burst()
+        bursts += 1
+        if bursts == cancel_after:
+            resident = [st.request_id for st in eng._slots if st is not None]
+            assert eng.cancel(min(resident))
+        comps += eng.completions()
+    return comps
+
+
+@pytest.mark.parametrize("sync_interval", [1, 4])
+def test_graphed_lifecycle_engine_matches_the_eager_engine(cuda, sync_interval):
+    """Sampled and greedy requests with priorities on a pool that
+    preempts, a cancel and a poisoned slot: the graphed engine equals its
+    eager twin in streams, statuses, preemptions, quarantines, host syncs,
+    stalls, pool bytes outside the null block and launch counts, with at
+    most four graphs."""
+    cfg, params = _small_engine_params(None, cuda)
+    r = np.random.RandomState(2)
+    reqs = [dict(prompt=r.randint(0, 128, size=r.randint(3, 9)).tolist(),
+                 max_tokens=int(r.randint(8, 20)), temperature=0.8 * (i % 2),
+                 seed=10 + i, priority=i % 2) for i in range(8)]
+
+    def serve(eager):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        inj = tf.FaultInjector(3)
+        inj.arm(tf.FaultProfile(nan_logits_rate=1.0, slots=(1,), steps=(4,)))
+        eng = tp.PagedServeEngine(params=params, cfg=cfg, device=cuda, n_slots=3,
+                                  n_blocks=9, block_size=4, prompt_bucket=32, top_k=20,
+                                  sync_interval=sync_interval, fault_injector=inj)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = _lifecycle_drive(eng, reqs)
+        torch.cuda.synchronize()
+        streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+        return eng, streams, _launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and counts == want_counts and counts["append"] > 0
+    assert {s for _, _, s in streams} == {"ok", "cancelled", "quarantined"}
+    for attr in ("preempted_count", "quarantined", "host_syncs", "stalled_steps", "free_blocks"):
+        assert getattr(graphed, attr) == getattr(eager, attr), attr
+    assert graphed.preempted_count > 0
+    assert torch.equal(graphed._cache.k[:, 1:], eager._cache.k[:, 1:])
+    assert torch.equal(graphed._cache.v[:, 1:], eager._cache.v[:, 1:])
+    assert 0 < len(graphed.graphs) <= 4 and eager.graphs == {}
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
 
 
 def test_capture_of_a_host_read_raises(cuda, monkeypatch):

@@ -282,15 +282,28 @@ def test_block_allocator_and_sizes_match_jax():
 
 
 def test_unported_paths_raise(weights):
-    _, tparams = weights
+    """The two calls that raised ``NotImplementedError`` before sampling
+    and preemption were ported now serve: a sampled submit, and a pump on a
+    pool so tight that every resident slot stalls (the engine preempts,
+    re-admits and drains, with the JAX engine's streams and counts).
+    Greedy sampling keeps the first maximum on ties."""
+    jparams, tparams = weights
     eng = tp.PagedServeEngine(params=tparams, cfg=TCFG, n_blocks=5, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.submit([1, 2, 3], max_tokens=2, temperature=0.7)
-    # a pool this tight stalls every resident slot: the JAX engine would
-    # preempt one there, the port says it cannot yet
-    with pytest.raises(NotImplementedError, match="preemption"):
-        eng.pump([(list(range(1, 8)), 20)] * 3)
-    assert ts.sample_next(torch.tensor([[1.0, 3.0, 3.0]])).tolist() == [1]
+    je = jp.PagedServeEngine(params=jparams, cfg=JCFG, n_blocks=5, attn_impl="xla", **ENGINE)
+    reqs = [(list(range(1, 8)), 20)] * 3
+    streams = []
+    for e in (je, eng):
+        rid = e.submit([1, 2, 3], max_tokens=2, temperature=0.7)
+        e.run_until_drained()
+        (c,) = e.completions()
+        assert (c.request_id, len(c.generated), c.status) == (rid, 2, "ok")
+        streams.append((c.generated, _streams(e.pump(reqs))))
+    assert streams[0] == streams[1]
+    assert eng.preempted_count == je.preempted_count > 0
+    assert eng.free_blocks == 4
+    greedy = ts.sample_next(torch.tensor([[1.0, 3.0, 3.0]]), torch.zeros(1, dtype=torch.int32),
+                            torch.zeros(1), torch.zeros((1, 2), dtype=torch.int64), top_k=0)
+    assert greedy.tolist() == [1]
 
 
 @pytest.mark.parametrize("make", [
@@ -311,8 +324,8 @@ def test_cache_constructors_default_to_the_card(make, monkeypatch):
 
 # -- what capture needs: static device state, eager CPU, counted replays --
 
-STATIC_BUFFERS = ("_table", "_active", "_last", "_pos", "_stop_pos", "_prompt",
-                  "_prefill_row", "_admit")
+STATIC_BUFFERS = ("_table", "_active", "_last", "_pos", "_stop_pos", "_temps", "_keys",
+                  "_poison", "_prompt", "_prefill_row", "_admit", "_admit_temp", "_admit_key")
 
 
 def tight_drive(eng, seed=8):
