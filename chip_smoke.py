@@ -54,7 +54,22 @@ exits 2 before any result):
    answers, bits and uniforms on the card equal to the CPU's; steady
    decode all sampled against all greedy, and the sampling tail alone
    (graphed, profiled) beside the greedy step;
-8. training FLAGSHIP_MODERN at full width in bf16 through
+8. the dense ``ServeEngine`` ("serve dense"): FLAGSHIP_MODERN in bf16, 8
+   slots, prompt bucket 256, sync interval 8, bf16 cache, in six legs, each
+   timed: the serving run's 16 requests through ``pump`` graphed (the main
+   path) against an eager twin (completions, statuses, host syncs, cache
+   bytes, launch counts) and teacher-forced; the prefix cache (prefix
+   bucket 64) over 16 requests sharing two system prompts, 14 hits and 2
+   misses, against a prefix-off twin (equal streams counted, not
+   required); the lifecycle (top-k 50, odd requests sampled, a cancel
+   after burst 3, one slot poisoned) graphed against eager, with a
+   snapshot after burst 4 restored through JSON into a fresh engine, its
+   streams counted against the uninterrupted run's and teacher-forced;
+   int4 block weights (both int4 kernels must launch, counts printed);
+   steady decode of the dense engine eager and graphed beside the paged
+   graphed step (alternating rounds, profiles, the dense step's bound);
+   ``pump(queue_limit=4)`` shedding with no device work for a shed request;
+9. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -66,15 +81,15 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-9. the graphed bf16 step under remat "dots", "blocks" and "none" from the
-   same init: bit-equal over 3 steps, the flash forward 2·L a step under
-   "dots" and "blocks" and L under "none", each policy's peak memory and
-   step time (alternating rounds);
-10. resume: the graphed bf16 step saved after 2 steps by
+10. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+    same init: bit-equal over 3 steps, the flash forward 2·L a step under
+    "dots" and "blocks" and L under "none", each policy's peak memory and
+    step time (alternating rounds);
+11. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-11. training in f32 at 2 layers: the graphed flash step against its eager
+12. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
@@ -1811,6 +1826,325 @@ def phase_serve_lifecycle(torch, cfg, params, *, cache_dtype, tol_greedy=0.25):
     return {"paged_attention": append}
 
 
+# the dense engine's phase: the serving engines' slots, bucket and burst
+DENSE = dict(n_slots=8, prompt_bucket=256, sync_interval=8)
+DENSE_PREFIX = dict(prefix_bucket=64, prefix_cache_entries=8)
+DENSE_SNAPSHOT_AFTER = 4  # bursts
+DENSE_QUEUE_LIMIT = 4
+
+
+def _dense_engine(cfg, params, cache_dtype, **kw):
+    from k8s_dra_driver_torch.models.serve import ServeEngine
+
+    return ServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, device=DEV,
+                       **dict(DENSE, **kw))
+
+
+def _dense_prefix_traffic(vocab: int, seed: int, n: int = 16):
+    """``n`` greedy requests, each one of two seeded 64-token system
+    prompts (alternating) and 16-160 tokens of its own, 32-64 new tokens."""
+    r = np.random.RandomState(seed)
+    systems = [r.randint(0, vocab, size=64).tolist() for _ in range(2)]
+    return [dict(prompt=systems[i % 2] + r.randint(0, vocab, size=int(r.randint(16, 161))).tolist(),
+                 max_tokens=int(r.randint(32, 65))) for i in range(n)]
+
+
+def _greedy_dicts(reqs):
+    return [dict(prompt=p, max_tokens=m) for p, m in reqs]
+
+
+def _dense_twin(torch, label, drive):
+    """``drive(eager) -> (engine, completions)`` run graphed (the main
+    path, launch counts zeroed just before) and eagerly: completions with
+    their statuses, host syncs, prefix hits and misses, quarantines, the
+    final cache bytes and every launch count must be identical.  Returns
+    the graphed engine, its completions and its launch counts."""
+    from k8s_dra_driver_torch.models import serve
+
+    runs = []
+    for eager in (False, True):
+        sync(torch)
+        _zero_serving_counts()
+        t0 = time.perf_counter()
+        with serve.disable_graphs() if eager else contextlib.nullcontext():
+            eng, comps = drive(eager)
+        sync(torch)
+        runs.append((eng, comps, time.perf_counter() - t0, serve.launch_counts()))
+    (eng, comps, wall, counts), (twin, twin_comps, twin_wall, twin_counts) = runs
+    streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+    if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
+        raise AssertionError(f"{label}: graphed and eager completions differ")
+    for attr in ("host_syncs", "prefix_hits", "prefix_misses", "quarantined"):
+        if getattr(eng, attr) != getattr(twin, attr):
+            raise AssertionError(f"{label}: graphed and eager {attr} differ: "
+                                 f"{getattr(eng, attr)} against {getattr(twin, attr)}")
+    if not (torch.equal(eng._cache.k, twin._cache.k) and torch.equal(eng._cache.v, twin._cache.v)):
+        raise AssertionError(f"{label}: graphed and eager caches differ after the drain")
+    if counts != twin_counts:
+        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
+    generated = sum(len(c.generated) for c in comps)
+    log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s graphed "
+        f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s eager ({generated / twin_wall:.1f} "
+        f"tokens/s); host_syncs {eng.host_syncs}; graphed == eager twin in completions, "
+        f"statuses, host syncs, prefix counts, quarantines, cache bytes and launch counts")
+    graph_bookkeeping(torch, label, eng)
+    return eng, comps, counts
+
+
+def _teacher_forced_all(torch, label, cfg, params, reqs, comps, cache_dtype, tol, by_id=None):
+    """Every completion teacher-forced against the plain dense path
+    (``_teacher_forced``); ``reqs[request_id]`` unless ``by_id`` maps ids
+    to requests.  Prints and returns the count of tokens that are the dense
+    choice."""
+    ref = _dense_reference(params)
+    worst, hit, total = 0.0, 0, 0
+    for c in comps:
+        req = (by_id or reqs)[c.request_id]
+        gap, h, n = _teacher_forced(torch, cfg, ref, req, c, cache_dtype, tol,
+                                    tol / LIFECYCLE_TEMP)
+        worst, hit, total = max(worst, gap), hit + h, total + n
+    log(f"{label}: teacher-forced vs plain dense decode: {hit}/{total} tokens the dense choice, "
+        f"worst gap {worst:.4g} (tolerance {tol} greedy, {tol / LIFECYCLE_TEMP:.4g} sampled: "
+        f"{TOL_WHY[cache_dtype == torch.float32]})")
+    return hit
+
+
+def dense_lifecycle_drive(eng, reqs, *, cancel_after=3, snapshot_after=None, max_bursts=5000):
+    """Admit ``reqs`` FIFO as slots free and burst-step in between; after
+    burst ``cancel_after`` cancel the resident request with the lowest id;
+    after burst ``snapshot_after`` take ``snapshot_active()`` as JSON.
+    Returns ``(completions, cancelled id, the snapshot's JSON, ids done by
+    then, the requests still queued then)``."""
+    queue, comps, cancelled, snap = list(reqs), [], None, None
+    for burst in range(1, max_bursts + 1):
+        while queue and eng.free_slots():
+            eng.submit(**queue[0])
+            queue.pop(0)
+        eng.step_burst()
+        if burst == cancel_after:
+            cancelled = min(st.request_id for st in eng._slots if st is not None)
+            eng.cancel(cancelled)
+        comps += eng.completions()
+        if burst == snapshot_after:
+            snap = (json.dumps(eng.snapshot_active()), {c.request_id for c in comps}, list(queue))
+        if not queue and eng.free_slots() == eng.n_slots:
+            return comps, cancelled, snap
+    raise AssertionError(f"the dense lifecycle run did not drain in {max_bursts} bursts")
+
+
+def dense_steady_decode(torch, cfg, params, cache_dtype, rounds=4, bursts=4):
+    """Decode-only step time at batch 8: the dense engine eager and graphed
+    and the paged engine graphed, each with the same 8 resident requests
+    (prompt 128), after 3 warm-up bursts, in ``rounds`` alternating rounds
+    of ``bursts`` 8-step bursts on the host clock; one profiled burst of
+    each.  The dense step's bound reads every stored parameter byte and the
+    whole ``[L, 8, max_seq, Hkv, hd]`` K and V, which its masked attention
+    reads every step.  Fails if the graphed dense step is slower than the
+    eager one."""
+    from k8s_dra_driver_torch.models import serve
+    from k8s_dra_driver_torch.models.quant import quantized_bytes
+
+    r = np.random.RandomState(SEED + 7)
+    prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+    engines = {}
+    for mode in ("dense eager", "dense graphed", "paged graphed"):
+        eng = (_serving_engine(cfg, params, cache_dtype) if mode.startswith("paged")
+               else _dense_engine(cfg, params, cache_dtype))
+        with serve.disable_graphs() if mode.endswith("eager") else contextlib.nullcontext():
+            for p in prompts:
+                eng.submit(p, max_tokens=8 * (3 + rounds * bursts + 2))
+            for _ in range(3):
+                eng.step_burst()
+        engines[mode] = eng
+    times = {mode: [] for mode in engines}
+    for _ in range(rounds):
+        for mode, eng in engines.items():
+            with serve.disable_graphs() if mode.endswith("eager") else contextlib.nullcontext():
+                sync(torch)
+                t0 = time.perf_counter()
+                for _ in range(bursts):
+                    eng.step_burst()
+                sync(torch)
+            times[mode].append((time.perf_counter() - t0) / (8 * bursts) * 1e3)
+    itemsize = torch.empty((), dtype=cache_dtype).element_size()
+    weights = quantized_bytes(params)[0]
+    kv = 2 * cfg.n_layers * 8 * cfg.max_seq * cfg.kv_heads * cfg.head_dim * itemsize
+    b_ms, _ = bound(weights + kv, 0, "bfloat16")
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    for mode in engines:
+        log(f"serve dense: steady decode B=8 ctx~{128 + 8 * 3 + 8 * rounds * bursts / 2:.0f}, "
+            f"{mode}: {' / '.join(f'{t:.3f}' for t in times[mode])} ms per step by round "
+            f"(median {med[mode]:.3f} ms, range {min(times[mode]):.3f}-{max(times[mode]):.3f})")
+    log(f"serve dense: dense step bound {b_ms * 1e3:.1f} us ({weights / 1e6:.1f} MB parameters + "
+        f"{kv / 1e6:.1f} MB of K and V, the whole cache); dense graphed / paged graphed "
+        f"{med['dense graphed'] / med['paged graphed']:.3f}")
+    dense = [engines[m] for m in ("dense eager", "dense graphed")]
+    if [st.tokens for st in dense[0]._slots] != [st.tokens for st in dense[1]._slots]:
+        raise AssertionError("serve dense: the eager and graphed steady streams differ")
+    for mode, eng in engines.items():
+        with serve.disable_graphs() if mode.endswith("eager") else contextlib.nullcontext():
+            prof = profile_window(torch, f"serve dense: profile of one {mode} 8-step burst",
+                                  eng.step_burst)
+        if prof is not None:
+            log(f"serve dense: {mode} burst: device busy {prof['busy_us'] / 8 / 1e3:.3f} ms per "
+                f"step over {sum(r_[1] for r_ in prof['rows'])} kernels")
+    if med["dense graphed"] > med["dense eager"]:
+        raise AssertionError(f"serve dense: the graphed step ({med['dense graphed']:.3f} ms) is "
+                             f"slower than the eager one ({med['dense eager']:.3f} ms)")
+
+
+def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
+    """The dense ``ServeEngine`` at full width in six legs: the serving
+    run's 16 requests graphed against an eager twin and teacher-forced; the
+    prefix cache over two shared system prompts (against a prefix-off twin);
+    the lifecycle (sampled requests, top-k 50, a cancel, a poisoned slot)
+    graphed against eager, with a snapshot after burst 4 restored through
+    JSON into a fresh engine; int4 block weights, both int4 kernels
+    launching; steady decode beside the paged engine; shedding on a
+    queue limit.  Returns the int4 launch counts of the int4 leg."""
+    from k8s_dra_driver_torch.models import quant, serve
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+    from k8s_dra_driver_torch.utils import faults
+
+    label = "serve dense"
+    bf16 = _greedy_dicts(reqs)
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    def bf16_leg():
+        def drive(eager):
+            eng = _dense_engine(cfg, params, cache_dtype)
+            return eng, eng.pump(reqs)
+
+        eng, comps, _ = _dense_twin(torch, f"{label} bf16", drive)
+        short = [c.request_id for c in comps
+                 if len(c.generated) != bf16[c.request_id]["max_tokens"]]
+        if len(comps) != len(reqs) or short:
+            raise AssertionError(f"{label} bf16: {len(comps)} completions, short {short}")
+        _teacher_forced_all(torch, f"{label} bf16", cfg, params, bf16, comps, cache_dtype, tol)
+
+    def prefix_leg():
+        preqs = _dense_prefix_traffic(cfg.vocab_size, SEED + 13)
+        eng = _dense_engine(cfg, params, cache_dtype, **DENSE_PREFIX)
+        comps = eng.pump(preqs)
+        off = _dense_engine(cfg, params, cache_dtype).pump(preqs)
+        log(f"{label} prefix: prefix_hits {eng.prefix_hits}, prefix_misses {eng.prefix_misses} "
+            f"(expected 14 / 2)")
+        if (eng.prefix_hits, eng.prefix_misses) != (14, 2) or len(comps) != len(preqs):
+            raise AssertionError(f"{label} prefix: hits/misses {eng.prefix_hits}/"
+                                 f"{eng.prefix_misses}, {len(comps)} completions")
+        graph_bookkeeping(torch, f"{label} prefix", eng)
+        want = {c.request_id: c.generated for c in off}
+        same = sum(c.generated == want[c.request_id] for c in comps)
+        log(f"{label} prefix: streams equal to the prefix-off twin's: {same} of {len(comps)} "
+            f"(reported, not required: cuBLAS may sum the suffix's M = 192 product in another "
+            f"order than the full prefill's M = 256)")
+        _teacher_forced_all(torch, f"{label} prefix", cfg, params, preqs, comps, cache_dtype, tol)
+
+    def lifecycle_leg():
+        lreqs = _lifecycle_traffic(cfg.vocab_size, SEED + 11)
+        for r_ in lreqs:
+            r_.pop("priority")
+        snaps = []
+
+        def drive(eager):
+            inj = faults.FaultInjector(SEED)
+            inj.arm(faults.FaultProfile(name="poison", **LIFECYCLE_POISON))
+            eng = _dense_engine(cfg, params, cache_dtype, top_k=LIFECYCLE["top_k"],
+                                fault_injector=inj)
+            comps, cancelled, snap = dense_lifecycle_drive(
+                eng, lreqs, snapshot_after=DENSE_SNAPSHOT_AFTER)
+            snaps.append((snap, cancelled))
+            return eng, comps
+
+        eng, comps, _ = _dense_twin(torch, f"{label} lifecycle", drive)
+        (snap, cancelled), (twin_snap, _) = snaps
+        statuses = {}
+        for c in comps:
+            statuses[c.status] = statuses.get(c.status, 0) + 1
+        log(f"{label} lifecycle: statuses {statuses}; quarantined {eng.quarantined}; cancelled "
+            f"{cancelled}")
+        if len(eng.quarantined) != 1 or statuses.get("cancelled") != 1 or snap != twin_snap:
+            raise AssertionError(f"{label} lifecycle: want one quarantine, one cancel and equal "
+                                 f"snapshots: {eng.quarantined}, {statuses}")
+        _teacher_forced_all(torch, f"{label} lifecycle", cfg, params, lreqs, comps, cache_dtype,
+                            tol)
+        # the snapshot after burst 4, restored into a fresh engine that then
+        # takes the requests still queued at that point
+        text, done_before, queued = snap
+        fresh = _dense_engine(cfg, params, cache_dtype, top_k=LIFECYCLE["top_k"])
+        restored = fresh.restore(json.loads(text))
+        rcomps = fresh.pump(queued)
+        main = {c.request_id: c for c in comps}
+        ids = sorted(c.request_id for c in rcomps)
+        if ids != sorted(set(main) - done_before):
+            raise AssertionError(f"{label} lifecycle restore: completions for {ids}")
+        same = sum(c.generated == main[c.request_id].generated for c in rcomps)
+        prefix = sum(main[c.request_id].status == "quarantined"
+                     and c.generated[: len(main[c.request_id].generated)]
+                     == main[c.request_id].generated for c in rcomps)
+        log(f"{label} lifecycle restore: {len(restored)} requests restored from "
+            f"{len(text)} bytes of JSON, {len(queued)} queued after them; streams equal to the "
+            f"uninterrupted run's: {same} of {len(rcomps)} (the quarantined one, poisoned after "
+            f"the snapshot, runs on: its uninterrupted stream a prefix of the restored one: "
+            f"{prefix})")
+        _teacher_forced_all(torch, f"{label} lifecycle restore", cfg, params, lreqs, rcomps,
+                            cache_dtype, tol)
+
+    def int4_leg():
+        p4 = quant.quantize_blocks(params, bits=4)
+        ireqs = bf16[:8]
+        sync(torch)
+        _zero_serving_counts()
+        eng = _dense_engine(cfg, p4, cache_dtype)
+        comps = eng.pump(ireqs)
+        sync(torch)
+        counts = {"int4_matmul": i4.kernel_launches["int4_splitk"],
+                  "int4_matmul_prefill": i4.kernel_launches["int4_wgmma"]}
+        log(f"{label} int4: launches on the dense path {counts} (split-K at M = 8 in steps, "
+            f"bursts and first tokens; wgmma at M = 256 in admissions)")
+        if not all(counts.values()) or len(comps) != len(ireqs):
+            raise AssertionError(f"{label} int4: an int4 kernel was never launched: {counts}")
+        graph_bookkeeping(torch, f"{label} int4", eng)
+        _teacher_forced_all(torch, f"{label} int4", cfg, p4, ireqs, comps, cache_dtype, tol)
+        return counts
+
+    def shed_leg():
+        eng = _dense_engine(cfg, params, cache_dtype)
+        admitted = []
+        submit = eng.submit
+
+        def counted(*a, **k):
+            admitted.append(a[0] if a else k["prompt"])
+            return submit(*a, **k)
+
+        eng.submit = counted
+        comps = eng.pump(reqs, queue_limit=DENSE_QUEUE_LIMIT)
+        shed = [c for c in comps if c.status == "shed"]
+        want = len(reqs) - DENSE["n_slots"] - DENSE_QUEUE_LIMIT  # lengths alone decide it
+        calls = eng.graphs["admission"].calls if "admission" in eng.graphs else len(admitted)
+        log(f"{label} shed: queue_limit {DENSE_QUEUE_LIMIT} over {len(reqs)} requests: "
+            f"shed_count {eng.shed_count} (the lengths decide it: {want}, what the CPU run of "
+            f"this leg sheds), "
+            f"{len(admitted)} admissions, admission program calls {calls}, retry-after "
+            f"{eng.last_shed.retry_after_s if eng.last_shed else None} s")
+        if eng.shed_count != want or len(shed) != want or calls != len(reqs) - want or any(
+                c.tokens in admitted for c in shed):
+            raise AssertionError(f"{label} shed: {eng.shed_count} shed, {calls} admissions")
+
+    leg("bf16", bf16_leg)
+    leg("prefix", prefix_leg)
+    leg("lifecycle", lifecycle_leg)
+    counts = leg("int4", int4_leg)
+    leg("steady decode", lambda: dense_steady_decode(torch, cfg, params, cache_dtype))
+    leg("shed", shed_leg)
+    return counts
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -1937,10 +2271,15 @@ def main() -> int:
         launches["lifecycle"] = phase_serve_lifecycle(torch, cfg, params,
                                                       cache_dtype=torch.bfloat16)
 
+    def serve_dense():
+        launches["dense int4"] = phase_serve_dense(torch, cfg, params, reqs,
+                                                   cache_dtype=torch.bfloat16)
+
     run("serve bf16", serve_bf16)
     run("serve int4", serve_int4)
     run("serve f32", serve_f32)
     run("serve bf16 lifecycle", serve_lifecycle)
+    run("serve dense", serve_dense)
     del params
 
     def train_bf16():

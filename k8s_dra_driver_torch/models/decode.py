@@ -93,9 +93,11 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
     """Score ``S`` known tokens per row in one pass: ``tokens [B, S]`` at
     positions ``pos0 .. pos0+S-1`` (``pos0`` an int or a ``[B]`` tensor).
     Writes every chunk position's k/v into the cache (rows with ``active``
-    false keep theirs), then each query attends cache positions ``<=`` its
-    own; ``k_window`` bounds the attended key positions.  Returns
-    ``(logits [B, S, V] f32, cache)`` with the cache updated in place."""
+    false write back the bytes they held, so no shape depends on the data
+    and the call can be captured as a CUDA graph), then each query attends
+    cache positions ``<=`` its own; ``k_window`` bounds the attended key
+    positions.  Returns ``(logits [B, S, V] f32, cache)`` with the cache
+    updated in place."""
     b, s = tokens.shape
     dev = tokens.device
     if isinstance(pos0, torch.Tensor):
@@ -103,11 +105,8 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
     else:  # filled on the device: no host-to-device copy (capturable)
         pos0 = torch.full((b,), pos0, dtype=torch.long, device=dev)
     positions = pos0[:, None] + torch.arange(s, device=dev)[None, :]    # [B, S]
-    rows = torch.arange(b, device=dev)
-    if active is not None:
-        rows_w, pos_w = rows[active], positions[active]
-    else:
-        rows_w, pos_w = rows, positions
+    at = (torch.arange(b, device=dev)[:, None], positions)              # [B, S] each
+    keep = None if active is None else ~active[:, None, None, None]
     x = params["embed"][tokens]
     if not cfg.rope:
         x = x + params["pos_embed"][positions]
@@ -116,9 +115,9 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
     mask = (k_pos[None, None, :] <= positions[:, :, None])[:, None]     # [B,1,S,K]
     for li, p in enumerate(params["blocks"]):
         q, k, v = qkv_proj(x, p, cfg, positions=positions)
-        sel = slice(None) if active is None else active
-        cache.k[li][rows_w[:, None], pos_w] = k[sel].to(cache.k.dtype)
-        cache.v[li][rows_w[:, None], pos_w] = v[sel].to(cache.v.dtype)
+        for new, layer in ((k, cache.k[li]), (v, cache.v[li])):
+            new = new.to(layer.dtype)
+            layer[at] = new if keep is None else torch.where(keep, layer[at], new)
         attn = _masked_attention(
             q, cache.k[li][:, :k_limit], cache.v[li][:, :k_limit], mask
         ).reshape(b, s, cfg.d_model)

@@ -32,6 +32,7 @@ rounds, LoRA, quantized KV pools, meshes, handoff and telemetry.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -213,25 +214,19 @@ def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, pois
 def _paged_pipelined_burst(params, cache, table, tokens, pos, active, temps, keys,
                            stop_pos, poison, *, cfg: ModelConfig, top_k: int,
                            eos_id: int, k: int):
-    """K paged steps with no host read inside: each step samples, then the
-    on-device stop mask (``decode.advance_decode_state``) retires rows that
-    hit eos or their stop depth; retired rows stop writing.  ``temps``,
-    ``keys`` and ``poison`` hold for the whole burst.  Returns ``(trace
-    [3, K, B] int32 — token/active/bad planes stacked for ONE readback,
-    cache, last, pos, active)``."""
-    planes = []
-    last = tokens
-    for _ in range(k):
-        next_tok, bad, cache = _paged_step_all(
-            params, cache, table, last, pos, active, temps, keys, poison,
-            cfg=cfg, top_k=top_k,
+    """K paged steps with no host read inside (``serve._burst_trace``):
+    retired rows stop writing; ``temps``, ``keys`` and ``poison`` hold for
+    the whole burst.  Returns ``(trace [3, K, B] int32 — token/active/bad
+    planes stacked for ONE readback, cache, last, pos, active)``."""
+
+    def step(last, pos_, act):
+        next_tok, bad, _ = _paged_step_all(
+            params, cache, table, last, pos_, act, temps, keys, poison, cfg=cfg, top_k=top_k,
         )
-        new_last, new_pos, new_active = decode.advance_decode_state(
-            next_tok, last, pos, active, stop_pos, eos_id
-        )
-        planes.append(torch.stack([next_tok, active.to(torch.int32), bad.to(torch.int32)]))
-        last, pos, active = new_last, new_pos, new_active
-    return torch.stack(planes, dim=1), cache, last, pos, active
+        return next_tok, bad
+
+    trace, last, pos, active = serve._burst_trace(step, k, tokens, pos, active, stop_pos, eos_id)
+    return trace, cache, last, pos, active
 
 
 def _paged_first_token(params, cache, table, prompt, plen, slot, temp, key,
@@ -392,6 +387,9 @@ class PagedServeEngine:
         self.decode_steps = 0   # device decode steps run by step/step_burst
         self.preempted_count = 0  # evictions
         self.quarantined: list[int] = []  # quarantined request ids
+        self.shed_count = 0
+        self.last_shed: serve.ShedError | None = None
+        self._last_step_s = 0.0  # wall time of the last burst
         dev = self.device
         self._cache = init_paged_cache(
             cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev
@@ -471,7 +469,7 @@ class PagedServeEngine:
             first_tok = int(self._run("first token", self._first_token))
         except BaseException:
             # the slot was never occupied: return its blocks
-            self._release_blocks(slot)
+            self._release_slot(slot)
             raise
         self._next_id += 1
         st = serve._Slot(
@@ -523,11 +521,12 @@ class PagedServeEngine:
                 raise serve._wedge_error(self, "engine wedged: resident slots, no progress")
         raise serve._wedge_error(self, "serving loop did not drain")
 
-    def pump(self, requests, max_steps: int = 100_000) -> list:
+    def pump(self, requests, max_steps: int = 100_000, queue_limit: int | None = None) -> list:
         """Admit ``requests`` (``(prompt, max_tokens)`` pairs or dicts of
         ``submit`` kwargs) FIFO as slots and blocks free, burst-stepping in
-        between; returns the completions."""
-        return serve._pump(self, requests, max_steps)
+        between; ``queue_limit`` sheds what overflows the waiting queue
+        (no device work for a shed request).  Returns the completions."""
+        return serve._pump(self, requests, max_steps, queue_limit)
 
     def completions(self) -> list:
         out, self._completions = self._completions, []
@@ -560,6 +559,7 @@ class PagedServeEngine:
         bool ``[n_slots]``, blocks already grown) with ONE readback, then
         append each slot's tokens up to its first non-finite step, retire
         the finished slots and quarantine the poisoned ones."""
+        t0 = time.perf_counter()
         self._active.copy_(torch.from_numpy(active))
         trace = self._run(f"burst k={k}", self._burst_program(k))
         trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
@@ -580,6 +580,7 @@ class PagedServeEngine:
                     "non-finite logits in decode step" if single
                     else f"non-finite logits at burst step {first_bad[slot]}",
                 )
+        self._last_step_s = time.perf_counter() - t0
         return int(active.sum())
 
     def _grow_active_slots(self, lookahead: int):
@@ -653,7 +654,7 @@ class PagedServeEngine:
         # re-admission: high priority first, FIFO within a tier (stable)
         self._preempted.sort(key=lambda r: -r["priority"])
         self._slots[vslot] = None
-        self._release_blocks(vslot)
+        self._release_slot(vslot)
         self.preempted_count += 1
         return True
 
@@ -675,7 +676,7 @@ class PagedServeEngine:
             try:
                 self._prefill_slot(slot, ids, st.tokens)
             except BaseException as exc:
-                self._release_blocks(slot)
+                self._release_slot(slot)
                 self._preempted.pop(0)
                 serve._retire_parked(self, st, "error", f"{type(exc).__name__}: {exc}")
                 raise
@@ -721,7 +722,7 @@ class PagedServeEngine:
         self._temps[slot] = temperature
         self._keys[slot] = key
 
-    def _release_blocks(self, slot: int) -> None:
+    def _release_slot(self, slot: int) -> None:
         """Refund ``slot``'s blocks and point its table row at the null
         block (uploaded before the next program)."""
         self._alloc.free(self._owned[slot])
@@ -744,15 +745,7 @@ class PagedServeEngine:
         return dict(self._programs)
 
     def _run(self, name: str, fn):
-        """Run program ``fn`` (no arguments: it reads the static buffers):
-        eagerly on the CPU and under ``serve.disable_graphs()``, else as the
-        engine's CUDA graph ``name``, captured on its second call."""
-        if self.device.type != "cuda" or not serve.graphs_enabled():
-            return fn()
-        prog = self._programs.get(name)
-        if prog is None:
-            prog = self._programs[name] = serve.GraphedProgram(name, fn, self.device)
-        return prog()
+        return serve.run_program(self, name, fn)
 
     def _prefill(self) -> None:
         paged_prefill(self.params, self._prompt, self._cache, self._prefill_row, cfg=self.cfg)
@@ -782,4 +775,4 @@ class PagedServeEngine:
         if done is not None:
             self._completions.append(done)
             self._slots[slot] = None
-            self._release_blocks(slot)
+            self._release_slot(slot)

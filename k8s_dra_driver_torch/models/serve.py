@@ -1,21 +1,33 @@
-"""Serving helpers shared by the engines (``k8s_dra_driver_tpu/models/serve.py``):
-slot state, completions, admission checks, retirement and its early funnel
-(cancel, quarantine, a parked request's death), the sampling tail, the
-fault window, the wedge error, the continuous-batching ``_pump``; and,
-re-exported from ``models/graphs``,
+"""Continuous-batching serving (``k8s_dra_driver_tpu/models/serve.py``).
+
+What the engines share: slot state and completions, admission checks,
+retirement and its early funnel (cancel, quarantine, a parked request's
+death), the sampling tail, the fault window, the wedge error, snapshot
+entries and their restore checks, load shedding and the
+continuous-batching ``_pump``; and, re-exported from ``models/graphs``,
 :class:`GraphedProgram`, the counterpart of the reference's ``shared_jit``
 (an engine program captured once as a CUDA graph and replayed), with
-:func:`disable_graphs`.  The dense ``ServeEngine`` is not ported yet;
-``models/paged.PagedServeEngine`` uses these."""
+:func:`disable_graphs`.  ``models/paged.PagedServeEngine`` uses these.
+
+The dense :class:`ServeEngine`: a fixed pool of slots over one dense KV
+cache ``[L, n_slots, max_seq, Hkv, hd]``, its programs (admission, prefix-hit
+admission, K-step bursts) written as plain functions on tensors that
+update the cache in place, with a prefix cache, cancel, quarantine, and
+snapshot and restore.
+"""
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from k8s_dra_driver_torch.models import prng
+from k8s_dra_driver_torch.device import params_device
+from k8s_dra_driver_torch.models import decode, prng
+from k8s_dra_driver_torch.models.burnin import ModelConfig
 from k8s_dra_driver_torch.models.graphs import (  # noqa: F401  (re-exported)
     GraphCaptureError,
     GraphedProgram,
@@ -25,10 +37,49 @@ from k8s_dra_driver_torch.models.graphs import (  # noqa: F401  (re-exported)
     launch_counts,
 )
 
+# every Completion.status; a snapshot entry carrying one has already ended
+TERMINAL_STATUSES = frozenset(
+    {"ok", "deadline_exceeded", "cancelled", "quarantined", "shed", "error"}
+)
+
 
 class NoCapacity(RuntimeError):
     """No free slot or not enough free pool blocks for a request right now
     (a RuntimeError, as the reference raises)."""
+
+
+class ShedError(RuntimeError):
+    """A request rejected because the pump's admission queue is full (the
+    serving 429); ``retry_after_s`` estimates when the queue will have
+    drained: its depth times the engine's last step time."""
+
+    def __init__(self, message: str, retry_after_s: float):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class SnapshotRestoreError(ValueError):
+    """A snapshot that cannot be restored as a whole: an entry carries a
+    terminal status, so its completion was already delivered.  Raised
+    before any engine state changes."""
+
+    def __init__(self, request_id: int, status: str):
+        super().__init__(
+            f"snapshot entry req-{request_id} carries terminal status "
+            f"{status!r}: the stream already ended and its completion was "
+            f"delivered — restoring it would duplicate the request"
+        )
+        self.request_id = request_id
+        self.status = status
+
+
+def check_restorable(snapshot: dict) -> None:
+    """Raise :class:`SnapshotRestoreError` for a snapshot holding an entry
+    with a terminal status, before ``restore`` touches anything."""
+    for req in snapshot.get("requests", ()):
+        status = str(req.get("status", "") or "")
+        if status in TERMINAL_STATUSES:
+            raise SnapshotRestoreError(int(req.get("request_id", -1)), status)
 
 
 @dataclass
@@ -47,9 +98,11 @@ class Completion:
     tokens: list[int]  # prompt + generated
     generated: list[int]
     error: str = ""
-    # "ok" (eos / max_tokens), "deadline_exceeded", "cancelled",
-    # "quarantined" or "error" (a re-admission that failed); all but "ok"
-    # still deliver every token generated before the retirement
+    # one of TERMINAL_STATUSES: "ok" (eos / max_tokens),
+    # "deadline_exceeded", "cancelled", "quarantined", "shed" (rejected by
+    # the pump's queue limit, request id -1) or "error" (a re-admission or
+    # restore that failed); all but "ok" and "shed" still deliver every
+    # token generated before the retirement
     status: str = "ok"
 
 
@@ -113,12 +166,13 @@ def sample_next(logits, pos, temps, keys, *, top_k: int) -> torch.Tensor:
 
 
 def _early_retire(engine, slot: int, status: str, error: str) -> Completion:
-    """Early retirement for cancellation and quarantine: free the slot,
-    refund its pool blocks (the table row points at the null block
-    again), deliver a typed Completion with every token so far."""
+    """Early retirement for cancellation and quarantine: free the slot and
+    release what it holds on the device (``engine._release_slot``: the
+    paged engine refunds its pool blocks, the dense one clears its active
+    row), deliver a typed Completion with every token so far."""
     st = engine._slots[slot]
     engine._slots[slot] = None
-    engine._release_blocks(slot)
+    engine._release_slot(slot)
     return _retire_parked(engine, st, status, error)
 
 
@@ -210,11 +264,66 @@ def _wedge_error(engine, reason: str, queue=None) -> RuntimeError:
     return RuntimeError(f"{reason} ({', '.join(state)})")
 
 
-def _pump(engine, requests, max_steps: int) -> list:
+def _snapshot_request(st: _Slot, temp: float, key, adapter: int = 0,
+                      priority: int = 0) -> dict:
+    """One in-flight request as a JSON-serialisable snapshot entry: its
+    token history (prompt + generated), the sampler state that reproduces
+    its continuation (temperature and BASE key as plain ints: step keys
+    are ``fold_in(base, pos)``), its adapter id and priority.  The same
+    document as the reference's, less the telemetry trace."""
+    return {
+        "request_id": st.request_id,
+        "tokens": [int(t) for t in st.tokens],
+        "prompt_len": st.prompt_len,
+        "max_tokens": st.max_tokens,
+        "deadline": st.deadline,
+        "temperature": float(temp),
+        "key": [int(x) for x in np.asarray(key).tolist()],
+        "adapter": int(adapter),
+        "priority": int(priority),
+    }
+
+
+def _unrestorable(engine, req: dict, why: str) -> None:
+    """A snapshot entry this engine cannot rebuild (history past the prompt
+    bucket, or no free slot) is delivered as an "error" completion rather
+    than dropped."""
+    tokens = [int(t) for t in req["tokens"]]
+    engine._completions.append(Completion(
+        request_id=int(req["request_id"]),
+        tokens=tokens,
+        generated=tokens[int(req["prompt_len"]):],
+        status="error",
+        error=f"unrestorable: {why}",
+    ))
+
+
+def _shed(engine, req, depth: int, queue_limit: int) -> Completion:
+    """Reject the newest queued request: count it, keep its
+    :class:`ShedError` (retry after ``depth`` times the engine's last step
+    time, at least 0.05 s) and return its "shed" Completion.  Host-only:
+    the request never reaches ``submit``, so it costs no device work."""
+    prompt = req.get("prompt") if isinstance(req, dict) else req[0]
+    retry_after = round(max(0.05, depth * max(engine._last_step_s, 1e-3)), 3)
+    err = ShedError(
+        f"admission queue full ({depth} waiting > limit {queue_limit}); "
+        f"retry after {retry_after}s",
+        retry_after,
+    )
+    engine.shed_count += 1
+    engine.last_shed = err
+    return Completion(
+        request_id=-1, tokens=list(prompt), generated=[], status="shed", error=str(err),
+    )
+
+
+def _pump(engine, requests, max_steps: int, queue_limit: int | None = None) -> list:
     """Continuous-batching drive: admit queued ``(prompt, max_tokens)``
-    pairs (or dicts of ``submit`` kwargs) FIFO as slots and blocks free,
+    pairs (or dicts of ``submit`` kwargs) FIFO as capacity frees,
     burst-step in between, return every completion once nothing is
-    queued, resident or parked."""
+    queued, resident or parked.  ``queue_limit`` bounds the requests left
+    waiting after each admission round: the overflow is shed newest-first
+    (:func:`_shed`), so the oldest keep their place."""
     queue = list(requests)
     out: list = []
     for _ in range(max_steps):
@@ -231,6 +340,9 @@ def _pump(engine, requests, max_steps: int) -> list:
                 break  # out of slots or blocks, or requests parked: step
             queue.pop(0)
             admitted = True
+        if queue_limit is not None:
+            while len(queue) > queue_limit:
+                out.append(_shed(engine, queue.pop(), len(queue) + 1, queue_limit))
         stepped = engine.step_burst()
         out.extend(engine.completions())
         if (not queue and engine.free_slots() == engine.n_slots
@@ -242,3 +354,543 @@ def _pump(engine, requests, max_steps: int) -> list:
                 queue=queue,
             )
     raise _wedge_error(engine, f"pump did not drain in {max_steps} steps", queue=queue)
+
+
+def run_program(engine, name: str, fn):
+    """Run an engine's program ``fn`` (no arguments: it reads the engine's
+    fixed buffers): eagerly on the CPU and under :func:`disable_graphs`,
+    else as the engine's CUDA graph ``name`` (in ``engine._programs``),
+    captured on its second call."""
+    if engine.device.type != "cuda" or not graphs_enabled():
+        return fn()
+    prog = engine._programs.get(name)
+    if prog is None:
+        prog = engine._programs[name] = GraphedProgram(name, fn, engine.device)
+    return prog()
+
+
+def _burst_trace(step, k: int, last, pos, active, stop_pos, eos_id: int):
+    """K steps with no host read inside, both engines' burst: ``step(last,
+    pos, active) -> (next_token, bad)`` samples every row, then the
+    on-device stop mask (``decode.advance_decode_state``) retires rows
+    that hit eos or their stop depth.  Returns ``(trace [3, K, B] int32 —
+    token / pre-step active / bad planes stacked for ONE readback, last,
+    pos, active)``."""
+    planes = []
+    for _ in range(k):
+        next_tok, bad = step(last, pos, active)
+        new_last, new_pos, new_active = decode.advance_decode_state(
+            next_tok, last, pos, active, stop_pos, eos_id
+        )
+        planes.append(torch.stack([next_tok, active.to(torch.int32), bad.to(torch.int32)]))
+        last, pos, active = new_last, new_pos, new_active
+    return torch.stack(planes, dim=1), last, pos, active
+
+
+# -- the dense engine's programs (the reference's compiled ones) -------------
+
+def _step_all_slots(params, cache, tokens, pos, active, temps, keys, poison=None,
+                    *, cfg: ModelConfig, top_k: int):
+    """One dense decode step for every slot at its own position
+    (``decode.decode_step`` with the active gate), then the sampling tail.
+    ``poison [B]`` turns rows' logits to NaN first; ``bad`` flags rows whose
+    logits are not finite.  Rows stay independent.  Returns ``(next_token
+    [B] int32, bad [B] bool, cache)``."""
+    logits, cache = decode.decode_step(params, cache, tokens.long(), pos, cfg=cfg, active=active)
+    logits = decode.poison_rows(logits, poison)
+    bad = ~decode.finite_rows(logits)
+    return sample_next(logits, pos, temps, keys, top_k=top_k), bad, cache
+
+
+def _pipelined_burst(params, cache, tokens, pos, active, temps, keys, stop_pos, poison=None,
+                     *, cfg: ModelConfig, top_k: int, eos_id: int, k: int):
+    """K fused dense steps (:func:`_burst_trace`); ``temps``, ``keys`` and
+    ``poison`` hold for the whole burst.  Returns ``(trace [3, K, B] int32,
+    cache, last, pos, active)``."""
+
+    def step(last, pos_, act):
+        next_tok, bad, _ = _step_all_slots(
+            params, cache, last, pos_, act, temps, keys, poison, cfg=cfg, top_k=top_k,
+        )
+        return next_tok, bad
+
+    trace, last, pos, active = _burst_trace(step, k, tokens, pos, active, stop_pos, eos_id)
+    return trace, cache, last, pos, active
+
+
+def _commit_row_and_first_token(params, cache, row_k, row_v, prompt, plen, slot, temp, key,
+                                *, cfg: ModelConfig, top_k: int):
+    """The admission tail of both prefill paths: zero the row ``[L,
+    max_seq, Hkv, hd]`` at positions ``>= plen`` and copy it into the slot,
+    then compute the first token by re-running the step for all slots at
+    ``plen - 1`` with only the slot active (the rewrite of that position is
+    idempotent; the other rows keep their bytes), at the admission's
+    temperature and key.  ``plen``, ``slot`` and ``temp`` are 0-d tensors
+    and ``key`` a ``[2]`` one, so one captured program serves every
+    admission.  Returns ``(token [1], cache)``."""
+    n_slots, max_seq = cache.k.shape[1], cache.k.shape[2]
+    dev = prompt.device
+    keep = (torch.arange(max_seq, device=dev) < plen)[None, :, None, None]
+    at = slot.view(1).long()
+    for row, whole in ((row_k, cache.k), (row_v, cache.v)):
+        whole.index_copy_(1, at, torch.where(keep, row, 0).to(whole.dtype)[:, None])
+    last = (plen - 1).view(1)
+    tokens = prompt[0].index_select(0, last).expand(n_slots)
+    active = torch.arange(n_slots, device=dev) == slot
+    tok, _, cache = _step_all_slots(
+        params, cache, tokens, last.expand(n_slots), active, temp.expand(n_slots),
+        key.expand(n_slots, 2), cfg=cfg, top_k=top_k,
+    )
+    return tok.index_select(0, at), cache
+
+
+def _prefill_into_slot(params, cache, prompt, plen, slot, temp, key, *, cfg: ModelConfig,
+                       top_k: int):
+    """Fill one slot from the padded prompt ``[1, bucket]`` in one parallel
+    forward (whose own last logits, at the bucket's end, are discarded),
+    then the admission tail.  Returns ``(first token [1], cache)``."""
+    row, _ = decode.prefill(params, prompt, cfg, max_seq=cache.k.shape[2],
+                            cache_dtype=cache.k.dtype)
+    return _commit_row_and_first_token(
+        params, cache, row.k[:, 0], row.v[:, 0], prompt, plen, slot, temp, key,
+        cfg=cfg, top_k=top_k,
+    )
+
+
+def _prefill_suffix_into_slot(params, cache, prefix_k, prefix_v, prompt, plen, slot, temp,
+                              key, *, cfg: ModelConfig, top_k: int, prefix_bucket: int):
+    """The prefix-cache hit: the stored prefix K/V (positions ``<
+    prefix_bucket``, ``[L, prefix_bucket, Hkv, hd]``) in a fresh row, the
+    suffix's K/V from one ``decode_chunk`` at ``pos0 = prefix_bucket`` over
+    the prompt bucket's key window (the full prefill's), then the
+    admission tail.  Returns ``(first token [1], cache)``."""
+    row = decode.init_cache(cfg, 1, cache.k.shape[2], dtype=cache.k.dtype, device=prompt.device)
+    row.k[:, 0, :prefix_bucket] = prefix_k
+    row.v[:, 0, :prefix_bucket] = prefix_v
+    _, row = decode.decode_chunk(params, row, prompt[:, prefix_bucket:], prefix_bucket,
+                                 cfg=cfg, k_window=prompt.shape[1])
+    return _commit_row_and_first_token(
+        params, cache, row.k[:, 0], row.v[:, 0], prompt, plen, slot, temp, key,
+        cfg=cfg, top_k=top_k,
+    )
+
+
+def _extract_prefix(cache, slot: int, *, prefix_bucket: int):
+    """A copy of the slot's K/V at positions ``< prefix_bucket`` (a store
+    entry): a view would change when the slot's next request overwrites
+    the row."""
+    return (cache.k[:, slot, :prefix_bucket].clone(),
+            cache.v[:, slot, :prefix_bucket].clone())
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch engine yet (ROADMAP.md queue 1 item {item})"
+    )
+
+
+@dataclass
+class ServeEngine:
+    """Continuous batching over a dense KV cache.
+
+    * ``submit`` prefills the whole prompt (padded to ``prompt_bucket``)
+      into the first free slot in one forward and samples its first token;
+      each request has its temperature (0 or below: greedy) and a seed for
+      its base key (default its request id); ``top_k`` is the engine's;
+    * with ``prefix_bucket`` set, the K/V of each distinct
+      ``prompt[:prefix_bucket]`` is stored once (LRU over
+      ``prefix_cache_entries``), and a later prompt that shares it and is
+      longer computes only its suffix; the streams are those of the full
+      prefill;
+    * ``step_burst`` runs ``sync_interval`` device steps with ONE
+      device-to-host readback (``host_syncs`` counts them; admissions'
+      first-token reads are not counted); ``step`` is a burst of one,
+      committing, retiring and quarantining in the order of the
+      reference's ``step``;
+    * ``cancel`` retires a request "cancelled"; a slot whose logits go
+      non-finite retires "quarantined" (``fault_injector`` can poison one),
+      and at ``quarantine_limit`` distinct requests the engine raises
+      "engine poisoned";
+    * ``snapshot_active`` captures every in-flight request as JSON, and
+      ``restore`` rebuilds them in an idle engine (or, with ``merge``, in
+      free slots of a live one) by re-prefilling each history, so every
+      stream continues as it would have;
+    * ``pump(queue_limit=...)`` sheds what overflows its queue.
+
+    Runs on ``device`` (default the card; raises without one unless
+    ``device="cpu"``); ``params`` must live there.  On the card each of the
+    reference's compiled programs (admission, prefix-hit admission, the
+    burst at ``sync_interval`` and at 1) runs as a CUDA graph
+    (``GraphedProgram``; at most four an engine, in ``graphs``), eagerly
+    inside ``disable_graphs()``; on the CPU it runs eagerly.  The device
+    state those programs read and write (the cache; per slot the active
+    mask, last token, position, stop depth, temperature, base key and
+    poison mask; the admission's padded prompt, length and slot,
+    temperature and key, and the prefix-hit staging K/V) keeps one
+    address for the engine's life and is written in place.  A mesh,
+    speculative rounds, LoRA adapters, handoff with KV payloads and
+    ``stats()`` raise ``NotImplementedError``.  Not thread-safe; drive it
+    from one loop.
+    """
+
+    params: dict
+    cfg: ModelConfig
+    n_slots: int = 8
+    prompt_bucket: int = 64
+    cache_dtype: torch.dtype = torch.float32
+    eos_id: int | None = None
+    top_k: int = 0           # 0 = no top-k mask; static, one program set
+    sync_interval: int = 1
+    prefix_bucket: int | None = None
+    prefix_cache_entries: int = 8
+    fault_injector: object | None = None  # utils/faults.FaultInjector
+    quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
+    mesh: object | None = None
+    spec_gamma: int = 0
+    adapter_bank: dict | None = None
+    device: object = "cuda"
+
+    def __post_init__(self):
+        cfg = self.cfg
+        if self.mesh is not None:
+            raise _unported("a mesh (slot sharding)", 15)
+        if self.spec_gamma > 0:
+            raise _unported("speculative serving (spec_gamma > 0)", 7)
+        if self.adapter_bank is not None:
+            raise _unported("per-request LoRA (adapter_bank)", 8)
+        if self.prompt_bucket > cfg.max_seq:
+            raise ValueError(
+                f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
+            )
+        if not 0 <= self.top_k <= cfg.vocab_size:
+            raise ValueError(
+                f"top_k ({self.top_k}) must be in [0, vocab_size={cfg.vocab_size}]"
+            )
+        if self.sync_interval < 1:
+            raise ValueError(f"sync_interval must be >= 1, got {self.sync_interval}")
+        if self.quarantine_limit < 1:
+            raise ValueError(f"quarantine_limit must be >= 1, got {self.quarantine_limit}")
+        if self.prefix_bucket is not None:
+            if not 0 < self.prefix_bucket < self.prompt_bucket:
+                raise ValueError(
+                    f"prefix_bucket ({self.prefix_bucket}) must be in "
+                    f"(0, prompt_bucket={self.prompt_bucket})"
+                )
+            if self.prefix_cache_entries < 1:
+                raise ValueError("prefix_cache_entries must be >= 1")
+        self.device = dev = params_device(self.params, self.device)
+        self._slots: list = [None] * self.n_slots
+        self._next_id = 0
+        self._step_no = 0        # the fault window's step number
+        self._last_step_s = 0.0  # wall time of the last step or burst
+        self._completions: list = []
+        self.host_syncs = 0      # decode-loop readbacks (admissions excluded)
+        self.quarantined: list[int] = []  # quarantined request ids
+        self.shed_count = 0
+        self.last_shed: ShedError | None = None
+        self._prefix_store: OrderedDict = OrderedDict()
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self._cache = decode.init_cache(
+            cfg, self.n_slots, cfg.max_seq, dtype=self.cache_dtype, device=dev
+        )
+        # the programs' device state: one address each for the engine's life
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
+        self._last, self._pos, self._stop_pos = (
+            torch.zeros((self.n_slots,), **i32) for _ in range(3)
+        )
+        self._temps = torch.zeros((self.n_slots,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((self.n_slots, 2), dtype=torch.int64, device=dev)
+        self._poison = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
+        self._poison_np = np.zeros((self.n_slots,), bool)  # what _poison holds
+        self._prompt = torch.zeros((1, self.prompt_bucket), **i32)   # padded
+        self._admit = torch.zeros((2,), **i32)                       # (plen, slot)
+        self._admit_temp = torch.zeros((), dtype=torch.float32, device=dev)
+        self._admit_key = torch.zeros((2,), dtype=torch.int64, device=dev)
+        if self.prefix_bucket is not None:  # a hit's stored prefix, staged
+            shape = (cfg.n_layers, self.prefix_bucket, cfg.kv_heads, cfg.head_dim)
+            self._prefix_k, self._prefix_v = (
+                torch.zeros(shape, dtype=self.cache_dtype, device=dev) for _ in range(2)
+            )
+        self._eos = -1 if self.eos_id is None else self.eos_id
+        self._programs: dict[str, GraphedProgram] = {}
+
+    # -- public API --------------------------------------------------------
+    def free_slots(self) -> int:
+        return sum(1 for s in self._slots if s is None)
+
+    def submit(self, prompt: list[int], max_tokens: int, temperature: float = 0.0,
+               seed: int | None = None, adapter: int = 0, deadline: int | None = None,
+               queued_at: float | None = None, handoff: bool = False) -> int:
+        """Prefill ``prompt`` into a free slot and sample its first token;
+        raises ``NoCapacity`` (a RuntimeError) when no slot is free.
+        ``temperature`` above 0 samples under the base key
+        ``PRNGKey(seed)`` (default the request id); ``deadline`` caps the
+        generated tokens and types the completion "deadline_exceeded" when
+        it binds first.  ``queued_at`` is accepted for the telemetry the
+        reference stamps with it (not ported).  Returns the request id."""
+        del queued_at
+        check_submit(prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
+                     temperature=temperature, deadline=deadline)
+        if adapter:
+            raise _unported("per-request LoRA (adapter != 0)", 8)
+        if handoff:
+            raise _unported("handoff with a KV payload", 11)
+        try:
+            slot = self._slots.index(None)
+        except ValueError:
+            raise NoCapacity("no free slot") from None
+        request_id = self._next_id
+        base_key = prng.prng_key(request_id if seed is None else seed)
+        self._stage_admission(prompt, slot, temperature, base_key)
+        prefix_key = (
+            tuple(prompt[: self.prefix_bucket])
+            if self.prefix_bucket is not None and len(prompt) > self.prefix_bucket
+            else None
+        )
+        if prefix_key is not None and prefix_key in self._prefix_store:
+            self._prefix_store.move_to_end(prefix_key)  # LRU touch
+            pk, pv = self._prefix_store[prefix_key]
+            self._prefix_k.copy_(pk)
+            self._prefix_v.copy_(pv)
+            self.prefix_hits += 1
+            first_tok = self._run("prefix admission", self._prefix_admission)
+        else:
+            first_tok = self._run("admission", self._admission)
+            if prefix_key is not None:
+                self.prefix_misses += 1
+                self._prefix_store[prefix_key] = _extract_prefix(
+                    self._cache, slot, prefix_bucket=self.prefix_bucket
+                )
+                while len(self._prefix_store) > self.prefix_cache_entries:
+                    self._prefix_store.popitem(last=False)
+        self._next_id += 1
+        st = _Slot(request_id, list(prompt) + [int(first_tok)], len(prompt), max_tokens,
+                   deadline)
+        self._slots[slot] = st
+        self._set_row(slot, st, temperature, base_key)
+        self._retire(slot)  # max_tokens=1 or eos on the first token
+        return request_id
+
+    def cancel(self, request_id: int) -> bool:
+        """Retire a resident request "cancelled" with its tokens so far
+        (between steps).  Returns whether the id was resident."""
+        for slot, st in enumerate(self._slots):
+            if st is not None and st.request_id == request_id:
+                _early_retire(self, slot, "cancelled", "cancelled by caller")
+                return True
+        return False
+
+    def step(self) -> int:
+        """Advance every resident slot one token (a burst of one step);
+        returns the number of resident slots stepped (or quarantined by
+        the fault window)."""
+        return self._step(1)
+
+    def step_burst(self) -> int:
+        """Advance every resident slot up to ``sync_interval`` tokens with
+        ONE device-to-host readback; the host then replays the burst in
+        step order, committing a token exactly where the one-step loop
+        would.  Returns the number of resident slots at the burst's start
+        (or quarantined by the fault window)."""
+        return self._step(self.sync_interval)
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if self.step_burst() == 0:
+                return
+        raise _wedge_error(self, "serving loop did not drain")
+
+    def pump(self, requests, max_steps: int = 100_000, queue_limit: int | None = None) -> list:
+        """Admit ``requests`` (``(prompt, max_tokens)`` pairs or dicts of
+        ``submit`` kwargs) FIFO as slots free, burst-stepping in between;
+        ``queue_limit`` sheds what overflows the waiting queue.  Returns
+        the completions (see :func:`_pump`)."""
+        return _pump(self, requests, max_steps, queue_limit)
+
+    def completions(self) -> list:
+        out, self._completions = self._completions, []
+        return out
+
+    def stats(self):
+        raise _unported("stats() (request telemetry)", 12)
+
+    def snapshot_active(self, include_kv: bool = False) -> dict:
+        """Every in-flight request as a JSON-serialisable document (token
+        history, temperature and base key, deadline); one readback of the
+        per-slot sampler state, no decode step.  A fresh engine continues
+        every stream from it with :meth:`restore`."""
+        if include_kv:
+            raise _unported("snapshot_active(include_kv=True)", 11)
+        temps = self._temps.to("cpu", copy=True).numpy()
+        keys = self._keys.to("cpu", copy=True).numpy()
+        reqs = [_snapshot_request(st, float(temps[i]), keys[i])
+                for i, st in enumerate(self._slots) if st is not None]
+        return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
+
+    def restore(self, snapshot: dict, merge: bool = False) -> list[int]:
+        """Rebuild a snapshot's requests in this engine: each history
+        re-prefills through the admission program under the entry's
+        temperature and key (bypassing the prefix store), its sampled
+        token is discarded, and the frontier re-arms at ``_last =
+        tokens[-1]``, ``_pos = len(tokens) - 1``, so the next step samples
+        what the old engine would have.  Needs an idle engine unless
+        ``merge``, which fills free slots of a live one.  An entry longer
+        than the prompt bucket, or one that finds no free slot, comes back
+        as an "error" completion.  Returns the restored ids."""
+        check_restorable(snapshot)
+        for req in snapshot["requests"]:
+            if "kv" in req:
+                raise _unported("restoring a KV payload", 11)
+            if int(req.get("adapter", 0)):
+                raise _unported("per-request LoRA (adapter != 0)", 8)
+        if not merge and self.n_slots - self.free_slots():
+            raise RuntimeError("restore() needs an idle engine")
+        restored: list[int] = []
+        for req in sorted(snapshot["requests"], key=lambda r: r["request_id"]):
+            tokens = [int(t) for t in req["tokens"]]
+            if len(tokens) > self.prompt_bucket:
+                _unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
+                                         f"{self.prompt_bucket}")
+                continue
+            try:
+                slot = self._slots.index(None)
+            except ValueError:
+                _unrestorable(self, req, f"no free slot in {self.n_slots}")
+                continue
+            temp = float(req["temperature"])
+            # keys arrive as plain ints up to 2^32 - 1: int64 holds them
+            key = torch.tensor([int(x) for x in req["key"]], dtype=torch.int64)
+            self._stage_admission(tokens, slot, temp, key)
+            self._run("admission", self._admission)  # its token is not read
+            st = _Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
+                       int(req["max_tokens"]), req.get("deadline"))
+            self._slots[slot] = st
+            self._set_row(slot, st, temp, key)
+            restored.append(st.request_id)
+            self._retire(slot)  # the history may already sit at its budget
+        self._next_id = max(
+            self._next_id,
+            int(snapshot.get("next_id", 0)),
+            max((int(r["request_id"]) for r in snapshot["requests"]), default=-1) + 1,
+        )
+        return restored
+
+    def release_active(self) -> int:
+        """Free every resident slot WITHOUT delivering completions (its
+        streams were captured by ``snapshot_active`` and live elsewhere
+        now).  Returns how many were released."""
+        released = 0
+        for slot, st in enumerate(self._slots):
+            if st is not None:
+                self._slots[slot] = None
+                self._release_slot(slot)
+                released += 1
+        return released
+
+    # -- internals ---------------------------------------------------------
+    def _step(self, k: int) -> int:
+        """Open the fault window and run a K-step burst over the resident
+        slots (``step`` asks for K = 1)."""
+        if self.free_slots() == self.n_slots:
+            return 0
+        self._step_no += 1
+        poison, quarantined = _inject_step_faults(self)
+        n_active = self.n_slots - self.free_slots()
+        if n_active == 0:
+            return quarantined  # quarantining is progress
+        t0 = time.perf_counter()
+        if (poison != self._poison_np).any():
+            self._poison.copy_(torch.from_numpy(poison))
+            self._poison_np = poison
+        trace = self._run(f"burst k={k}", self._burst_program(k))
+        trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
+        self.host_syncs += 1
+        trace_a = trace_a.astype(bool)
+        first_bad = _first_bad_steps(trace_a, trace_b.astype(bool))
+        for j in range(k):
+            for slot, st in enumerate(self._slots):
+                if st is None or not trace_a[j][slot]:
+                    continue
+                if k == 1 and slot in first_bad:  # the reference's step(): in slot order
+                    _quarantine_slot(self, slot, "nan_logits",
+                                     "non-finite logits in decode step")
+                elif j < first_bad.get(slot, k):
+                    st.tokens.append(int(trace_t[j][slot]))
+                    self._retire(slot)
+        for slot in sorted(first_bad):
+            if self._slots[slot] is not None:
+                _quarantine_slot(self, slot, "nan_logits",
+                                 f"non-finite logits at burst step {first_bad[slot]}")
+        self._last_step_s = time.perf_counter() - t0
+        return n_active
+
+    def _stage_admission(self, tokens: list[int], slot: int, temperature: float, key) -> None:
+        """Write an admission's inputs into the admission buffers."""
+        padded = np.zeros((1, self.prompt_bucket), np.int32)
+        padded[0, : len(tokens)] = tokens
+        self._prompt.copy_(torch.from_numpy(padded))
+        self._admit.copy_(torch.tensor([len(tokens), slot], dtype=torch.int32))
+        self._admit_temp.fill_(temperature)
+        self._admit_key.copy_(key)
+
+    def _set_row(self, slot: int, st, temperature: float, key) -> None:
+        """A resident slot's device row: active, last token, position
+        (``len(tokens) - 1``), stop depth (from the original prompt length
+        and budget), temperature and base key."""
+        self._active[slot] = True
+        self._last[slot] = st.tokens[-1]
+        self._pos[slot] = len(st.tokens) - 1
+        self._stop_pos[slot] = st.prompt_len + _slot_budget(st) - 1
+        self._temps[slot] = temperature
+        self._keys[slot] = key
+
+    def _release_slot(self, slot: int) -> None:
+        """A freed slot's row stops stepping; its stale K/V are masked out
+        until an admission rewrites them."""
+        self._active[slot] = False
+
+    def _retire(self, slot: int) -> None:
+        done = completion_if_done(self._slots[slot], self.eos_id, self.cfg.max_seq)
+        if done is not None:
+            self._completions.append(done)
+            self._slots[slot] = None
+            self._release_slot(slot)
+
+    # -- the programs (the reference's compiled ones) ------------------------
+    @property
+    def graphs(self) -> dict:
+        """The engine's CUDA graphs by program name (none on the CPU or
+        under ``disable_graphs()``)."""
+        return dict(self._programs)
+
+    def _run(self, name: str, fn):
+        return run_program(self, name, fn)
+
+    def _admission(self):
+        tok, _ = _prefill_into_slot(
+            self.params, self._cache, self._prompt, self._admit[0], self._admit[1],
+            self._admit_temp, self._admit_key, cfg=self.cfg, top_k=self.top_k,
+        )
+        return tok
+
+    def _prefix_admission(self):
+        tok, _ = _prefill_suffix_into_slot(
+            self.params, self._cache, self._prefix_k, self._prefix_v, self._prompt,
+            self._admit[0], self._admit[1], self._admit_temp, self._admit_key, cfg=self.cfg,
+            top_k=self.top_k, prefix_bucket=self.prefix_bucket,
+        )
+        return tok
+
+    def _burst_program(self, k: int):
+        def burst():
+            trace, _, last, pos, _ = _pipelined_burst(
+                self.params, self._cache, self._last, self._pos, self._active, self._temps,
+                self._keys, self._stop_pos, self._poison, cfg=self.cfg, top_k=self.top_k,
+                eos_id=self._eos, k=k,
+            )
+            self._last.copy_(last)
+            self._pos.copy_(pos)
+            return trace
+        return burst

@@ -79,6 +79,60 @@ def test_ragged_chunk_with_inactive_row_matches(weights):
     np.testing.assert_array_equal(tcache.k[:, 1].numpy(), before.numpy())
 
 
+def _indexed_write_chunk(params, cache, tokens, pos0, active, cfg):
+    """``decode_chunk`` as it wrote the cache before it could run inside a
+    CUDA graph: only the active rows, picked with a boolean mask."""
+    b, s = tokens.shape
+    positions = pos0[:, None] + torch.arange(s)[None, :]
+    rows = torch.arange(b)
+    rows_w, pos_w = rows[active], positions[active]
+    x = params["embed"][tokens]
+    mask = (torch.arange(cache.k.shape[2])[None, None, :] <= positions[:, :, None])[:, None]
+    for li, p in enumerate(params["blocks"]):
+        q, k, v = tb.qkv_proj(x, p, TCFG, positions=positions)
+        cache.k[li][rows_w[:, None], pos_w] = k[active].to(cache.k.dtype)
+        cache.v[li][rows_w[:, None], pos_w] = v[active].to(cache.v.dtype)
+        attn = td._masked_attention(q, cache.k[li], cache.v[li], mask).reshape(b, s, cfg.d_model)
+        x = x + td._mm(attn, p["attn_out"])
+        x = tb.mlp_residual(x, p)
+    return tb.tied_logits(x, params), cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_chunk_write_equals_the_indexed_write(weights, dtype):
+    """``decode_chunk`` with ``active`` writes every row and keeps the old
+    bytes of the inactive ones: the cache and the logits equal the boolean
+    mask's indexed write bit for bit, inactive rows' cache rows stay as
+    they were, and no shape depends on the data (the call traces under
+    ``FakeTensorMode``, which refuses a boolean-mask index)."""
+    from torch._subclasses.fake_tensor import DynamicOutputShapeException, FakeTensorMode
+
+    _, tparams = weights
+    seq = torch.from_numpy(_prompt(b=4, p=12, seed=7)).long()
+    pos0 = torch.tensor([12, 3, 9, 0])
+    window = torch.from_numpy(_prompt(b=4, p=3, seed=8)).long()
+    active = torch.tensor([True, False, True, False])
+    caches = []
+    for _ in range(2):
+        cache = td.init_cache(TCFG, 4, 20, dtype=dtype, device="cpu")
+        td.decode_chunk(tparams, cache, seq, 0, cfg=TCFG)
+        caches.append(cache)
+    before = caches[0].k.clone(), caches[0].v.clone()
+    want, _ = _indexed_write_chunk(tparams, caches[1], window, pos0, active, TCFG)
+    got, _ = td.decode_chunk(tparams, caches[0], window, pos0, cfg=TCFG, active=active)
+    assert torch.equal(got, want)
+    assert torch.equal(caches[0].k, caches[1].k) and torch.equal(caches[0].v, caches[1].v)
+    for new, old in zip(caches[0], before, strict=True):
+        assert torch.equal(new[:, ~active], old[:, ~active])
+        assert not torch.equal(new[:, active], old[:, active])
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cache = td.init_cache(TCFG, 4, 20, dtype=dtype, device="cpu")
+        logits, _ = td.decode_chunk(tparams, cache, window, pos0, cfg=TCFG, active=active)
+        assert logits.shape == (4, 3, TCFG.vocab_size)
+        with pytest.raises(DynamicOutputShapeException):
+            _indexed_write_chunk(tparams, cache, window, pos0, active, TCFG)
+
+
 def test_teacher_forced_decode_reproduces_forward(weights):
     _, tparams = weights
     seq = torch.from_numpy(_prompt(p=12, seed=4)).long()

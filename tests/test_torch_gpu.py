@@ -32,7 +32,8 @@ Train-step losses within 1e-5 relative of the CPU's.  PRNG: threefry's
 known answers, random bits and uniforms equal the CPU's bit for bit;
 Gumbel noise within 4 float32 ulps of its size, 2^-21 (1 + |g|) (each
 device's own ``log``).  The sampled, preempting engine graphed equals
-its eager twin in everything, as the greedy one does."""
+its eager twin in everything, as the greedy one does; so does the dense
+engine, whose greedy streams on the card equal the CPU's."""
 
 import contextlib
 
@@ -385,7 +386,7 @@ def _lifecycle_drive(eng, reqs, cancel_after=2):
     id after ``cancel_after`` bursts, step until nothing is queued,
     resident or parked.  Returns the completions."""
     queue, comps, bursts = list(reqs), [], 0
-    while queue or eng.free_slots() < eng.n_slots or eng._preempted:
+    while queue or eng.free_slots() < eng.n_slots or getattr(eng, "_preempted", ()):
         while queue and eng.free_slots():
             try:
                 eng.submit(**queue[0])
@@ -438,6 +439,98 @@ def test_graphed_lifecycle_engine_matches_the_eager_engine(cuda, sync_interval):
     assert torch.equal(graphed._cache.v[:, 1:], eager._cache.v[:, 1:])
     assert 0 < len(graphed.graphs) <= 4 and eager.graphs == {}
     assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+
+
+def _dense_traffic(case):
+    """The dense engine's cases: greedy requests (``sync1``, ``sync4``),
+    requests over two shared 6-token system prompts (``prefix``), and
+    sampled and greedy ones (``lifecycle``, driven with a cancel and a
+    poisoned slot)."""
+    r = np.random.RandomState(4)
+    if case == "prefix":
+        systems = [r.randint(0, 128, size=6).tolist() for _ in range(2)]
+        return [(systems[i % 2] + r.randint(0, 128, size=r.randint(1, 12)).tolist(),
+                 int(r.randint(4, 16))) for i in range(7)]
+    if case == "lifecycle":
+        return [dict(prompt=r.randint(0, 128, size=r.randint(3, 12)).tolist(),
+                     max_tokens=int(r.randint(8, 20)), temperature=0.8 * (i % 2), seed=10 + i)
+                for i in range(7)]
+    return [(r.randint(0, 128, size=r.randint(3, 20)).tolist(), int(r.randint(4, 20)))
+            for _ in range(6)]
+
+
+@pytest.mark.parametrize("bits", [None, 4])
+@pytest.mark.parametrize("case", ["sync1", "sync4", "prefix", "lifecycle"])
+def test_graphed_dense_engine_matches_the_eager_engine(cuda, bits, case):
+    """The dense engine's programs as CUDA graphs against the same engine
+    run eagerly: streams, statuses, host syncs, prefix hits, quarantines,
+    cache bytes and kernel launch counts identical, at most four graphs,
+    each called twice captured; and the card's greedy streams equal the
+    CPU engine's."""
+    cfg, params = _small_engine_params(bits, cuda)
+    reqs = _dense_traffic(case)
+    kw = dict(n_slots=3, prompt_bucket=24, sync_interval=1 if case == "sync1" else 4)
+    if case == "prefix":
+        kw.update(prefix_bucket=6, prefix_cache_entries=2)
+    if case == "lifecycle":
+        kw.update(top_k=20)
+
+    def serve(eager, device=cuda):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        inj = None
+        if case == "lifecycle":
+            inj = tf.FaultInjector(3)
+            inj.arm(tf.FaultProfile(nan_logits_rate=1.0, slots=(1,), steps=(3,)))
+        p = params if device == cuda else _to(params, "cpu")
+        eng = ts.ServeEngine(params=p, cfg=cfg, device=device, fault_injector=inj, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            if case == "lifecycle":
+                comps = _lifecycle_drive(eng, reqs, cancel_after=2)
+            else:
+                comps = eng.pump(reqs)
+        if device == cuda:
+            torch.cuda.synchronize()
+        streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+        return eng, streams, _launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and counts == want_counts
+    for attr in ("host_syncs", "prefix_hits", "prefix_misses", "quarantined"):
+        assert getattr(graphed, attr) == getattr(eager, attr), attr
+    assert torch.equal(graphed._cache.k, eager._cache.k)
+    assert torch.equal(graphed._cache.v, eager._cache.v)
+    assert (counts["int4.launches"] > 0) == bool(bits) and counts["append"] == 0
+    assert eager.graphs == {} and 0 < len(graphed.graphs) <= 4
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    if case == "prefix":
+        assert set(graphed.graphs) == {"admission", "prefix admission", "burst k=4"}
+        assert graphed.prefix_hits > 0
+    if case == "lifecycle":
+        assert {s for _, _, s in streams} == {"ok", "cancelled", "quarantined"}
+    else:
+        _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
+        assert streams == on_cpu
+
+
+def test_dense_engine_int4_launches_both_kernels(cuda):
+    """bf16 int4 block weights: decode steps (M = n_slots) go through the
+    split-K kernel and admissions (M = the prompt bucket, over 16) through
+    the wgmma one, both inside the dense engine's graphs."""
+    cfg = tb.ModelConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                         n_layers=2, d_ff=128, max_seq=64, rope=True, dtype=torch.bfloat16)
+    params = _to(tq.quantize_blocks(tb.init_params(torch.Generator().manual_seed(0), cfg),
+                                    bits=4), cuda)
+    ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+    eng = ts.ServeEngine(params=params, cfg=cfg, device=cuda, n_slots=3, prompt_bucket=24,
+                         sync_interval=4, cache_dtype=torch.bfloat16)
+    comps = eng.pump(_dense_traffic("sync4"))
+    torch.cuda.synchronize()
+    assert len(comps) == 6 and all(c.status == "ok" for c in comps)
+    assert ti4.kernel_launches["int4_splitk"] > 0 and ti4.kernel_launches["int4_wgmma"] > 0
+    assert {"admission", "burst k=4"} <= set(eng.graphs)
+    assert all(g.graph is not None for g in eng.graphs.values() if g.calls >= 2)
 
 
 def test_capture_of_a_host_read_raises(cuda, monkeypatch):
