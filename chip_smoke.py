@@ -69,7 +69,30 @@ exits 2 before any result):
    steady decode of the dense engine eager and graphed beside the paged
    graphed step (alternating rounds, profiles, the dense step's bound);
    ``pump(queue_limit=4)`` shedding with no device work for a shed request;
-9. training FLAGSHIP_MODERN at full width in bf16 through
+9. chunked admission and the prefix store ("serve bf16 admission"):
+   FLAGSHIP_MODERN in bf16, 8 slots, block 16, bucket 256, sync interval
+   8, ``prefix_cache_blocks=16``, ``prefill_chunk_blocks=4``, in six legs,
+   each timed: the dense phase's prefix traffic (16 requests over two
+   64-token system prompts) graphed (the main path) against an eager twin
+   (completions, statuses, host syncs, stalls, prefix hits and misses,
+   pool bytes from block 1, launch counts), the graphs within the
+   engine's ``graph_bound`` (capture time and pool MiB printed), a leak
+   audit, every stream teacher-forced; the same traffic with chunking,
+   the store or both off (streams equal to the both-off engine's
+   counted, not required); the head-of-line case, a 256-token arrival
+   among 7 decoding residents at 4-block chunks and whole (its time to
+   first token and the residents' longest gap between bursts); the
+   admission time of a 256-token prompt with 0 and 15 cached blocks
+   (medians of 5); the lifecycle on a 73-block pool (top-k 50, odd
+   requests sampled, preemption of requests holding shared blocks, a
+   cancel while admitting) graphed against eager, snapshots after burst 4
+   (resident and admitting entries) and at the first parked request
+   (resident and parked entries) restored through JSON into fresh
+   engines (streams equal to the uninterrupted run's counted, all
+   teacher-forced), leak audits; int4 block weights at 1-block chunks
+   (``int4_splitk`` at M = 16 in the chunk programs) and unchunked
+   (``int4_wgmma`` in suffixes and prefills), both teacher-forced;
+10. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -81,15 +104,15 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-10. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+11. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-11. resume: the graphed bf16 step saved after 2 steps by
+12. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-12. training in f32 at 2 layers: the graphed flash step against its eager
+13. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
@@ -1271,10 +1294,13 @@ def graph_pool_bytes(torch, graph) -> int:
                if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
-def graph_bookkeeping(torch, label, eng, max_graphs: int = 4):
+def graph_bookkeeping(torch, label, eng):
     """Print each of the engine's CUDA graphs (calls, capture time, pool
-    bytes); fail if there are more than ``max_graphs`` or a graph called
-    twice was not captured."""
+    bytes); fail if there are more than the engine's bound (a paged
+    engine's ``graph_bound``: 4, plus a chunk program per chunk width and a
+    suffix program per cached-block count when those features are on; 4
+    for the dense engine) or a graph called twice was not captured."""
+    max_graphs = getattr(eng, "graph_bound", 4)
     graphs = eng.graphs
     total = 0
     for name, prog in graphs.items():
@@ -2145,6 +2171,383 @@ def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
     return counts
 
 
+# the paged engine's admission phase: the serving engines' slots, bucket
+# and burst; a 16-block prefix store and 4-block chunks
+ADMISSION = dict(n_slots=8, block_size=16, prompt_bucket=256, sync_interval=8,
+                 prefix_cache_blocks=16, prefill_chunk_blocks=4)
+ADMISSION_POOL = 8 * 24 + 1   # every slot at 384 tokens: this traffic never stalls
+ADMISSION_TIGHT = 73          # blocks, the null block included: about half the working set
+ADMISSION_SNAPSHOT_AFTER = 4  # bursts
+ADMISSION_CANCEL_AFTER = 2    # bursts: the newest request still admitting is cancelled
+
+
+def _admission_engine(cfg, params, cache_dtype, **kw):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    kw = dict(ADMISSION, **kw)
+    kw.setdefault("n_blocks", ADMISSION_POOL)
+    return PagedServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, device=DEV, **kw)
+
+
+def _admission_lifecycle_traffic(vocab: int, seed: int, n: int = 16):
+    """``n`` requests, each one of two seeded 64-token system prompts
+    (alternating) and 16-96 tokens of its own, 64-128 new tokens; odd ones
+    sampled at ``LIFECYCLE_TEMP`` with explicit seeds; priorities 0 and 1
+    alternating by pairs."""
+    r = np.random.RandomState(seed)
+    systems = [r.randint(0, vocab, size=64).tolist() for _ in range(2)]
+    reqs = []
+    for i in range(n):
+        req = dict(prompt=systems[i % 2] + r.randint(0, vocab, size=int(r.randint(16, 97))).tolist(),
+                   max_tokens=int(r.randint(64, 129)), priority=(i // 2) % 2)
+        if i % 2:
+            req.update(temperature=LIFECYCLE_TEMP, seed=1000 + i)
+        reqs.append(req)
+    return reqs
+
+
+def _paged_twin(torch, label, drive):
+    """``drive() -> (engine, completions)`` run graphed (the main path,
+    launch counts zeroed just before) and eagerly: completions with their
+    statuses, host syncs, stalls, preemptions, quarantines, prefix hits and
+    misses, the pool's bytes from block 1 (block 0 is the null block, the
+    sink of prefill's spare stripes) and every launch count must be
+    identical.  Returns the graphed engine, its completions and launch
+    counts."""
+    from k8s_dra_driver_torch.models import serve
+    from k8s_dra_driver_torch.models.paged import NULL_BLOCK
+
+    runs = []
+    for eager in (False, True):
+        sync(torch)
+        _zero_serving_counts()
+        t0 = time.perf_counter()
+        with serve.disable_graphs() if eager else contextlib.nullcontext():
+            eng, comps = drive()
+        sync(torch)
+        runs.append((eng, comps, time.perf_counter() - t0, serve.launch_counts()))
+    (eng, comps, wall, counts), (twin, twin_comps, twin_wall, twin_counts) = runs
+    streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+    if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
+        raise AssertionError(f"{label}: graphed and eager completions differ")
+    for attr in ("host_syncs", "stalled_steps", "preempted_count", "quarantined",
+                 "prefix_hits", "prefix_misses"):
+        if getattr(eng, attr) != getattr(twin, attr):
+            raise AssertionError(f"{label}: graphed and eager {attr} differ: "
+                                 f"{getattr(eng, attr)} against {getattr(twin, attr)}")
+    for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v)):
+        if not torch.equal(a[:, NULL_BLOCK + 1:], b_[:, NULL_BLOCK + 1:]):
+            raise AssertionError(f"{label}: graphed and eager pools differ outside the null block")
+    if counts != twin_counts:
+        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
+    generated = sum(len(c.generated) for c in comps)
+    log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s graphed "
+        f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s eager; host_syncs "
+        f"{eng.host_syncs}, stalled_steps {eng.stalled_steps}, preempted_count "
+        f"{eng.preempted_count}, prefix hits / misses {eng.prefix_hits} / {eng.prefix_misses} "
+        f"blocks; graphed == eager twin in completions, statuses, host syncs, stalls, "
+        f"preemptions, quarantines, prefix counts, pool bytes outside the null block and "
+        f"launch counts")
+    graph_bookkeeping(torch, label, eng)
+    return eng, comps, counts
+
+
+def leak_audit(label, eng):
+    """Nothing resident, admitting or parked: every block is free but the
+    store's, and every live reference is a store entry's own."""
+    store = eng._prefix_store
+    refs = dict(eng._alloc._refs)
+    ok = (eng.free_blocks == eng.n_blocks - 1 - len(store)
+          and refs == {b: 1 for b in store.values()}
+          and not eng._preempted and eng.free_slots() == eng.n_slots)
+    log(f"{label}: leak audit: free blocks {eng.free_blocks} = {eng.n_blocks} - 1 - "
+        f"{len(store)} stored: {ok}")
+    if not ok:
+        raise AssertionError(f"{label}: leak audit failed: free {eng.free_blocks}, store "
+                             f"{len(store)}, references {len(refs)}")
+
+
+def admission_lifecycle_drive(eng, reqs, *, snapshot_after=ADMISSION_SNAPSHOT_AFTER,
+                              cancel_after=ADMISSION_CANCEL_AFTER, max_bursts=5000):
+    """Admit ``reqs`` FIFO as capacity frees and burst-step in between;
+    after burst ``cancel_after`` cancel the newest request still admitting;
+    after burst ``snapshot_after`` take ``snapshot_active()`` as JSON, and
+    again after the first burst that leaves requests parked.  Returns
+    ``(completions, the cancelled id, {name: (JSON, ids done by then, the
+    requests still queued then, entry kinds)})``."""
+    from k8s_dra_driver_torch.models import serve
+
+    queue, comps, cancelled, snaps = list(reqs), [], None, {}
+
+    def snapshot(name):
+        admitting = {eng._slots[a["slot"]].request_id for a in eng._admitting}
+        parked = {r["st"].request_id for r in eng._preempted}
+        text = json.dumps(eng.snapshot_active())
+        kinds = {"resident": 0, "admitting": 0, "parked": 0}
+        for entry in json.loads(text)["requests"]:
+            rid = entry["request_id"]
+            kinds["admitting" if rid in admitting else "parked" if rid in parked
+                  else "resident"] += 1
+        snaps[name] = (text, {c.request_id for c in comps}, list(queue), kinds)
+
+    for burst in range(1, max_bursts + 1):
+        while queue and eng.free_slots():
+            try:
+                eng.submit(**queue[0])
+            except serve.NoCapacity:
+                break
+            queue.pop(0)
+        eng.step_burst()
+        if burst == cancel_after:
+            cancelled = max(eng._slots[a["slot"]].request_id for a in eng._admitting[1:])
+            eng.cancel(cancelled)
+        comps += eng.completions()
+        if burst == snapshot_after:
+            snapshot("after burst 4")
+        if eng._preempted and "parked" not in snaps:
+            snapshot("parked")
+        if not queue and eng.free_slots() == eng.n_slots and not eng._preempted:
+            return comps, cancelled, snaps
+    raise AssertionError(f"the admission lifecycle run did not drain in {max_bursts} bursts")
+
+
+def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
+    """Chunked admission and the prefix store in the paged engine at full
+    width, in six legs: the prefix traffic graphed against an eager twin
+    and teacher-forced; the same traffic with chunking, the store or both
+    off; the head-of-line gap and time to first token of a 256-token
+    arrival among 7 decoding residents, chunked and whole; the admission
+    time with 0 and 15 cached blocks; the lifecycle on a tight pool
+    (preemption of requests holding shared blocks, a cancel while
+    admitting, snapshots restored through JSON, a leak audit); int4 block
+    weights at 1-block chunks (the split-K kernel at M = 16)."""
+    from k8s_dra_driver_torch.models import quant, serve
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+
+    label = "serve bf16 admission"
+    preqs = _dense_prefix_traffic(cfg.vocab_size, SEED + 13)
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    def graphed_leg():
+        def drive():
+            eng = _admission_engine(cfg, params, cache_dtype)
+            return eng, eng.pump(preqs)
+
+        eng, comps, _ = _paged_twin(torch, f"{label} prefix+chunked", drive)
+        short = [c.request_id for c in comps if len(c.generated) != preqs[c.request_id]["max_tokens"]]
+        if len(comps) != len(preqs) or short or eng.prefix_hits == 0:
+            raise AssertionError(f"{label}: {len(comps)} completions, short {short}, "
+                                 f"{eng.prefix_hits} hits")
+        log(f"{label}: programs {sorted(eng.graphs)}, {len(eng.graphs)} of the bound "
+            f"{eng.graph_bound}")
+        leak_audit(label, eng)
+        _teacher_forced_all(torch, label, cfg, params, preqs, comps, cache_dtype, tol)
+        return {c.request_id: c.generated for c in comps}
+
+    def features_off_leg(main):
+        outs = {}
+        for name, kw in (("chunking off", dict(prefill_chunk_blocks=0)),
+                         ("prefixes off", dict(prefix_cache_blocks=0)),
+                         ("both off", dict(prefill_chunk_blocks=0, prefix_cache_blocks=0))):
+            eng = _admission_engine(cfg, params, cache_dtype, **kw)
+            outs[name] = {c.request_id: c.generated for c in eng.pump(preqs)}
+            log(f"{label} {name}: prefix hits / misses {eng.prefix_hits} / "
+                f"{eng.prefix_misses}, {len(eng.graphs)} graphs of the bound {eng.graph_bound}")
+        base = outs.pop("both off")
+        for name, out in (("chunked with prefixes", main), *outs.items()):
+            same = sum(out[rid] == base[rid] for rid in base)
+            log(f"{label}: {name}: streams equal to the both-off engine's: {same} of "
+                f"{len(base)} (reported, not required: a suffix or chunk product at another M "
+                f"may take another cuBLAS order than the whole prefill at M = 256)")
+
+    def head_of_line_leg():
+        r = np.random.RandomState(SEED + 17)
+        residents = [r.randint(0, cfg.vocab_size, size=32).tolist() for _ in range(7)]
+        warm, arrival = (r.randint(0, cfg.vocab_size, size=256).tolist() for _ in range(2))
+        out = {}
+        for chunk in (4, 0):
+            eng = _admission_engine(cfg, params, cache_dtype, prefill_chunk_blocks=chunk)
+            for p in residents:
+                eng.submit(p, max_tokens=256)
+            eng.submit(warm, max_tokens=1)  # builds and captures the arrival's programs
+            while eng._admitting or eng.free_slots() != 1:
+                eng.step_burst()
+            for _ in range(3):
+                eng.step_burst()
+            activated = []
+            advance = eng._advance_admission
+
+            def timed(advance=advance, eng=eng, activated=activated):
+                before = len(eng._admitting)
+                advance()
+                if before and not eng._admitting:
+                    activated.append(time.perf_counter())  # its first token was read back
+
+            eng._advance_admission = timed
+            sync(torch)
+            ends = [time.perf_counter()]
+            eng.step_burst()
+            ends.append(time.perf_counter())
+            t_sub = time.perf_counter()
+            eng.submit(arrival, max_tokens=8)
+            if not chunk:
+                activated.append(time.perf_counter())
+            while not activated:
+                eng.step_burst()
+                ends.append(time.perf_counter())
+            eng.step_burst()
+            ends.append(time.perf_counter())
+            gaps = np.diff(ends) * 1e3
+            ttft = (activated[0] - t_sub) * 1e3
+            out[chunk] = (ttft, float(gaps[1:].max()), float(gaps[0]))
+            log(f"{label} head-of-line, prefill_chunk_blocks {chunk}: the arrival's time to "
+                f"first token {ttft:.2f} ms; the residents' longest gap between bursts while it "
+                f"admits {gaps[1:].max():.2f} ms (gaps {' / '.join(f'{g:.2f}' for g in gaps)} "
+                f"ms; a burst alone {gaps[0]:.2f} ms)")
+            del eng
+        log(f"{label} head-of-line: chunked / whole: time to first token "
+            f"{out[4][0] / out[0][0]:.3f}, longest resident gap {out[4][1] / out[0][1]:.3f}")
+
+    def admission_cost_leg():
+        r = np.random.RandomState(SEED + 19)
+        eng = _admission_engine(cfg, params, cache_dtype, prefill_chunk_blocks=0)
+
+        def admit(prompt):
+            sync(torch)
+            t0 = time.perf_counter()
+            eng.submit(prompt, max_tokens=1)  # retires at its first token
+            sync(torch)
+            return (time.perf_counter() - t0) * 1e3
+
+        fresh = [r.randint(0, cfg.vocab_size, size=256).tolist() for _ in range(7)]
+        for p in fresh[:2]:
+            admit(p)  # builds and captures the prefill program
+        miss = [admit(p) for p in fresh[2:]]
+        shared = r.randint(0, cfg.vocab_size, size=256).tolist()
+        admit(shared)  # stores its 15 storable blocks
+        hits_before = eng.prefix_hits
+        for _ in range(2):
+            admit(shared)  # builds and captures "suffix 15"
+        hit = [admit(shared) for _ in range(5)]
+        if eng.prefix_hits - hits_before != 7 * 15:  # each of the 7 ran "suffix 15"
+            raise AssertionError(f"{label} admission: {eng.prefix_hits - hits_before} hits")
+        log(f"{label} admission cost (256-token prompt, unchunked, graphed): no hit "
+            f"{' / '.join(f'{t:.2f}' for t in miss)} ms (median {np.median(miss):.2f}); 15 "
+            f"cached blocks, a 16-token suffix {' / '.join(f'{t:.2f}' for t in hit)} ms "
+            f"(median {np.median(hit):.2f}); hit / miss {np.median(hit) / np.median(miss):.3f}")
+
+    def lifecycle_leg():
+        lreqs = _admission_lifecycle_traffic(cfg.vocab_size, SEED + 23)
+        drives = []
+
+        def drive():
+            eng = _admission_engine(cfg, params, cache_dtype, n_blocks=ADMISSION_TIGHT,
+                                    top_k=LIFECYCLE["top_k"])
+            comps, cancelled, snaps = admission_lifecycle_drive(eng, lreqs)
+            drives.append((cancelled, snaps))
+            return eng, comps
+
+        eng, comps, _ = _paged_twin(torch, f"{label} lifecycle", drive)
+        (cancelled, snaps), (_, twin_snaps) = drives
+        if {k: v[0] for k, v in snaps.items()} != {k: v[0] for k, v in twin_snaps.items()}:
+            raise AssertionError(f"{label} lifecycle: graphed and eager snapshots differ")
+        statuses = {}
+        for c in comps:
+            statuses[c.status] = statuses.get(c.status, 0) + 1
+        main = {c.request_id: c for c in comps}
+        log(f"{label} lifecycle: pool {ADMISSION_TIGHT} blocks (null block included), "
+            f"{len(lreqs)} requests, statuses {statuses}; preempted_count "
+            f"{eng.preempted_count}; request {cancelled} cancelled while admitting "
+            f"({len(main[cancelled].generated)} tokens)")
+        kinds = {name: snap[3] for name, snap in snaps.items()}
+        log(f"{label} lifecycle: snapshot entries by kind {kinds}")
+        if (eng.preempted_count < 1 or statuses.get("cancelled") != 1
+                or main[cancelled].generated or len(comps) != len(lreqs)
+                or set(snaps) != {"after burst 4", "parked"}
+                or not (kinds["after burst 4"]["resident"] and kinds["after burst 4"]["admitting"])
+                or not kinds["parked"]["parked"]):
+            raise AssertionError(f"{label} lifecycle: want preemptions, one cancel while "
+                                 f"admitting, and snapshots holding resident, admitting and "
+                                 f"parked entries: {eng.preempted_count}, {statuses}, {kinds}")
+        leak_audit(f"{label} lifecycle", eng)
+        _teacher_forced_all(torch, f"{label} lifecycle", cfg, params, lreqs,
+                            [c for c in comps if c.generated], cache_dtype, tol)
+        del eng
+        # each snapshot restored through JSON into a fresh engine, which then
+        # takes the requests still queued at that point
+        for name, (text, done_before, queued, _) in snaps.items():
+            fresh = _admission_engine(cfg, params, cache_dtype, n_blocks=ADMISSION_TIGHT,
+                                      top_k=LIFECYCLE["top_k"])
+            restored = fresh.restore(json.loads(text))
+            rcomps = fresh.pump(queued)
+            ids = sorted(c.request_id for c in rcomps)
+            if ids != sorted(set(main) - done_before):
+                raise AssertionError(f"{label} lifecycle restore {name}: completions for {ids}")
+            same = sum(c.generated == main[c.request_id].generated for c in rcomps)
+            log(f"{label} lifecycle restore ({name}): {len(restored)} requests restored from "
+                f"{len(text)} bytes of JSON, {len(queued)} queued after them; streams equal to "
+                f"the uninterrupted run's: {same} of {len(rcomps)} (the rest held "
+                f"teacher-forced: a re-prefill at another M may move a near tie)")
+            leak_audit(f"{label} lifecycle restore ({name})", fresh)
+            _teacher_forced_all(torch, f"{label} lifecycle restore ({name})", cfg, params, lreqs,
+                                rcomps, cache_dtype, tol)
+
+    def int4_leg():
+        p4 = quant.quantize_blocks(params, bits=4)
+        ireqs = preqs[:6]
+        sync(torch)
+        _zero_serving_counts()
+        eng = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=1)
+        by_program: dict = {}
+        run = eng._run
+
+        def counted(name, fn):
+            before = dict(i4.kernel_launches)
+            out = run(name, fn)
+            got = by_program.setdefault(name.split(" k=")[0], dict.fromkeys(before, 0))
+            for k in before:
+                got[k] += i4.kernel_launches[k] - before[k]
+            return out
+
+        eng._run = counted
+        comps = eng.pump(ireqs)
+        sync(torch)
+        splitk = i4.kernel_launches["int4_splitk"]
+        log(f"{label} int4 (prefill_chunk_blocks 1): launches by program {by_program}")
+        chunk16 = by_program.get("chunk 16", {})
+        if not chunk16.get("int4_splitk") or chunk16.get("int4_wgmma") or len(comps) != 6:
+            raise AssertionError(f"{label} int4: the 16-token chunks did not go through "
+                                 f"int4_splitk alone: {by_program}")
+        graph_bookkeeping(torch, f"{label} int4", eng)
+        _teacher_forced_all(torch, f"{label} int4", cfg, p4, ireqs, comps, cache_dtype, tol)
+        _zero_serving_counts()
+        whole = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=0)
+        wcomps = whole.pump(ireqs)
+        sync(torch)
+        wcounts = dict(i4.kernel_launches)
+        log(f"{label} int4 unchunked twin (suffixes after the stored system prompt, whole "
+            f"prefills): launches {wcounts}")
+        if not wcounts["int4_wgmma"]:
+            raise AssertionError(f"{label} int4: int4_wgmma never launched: {wcounts}")
+        _teacher_forced_all(torch, f"{label} int4 unchunked", cfg, p4, ireqs, wcomps,
+                            cache_dtype, tol)
+        log(f"{label} int4: int4_splitk launches at M = 16 (the chunks) "
+            f"{chunk16['int4_splitk']}, of {splitk} on the chunked path; "
+            f"int4_wgmma {wcounts['int4_wgmma']} on the unchunked twin")
+
+    main_streams = leg("graphed", graphed_leg)
+    leg("features off", lambda: features_off_leg(main_streams))
+    leg("head-of-line", head_of_line_leg)
+    leg("admission cost", admission_cost_leg)
+    leg("lifecycle", lifecycle_leg)
+    leg("int4", int4_leg)
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -2280,6 +2683,8 @@ def main() -> int:
     run("serve f32", serve_f32)
     run("serve bf16 lifecycle", serve_lifecycle)
     run("serve dense", serve_dense)
+    run("serve bf16 admission",
+        lambda: phase_serve_admission(torch, cfg, params, cache_dtype=torch.bfloat16))
     del params
 
     def train_bf16():

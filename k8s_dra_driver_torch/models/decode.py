@@ -89,7 +89,7 @@ def _masked_attention(q, k, v, mask):
 
 
 def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
-                 active=None, k_window: int | None = None):
+                 active=None, k_window: int | None = None, logits: bool = True):
     """Score ``S`` known tokens per row in one pass: ``tokens [B, S]`` at
     positions ``pos0 .. pos0+S-1`` (``pos0`` an int or a ``[B]`` tensor).
     Writes every chunk position's k/v into the cache (rows with ``active``
@@ -97,7 +97,10 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
     and the call can be captured as a CUDA graph), then each query attends
     cache positions ``<=`` its own; ``k_window`` bounds the attended key
     positions.  Returns ``(logits [B, S, V] f32, cache)`` with the cache
-    updated in place."""
+    updated in place; ``logits=False`` returns ``None`` in their place and
+    skips what only they need (the last layer's attention and MLP, the
+    head): for a caller that wants only the cache, as the reference's
+    chunked prefill, whose unused logits XLA removes as dead code."""
     b, s = tokens.shape
     dev = tokens.device
     if isinstance(pos0, torch.Tensor):
@@ -118,6 +121,8 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
         for new, layer in ((k, cache.k[li]), (v, cache.v[li])):
             new = new.to(layer.dtype)
             layer[at] = new if keep is None else torch.where(keep, layer[at], new)
+        if not logits and li == len(params["blocks"]) - 1:
+            return None, cache  # the last layer's attention and MLP feed only the head
         attn = _masked_attention(
             q, cache.k[li][:, :k_limit], cache.v[li][:, :k_limit], mask
         ).reshape(b, s, cfg.d_model)

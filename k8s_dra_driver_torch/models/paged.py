@@ -9,11 +9,11 @@ unused position.  The allocator is host-side; everything per token runs on
 the device.
 
 Unlike the reference, which threads pools functionally, the port updates
-them IN PLACE: ``paged_decode_chunk`` and ``paged_prefill`` write into the
-tensors they are given and return the same tensors.  A failed admission
-therefore leaves bytes behind only in the blocks it had allocated (freed
-again on the failure) and in the null block, which nothing reads as
-history.
+them IN PLACE: ``paged_decode_chunk``, ``paged_prefill`` and
+``paged_prefill_chunk`` write into the tensors they are given and return
+the same tensors.  A failed admission therefore leaves bytes behind only
+in the blocks it had allocated (freed again on the failure) and in the
+null block, which nothing reads as history.
 
 Every decode step goes through ``ops/paged_attention.paged_append_attention``
 (the CUDA kernel on the card, its plain version on the CPU), with
@@ -24,15 +24,18 @@ null block, so pool bytes of the two packages agree outside block 0.
 Streams equal the reference's, greedy and sampled (tested on the CPU):
 the sampling tail is ``serve.sample_next``, keyed per slot by
 ``fold_in(base key, position)``, so a request preempted, parked and
-re-admitted continues exactly where it stopped.  Not ported yet, absent
-from the engine's fields: chunked prefill, prefix sharing, speculative
-rounds, LoRA, quantized KV pools, meshes, handoff and telemetry.
+re-admitted continues exactly where it stopped; chunked admission and
+prefix sharing change when prefill runs and what it computes, never the
+tokens.  Not ported yet, each raising ``NotImplementedError`` naming its
+ROADMAP item: speculative rounds, LoRA, quantized KV pools, meshes,
+handoff and KV payloads, the fleet prefix hooks and telemetry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -86,11 +89,15 @@ class OutOfBlocks(RuntimeError):
 
 
 class BlockAllocator:
-    """Host-side free list over pool blocks 1..n_blocks-1 (0 is the null
-    block), with the reference's reference counts (one per block until
-    prefix sharing is ported) so a double free raises.  LIFO reuse: the
-    lowest free id first, so tables are deterministic (the reference's
-    order, block for block)."""
+    """Host-side refcounted free list over pool blocks 1..n_blocks-1 (0 is
+    the null block).  LIFO reuse: the lowest free id first, so tables are
+    deterministic (the reference's order, block for block).
+
+    Reference counts make prefix sharing safe: a block holding a common
+    prompt prefix is referenced by every slot that uses it and by the
+    prefix store (:meth:`share`); :meth:`free` drops one reference, and the
+    block returns to the pool when the last holder lets go, so a double
+    free raises."""
 
     def __init__(self, n_blocks: int):
         if n_blocks < 2:
@@ -103,6 +110,9 @@ class BlockAllocator:
     def free_blocks(self) -> int:
         return len(self._free)
 
+    def refcount(self, block_id: int) -> int:
+        return self._refs.get(block_id, 0)
+
     def alloc(self, n: int = 1) -> list[int]:
         if n > len(self._free):
             raise OutOfBlocks(
@@ -112,6 +122,14 @@ class BlockAllocator:
         for i in ids:
             self._refs[i] = 1
         return ids
+
+    def share(self, block_id: int) -> int:
+        """Add a reference to a live block (prefix sharing); sharing a free
+        block raises."""
+        if self._refs.get(block_id, 0) < 1:
+            raise ValueError(f"cannot share free block {block_id}")
+        self._refs[block_id] += 1
+        return block_id
 
     def free(self, ids) -> None:
         """Drop one reference per id, atomically: the whole list is
@@ -193,6 +211,62 @@ def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: Mode
     cache.k[:, ids] = kb
     cache.v[:, ids] = vb
     return cache, last_logits
+
+
+def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, done_blocks,
+                        *, cfg: ModelConfig, chunk_len: int):
+    """Incremental admission: gather the row's whole prefill width (``mbp``
+    blocks of ``block_table_row [1, mbp]``) into a dense scratch row, run
+    one ``decode.decode_chunk`` over the padded prompt's ``[1, bucket]``
+    tokens at positions ``done * bs .. done * bs + chunk_len - 1``, and
+    write back only the chunk's blocks, in place.  The done blocks are
+    never rewritten, whether this request's earlier chunks or shared
+    prefix-store blocks wrote them; positions past the frontier (the null
+    block included) are masked to ``-1e30`` and add an exact 0.
+
+    ``done_blocks`` is a 0-d int tensor, as the reference traces it: only
+    ``chunk_len`` shapes the program, so one captured graph serves every
+    ``done``.  The tokens and the chunk's block ids are picked on the
+    device (``done + arange``), with no host read.  The caller keeps
+    ``done * bs + chunk_len <= bucket`` (the reference's ``dynamic_slice``
+    would clamp past it; its callers never go there).  Returns the
+    cache."""
+    l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+    bucket = prompt.shape[1]
+    bs = cache.block_size
+    mbp = block_table_row.shape[1]
+    if chunk_len > bucket:
+        raise ValueError(f"chunk_len {chunk_len} exceeds bucket {bucket}")
+    dev = prompt.device
+    ids = block_table_row[0].long()
+    # pool [L, mbp, Hkv, hd, bs] -> seq-major [L, 1, mbp*bs, Hkv, hd]
+    row = decode.KVCache(*(
+        pool[:, ids].permute(0, 1, 4, 2, 3).reshape(l, 1, mbp * bs, hkv, hd)
+        for pool in (cache.k, cache.v)
+    ))
+    done = done_blocks.to(device=dev, dtype=torch.long)
+    start = done * bs
+    chunk = prompt[0].index_select(0, start + torch.arange(chunk_len, device=dev))[None]
+    decode.decode_chunk(params, row, chunk, start, cfg=cfg, logits=False)
+    chunk_ids = done + torch.arange(blocks_needed(chunk_len, bs), device=dev)
+    dest = ids.index_select(0, chunk_ids)
+    for pool, dense in ((cache.k, row.k), (cache.v, row.v)):
+        # [L, 1, mbp*bs, Hkv, hd] -> [L, mbp, Hkv, hd, bs], the chunk's blocks
+        blocks = dense.reshape(l, mbp, bs, hkv, hd).permute(0, 1, 3, 4, 2)
+        pool[:, dest] = blocks.index_select(1, chunk_ids)
+    return cache
+
+
+def paged_prefill_suffix(params, prompt, cache: PagedKVCache, block_table_row, *,
+                         cfg: ModelConfig, cached_blocks: int):
+    """Prefix-hit admission: one chunk from the ``cached_blocks`` shared
+    blocks to the bucket's end (one program per distinct cached count, as
+    the reference compiles one).  Returns the cache."""
+    done = torch.full((), cached_blocks, dtype=torch.int32, device=prompt.device)
+    return paged_prefill_chunk(
+        params, prompt, cache, block_table_row, done, cfg=cfg,
+        chunk_len=prompt.shape[1] - cached_blocks * cache.block_size,
+    )
 
 
 def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, poison,
@@ -291,42 +365,72 @@ class PagedServeEngine:
     """Continuous batching over the paged pool.
 
     * ``submit`` admits when a slot AND the prompt's blocks (prompt + the
-      first generated position) are free, prefilling the whole prompt;
-      each request has its temperature (0 or below: greedy), a seed for
-      its base key (default its request id) and a priority; ``top_k`` is
-      the engine's;
+      first generated position) are free; each request has its
+      temperature (0 or below: greedy), a seed for its base key (default
+      its request id) and a priority; ``top_k`` is the engine's;
+    * with ``prefix_cache_blocks > 0``, an admission puts the full prompt
+      blocks it computed into an LRU store (the prompt's tokens up to the
+      block's end -> the block, one reference each; at most
+      ``prefix_cache_blocks`` entries), and a later prompt that starts with
+      the same tokens SHARES those blocks instead of computing and holding
+      its own: its admission runs only the suffix.  The block holding
+      position ``plen - 1`` is never stored: the first-token step rewrites
+      that position, and a shared block is never written.  Hits and
+      misses count blocks (``prefix_hits``, ``prefix_misses``);
+    * with ``prefill_chunk_blocks > 0``, ``submit`` only reserves the slot
+      and its blocks and queues the prompt; every ``step``/``step_burst``
+      then prefills at most that many blocks for the queue's head before
+      its burst, and the final chunk activates the slot (its first
+      token), so residents keep decoding while a long prompt admits.
+      Shared prefix blocks count as chunks already done;
     * blocks grow on demand as a slot's next write crosses a block
       boundary, high priority first (older first within a tier); when the
       pool is empty the slot STALLS (stays resident, generates nothing)
       until a retirement frees blocks;
-    * with ``preempt_on_stall``, when every resident slot stalls, the
-      lowest-priority request short enough to re-prefill in one pass
-      (youngest within a tier) is evicted: its blocks free, its tokens,
-      temperature and key park, and it is re-admitted (high priority
-      first, FIFO within a tier) when a slot and its blocks are free,
-      before any new submit;
+    * with ``preempt_on_stall``, when every resident slot stalls and no
+      prompt is admitting (the admitting head will activate and retire),
+      the lowest-priority request short enough to re-prefill in one pass
+      (youngest within a tier) is evicted: its references drop, its
+      tokens, temperature and key park, and it is re-admitted (high
+      priority first, FIFO within a tier) when a slot and its blocks are
+      free, before any new submit; re-admission looks up the prefix store
+      like any admission and stores nothing back;
     * ``step_burst`` runs up to ``sync_interval`` device steps with ONE
       device-to-host readback (``host_syncs`` counts them; admissions'
       first-token reads are not counted); ``step`` is a burst of one;
-    * ``cancel`` retires a request "cancelled" (or unparks it); a slot
-      whose logits go non-finite retires "quarantined" (the fault window,
-      ``fault_injector``, can poison one), and at ``quarantine_limit``
+    * ``cancel`` retires a request "cancelled" (dropping a prompt still
+      admitting, or unparking one); a slot whose logits go non-finite
+      retires "quarantined" (the fault window, ``fault_injector``, can
+      poison one; it skips admitting slots), and at ``quarantine_limit``
       distinct requests the engine raises "engine poisoned";
-    * retirement frees the slot's blocks at once.
+    * ``snapshot_active`` captures every in-flight request (resident,
+      mid-admission with its prompt as the history, parked) as the dense
+      engine's JSON document, and ``restore`` parks each entry and
+      re-admits what fits (an idle engine unless ``merge``), so a paged
+      snapshot restores into either engine of either package;
+      ``release_active`` frees everything without delivering it;
+    * retirement drops the slot's references at once.
 
     Runs on ``device`` (default the card; raises without one unless
     ``device="cpu"``); ``params`` must live there.  On the card each of
-    the reference's compiled programs (prefill at the prompt bucket, the
-    first token, the burst at ``sync_interval`` and at 1) runs as a CUDA
-    graph (``serve.GraphedProgram``; at most four an engine, in
-    ``graphs``), eagerly inside ``serve.disable_graphs()``; on the CPU it
-    runs eagerly.  The device state those programs read and write
-    (block table, active mask, last token, position, stop depth,
-    temperature, base key and poison mask per slot; the admission's
-    prompt, prefill table row, length, slot, temperature and key) keeps
-    one address for the engine's life and is written in place;
-    everything else (allocation, growth, stalls, preemption, retirement)
-    stays on the host.  Not thread-safe; drive it from one loop.
+    the reference's compiled programs runs as a CUDA graph
+    (``serve.GraphedProgram``, in ``graphs``), eagerly inside
+    ``serve.disable_graphs()``; on the CPU it runs eagerly.  The programs
+    are prefill at the prompt bucket, the first token, the burst at
+    ``sync_interval`` and at 1, one "chunk w" per chunk width ``w`` and one
+    "suffix c" per cached-block count ``c``: at most :attr:`graph_bound`
+    (``4 + prefill_chunk_blocks + ceil(bucket/bs) - 1`` with both features
+    on and a bucket that is a multiple of the block size).  The device
+    state those programs read and write (block table, active mask, last
+    token, position, stop depth, temperature, base key and poison mask per
+    slot; the admission's prompt, prefill table row, length, slot,
+    temperature, key and done blocks) keeps one address for the engine's
+    life and is written in place; everything else (allocation, the prefix
+    store, the admission queue, growth, stalls, preemption, retirement)
+    stays on the host.  The reference's speculative rounds, LoRA,
+    quantized pools, mesh, handoff, fleet prefix hooks and telemetry
+    raise ``NotImplementedError`` naming their ROADMAP item.  Not
+    thread-safe; drive it from one loop.
     """
 
     params: dict
@@ -341,13 +445,35 @@ class PagedServeEngine:
     sync_interval: int = 1
     # size the pool by bytes instead: n_blocks = pool_hbm_bytes // kv_block_bytes
     pool_hbm_bytes: int | None = None
+    prefix_cache_blocks: int = 0   # > 0: an LRU store of shared prompt blocks
+    prefill_chunk_blocks: int = 0  # > 0: admit at most this many blocks a step
     preempt_on_stall: bool = True
     fault_injector: object | None = None  # utils/faults.FaultInjector
     quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
+    # the reference's fields the port does not serve yet: each raises
+    # NotImplementedError away from its default
+    kv_dtype: str | None = None
+    spec_gamma: int = 0
+    draft_params: object = None
+    adapter_bank: dict | None = None
+    mesh: object | None = None
+    slot_axis: object = "data"
+    telemetry_enabled: bool = True
     device: object = "cuda"
 
     def __post_init__(self):
         cfg = self.cfg
+        for unported, what, item in (
+            (self.kv_dtype is not None, "a quantized KV pool (kv_dtype)", 10),
+            (self.spec_gamma > 0 or self.draft_params is not None,
+             "speculative serving (spec_gamma, draft_params)", 7),
+            (self.adapter_bank is not None, "per-request LoRA (adapter_bank)", 8),
+            (self.mesh is not None or self.slot_axis != "data",
+             "a mesh (slot sharding, slot_axis)", 15),
+            (self.telemetry_enabled is not True, "telemetry_enabled (request telemetry)", 12),
+        ):
+            if unported:
+                raise serve._unported(what, item)
         if self.prompt_bucket > cfg.max_seq:
             raise ValueError(
                 f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
@@ -379,6 +505,11 @@ class PagedServeEngine:
         self._slots: list = [None] * self.n_slots
         self._prio: list[int] = [0] * self.n_slots
         self._preempted: list[dict] = []  # parked requests, re-admission order
+        self._admitting: list[dict] = []  # chunked admissions, FIFO; the head advances
+        # prompt tokens up to the end of block i -> that pool block (one reference)
+        self._prefix_store: OrderedDict = OrderedDict()
+        self.prefix_hits = 0    # blocks an admission shared from the store
+        self.prefix_misses = 0  # storable blocks an admission computed
         self._next_id = 0
         self._step_no = 0       # the fault window's step number
         self._completions: list = []
@@ -411,6 +542,7 @@ class PagedServeEngine:
         self._admit = torch.zeros((2,), **i32)                       # (plen, slot)
         self._admit_temp = torch.zeros((), dtype=torch.float32, device=dev)
         self._admit_key = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self._admit_done = torch.zeros((), **i32)  # a chunk's leading blocks already pooled
         self._eos = -1 if self.eos_id is None else self.eos_id
         self._programs: dict[str, serve.GraphedProgram] = {}
 
@@ -424,23 +556,69 @@ class PagedServeEngine:
         """Usable KV blocks (the null block excluded)."""
         return self._alloc.n_blocks - 1
 
+    @property
+    def graph_bound(self) -> int:
+        """The most programs (CUDA graphs on the card) this engine runs:
+        prefill, the first token, the bursts at ``sync_interval`` and at 1,
+        a "chunk w" for each width a chunk can take (whole blocks up to
+        ``prefill_chunk_blocks``, and a bucket's end inside a block) and a
+        "suffix c" for each cached-block count ``1 .. (bucket - 1) // bs``."""
+        bs, bucket = self.block_size, self.prompt_bucket
+        widths = set()
+        if self.prefill_chunk_blocks > 0:
+            top = min(self.prefill_chunk_blocks * bs, bucket)
+            widths = {w for w in range(1, top + 1) if w % bs == 0 or (bucket - w) % bs == 0}
+        suffixes = (bucket - 1) // bs if self.prefix_cache_blocks > 0 else 0
+        return 4 + len(widths) + suffixes
+
+    @property
+    def on_prefix_store(self):
+        """The reference's fleet prefix-cache hook; only None is served."""
+        return None
+
+    @on_prefix_store.setter
+    def on_prefix_store(self, hook) -> None:
+        if hook is not None:
+            raise serve._unported("the fleet prefix hooks (on_prefix_store)", 11)
+
+    @property
+    def on_prefix_evict(self):
+        """The reference's fleet prefix-cache hook; only None is served."""
+        return None
+
+    @on_prefix_evict.setter
+    def on_prefix_evict(self, hook) -> None:
+        if hook is not None:
+            raise serve._unported("the fleet prefix hooks (on_prefix_evict)", 11)
+
     def free_slots(self) -> int:
         return sum(1 for s in self._slots if s is None)
 
     def submit(self, prompt: list[int], max_tokens: int, temperature: float = 0.0,
-               seed: int | None = None, priority: int = 0,
-               deadline: int | None = None) -> int:
+               seed: int | None = None, adapter: int = 0, priority: int = 0,
+               deadline: int | None = None, queued_at: float | None = None,
+               handoff: bool = False) -> int:
         """Admit a request; raises ``serve.NoCapacity`` (a RuntimeError)
         when no slot or not enough blocks are free, or while preempted
-        requests wait for re-admission (they go first).  ``temperature``
-        above 0 samples under the base key ``PRNGKey(seed)`` (default the
-        request id); ``priority`` (higher first) orders stalls, evictions
-        and re-admissions, never what is generated.  Returns the request
+        requests wait for re-admission (they go first).  Stored prefix
+        blocks the prompt starts with are shared, not computed.  Without
+        chunking the prompt prefills here and its first token is sampled;
+        with it the slot and blocks are reserved and the prompt queues for
+        the steps to prefill.  ``temperature`` above 0 samples under the
+        base key ``PRNGKey(seed)`` (default the request id); ``priority``
+        (higher first) orders stalls, evictions and re-admissions, never
+        what is generated.  ``queued_at`` is accepted for the telemetry
+        the reference stamps with it (not ported).  Returns the request
         id."""
+        del queued_at
         serve.check_submit(
             prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
             temperature=temperature, deadline=deadline,
         )
+        if adapter:
+            raise serve._unported("per-request LoRA (adapter != 0)", 8)
+        if handoff:
+            raise serve._unported("handoff with a KV payload", 11)
         if self._preempted:
             # parked requests hold no reservation: re-admit what fits,
             # and refuse new work while any remain parked
@@ -451,24 +629,35 @@ class PagedServeEngine:
                 )
         if self.free_slots() == 0:
             raise serve.NoCapacity("no free slot")
+        storable = self._storable(len(prompt))
         need = blocks_needed(len(prompt) + 1, self.block_size)
-        picked = self._pick_slot(need)
+        picked = self._pick_slot(prompt, need, storable)
         if picked is None:
             raise serve.NoCapacity(
                 f"no free blocks ({need} needed, {self.free_blocks} free)"
             )
-        slot, ids = picked
+        slot, ids, cached = picked
         request_id = self._next_id
         base_key = prng.prng_key(request_id if seed is None else seed)
+        self.prefix_hits += cached
         self._prio[slot] = priority
+        self._reserve(slot, ids)
+        if self.prefill_chunk_blocks > 0:
+            self._next_id += 1
+            self._slots[slot] = serve._Slot(
+                request_id, list(prompt), len(prompt), max_tokens, deadline
+            )
+            self._admitting.append(dict(
+                slot=slot, prompt=list(prompt), plen=len(prompt), done=cached,
+                storable=storable, cached=cached, temp=temperature, key=base_key,
+            ))
+            return request_id
         try:
-            self._prefill_slot(slot, ids, prompt)
-            self._admit.copy_(torch.tensor([len(prompt), slot], dtype=torch.int32))
-            self._admit_temp.fill_(temperature)
-            self._admit_key.copy_(base_key)
-            first_tok = int(self._run("first token", self._first_token))
+            self._prefill_slot(slot, prompt, cached)
+            self._store_prefix_blocks(prompt, slot, storable, cached)
+            first_tok = self._first_token_of(slot, len(prompt), temperature, base_key)
         except BaseException:
-            # the slot was never occupied: return its blocks
+            # the slot was never occupied: drop its references
             self._release_slot(slot)
             raise
         self._next_id += 1
@@ -482,11 +671,13 @@ class PagedServeEngine:
 
     def cancel(self, request_id: int) -> bool:
         """Cancel a request between steps: a resident one retires
-        "cancelled" with its tokens so far and its blocks refund; a parked
+        "cancelled" with its tokens so far and its references drop (a
+        prompt still admitting leaves the admission queue too); a parked
         one unparks (it holds no blocks).  Returns whether the id was
         found."""
         for slot, st in enumerate(self._slots):
             if st is not None and st.request_id == request_id:
+                self._admitting = [a for a in self._admitting if a["slot"] != slot]
                 serve._early_retire(self, slot, "cancelled", "cancelled by caller")
                 return True
         for i, r in enumerate(self._preempted):
@@ -497,25 +688,29 @@ class PagedServeEngine:
         return False
 
     def step(self) -> int:
-        """Advance every active, non-stalled slot one token (a burst of
-        one step); returns the number of slots stepped."""
+        """Re-admit what fits, advance the admission queue's head by one
+        chunk, and advance every active, non-stalled slot one token (a
+        burst of one step); returns the number of slots stepped."""
         return self._step(1)
 
     def step_burst(self) -> int:
         """Advance every participating slot up to ``sync_interval`` tokens
         with ONE device-to-host readback; returns the number of slots
         stepped (or quarantined by the fault window).  Parked requests the
-        pool can hold re-admit first.  Blocks for the whole burst are
-        grown up front; a slot the pool cannot cover stalls for the burst,
-        and if none can the burst falls back to one step (the synchronous
-        loop's growth, preemption included)."""
+        pool can hold re-admit first, then the admission queue's head
+        prefills one chunk.  Blocks for the whole burst are grown up front;
+        a slot the pool cannot cover stalls for the burst, and if none can
+        the burst falls back to one step (the synchronous loop's growth,
+        preemption included)."""
         return self._step(self.sync_interval)
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
-        """Step until nothing is resident or parked; raises "engine
-        wedged" when no slot can progress."""
+        """Step until nothing is resident, admitting or parked; raises
+        "engine wedged" when no slot can progress (a chunk advancing is
+        progress)."""
         for _ in range(max_steps):
-            if self.step_burst() == 0:
+            admitting = bool(self._admitting)
+            if self.step_burst() == 0 and not admitting:
                 if self.free_slots() == self.n_slots and not self._preempted:
                     return
                 raise serve._wedge_error(self, "engine wedged: resident slots, no progress")
@@ -532,15 +727,103 @@ class PagedServeEngine:
         out, self._completions = self._completions, []
         return out
 
+    def stats(self):
+        raise serve._unported("stats() (request telemetry)", 12)
+
+    def snapshot_active(self, include_kv: bool = False) -> dict:
+        """Every in-flight request as the dense engine's JSON-serialisable
+        document: resident slots (temperature and base key read back once),
+        slots still mid-admission (the queue entry holds their sampler
+        state; their history is the prompt) and parked requests.  No
+        decode step, no block traffic."""
+        if include_kv:
+            raise serve._unported("snapshot_active(include_kv=True)", 11)
+        temps = self._temps.to("cpu", copy=True).numpy()
+        keys = self._keys.to("cpu", copy=True).numpy()
+        admitting = {a["slot"]: a for a in self._admitting}
+        reqs = []
+        for slot, st in enumerate(self._slots):
+            if st is None:
+                continue
+            adm = admitting.get(slot)
+            # the device row is set at activation: mid-admission, the queue
+            # entry holds the sampler state
+            temp, key = (temps[slot], keys[slot]) if adm is None else (adm["temp"], adm["key"])
+            reqs.append(serve._snapshot_request(st, float(temp), key, priority=self._prio[slot]))
+        for r in self._preempted:
+            reqs.append(serve._snapshot_request(r["st"], r["temp"], r["key"],
+                                                priority=r["priority"]))
+        return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
+
+    def restore(self, snapshot: dict, merge: bool = False) -> list[int]:
+        """Rebuild a snapshot's requests in this engine: every entry parks
+        (in request-id order, then by priority) and drains through the
+        re-admission path, whose re-prefill of the history continues each
+        stream exactly; what the pool cannot hold yet stays parked and
+        admits as capacity frees.  Needs an idle engine unless ``merge``,
+        which joins a live engine's parked queue.  A history longer than
+        the prompt bucket comes back as an "error" completion.  Returns the
+        request ids accepted (resident or parked)."""
+        serve.check_restorable(snapshot)
+        for req in snapshot["requests"]:
+            if "kv" in req:
+                raise serve._unported("restoring a KV payload", 11)
+            if int(req.get("adapter", 0)):
+                raise serve._unported("per-request LoRA (adapter != 0)", 8)
+        if not merge and (self.n_slots - self.free_slots() or self._admitting
+                          or self._preempted):
+            raise RuntimeError("restore() needs an idle engine")
+        restored: list[int] = []
+        for req in sorted(snapshot["requests"], key=lambda r: r["request_id"]):
+            tokens = [int(t) for t in req["tokens"]]
+            if len(tokens) > self.prompt_bucket:
+                serve._unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
+                                               f"{self.prompt_bucket}")
+                continue
+            st = serve._Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
+                             int(req["max_tokens"]), req.get("deadline"))
+            # keys arrive as plain ints up to 2^32 - 1: int64 holds them
+            self._preempted.append(dict(
+                st=st, temp=float(req["temperature"]),
+                key=torch.tensor([int(x) for x in req["key"]], dtype=torch.int64),
+                priority=int(req.get("priority", 0)),
+            ))
+            restored.append(st.request_id)
+        self._preempted.sort(key=lambda r: -r["priority"])
+        self._next_id = max(
+            self._next_id,
+            int(snapshot.get("next_id", 0)),
+            max((int(r["request_id"]) for r in snapshot["requests"]), default=-1) + 1,
+        )
+        self._readmit()  # admit what fits now; the rest drains through the steps
+        return restored
+
+    def release_active(self) -> int:
+        """Free every slot and its references, and drop the admission
+        queue and the parked requests, WITHOUT delivering completions (the
+        streams were captured by ``snapshot_active`` and live elsewhere
+        now).  Returns how many requests were released."""
+        released = len(self._preempted)
+        self._admitting, self._preempted = [], []
+        for slot, st in enumerate(self._slots):
+            if st is not None:
+                self._slots[slot] = None
+                self._release_slot(slot)
+                released += 1
+        return released
+
     # -- internals ---------------------------------------------------------
     def _step(self, k: int) -> int:
-        """Re-admit, open the fault window, grow (or preempt), run a
-        K-step burst (``step`` asks for K = 1)."""
+        """Re-admit, advance the admission queue by one chunk, open the
+        fault window, grow (or preempt), run a K-step burst (``step`` asks
+        for K = 1)."""
         single = k == 1
         self._readmit()
+        self._advance_admission()
         self._step_no += 1
         poison, quarantined = serve._inject_step_faults(self)
-        if all(st is None for st in self._slots):
+        admitting = {a["slot"] for a in self._admitting}
+        if all(st is None or s in admitting for s, st in enumerate(self._slots)):
             return quarantined
         active = self._grow_or_preempt(lookahead=k - 1)
         if not active.any() and k > 1:
@@ -583,13 +866,51 @@ class PagedServeEngine:
         self._last_step_s = time.perf_counter() - t0
         return int(active.sum())
 
+    def _advance_admission(self) -> None:
+        """Prefill at most one chunk for the admission queue's head (only
+        the prompt's blocks: the bucket's padding is never attended); after
+        the final chunk, activate the slot: its first token, its device
+        row, its fresh prompt blocks into the store (after the first
+        token, the reference's order), retirement if already done.  A
+        failed chunk frees the reservation, delivers an "error" completion
+        and raises."""
+        if not self._admitting:
+            return
+        adm = self._admitting[0]
+        slot, bs = adm["slot"], self.block_size
+        real_end = min(blocks_needed(adm["plen"], bs) * bs, self.prompt_bucket)
+        width = self.prefill_chunk_blocks * bs
+        try:
+            self._stage(slot, adm["prompt"])
+            if real_end - adm["done"] * bs > width:
+                self._run_chunk(adm["done"], width)
+                adm["done"] += self.prefill_chunk_blocks
+                return
+            if real_end > adm["done"] * bs:
+                self._run_chunk(adm["done"], real_end - adm["done"] * bs)
+            first_tok = self._first_token_of(slot, adm["plen"], adm["temp"], adm["key"])
+        except BaseException as exc:
+            self._admitting.pop(0)
+            st = self._slots[slot]
+            self._slots[slot] = None
+            self._release_slot(slot)
+            serve._retire_parked(self, st, "error", f"{type(exc).__name__}: {exc}")
+            raise
+        self._admitting.pop(0)
+        self._store_prefix_blocks(adm["prompt"], slot, adm["storable"], adm["cached"])
+        st = self._slots[slot]
+        st.tokens.append(first_tok)
+        self._set_row(slot, st, adm["temp"], adm["key"])
+        self._retire(slot)
+
     def _grow_active_slots(self, lookahead: int):
-        """Ensure every resident slot owns blocks covering positions
-        ``pos .. pos + lookahead`` (clamped to its remaining stream), high
-        priority first and older first within a tier; slots the pool
-        cannot serve stall.  The depth comes from the host-side invariant
-        ``pos == len(tokens) - 1``, never from a device read.  Returns the
-        host active mask."""
+        """Ensure every resident slot that is not admitting owns blocks
+        covering positions ``pos .. pos + lookahead`` (clamped to its
+        remaining stream), high priority first and older first within a
+        tier; slots the pool cannot serve stall.  The depth comes from the
+        host-side invariant ``pos == len(tokens) - 1``, never from a device
+        read.  Returns the host active mask."""
+        admitting = {a["slot"] for a in self._admitting}
         active = np.zeros((self.n_slots,), bool)
         order = sorted(
             range(self.n_slots),
@@ -597,7 +918,7 @@ class PagedServeEngine:
         )
         for slot in order:
             st = self._slots[slot]
-            if st is None:
+            if st is None or slot in admitting:
                 continue
             remaining = st.prompt_len + serve._slot_budget(st) - len(st.tokens)
             ahead = min(lookahead, max(remaining - 1, 0))
@@ -619,10 +940,10 @@ class PagedServeEngine:
 
     def _grow_or_preempt(self, lookahead: int):
         """Block growth; with ``preempt_on_stall``, while every resident
-        slot stalls, evict one request and grow again.  Returns the host
-        active mask."""
+        slot stalls and nothing is admitting, evict one request and grow
+        again.  Returns the host active mask."""
         active = self._grow_active_slots(lookahead)
-        if self.preempt_on_stall:
+        if self.preempt_on_stall and not self._admitting:
             while True:
                 resident = [s for s in range(self.n_slots) if self._slots[s] is not None]
                 if not resident or active[resident].any() or not self._preempt_one():
@@ -632,12 +953,14 @@ class PagedServeEngine:
 
     def _preempt_one(self) -> bool:
         """Evict the lowest-priority resident request still short enough to
-        re-prefill in one pass (the youngest within a tier): park its
-        tokens, temperature and base key (read back from the device) and
-        free its blocks.  Returns whether a request was evicted."""
+        re-prefill in one pass (the youngest within a tier), never one
+        admitting: park its tokens, temperature and base key (read back
+        from the device) and drop its references.  Returns whether a
+        request was evicted."""
+        admitting = {a["slot"] for a in self._admitting}
         victim, vslot = None, -1
         for slot, st in enumerate(self._slots):
-            if st is None or len(st.tokens) + 1 > self.prompt_bucket:
+            if st is None or slot in admitting or len(st.tokens) + 1 > self.prompt_bucket:
                 continue  # grown past one-pass re-prefill: not resumable
             if victim is None or (
                 (self._prio[slot], -st.request_id) < (self._prio[vslot], -victim.request_id)
@@ -660,21 +983,24 @@ class PagedServeEngine:
 
     def _readmit(self) -> None:
         """Re-prefill parked requests, in queue order, while a slot and
-        their blocks are free: the parked tokens are the prompt, and the
-        next step samples the next token at the same position under the
-        same key, so the stream continues exactly.  A re-admission that
-        fails frees its blocks, delivers an "error" completion and
-        raises."""
+        their blocks are free: the parked tokens are the prompt (stored
+        prefix blocks they start with are shared, and nothing is stored
+        back), and the next step samples the next token at the same
+        position under the same key, so the stream continues exactly.  A
+        re-admission that fails drops its references, delivers an "error"
+        completion and raises."""
         while self._preempted:
             r = self._preempted[0]
             st = r["st"]
-            picked = self._pick_slot(blocks_needed(len(st.tokens) + 1, self.block_size))
+            need = blocks_needed(len(st.tokens) + 1, self.block_size)
+            picked = self._pick_slot(st.tokens, need, self._storable(len(st.tokens)))
             if picked is None:
                 return  # stays parked; the head blocks the queue
-            slot, ids = picked
+            slot, ids, cached = picked
             self._prio[slot] = r["priority"]
+            self._reserve(slot, ids)
             try:
-                self._prefill_slot(slot, ids, st.tokens)
+                self._prefill_slot(slot, st.tokens, cached)
             except BaseException as exc:
                 self._release_slot(slot)
                 self._preempted.pop(0)
@@ -684,33 +1010,100 @@ class PagedServeEngine:
             self._slots[slot] = st
             self._set_row(slot, st, r["temp"], r["key"])
 
-    def _pick_slot(self, need: int):
-        """The first free slot, with ``need`` blocks allocated to it, as
-        ``(slot, ids)``; None when no slot is free or the pool cannot
-        cover ``need`` (one pool: a second slot could not do better)."""
+    def _storable(self, n_tokens: int) -> int:
+        """Leading full blocks of an ``n_tokens`` history the store may
+        hold: never the block of position ``n_tokens - 1`` (the first-token
+        step rewrites it), and a suffix is never empty."""
+        bs = self.block_size
+        return min((n_tokens - 1) // bs, (self.prompt_bucket - 1) // bs)
+
+    def _pick_slot(self, tokens, need: int, storable: int):
+        """The first free slot with ``need`` blocks for it, the stored
+        prefix blocks ``tokens`` starts with (up to ``storable``) shared
+        among them: ``(slot, ids, cached)`` with the blocks referenced;
+        None when no slot is free or the pool cannot cover the rest (the
+        hits' references drop again; one pool: a second slot could not do
+        better)."""
         for slot in range(self.n_slots):
-            if self._slots[slot] is None:
-                try:
-                    return slot, self._alloc.alloc(need)
-                except OutOfBlocks:
-                    return None
+            if self._slots[slot] is not None:
+                continue
+            hits: list[int] = []
+            if self.prefix_cache_blocks > 0:
+                for i in range(storable):
+                    key = self._prefix_key(tokens, i)
+                    if key not in self._prefix_store:
+                        break
+                    self._prefix_store.move_to_end(key)  # LRU touch
+                    hits.append(self._alloc.share(self._prefix_store[key]))
+            try:
+                return slot, hits + self._alloc.alloc(need - len(hits)), len(hits)
+            except OutOfBlocks:
+                self._alloc.free(hits)
+                return None
         return None
 
-    def _prefill_slot(self, slot: int, ids: list[int], tokens: list[int]) -> None:
-        """Point ``slot``'s table row at ``ids`` and prefill ``tokens`` into
-        them (the prefill program)."""
+    def _prefix_key(self, tokens, i: int) -> tuple:
+        """The store's key of block ``i``: the tokens up to its end."""
+        return tuple(tokens[: (i + 1) * self.block_size])
+
+    def _store_prefix_blocks(self, prompt, slot: int, storable: int, cached: int) -> None:
+        """Put the admission's freshly computed storable blocks into the
+        LRU store (one reference each, so they outlive the request), then
+        evict the least recently used entries past ``prefix_cache_blocks``."""
+        if self.prefix_cache_blocks <= 0:
+            return
+        self.prefix_misses += max(storable - cached, 0)
+        for i in range(cached, storable):
+            key = self._prefix_key(prompt, i)
+            if key in self._prefix_store:  # stored meanwhile by another admission
+                self._prefix_store.move_to_end(key)
+                continue
+            self._prefix_store[key] = self._alloc.share(int(self._table_np[slot, i]))
+        while len(self._prefix_store) > self.prefix_cache_blocks:
+            _, old = self._prefix_store.popitem(last=False)
+            self._alloc.free([old])
+
+    def _reserve(self, slot: int, ids: list[int]) -> None:
+        """Point ``slot``'s table row at ``ids`` (uploaded before the next
+        program)."""
         self._owned[slot] = ids
         self._table_np[slot, :] = NULL_BLOCK
         self._table_np[slot, : len(ids)] = ids
         self._table_dirty = True
+
+    def _stage(self, slot: int, tokens: list[int]) -> None:
+        """Write an admission's inputs into the programs' buffers: the
+        table, the padded prompt and ``slot``'s prefill row (entries past
+        its blocks are the null block, a scratch sink never attended)."""
         self._sync_table()
         padded = np.zeros((1, self.prompt_bucket), np.int32)
         padded[0, : len(tokens)] = tokens
         self._prompt.copy_(torch.from_numpy(padded))
-        # prefill writes ceil(bucket/bs) stripes; entries past the owned
-        # blocks are the null block, a scratch sink never attended
         self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
-        self._run("prefill", self._prefill)
+
+    def _prefill_slot(self, slot: int, tokens: list[int], cached: int) -> None:
+        """Prefill ``tokens`` into ``slot``'s blocks: the whole bucket, or
+        with ``cached`` shared blocks only the suffix after them."""
+        self._stage(slot, tokens)
+        if cached:
+            self._run(f"suffix {cached}", self._suffix_program(cached))
+        else:
+            self._run("prefill", self._prefill)
+
+    def _run_chunk(self, done: int, width: int) -> None:
+        """One chunk of ``width`` tokens after ``done`` pooled blocks, for
+        the staged admission."""
+        assert done * self.block_size + width <= self.prompt_bucket
+        self._admit_done.fill_(done)
+        self._run(f"chunk {width}", self._chunk_program(width))
+
+    def _first_token_of(self, slot: int, plen: int, temperature: float, key) -> int:
+        """The staged admission's first token (its readback is not counted
+        in ``host_syncs``)."""
+        self._admit.copy_(torch.tensor([plen, slot], dtype=torch.int32))
+        self._admit_temp.fill_(temperature)
+        self._admit_key.copy_(key)
+        return int(self._run("first token", self._first_token))
 
     def _set_row(self, slot: int, st, temperature: float, key) -> None:
         """A resident slot's device row: last token, position (``len(tokens)
@@ -723,8 +1116,9 @@ class PagedServeEngine:
         self._keys[slot] = key
 
     def _release_slot(self, slot: int) -> None:
-        """Refund ``slot``'s blocks and point its table row at the null
-        block (uploaded before the next program)."""
+        """Drop ``slot``'s references (a shared block stays with its other
+        holders) and point its table row at the null block (uploaded
+        before the next program)."""
         self._alloc.free(self._owned[slot])
         self._owned[slot] = []
         self._table_np[slot, :] = NULL_BLOCK
@@ -749,6 +1143,18 @@ class PagedServeEngine:
 
     def _prefill(self) -> None:
         paged_prefill(self.params, self._prompt, self._cache, self._prefill_row, cfg=self.cfg)
+
+    def _chunk_program(self, width: int):
+        def chunk():
+            paged_prefill_chunk(self.params, self._prompt, self._cache, self._prefill_row,
+                                self._admit_done, cfg=self.cfg, chunk_len=width)
+        return chunk
+
+    def _suffix_program(self, cached: int):
+        def suffix():
+            paged_prefill_suffix(self.params, self._prompt, self._cache, self._prefill_row,
+                                 cfg=self.cfg, cached_blocks=cached)
+        return suffix
 
     def _first_token(self):
         tok, _ = _paged_first_token(

@@ -220,8 +220,11 @@ def _inject_step_faults(engine) -> tuple[np.ndarray, int]:
 
     inj.take_step_latency()
     hit = 0
+    # a slot mid-admission is not decoding yet, and quarantining it would
+    # orphan its admission-queue entry: the window skips it until it activates
+    admitting = {a["slot"] for a in getattr(engine, "_admitting", ())}
     for slot, st in enumerate(engine._slots):
-        if st is None:
+        if st is None or slot in admitting:
             continue
         try:
             inj.maybe_raise_step(slot, engine._step_no)
@@ -249,11 +252,14 @@ def _first_bad_steps(trace_act, trace_bad) -> dict:
 def _wedge_error(engine, reason: str, queue=None) -> RuntimeError:
     """The RuntimeError an engine that cannot go on raises ("engine
     wedged", "engine poisoned", "pump wedged"), with the state that says
-    why: resident slots, parked requests, free blocks, stalls, the
-    quarantined requests and the pump's queue depth."""
+    why: resident slots, prompts still admitting, parked requests, free
+    blocks, stalls, the quarantined requests and the pump's queue depth."""
     resident = [st.request_id for st in engine._slots if st is not None]
+    admitting = [(engine._slots[a["slot"]].request_id, a["done"])
+                 for a in getattr(engine, "_admitting", ())]
     state = [
         f"resident {resident}",
+        f"admitting (request, blocks done) {admitting}",
         f"parked {[r['st'].request_id for r in getattr(engine, '_preempted', ())]}",
         f"free blocks {getattr(engine, 'free_blocks', None)}",
         f"stalled steps {getattr(engine, 'stalled_steps', None)}",
@@ -321,9 +327,10 @@ def _pump(engine, requests, max_steps: int, queue_limit: int | None = None) -> l
     """Continuous-batching drive: admit queued ``(prompt, max_tokens)``
     pairs (or dicts of ``submit`` kwargs) FIFO as capacity frees,
     burst-step in between, return every completion once nothing is
-    queued, resident or parked.  ``queue_limit`` bounds the requests left
-    waiting after each admission round: the overflow is shed newest-first
-    (:func:`_shed`), so the oldest keep their place."""
+    queued, resident (a prompt still admitting holds its slot) or parked.
+    ``queue_limit`` bounds the requests left waiting after each admission
+    round: the overflow is shed newest-first (:func:`_shed`), so the oldest
+    keep their place."""
     queue = list(requests)
     out: list = []
     for _ in range(max_steps):
@@ -343,12 +350,13 @@ def _pump(engine, requests, max_steps: int, queue_limit: int | None = None) -> l
         if queue_limit is not None:
             while len(queue) > queue_limit:
                 out.append(_shed(engine, queue.pop(), len(queue) + 1, queue_limit))
+        admitting = bool(getattr(engine, "_admitting", ()))  # a chunk advancing is progress
         stepped = engine.step_burst()
         out.extend(engine.completions())
         if (not queue and engine.free_slots() == engine.n_slots
                 and not getattr(engine, "_preempted", ())):
             return out
-        if stepped == 0 and not admitted:
+        if stepped == 0 and not admitted and not admitting:
             raise _wedge_error(
                 engine, "pump wedged: queued or resident requests, no progress",
                 queue=queue,

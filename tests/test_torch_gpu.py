@@ -32,8 +32,10 @@ Train-step losses within 1e-5 relative of the CPU's.  PRNG: threefry's
 known answers, random bits and uniforms equal the CPU's bit for bit;
 Gumbel noise within 4 float32 ulps of its size, 2^-21 (1 + |g|) (each
 device's own ``log``).  The sampled, preempting engine graphed equals
-its eager twin in everything, as the greedy one does; so does the dense
-engine, whose greedy streams on the card equal the CPU's."""
+its eager twin in everything, as the greedy one does; so do the dense
+engine, whose greedy streams on the card equal the CPU's, and the paged
+engine with chunked admission and the prefix store.  A bf16 int4 chunk
+writes the pool its CPU twin writes within one bf16 step."""
 
 import contextlib
 
@@ -531,6 +533,92 @@ def test_dense_engine_int4_launches_both_kernels(cuda):
     assert ti4.kernel_launches["int4_splitk"] > 0 and ti4.kernel_launches["int4_wgmma"] > 0
     assert {"admission", "burst k=4"} <= set(eng.graphs)
     assert all(g.graph is not None for g in eng.graphs.values() if g.calls >= 2)
+
+
+def _admission_traffic(seed=5, n=8):
+    """Requests sharing one of two 16-token system prompts, 1-12 tokens of
+    their own and 4-16 new ones; odd ones sampled with seeds."""
+    r = np.random.RandomState(seed)
+    systems = [r.randint(0, 128, size=16).tolist() for _ in range(2)]
+    return [dict(prompt=systems[i % 2] + r.randint(0, 128, size=int(r.randint(1, 13))).tolist(),
+                 max_tokens=int(r.randint(4, 17)), temperature=0.8 * (i % 2), seed=i)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("bits", [None, 4])
+@pytest.mark.parametrize("chunk,n_blocks", [(0, 40), (2, 40), (2, 9)],
+                         ids=["prefix", "prefix-chunked", "prefix-chunked-tight"])
+def test_graphed_admission_engine_matches_the_eager_engine(cuda, bits, chunk, n_blocks):
+    """The prefix store, chunked or not (the tight pool preempts requests
+    holding shared blocks), graphed against the same engine run eagerly:
+    streams, statuses, host syncs, stalls, preemptions, prefix hits,
+    misses and store, pool bytes outside the null block and kernel launch
+    counts identical; the graphs stay within ``graph_bound``, each
+    captured once."""
+    cfg, params = _small_engine_params(bits, cuda)
+    reqs = _admission_traffic()
+    kw = dict(n_slots=3, n_blocks=n_blocks, block_size=8, prompt_bucket=32, sync_interval=3,
+              top_k=5, prefix_cache_blocks=4, prefill_chunk_blocks=chunk)
+
+    def serve(eager):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        eng = tp.PagedServeEngine(params=params, cfg=cfg, device=cuda, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = eng.pump(reqs)
+        torch.cuda.synchronize()
+        streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+        return eng, streams, _launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and len(streams) == len(reqs)
+    for attr in ("host_syncs", "stalled_steps", "preempted_count", "prefix_hits",
+                 "prefix_misses", "_prefix_store"):
+        assert getattr(graphed, attr) == getattr(eager, attr), attr
+    assert torch.equal(graphed._cache.k[:, 1:], eager._cache.k[:, 1:])
+    assert torch.equal(graphed._cache.v[:, 1:], eager._cache.v[:, 1:])
+    assert counts == want_counts and counts["append"] > 0
+    assert graphed.prefix_hits > 0 and (n_blocks > 9 or graphed.preempted_count > 0)
+    names = set(graphed.graphs)
+    assert 0 < len(names) <= graphed.graph_bound == 4 + (2 if chunk else 0) + 3
+    assert any(n.startswith("chunk" if chunk else "suffix") for n in names)
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    assert graphed.free_blocks == n_blocks - 1 - len(graphed._prefix_store)
+
+
+def test_int4_chunk_at_m16_launches_the_split_k_kernel(cuda):
+    """bf16 int4 block weights: a 16-token chunk (M = 16) goes through
+    ``int4_splitk`` alone and a 32-token one through ``int4_wgmma`` alone;
+    inside an engine at ``prefill_chunk_blocks=1`` every chunk replays
+    "chunk 16", which launches the split-K kernel and not the other."""
+    cfg = tb.ModelConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
+                         n_layers=2, d_ff=128, max_seq=64, rope=True, dtype=torch.bfloat16)
+    params = _to(tq.quantize_blocks(tb.init_params(torch.Generator().manual_seed(0), cfg),
+                                    bits=4), cuda)
+    r = np.random.RandomState(3)
+    prompt = torch.from_numpy(r.randint(0, 128, size=(1, 64)).astype(np.int32)).to(cuda)
+    row = torch.tensor([[3, 1, 6, 2]], dtype=torch.int32, device=cuda)
+    for width, kernel in ((16, "int4_splitk"), (32, "int4_wgmma")):
+        cache = tp.init_paged_cache(cfg, 8, 16, dtype=torch.bfloat16, device=cuda)
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        tp.paged_prefill_chunk(params, prompt, cache, row, torch.tensor(1, device=cuda),
+                               cfg=cfg, chunk_len=width)
+        torch.cuda.synchronize()
+        assert ti4.kernel_launches[kernel] > 0 and ti4.launches == ti4.kernel_launches[kernel]
+        written = row[0, 1: 1 + width // 16].long()  # the chunk's blocks, after one done
+        assert torch.isfinite(cache.k.float()).all() and cache.k[:, written].any()
+    ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+    eng = tp.PagedServeEngine(params=params, cfg=cfg, device=cuda, n_slots=3, n_blocks=40,
+                              block_size=16, prompt_bucket=64, sync_interval=4,
+                              cache_dtype=torch.bfloat16, prefill_chunk_blocks=1)
+    comps = eng.pump([(r.randint(0, 128, size=40).tolist(), 6) for _ in range(4)])
+    torch.cuda.synchronize()
+    assert len(comps) == 4 and all(c.status == "ok" for c in comps)
+    chunk16 = eng.graphs["chunk 16"]
+    assert chunk16.calls >= 8 and chunk16.graph is not None
+    assert chunk16._delta[(ti4.__name__, "int4_splitk")] > 0
+    assert chunk16._delta[(ti4.__name__, "int4_wgmma")] == 0
 
 
 def test_capture_of_a_host_read_raises(cuda, monkeypatch):
