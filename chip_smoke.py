@@ -79,9 +79,10 @@ exits 2 before any result):
    engine's ``graph_bound`` (capture time and pool MiB printed), a leak
    audit, every stream teacher-forced; the same traffic with chunking,
    the store or both off (streams equal to the both-off engine's
-   counted, not required); the head-of-line case, a 256-token arrival
-   among 7 decoding residents at 4-block chunks and whole (its time to
-   first token and the residents' longest gap between bursts); the
+   counted, not required); the head-of-line case, 256-token arrivals
+   among 7 decoding residents at 4-block chunks and whole, 4 an engine in
+   alternating rounds (medians of the time to first token and of the
+   stall the admission adds to the residents' longest gap); the
    admission time of a 256-token prompt with 0 and 15 cached blocks
    (medians of 5); the lifecycle on a 73-block pool (top-k 50, odd
    requests sampled, preemption of requests holding shared blocks, a
@@ -91,7 +92,9 @@ exits 2 before any result):
    engines (streams equal to the uninterrupted run's counted, all
    teacher-forced), leak audits; int4 block weights at 1-block chunks
    (``int4_splitk`` at M = 16 in the chunk programs) and unchunked
-   (``int4_wgmma`` in suffixes and prefills), both teacher-forced;
+   (``int4_wgmma`` in suffixes and prefills), both teacher-forced, and
+   each int4 product shape of the two runs held against the plain
+   version on the first input the path gave it;
 10. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
@@ -1297,9 +1300,9 @@ def graph_pool_bytes(torch, graph) -> int:
 def graph_bookkeeping(torch, label, eng):
     """Print each of the engine's CUDA graphs (calls, capture time, pool
     bytes); fail if there are more than the engine's bound (a paged
-    engine's ``graph_bound``: 4, plus a chunk program per chunk width and a
-    suffix program per cached-block count when those features are on; 4
-    for the dense engine) or a graph called twice was not captured."""
+    engine's ``graph_bound``: 4, plus a chunk program per width a chunk or
+    a prefix hit's suffix can take when those features are on; 4 for the
+    dense engine) or a graph called twice was not captured."""
     max_graphs = getattr(eng, "graph_bound", 4)
     graphs = eng.graphs
     total = 0
@@ -1740,7 +1743,6 @@ def phase_serve_lifecycle(torch, cfg, params, *, cache_dtype, tol_greedy=0.25):
     teacher-forced against the plain dense path; the PRNG on the card; the
     sampling tail's cost.  Returns the paged append launches of the
     graphed run."""
-    from k8s_dra_driver_torch.models import serve
     from k8s_dra_driver_torch.models.paged import NULL_BLOCK
     from k8s_dra_driver_torch.ops import paged_attention as pa
     from k8s_dra_driver_torch.utils import faults
@@ -1749,58 +1751,38 @@ def phase_serve_lifecycle(torch, cfg, params, *, cache_dtype, tol_greedy=0.25):
     reqs = _lifecycle_traffic(cfg.vocab_size, SEED + 11)
     tol_sampled = tol_greedy / LIFECYCLE_TEMP
 
+    runs = []
+
     def drive(eager, n_blocks=LIFECYCLE_POOL, faulty=True):
         inj = None
         if faulty:
             inj = faults.FaultInjector(SEED)
             inj.arm(faults.FaultProfile(name="poison", **LIFECYCLE_POISON))
         eng = _lifecycle_engine(cfg, params, n_blocks, cache_dtype, inj)
-        sync(torch)
-        _zero_serving_counts()
-        t0 = time.perf_counter()
-        with serve.disable_graphs() if eager else contextlib.nullcontext():
-            comps, parked, cancelled = lifecycle_drive(eng, reqs, 3 if faulty else None)
-        sync(torch)
-        return eng, comps, parked, cancelled, time.perf_counter() - t0, serve.launch_counts()
+        comps, parked, cancelled = lifecycle_drive(eng, reqs, 3 if faulty else None)
+        runs.append((parked, cancelled))
+        return eng, comps
 
-    eng, comps, parked, cancelled, wall, counts = drive(eager=False)
-    append = pa.launches["append"]
+    eng, comps, counts = _engine_twin(
+        torch, label, drive, ("preempted_count", "quarantined", "host_syncs", "stalled_steps"),
+        pool_from=NULL_BLOCK + 1)
+    (parked, cancelled), _ = runs
+    append = counts[(pa.__name__, "append")]
     statuses = {}
     for c in comps:
         statuses[c.status] = statuses.get(c.status, 0) + 1
     log(f"{label}: pool {LIFECYCLE_POOL} blocks (null block included) of {LIFECYCLE['block_size']} "
-        f"tokens, {len(reqs)} requests, {sum(len(c.generated) for c in comps)} tokens in "
-        f"{wall:.2f} s (graphed); statuses {statuses}; preempted_count {eng.preempted_count} "
-        f"(requests parked {sorted(parked)}); quarantined {eng.quarantined}; cancelled "
-        f"{cancelled}; host_syncs {eng.host_syncs}, stalled_steps {eng.stalled_steps}")
-    log(f"{label}: paged append launches {append} (graphed run)")
+        f"tokens, {len(reqs)} requests; statuses {statuses}; preempted_count "
+        f"{eng.preempted_count} (requests parked {sorted(parked)}); quarantined "
+        f"{eng.quarantined}; cancelled {cancelled}; paged append launches {append} (graphed run)")
     if eng.preempted_count < 1 or len(eng.quarantined) != 1 or statuses.get("cancelled") != 1:
         raise AssertionError(f"{label}: the run must preempt, quarantine one request and "
                              f"cancel one: {eng.preempted_count}, {eng.quarantined}, {statuses}")
     if len(comps) != len(reqs) or append == 0:
         raise AssertionError(f"{label}: {len(comps)} completions, {append} paged launches")
-    graph_bookkeeping(torch, label, eng)
 
-    twin, twin_comps, _, _, twin_wall, twin_counts = drive(eager=True)
-    streams = sorted((c.request_id, c.generated, c.status) for c in comps)
-    if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
-        raise AssertionError(f"{label}: graphed and eager completions differ")
-    for attr in ("preempted_count", "quarantined", "host_syncs", "stalled_steps"):
-        if getattr(eng, attr) != getattr(twin, attr):
-            raise AssertionError(f"{label}: graphed and eager {attr} differ: "
-                                 f"{getattr(eng, attr)} against {getattr(twin, attr)}")
-    for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v)):
-        if not torch.equal(a[:, NULL_BLOCK + 1:], b_[:, NULL_BLOCK + 1:]):
-            raise AssertionError(f"{label}: graphed and eager pools differ outside the null block")
-    if counts != twin_counts:
-        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
-    log(f"{label}: graphed == eager twin ({twin_wall:.2f} s eager): {len(streams)} completions "
-        f"with statuses, preempted_count, quarantined, host syncs, stalls, pool bytes outside "
-        f"the null block and launch counts {counts}")
-    del twin, twin_comps
-
-    roomy, roomy_comps, roomy_parked, _, _, _ = drive(eager=False, n_blocks=LIFECYCLE_ROOMY,
-                                                      faulty=False)
+    roomy, roomy_comps = drive(eager=False, n_blocks=LIFECYCLE_ROOMY, faulty=False)
+    roomy_parked = runs[-1][0]
     if roomy.preempted_count or roomy_parked or roomy.stalled_steps:
         raise AssertionError(f"{label}: the roomy run stalled or preempted")
     want = {c.request_id: c.generated for c in roomy_comps}
@@ -1879,12 +1861,19 @@ def _greedy_dicts(reqs):
     return [dict(prompt=p, max_tokens=m) for p, m in reqs]
 
 
-def _dense_twin(torch, label, drive):
+DENSE_TWIN_ATTRS = ("host_syncs", "prefix_hits", "prefix_misses", "quarantined")
+PAGED_TWIN_ATTRS = ("host_syncs", "stalled_steps", "preempted_count", "quarantined",
+                    "prefix_hits", "prefix_misses")
+
+
+def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0):
     """``drive(eager) -> (engine, completions)`` run graphed (the main
     path, launch counts zeroed just before) and eagerly: completions with
-    their statuses, host syncs, prefix hits and misses, quarantines, the
-    final cache bytes and every launch count must be identical.  Returns
-    the graphed engine, its completions and its launch counts."""
+    their statuses, the engine counters ``attrs``, the final cache bytes
+    from block ``pool_from`` on (1 for a paged pool: block 0 is the null
+    block, the sink of prefill's spare stripes) and every launch count
+    must be identical.  Returns the graphed engine, its completions and
+    its launch counts."""
     from k8s_dra_driver_torch.models import serve
 
     runs = []
@@ -1900,19 +1889,22 @@ def _dense_twin(torch, label, drive):
     streams = sorted((c.request_id, c.generated, c.status) for c in comps)
     if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
         raise AssertionError(f"{label}: graphed and eager completions differ")
-    for attr in ("host_syncs", "prefix_hits", "prefix_misses", "quarantined"):
+    for attr in attrs:
         if getattr(eng, attr) != getattr(twin, attr):
             raise AssertionError(f"{label}: graphed and eager {attr} differ: "
                                  f"{getattr(eng, attr)} against {getattr(twin, attr)}")
-    if not (torch.equal(eng._cache.k, twin._cache.k) and torch.equal(eng._cache.v, twin._cache.v)):
-        raise AssertionError(f"{label}: graphed and eager caches differ after the drain")
+    for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v)):
+        if not torch.equal(a[:, pool_from:], b_[:, pool_from:]):
+            raise AssertionError(f"{label}: graphed and eager caches differ from block "
+                                 f"{pool_from} on after the drain")
     if counts != twin_counts:
         raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
     generated = sum(len(c.generated) for c in comps)
     log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s graphed "
         f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s eager ({generated / twin_wall:.1f} "
-        f"tokens/s); host_syncs {eng.host_syncs}; graphed == eager twin in completions, "
-        f"statuses, host syncs, prefix counts, quarantines, cache bytes and launch counts")
+        f"tokens/s); {', '.join(f'{a} {getattr(eng, a)}' for a in attrs)}; graphed == eager "
+        f"twin in completions, statuses, {', '.join(attrs)}, cache bytes"
+        f"{f' from block {pool_from}' if pool_from else ''} and launch counts")
     graph_bookkeeping(torch, label, eng)
     return eng, comps, counts
 
@@ -1935,27 +1927,59 @@ def _teacher_forced_all(torch, label, cfg, params, reqs, comps, cache_dtype, tol
     return hit
 
 
-def dense_lifecycle_drive(eng, reqs, *, cancel_after=3, snapshot_after=None, max_bursts=5000):
-    """Admit ``reqs`` FIFO as slots free and burst-step in between; after
-    burst ``cancel_after`` cancel the resident request with the lowest id;
-    after burst ``snapshot_after`` take ``snapshot_active()`` as JSON.
-    Returns ``(completions, cancelled id, the snapshot's JSON, ids done by
-    then, the requests still queued then)``."""
-    queue, comps, cancelled, snap = list(reqs), [], None, None
+def snapshot_lifecycle_drive(eng, reqs, *, cancel_after, pick_cancel, snapshot_after,
+                             snapshot_parked=False, max_bursts=5000):
+    """Admit ``reqs`` FIFO as capacity frees and burst-step in between;
+    after burst ``cancel_after`` cancel the request ``pick_cancel(eng)``
+    names; after burst ``snapshot_after`` take ``snapshot_active()`` as
+    JSON, and with ``snapshot_parked`` again after the first burst that
+    leaves requests parked.  Returns ``(completions, the cancelled id,
+    {name: (JSON, ids done by then, the requests still queued then, entry
+    kinds)})``."""
+    from k8s_dra_driver_torch.models import serve
+
+    queue, comps, cancelled, snaps = list(reqs), [], None, {}
+
+    def snapshot(name):
+        admitting = {eng._slots[a["slot"]].request_id for a in getattr(eng, "_admitting", ())}
+        parked = {r["st"].request_id for r in getattr(eng, "_preempted", ())}
+        text = json.dumps(eng.snapshot_active())
+        kinds = {"resident": 0, "admitting": 0, "parked": 0}
+        for entry in json.loads(text)["requests"]:
+            rid = entry["request_id"]
+            kinds["admitting" if rid in admitting else "parked" if rid in parked
+                  else "resident"] += 1
+        snaps[name] = (text, {c.request_id for c in comps}, list(queue), kinds)
+
     for burst in range(1, max_bursts + 1):
         while queue and eng.free_slots():
-            eng.submit(**queue[0])
+            try:
+                eng.submit(**queue[0])
+            except serve.NoCapacity:
+                break
             queue.pop(0)
         eng.step_burst()
         if burst == cancel_after:
-            cancelled = min(st.request_id for st in eng._slots if st is not None)
+            cancelled = pick_cancel(eng)
             eng.cancel(cancelled)
         comps += eng.completions()
         if burst == snapshot_after:
-            snap = (json.dumps(eng.snapshot_active()), {c.request_id for c in comps}, list(queue))
-        if not queue and eng.free_slots() == eng.n_slots:
-            return comps, cancelled, snap
-    raise AssertionError(f"the dense lifecycle run did not drain in {max_bursts} bursts")
+            snapshot(f"after burst {burst}")
+        if snapshot_parked and getattr(eng, "_preempted", ()) and "parked" not in snaps:
+            snapshot("parked")
+        if (not queue and eng.free_slots() == eng.n_slots
+                and not getattr(eng, "_preempted", ())):
+            return comps, cancelled, snaps
+    raise AssertionError(f"the lifecycle run did not drain in {max_bursts} bursts")
+
+
+def _oldest_resident(eng):
+    return min(st.request_id for st in eng._slots if st is not None)
+
+
+def _newest_admitting(eng):
+    """The newest request still admitting behind the queue's head."""
+    return max(eng._slots[a["slot"]].request_id for a in eng._admitting[1:])
 
 
 def dense_steady_decode(torch, cfg, params, cache_dtype, rounds=4, bursts=4):
@@ -2028,7 +2052,7 @@ def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
     JSON into a fresh engine; int4 block weights, both int4 kernels
     launching; steady decode beside the paged engine; shedding on a
     queue limit.  Returns the int4 launch counts of the int4 leg."""
-    from k8s_dra_driver_torch.models import quant, serve
+    from k8s_dra_driver_torch.models import quant
     from k8s_dra_driver_torch.ops import int4_matmul as i4
     from k8s_dra_driver_torch.utils import faults
 
@@ -2046,7 +2070,7 @@ def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
             eng = _dense_engine(cfg, params, cache_dtype)
             return eng, eng.pump(reqs)
 
-        eng, comps, _ = _dense_twin(torch, f"{label} bf16", drive)
+        eng, comps, _ = _engine_twin(torch, f"{label} bf16", drive)
         short = [c.request_id for c in comps
                  if len(c.generated) != bf16[c.request_id]["max_tokens"]]
         if len(comps) != len(reqs) or short:
@@ -2082,12 +2106,13 @@ def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
             inj.arm(faults.FaultProfile(name="poison", **LIFECYCLE_POISON))
             eng = _dense_engine(cfg, params, cache_dtype, top_k=LIFECYCLE["top_k"],
                                 fault_injector=inj)
-            comps, cancelled, snap = dense_lifecycle_drive(
-                eng, lreqs, snapshot_after=DENSE_SNAPSHOT_AFTER)
-            snaps.append((snap, cancelled))
+            comps, cancelled, snap = snapshot_lifecycle_drive(
+                eng, lreqs, cancel_after=3, pick_cancel=_oldest_resident,
+                snapshot_after=DENSE_SNAPSHOT_AFTER)
+            snaps.append((snap[f"after burst {DENSE_SNAPSHOT_AFTER}"][:3], cancelled))
             return eng, comps
 
-        eng, comps, _ = _dense_twin(torch, f"{label} lifecycle", drive)
+        eng, comps, _ = _engine_twin(torch, f"{label} lifecycle", drive)
         (snap, cancelled), (twin_snap, _) = snaps
         statuses = {}
         for c in comps:
@@ -2179,6 +2204,7 @@ ADMISSION_POOL = 8 * 24 + 1   # every slot at 384 tokens: this traffic never sta
 ADMISSION_TIGHT = 73          # blocks, the null block included: about half the working set
 ADMISSION_SNAPSHOT_AFTER = 4  # bursts
 ADMISSION_CANCEL_AFTER = 2    # bursts: the newest request still admitting is cancelled
+HEAD_OF_LINE_ROUNDS = 4       # arrivals per engine: the residents' 256 tokens outlast 4 rounds
 
 
 def _admission_engine(cfg, params, cache_dtype, **kw):
@@ -2206,52 +2232,6 @@ def _admission_lifecycle_traffic(vocab: int, seed: int, n: int = 16):
     return reqs
 
 
-def _paged_twin(torch, label, drive):
-    """``drive() -> (engine, completions)`` run graphed (the main path,
-    launch counts zeroed just before) and eagerly: completions with their
-    statuses, host syncs, stalls, preemptions, quarantines, prefix hits and
-    misses, the pool's bytes from block 1 (block 0 is the null block, the
-    sink of prefill's spare stripes) and every launch count must be
-    identical.  Returns the graphed engine, its completions and launch
-    counts."""
-    from k8s_dra_driver_torch.models import serve
-    from k8s_dra_driver_torch.models.paged import NULL_BLOCK
-
-    runs = []
-    for eager in (False, True):
-        sync(torch)
-        _zero_serving_counts()
-        t0 = time.perf_counter()
-        with serve.disable_graphs() if eager else contextlib.nullcontext():
-            eng, comps = drive()
-        sync(torch)
-        runs.append((eng, comps, time.perf_counter() - t0, serve.launch_counts()))
-    (eng, comps, wall, counts), (twin, twin_comps, twin_wall, twin_counts) = runs
-    streams = sorted((c.request_id, c.generated, c.status) for c in comps)
-    if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
-        raise AssertionError(f"{label}: graphed and eager completions differ")
-    for attr in ("host_syncs", "stalled_steps", "preempted_count", "quarantined",
-                 "prefix_hits", "prefix_misses"):
-        if getattr(eng, attr) != getattr(twin, attr):
-            raise AssertionError(f"{label}: graphed and eager {attr} differ: "
-                                 f"{getattr(eng, attr)} against {getattr(twin, attr)}")
-    for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v)):
-        if not torch.equal(a[:, NULL_BLOCK + 1:], b_[:, NULL_BLOCK + 1:]):
-            raise AssertionError(f"{label}: graphed and eager pools differ outside the null block")
-    if counts != twin_counts:
-        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
-    generated = sum(len(c.generated) for c in comps)
-    log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s graphed "
-        f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s eager; host_syncs "
-        f"{eng.host_syncs}, stalled_steps {eng.stalled_steps}, preempted_count "
-        f"{eng.preempted_count}, prefix hits / misses {eng.prefix_hits} / {eng.prefix_misses} "
-        f"blocks; graphed == eager twin in completions, statuses, host syncs, stalls, "
-        f"preemptions, quarantines, prefix counts, pool bytes outside the null block and "
-        f"launch counts")
-    graph_bookkeeping(torch, label, eng)
-    return eng, comps, counts
-
-
 def leak_audit(label, eng):
     """Nothing resident, admitting or parked: every block is free but the
     store's, and every live reference is a store entry's own."""
@@ -2267,50 +2247,6 @@ def leak_audit(label, eng):
                              f"{len(store)}, references {len(refs)}")
 
 
-def admission_lifecycle_drive(eng, reqs, *, snapshot_after=ADMISSION_SNAPSHOT_AFTER,
-                              cancel_after=ADMISSION_CANCEL_AFTER, max_bursts=5000):
-    """Admit ``reqs`` FIFO as capacity frees and burst-step in between;
-    after burst ``cancel_after`` cancel the newest request still admitting;
-    after burst ``snapshot_after`` take ``snapshot_active()`` as JSON, and
-    again after the first burst that leaves requests parked.  Returns
-    ``(completions, the cancelled id, {name: (JSON, ids done by then, the
-    requests still queued then, entry kinds)})``."""
-    from k8s_dra_driver_torch.models import serve
-
-    queue, comps, cancelled, snaps = list(reqs), [], None, {}
-
-    def snapshot(name):
-        admitting = {eng._slots[a["slot"]].request_id for a in eng._admitting}
-        parked = {r["st"].request_id for r in eng._preempted}
-        text = json.dumps(eng.snapshot_active())
-        kinds = {"resident": 0, "admitting": 0, "parked": 0}
-        for entry in json.loads(text)["requests"]:
-            rid = entry["request_id"]
-            kinds["admitting" if rid in admitting else "parked" if rid in parked
-                  else "resident"] += 1
-        snaps[name] = (text, {c.request_id for c in comps}, list(queue), kinds)
-
-    for burst in range(1, max_bursts + 1):
-        while queue and eng.free_slots():
-            try:
-                eng.submit(**queue[0])
-            except serve.NoCapacity:
-                break
-            queue.pop(0)
-        eng.step_burst()
-        if burst == cancel_after:
-            cancelled = max(eng._slots[a["slot"]].request_id for a in eng._admitting[1:])
-            eng.cancel(cancelled)
-        comps += eng.completions()
-        if burst == snapshot_after:
-            snapshot("after burst 4")
-        if eng._preempted and "parked" not in snaps:
-            snapshot("parked")
-        if not queue and eng.free_slots() == eng.n_slots and not eng._preempted:
-            return comps, cancelled, snaps
-    raise AssertionError(f"the admission lifecycle run did not drain in {max_bursts} bursts")
-
-
 def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
     """Chunked admission and the prefix store in the paged engine at full
     width, in six legs: the prefix traffic graphed against an eager twin
@@ -2321,7 +2257,7 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
     (preemption of requests holding shared blocks, a cancel while
     admitting, snapshots restored through JSON, a leak audit); int4 block
     weights at 1-block chunks (the split-K kernel at M = 16)."""
-    from k8s_dra_driver_torch.models import quant, serve
+    from k8s_dra_driver_torch.models import quant
     from k8s_dra_driver_torch.ops import int4_matmul as i4
 
     label = "serve bf16 admission"
@@ -2334,11 +2270,12 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
         return out
 
     def graphed_leg():
-        def drive():
+        def drive(eager):
             eng = _admission_engine(cfg, params, cache_dtype)
             return eng, eng.pump(preqs)
 
-        eng, comps, _ = _paged_twin(torch, f"{label} prefix+chunked", drive)
+        eng, comps, _ = _engine_twin(torch, f"{label} prefix+chunked", drive, PAGED_TWIN_ATTRS,
+                                     pool_from=1)
         short = [c.request_id for c in comps if len(c.generated) != preqs[c.request_id]["max_tokens"]]
         if len(comps) != len(preqs) or short or eng.prefix_hits == 0:
             raise AssertionError(f"{label}: {len(comps)} completions, short {short}, "
@@ -2365,19 +2302,25 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
                 f"{len(base)} (reported, not required: a suffix or chunk product at another M "
                 f"may take another cuBLAS order than the whole prefill at M = 256)")
 
-    def head_of_line_leg():
+    def head_of_line_leg(rounds=HEAD_OF_LINE_ROUNDS):
+        """Per engine (4-block chunks, whole admission): each round times
+        a burst alone, then a fresh 256-token arrival (no hit, one new
+        token) among the 7 decoding residents: its time to first token
+        and the residents' longest gap between bursts until then.  The
+        engines alternate within each round, in turn first."""
         r = np.random.RandomState(SEED + 17)
         residents = [r.randint(0, cfg.vocab_size, size=32).tolist() for _ in range(7)]
-        warm, arrival = (r.randint(0, cfg.vocab_size, size=256).tolist() for _ in range(2))
-        out = {}
+        warm, *arrivals = (r.randint(0, cfg.vocab_size, size=256).tolist()
+                           for _ in range(rounds + 1))
+        engines = {}
         for chunk in (4, 0):
             eng = _admission_engine(cfg, params, cache_dtype, prefill_chunk_blocks=chunk)
+            eng.submit(warm, max_tokens=1)  # builds and captures the arrival's programs
             for p in residents:
                 eng.submit(p, max_tokens=256)
-            eng.submit(warm, max_tokens=1)  # builds and captures the arrival's programs
             while eng._admitting or eng.free_slots() != 1:
                 eng.step_burst()
-            for _ in range(3):
+            for _ in range(2):  # the burst's second call captures it, out of the timed rounds
                 eng.step_burst()
             activated = []
             advance = eng._advance_admission
@@ -2389,29 +2332,47 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
                     activated.append(time.perf_counter())  # its first token was read back
 
             eng._advance_admission = timed
-            sync(torch)
-            ends = [time.perf_counter()]
-            eng.step_burst()
-            ends.append(time.perf_counter())
-            t_sub = time.perf_counter()
-            eng.submit(arrival, max_tokens=8)
-            if not chunk:
-                activated.append(time.perf_counter())
-            while not activated:
+            engines[chunk] = (eng, activated)
+        out = {4: [], 0: []}
+        for rnd, arrival in enumerate(arrivals):
+            for chunk in ((4, 0) if rnd % 2 == 0 else (0, 4)):
+                eng, activated = engines[chunk]
+                activated.clear()
+                sync(torch)
+                ends = [time.perf_counter()]
                 eng.step_burst()
                 ends.append(time.perf_counter())
-            eng.step_burst()
-            ends.append(time.perf_counter())
-            gaps = np.diff(ends) * 1e3
-            ttft = (activated[0] - t_sub) * 1e3
-            out[chunk] = (ttft, float(gaps[1:].max()), float(gaps[0]))
-            log(f"{label} head-of-line, prefill_chunk_blocks {chunk}: the arrival's time to "
-                f"first token {ttft:.2f} ms; the residents' longest gap between bursts while it "
-                f"admits {gaps[1:].max():.2f} ms (gaps {' / '.join(f'{g:.2f}' for g in gaps)} "
-                f"ms; a burst alone {gaps[0]:.2f} ms)")
-            del eng
+                t_sub = time.perf_counter()
+                eng.submit(arrival, max_tokens=1)  # retires at its first token
+                if not chunk:
+                    activated.append(time.perf_counter())
+                while not activated:
+                    eng.step_burst()
+                    ends.append(time.perf_counter())
+                if len(ends) == 2:  # whole admission: the burst after it
+                    eng.step_burst()
+                    ends.append(time.perf_counter())
+                if eng.free_slots() != 1:
+                    raise AssertionError(f"{label} head-of-line: a resident finished in round "
+                                         f"{rnd}: the rounds outlast the residents")
+                gaps = np.diff(ends) * 1e3
+                ttft = (activated[0] - t_sub) * 1e3
+                out[chunk].append((ttft, float(gaps[1:].max()), float(gaps[0])))
+                log(f"{label} head-of-line round {rnd}, prefill_chunk_blocks {chunk}: time to "
+                    f"first token {ttft:.3f} ms; resident gaps {' / '.join(f'{g:.3f}' for g in gaps)} "
+                    f"ms (a burst alone, then while it admits); longest gap less a burst alone "
+                    f"{gaps[1:].max() - gaps[0]:.3f} ms")
+        med = {}
+        for chunk, rows in out.items():
+            ttft, longest, alone = (np.array(col) for col in zip(*rows))
+            med[chunk] = (float(np.median(ttft)), float(np.median(longest - alone)),
+                          float(np.median(longest)), float(np.median(alone)))
+            log(f"{label} head-of-line, prefill_chunk_blocks {chunk}, medians of {len(rows)} "
+                f"arrivals: time to first token {med[chunk][0]:.3f} ms; the stall the admission "
+                f"adds to the residents' longest gap {med[chunk][1]:.3f} ms (longest gap "
+                f"{med[chunk][2]:.3f} ms, a burst alone {med[chunk][3]:.3f} ms)")
         log(f"{label} head-of-line: chunked / whole: time to first token "
-            f"{out[4][0] / out[0][0]:.3f}, longest resident gap {out[4][1] / out[0][1]:.3f}")
+            f"{med[4][0] / med[0][0]:.3f}; added stall {med[4][1] / med[0][1]:.3f}")
 
     def admission_cost_leg():
         r = np.random.RandomState(SEED + 19)
@@ -2432,9 +2393,9 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
         admit(shared)  # stores its 15 storable blocks
         hits_before = eng.prefix_hits
         for _ in range(2):
-            admit(shared)  # builds and captures "suffix 15"
+            admit(shared)  # builds and captures "chunk 16", the 16-token suffix
         hit = [admit(shared) for _ in range(5)]
-        if eng.prefix_hits - hits_before != 7 * 15:  # each of the 7 ran "suffix 15"
+        if eng.prefix_hits - hits_before != 7 * 15:  # each of the 7 ran "chunk 16"
             raise AssertionError(f"{label} admission: {eng.prefix_hits - hits_before} hits")
         log(f"{label} admission cost (256-token prompt, unchunked, graphed): no hit "
             f"{' / '.join(f'{t:.2f}' for t in miss)} ms (median {np.median(miss):.2f}); 15 "
@@ -2445,14 +2406,17 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
         lreqs = _admission_lifecycle_traffic(cfg.vocab_size, SEED + 23)
         drives = []
 
-        def drive():
+        def drive(eager):
             eng = _admission_engine(cfg, params, cache_dtype, n_blocks=ADMISSION_TIGHT,
                                     top_k=LIFECYCLE["top_k"])
-            comps, cancelled, snaps = admission_lifecycle_drive(eng, lreqs)
+            comps, cancelled, snaps = snapshot_lifecycle_drive(
+                eng, lreqs, cancel_after=ADMISSION_CANCEL_AFTER, pick_cancel=_newest_admitting,
+                snapshot_after=ADMISSION_SNAPSHOT_AFTER, snapshot_parked=True)
             drives.append((cancelled, snaps))
             return eng, comps
 
-        eng, comps, _ = _paged_twin(torch, f"{label} lifecycle", drive)
+        eng, comps, _ = _engine_twin(torch, f"{label} lifecycle", drive, PAGED_TWIN_ATTRS,
+                                     pool_from=1)
         (cancelled, snaps), (_, twin_snaps) = drives
         if {k: v[0] for k, v in snaps.items()} != {k: v[0] for k, v in twin_snaps.items()}:
             raise AssertionError(f"{label} lifecycle: graphed and eager snapshots differ")
@@ -2500,36 +2464,51 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
     def int4_leg():
         p4 = quant.quantize_blocks(params, bits=4)
         ireqs = preqs[:6]
-        sync(torch)
-        _zero_serving_counts()
-        eng = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=1)
-        by_program: dict = {}
-        run = eng._run
+        # the first x of each int4 product shape the path gives the wrapper
+        # (a program's first call runs eagerly, so every shape shows there)
+        inputs: dict = {}
+        wrapper = i4.int4_matmul
 
-        def counted(name, fn):
-            before = dict(i4.kernel_launches)
-            out = run(name, fn)
-            got = by_program.setdefault(name.split(" k=")[0], dict.fromkeys(before, 0))
-            for k in before:
-                got[k] += i4.kernel_launches[k] - before[k]
-            return out
+        def recorded(x, packed, scale, group_size):
+            shape = (x.numel() // x.shape[-1], x.shape[-1], packed.shape[1], x.dtype)
+            if shape not in inputs and not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+                inputs[shape] = (x.reshape(-1, x.shape[-1]).clone(), packed, scale, group_size)
+            return wrapper(x, packed, scale, group_size)
 
-        eng._run = counted
-        comps = eng.pump(ireqs)
-        sync(torch)
-        splitk = i4.kernel_launches["int4_splitk"]
-        log(f"{label} int4 (prefill_chunk_blocks 1): launches by program {by_program}")
-        chunk16 = by_program.get("chunk 16", {})
-        if not chunk16.get("int4_splitk") or chunk16.get("int4_wgmma") or len(comps) != 6:
-            raise AssertionError(f"{label} int4: the 16-token chunks did not go through "
-                                 f"int4_splitk alone: {by_program}")
-        graph_bookkeeping(torch, f"{label} int4", eng)
+        i4.int4_matmul = recorded
+        try:
+            sync(torch)
+            _zero_serving_counts()
+            eng = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=1)
+            by_program: dict = {}
+            run = eng._run
+
+            def counted(name, fn):
+                before = dict(i4.kernel_launches)
+                out = run(name, fn)
+                got = by_program.setdefault(name.split(" k=")[0], dict.fromkeys(before, 0))
+                for k in before:
+                    got[k] += i4.kernel_launches[k] - before[k]
+                return out
+
+            eng._run = counted
+            comps = eng.pump(ireqs)
+            sync(torch)
+            splitk = i4.kernel_launches["int4_splitk"]
+            log(f"{label} int4 (prefill_chunk_blocks 1): launches by program {by_program}")
+            chunk16 = by_program.get("chunk 16", {})
+            if not chunk16.get("int4_splitk") or chunk16.get("int4_wgmma") or len(comps) != 6:
+                raise AssertionError(f"{label} int4: the 16-token chunks did not go through "
+                                     f"int4_splitk alone: {by_program}")
+            graph_bookkeeping(torch, f"{label} int4", eng)
+            _zero_serving_counts()
+            whole = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=0)
+            wcomps = whole.pump(ireqs)
+            sync(torch)
+            wcounts = dict(i4.kernel_launches)
+        finally:
+            i4.int4_matmul = wrapper
         _teacher_forced_all(torch, f"{label} int4", cfg, p4, ireqs, comps, cache_dtype, tol)
-        _zero_serving_counts()
-        whole = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=0)
-        wcomps = whole.pump(ireqs)
-        sync(torch)
-        wcounts = dict(i4.kernel_launches)
         log(f"{label} int4 unchunked twin (suffixes after the stored system prompt, whole "
             f"prefills): launches {wcounts}")
         if not wcounts["int4_wgmma"]:
@@ -2539,6 +2518,27 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
         log(f"{label} int4: int4_splitk launches at M = 16 (the chunks) "
             f"{chunk16['int4_splitk']}, of {splitk} on the chunked path; "
             f"int4_wgmma {wcounts['int4_wgmma']} on the unchunked twin")
+        # each shape's kernel against the plain version on the path's own x
+        kernels = set()
+        for (m, k, n, dtype), (x, packed, scale, group) in sorted(
+                inputs.items(), key=lambda item: item[0][:3]):
+            dname = str(dtype).split(".")[-1]
+            kern = i4.kernel_for(m, dtype)
+            got = wrapper(x, packed, scale, group)
+            want = i4.int4_matmul_plain(x, packed, scale, group)
+            err, limit, top, _, over = int4_check(x, packed, scale, got, want, INT4_STEP[dname][0])
+            log(f"{label} int4 M={m} K={k} N={n} {dname} ({kern}), the path's own x: max_abs_err "
+                f"{err:.3g}, limit there {limit:.3g}, max|plain| {top:.3g}; elements over the "
+                f"limit {over}")
+            if over:
+                raise AssertionError(f"{label} int4: {kern} disagrees with the plain version "
+                                     f"at M={m} K={k} N={n}")
+            kernels.add((kern, m))
+        ms = {kern: sorted(m for kk, m in kernels if kk == kern) for kern, _ in kernels}
+        log(f"{label} int4: {len(inputs)} product shapes of the path held against the plain "
+            f"version elementwise (INT4_STEP); M by kernel {ms}")
+        if 16 not in ms.get("int4_splitk", ()) or not ms.get("int4_wgmma"):
+            raise AssertionError(f"{label} int4: the path's shapes missed a kernel: {ms}")
 
     main_streams = leg("graphed", graphed_leg)
     leg("features off", lambda: features_off_leg(main_streams))

@@ -260,8 +260,8 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
 def paged_prefill_suffix(params, prompt, cache: PagedKVCache, block_table_row, *,
                          cfg: ModelConfig, cached_blocks: int):
     """Prefix-hit admission: one chunk from the ``cached_blocks`` shared
-    blocks to the bucket's end (one program per distinct cached count, as
-    the reference compiles one).  Returns the cache."""
+    blocks to the bucket's end (the engine runs it as the "chunk w" program
+    of that width).  Returns the cache."""
     done = torch.full((), cached_blocks, dtype=torch.int32, device=prompt.device)
     return paged_prefill_chunk(
         params, prompt, cache, block_table_row, done, cfg=cfg,
@@ -417,10 +417,11 @@ class PagedServeEngine:
     (``serve.GraphedProgram``, in ``graphs``), eagerly inside
     ``serve.disable_graphs()``; on the CPU it runs eagerly.  The programs
     are prefill at the prompt bucket, the first token, the burst at
-    ``sync_interval`` and at 1, one "chunk w" per chunk width ``w`` and one
-    "suffix c" per cached-block count ``c``: at most :attr:`graph_bound`
-    (``4 + prefill_chunk_blocks + ceil(bucket/bs) - 1`` with both features
-    on and a bucket that is a multiple of the block size).  The device
+    ``sync_interval`` and at 1, and one "chunk w" per width ``w`` a chunk
+    or a prefix hit's suffix (the bucket after ``c`` cached blocks, one
+    chunk from ``done = c``) takes: at most :attr:`graph_bound` (``4 +
+    ceil(bucket/bs) - 1`` with the store on, a bucket that is a multiple
+    of the block size and chunks narrower than the bucket).  The device
     state those programs read and write (block table, active mask, last
     token, position, stop depth, temperature, base key and poison mask per
     slot; the admission's prompt, prefill table row, length, slot,
@@ -560,16 +561,18 @@ class PagedServeEngine:
     def graph_bound(self) -> int:
         """The most programs (CUDA graphs on the card) this engine runs:
         prefill, the first token, the bursts at ``sync_interval`` and at 1,
-        a "chunk w" for each width a chunk can take (whole blocks up to
-        ``prefill_chunk_blocks``, and a bucket's end inside a block) and a
-        "suffix c" for each cached-block count ``1 .. (bucket - 1) // bs``."""
+        and a "chunk w" for each width a chunk can take (whole blocks up to
+        ``prefill_chunk_blocks``, and a bucket's end inside a block) or a
+        prefix hit's suffix can take (``bucket - c * bs`` for each cached
+        count ``c`` in ``1 .. (bucket - 1) // bs``)."""
         bs, bucket = self.block_size, self.prompt_bucket
         widths = set()
         if self.prefill_chunk_blocks > 0:
             top = min(self.prefill_chunk_blocks * bs, bucket)
             widths = {w for w in range(1, top + 1) if w % bs == 0 or (bucket - w) % bs == 0}
-        suffixes = (bucket - 1) // bs if self.prefix_cache_blocks > 0 else 0
-        return 4 + len(widths) + suffixes
+        if self.prefix_cache_blocks > 0:
+            widths |= {bucket - c * bs for c in range(1, (bucket - 1) // bs + 1)}
+        return 4 + len(widths)
 
     @property
     def on_prefix_store(self):
@@ -1083,10 +1086,11 @@ class PagedServeEngine:
 
     def _prefill_slot(self, slot: int, tokens: list[int], cached: int) -> None:
         """Prefill ``tokens`` into ``slot``'s blocks: the whole bucket, or
-        with ``cached`` shared blocks only the suffix after them."""
+        with ``cached`` shared blocks only the suffix after them, as one
+        chunk (``paged_prefill_suffix``'s computation)."""
         self._stage(slot, tokens)
         if cached:
-            self._run(f"suffix {cached}", self._suffix_program(cached))
+            self._run_chunk(cached, self.prompt_bucket - cached * self.block_size)
         else:
             self._run("prefill", self._prefill)
 
@@ -1149,12 +1153,6 @@ class PagedServeEngine:
             paged_prefill_chunk(self.params, self._prompt, self._cache, self._prefill_row,
                                 self._admit_done, cfg=self.cfg, chunk_len=width)
         return chunk
-
-    def _suffix_program(self, cached: int):
-        def suffix():
-            paged_prefill_suffix(self.params, self._prompt, self._cache, self._prefill_row,
-                                 cfg=self.cfg, cached_blocks=cached)
-        return suffix
 
     def _first_token(self):
         tok, _ = _paged_first_token(

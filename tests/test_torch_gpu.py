@@ -581,8 +581,8 @@ def test_graphed_admission_engine_matches_the_eager_engine(cuda, bits, chunk, n_
     assert counts == want_counts and counts["append"] > 0
     assert graphed.prefix_hits > 0 and (n_blocks > 9 or graphed.preempted_count > 0)
     names = set(graphed.graphs)
-    assert 0 < len(names) <= graphed.graph_bound == 4 + (2 if chunk else 0) + 3
-    assert any(n.startswith("chunk" if chunk else "suffix") for n in names)
+    assert 0 < len(names) <= graphed.graph_bound == 4 + 3  # widths 8, 16, 24
+    assert any(n.startswith("chunk") for n in names)  # with chunk 0, the suffixes
     assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
     assert graphed.free_blocks == n_blocks - 1 - len(graphed._prefix_store)
 
