@@ -95,7 +95,26 @@ exits 2 before any result):
    (``int4_wgmma`` in suffixes and prefills), both teacher-forced, and
    each int4 product shape of the two runs held against the plain
    version on the first input the path gave it;
-10. training FLAGSHIP_MODERN at full width in bf16 through
+10. speculative serving ("serve bf16 spec"): FLAGSHIP_MODERN in bf16, 8
+   slots, block 16, bucket 256, ``spec_gamma`` 4, in five legs, each
+   timed: the serving run's 16 requests through the paged engine with
+   the int8 self-draft, graphed (the main path) against an eager twin
+   (completions, statuses, host syncs, stalls, pool bytes from block 1,
+   the draft cache's bytes, launch counts), the graphs within
+   ``graph_bound``, streams equal to the plain graphed engine's counted
+   and every token teacher-forced, and the append kernel at nq 5 held
+   against its plain version on each layer's first verify window (output
+   and written pages); int4 target and self-draft, every product shape
+   (``int4_splitk`` at M 8, ``int4_wgmma`` at M 40) held on its own x;
+   the dense engine graphed against eager, and ``speculative_decode`` at
+   batch 8 teacher-forced beside ``greedy_decode``; the prefix store and
+   4-block chunks with speculation graphed against eager, and a lifecycle
+   on a 73-block pool (preemptions, a snapshot restored through JSON);
+   the plain graphed step, the int8 self-draft and a 2-layer draft in
+   alternating windows (ms per round and per committed token, tokens a
+   round, acceptance), one profiled graphed round each and one eager
+   round split into draft steps, verify pass and the rest;
+11. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -107,15 +126,15 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-11. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+12. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-12. resume: the graphed bf16 step saved after 2 steps by
+13. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-13. training in f32 at 2 layers: the graphed flash step against its eager
+14. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
@@ -1871,9 +1890,10 @@ def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0):
     path, launch counts zeroed just before) and eagerly: completions with
     their statuses, the engine counters ``attrs``, the final cache bytes
     from block ``pool_from`` on (1 for a paged pool: block 0 is the null
-    block, the sink of prefill's spare stripes) and every launch count
-    must be identical.  Returns the graphed engine, its completions and
-    its launch counts."""
+    block, the sink of prefill's spare stripes), the draft cache's bytes
+    where the engine speculates, and every launch count must be
+    identical.  Returns the graphed engine, its completions and its
+    launch counts."""
     from k8s_dra_driver_torch.models import serve
 
     runs = []
@@ -1897,6 +1917,9 @@ def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0):
         if not torch.equal(a[:, pool_from:], b_[:, pool_from:]):
             raise AssertionError(f"{label}: graphed and eager caches differ from block "
                                  f"{pool_from} on after the drain")
+    if getattr(eng, "_d_cache", None) is not None and not all(
+            torch.equal(a, b_) for a, b_ in zip(eng._d_cache, twin._d_cache)):
+        raise AssertionError(f"{label}: graphed and eager draft caches differ after the drain")
     if counts != twin_counts:
         raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
     generated = sum(len(c.generated) for c in comps)
@@ -1904,7 +1927,9 @@ def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0):
         f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s eager ({generated / twin_wall:.1f} "
         f"tokens/s); {', '.join(f'{a} {getattr(eng, a)}' for a in attrs)}; graphed == eager "
         f"twin in completions, statuses, {', '.join(attrs)}, cache bytes"
-        f"{f' from block {pool_from}' if pool_from else ''} and launch counts")
+        f"{f' from block {pool_from}' if pool_from else ''}"
+        f"{', draft cache bytes' if getattr(eng, '_d_cache', None) is not None else ''} "
+        f"and launch counts")
     graph_bookkeeping(torch, label, eng)
     return eng, comps, counts
 
@@ -2196,6 +2221,66 @@ def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
     return counts
 
 
+def _int4_recorder(torch, i4):
+    """Wrap ``i4.int4_matmul`` to keep the first x of each product shape
+    the path gives it (a program's first call runs eagerly, so every shape
+    shows there).  Returns ``(inputs, restore)``."""
+    inputs: dict = {}
+    wrapper = i4.int4_matmul
+
+    def recorded(x, packed, scale, group_size):
+        shape = (x.numel() // x.shape[-1], x.shape[-1], packed.shape[1], x.dtype)
+        if shape not in inputs and not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            inputs[shape] = (x.reshape(-1, x.shape[-1]).clone(), packed, scale, group_size)
+        return wrapper(x, packed, scale, group_size)
+
+    i4.int4_matmul = recorded
+
+    def restore():
+        i4.int4_matmul = wrapper
+
+    return inputs, restore
+
+
+def _int4_by_program(eng, i4):
+    """Wrap ``eng._run`` to count each int4 kernel's launches by program
+    (a burst under its name less " k=K").  Returns the dict it fills."""
+    by_program: dict = {}
+    run = eng._run
+
+    def counted(name, fn):
+        before = dict(i4.kernel_launches)
+        out = run(name, fn)
+        got = by_program.setdefault(name.split(" k=")[0], dict.fromkeys(before, 0))
+        for k in before:
+            got[k] += i4.kernel_launches[k] - before[k]
+        return out
+
+    eng._run = counted
+    return by_program
+
+
+def _hold_int4_inputs(torch, label, i4, inputs):
+    """Each recorded product shape's kernel against the plain version on
+    the path's own x within ``INT4_STEP``.  Returns ``{kernel: [M, ...]}``."""
+    kernels = set()
+    for (m, k, n, dtype), (x, packed, scale, group) in sorted(
+            inputs.items(), key=lambda item: item[0][:3]):
+        dname = str(dtype).split(".")[-1]
+        kern = i4.kernel_for(m, dtype)
+        got = i4.int4_matmul(x, packed, scale, group)
+        want = i4.int4_matmul_plain(x, packed, scale, group)
+        err, limit, top, _, over = int4_check(x, packed, scale, got, want, INT4_STEP[dname][0])
+        log(f"{label} M={m} K={k} N={n} {dname} ({kern}), the path's own x: max_abs_err "
+            f"{err:.3g}, limit there {limit:.3g}, max|plain| {top:.3g}; elements over the "
+            f"limit {over}")
+        if over:
+            raise AssertionError(f"{label}: {kern} disagrees with the plain version at "
+                                 f"M={m} K={k} N={n}")
+        kernels.add((kern, m))
+    return {kern: sorted(m for kk, m in kernels if kk == kern) for kern, _ in kernels}
+
+
 # the paged engine's admission phase: the serving engines' slots, bucket
 # and burst; a 16-block prefix store and 4-block chunks
 ADMISSION = dict(n_slots=8, block_size=16, prompt_bucket=256, sync_interval=8,
@@ -2464,34 +2549,12 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
     def int4_leg():
         p4 = quant.quantize_blocks(params, bits=4)
         ireqs = preqs[:6]
-        # the first x of each int4 product shape the path gives the wrapper
-        # (a program's first call runs eagerly, so every shape shows there)
-        inputs: dict = {}
-        wrapper = i4.int4_matmul
-
-        def recorded(x, packed, scale, group_size):
-            shape = (x.numel() // x.shape[-1], x.shape[-1], packed.shape[1], x.dtype)
-            if shape not in inputs and not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
-                inputs[shape] = (x.reshape(-1, x.shape[-1]).clone(), packed, scale, group_size)
-            return wrapper(x, packed, scale, group_size)
-
-        i4.int4_matmul = recorded
+        inputs, restore = _int4_recorder(torch, i4)
         try:
             sync(torch)
             _zero_serving_counts()
             eng = _admission_engine(cfg, p4, cache_dtype, prefill_chunk_blocks=1)
-            by_program: dict = {}
-            run = eng._run
-
-            def counted(name, fn):
-                before = dict(i4.kernel_launches)
-                out = run(name, fn)
-                got = by_program.setdefault(name.split(" k=")[0], dict.fromkeys(before, 0))
-                for k in before:
-                    got[k] += i4.kernel_launches[k] - before[k]
-                return out
-
-            eng._run = counted
+            by_program = _int4_by_program(eng, i4)
             comps = eng.pump(ireqs)
             sync(torch)
             splitk = i4.kernel_launches["int4_splitk"]
@@ -2507,7 +2570,7 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
             sync(torch)
             wcounts = dict(i4.kernel_launches)
         finally:
-            i4.int4_matmul = wrapper
+            restore()
         _teacher_forced_all(torch, f"{label} int4", cfg, p4, ireqs, comps, cache_dtype, tol)
         log(f"{label} int4 unchunked twin (suffixes after the stored system prompt, whole "
             f"prefills): launches {wcounts}")
@@ -2518,23 +2581,7 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
         log(f"{label} int4: int4_splitk launches at M = 16 (the chunks) "
             f"{chunk16['int4_splitk']}, of {splitk} on the chunked path; "
             f"int4_wgmma {wcounts['int4_wgmma']} on the unchunked twin")
-        # each shape's kernel against the plain version on the path's own x
-        kernels = set()
-        for (m, k, n, dtype), (x, packed, scale, group) in sorted(
-                inputs.items(), key=lambda item: item[0][:3]):
-            dname = str(dtype).split(".")[-1]
-            kern = i4.kernel_for(m, dtype)
-            got = wrapper(x, packed, scale, group)
-            want = i4.int4_matmul_plain(x, packed, scale, group)
-            err, limit, top, _, over = int4_check(x, packed, scale, got, want, INT4_STEP[dname][0])
-            log(f"{label} int4 M={m} K={k} N={n} {dname} ({kern}), the path's own x: max_abs_err "
-                f"{err:.3g}, limit there {limit:.3g}, max|plain| {top:.3g}; elements over the "
-                f"limit {over}")
-            if over:
-                raise AssertionError(f"{label} int4: {kern} disagrees with the plain version "
-                                     f"at M={m} K={k} N={n}")
-            kernels.add((kern, m))
-        ms = {kern: sorted(m for kk, m in kernels if kk == kern) for kern, _ in kernels}
+        ms = _hold_int4_inputs(torch, f"{label} int4", i4, inputs)
         log(f"{label} int4: {len(inputs)} product shapes of the path held against the plain "
             f"version elementwise (INT4_STEP); M by kernel {ms}")
         if 16 not in ms.get("int4_splitk", ()) or not ms.get("int4_wgmma"):
@@ -2546,6 +2593,416 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
     leg("admission cost", admission_cost_leg)
     leg("lifecycle", lifecycle_leg)
     leg("int4", int4_leg)
+
+
+# speculative serving: the serving engines' slots, block and bucket, a
+# verify window of 5 (4 draft tokens and the bonus)
+SPEC = dict(n_slots=8, block_size=16, prompt_bucket=256, sync_interval=8, spec_gamma=4)
+SPEC_TIGHT = 73               # blocks, the null block included, for the lifecycle
+SPEC_SNAPSHOT_AFTER = 4       # rounds
+SPEC_TIMING_ROUNDS = 4        # alternating rounds of the timing leg
+SPEC_DECODE = dict(batch=8, prompt=128, steps=64)  # the offline speculative_decode
+
+
+def _spec_engine(cfg, params, cache_dtype, **kw):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    kw = dict(SPEC, **kw)
+    kw.setdefault("n_blocks", 8 * 24 + 1)  # every slot at 384 tokens: no stall
+    return PagedServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, device=DEV, **kw)
+
+
+def _spec_lifecycle_traffic(vocab: int, seed: int, n: int = 16):
+    """The admission phase's lifecycle traffic, greedy (speculation
+    verifies the argmax): two 64-token system prompts, priorities 0 and 1
+    by pairs."""
+    reqs = _admission_lifecycle_traffic(vocab, seed, n)
+    for r_ in reqs:
+        r_.pop("temperature", None)
+        r_.pop("seed", None)
+    return reqs
+
+
+def _split_round(torch, label, eng):
+    """Device time of one eager round of ``eng`` and of its two parts run
+    alone on the state it leaves (each writes only positions the next
+    round rewrites from the committed frontier): the draft's proposals
+    and the verify pass; the rest (the tail and the state writes) is the
+    round less both.  Kernel time summed over device events, as
+    ``profile_window`` sums it.  Returns ``(draft, verify, rest)`` in us,
+    or None without device events."""
+    from k8s_dra_driver_torch.models import paged, serve
+
+    def busy(fn):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            sync(torch)
+        return out, sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA)
+
+    try:
+        gamma, cfg = eng.spec_gamma, eng.cfg
+        with serve.disable_graphs():
+            _, round_us = busy(eng.step)
+            pos = eng._pos.clamp(max=cfg.max_seq - 1 - gamma)
+            (_, proposed), draft_us = busy(lambda: serve.draft_propose(
+                eng.draft_params, eng._d_cache, eng._last, pos, eng._active, cfg=cfg,
+                gamma=gamma))
+            window = torch.cat([eng._last[:, None], proposed], dim=1)
+            _, verify_us = busy(lambda: paged.paged_decode_chunk(
+                eng.params, eng._cache, eng._table, window, pos, cfg=cfg, active=eng._active))
+        if round_us <= 0:
+            log(f"{label}: the profile holds no device events")
+            return None
+        rest = round_us - draft_us - verify_us
+        log(f"{label}: one eager round, device time {round_us:.0f} us; alone, the draft's "
+            f"{gamma} steps and priming step {draft_us:.0f} us ({draft_us / round_us:.3f}), the "
+            f"verify pass {verify_us:.0f} us ({verify_us / round_us:.3f}); the rest "
+            f"{rest:.0f} us ({rest / round_us:.3f})")
+        return draft_us, verify_us, rest
+    except Exception as exc:  # the profiler is a reading aid, not a check
+        log(f"{label}: split profile not taken: {type(exc).__name__}: {exc}")
+        return None
+
+
+def phase_serve_spec(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
+    """Speculative serving at full width (``spec_gamma`` 4, the int8
+    self-draft unless a leg says otherwise), in six legs: the serving run's
+    16 requests through the paged engine graphed (the main path) against an
+    eager twin, counted against the plain graphed engine's streams and
+    teacher-forced, with the append kernel held against its plain version
+    on the first verify window's own inputs (nq 5) in every layer; int4
+    target and self-draft (``int4_splitk`` at M 8 in the draft,
+    ``int4_wgmma`` at M 40 in the verify pass), each product shape held on
+    its own x; the dense engine graphed against eager and
+    ``speculative_decode`` at batch 8 against ``greedy_decode``; the
+    prefix store and 4-block chunks with speculation, graphed against
+    eager, and a lifecycle on a tight pool with a snapshot restored; the
+    round's time beside the plain step's.  Returns the graphed main run's
+    launch counts."""
+    from k8s_dra_driver_torch.models import decode, quant, serve, speculative
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    label = "serve bf16 spec"
+    gamma = SPEC["spec_gamma"]
+    greedy = _greedy_dicts(reqs)
+    out: dict = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+        return res
+
+    def record_verify_windows():
+        """Wrap the append wrapper to keep, per layer, the first verify
+        window's inputs (q, new k/v, the layer's pools before the write,
+        table, pos, write mask)."""
+        rec: dict = {}
+        wrapper = pa.paged_append_attention
+
+        def recording(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer,
+                      write_mask=None):
+            if (q.shape[1] == gamma + 1 and layer not in rec
+                    and not (q.is_cuda and torch.cuda.is_current_stream_capturing())):
+                rec[layer] = tuple(None if t is None else t.clone() for t in (
+                    q, new_k, new_v, k_pools[layer], v_pools[layer], block_table, pos,
+                    write_mask))
+            return wrapper(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer,
+                           write_mask=write_mask)
+
+        pa.paged_append_attention = recording
+
+        def restore():
+            pa.paged_append_attention = wrapper
+
+        return rec, restore
+
+    def main_leg():
+        def drive(eager):
+            eng = _spec_engine(cfg, params, cache_dtype)
+            return eng, eng.pump(reqs)
+
+        rec, restore = record_verify_windows()
+        try:
+            eng, comps, counts = _engine_twin(torch, label, drive, PAGED_TWIN_ATTRS, pool_from=1)
+        finally:
+            restore()
+        short = [c.request_id for c in comps
+                 if len(c.generated) != greedy[c.request_id]["max_tokens"]]
+        if len(comps) != len(reqs) or short:
+            raise AssertionError(f"{label}: {len(comps)} completions, short {short}")
+        generated = sum(len(c.generated) for c in comps)
+        log(f"{label}: {eng.host_syncs} rounds for {generated} tokens; acceptance "
+            f"{eng.spec_accepted / max(eng.spec_drafted, 1):.4f} ({eng.spec_accepted} of "
+            f"{eng.spec_drafted} drafted); graphs {sorted(eng.graphs)} within the bound "
+            f"{eng.graph_bound}")
+        plain = _serving_engine(cfg, params, cache_dtype)
+        want = {c.request_id: c.generated for c in plain.pump(reqs)}
+        same = sum(c.generated == want[c.request_id] for c in comps)
+        log(f"{label}: streams equal to the plain graphed paged engine's: {same} of {len(comps)} "
+            f"(reported, not required: the verify products run at M = 40, not 8, and cuBLAS may "
+            f"take other kernels, so a near tie may flip; every token is held teacher-forced)")
+        _teacher_forced_all(torch, label, cfg, params, greedy, comps, cache_dtype, tol)
+        # the append kernel on the path's own verify windows, layer by layer
+        dname = str(cache_dtype).split(".")[-1]
+        step, cap, _ = PAGED_STEP[dname]
+        worst = 0.0
+        if sorted(rec) != list(range(cfg.n_layers)):
+            raise AssertionError(f"{label}: verify windows recorded for layers {sorted(rec)}")
+        for layer, (q, nk, nv, kp, vp, table, pos, wm) in sorted(rec.items()):
+            k1, v1, k2, v2 = kp[None].clone(), vp[None].clone(), kp[None].clone(), vp[None].clone()
+            got, _, _ = pa.paged_append_attention(q, nk, nv, k1, v1, table, pos, 0, write_mask=wm)
+            want_out = pa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, 0,
+                                                       write_mask=wm)
+            mag = pa.paged_append_attention_plain(
+                q.float(), nk.float(), nv.float().abs(), kp[None].float(),
+                vp[None].float().abs(), table, pos, 0, write_mask=wm)
+            err, limit, top, over = paged_check(got, want_out, mag, step, cap)
+            pages = torch.equal(k1[:, 1:], k2[:, 1:]) and torch.equal(v1[:, 1:], v2[:, 1:])
+            worst = max(worst, err)
+            if layer in (0, cfg.n_layers - 1):
+                log(f"{label}: layer {layer} verify window: nq {q.shape[1]}, q "
+                    f"{tuple(q.shape)}, pools {tuple(kp.shape)}, table {tuple(table.shape)}, "
+                    f"pos {pos.tolist()}, write mask {None if wm is None else wm.tolist()}")
+            if over or not pages:
+                raise AssertionError(f"{label}: the append kernel at nq {q.shape[1]} disagrees "
+                                     f"with its plain version in layer {layer}: {over} elements "
+                                     f"over the limit, written pages equal {pages}")
+        log(f"{label}: the append kernel at nq {gamma + 1} on the path's own inputs, "
+            f"{len(rec)} layers: worst max_abs_err {worst:.4g} (paged_check limits, {dname}); "
+            f"written pool pages equal the plain version's from block 1")
+        out["counts"] = counts
+
+    def int4_leg():
+        p4 = quant.quantize_blocks(params, bits=4)
+        ireqs = reqs[:6]
+        inputs, restore = _int4_recorder(torch, i4)
+        try:
+            sync(torch)
+            _zero_serving_counts()
+            eng = _spec_engine(cfg, p4, cache_dtype, draft_params=p4)
+            by_program = _int4_by_program(eng, i4)
+            comps = eng.pump(ireqs)
+            sync(torch)
+        finally:
+            restore()
+        log(f"{label} int4 (int4 target and int4 self-draft): launches by program {by_program}")
+        rnd = by_program.get("spec round", {})
+        if not rnd.get("int4_splitk") or not rnd.get("int4_wgmma") or len(comps) != len(ireqs):
+            raise AssertionError(f"{label} int4: the round did not launch both kernels: "
+                                 f"{by_program}")
+        graph_bookkeeping(torch, f"{label} int4", eng)
+        _teacher_forced_all(torch, f"{label} int4", cfg, p4, _greedy_dicts(ireqs), comps,
+                            cache_dtype, tol)
+        ms = _hold_int4_inputs(torch, f"{label} int4", i4, inputs)
+        log(f"{label} int4: {len(inputs)} product shapes of the path held against the plain "
+            f"version elementwise (INT4_STEP); M by kernel {ms}")
+        if 8 not in ms.get("int4_splitk", ()) or 8 * (gamma + 1) not in ms.get("int4_wgmma", ()):
+            raise AssertionError(f"{label} int4: want the draft at M = 8 through int4_splitk and "
+                                 f"the verify pass at M = {8 * (gamma + 1)} through int4_wgmma: "
+                                 f"{ms}")
+
+    def dense_leg():
+        def drive(eager):
+            eng = _dense_engine(cfg, params, cache_dtype, spec_gamma=gamma)
+            return eng, eng.pump(reqs)
+
+        eng, comps, _ = _engine_twin(torch, f"{label} dense", drive)
+        short = [c.request_id for c in comps
+                 if len(c.generated) != greedy[c.request_id]["max_tokens"]]
+        if len(comps) != len(reqs) or short:
+            raise AssertionError(f"{label} dense: {len(comps)} completions, short {short}")
+        log(f"{label} dense: {eng.host_syncs} rounds; acceptance "
+            f"{eng.spec_accepted / max(eng.spec_drafted, 1):.4f}")
+        _teacher_forced_all(torch, f"{label} dense", cfg, params, greedy, comps, cache_dtype, tol)
+        # the offline speculative_decode at batch 8 against greedy_decode
+        r = np.random.RandomState(SEED + 29)
+        b, plen, steps = SPEC_DECODE["batch"], SPEC_DECODE["prompt"], SPEC_DECODE["steps"]
+        prompt = torch.from_numpy(r.randint(0, cfg.vocab_size, size=(b, plen))).to(DEV)
+        draft = quant.quantize_blocks(params)
+        sync(torch)
+        t0 = time.perf_counter()
+        toks, stats = speculative.speculative_decode(params, draft, prompt, steps, cfg,
+                                                     gamma=gamma, cache_dtype=cache_dtype,
+                                                     return_stats=True, device=DEV)
+        sync(torch)
+        spec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = decode.greedy_decode(params, prompt, steps, cfg, cache_dtype=cache_dtype,
+                                    batch_prefill=True, device=DEV)
+        sync(torch)
+        greedy_s = time.perf_counter() - t0
+        if tuple(toks.shape) != (b, plen + steps) or not torch.equal(toks[:, :plen], prompt):
+            raise AssertionError(f"{label} speculative_decode: shape {tuple(toks.shape)}")
+        rows = [serve.Completion(request_id=i, tokens=toks[i].tolist(),
+                                 generated=toks[i, plen:].tolist()) for i in range(b)]
+        by_id = {i: dict(prompt=prompt[i].tolist(), max_tokens=steps) for i in range(b)}
+        _teacher_forced_all(torch, f"{label} speculative_decode", cfg, params, None, rows,
+                            cache_dtype, tol, by_id=by_id)
+        same = int((toks == want).all(dim=1).sum())
+        log(f"{label} speculative_decode B={b}, prompt {plen}, {steps} steps, gamma {gamma}: "
+            f"rows equal to greedy_decode's {same} of {b} (reported: another M, near ties); "
+            f"rounds {int(stats.rounds)}, acceptance {float(stats.acceptance):.4f}, tokens per "
+            f"round {float(stats.tokens_per_round):.3f} (batch-summed); {spec_s:.3f} s "
+            f"(first call eager, then one capture) against greedy_decode {greedy_s:.3f} s eager")
+
+    def composition_leg():
+        preqs = _dense_prefix_traffic(cfg.vocab_size, SEED + 13)
+
+        def drive(eager):
+            eng = _admission_engine(cfg, params, cache_dtype, spec_gamma=gamma)
+            return eng, eng.pump(preqs)
+
+        eng, comps, _ = _engine_twin(torch, f"{label} prefix+chunked", drive, PAGED_TWIN_ATTRS,
+                                     pool_from=1)
+        if len(comps) != len(preqs) or eng.prefix_hits == 0:
+            raise AssertionError(f"{label} prefix+chunked: {len(comps)} completions, "
+                                 f"{eng.prefix_hits} hits")
+        log(f"{label} prefix+chunked: graphs {sorted(eng.graphs)}, {len(eng.graphs)} of the "
+            f"bound {eng.graph_bound}")
+        leak_audit(f"{label} prefix+chunked", eng)
+        _teacher_forced_all(torch, f"{label} prefix+chunked", cfg, params, preqs, comps,
+                            cache_dtype, tol)
+        lreqs = _spec_lifecycle_traffic(cfg.vocab_size, SEED + 23)
+        eng = _admission_engine(cfg, params, cache_dtype, spec_gamma=gamma, n_blocks=SPEC_TIGHT)
+        comps, _, snaps = snapshot_lifecycle_drive(eng, lreqs, cancel_after=None,
+                                                   pick_cancel=None,
+                                                   snapshot_after=SPEC_SNAPSHOT_AFTER)
+        main = {c.request_id: c for c in comps}
+        text, done_before, queued, kinds = snaps[f"after burst {SPEC_SNAPSHOT_AFTER}"]
+        log(f"{label} lifecycle: pool {SPEC_TIGHT} blocks (null block included), {len(lreqs)} "
+            f"requests, preempted_count {eng.preempted_count}, stalled_steps "
+            f"{eng.stalled_steps}; snapshot after round {SPEC_SNAPSHOT_AFTER}: {kinds}")
+        if (eng.preempted_count < 1 or len(comps) != len(lreqs)
+                or any(c.status != "ok" for c in comps)):
+            raise AssertionError(f"{label} lifecycle: want preemptions and every request ok: "
+                                 f"{eng.preempted_count}, {[c.status for c in comps]}")
+        leak_audit(f"{label} lifecycle", eng)
+        _teacher_forced_all(torch, f"{label} lifecycle", cfg, params, lreqs, comps, cache_dtype,
+                            tol)
+        fresh = _admission_engine(cfg, params, cache_dtype, spec_gamma=gamma,
+                                  n_blocks=SPEC_TIGHT)
+        restored = fresh.restore(json.loads(text))
+        rcomps = fresh.pump(queued)
+        ids = sorted(c.request_id for c in rcomps)
+        if ids != sorted(set(main) - done_before):
+            raise AssertionError(f"{label} lifecycle restore: completions for {ids}")
+        same = sum(c.generated == main[c.request_id].generated for c in rcomps)
+        log(f"{label} lifecycle restore: {len(restored)} requests restored from {len(text)} "
+            f"bytes of JSON, {len(queued)} queued after them; streams equal to the "
+            f"uninterrupted run's: {same} of {len(rcomps)} (reported, not required)")
+        leak_audit(f"{label} lifecycle restore", fresh)
+        _teacher_forced_all(torch, f"{label} lifecycle restore", cfg, params, lreqs, rcomps,
+                            cache_dtype, tol)
+
+    def timing_leg(rounds=SPEC_TIMING_ROUNDS, bursts=4, spec_rounds=8):
+        """Three engines with the same 8 resident requests (prompt 128):
+        the plain graphed paged engine (``bursts`` 8-step bursts a window),
+        speculation with the int8 self-draft and with the target's first 2
+        layers as the draft (``spec_rounds`` rounds a window), after warm-up
+        (capture included), in alternating windows on the host clock."""
+        r = np.random.RandomState(SEED + 7)
+        prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+        shallow = dict(params, blocks=params["blocks"][:2])
+        engines = {
+            "plain": _serving_engine(cfg, params, cache_dtype),
+            "spec int8 self-draft": _spec_engine(cfg, params, cache_dtype),
+            "spec 2-layer draft": _spec_engine(cfg, params, cache_dtype, draft_params=shallow),
+        }
+        for name, eng in engines.items():
+            for p in prompts:
+                eng.submit(p, max_tokens=600)
+            for _ in range(3):
+                eng.step_burst()
+        rows = {name: [] for name in engines}
+        for rnd in range(rounds):
+            order = list(engines) if rnd % 2 == 0 else list(reversed(engines))
+            for name in order:
+                eng = engines[name]
+                n = bursts if name == "plain" else spec_rounds
+                before = (sum(len(st.tokens) for st in eng._slots), eng.spec_drafted,
+                          eng.spec_accepted)
+                sync(torch)
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    eng.step_burst()
+                sync(torch)
+                ms = (time.perf_counter() - t0) * 1e3
+                committed = sum(len(st.tokens) for st in eng._slots) - before[0]
+                rows[name].append((ms, n, committed, eng.spec_drafted - before[1],
+                                   eng.spec_accepted - before[2]))
+        med = {}
+        for name, rs in rows.items():
+            if name == "plain":
+                per_step = [ms / (n * 8) for ms, n, *_ in rs]
+                med[name] = float(np.median(per_step))
+                log(f"{label} timing, plain graphed paged engine: "
+                    f"{' / '.join(f'{t:.3f}' for t in per_step)} ms per step by window (median "
+                    f"{med[name]:.3f}); each step commits one token a row")
+                continue
+            per_round = [ms / n for ms, n, *_ in rs]
+            per_row_round = [c / (n * 8) for _, n, c, *_ in rs]
+            per_token = [ms / (c / 8) for ms, _, c, *_ in rs]
+            acc = sum(a for *_, a in rs) / max(sum(d for *_, d, _ in rs), 1)
+            med[name] = float(np.median(per_token))
+            log(f"{label} timing, {name}: {' / '.join(f'{t:.3f}' for t in per_round)} ms per "
+                f"round by window (median {np.median(per_round):.3f}); tokens committed a row "
+                f"per round {' / '.join(f'{t:.3f}' for t in per_row_round)} (median "
+                f"{np.median(per_row_round):.3f}); acceptance {acc:.4f}; ms per committed token "
+                f"a row {' / '.join(f'{t:.3f}' for t in per_token)} (median {med[name]:.3f}); "
+                f"against the plain step {med[name] / med['plain']:.3f}x")
+        ctx = {name: int(np.mean([len(st.tokens) for st in eng._slots]))
+               for name, eng in engines.items()}
+        log(f"{label} timing: mean context at the end {ctx}")
+        draft_costs(engines["spec int8 self-draft"], ctx["spec int8 self-draft"])
+        for name, eng in engines.items():
+            prof = profile_window(torch, f"{label} timing: profile of one graphed "
+                                  f"{'8-step burst' if name == 'plain' else 'round'}, {name}",
+                                  eng.step_burst, watch=("paged_attention",))
+            if prof is not None:
+                log(f"{label} timing, {name}: device busy {prof['busy_us'] / 1e3:.3f} ms over "
+                    f"{sum(r_[1] for r_ in prof['rows'])} kernels")
+            if name != "plain":
+                _split_round(torch, f"{label} timing, {name}", eng)
+
+    def draft_costs(eng, context):
+        """Two costs of every int8 draft step, each by CUDA events (L2
+        flushed) beside its bound: dequantizing the draft's block matrices
+        (``quant.mat``, as ``matmul_last`` does on every call) and the
+        dense masked attention over the draft cache, every layer."""
+        timer = Timer(torch)
+        mats = [w for blk in eng.draft_params["blocks"] for w in blk.values()
+                if isinstance(w, quant.QuantizedMatrix)]
+        deq_ms = timer.ms(lambda: [quant.mat(w) for w in mats])
+        n = sum(w.q.numel() for w in mats)
+        deq_bound, _ = bound(n + 4 * sum(w.scale.numel() for w in mats) + 2 * n, n, "bfloat16")
+        k, v = eng._d_cache
+        q = torch.randn((8, 1, cfg.n_heads, cfg.head_dim), device=DEV).to(cache_dtype)
+        pos = torch.full((8, 1), context, device=DEV)
+        mask = (torch.arange(k.shape[2], device=DEV)[None, None, :] <= pos[:, :, None])[:, None]
+        attn_ms = timer.ms(lambda: [decode._masked_attention(q, k[li], v[li], mask)
+                                    for li in range(k.shape[0])])
+        kv = 2 * k[:, :8].numel() * k.element_size()
+        attn_bound, _ = bound(kv, 4 * 8 * cfg.n_heads * cfg.head_dim * k.shape[2] * k.shape[0],
+                              "bfloat16")
+        log(f"{label} timing: int8 draft step costs: dequantizing its {len(mats)} block "
+            f"matrices ({n / 1e6:.1f} M weights) {deq_ms:.3f} ms (bound {deq_bound * 1e3:.1f} "
+            f"us: int8 and scales read, bf16 written); the dense masked attention over the "
+            f"draft cache [{k.shape[0]} layers, 8, {k.shape[2]}, {cfg.kv_heads}, "
+            f"{cfg.head_dim}] at context {context} {attn_ms:.3f} ms (bound {attn_bound * 1e3:.1f} "
+            f"us: the whole K and V read)")
+
+    leg("main", main_leg)
+    leg("int4", int4_leg)
+    leg("dense", dense_leg)
+    leg("composition", composition_leg)
+    leg("timing", timing_leg)
+    return {"paged_attention": out["counts"][(pa.__name__, "append")]}
 
 
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
@@ -2685,6 +3142,11 @@ def main() -> int:
     run("serve dense", serve_dense)
     run("serve bf16 admission",
         lambda: phase_serve_admission(torch, cfg, params, cache_dtype=torch.bfloat16))
+
+    def serve_spec():
+        launches["spec"] = phase_serve_spec(torch, cfg, params, reqs, cache_dtype=torch.bfloat16)
+
+    run("serve bf16 spec", serve_spec)
     del params
 
     def train_bf16():
@@ -2702,11 +3164,13 @@ def main() -> int:
         log(f"chip_smoke: failed phases {failed}")
         return 1
     # each kernel's launches on the path that runs it: paged append on the
-    # bf16 serving run, both int4 kernels on the int4 serving run, flash on
-    # the bf16 training run and the f32 forward on the f32 training run; the
-    # read-only paged kernel is on no path (0)
+    # bf16 serving run and the speculative one (its verify windows, nq 5),
+    # both int4 kernels on the int4 serving run, flash on the bf16 training
+    # run and the f32 forward on the f32 training run; the read-only paged
+    # kernel is on no path (0)
     main_counts = {
-        "paged_attention": launches["bf16"]["paged_attention"],
+        "paged_attention": (launches["bf16"]["paged_attention"]
+                            + launches["spec"]["paged_attention"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": launches["int4"]["int4_matmul"],
         "int4_matmul_prefill": launches["int4"]["int4_matmul_prefill"],

@@ -26,9 +26,10 @@ the sampling tail is ``serve.sample_next``, keyed per slot by
 ``fold_in(base key, position)``, so a request preempted, parked and
 re-admitted continues exactly where it stopped; chunked admission and
 prefix sharing change when prefill runs and what it computes, never the
-tokens.  Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP item: speculative rounds, LoRA, quantized KV pools, meshes,
-handoff and KV payloads, the fleet prefix hooks and telemetry.
+tokens; so do speculative rounds, whose verify window goes through the same
+append kernel at ``nq = spec_gamma + 1``.  Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: LoRA, quantized KV pools,
+meshes, handoff and KV payloads, the fleet prefix hooks and telemetry.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from k8s_dra_driver_torch.models.burnin import (
     tied_logits,
 )
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
+from k8s_dra_driver_torch.models.speculative import accept_advance
 from k8s_dra_driver_torch.ops import paged_attention
 
 NULL_BLOCK = 0  # reserved: never allocated, the table's filler
@@ -269,6 +271,26 @@ def paged_prefill_suffix(params, prompt, cache: PagedKVCache, block_table_row, *
     )
 
 
+def _paged_spec_round(params, draft_params, cache, d_cache, table, last, pos, active,
+                      *, cfg: ModelConfig, gamma: int):
+    """One speculative round over the paged pool: the draft's proposals
+    over its dense cache (``serve.draft_propose``), then the verify window
+    ``[last, g_1..g_gamma]`` through :func:`paged_decode_chunk`, so the
+    append kernel at ``nq = gamma + 1`` on the card.  A window past a
+    slot's owned blocks writes through the null block (growth covers only
+    what the slot can still commit).  Positions are clamped as in
+    ``serve._spec_round`` (inactive rows only).  Returns ``(target [B,
+    gamma + 1] int32, advance [B] int32, cache, d_cache)``."""
+    pos = pos.clamp(max=cfg.max_seq - 1 - gamma)
+    d_cache, proposed = serve.draft_propose(draft_params, d_cache, last, pos, active, cfg=cfg,
+                                            gamma=gamma)
+    window = torch.cat([last[:, None], proposed], dim=1)
+    logits, cache = paged_decode_chunk(params, cache, table, window, pos, cfg=cfg, active=active)
+    target = logits.argmax(dim=-1).to(torch.int32)
+    _, advance = accept_advance(proposed, target, active)
+    return target, advance, cache, d_cache
+
+
 def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, poison,
                     *, cfg: ModelConfig, top_k: int):
     """One paged decode step for every slot at its own position, then the
@@ -409,6 +431,17 @@ class PagedServeEngine:
       re-admits what fits (an idle engine unless ``merge``), so a paged
       snapshot restores into either engine of either package;
       ``release_active`` frees everything without delivering it;
+    * with ``spec_gamma > 0`` every ``step`` (and ``step_burst``, which
+      hands over to it) is one speculative round: each active slot's
+      blocks grow to cover the verify window, the draft (``draft_params``,
+      by default the int8 self-quantization of ``params``, over its own
+      dense cache) proposes ``spec_gamma`` tokens, the target verifies
+      them in one paged pass, and each slot commits up to ``spec_gamma +
+      1`` tokens with one readback; every admission path (whole, prefix
+      hit, the last chunk, a re-admission, a restore) also fills the
+      slot's draft row.  Greedy only (temperature 0, the verify window's
+      slack under ``max_seq``), and ``spec_gamma + 1 <= block_size`` (the
+      kernel's window rule);
     * retirement drops the slot's references at once.
 
     Runs on ``device`` (default the card; raises without one unless
@@ -419,7 +452,8 @@ class PagedServeEngine:
     are prefill at the prompt bucket, the first token, the burst at
     ``sync_interval`` and at 1, and one "chunk w" per width ``w`` a chunk
     or a prefix hit's suffix (the bucket after ``c`` cached blocks, one
-    chunk from ``done = c``) takes: at most :attr:`graph_bound` (``4 +
+    chunk from ``done = c``) takes, and with ``spec_gamma`` the "spec
+    round" and the "draft prefill": at most :attr:`graph_bound` (``4 +
     ceil(bucket/bs) - 1`` with the store on, a bucket that is a multiple
     of the block size and chunks narrower than the bucket).  The device
     state those programs read and write (block table, active mask, last
@@ -428,9 +462,9 @@ class PagedServeEngine:
     temperature, key and done blocks) keeps one address for the engine's
     life and is written in place; everything else (allocation, the prefix
     store, the admission queue, growth, stalls, preemption, retirement)
-    stays on the host.  The reference's speculative rounds, LoRA,
-    quantized pools, mesh, handoff, fleet prefix hooks and telemetry
-    raise ``NotImplementedError`` naming their ROADMAP item.  Not
+    stays on the host.  The reference's LoRA, quantized pools, mesh,
+    handoff, fleet prefix hooks and telemetry raise
+    ``NotImplementedError`` naming their ROADMAP item.  Not
     thread-safe; drive it from one loop.
     """
 
@@ -451,11 +485,11 @@ class PagedServeEngine:
     preempt_on_stall: bool = True
     fault_injector: object | None = None  # utils/faults.FaultInjector
     quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
+    spec_gamma: int = 0      # > 0: speculative rounds of this many draft tokens
+    draft_params: object = None  # the draft; None: the int8 self-draft
     # the reference's fields the port does not serve yet: each raises
     # NotImplementedError away from its default
     kv_dtype: str | None = None
-    spec_gamma: int = 0
-    draft_params: object = None
     adapter_bank: dict | None = None
     mesh: object | None = None
     slot_axis: object = "data"
@@ -466,8 +500,6 @@ class PagedServeEngine:
         cfg = self.cfg
         for unported, what, item in (
             (self.kv_dtype is not None, "a quantized KV pool (kv_dtype)", 10),
-            (self.spec_gamma > 0 or self.draft_params is not None,
-             "speculative serving (spec_gamma, draft_params)", 7),
             (self.adapter_bank is not None, "per-request LoRA (adapter_bank)", 8),
             (self.mesh is not None or self.slot_axis != "data",
              "a mesh (slot sharding, slot_axis)", 15),
@@ -487,6 +519,11 @@ class PagedServeEngine:
             raise ValueError(f"sync_interval must be >= 1, got {self.sync_interval}")
         if self.quarantine_limit < 1:
             raise ValueError(f"quarantine_limit must be >= 1, got {self.quarantine_limit}")
+        if self.spec_gamma + 1 > self.block_size:
+            raise ValueError(
+                f"the verify window spec_gamma + 1 = {self.spec_gamma + 1} exceeds block_size "
+                f"{self.block_size} (the paged kernel's append rule)"
+            )
         self.device = params_device(self.params, self.device)
         bs = self.block_size
         if self.pool_hbm_bytes is not None:
@@ -522,10 +559,17 @@ class PagedServeEngine:
         self.shed_count = 0
         self.last_shed: serve.ShedError | None = None
         self._last_step_s = 0.0  # wall time of the last burst
+        self.spec_drafted = 0    # draft tokens proposed to active slots
+        self.spec_accepted = 0   # of those, the ones the target agreed with
         dev = self.device
         self._cache = init_paged_cache(
             cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev
         )
+        self._d_cache = None
+        if self.spec_gamma > 0:
+            self.draft_params, self._d_cache = serve.make_draft_state(
+                self.params, self.draft_params, cfg, self.n_slots, self.cache_dtype, dev
+            )
         # the programs' device state: one address each for the engine's life
         i32 = dict(dtype=torch.int32, device=dev)
         self._table = torch.full((self.n_slots, self._mb), NULL_BLOCK, **i32)
@@ -564,7 +608,8 @@ class PagedServeEngine:
         and a "chunk w" for each width a chunk can take (whole blocks up to
         ``prefill_chunk_blocks``, and a bucket's end inside a block) or a
         prefix hit's suffix can take (``bucket - c * bs`` for each cached
-        count ``c`` in ``1 .. (bucket - 1) // bs``)."""
+        count ``c`` in ``1 .. (bucket - 1) // bs``), and with speculation
+        the "spec round" and the "draft prefill"."""
         bs, bucket = self.block_size, self.prompt_bucket
         widths = set()
         if self.prefill_chunk_blocks > 0:
@@ -572,7 +617,7 @@ class PagedServeEngine:
             widths = {w for w in range(1, top + 1) if w % bs == 0 or (bucket - w) % bs == 0}
         if self.prefix_cache_blocks > 0:
             widths |= {bucket - c * bs for c in range(1, (bucket - 1) // bs + 1)}
-        return 4 + len(widths)
+        return 4 + len(widths) + (2 if self.spec_gamma > 0 else 0)
 
     @property
     def on_prefix_store(self):
@@ -616,7 +661,7 @@ class PagedServeEngine:
         del queued_at
         serve.check_submit(
             prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
-            temperature=temperature, deadline=deadline,
+            spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline,
         )
         if adapter:
             raise serve._unported("per-request LoRA (adapter != 0)", 8)
@@ -658,6 +703,7 @@ class PagedServeEngine:
         try:
             self._prefill_slot(slot, prompt, cached)
             self._store_prefix_blocks(prompt, slot, storable, cached)
+            self._prefill_draft(slot, len(prompt))
             first_tok = self._first_token_of(slot, len(prompt), temperature, base_key)
         except BaseException:
             # the slot was never occupied: drop its references
@@ -783,6 +829,10 @@ class PagedServeEngine:
                 serve._unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
                                                f"{self.prompt_bucket}")
                 continue
+            why = serve._spec_unrestorable(self, req)
+            if why:
+                serve._unrestorable(self, req, why)
+                continue
             st = serve._Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
                              int(req["max_tokens"]), req.get("deadline"))
             # keys arrive as plain ints up to 2^32 - 1: int64 holds them
@@ -823,6 +873,8 @@ class PagedServeEngine:
         single = k == 1
         self._readmit()
         self._advance_admission()
+        if self.spec_gamma > 0:
+            return self._spec_step()
         self._step_no += 1
         poison, quarantined = serve._inject_step_faults(self)
         admitting = {a["slot"] for a in self._admitting}
@@ -869,6 +921,25 @@ class PagedServeEngine:
         self._last_step_s = time.perf_counter() - t0
         return int(active.sum())
 
+    def _spec_step(self) -> int:
+        """One speculative round (the reference's round runs no fault
+        window): grow each resident slot's blocks over the verify window
+        ``pos .. pos + spec_gamma`` (clamped to its remaining stream),
+        preempting as a step does; slots the pool cannot cover stall.  Then
+        the round with one readback, and each active slot's commit.
+        Returns the number of slots stepped."""
+        active = self._grow_or_preempt(lookahead=self.spec_gamma)
+        self._sync_table()
+        if not active.any():
+            return 0
+        t0 = time.perf_counter()
+        self._active.copy_(torch.from_numpy(active))
+        readback = self._run("spec round", self._spec_program).cpu().numpy()
+        self.host_syncs += 1
+        serve._commit_spec_round(self, readback, active)
+        self._last_step_s = time.perf_counter() - t0
+        return int(active.sum())
+
     def _advance_admission(self) -> None:
         """Prefill at most one chunk for the admission queue's head (only
         the prompt's blocks: the bucket's padding is never attended); after
@@ -891,6 +962,7 @@ class PagedServeEngine:
                 return
             if real_end > adm["done"] * bs:
                 self._run_chunk(adm["done"], real_end - adm["done"] * bs)
+            self._prefill_draft(slot, adm["plen"])
             first_tok = self._first_token_of(slot, adm["plen"], adm["temp"], adm["key"])
         except BaseException as exc:
             self._admitting.pop(0)
@@ -1004,6 +1076,7 @@ class PagedServeEngine:
             self._reserve(slot, ids)
             try:
                 self._prefill_slot(slot, st.tokens, cached)
+                self._prefill_draft(slot, len(st.tokens))
             except BaseException as exc:
                 self._release_slot(slot)
                 self._preempted.pop(0)
@@ -1101,6 +1174,14 @@ class PagedServeEngine:
         self._admit_done.fill_(done)
         self._run(f"chunk {width}", self._chunk_program(width))
 
+    def _prefill_draft(self, slot: int, plen: int) -> None:
+        """With speculation on, fill ``slot``'s draft row from the staged
+        padded prompt (the whole prompt, whatever the target shared or
+        chunked)."""
+        if self.spec_gamma > 0:
+            self._admit.copy_(torch.tensor([plen, slot], dtype=torch.int32))
+            self._run("draft prefill", self._draft_prefill)
+
     def _first_token_of(self, slot: int, plen: int, temperature: float, key) -> int:
         """The staged admission's first token (its readback is not counted
         in ``host_syncs``)."""
@@ -1161,6 +1242,17 @@ class PagedServeEngine:
             top_k=self.top_k,
         )
         return tok
+
+    def _draft_prefill(self) -> None:
+        serve._prefill_draft_row(self.draft_params, self._d_cache, self._prompt,
+                                 self._admit[0], self._admit[1], cfg=self.cfg)
+
+    def _spec_program(self):
+        target, advance, _, _ = _paged_spec_round(
+            self.params, self.draft_params, self._cache, self._d_cache, self._table, self._last,
+            self._pos, self._active, cfg=self.cfg, gamma=self.spec_gamma,
+        )
+        return serve._spec_advance(target, advance, self._last, self._pos, self._active)
 
     def _burst_program(self, k: int):
         def burst():

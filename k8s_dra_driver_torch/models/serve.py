@@ -36,6 +36,8 @@ from k8s_dra_driver_torch.models.graphs import (  # noqa: F401  (re-exported)
     graphs_enabled,
     launch_counts,
 )
+from k8s_dra_driver_torch.models.quant import quantize_blocks
+from k8s_dra_driver_torch.models.speculative import accept_advance
 
 # every Completion.status; a snapshot entry carrying one has already ended
 TERMINAL_STATUSES = frozenset(
@@ -108,10 +110,12 @@ class Completion:
 
 def check_submit(
     prompt: list[int], max_tokens: int, prompt_bucket: int, max_seq: int,
-    temperature: float = 0.0, deadline: int | None = None,
+    spec_gamma: int = 0, temperature: float = 0.0, deadline: int | None = None,
 ) -> None:
     """Admission validation shared by the engines.  Any temperature is
-    admitted: above 0 samples, 0 or below is greedy."""
+    admitted (above 0 samples, 0 or below is greedy) unless ``spec_gamma >
+    0``: speculative serving verifies the argmax, so it takes temperature
+    0 only, and needs the verify window's slack under ``max_seq``."""
     if not prompt:
         raise ValueError("empty prompt")
     if max_tokens < 1:
@@ -122,6 +126,22 @@ def check_submit(
         raise ValueError(f"prompt {len(prompt)} exceeds bucket {prompt_bucket}")
     if len(prompt) + max_tokens > max_seq:
         raise ValueError("prompt + max_tokens exceeds max_seq")
+    if spec_gamma > 0:
+        if temperature != 0.0:
+            raise ValueError("speculative serving verifies argmax — temperature must be 0")
+        if _spec_slack_short(len(prompt), max_tokens, spec_gamma, max_seq):
+            raise ValueError(
+                "prompt + max_tokens needs spec_gamma verify-window slack under max_seq"
+            )
+
+
+def _spec_slack_short(prompt_len: int, max_tokens: int, gamma: int, max_seq: int) -> bool:
+    """The exact bound: a slot's last round starts at ``pos = prompt_len +
+    max_tokens - 2`` (one more committed token retires it) and writes its
+    verify window at ``pos .. pos + gamma``, so the deepest write is
+    ``prompt_len + max_tokens + gamma - 2``, which must be below
+    ``max_seq``."""
+    return prompt_len + max_tokens + gamma - 1 > max_seq
 
 
 def _slot_budget(st: _Slot) -> int:
@@ -491,6 +511,131 @@ def _extract_prefix(cache, slot: int, *, prefix_bucket: int):
             cache.v[:, slot, :prefix_bucket].clone())
 
 
+# -- speculative rounds, shared by the dense and paged engines ----------------
+
+def make_draft_state(params, draft_params, cfg: ModelConfig, n_slots: int, cache_dtype,
+                     device):
+    """The draft of speculative serving and its dense cache ``[n_draft,
+    n_slots, max_seq, Hkv, hd]``, built at the draft's depth (never at full
+    depth first).  With no draft given, the draft is the int8
+    self-quantization of ``params``.  Returns ``(draft_params, d_cache)``."""
+    if draft_params is None:
+        draft_params = quantize_blocks(params)
+    params_device(draft_params, device)
+    shape = (len(draft_params["blocks"]), n_slots, cfg.max_seq, cfg.kv_heads, cfg.head_dim)
+    return draft_params, decode.KVCache(
+        *(torch.zeros(shape, dtype=cache_dtype, device=device) for _ in range(2))
+    )
+
+
+def _prefill_draft_row(draft_params, d_cache, prompt, plen, slot, *, cfg: ModelConfig):
+    """Fill one slot's draft cache from the padded prompt ``[1, bucket]``
+    (k/v only: the draft's logits are never read), positions ``>= plen``
+    zeroed, so nothing of the slot's last request stays behind.  ``plen``
+    and ``slot`` are 0-d tensors: one captured program serves every
+    admission.  Returns ``d_cache``, updated in place."""
+    n_draft, _, max_seq = d_cache.k.shape[:3]
+    dev = prompt.device
+    row = decode.KVCache(*(
+        torch.zeros((n_draft, 1, max_seq, cfg.kv_heads, cfg.head_dim), dtype=d_cache.k.dtype,
+                    device=dev)
+        for _ in range(2)
+    ))
+    decode.decode_chunk(draft_params, row, prompt, 0, cfg=cfg, k_window=prompt.shape[1],
+                        logits=False)
+    keep = (torch.arange(max_seq, device=dev) < plen)[None, :, None, None]
+    at = slot.view(1).long()
+    for part, whole in ((row.k, d_cache.k), (row.v, d_cache.v)):
+        whole.index_copy_(1, at, torch.where(keep, part[:, 0], 0)[:, None])
+    return d_cache
+
+
+def draft_propose(draft_params, d_cache, last, pos, active, *, cfg: ModelConfig, gamma: int):
+    """Sequential draft proposals from each row's frontier (``last [B]`` at
+    ``pos [B]``): ``gamma`` steps, then one more that feeds ``g_gamma`` so
+    its draft key exists when full acceptance commits the bonus token (its
+    logits are never read, so it stops after the last k/v write).  Returns
+    ``(d_cache, proposed [B, gamma] int32)``."""
+    tok, proposed = last, []
+    for i in range(gamma):
+        logits, _ = decode.decode_step(draft_params, d_cache, tok.long(), pos + i, cfg=cfg,
+                                       active=active)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        proposed.append(tok)
+    decode.decode_chunk(draft_params, d_cache, tok.long()[:, None], pos + gamma, cfg=cfg,
+                        active=active, logits=False)
+    return d_cache, torch.stack(proposed, dim=1)
+
+
+def _spec_round(params, draft_params, cache, d_cache, last, pos, active, *,
+                cfg: ModelConfig, gamma: int):
+    """One speculative round for every active slot at its own position:
+    the draft's proposals, then the target scores ``[last, g_1..g_gamma]``
+    in one ``decode.decode_chunk`` (rejected positions go stale in place
+    and are rewritten from the committed frontier before any query attends
+    them).  An inactive row may sit past the slack after its last round
+    (the host clipped its commit); its writes are masked, and its position
+    is clamped to keep the indices in the cache (the reference's scatter
+    drops them): an active row is never clamped (``check_submit``).
+    Returns ``(target [B, gamma + 1] int32, advance [B] int32, cache,
+    d_cache)``: a row commits its first ``advance`` targets."""
+    pos = pos.clamp(max=cfg.max_seq - 1 - gamma)
+    d_cache, proposed = draft_propose(draft_params, d_cache, last, pos, active, cfg=cfg,
+                                      gamma=gamma)
+    window = torch.cat([last[:, None], proposed], dim=1)
+    logits, cache = decode.decode_chunk(params, cache, window.long(), pos, cfg=cfg, active=active)
+    target = logits.argmax(dim=-1).to(torch.int32)
+    _, advance = accept_advance(proposed, target, active)
+    return target, advance, cache, d_cache
+
+
+def _spec_advance(target, advance, last, pos, active):
+    """A round's tail in both engines' programs: each active row's last
+    token becomes its last committed target and its position moves by
+    ``advance`` (0 on inactive rows), in place.  Returns ``[B, gamma + 2]``
+    int32, the targets and the advance side by side for ONE readback."""
+    rows = torch.arange(target.shape[0], device=target.device)
+    new_last = target[rows, (advance - 1).clamp_min(0)]
+    last.copy_(torch.where(active, new_last, last))
+    pos.add_(advance)
+    return torch.cat([target, advance[:, None]], dim=1)
+
+
+def _commit_spec_round(engine, readback, active) -> None:
+    """Append each active resident slot's accepted tokens from a round's
+    readback ``[n_slots, gamma + 2]``, clipped at eos and at the budget
+    (the device state past the clip goes stale with the slot), count the
+    proposals and acceptances, and retire the finished slots."""
+    gamma = engine.spec_gamma
+    for slot, st in enumerate(engine._slots):
+        if st is None or not active[slot]:
+            continue
+        advance = int(readback[slot, gamma + 1])
+        engine.spec_drafted += gamma
+        engine.spec_accepted += advance - 1
+        for j in range(advance):
+            st.tokens.append(int(readback[slot, j]))
+            hit_eos = engine.eos_id is not None and st.tokens[-1] == engine.eos_id
+            if len(st.tokens) - st.prompt_len >= _slot_budget(st) or hit_eos:
+                break
+        engine._retire(slot)
+
+
+def _spec_unrestorable(engine, req: dict) -> str:
+    """Why a snapshot entry cannot continue under this engine's speculative
+    rounds ("" when it can): rounds verify the argmax, and the entry's
+    budget must leave the verify window's slack (``check_submit``'s
+    rules)."""
+    if engine.spec_gamma <= 0:
+        return ""
+    if float(req["temperature"]) != 0.0:
+        return "speculative serving verifies argmax — temperature must be 0"
+    if _spec_slack_short(int(req["prompt_len"]), int(req["max_tokens"]), engine.spec_gamma,
+                         engine.cfg.max_seq):
+        return "prompt + max_tokens needs spec_gamma verify-window slack under max_seq"
+    return ""
+
+
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet (ROADMAP.md queue 1 item {item})"
@@ -523,22 +668,30 @@ class ServeEngine:
       ``restore`` rebuilds them in an idle engine (or, with ``merge``, in
       free slots of a live one) by re-prefilling each history, so every
       stream continues as it would have;
-    * ``pump(queue_limit=...)`` sheds what overflows its queue.
+    * ``pump(queue_limit=...)`` sheds what overflows its queue;
+    * with ``spec_gamma > 0`` every ``step`` (and ``step_burst``, which
+      hands over to it) is one speculative round: the draft
+      (``draft_params``, by default the int8 self-quantization of
+      ``params``) proposes ``spec_gamma`` tokens for each slot over its own
+      dense cache, the target verifies them in one pass, and each slot
+      commits up to ``spec_gamma + 1`` tokens with one readback; the
+      streams are the greedy ones (submits take temperature 0 only, with
+      the verify window's slack under ``max_seq``).
 
     Runs on ``device`` (default the card; raises without one unless
     ``device="cpu"``); ``params`` must live there.  On the card each of the
     reference's compiled programs (admission, prefix-hit admission, the
-    burst at ``sync_interval`` and at 1) runs as a CUDA graph
-    (``GraphedProgram``; at most four an engine, in ``graphs``), eagerly
-    inside ``disable_graphs()``; on the CPU it runs eagerly.  The device
-    state those programs read and write (the cache; per slot the active
-    mask, last token, position, stop depth, temperature, base key and
-    poison mask; the admission's padded prompt, length and slot,
-    temperature and key, and the prefix-hit staging K/V) keeps one
-    address for the engine's life and is written in place.  A mesh,
-    speculative rounds, LoRA adapters, handoff with KV payloads and
-    ``stats()`` raise ``NotImplementedError``.  Not thread-safe; drive it
-    from one loop.
+    burst at ``sync_interval`` and at 1; with ``spec_gamma`` the "spec
+    round" and the "draft prefill" in the bursts' place) runs as a CUDA
+    graph (``GraphedProgram``; at most four an engine, in ``graphs``),
+    eagerly inside ``disable_graphs()``; on the CPU it runs eagerly.  The
+    device state those programs read and write (the cache and the draft
+    cache; per slot the active mask, last token, position, stop depth,
+    temperature, base key and poison mask; the admission's padded prompt,
+    length and slot, temperature and key, and the prefix-hit staging K/V)
+    keeps one address for the engine's life and is written in place.  A
+    mesh, LoRA adapters, handoff with KV payloads and ``stats()`` raise
+    ``NotImplementedError``.  Not thread-safe; drive it from one loop.
     """
 
     params: dict
@@ -554,7 +707,8 @@ class ServeEngine:
     fault_injector: object | None = None  # utils/faults.FaultInjector
     quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
     mesh: object | None = None
-    spec_gamma: int = 0
+    spec_gamma: int = 0      # > 0: speculative rounds of this many draft tokens
+    draft_params: object = None  # the draft; None: the int8 self-draft
     adapter_bank: dict | None = None
     device: object = "cuda"
 
@@ -562,8 +716,6 @@ class ServeEngine:
         cfg = self.cfg
         if self.mesh is not None:
             raise _unported("a mesh (slot sharding)", 15)
-        if self.spec_gamma > 0:
-            raise _unported("speculative serving (spec_gamma > 0)", 7)
         if self.adapter_bank is not None:
             raise _unported("per-request LoRA (adapter_bank)", 8)
         if self.prompt_bucket > cfg.max_seq:
@@ -599,9 +751,16 @@ class ServeEngine:
         self._prefix_store: OrderedDict = OrderedDict()
         self.prefix_hits = 0
         self.prefix_misses = 0
+        self.spec_drafted = 0    # draft tokens proposed to active slots
+        self.spec_accepted = 0   # of those, the ones the target agreed with
         self._cache = decode.init_cache(
             cfg, self.n_slots, cfg.max_seq, dtype=self.cache_dtype, device=dev
         )
+        self._d_cache = None
+        if self.spec_gamma > 0:
+            self.draft_params, self._d_cache = make_draft_state(
+                self.params, self.draft_params, cfg, self.n_slots, self.cache_dtype, dev
+            )
         # the programs' device state: one address each for the engine's life
         i32 = dict(dtype=torch.int32, device=dev)
         self._active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
@@ -640,7 +799,7 @@ class ServeEngine:
         reference stamps with it (not ported).  Returns the request id."""
         del queued_at
         check_submit(prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
-                     temperature=temperature, deadline=deadline)
+                     spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline)
         if adapter:
             raise _unported("per-request LoRA (adapter != 0)", 8)
         if handoff:
@@ -673,6 +832,7 @@ class ServeEngine:
                 )
                 while len(self._prefix_store) > self.prefix_cache_entries:
                     self._prefix_store.popitem(last=False)
+        self._prefill_draft()
         self._next_id += 1
         st = _Slot(request_id, list(prompt) + [int(first_tok)], len(prompt), max_tokens,
                    deadline)
@@ -762,6 +922,10 @@ class ServeEngine:
                 _unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
                                          f"{self.prompt_bucket}")
                 continue
+            why = _spec_unrestorable(self, req)
+            if why:
+                _unrestorable(self, req, why)
+                continue
             try:
                 slot = self._slots.index(None)
             except ValueError:
@@ -772,6 +936,7 @@ class ServeEngine:
             key = torch.tensor([int(x) for x in req["key"]], dtype=torch.int64)
             self._stage_admission(tokens, slot, temp, key)
             self._run("admission", self._admission)  # its token is not read
+            self._prefill_draft()
             st = _Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
                        int(req["max_tokens"]), req.get("deadline"))
             self._slots[slot] = st
@@ -803,6 +968,8 @@ class ServeEngine:
         slots (``step`` asks for K = 1)."""
         if self.free_slots() == self.n_slots:
             return 0
+        if self.spec_gamma > 0:
+            return self._spec_step()
         self._step_no += 1
         poison, quarantined = _inject_step_faults(self)
         n_active = self.n_slots - self.free_slots()
@@ -833,6 +1000,24 @@ class ServeEngine:
                                  f"non-finite logits at burst step {first_bad[slot]}")
         self._last_step_s = time.perf_counter() - t0
         return n_active
+
+    def _spec_step(self) -> int:
+        """One speculative round for every resident slot (the reference's
+        round runs no fault window): up to ``spec_gamma + 1`` tokens commit
+        per slot, with one readback."""
+        t0 = time.perf_counter()
+        n_active = self.n_slots - self.free_slots()
+        readback = self._run("spec round", self._spec_program).cpu().numpy()
+        self.host_syncs += 1
+        _commit_spec_round(self, readback, [st is not None for st in self._slots])
+        self._last_step_s = time.perf_counter() - t0
+        return n_active
+
+    def _prefill_draft(self) -> None:
+        """With speculation on, fill the staged admission's draft row (its
+        whole padded prompt, a prefix hit's too)."""
+        if self.spec_gamma > 0:
+            self._run("draft prefill", self._draft_prefill)
 
     def _stage_admission(self, tokens: list[int], slot: int, temperature: float, key) -> None:
         """Write an admission's inputs into the admission buffers."""
@@ -890,6 +1075,17 @@ class ServeEngine:
             top_k=self.top_k, prefix_bucket=self.prefix_bucket,
         )
         return tok
+
+    def _draft_prefill(self) -> None:
+        _prefill_draft_row(self.draft_params, self._d_cache, self._prompt, self._admit[0],
+                           self._admit[1], cfg=self.cfg)
+
+    def _spec_program(self):
+        target, advance, _, _ = _spec_round(
+            self.params, self.draft_params, self._cache, self._d_cache, self._last, self._pos,
+            self._active, cfg=self.cfg, gamma=self.spec_gamma,
+        )
+        return _spec_advance(target, advance, self._last, self._pos, self._active)
 
     def _burst_program(self, k: int):
         def burst():

@@ -558,8 +558,7 @@ def test_unported_paths_raise(weights):
     def engine(**kw):
         return ts.ServeEngine(params=tparams, cfg=TCFG, device="cpu", **dict(ENGINE, **kw))
 
-    for kw, item in ((dict(mesh=object()), 15), (dict(spec_gamma=2), 7),
-                     (dict(adapter_bank={}), 8)):
+    for kw, item in ((dict(mesh=object()), 15), (dict(adapter_bank={}), 8)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             engine(**kw)
     eng = engine()

@@ -34,8 +34,11 @@ Gumbel noise within 4 float32 ulps of its size, 2^-21 (1 + |g|) (each
 device's own ``log``).  The sampled, preempting engine graphed equals
 its eager twin in everything, as the greedy one does; so do the dense
 engine, whose greedy streams on the card equal the CPU's, and the paged
-engine with chunked admission and the prefix store.  A bf16 int4 chunk
-writes the pool its CPU twin writes within one bf16 step."""
+engine with chunked admission and the prefix store, and both engines'
+speculative rounds (whose f32 streams equal the CPU's too).  A bf16 int4
+chunk writes the pool its CPU twin writes within one bf16 step; the append
+kernel at a served verify window (nq = gamma + 1) holds the paged limits
+and writes the pages its plain version writes."""
 
 import contextlib
 
@@ -619,6 +622,120 @@ def test_int4_chunk_at_m16_launches_the_split_k_kernel(cuda):
     assert chunk16.calls >= 8 and chunk16.graph is not None
     assert chunk16._delta[(ti4.__name__, "int4_splitk")] > 0
     assert chunk16._delta[(ti4.__name__, "int4_wgmma")] == 0
+
+
+def _spec_traffic(seed=6, n=6):
+    """Greedy requests (speculation verifies the argmax), prompts of 3-19
+    tokens, 4-19 new ones."""
+    r = np.random.RandomState(seed)
+    return [(r.randint(0, 128, size=r.randint(3, 20)).tolist(), int(r.randint(4, 20)))
+            for _ in range(n)]
+
+
+def _spec_engine(kind, params, cfg, device, **kw):
+    kw = dict(n_slots=3, prompt_bucket=24, sync_interval=4, spec_gamma=3, **kw)
+    if kind == "dense":
+        return ts.ServeEngine(params=params, cfg=cfg, device=device, **kw)
+    return tp.PagedServeEngine(params=params, cfg=cfg, device=device, n_blocks=40,
+                               block_size=8, **kw)
+
+
+@pytest.mark.parametrize("bits", [None, 4])
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_graphed_spec_engine_matches_the_eager_engine(cuda, kind, bits):
+    """Speculative rounds (gamma 3; the int8 self-draft, or with int4
+    blocks the int4 self-draft) as CUDA graphs against the same engine run
+    eagerly: streams, host syncs, acceptance counts, cache bytes (the pool
+    from block 1), the draft cache's bytes and kernel launch counts
+    identical; the paged verify window runs the append kernel at nq 4; at
+    most the engine's bound of graphs, each called twice captured; and the
+    card's f32 streams equal the CPU engine's."""
+    cfg, params = _small_engine_params(bits, cuda)
+    reqs = _spec_traffic()
+    nq = []
+    wrapper = tpa.paged_append_attention
+
+    def serve(eager, device=cuda):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        p = params if device == cuda else _to(params, "cpu")
+        kw = dict(draft_params=p) if bits else {}
+        eng = _spec_engine(kind, p, cfg, device, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = eng.pump(reqs)
+        if device == cuda:
+            torch.cuda.synchronize()
+        streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+        return eng, streams, _launch_counts()
+
+    def counting(q, *a, **k):
+        nq.append(q.shape[1])
+        return wrapper(q, *a, **k)
+
+    tpa.paged_append_attention = counting
+    try:
+        graphed, streams, counts = serve(eager=False)
+    finally:
+        tpa.paged_append_attention = wrapper
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and counts == want_counts and len(streams) == len(reqs)
+    for attr in ("host_syncs", "spec_drafted", "spec_accepted"):
+        assert getattr(graphed, attr) == getattr(eager, attr), attr
+    start = 1 if kind == "paged" else 0  # the null block: a window's spare positions
+    for a, b in zip(graphed._cache, eager._cache):
+        assert torch.equal(a[:, start:], b[:, start:])
+    for a, b in zip(graphed._d_cache, eager._d_cache):
+        assert torch.equal(a, b)
+    assert (counts["int4.launches"] > 0) == bool(bits)
+    assert (counts["append"] > 0) == (kind == "paged") and (4 in nq) == (kind == "paged")
+    assert eager.graphs == {} and {"spec round", "draft prefill"} <= set(graphed.graphs)
+    assert len(graphed.graphs) <= getattr(graphed, "graph_bound", 4)
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    if not bits:
+        _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
+        assert streams == on_cpu
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_verify_window_kernel_matches_plain_on_a_served_input(cuda, dtype):
+    """The append kernel at the verify window's ``nq = gamma + 1`` on the
+    inputs a served round gives it (each layer's first window: q, new k/v,
+    the pools before the write, table, positions, write mask; weights and
+    pool in ``dtype``), against its plain version: output elementwise
+    (``_paged_close``) and the written pool pages identical from block 1."""
+    cfg = tb.ModelConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+                         d_ff=128, max_seq=64, rope=True, dtype=dtype)
+    params = _to(tb.init_params(torch.Generator().manual_seed(0), cfg), cuda)
+    gamma = 3
+    rec = {}
+    wrapper = tpa.paged_append_attention
+
+    def recording(q, new_k, new_v, k_pools, v_pools, table, pos, layer, write_mask=None):
+        if q.shape[1] == gamma + 1 and layer not in rec:
+            rec[layer] = tuple(None if t is None else t.clone() for t in (
+                q, new_k, new_v, k_pools[layer], v_pools[layer], table, pos, write_mask))
+        return wrapper(q, new_k, new_v, k_pools, v_pools, table, pos, layer,
+                       write_mask=write_mask)
+
+    tpa.paged_append_attention = recording
+    try:
+        with ts.disable_graphs():
+            eng = _spec_engine("paged", params, cfg, cuda, cache_dtype=dtype)
+            eng.pump(_spec_traffic(seed=7, n=4))
+    finally:
+        tpa.paged_append_attention = wrapper
+    assert sorted(rec) == list(range(cfg.n_layers))
+    for q, nk, nv, kp, vp, table, pos, wm in rec.values():
+        k1, v1, k2, v2 = (t[None].clone() for t in (kp, vp, kp, vp))
+        got, _, _ = tpa.paged_append_attention(q, nk, nv, k1, v1, table, pos, 0, write_mask=wm)
+        want = tpa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, 0, write_mask=wm)
+        mag = tpa.paged_append_attention_plain(
+            q.float(), nk.float(), nv.float().abs(), kp[None].float(), vp[None].float().abs(),
+            table, pos, 0, write_mask=wm)
+        torch.cuda.synchronize()
+        assert q.shape[1] == gamma + 1 and wm is not None and bool(wm.any())
+        _paged_close(got, want, mag)
+        assert torch.equal(k1[:, 1:], k2[:, 1:]) and torch.equal(v1[:, 1:], v2[:, 1:])
 
 
 def test_capture_of_a_host_read_raises(cuda, monkeypatch):

@@ -758,8 +758,7 @@ def test_unported_fields_raise_naming_their_item(weights):
     def engine(**kw):
         return tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **dict(ENGINE, **kw))
 
-    for kw, item in ((dict(spec_gamma=2), 7), (dict(draft_params={}), 7),
-                     (dict(adapter_bank={}), 8), (dict(kv_dtype="int8"), 10),
+    for kw, item in ((dict(adapter_bank={}), 8), (dict(kv_dtype="int8"), 10),
                      (dict(telemetry_enabled=False), 12), (dict(mesh=object()), 15),
                      (dict(slot_axis=("slice", "data")), 15)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
