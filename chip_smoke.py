@@ -114,7 +114,23 @@ exits 2 before any result):
    alternating windows (ms per round and per committed token, tokens a
    round, acceptance), one profiled graphed round each and one eager
    round split into draft steps, verify pass and the rest;
-11. training FLAGSHIP_MODERN at full width in bf16 through
+11. request telemetry ("serve bf16 telemetry"): FLAGSHIP_MODERN in bf16,
+   8 slots, block 16, bucket 256, sync interval 8, each graphed engine with
+   telemetry on (the main path) against its graphed
+   ``telemetry_enabled=False`` twin, in six legs, each timed: the paged
+   engine on the serving run's 16 requests, on the lifecycle traffic (a
+   49-block pool that preempts, a cancel after burst 3, a poisoned slot,
+   ``pump(queue_limit=6)`` shedding) and with int4 block weights (both int4
+   kernels must launch), the dense engine, and a γ = 4 speculative paged
+   engine; each twin equal in completions and statuses, host syncs, graph
+   calls, kernel launches and the ``stats()`` fields an engine keeps
+   itself, and the on engine's account consistent (completed, statuses,
+   tokens generated, every timeline in order, bursts summing to each
+   request's tokens); then steady decode of 8 residents with telemetry on
+   and off in 4 alternating rounds of 4 graphed 8-step bursts (host
+   clock medians, reported), and one profiled telemetry-on burst with one
+   device-to-host copy;
+12. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -126,15 +142,15 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-12. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+13. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-13. resume: the graphed bf16 step saved after 2 steps by
+14. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-14. training in f32 at 2 layers: the graphed flash step against its eager
+15. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
@@ -1885,47 +1901,51 @@ PAGED_TWIN_ATTRS = ("host_syncs", "stalled_steps", "preempted_count", "quarantin
                     "prefix_hits", "prefix_misses")
 
 
-def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0):
-    """``drive(eager) -> (engine, completions)`` run graphed (the main
-    path, launch counts zeroed just before) and eagerly: completions with
-    their statuses, the engine counters ``attrs``, the final cache bytes
-    from block ``pool_from`` on (1 for a paged pool: block 0 is the null
-    block, the sink of prefill's spare stripes), the draft cache's bytes
-    where the engine speculates, and every launch count must be
-    identical.  Returns the graphed engine, its completions and its
+def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0, twin="eager"):
+    """``drive(is_twin) -> (engine, completions)`` run as the main path
+    (graphed, launch counts zeroed just before) and as its twin: eagerly
+    (``twin="eager"``, under ``serve.disable_graphs()``) or graphed too (any
+    other name: ``drive`` builds the twin, e.g. with telemetry off):
+    completions with their statuses, the engine counters ``attrs``, the
+    final cache bytes from block ``pool_from`` on (1 for a paged pool:
+    block 0 is the null block, the sink of prefill's spare stripes), the
+    draft cache's bytes where the engine speculates, and every launch count
+    must be identical.  Returns the main engine, its completions and its
     launch counts."""
     from k8s_dra_driver_torch.models import serve
 
     runs = []
-    for eager in (False, True):
+    for is_twin in (False, True):
         sync(torch)
         _zero_serving_counts()
         t0 = time.perf_counter()
+        eager = is_twin and twin == "eager"
         with serve.disable_graphs() if eager else contextlib.nullcontext():
-            eng, comps = drive(eager)
+            eng, comps = drive(is_twin)
         sync(torch)
         runs.append((eng, comps, time.perf_counter() - t0, serve.launch_counts()))
-    (eng, comps, wall, counts), (twin, twin_comps, twin_wall, twin_counts) = runs
+    (eng, comps, wall, counts), (other, twin_comps, twin_wall, twin_counts) = runs
     streams = sorted((c.request_id, c.generated, c.status) for c in comps)
     if streams != sorted((c.request_id, c.generated, c.status) for c in twin_comps):
-        raise AssertionError(f"{label}: graphed and eager completions differ")
+        raise AssertionError(f"{label}: graphed and {twin} completions differ")
     for attr in attrs:
-        if getattr(eng, attr) != getattr(twin, attr):
-            raise AssertionError(f"{label}: graphed and eager {attr} differ: "
-                                 f"{getattr(eng, attr)} against {getattr(twin, attr)}")
-    for a, b_ in ((eng._cache.k, twin._cache.k), (eng._cache.v, twin._cache.v)):
+        if getattr(eng, attr) != getattr(other, attr):
+            raise AssertionError(f"{label}: graphed and {twin} {attr} differ: "
+                                 f"{getattr(eng, attr)} against {getattr(other, attr)}")
+    for a, b_ in ((eng._cache.k, other._cache.k), (eng._cache.v, other._cache.v)):
         if not torch.equal(a[:, pool_from:], b_[:, pool_from:]):
-            raise AssertionError(f"{label}: graphed and eager caches differ from block "
+            raise AssertionError(f"{label}: graphed and {twin} caches differ from block "
                                  f"{pool_from} on after the drain")
     if getattr(eng, "_d_cache", None) is not None and not all(
-            torch.equal(a, b_) for a, b_ in zip(eng._d_cache, twin._d_cache)):
-        raise AssertionError(f"{label}: graphed and eager draft caches differ after the drain")
+            torch.equal(a, b_) for a, b_ in zip(eng._d_cache, other._d_cache)):
+        raise AssertionError(f"{label}: graphed and {twin} draft caches differ after the drain")
     if counts != twin_counts:
-        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, eager {twin_counts}")
+        raise AssertionError(f"{label}: launch counts differ: graphed {counts}, {twin} "
+                             f"{twin_counts}")
     generated = sum(len(c.generated) for c in comps)
     log(f"{label}: {len(comps)} requests, {generated} tokens in {wall:.2f} s graphed "
-        f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s eager ({generated / twin_wall:.1f} "
-        f"tokens/s); {', '.join(f'{a} {getattr(eng, a)}' for a in attrs)}; graphed == eager "
+        f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s {twin} ({generated / twin_wall:.1f} "
+        f"tokens/s); {', '.join(f'{a} {getattr(eng, a)}' for a in attrs)}; graphed == {twin} "
         f"twin in completions, statuses, {', '.join(attrs)}, cache bytes"
         f"{f' from block {pool_from}' if pool_from else ''}"
         f"{', draft cache bytes' if getattr(eng, '_d_cache', None) is not None else ''} "
@@ -1996,6 +2016,15 @@ def snapshot_lifecycle_drive(eng, reqs, *, cancel_after, pick_cancel, snapshot_a
                 and not getattr(eng, "_preempted", ())):
             return comps, cancelled, snaps
     raise AssertionError(f"the lifecycle run did not drain in {max_bursts} bursts")
+
+
+def _without_traces(text: str) -> str:
+    """A snapshot's JSON less each entry's telemetry trace: its stamps are
+    the host clock's, so two runs of one schedule differ only there."""
+    doc = json.loads(text)
+    for entry in doc["requests"]:
+        entry.pop("trace", None)
+    return json.dumps(doc)
 
 
 def _oldest_resident(eng):
@@ -2144,7 +2173,9 @@ def phase_serve_dense(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
             statuses[c.status] = statuses.get(c.status, 0) + 1
         log(f"{label} lifecycle: statuses {statuses}; quarantined {eng.quarantined}; cancelled "
             f"{cancelled}")
-        if len(eng.quarantined) != 1 or statuses.get("cancelled") != 1 or snap != twin_snap:
+        if (len(eng.quarantined) != 1 or statuses.get("cancelled") != 1
+                or (_without_traces(snap[0]), *snap[1:]) != (_without_traces(twin_snap[0]),
+                                                             *twin_snap[1:])):
             raise AssertionError(f"{label} lifecycle: want one quarantine, one cancel and equal "
                                  f"snapshots: {eng.quarantined}, {statuses}")
         _teacher_forced_all(torch, f"{label} lifecycle", cfg, params, lreqs, comps, cache_dtype,
@@ -2503,7 +2534,8 @@ def phase_serve_admission(torch, cfg, params, *, cache_dtype, tol=0.25):
         eng, comps, _ = _engine_twin(torch, f"{label} lifecycle", drive, PAGED_TWIN_ATTRS,
                                      pool_from=1)
         (cancelled, snaps), (_, twin_snaps) = drives
-        if {k: v[0] for k, v in snaps.items()} != {k: v[0] for k, v in twin_snaps.items()}:
+        if ({k: _without_traces(v[0]) for k, v in snaps.items()}
+                != {k: _without_traces(v[0]) for k, v in twin_snaps.items()}):
             raise AssertionError(f"{label} lifecycle: graphed and eager snapshots differ")
         statuses = {}
         for c in comps:
@@ -3005,6 +3037,277 @@ def phase_serve_spec(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
     return {"paged_attention": out["counts"][(pa.__name__, "append")]}
 
 
+# the telemetry phase: the lifecycle engine's geometry and traffic, a pool
+# that preempts, a cancel, a poisoned slot and a queue limit that sheds
+TELEMETRY_QUEUE_LIMIT = 6     # requests left waiting after each admission round
+TELEMETRY_CANCEL_AFTER = 3    # bursts
+TELEMETRY_TIMING_ROUNDS = 4   # alternating rounds of 4 graphed 8-step bursts
+# EngineStats fields an engine keeps itself, so a telemetry-off twin reports them too
+ENGINE_STATS = ("n_slots", "resident_slots", "free_slots", "queue_depth", "admitting",
+                "preempted", "free_blocks", "quarantined", "shed_count", "host_syncs",
+                "sync_interval")
+
+
+def _check_traces(label, eng, comps, n_requests):
+    """The telemetry-on engine's account of a drained run: ``completed`` is
+    every request that was not shed and the statuses sum to all of them;
+    ``tokens_generated`` counts the tokens committed in bursts, i.e. every
+    generated token less each activation's first one; every activated
+    trace runs ``queued_at <= submitted_at <= admitted_at ==
+    first_token_at <= retired_at`` and its bursts' tokens sum to its
+    ``generated - 1``.  Returns the stats."""
+    st = eng.stats()
+    sheds = st.statuses.get("shed", 0)
+    if sum(st.statuses.values()) != n_requests or st.completed != n_requests - sheds:
+        raise AssertionError(f"{label}: statuses {st.statuses}, completed {st.completed} for "
+                             f"{n_requests} requests")
+    activated, bursts = 0, 0
+    for c in comps:
+        if c.request_id < 0:
+            continue
+        tr = eng.telemetry.trace(c.request_id)
+        if tr is None or tr["status"] != c.status or tr["generated"] != len(c.generated):
+            raise AssertionError(f"{label}: request {c.request_id}'s trace {tr} does not "
+                                 f"match its completion ({c.status}, {len(c.generated)})")
+        if tr["first_token_at"] is None:
+            continue  # cancelled while admitting
+        activated += 1
+        bursts += len(tr["bursts"])
+        if not (tr["queued_at"] <= tr["submitted_at"] <= tr["admitted_at"]
+                == tr["first_token_at"] <= tr["retired_at"]):
+            raise AssertionError(f"{label}: request {c.request_id}'s timeline is out of "
+                                 f"order: {tr}")
+        if not tr["bursts_dropped"] and sum(b["tokens"] for b in tr["bursts"]) != tr["generated"] - 1:
+            raise AssertionError(f"{label}: request {c.request_id}'s bursts do not sum to its "
+                                 f"generated tokens less the first")
+    generated = sum(len(c.generated) for c in comps)
+    if st.tokens_generated != generated - activated:
+        raise AssertionError(f"{label}: tokens_generated {st.tokens_generated}, want "
+                             f"{generated} generated less {activated} first tokens")
+    log(f"{label}: stats: completed {st.completed}, statuses {st.statuses}, tokens_generated "
+        f"{st.tokens_generated} ({generated} generated less {activated} first tokens), bursts "
+        f"{st.bursts}, host_syncs {st.host_syncs}; {activated} timelines in order, {bursts} "
+        f"burst records; TTFT p50/p90 {st.ttft_p50_s * 1e3:.2f}/{st.ttft_p90_s * 1e3:.2f} ms, "
+        f"TPOT p50/p90 {st.tpot_p50_s * 1e3:.3f}/{st.tpot_p90_s * 1e3:.3f} ms")
+    return st
+
+
+def _telemetry_twin(torch, label, make, drive, n_requests, attrs=PAGED_TWIN_ATTRS, pool_from=1):
+    """``make(telemetry_enabled) -> engine`` and ``drive(engine) ->
+    completions``: the graphed engine with telemetry on (the main path)
+    against its graphed telemetry-off twin (:func:`_engine_twin`), then
+    the same graph calls per program and ``stats()`` fields the engine
+    keeps itself, and the on engine's own account (:func:`_check_traces`).
+    Returns the on engine, its completions and its launch counts."""
+    engines = []
+
+    def run(off):
+        engines.append(make(not off))
+        return engines[-1], drive(engines[-1])
+
+    on, comps, counts = _engine_twin(torch, label, run, attrs, pool_from, twin="telemetry-off")
+    off = engines[1]
+    calls = {name: prog.calls for name, prog in on.graphs.items()}
+    off_calls = {name: prog.calls for name, prog in off.graphs.items()}
+    if calls != off_calls:
+        raise AssertionError(f"{label}: graph calls differ: on {calls}, off {off_calls}")
+    on_stats, off_stats = on.stats().to_json(), off.stats().to_json()
+    differ = {f: (on_stats[f], off_stats[f]) for f in ENGINE_STATS if on_stats[f] != off_stats[f]}
+    if differ:
+        raise AssertionError(f"{label}: stats differ between telemetry on and off: {differ}")
+    if off_stats["completed"] or off.telemetry.trace(0) is not None:
+        raise AssertionError(f"{label}: the telemetry-off engine recorded a request")
+    log(f"{label}: telemetry on == off also in graph calls {calls} and the stats fields "
+        f"{', '.join(ENGINE_STATS)}")
+    _check_traces(label, on, comps, n_requests)
+    return on, comps, counts
+
+
+def _dtoh_copies(prof) -> int:
+    """Device-to-host copies in a profile's device events."""
+    return sum(n for _, n, key in prof["rows"] if "DtoH" in key or "Device -> Pageable" in key)
+
+
+def telemetry_cost(torch, label, cfg, params, cache_dtype, card, rounds=TELEMETRY_TIMING_ROUNDS,
+                   bursts=4):
+    """Host time that telemetry adds to steady graphed decode: two engines
+    (telemetry on and off) with the same 8 residents (prompt 128; none
+    retires inside the window), 3 warm-up bursts each, then ``rounds``
+    alternating rounds of ``bursts`` 8-step bursts on the host clock
+    around a synchronised window; medians.  Reported, not gated.  Then one
+    profiled burst of the on engine, which must copy from the device to
+    the host once (the burst's readback)."""
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    r = np.random.RandomState(SEED + 7)
+    prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+    engines = {}
+    for mode in ("on", "off"):
+        eng = PagedServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, device=DEV,
+                               n_blocks=8 * 24 + 1, telemetry_enabled=mode == "on",
+                               **dict(LIFECYCLE, top_k=0))
+        for p in prompts:
+            eng.submit(p, max_tokens=8 * (3 + rounds * bursts + 2))
+        for _ in range(3):
+            eng.step_burst()
+        engines[mode] = eng
+    times = {"on": [], "off": []}
+    for _ in range(rounds):
+        for mode, eng in engines.items():
+            sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(bursts):
+                eng.step_burst()
+            sync(torch)
+            times[mode].append((time.perf_counter() - t0) / bursts * 1e3)
+    if [st.tokens for st in engines["on"]._slots] != [st.tokens for st in engines["off"]._slots]:
+        raise AssertionError(f"{label}: the timing engines' streams differ")
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    for mode in ("on", "off"):
+        log(f"{label} timing: telemetry {mode}: {' / '.join(f'{t:.3f}' for t in times[mode])} "
+            f"ms per graphed 8-step burst by round (median {med[mode]:.3f} ms, "
+            f"{med[mode] / 8:.4f} ms per step)")
+    log(f"{label} timing: telemetry adds {med['on'] - med['off']:.4f} ms per burst "
+        f"({(med['on'] - med['off']) / med['off']:.4f} of the off burst; 8 residents, 64 "
+        f"commits and 2 clock reads a burst; {card})")
+    prof = profile_window(torch, f"{label}: profile of one telemetry-on graphed burst",
+                          engines["on"].step_burst, top=4)
+    if prof is None:
+        log(f"{label}: device-to-host copies in a burst: not measured (no device events)")
+    else:
+        n = _dtoh_copies(prof)
+        log(f"{label}: device-to-host copies in one telemetry-on burst: {n} (the readback)")
+        if n != 1:
+            raise AssertionError(f"{label}: {n} device-to-host copies in one burst, want 1")
+    return med
+
+
+def phase_serve_telemetry(torch, cfg, params, reqs, *, cache_dtype, card):
+    """Request telemetry at full width in bf16 (8 slots, block 16, bucket
+    256, sync interval 8): each graphed engine with telemetry on (the main
+    path) against its graphed ``telemetry_enabled=False`` twin
+    (:func:`_telemetry_twin`): the paged engine on the serving run's 16
+    requests, on the lifecycle traffic (a 49-block pool that preempts, a
+    cancel after burst 3, one slot poisoned, ``pump(queue_limit=6)``
+    shedding) and with int4 block weights (both int4 kernels must launch);
+    the dense engine and a γ = 4 speculative paged engine on the serving
+    requests (each round's commits, handed to the open burst, sum to the
+    committed tokens); then telemetry's host cost in steady decode.
+    Returns the launch counts of the graphed on engines, by leg."""
+    from k8s_dra_driver_torch.models import quant, serve
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+    from k8s_dra_driver_torch.utils import faults
+
+    label = "serve bf16 telemetry"
+    greedy = _greedy_dicts(reqs)
+    out: dict = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+
+    def paged(enabled, p=params, n_blocks=8 * 24 + 1, **kw):
+        return PagedServeEngine(params=p, cfg=cfg, n_blocks=n_blocks, cache_dtype=cache_dtype,
+                                device=DEV, telemetry_enabled=enabled,
+                                **dict(dict(LIFECYCLE, top_k=0), **kw))
+
+    def serving_leg():
+        _, _, out["serving"] = _telemetry_twin(
+            torch, f"{label} serving", paged, lambda e: e.pump(greedy), len(reqs))
+
+    def lifecycle_leg():
+        lreqs = _lifecycle_traffic(cfg.vocab_size, SEED + 11)
+
+        def make(enabled):
+            inj = faults.FaultInjector(SEED)
+            inj.arm(faults.FaultProfile(name="poison", **LIFECYCLE_POISON))
+            return paged(enabled, n_blocks=LIFECYCLE_POOL, fault_injector=inj, top_k=50)
+
+        def drive(eng):
+            step_burst, bursts = eng.step_burst, [0]
+
+            def counted():  # the pump's bursts, with a cancel after the third
+                n = step_burst()
+                bursts[0] += 1
+                if bursts[0] == TELEMETRY_CANCEL_AFTER:
+                    eng.cancel(min(st.request_id for st in eng._slots if st is not None))
+                return n
+
+            eng.step_burst = counted
+            return eng.pump(lreqs, queue_limit=TELEMETRY_QUEUE_LIMIT)
+
+        eng, comps, out["lifecycle"] = _telemetry_twin(
+            torch, f"{label} lifecycle", make, drive, len(lreqs))
+        statuses = eng.stats().statuses
+        log(f"{label} lifecycle: {eng.preempted_count} preemptions, {eng.shed_count} shed, "
+            f"statuses {statuses}")
+        if not (eng.preempted_count and eng.shed_count and statuses.get("cancelled")
+                and statuses.get("quarantined")):
+            raise AssertionError(f"{label} lifecycle: the traffic did not preempt, shed, "
+                                 f"cancel and quarantine")
+        events = {e["event"] for c in comps if c.request_id >= 0
+                  for e in eng.telemetry.trace(c.request_id)["events"]}
+        if not {"preempt", "readmit"} <= events:
+            raise AssertionError(f"{label} lifecycle: trace events {sorted(events)}")
+
+    def int4_leg():
+        p4 = quant.quantize_blocks(params, bits=4)
+        _, _, counts = _telemetry_twin(
+            torch, f"{label} int4", lambda enabled: paged(enabled, p=p4),
+            lambda e: e.pump(greedy), len(reqs))
+        out["int4"] = counts
+        if not (counts[(i4.__name__, "int4_splitk")] and counts[(i4.__name__, "int4_wgmma")]):
+            raise AssertionError(f"{label} int4: an int4 kernel was never launched: {counts}")
+
+    def dense_leg():
+        _telemetry_twin(
+            torch, f"{label} dense",
+            lambda enabled: _dense_engine(cfg, params, cache_dtype, telemetry_enabled=enabled),
+            lambda e: e.pump(greedy), len(reqs), DENSE_TWIN_ATTRS, pool_from=0)
+
+    def spec_leg():
+        commits = []
+
+        def drive(eng):
+            on_commit = eng.telemetry.on_commit
+
+            def counted(request_id, n=1):
+                if eng.telemetry.enabled:
+                    commits.append(n)
+                on_commit(request_id, n)
+
+            eng.telemetry.on_commit = counted
+            return eng.pump(greedy)
+
+        eng, comps, out["spec"] = _telemetry_twin(
+            torch, f"{label} spec",
+            lambda enabled: _spec_engine(cfg, params, cache_dtype, telemetry_enabled=enabled),
+            drive, len(reqs))
+        committed = sum(len(c.generated) - 1 for c in comps)
+        on_commits = sum(commits)
+        if eng.stats().tokens_generated != committed or on_commits != committed:
+            raise AssertionError(f"{label} spec: on_commit summed {on_commits}, tokens_generated "
+                                 f"{eng.stats().tokens_generated}, rounds committed {committed}")
+        log(f"{label} spec: {eng.host_syncs} rounds, on_commit sums to the {committed} tokens "
+            f"the rounds committed")
+
+    leg("serving", serving_leg)
+    leg("lifecycle", lifecycle_leg)
+    leg("int4", int4_leg)
+    leg("dense", dense_leg)
+    leg("spec", spec_leg)
+    leg("timing", lambda: telemetry_cost(torch, label, cfg, params, cache_dtype, card))
+    append = (pa.__name__, "append")
+    return {
+        "paged_attention": sum(out[k][append] for k in ("serving", "lifecycle", "spec")),
+        "int4_matmul": out["int4"][(i4.__name__, "int4_splitk")],
+        "int4_matmul_prefill": out["int4"][(i4.__name__, "int4_wgmma")],
+    }
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -3147,6 +3450,12 @@ def main() -> int:
         launches["spec"] = phase_serve_spec(torch, cfg, params, reqs, cache_dtype=torch.bfloat16)
 
     run("serve bf16 spec", serve_spec)
+
+    def serve_telemetry():
+        launches["telemetry"] = phase_serve_telemetry(torch, cfg, params, reqs,
+                                                      cache_dtype=torch.bfloat16, card=card)
+
+    run("serve bf16 telemetry", serve_telemetry)
     del params
 
     def train_bf16():
@@ -3164,16 +3473,19 @@ def main() -> int:
         log(f"chip_smoke: failed phases {failed}")
         return 1
     # each kernel's launches on the path that runs it: paged append on the
-    # bf16 serving run and the speculative one (its verify windows, nq 5),
-    # both int4 kernels on the int4 serving run, flash on the bf16 training
-    # run and the f32 forward on the f32 training run; the read-only paged
-    # kernel is on no path (0)
+    # bf16 serving run, the speculative one (its verify windows, nq 5) and
+    # the telemetry-on engines, both int4 kernels on the int4 serving run and
+    # the telemetry-on int4 engine, flash on the bf16 training run and the
+    # f32 forward on the f32 training run; the read-only paged kernel is on
+    # no path (0)
+    tel = launches["telemetry"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
-                            + launches["spec"]["paged_attention"]),
+                            + launches["spec"]["paged_attention"] + tel["paged_attention"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
-        "int4_matmul": launches["int4"]["int4_matmul"],
-        "int4_matmul_prefill": launches["int4"]["int4_matmul_prefill"],
+        "int4_matmul": launches["int4"]["int4_matmul"] + tel["int4_matmul"],
+        "int4_matmul_prefill": (launches["int4"]["int4_matmul_prefill"]
+                                + tel["int4_matmul_prefill"]),
         **launches["train"],
         **launches["train_f32"],
     }

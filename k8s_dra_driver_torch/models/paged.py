@@ -27,9 +27,11 @@ the sampling tail is ``serve.sample_next``, keyed per slot by
 re-admitted continues exactly where it stopped; chunked admission and
 prefix sharing change when prefill runs and what it computes, never the
 tokens; so do speculative rounds, whose verify window goes through the same
-append kernel at ``nq = spec_gamma + 1``.  Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: LoRA, quantized KV pools,
-meshes, handoff and KV payloads, the fleet prefix hooks and telemetry.
+append kernel at ``nq = spec_gamma + 1``.  The engine's telemetry, metrics
+and journal records are the reference's, at the reference's host points.
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: LoRA, quantized KV pools, meshes, handoff and KV payloads, and the
+fleet prefix hooks.
 """
 
 from __future__ import annotations
@@ -52,9 +54,25 @@ from k8s_dra_driver_torch.models.burnin import (
 )
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
 from k8s_dra_driver_torch.models.speculative import accept_advance
+from k8s_dra_driver_torch.models.telemetry import EngineTelemetry
 from k8s_dra_driver_torch.ops import paged_attention
+from k8s_dra_driver_torch.utils.journal import JOURNAL
+from k8s_dra_driver_torch.utils.metrics import REGISTRY
 
 NULL_BLOCK = 0  # reserved: never allocated, the table's filler
+
+# The pool's metrics, the reference's families (the serving ones live in
+# models/serve.py and are shared by both engines):
+_M_POOL_FREE = REGISTRY.gauge(
+    "tpu_serve_kv_pool_free_blocks", "free KV pool blocks right now"
+)
+_M_PREEMPTIONS = REGISTRY.counter(
+    "tpu_serve_preemptions_total",
+    "requests evicted under pool pressure for later recompute-resume",
+)
+_M_KV_BYTES = REGISTRY.gauge(
+    "tpu_serve_kv_bytes", "resident KV pool bytes (values + scales), by pool dtype"
+)
 
 
 class PagedKVCache(NamedTuple):
@@ -156,6 +174,18 @@ class BlockAllocator:
 
 def blocks_needed(tokens: int, block_size: int) -> int:
     return -(-tokens // block_size)
+
+
+def check_verify_window(spec_gamma: int, block_size: int, device) -> None:
+    """The append kernel takes a window of at most one block
+    (``ops/paged_attention.check_kernel_shape``), so on the card a
+    speculating engine needs ``spec_gamma + 1 <= block_size``.  The CPU's
+    plain path takes any window, as the reference's XLA path does."""
+    if torch.device(device).type == "cuda" and spec_gamma + 1 > block_size:
+        raise ValueError(
+            f"the verify window spec_gamma + 1 = {spec_gamma + 1} exceeds block_size "
+            f"{block_size} (the paged kernel's append rule)"
+        )
 
 
 def paged_decode_chunk(params, cache: PagedKVCache, block_table, window, pos,
@@ -440,9 +470,14 @@ class PagedServeEngine:
       1`` tokens with one readback; every admission path (whole, prefix
       hit, the last chunk, a re-admission, a restore) also fills the
       slot's draft row.  Greedy only (temperature 0, the verify window's
-      slack under ``max_seq``), and ``spec_gamma + 1 <= block_size`` (the
-      kernel's window rule);
-    * retirement drops the slot's references at once.
+      slack under ``max_seq``), and on the card ``spec_gamma + 1 <=
+      block_size`` (the kernel's window rule, :func:`check_verify_window`);
+    * retirement drops the slot's references at once;
+    * ``telemetry`` (``models/telemetry.EngineTelemetry``, off with
+      ``telemetry_enabled=False``) records each request's timeline at the
+      host points above (admission chunks, activation, preemption and
+      re-admission, bursts, retirement), outside the programs, with no
+      added readback; ``stats()`` returns its ``EngineStats``.
 
     Runs on ``device`` (default the card; raises without one unless
     ``device="cpu"``); ``params`` must live there.  On the card each of
@@ -463,9 +498,8 @@ class PagedServeEngine:
     life and is written in place; everything else (allocation, the prefix
     store, the admission queue, growth, stalls, preemption, retirement)
     stays on the host.  The reference's LoRA, quantized pools, mesh,
-    handoff, fleet prefix hooks and telemetry raise
-    ``NotImplementedError`` naming their ROADMAP item.  Not
-    thread-safe; drive it from one loop.
+    handoff and fleet prefix hooks raise ``NotImplementedError`` naming
+    their ROADMAP item.  Not thread-safe; drive it from one loop.
     """
 
     params: dict
@@ -503,7 +537,6 @@ class PagedServeEngine:
             (self.adapter_bank is not None, "per-request LoRA (adapter_bank)", 8),
             (self.mesh is not None or self.slot_axis != "data",
              "a mesh (slot sharding, slot_axis)", 15),
-            (self.telemetry_enabled is not True, "telemetry_enabled (request telemetry)", 12),
         ):
             if unported:
                 raise serve._unported(what, item)
@@ -519,12 +552,8 @@ class PagedServeEngine:
             raise ValueError(f"sync_interval must be >= 1, got {self.sync_interval}")
         if self.quarantine_limit < 1:
             raise ValueError(f"quarantine_limit must be >= 1, got {self.quarantine_limit}")
-        if self.spec_gamma + 1 > self.block_size:
-            raise ValueError(
-                f"the verify window spec_gamma + 1 = {self.spec_gamma + 1} exceeds block_size "
-                f"{self.block_size} (the paged kernel's append rule)"
-            )
         self.device = params_device(self.params, self.device)
+        check_verify_window(self.spec_gamma, self.block_size, self.device)
         bs = self.block_size
         if self.pool_hbm_bytes is not None:
             per_block = kv_block_bytes(cfg, bs, self.cache_dtype)
@@ -558,9 +587,12 @@ class PagedServeEngine:
         self.quarantined: list[int] = []  # quarantined request ids
         self.shed_count = 0
         self.last_shed: serve.ShedError | None = None
+        self.pump_stats: dict = {}
         self._last_step_s = 0.0  # wall time of the last burst
+        # port-only, outside EngineStats (whose fields are the reference's)
         self.spec_drafted = 0    # draft tokens proposed to active slots
         self.spec_accepted = 0   # of those, the ones the target agreed with
+        self.telemetry = EngineTelemetry(self, enabled=self.telemetry_enabled)
         dev = self.device
         self._cache = init_paged_cache(
             cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev
@@ -655,10 +687,10 @@ class PagedServeEngine:
         the steps to prefill.  ``temperature`` above 0 samples under the
         base key ``PRNGKey(seed)`` (default the request id); ``priority``
         (higher first) orders stalls, evictions and re-admissions, never
-        what is generated.  ``queued_at`` is accepted for the telemetry
-        the reference stamps with it (not ported).  Returns the request
-        id."""
-        del queued_at
+        what is generated.  ``queued_at`` (the telemetry clock) is when the
+        request entered an upstream queue; default now.  Returns the
+        request id."""
+        t_sub = self.telemetry.now()
         serve.check_submit(
             prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
             spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline,
@@ -688,6 +720,8 @@ class PagedServeEngine:
         request_id = self._next_id
         base_key = prng.prng_key(request_id if seed is None else seed)
         self.prefix_hits += cached
+        if self.prefix_cache_blocks > 0 and storable > 0:
+            serve._M_PREFIX.inc(outcome="hit" if cached else "miss")
         self._prio[slot] = priority
         self._reserve(slot, ids)
         if self.prefill_chunk_blocks > 0:
@@ -699,6 +733,12 @@ class PagedServeEngine:
                 slot=slot, prompt=list(prompt), plen=len(prompt), done=cached,
                 storable=storable, cached=cached, temp=temperature, key=base_key,
             ))
+            # admitted and first token stamp when the final chunk activates
+            self.telemetry.on_admit(
+                request_id, prompt_len=len(prompt), max_tokens=max_tokens, deadline=deadline,
+                adapter=adapter, submitted_at=t_sub, queued_at=queued_at, activated=False,
+            )
+            self._update_gauges()
             return request_id
         try:
             self._prefill_slot(slot, prompt, cached)
@@ -715,7 +755,15 @@ class PagedServeEngine:
         )
         self._slots[slot] = st
         self._set_row(slot, st, temperature, base_key)
+        serve._M_REQUESTS.inc()
+        serve._M_TOKENS.inc()  # the admission's first generated token
+        # activation is the first token here (read back above)
+        self.telemetry.on_admit(
+            request_id, prompt_len=len(prompt), max_tokens=max_tokens, deadline=deadline,
+            adapter=adapter, submitted_at=t_sub, queued_at=queued_at,
+        )
         self._retire(slot)  # max_tokens=1 or eos on the first token
+        self._update_gauges()
         return request_id
 
     def cancel(self, request_id: int) -> bool:
@@ -777,7 +825,11 @@ class PagedServeEngine:
         return out
 
     def stats(self):
-        raise serve._unported("stats() (request telemetry)", 12)
+        """The engine's ``telemetry.EngineStats``: queue depth, resident and
+        free slots, free pool blocks, prompts admitting, parked requests,
+        rolling TTFT/TPOT quantiles, statuses, bursts, host syncs; host
+        values only."""
+        return self.telemetry.stats()
 
     def snapshot_active(self, include_kv: bool = False) -> dict:
         """Every in-flight request as the dense engine's JSON-serialisable
@@ -798,10 +850,15 @@ class PagedServeEngine:
             # the device row is set at activation: mid-admission, the queue
             # entry holds the sampler state
             temp, key = (temps[slot], keys[slot]) if adm is None else (adm["temp"], adm["key"])
-            reqs.append(serve._snapshot_request(st, float(temp), key, priority=self._prio[slot]))
+            reqs.append(serve._snapshot_request(
+                st, float(temp), key, priority=self._prio[slot],
+                trace=self.telemetry.export_trace(st.request_id),
+            ))
         for r in self._preempted:
-            reqs.append(serve._snapshot_request(r["st"], r["temp"], r["key"],
-                                                priority=r["priority"]))
+            reqs.append(serve._snapshot_request(
+                r["st"], r["temp"], r["key"], priority=r["priority"],
+                trace=self.telemetry.export_trace(r["st"].request_id),
+            ))
         return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
 
     def restore(self, snapshot: dict, merge: bool = False) -> list[int]:
@@ -811,8 +868,9 @@ class PagedServeEngine:
         stream exactly; what the pool cannot hold yet stays parked and
         admits as capacity frees.  Needs an idle engine unless ``merge``,
         which joins a live engine's parked queue.  A history longer than
-        the prompt bucket comes back as an "error" completion.  Returns the
-        request ids accepted (resident or parked)."""
+        the prompt bucket comes back as an "error" completion.  Each entry's
+        trace is rebuilt first, so its request keeps one timeline.  Returns
+        the request ids accepted (resident or parked)."""
         serve.check_restorable(snapshot)
         for req in snapshot["requests"]:
             if "kv" in req:
@@ -824,6 +882,7 @@ class PagedServeEngine:
             raise RuntimeError("restore() needs an idle engine")
         restored: list[int] = []
         for req in sorted(snapshot["requests"], key=lambda r: r["request_id"]):
+            self.telemetry.import_trace(int(req["request_id"]), req.get("trace"))
             tokens = [int(t) for t in req["tokens"]]
             if len(tokens) > self.prompt_bucket:
                 serve._unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
@@ -842,6 +901,9 @@ class PagedServeEngine:
                 priority=int(req.get("priority", 0)),
             ))
             restored.append(st.request_id)
+            JOURNAL.record("serve", "request.restore", correlation=f"req-{st.request_id}",
+                           resumed_at=len(tokens))
+            self.telemetry.on_restore(st.request_id, resumed_at=len(tokens))
         self._preempted.sort(key=lambda r: -r["priority"])
         self._next_id = max(
             self._next_id,
@@ -849,21 +911,34 @@ class PagedServeEngine:
             max((int(r["request_id"]) for r in snapshot["requests"]), default=-1) + 1,
         )
         self._readmit()  # admit what fits now; the rest drains through the steps
+        self._update_gauges()
         return restored
 
     def release_active(self) -> int:
         """Free every slot and its references, and drop the admission
         queue and the parked requests, WITHOUT delivering completions (the
         streams were captured by ``snapshot_active`` and live elsewhere
-        now).  Returns how many requests were released."""
-        released = len(self._preempted)
-        self._admitting, self._preempted = [], []
+        now; their traces are dropped, not retired).  Returns how many
+        requests were released."""
+        released = 0
+        self._admitting = []
         for slot, st in enumerate(self._slots):
             if st is not None:
                 self._slots[slot] = None
                 self._release_slot(slot)
+                self._release_trace(st, slot)
                 released += 1
+        for r in self._preempted:  # parked entries hold no blocks
+            self._release_trace(r["st"], -1)
+            released += 1
+        self._preempted = []
+        self._update_gauges()
         return released
+
+    def _release_trace(self, st, slot: int) -> None:
+        self.telemetry.drop_trace(st.request_id)
+        JOURNAL.record("serve", "request.released", correlation=f"req-{st.request_id}",
+                       slot=slot, generated=len(st.tokens) - st.prompt_len)
 
     # -- internals ---------------------------------------------------------
     def _step(self, k: int) -> int:
@@ -896,30 +971,42 @@ class PagedServeEngine:
         """Run the K-step burst program for the slots in ``active`` (host
         bool ``[n_slots]``, blocks already grown) with ONE readback, then
         append each slot's tokens up to its first non-finite step, retire
-        the finished slots and quarantine the poisoned ones."""
+        the finished slots and quarantine the poisoned ones (``single``,
+        the reference's ``step()``: in slot order among the commits)."""
         t0 = time.perf_counter()
+        self.telemetry.burst_begin(k, self._step_no)  # on the host, before the replay
         self._active.copy_(torch.from_numpy(active))
         trace = self._run(f"burst k={k}", self._burst_program(k))
         trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
         self.host_syncs += 1
+        serve._M_HOST_SYNCS.inc()
         self.decode_steps += k
         trace_a = trace_a.astype(bool)
         first_bad = serve._first_bad_steps(trace_a, trace_b.astype(bool))
+        committed = 0
         for j in range(k):
             for slot, st in enumerate(self._slots):
-                if st is None or not trace_a[j][slot] or j >= first_bad.get(slot, k):
+                if st is None or not trace_a[j][slot]:
                     continue
-                st.tokens.append(int(trace_t[j][slot]))
-                self._retire(slot)
+                if single and slot in first_bad:
+                    serve._quarantine_slot(self, slot, "nan_logits",
+                                           "non-finite logits in decode step")
+                elif j < first_bad.get(slot, k):
+                    st.tokens.append(int(trace_t[j][slot]))
+                    self.telemetry.on_commit(st.request_id)
+                    committed += 1
+                    self._retire(slot)
+        stepped = int(active.sum())
+        self.telemetry.burst_end(stepped)
         for slot in sorted(first_bad):
             if self._slots[slot] is not None:
-                serve._quarantine_slot(
-                    self, slot, "nan_logits",
-                    "non-finite logits in decode step" if single
-                    else f"non-finite logits at burst step {first_bad[slot]}",
-                )
+                serve._quarantine_slot(self, slot, "nan_logits",
+                                       f"non-finite logits at burst step {first_bad[slot]}")
+        serve._M_TOKENS.inc(committed)
+        self._update_gauges()
         self._last_step_s = time.perf_counter() - t0
-        return int(active.sum())
+        serve._M_STEP_LATENCY.observe(self._last_step_s)
+        return stepped
 
     def _spec_step(self) -> int:
         """One speculative round (the reference's round runs no fault
@@ -933,10 +1020,15 @@ class PagedServeEngine:
         if not active.any():
             return 0
         t0 = time.perf_counter()
+        self.telemetry.burst_begin(self.spec_gamma + 1, self._step_no)
         self._active.copy_(torch.from_numpy(active))
         readback = self._run("spec round", self._spec_program).cpu().numpy()
         self.host_syncs += 1
-        serve._commit_spec_round(self, readback, active)
+        serve._M_HOST_SYNCS.inc()
+        committed = serve._commit_spec_round(self, readback, active)
+        self.telemetry.burst_end(int(active.sum()))
+        serve._M_TOKENS.inc(committed)
+        self._update_gauges()
         self._last_step_s = time.perf_counter() - t0
         return int(active.sum())
 
@@ -959,9 +1051,11 @@ class PagedServeEngine:
             if real_end - adm["done"] * bs > width:
                 self._run_chunk(adm["done"], width)
                 adm["done"] += self.prefill_chunk_blocks
+                self.telemetry.on_admission_chunk(self._slots[slot].request_id)
                 return
             if real_end > adm["done"] * bs:
                 self._run_chunk(adm["done"], real_end - adm["done"] * bs)
+                self.telemetry.on_admission_chunk(self._slots[slot].request_id)
             self._prefill_draft(slot, adm["plen"])
             first_tok = self._first_token_of(slot, adm["plen"], adm["temp"], adm["key"])
         except BaseException as exc:
@@ -972,11 +1066,15 @@ class PagedServeEngine:
             serve._retire_parked(self, st, "error", f"{type(exc).__name__}: {exc}")
             raise
         self._admitting.pop(0)
+        serve._M_REQUESTS.inc()  # counted at activation, as a whole admission
         self._store_prefix_blocks(adm["prompt"], slot, adm["storable"], adm["cached"])
         st = self._slots[slot]
         st.tokens.append(first_tok)
         self._set_row(slot, st, adm["temp"], adm["key"])
+        serve._M_TOKENS.inc()
+        self.telemetry.on_activate(st.request_id)  # the slot is live, its first token in
         self._retire(slot)
+        self._update_gauges()
 
     def _grow_active_slots(self, lookahead: int):
         """Ensure every resident slot that is not admitting owns blocks
@@ -1019,11 +1117,15 @@ class PagedServeEngine:
         again.  Returns the host active mask."""
         active = self._grow_active_slots(lookahead)
         if self.preempt_on_stall and not self._admitting:
+            evicted = False
             while True:
                 resident = [s for s in range(self.n_slots) if self._slots[s] is not None]
                 if not resident or active[resident].any() or not self._preempt_one():
                     break
+                evicted = True
                 active = self._grow_active_slots(lookahead)
+            if evicted:
+                self._update_gauges()
         return active
 
     def _preempt_one(self) -> bool:
@@ -1054,6 +1156,8 @@ class PagedServeEngine:
         self._slots[vslot] = None
         self._release_slot(vslot)
         self.preempted_count += 1
+        _M_PREEMPTIONS.inc()
+        self.telemetry.on_event(victim.request_id, "preempt")
         return True
 
     def _readmit(self) -> None:
@@ -1085,6 +1189,8 @@ class PagedServeEngine:
             self._preempted.pop(0)
             self._slots[slot] = st
             self._set_row(slot, st, r["temp"], r["key"])
+            self.telemetry.on_event(st.request_id, "readmit")
+            self._update_gauges()
 
     def _storable(self, n_tokens: int) -> int:
         """Leading full blocks of an ``n_tokens`` history the store may
@@ -1272,3 +1378,13 @@ class PagedServeEngine:
             self._completions.append(done)
             self._slots[slot] = None
             self._release_slot(slot)
+            self.telemetry.on_retire(done.request_id, done.status, len(done.generated))
+
+    def _update_gauges(self) -> None:
+        """Slot occupancy, free pool blocks and the pool's bytes by dtype."""
+        serve._M_OCCUPANCY.set(self.n_slots - self.free_slots())
+        _M_POOL_FREE.set(self.free_blocks)
+        _M_KV_BYTES.set(
+            self.n_blocks * kv_block_bytes(self.cfg, self.block_size, self.cache_dtype),
+            dtype=str(self.cache_dtype).removeprefix("torch."),
+        )

@@ -4,7 +4,10 @@ What the engines share: slot state and completions, admission checks,
 retirement and its early funnel (cancel, quarantine, a parked request's
 death), the sampling tail, the fault window, the wedge error, snapshot
 entries and their restore checks, load shedding and the
-continuous-batching ``_pump``; and, re-exported from ``models/graphs``,
+continuous-batching ``_pump``; the serving metrics (the reference's
+``tpu_serve_*`` families in the port's ``utils/metrics.REGISTRY``), the
+journal records and the request telemetry (``models/telemetry``) along
+every one of those paths; and, re-exported from ``models/graphs``,
 :class:`GraphedProgram`, the counterpart of the reference's ``shared_jit``
 (an engine program captured once as a CUDA graph and replayed), with
 :func:`disable_graphs`.  ``models/paged.PagedServeEngine`` uses these.
@@ -12,8 +15,8 @@ continuous-batching ``_pump``; and, re-exported from ``models/graphs``,
 The dense :class:`ServeEngine`: a fixed pool of slots over one dense KV
 cache ``[L, n_slots, max_seq, Hkv, hd]``, its programs (admission, prefix-hit
 admission, K-step bursts) written as plain functions on tensors that
-update the cache in place, with a prefix cache, cancel, quarantine, and
-snapshot and restore.
+update the cache in place, with a prefix cache, cancel, quarantine,
+snapshot and restore, and ``stats()``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,61 @@ from k8s_dra_driver_torch.models.graphs import (  # noqa: F401  (re-exported)
 )
 from k8s_dra_driver_torch.models.quant import quantize_blocks
 from k8s_dra_driver_torch.models.speculative import accept_advance
+from k8s_dra_driver_torch.models.telemetry import EngineTelemetry, terminal_retirer
+from k8s_dra_driver_torch.utils.journal import JOURNAL
+from k8s_dra_driver_torch.utils.metrics import REGISTRY
+
+# The serving metrics, the reference's families letter for letter (both
+# engines record into them; ``models/paged`` adds its pool's):
+_M_TOKENS = REGISTRY.counter(
+    "tpu_serve_tokens_total", "tokens generated by the serving engine"
+)
+_M_REQUESTS = REGISTRY.counter(
+    "tpu_serve_requests_total", "requests admitted",
+)
+_M_COMPLETED = REGISTRY.counter(
+    "tpu_serve_completions_total", "requests completed (eos or max_tokens)"
+)
+_M_PREFIX = REGISTRY.counter(
+    "tpu_serve_prefix_cache_total", "prefix-cache lookups by outcome"
+)
+_M_OCCUPANCY = REGISTRY.gauge(
+    "tpu_serve_slot_occupancy", "active slots right after the last step"
+)
+_M_REQ_TOKENS = REGISTRY.histogram(
+    "tpu_serve_request_generated_tokens",
+    "generated tokens per completed request",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+)
+# one per decode-loop readback (admissions excluded): the reference's meaning
+_M_HOST_SYNCS = REGISTRY.counter(
+    "tpu_serve_host_syncs_total",
+    "device->host sync points in the decode loop (one per step or burst)",
+)
+_M_STEP_LATENCY = REGISTRY.histogram(
+    "tpu_serve_step_seconds",
+    "wall time of one decode step or burst (dispatch through bookkeeping)",
+)
+_M_TOK_RATE = REGISTRY.gauge(
+    "tpu_serve_tokens_per_second",
+    "generation rate over the last pump() window",
+)
+_M_SHED = REGISTRY.counter(
+    "tpu_serve_shed_total",
+    "requests rejected by bounded admission (the serving 429)",
+)
+_M_DEADLINE = REGISTRY.counter(
+    "tpu_serve_deadline_exceeded_total",
+    "requests retired at their step-budget deadline before max_tokens",
+)
+_M_QUAR = REGISTRY.counter(
+    "tpu_serve_quarantine_total",
+    "slots quarantined (non-finite logits or attributable step faults)",
+)
+_M_QUEUE_DEPTH = REGISTRY.gauge(
+    "tpu_serve_queue_depth",
+    "requests waiting for admission in the current pump() window",
+)
 
 # every Completion.status; a snapshot entry carrying one has already ended
 TERMINAL_STATUSES = frozenset(
@@ -161,6 +219,9 @@ def completion_if_done(st: _Slot, eos_id: int | None, max_seq: int):
     status = "ok"
     if not hit_eos and budget < st.max_tokens:
         status = "deadline_exceeded"
+        _M_DEADLINE.inc()
+    _M_COMPLETED.inc()
+    _M_REQ_TOKENS.observe(n_gen)
     return Completion(
         request_id=st.request_id,
         tokens=list(st.tokens),
@@ -185,21 +246,43 @@ def sample_next(logits, pos, temps, keys, *, top_k: int) -> torch.Tensor:
     return torch.where(temps > 0.0, sampled, greedy).to(torch.int32)
 
 
+@terminal_retirer
 def _early_retire(engine, slot: int, status: str, error: str) -> Completion:
     """Early retirement for cancellation and quarantine: free the slot and
     release what it holds on the device (``engine._release_slot``: the
     paged engine refunds its pool blocks, the dense one clears its active
-    row), deliver a typed Completion with every token so far."""
+    row), deliver a typed Completion with every token so far, journal it
+    and retire its trace."""
     st = engine._slots[slot]
     engine._slots[slot] = None
     engine._release_slot(slot)
-    return _retire_parked(engine, st, status, error)
+    done = _completion_of(engine, st, status, error)
+    JOURNAL.record(
+        "serve", f"request.{status}", correlation=f"req-{st.request_id}",
+        slot=slot, generated=len(done.generated),
+    )
+    engine.telemetry.on_retire(done.request_id, status, len(done.generated))
+    engine._update_gauges()
+    return done
 
 
+@terminal_retirer
 def _retire_parked(engine, st: _Slot, status: str, error: str) -> Completion:
     """The slot-less twin of :func:`_early_retire`, for a request that ends
-    while parked (cancelled, or its re-admission failed): the caller has
-    unwound its blocks; this delivers the typed Completion (for both)."""
+    while parked (cancelled, or its admission or re-admission failed): the
+    caller has unwound its blocks; the Completion, journal record and
+    telemetry are the same."""
+    done = _completion_of(engine, st, status, error)
+    JOURNAL.record(
+        "serve", f"request.{status}", correlation=f"req-{st.request_id}",
+        generated=len(done.generated), parked=True,
+    )
+    engine.telemetry.on_retire(done.request_id, status, len(done.generated))
+    return done
+
+
+def _completion_of(engine, st: _Slot, status: str, error: str) -> Completion:
+    """Deliver ``st``'s typed Completion with every token so far."""
     done = Completion(
         request_id=st.request_id,
         tokens=list(st.tokens),
@@ -218,6 +301,7 @@ def _quarantine_slot(engine, slot: int, kind: str, detail: str = "") -> None:
     "engine poisoned"."""
     done = _early_retire(engine, slot, "quarantined", detail or kind)
     engine.quarantined.append(done.request_id)
+    _M_QUAR.inc(kind=kind)
     if len(engine.quarantined) >= engine.quarantine_limit:
         raise _wedge_error(
             engine,
@@ -291,13 +375,14 @@ def _wedge_error(engine, reason: str, queue=None) -> RuntimeError:
 
 
 def _snapshot_request(st: _Slot, temp: float, key, adapter: int = 0,
-                      priority: int = 0) -> dict:
+                      priority: int = 0, trace: dict | None = None) -> dict:
     """One in-flight request as a JSON-serialisable snapshot entry: its
     token history (prompt + generated), the sampler state that reproduces
     its continuation (temperature and BASE key as plain ints: step keys
-    are ``fold_in(base, pos)``), its adapter id and priority.  The same
-    document as the reference's, less the telemetry trace."""
-    return {
+    are ``fold_in(base, pos)``), its adapter id and priority, and its
+    telemetry ``trace`` (absent when telemetry is off), which the
+    restoring engine rebuilds.  The reference's document."""
+    doc = {
         "request_id": st.request_id,
         "tokens": [int(t) for t in st.tokens],
         "prompt_len": st.prompt_len,
@@ -308,8 +393,12 @@ def _snapshot_request(st: _Slot, temp: float, key, adapter: int = 0,
         "adapter": int(adapter),
         "priority": int(priority),
     }
+    if trace is not None:
+        doc["trace"] = trace
+    return doc
 
 
+@terminal_retirer
 def _unrestorable(engine, req: dict, why: str) -> None:
     """A snapshot entry this engine cannot rebuild (history past the prompt
     bucket, or no free slot) is delivered as an "error" completion rather
@@ -322,13 +411,22 @@ def _unrestorable(engine, req: dict, why: str) -> None:
         status="error",
         error=f"unrestorable: {why}",
     ))
+    JOURNAL.record(
+        "serve", "request.unrestorable", correlation=f"req-{req['request_id']}", reason=why,
+    )
+    engine.telemetry.on_retire(int(req["request_id"]), "error",
+                               len(tokens) - int(req["prompt_len"]))
 
 
-def _shed(engine, req, depth: int, queue_limit: int) -> Completion:
+@terminal_retirer
+def _shed(engine, req, depth: int, queue_limit: int,
+          queued_at: float | None = None) -> Completion:
     """Reject the newest queued request: count it, keep its
     :class:`ShedError` (retry after ``depth`` times the engine's last step
-    time, at least 0.05 s) and return its "shed" Completion.  Host-only:
-    the request never reaches ``submit``, so it costs no device work."""
+    time, at least 0.05 s), observe its queue wait (from ``queued_at``, the
+    only SLO signal a shed request leaves) and return its "shed"
+    Completion.  Host-only: the request never reaches ``submit``, so it
+    costs no device work."""
     prompt = req.get("prompt") if isinstance(req, dict) else req[0]
     retry_after = round(max(0.05, depth * max(engine._last_step_s, 1e-3)), 3)
     err = ShedError(
@@ -338,6 +436,11 @@ def _shed(engine, req, depth: int, queue_limit: int) -> Completion:
     )
     engine.shed_count += 1
     engine.last_shed = err
+    _M_SHED.inc()
+    engine.telemetry.on_shed(queued_at)
+    JOURNAL.record(
+        "serve", "request.shed", depth=depth, limit=queue_limit, retry_after_s=retry_after,
+    )
     return Completion(
         request_id=-1, tokens=list(prompt), generated=[], status="shed", error=str(err),
     )
@@ -350,31 +453,51 @@ def _pump(engine, requests, max_steps: int, queue_limit: int | None = None) -> l
     queued, resident (a prompt still admitting holds its slot) or parked.
     ``queue_limit`` bounds the requests left waiting after each admission
     round: the overflow is shed newest-first (:func:`_shed`), so the oldest
-    keep their place."""
+    keep their place.  The whole starting queue shares one enqueue stamp
+    (``queued_at`` of every submit it makes, one clock read, None with
+    telemetry off); ``engine.pump_stats`` holds the queue depth
+    ``stats()`` reports."""
     queue = list(requests)
     out: list = []
+    generated = 0
+    start = time.perf_counter()
+    t_enq = engine.telemetry.now()
+    enq_at = [t_enq] * len(queue)
+    stats = {"queue_depth": len(queue), "sheds": 0}
+    engine.pump_stats = stats
     for _ in range(max_steps):
         admitted = False
         while queue and engine.free_slots() > 0:
             req = queue[0]
             try:
                 if isinstance(req, dict):
-                    engine.submit(**req)
+                    engine.submit(**dict(dict(queued_at=enq_at[0]), **req))
                 else:
                     prompt, max_tokens = req
-                    engine.submit(prompt, max_tokens=max_tokens)
+                    engine.submit(prompt, max_tokens=max_tokens, queued_at=enq_at[0])
             except NoCapacity:
                 break  # out of slots or blocks, or requests parked: step
             queue.pop(0)
+            enq_at.pop(0)
             admitted = True
         if queue_limit is not None:
             while len(queue) > queue_limit:
-                out.append(_shed(engine, queue.pop(), len(queue) + 1, queue_limit))
+                out.append(_shed(engine, queue.pop(), len(queue) + 1, queue_limit,
+                                 queued_at=enq_at.pop()))
+                stats["sheds"] += 1
+        stats["queue_depth"] = len(queue)
+        _M_QUEUE_DEPTH.set(len(queue))
         admitting = bool(getattr(engine, "_admitting", ()))  # a chunk advancing is progress
         stepped = engine.step_burst()
-        out.extend(engine.completions())
+        for c in engine.completions():
+            generated += len(c.generated)
+            out.append(c)
         if (not queue and engine.free_slots() == engine.n_slots
                 and not getattr(engine, "_preempted", ())):
+            wall = time.perf_counter() - start
+            if generated and wall > 0:
+                _M_TOK_RATE.set(round(generated / wall, 1))
+            _M_QUEUE_DEPTH.set(0)
             return out
         if stepped == 0 and not admitted and not admitting:
             raise _wedge_error(
@@ -601,37 +724,44 @@ def _spec_advance(target, advance, last, pos, active):
     return torch.cat([target, advance[:, None]], dim=1)
 
 
-def _commit_spec_round(engine, readback, active) -> None:
+def _commit_spec_round(engine, readback, active) -> int:
     """Append each active resident slot's accepted tokens from a round's
     readback ``[n_slots, gamma + 2]``, clipped at eos and at the budget
     (the device state past the clip goes stale with the slot), count the
-    proposals and acceptances, and retire the finished slots."""
+    proposals and acceptances, hand each slot's commit to the open burst
+    of its telemetry and retire the finished slots.  Returns the tokens
+    committed."""
     gamma = engine.spec_gamma
+    committed = 0
     for slot, st in enumerate(engine._slots):
         if st is None or not active[slot]:
             continue
         advance = int(readback[slot, gamma + 1])
         engine.spec_drafted += gamma
         engine.spec_accepted += advance - 1
+        before = len(st.tokens)
         for j in range(advance):
             st.tokens.append(int(readback[slot, j]))
             hit_eos = engine.eos_id is not None and st.tokens[-1] == engine.eos_id
             if len(st.tokens) - st.prompt_len >= _slot_budget(st) or hit_eos:
                 break
+        committed += len(st.tokens) - before
+        engine.telemetry.on_commit(st.request_id, len(st.tokens) - before)
         engine._retire(slot)
+    return committed
 
 
 def _spec_unrestorable(engine, req: dict) -> str:
     """Why a snapshot entry cannot continue under this engine's speculative
-    rounds ("" when it can): rounds verify the argmax, and the entry's
-    budget must leave the verify window's slack (``check_submit``'s
-    rules)."""
-    if engine.spec_gamma <= 0:
-        return ""
-    if float(req["temperature"]) != 0.0:
-        return "speculative serving verifies argmax — temperature must be 0"
-    if _spec_slack_short(int(req["prompt_len"]), int(req["max_tokens"]), engine.spec_gamma,
-                         engine.cfg.max_seq):
+    rounds ("" when it can): the entry's budget must leave the verify
+    window's slack (``check_submit``'s rule), so that no window reaches
+    past the cache (a paged window past its block table).  The reference
+    takes such an entry and drops the window's writes past ``max_seq``.  A
+    sampled entry continues, greedily from here on, as the reference's
+    does: rounds verify the argmax."""
+    if engine.spec_gamma > 0 and _spec_slack_short(
+            int(req["prompt_len"]), int(req["max_tokens"]), engine.spec_gamma,
+            engine.cfg.max_seq):
         return "prompt + max_tokens needs spec_gamma verify-window slack under max_seq"
     return ""
 
@@ -676,7 +806,11 @@ class ServeEngine:
       dense cache, the target verifies them in one pass, and each slot
       commits up to ``spec_gamma + 1`` tokens with one readback; the
       streams are the greedy ones (submits take temperature 0 only, with
-      the verify window's slack under ``max_seq``).
+      the verify window's slack under ``max_seq``);
+    * ``telemetry`` (``models/telemetry.EngineTelemetry``, off with
+      ``telemetry_enabled=False``) records each request's timeline at the
+      host points above, outside the programs, with no added readback;
+      ``stats()`` returns its ``EngineStats``.
 
     Runs on ``device`` (default the card; raises without one unless
     ``device="cpu"``); ``params`` must live there.  On the card each of the
@@ -690,7 +824,7 @@ class ServeEngine:
     temperature, base key and poison mask; the admission's padded prompt,
     length and slot, temperature and key, and the prefix-hit staging K/V)
     keeps one address for the engine's life and is written in place.  A
-    mesh, LoRA adapters, handoff with KV payloads and ``stats()`` raise
+    mesh, LoRA adapters and handoff with KV payloads raise
     ``NotImplementedError``.  Not thread-safe; drive it from one loop.
     """
 
@@ -710,6 +844,7 @@ class ServeEngine:
     spec_gamma: int = 0      # > 0: speculative rounds of this many draft tokens
     draft_params: object = None  # the draft; None: the int8 self-draft
     adapter_bank: dict | None = None
+    telemetry_enabled: bool = True
     device: object = "cuda"
 
     def __post_init__(self):
@@ -748,11 +883,14 @@ class ServeEngine:
         self.quarantined: list[int] = []  # quarantined request ids
         self.shed_count = 0
         self.last_shed: ShedError | None = None
+        self.pump_stats: dict = {}
         self._prefix_store: OrderedDict = OrderedDict()
         self.prefix_hits = 0
         self.prefix_misses = 0
+        # port-only, outside EngineStats (whose fields are the reference's)
         self.spec_drafted = 0    # draft tokens proposed to active slots
         self.spec_accepted = 0   # of those, the ones the target agreed with
+        self.telemetry = EngineTelemetry(self, enabled=self.telemetry_enabled)
         self._cache = decode.init_cache(
             cfg, self.n_slots, cfg.max_seq, dtype=self.cache_dtype, device=dev
         )
@@ -795,9 +933,10 @@ class ServeEngine:
         ``temperature`` above 0 samples under the base key
         ``PRNGKey(seed)`` (default the request id); ``deadline`` caps the
         generated tokens and types the completion "deadline_exceeded" when
-        it binds first.  ``queued_at`` is accepted for the telemetry the
-        reference stamps with it (not ported).  Returns the request id."""
-        del queued_at
+        it binds first.  ``queued_at`` (the telemetry clock) is when the
+        request entered an upstream queue; default now.  Returns the
+        request id."""
+        t_sub = self.telemetry.now()
         check_submit(prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
                      spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline)
         if adapter:
@@ -822,11 +961,13 @@ class ServeEngine:
             self._prefix_k.copy_(pk)
             self._prefix_v.copy_(pv)
             self.prefix_hits += 1
+            _M_PREFIX.inc(outcome="hit")
             first_tok = self._run("prefix admission", self._prefix_admission)
         else:
             first_tok = self._run("admission", self._admission)
             if prefix_key is not None:
                 self.prefix_misses += 1
+                _M_PREFIX.inc(outcome="miss")
                 self._prefix_store[prefix_key] = _extract_prefix(
                     self._cache, slot, prefix_bucket=self.prefix_bucket
                 )
@@ -838,7 +979,19 @@ class ServeEngine:
                    deadline)
         self._slots[slot] = st
         self._set_row(slot, st, temperature, base_key)
+        _M_REQUESTS.inc()
+        _M_TOKENS.inc()  # the admission's first generated token
+        JOURNAL.record(
+            "serve", "request.submit", correlation=f"req-{request_id}",
+            slot=slot, prompt_len=len(prompt), max_tokens=max_tokens,
+        )
+        # activation is the first token here (read back above)
+        self.telemetry.on_admit(
+            request_id, prompt_len=len(prompt), max_tokens=max_tokens, deadline=deadline,
+            adapter=adapter, submitted_at=t_sub, queued_at=queued_at,
+        )
         self._retire(slot)  # max_tokens=1 or eos on the first token
+        self._update_gauges()
         return request_id
 
     def cancel(self, request_id: int) -> bool:
@@ -882,18 +1035,22 @@ class ServeEngine:
         return out
 
     def stats(self):
-        raise _unported("stats() (request telemetry)", 12)
+        """The engine's ``telemetry.EngineStats``: queue depth, resident and
+        free slots, rolling TTFT/TPOT quantiles, statuses, bursts, host
+        syncs; host values only."""
+        return self.telemetry.stats()
 
     def snapshot_active(self, include_kv: bool = False) -> dict:
         """Every in-flight request as a JSON-serialisable document (token
-        history, temperature and base key, deadline); one readback of the
-        per-slot sampler state, no decode step.  A fresh engine continues
-        every stream from it with :meth:`restore`."""
+        history, temperature and base key, deadline, telemetry trace); one
+        readback of the per-slot sampler state, no decode step.  A fresh
+        engine continues every stream from it with :meth:`restore`."""
         if include_kv:
             raise _unported("snapshot_active(include_kv=True)", 11)
         temps = self._temps.to("cpu", copy=True).numpy()
         keys = self._keys.to("cpu", copy=True).numpy()
-        reqs = [_snapshot_request(st, float(temps[i]), keys[i])
+        reqs = [_snapshot_request(st, float(temps[i]), keys[i],
+                                  trace=self.telemetry.export_trace(st.request_id))
                 for i, st in enumerate(self._slots) if st is not None]
         return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
 
@@ -906,7 +1063,8 @@ class ServeEngine:
         what the old engine would have.  Needs an idle engine unless
         ``merge``, which fills free slots of a live one.  An entry longer
         than the prompt bucket, or one that finds no free slot, comes back
-        as an "error" completion.  Returns the restored ids."""
+        as an "error" completion.  Each entry's trace is rebuilt first, so
+        its request keeps one timeline.  Returns the restored ids."""
         check_restorable(snapshot)
         for req in snapshot["requests"]:
             if "kv" in req:
@@ -917,6 +1075,7 @@ class ServeEngine:
             raise RuntimeError("restore() needs an idle engine")
         restored: list[int] = []
         for req in sorted(snapshot["requests"], key=lambda r: r["request_id"]):
+            self.telemetry.import_trace(int(req["request_id"]), req.get("trace"))
             tokens = [int(t) for t in req["tokens"]]
             if len(tokens) > self.prompt_bucket:
                 _unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
@@ -942,24 +1101,33 @@ class ServeEngine:
             self._slots[slot] = st
             self._set_row(slot, st, temp, key)
             restored.append(st.request_id)
+            JOURNAL.record("serve", "request.restore", correlation=f"req-{st.request_id}",
+                           slot=slot, resumed_at=len(tokens))
+            self.telemetry.on_restore(st.request_id, resumed_at=len(tokens))
             self._retire(slot)  # the history may already sit at its budget
         self._next_id = max(
             self._next_id,
             int(snapshot.get("next_id", 0)),
             max((int(r["request_id"]) for r in snapshot["requests"]), default=-1) + 1,
         )
+        self._update_gauges()
         return restored
 
     def release_active(self) -> int:
         """Free every resident slot WITHOUT delivering completions (its
         streams were captured by ``snapshot_active`` and live elsewhere
-        now).  Returns how many were released."""
+        now; their traces are dropped, not retired).  Returns how many were
+        released."""
         released = 0
         for slot, st in enumerate(self._slots):
             if st is not None:
                 self._slots[slot] = None
                 self._release_slot(slot)
+                self.telemetry.drop_trace(st.request_id)
+                JOURNAL.record("serve", "request.released", correlation=f"req-{st.request_id}",
+                               slot=slot, generated=len(st.tokens) - st.prompt_len)
                 released += 1
+        self._update_gauges()
         return released
 
     # -- internals ---------------------------------------------------------
@@ -976,14 +1144,17 @@ class ServeEngine:
         if n_active == 0:
             return quarantined  # quarantining is progress
         t0 = time.perf_counter()
+        self.telemetry.burst_begin(k, self._step_no)  # on the host, before the replay
         if (poison != self._poison_np).any():
             self._poison.copy_(torch.from_numpy(poison))
             self._poison_np = poison
         trace = self._run(f"burst k={k}", self._burst_program(k))
         trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
         self.host_syncs += 1
+        _M_HOST_SYNCS.inc()
         trace_a = trace_a.astype(bool)
         first_bad = _first_bad_steps(trace_a, trace_b.astype(bool))
+        committed = 0
         for j in range(k):
             for slot, st in enumerate(self._slots):
                 if st is None or not trace_a[j][slot]:
@@ -993,12 +1164,18 @@ class ServeEngine:
                                      "non-finite logits in decode step")
                 elif j < first_bad.get(slot, k):
                     st.tokens.append(int(trace_t[j][slot]))
+                    self.telemetry.on_commit(st.request_id)
+                    committed += 1
                     self._retire(slot)
+        self.telemetry.burst_end(n_active)
         for slot in sorted(first_bad):
             if self._slots[slot] is not None:
                 _quarantine_slot(self, slot, "nan_logits",
                                  f"non-finite logits at burst step {first_bad[slot]}")
+        _M_TOKENS.inc(committed)
+        self._update_gauges()
         self._last_step_s = time.perf_counter() - t0
+        _M_STEP_LATENCY.observe(self._last_step_s)
         return n_active
 
     def _spec_step(self) -> int:
@@ -1007,9 +1184,14 @@ class ServeEngine:
         per slot, with one readback."""
         t0 = time.perf_counter()
         n_active = self.n_slots - self.free_slots()
+        self.telemetry.burst_begin(self.spec_gamma + 1, self._step_no)
         readback = self._run("spec round", self._spec_program).cpu().numpy()
         self.host_syncs += 1
-        _commit_spec_round(self, readback, [st is not None for st in self._slots])
+        _M_HOST_SYNCS.inc()
+        committed = _commit_spec_round(self, readback, [st is not None for st in self._slots])
+        self.telemetry.burst_end(n_active)
+        _M_TOKENS.inc(committed)
+        self._update_gauges()
         self._last_step_s = time.perf_counter() - t0
         return n_active
 
@@ -1044,12 +1226,20 @@ class ServeEngine:
         until an admission rewrites them."""
         self._active[slot] = False
 
+    def _update_gauges(self) -> None:
+        """The slot occupancy gauge."""
+        _M_OCCUPANCY.set(self.n_slots - self.free_slots())
+
     def _retire(self, slot: int) -> None:
         done = completion_if_done(self._slots[slot], self.eos_id, self.cfg.max_seq)
         if done is not None:
             self._completions.append(done)
             self._slots[slot] = None
             self._release_slot(slot)
+            JOURNAL.record("serve", "request.complete", correlation=f"req-{done.request_id}",
+                           slot=slot, generated=len(done.generated))
+            self.telemetry.on_retire(done.request_id, done.status, len(done.generated))
+            self._update_gauges()
 
     # -- the programs (the reference's compiled ones) ------------------------
     @property

@@ -1,0 +1,222 @@
+"""The engine protocol in the PyTorch port (``models/fleet.Engine``) and
+port engines behind the JAX package's ``FleetRouter`` (which holds no
+JAX), on the CPU, with the weights of the JAX engines
+(``weights.params_from_jax``).
+
+* Conformance: both port engines against the port's ``Engine`` and the
+  reference's, by members, by signature (submit, restore, pump), by the
+  terminal-status vocabulary and by ``stats()``, whose fields are the
+  reference's ``EngineStats`` fields in order (``tests/test_fleet.py``'s
+  matrix).
+* A mixed fleet: a JAX replica and a torch replica behind one router
+  serve every stream, greedy and sampled, token for token as a single
+  JAX engine does (sampled tokens exactly, as in
+  ``tests/test_torch_sampling.py``: a near tie that each library's ``log``
+  would flip is reported with its request).
+* Drain: ``FleetRouter.drain`` of either replica moves its streams into
+  the other through ``snapshot_active``/``release_active``/``restore``,
+  and every greedy stream continues bit for bit."""
+
+import dataclasses
+import inspect
+
+import jax
+import pytest
+import torch
+
+from k8s_dra_driver_torch.models import burnin as tb
+from k8s_dra_driver_torch.models import fleet as tfleet
+from k8s_dra_driver_torch.models import paged as tp
+from k8s_dra_driver_torch.models import serve as ts
+from k8s_dra_driver_torch.models import telemetry as tt
+from k8s_dra_driver_torch.models.weights import params_from_jax
+from k8s_dra_driver_tpu.models import burnin as jb
+from k8s_dra_driver_tpu.models import fleet as jfleet
+from k8s_dra_driver_tpu.models import paged as jp
+from k8s_dra_driver_tpu.models import serve as js
+from k8s_dra_driver_tpu.models import telemetry as jt
+from k8s_dra_driver_tpu.models.fleet import DRAINED, FleetRouter
+
+JCFG = jb.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=1, d_ff=64, max_seq=64)
+TCFG = tb.ModelConfig.from_reference(JCFG)
+PROTOCOLS = {"port": tfleet.Engine, "reference": jfleet.Engine}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params = jb.init_params(jax.random.PRNGKey(0), JCFG)
+    return params, params_from_jax(params, device="cpu")
+
+
+def _dense(weights, pkg="port", **kw):
+    kw.setdefault("n_slots", 3)
+    kw.setdefault("prompt_bucket", 16)
+    if pkg == "port":
+        return ts.ServeEngine(params=weights[1], cfg=TCFG, device="cpu", **kw)
+    return js.ServeEngine(params=weights[0], cfg=JCFG, **kw)
+
+
+def _paged(weights, pkg="port", **kw):
+    kw.setdefault("n_slots", 3)
+    kw.setdefault("n_blocks", 33)
+    kw.setdefault("block_size", 4)
+    kw.setdefault("prompt_bucket", 16)
+    if pkg == "port":
+        return tp.PagedServeEngine(params=weights[1], cfg=TCFG, device="cpu", **kw)
+    return jp.PagedServeEngine(params=weights[0], cfg=JCFG, attn_impl="xla", **kw)
+
+
+MAKERS = {"dense": _dense, "paged": _paged}
+REQS = [
+    {"prompt": [7, 8, 9], "max_tokens": 6, "seed": 5},
+    {"prompt": [3, 4], "max_tokens": 6, "temperature": 0.7, "seed": 9},
+    {"prompt": [11, 12, 13, 14], "max_tokens": 6, "seed": 21},
+    {"prompt": [1, 2], "max_tokens": 5, "seed": 33},
+    {"prompt": [21, 22, 23], "max_tokens": 5, "seed": 44},
+]
+
+
+def _by_prompt(completions):
+    """prompt -> generated: replica-minted ids differ between a fleet run
+    and a single engine, prompts do not."""
+    return {
+        tuple(c.tokens[: len(c.tokens) - len(c.generated)]): tuple(c.generated)
+        for c in completions
+        if c.status == "ok"
+    }
+
+
+# -- conformance ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("proto", sorted(PROTOCOLS))
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_both_engine_kinds_satisfy_protocol(weights, kind, proto):
+    assert isinstance(MAKERS[kind](weights), PROTOCOLS[proto])
+
+
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_protocol_members_match_the_reference(weights, kind):
+    """The port's ``Engine`` declares the reference's members, and each
+    engine's methods take the protocol's parameters."""
+    members = {n for n in dir(jfleet.Engine) if not n.startswith("_")}
+    assert {n for n in dir(tfleet.Engine) if not n.startswith("_")} == members
+    eng = MAKERS[kind](weights)
+    for name in members - {"n_slots", "sync_interval"}:
+        want = [p for p in inspect.signature(getattr(jfleet.Engine, name)).parameters
+                if p not in ("self", "kwargs")]
+        have = inspect.signature(getattr(eng, name)).parameters
+        assert set(want) <= set(have), (name, want, list(have))
+
+
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_submit_signature_surface(weights, kind):
+    sig = inspect.signature(MAKERS[kind](weights).submit)
+    assert {"prompt", "max_tokens", "temperature", "seed", "adapter", "deadline",
+            "queued_at"} <= set(sig.parameters)
+    for name, p in sig.parameters.items():
+        if name in ("prompt", "max_tokens"):
+            continue
+        assert p.default is not inspect.Parameter.empty, f"submit({name}=...) has no default"
+
+
+def test_paged_extends_dense_submit_surface(weights):
+    dense_names = set(inspect.signature(_dense(weights).submit).parameters)
+    paged_names = set(inspect.signature(_paged(weights).submit).parameters)
+    assert dense_names <= paged_names
+    assert "priority" in paged_names - dense_names
+    for make in (_dense, _paged):  # the reference's surface, name for name
+        assert (list(inspect.signature(make(weights).submit).parameters)
+                == list(inspect.signature(make(weights, "jax").submit).parameters))
+
+
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_restore_and_pump_signatures(weights, kind):
+    eng = MAKERS[kind](weights)
+    assert inspect.signature(eng.restore).parameters["merge"].default is False
+    pump = inspect.signature(eng.pump)
+    assert pump.parameters["queue_limit"].default is None
+    assert pump.parameters["max_steps"].default == 100_000
+
+
+def test_completion_status_vocabulary():
+    assert ts.TERMINAL_STATUSES == js.TERMINAL_STATUSES == {
+        "ok", "deadline_exceeded", "cancelled", "quarantined", "shed", "error",
+    }
+    assert ts.Completion(request_id=0, tokens=[1], generated=[]).status == "ok"
+
+
+@pytest.mark.parametrize("kind", sorted(MAKERS))
+def test_stats_returns_engine_stats_contract(weights, kind):
+    st = MAKERS[kind](weights).stats()
+    assert isinstance(st, tt.EngineStats)
+    assert ([f.name for f in dataclasses.fields(tt.EngineStats)]
+            == [f.name for f in dataclasses.fields(jt.EngineStats)])
+    assert st.heartbeat_age_s >= 0.0 and st.resident_slots == 0 and st.free_slots == 3
+    assert st.free_blocks == (32 if kind == "paged" else None)
+
+
+def test_router_accepts_port_engines_and_rejects_a_plain_object(weights):
+    router = FleetRouter([_dense(weights), _paged(weights)])
+    assert [r.engine._next_id for r in router.replicas] == [0, jfleet.ID_STRIDE]
+    with pytest.raises(TypeError, match="Engine"):
+        FleetRouter([object()])
+
+
+# -- a mixed fleet ----------------------------------------------------------------------
+
+def test_mixed_fleet_serves_every_stream_as_one_jax_engine(weights):
+    """A JAX replica and a torch replica behind the reference's router:
+    both take requests, and every stream is the single JAX engine's; the
+    router read both replicas' ``stats()`` every tick."""
+    reqs = REQS + [{"prompt": [5 + i, 9, 4 + i], "max_tokens": 7, "seed": 60 + i}
+                   for i in range(4)]
+    want = _by_prompt(_paged(weights, "jax").pump([dict(r) for r in reqs]))
+    router = FleetRouter([("jax", _paged(weights, "jax")), ("torch", _paged(weights))])
+    out = router.pump([dict(r) for r in reqs])
+    got = _by_prompt(out)
+    assert len(got) == len(reqs)
+    bad = {p: (got[p], want[p]) for p in want if got.get(p) != want[p]}
+    assert not bad, f"(prompt: port fleet stream, JAX stream): {bad}"
+    served = {name: rep.engine.stats() for name, rep in
+              ((r.name, r) for r in router.replicas)}
+    assert all(s.completed > 0 for s in served.values()), served
+    assert sum(s.completed for s in served.values()) == len(reqs)
+    assert all(r.last_stats is not None and r.state != DRAINED for r in router.replicas)
+
+
+@pytest.mark.parametrize("source", ["jax", "torch"])
+def test_drain_moves_streams_between_packages(weights, source):
+    """Two greedy streams decode three steps on the source replica; the
+    router drains it into the other package's replica, and both streams
+    finish bit for bit as a single JAX engine's, with their traces moved
+    (one migration) and nothing left on the source."""
+    reqs = [{"prompt": [5, 6, 7], "max_tokens": 10, "seed": 3},
+            {"prompt": [9, 1], "max_tokens": 10, "seed": 11}]
+    want = _by_prompt(_dense(weights, "jax").pump([dict(r) for r in reqs]))
+    make = {"jax": lambda: _paged(weights, "jax"), "torch": lambda: _paged(weights)}
+    target = "torch" if source == "jax" else "jax"
+    router = FleetRouter([(source, make[source]())])
+    rids = [router.submit(**r) for r in reqs]
+    src = router.replica(source).engine
+    for _ in range(3):
+        src.step()
+    router.add_replica(make[target](), name=target)
+    moved = router.drain(source, reason="scale_down")
+    assert sorted(moved) == sorted(rids)
+    assert router.replica(source).state == DRAINED and src.free_slots() == src.n_slots
+    dst = router.replica(target).engine
+    out = router.pump([])
+    assert _by_prompt(out) == want
+    for rid in rids:
+        tr = dst.telemetry.trace(rid)
+        assert tr["status"] == "ok" and tr["migrations"] == 1
+        assert src.telemetry.trace(rid) is None  # dropped, not retired, at the source
+    assert src.stats().completed == 0 and dst.stats().completed == len(reqs)

@@ -38,7 +38,9 @@ engine with chunked admission and the prefix store, and both engines'
 speculative rounds (whose f32 streams equal the CPU's too).  A bf16 int4
 chunk writes the pool its CPU twin writes within one bf16 step; the append
 kernel at a served verify window (nq = gamma + 1) holds the paged limits
-and writes the pages its plain version writes."""
+and writes the pages its plain version writes.  A graphed engine with
+telemetry on equals its telemetry-off twin in streams, host syncs, graph
+calls and launches."""
 
 import contextlib
 
@@ -694,6 +696,51 @@ def test_graphed_spec_engine_matches_the_eager_engine(cuda, kind, bits):
     if not bits:
         _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
         assert streams == on_cpu
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("paged", dict(sync_interval=4)),
+    ("paged", dict(sync_interval=4, prefill_chunk_blocks=1, prefix_cache_blocks=4)),
+    ("paged", dict(sync_interval=4, spec_gamma=3)),
+    ("dense", dict(sync_interval=4)),
+], ids=["paged", "paged-chunked", "paged-spec", "dense"])
+def test_graphed_telemetry_twin_on_the_card(cuda, kind, kw):
+    """Request telemetry on the card: a graphed engine with telemetry on
+    against its graphed ``telemetry_enabled=False`` twin: the same streams,
+    host syncs, graph calls per program and kernel launches; the on
+    engine's stats count every request and its timelines are in order,
+    each request's bursts summing to its tokens after the first."""
+    cfg, params = _small_engine_params(None, cuda)
+    reqs = _spec_traffic(seed=9, n=7)
+
+    def serve(enabled):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        if kind == "dense":
+            eng = ts.ServeEngine(params=params, cfg=cfg, device=cuda, n_slots=3, prompt_bucket=24,
+                                 telemetry_enabled=enabled, **kw)
+        else:
+            eng = tp.PagedServeEngine(params=params, cfg=cfg, device=cuda, n_slots=3,
+                                      n_blocks=40, block_size=8, prompt_bucket=24,
+                                      telemetry_enabled=enabled, **kw)
+        comps = eng.pump(reqs)
+        torch.cuda.synchronize()
+        streams = sorted((c.request_id, c.generated, c.status) for c in comps)
+        calls = {name: g.calls for name, g in eng.graphs.items()}
+        return eng, streams, calls, _launch_counts()
+
+    on, streams, calls, counts = serve(True)
+    off, want, want_calls, want_counts = serve(False)
+    assert streams == want and calls == want_calls and counts == want_counts
+    assert on.host_syncs == off.host_syncs > 0 and calls
+    st = on.stats()
+    assert st.completed == len(reqs) == sum(st.statuses.values()) and st.host_syncs == on.host_syncs
+    assert st.tokens_generated == sum(len(g) - 1 for _, g, _ in streams)
+    for rid, gen, _ in streams:
+        tr = on.telemetry.trace(rid)
+        assert (tr["queued_at"] <= tr["submitted_at"] <= tr["admitted_at"]
+                == tr["first_token_at"] <= tr["retired_at"])
+        assert sum(b["tokens"] for b in tr["bursts"]) == len(gen) - 1
+    assert off.stats().completed == 0 and off.telemetry.trace(0) is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -333,10 +333,14 @@ def test_programs_keep_their_buffers_and_their_bound(weights, monkeypatch, kind)
 
 @pytest.mark.parametrize("kind", sorted(ENGINES))
 def test_unrestorable_entries_under_speculation(weights, kind):
-    """A restored entry a round cannot continue comes back as an "error"
-    completion: a sampled one (rounds verify the argmax) and one without
-    the verify window's slack; a greedy one with slack continues."""
-    te = _pair(weights, kind, "int8", spec_gamma=4)[1]
+    """Three restored entries under ``spec_gamma=4``, each held against the
+    JAX engine: a sampled one continues greedily from the restore on, as
+    the reference's rounds verify the argmax; a greedy one with the verify
+    window's slack continues; one without the slack the reference takes
+    (its window's writes past ``max_seq`` dropped) and the port refuses
+    as an "error" completion, since its window would run past the cache
+    (the paged one past its block table): that difference is pinned here."""
+    je, te = _pair(weights, kind, "int8", spec_gamma=4)
     entry = dict(deadline=None, key=[0, 0], adapter=0, priority=0)
     snap = {"next_id": 3, "requests": [
         dict(entry, request_id=0, tokens=[1, 2, 3, 4], prompt_len=3, max_tokens=6,
@@ -346,12 +350,16 @@ def test_unrestorable_entries_under_speculation(weights, kind):
         dict(entry, request_id=2, tokens=[1, 2, 3, 4], prompt_len=3, max_tokens=6,
              temperature=0.0),
     ]}
-    assert te.restore(snap) == [2]
+    assert je.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
+    assert te.restore(json.loads(json.dumps(snap))) == [0, 2]
+    je.run_until_drained()
     te.run_until_drained()
-    comps = {c.request_id: c for c in te.completions()}
-    assert {r: c.status for r, c in comps.items()} == {0: "error", 1: "error", 2: "ok"}
-    assert "temperature" in comps[0].error and "slack" in comps[1].error
-    assert len(comps[2].generated) == 6
+    want, got = _streams(je.completions()), _streams(te.completions())
+    assert {r: st for r, (_, st) in got.items()} == {0: "ok", 1: "error", 2: "ok"}
+    assert {r: got[r] for r in (0, 2)} == {r: want[r] for r in (0, 2)}
+    assert len(got[0][0]) == len(got[2][0]) == 6
+    assert want[1][1] == "ok" and len(want[1][0]) == 60  # the reference resumes it
+    assert got[1][0] == [1, 2, 3, 4][3:]  # the port delivers the history it holds
 
 
 # -- the paged engine ---------------------------------------------------------------
@@ -468,10 +476,25 @@ def test_verify_windows_stay_inside_the_table(weights, monkeypatch):
     assert max(raw) > JCFG.max_seq - 1 - gamma  # a retired row sat past the slack
 
 
+def test_verify_window_past_a_block_serves_on_the_cpu(weights):
+    """``spec_gamma + 1 > block_size`` (a window of 5 over blocks of 4): the
+    CPU's plain path serves it, as the reference's XLA path does, with the
+    JAX engine's streams, host syncs and pool counts."""
+    reqs = _traffic(5, seed=43)
+    je, te = _pair(weights, "paged", "int8", spec_gamma=4, block_size=4)
+    assert _streams(te.pump(reqs)) == _streams(je.pump(reqs))
+    assert _counters(te) == _counters(je)
+
+
 def test_verify_window_must_fit_a_block(weights):
-    _, tparams = weights
+    """On the card the append kernel takes a window of at most one block,
+    so ``check_verify_window`` refuses a CUDA engine with ``spec_gamma + 1 >
+    block_size`` (called directly: no card needed); the CPU takes any."""
     with pytest.raises(ValueError, match="exceeds block_size"):
-        tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", block_size=4, spec_gamma=4)
+        tp.check_verify_window(4, 4, "cuda")
+    tp.check_verify_window(3, 4, "cuda")
+    tp.check_verify_window(4, 4, "cpu")
+    _, tparams = weights
     eng = tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", block_size=4,
                               spec_gamma=3)
     assert eng._d_cache.k.shape == (2, eng.n_slots, JCFG.max_seq, 2, 16)
