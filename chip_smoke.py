@@ -130,7 +130,30 @@ exits 2 before any result):
    and off in 4 alternating rounds of 4 graphed 8-step bursts (host
    clock medians, reported), and one profiled telemetry-on burst with one
    device-to-host copy;
-12. training FLAGSHIP_MODERN at full width in bf16 through
+12. per-request LoRA ("serve bf16 lora"): FLAGSHIP_MODERN in bf16, 8
+   slots, block 16, bucket 256, sync interval 8, a bank of two seeded
+   adapters beside the identity (rank 8, alpha 16, the four block
+   matrices), in eight legs, each timed: the serving run's 16 requests
+   with adapters 0, 1, 2 in turn through the paged engine graphed (the
+   main path) against an eager twin, every token teacher-forced against
+   its own adapter's merged model (``lora.merge``) within the 0.25 gap,
+   the append kernel held against its plain version on the path's first
+   window in every layer; adapter-0 streams equal to a bank-less graphed
+   engine's and every adapted stream different from it, with the logit
+   difference between the delta hooks and the bf16 merge and the argmaxes
+   moved printed for B std 0.3 and 0.05; one prompt under adapters 1, 2 and 1 with the prefix store
+   (no hit across adapters, a hit for the same one, the two adapters'
+   streams different); preemption on a 73-block pool (never-preempted
+   streams equal to the roomy run's, re-admitted ones teacher-forced
+   under their adapters); γ 4 with the int8 self-draft of the base under
+   the bank, graphed against eager, acceptance printed; the int4 base
+   under the bank (``int4_splitk`` in the bursts, ``int4_wgmma`` in the
+   prefills, each product shape held on the path's own x); the dense
+   engine under the bank, graphed against eager; the adapted graphed step
+   against the bank-less one in alternating rounds, one profiled burst
+   each (device time and kernels per step), and the bytes the bank's
+   gathers move;
+13. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -142,21 +165,29 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-13. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+14. adapter-only training ("train lora"): ``lora.build_lora_train_step``
+    (rank 8, alpha 16, the four block matrices, attention "flash", B 4, S
+    1024, bf16) graphed (the main path) against an eager twin over 5
+    steps, bit for bit, the loss falling and the base unchanged; the flash
+    forward, dQ and dK/dV launches counted and each kernel held against
+    its plain version on one layer's inputs from the step itself; ms per
+    step and peak memory beside the full graphed step (alternating
+    rounds), and a profile of one LoRA step;
+15. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-14. resume: the graphed bf16 step saved after 2 steps by
+16. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-15. training in f32 at 2 layers: the graphed flash step against its eager
+17. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
 The line before the last lists the kernels with their launch counts on the
-path that runs them (serving or training) and their times; the last line is
-the JSON device record.
+paths that run them (serving, LoRA serving, training, LoRA training) and
+their times; the last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -2700,6 +2731,65 @@ def _split_round(torch, label, eng):
         return None
 
 
+def _record_append_windows(torch, pa, nq: int):
+    """Wrap the append wrapper to keep, per layer, the first window of
+    ``nq`` queries the path gives it (q, new k/v, the layer's pools before
+    the write, table, pos, write mask), outside any capture.  Returns
+    ``(records by layer, restore)``."""
+    rec: dict = {}
+    wrapper = pa.paged_append_attention
+
+    def recording(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer, write_mask=None):
+        if (q.shape[1] == nq and layer not in rec
+                and not (q.is_cuda and torch.cuda.is_current_stream_capturing())):
+            rec[layer] = tuple(None if t is None else t.clone() for t in (
+                q, new_k, new_v, k_pools[layer], v_pools[layer], block_table, pos, write_mask))
+        return wrapper(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer,
+                       write_mask=write_mask)
+
+    pa.paged_append_attention = recording
+
+    def restore():
+        pa.paged_append_attention = wrapper
+
+    return rec, restore
+
+
+def _hold_append_windows(torch, label, pa, rec, cfg, cache_dtype):
+    """The append kernel on each recorded window (:func:`_record_append_windows`)
+    against its plain version, layer by layer: output within ``paged_check``'s
+    limits, written pool pages equal from block 1."""
+    dname = str(cache_dtype).split(".")[-1]
+    step, cap, _ = PAGED_STEP[dname]
+    worst, nq = 0.0, None
+    if sorted(rec) != list(range(cfg.n_layers)):
+        raise AssertionError(f"{label}: windows recorded for layers {sorted(rec)}")
+    for layer, (q, nk, nv, kp, vp, table, pos, wm) in sorted(rec.items()):
+        nq = q.shape[1]
+        k1, v1, k2, v2 = kp[None].clone(), vp[None].clone(), kp[None].clone(), vp[None].clone()
+        got, _, _ = pa.paged_append_attention(q, nk, nv, k1, v1, table, pos, 0, write_mask=wm)
+        want_out = pa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, 0,
+                                                   write_mask=wm)
+        mag = pa.paged_append_attention_plain(
+            q.float(), nk.float(), nv.float().abs(), kp[None].float(),
+            vp[None].float().abs(), table, pos, 0, write_mask=wm)
+        err, limit, top, over = paged_check(got, want_out, mag, step, cap)
+        pages = torch.equal(k1[:, 1:], k2[:, 1:]) and torch.equal(v1[:, 1:], v2[:, 1:])
+        worst = max(worst, err)
+        if layer in (0, cfg.n_layers - 1):
+            log(f"{label}: layer {layer} window: nq {nq}, q {tuple(q.shape)}, pools "
+                f"{tuple(kp.shape)}, table {tuple(table.shape)}, pos {pos.tolist()}, write mask "
+                f"{None if wm is None else wm.tolist()}")
+        if over or not pages:
+            raise AssertionError(f"{label}: the append kernel at nq {nq} disagrees with its "
+                                 f"plain version in layer {layer}: {over} elements over the "
+                                 f"limit, written pages equal {pages}")
+    log(f"{label}: the append kernel at nq {nq} on the path's own inputs, {len(rec)} layers: "
+        f"worst max_abs_err {worst:.4g} (paged_check limits, {dname}); written pool pages "
+        f"equal the plain version's from block 1")
+    return worst
+
+
 def phase_serve_spec(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
     """Speculative serving at full width (``spec_gamma`` 4, the int8
     self-draft unless a leg says otherwise), in six legs: the serving run's
@@ -2730,36 +2820,12 @@ def phase_serve_spec(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
         log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
         return res
 
-    def record_verify_windows():
-        """Wrap the append wrapper to keep, per layer, the first verify
-        window's inputs (q, new k/v, the layer's pools before the write,
-        table, pos, write mask)."""
-        rec: dict = {}
-        wrapper = pa.paged_append_attention
-
-        def recording(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer,
-                      write_mask=None):
-            if (q.shape[1] == gamma + 1 and layer not in rec
-                    and not (q.is_cuda and torch.cuda.is_current_stream_capturing())):
-                rec[layer] = tuple(None if t is None else t.clone() for t in (
-                    q, new_k, new_v, k_pools[layer], v_pools[layer], block_table, pos,
-                    write_mask))
-            return wrapper(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer,
-                           write_mask=write_mask)
-
-        pa.paged_append_attention = recording
-
-        def restore():
-            pa.paged_append_attention = wrapper
-
-        return rec, restore
-
     def main_leg():
         def drive(eager):
             eng = _spec_engine(cfg, params, cache_dtype)
             return eng, eng.pump(reqs)
 
-        rec, restore = record_verify_windows()
+        rec, restore = _record_append_windows(torch, pa, gamma + 1)
         try:
             eng, comps, counts = _engine_twin(torch, label, drive, PAGED_TWIN_ATTRS, pool_from=1)
         finally:
@@ -2780,34 +2846,7 @@ def phase_serve_spec(torch, cfg, params, reqs, *, cache_dtype, tol=0.25):
             f"(reported, not required: the verify products run at M = 40, not 8, and cuBLAS may "
             f"take other kernels, so a near tie may flip; every token is held teacher-forced)")
         _teacher_forced_all(torch, label, cfg, params, greedy, comps, cache_dtype, tol)
-        # the append kernel on the path's own verify windows, layer by layer
-        dname = str(cache_dtype).split(".")[-1]
-        step, cap, _ = PAGED_STEP[dname]
-        worst = 0.0
-        if sorted(rec) != list(range(cfg.n_layers)):
-            raise AssertionError(f"{label}: verify windows recorded for layers {sorted(rec)}")
-        for layer, (q, nk, nv, kp, vp, table, pos, wm) in sorted(rec.items()):
-            k1, v1, k2, v2 = kp[None].clone(), vp[None].clone(), kp[None].clone(), vp[None].clone()
-            got, _, _ = pa.paged_append_attention(q, nk, nv, k1, v1, table, pos, 0, write_mask=wm)
-            want_out = pa.paged_append_attention_plain(q, nk, nv, k2, v2, table, pos, 0,
-                                                       write_mask=wm)
-            mag = pa.paged_append_attention_plain(
-                q.float(), nk.float(), nv.float().abs(), kp[None].float(),
-                vp[None].float().abs(), table, pos, 0, write_mask=wm)
-            err, limit, top, over = paged_check(got, want_out, mag, step, cap)
-            pages = torch.equal(k1[:, 1:], k2[:, 1:]) and torch.equal(v1[:, 1:], v2[:, 1:])
-            worst = max(worst, err)
-            if layer in (0, cfg.n_layers - 1):
-                log(f"{label}: layer {layer} verify window: nq {q.shape[1]}, q "
-                    f"{tuple(q.shape)}, pools {tuple(kp.shape)}, table {tuple(table.shape)}, "
-                    f"pos {pos.tolist()}, write mask {None if wm is None else wm.tolist()}")
-            if over or not pages:
-                raise AssertionError(f"{label}: the append kernel at nq {q.shape[1]} disagrees "
-                                     f"with its plain version in layer {layer}: {over} elements "
-                                     f"over the limit, written pages equal {pages}")
-        log(f"{label}: the append kernel at nq {gamma + 1} on the path's own inputs, "
-            f"{len(rec)} layers: worst max_abs_err {worst:.4g} (paged_check limits, {dname}); "
-            f"written pool pages equal the plain version's from block 1")
+        _hold_append_windows(torch, label, pa, rec, cfg, cache_dtype)
         out["counts"] = counts
 
     def int4_leg():
@@ -3308,6 +3347,506 @@ def phase_serve_telemetry(torch, cfg, params, reqs, *, cache_dtype, card):
     }
 
 
+# the LoRA phases: the serving geometry with a bank of two seeded adapters
+# (rank 8, alpha 16, the four block matrices) beside the identity row
+LORA = dict(rank=8, alpha=16.0)
+# B's std: the JAX tests' 0.3 at d 64 puts scale * A @ B far above the
+# base weights at d 1024, where the bf16 merge the teacher-forced check
+# decodes rounds the sum far off the adapted forward; the identity leg
+# prints both stds' readings (``_b_std_reading``)
+LORA_B_STD = 0.05
+LORA_B_STD_TESTS = 0.3        # tests/test_lora_serve.py's
+LORA_TIGHT = 73               # blocks, the null block included, for the preemption leg
+LORA_TIMING_ROUNDS = 4        # alternating rounds of 4 graphed 8-step bursts
+LORA_TRAIN = dict(b=4, steps=5, lr=1e-3)
+
+
+def _lora_bank(torch, cfg, b_std=LORA_B_STD):
+    """``(LoraConfig, [adapter 1, adapter 2], bank)``: each adapter's A from
+    ``lora.init_adapters`` (std 1/r) and B normal with std ``b_std``, from
+    its own seed; the bank on the card, row 0 the identity."""
+    from k8s_dra_driver_torch.models import lora
+
+    lcfg = lora.LoraConfig(**LORA)
+    adapters = []
+    for k in (1, 2):
+        g = torch.Generator(device=DEV).manual_seed(SEED + 100 + k)
+        ad = lora.init_adapters(g, cfg, lcfg)
+        for blk in ad["blocks"]:
+            for ab in blk.values():
+                ab["b"] = b_std * torch.randn(ab["b"].shape, generator=g, device=DEV)
+        adapters.append(ad)
+    return lcfg, adapters, lora.stack_adapters(cfg, lcfg, adapters)
+
+
+def _b_std_reading(torch, label, cfg, params, prompt, cache_dtype):
+    """Why ``LORA_B_STD``: for B std ``LORA_B_STD_TESTS`` and
+    ``LORA_B_STD``, one prompt through the plain dense path three ways:
+    adapter 1 applied by the bank's delta hooks (as the engines apply it),
+    the bf16 ``lora.merge`` the teacher-forced check decodes, and the base.
+    Prints, for each std, the largest logit difference between the first
+    two (what the check's 0.25 gap has to absorb) and the positions whose
+    argmax adapter 1 moves off the base's.  Returns ``{std: (difference,
+    moved, positions)}``."""
+    from k8s_dra_driver_torch.models import decode, lora
+
+    ref = _dense_reference(params)
+    x = torch.tensor([prompt], dtype=torch.long, device=DEV)
+    ids = torch.ones((1,), dtype=torch.int32, device=DEV)
+
+    def logits(p, adapters=None):
+        cache = decode.init_cache(cfg, 1, x.shape[1], dtype=cache_dtype, device=DEV)
+        out, _ = decode.decode_chunk(p, cache, x, 0, cfg=cfg, adapters=adapters)
+        return out[0].float()
+
+    base = logits(ref).argmax(-1)
+    readings = {}
+    for std in (LORA_B_STD_TESTS, LORA_B_STD):
+        lcfg, adapters, bank = _lora_bank(torch, cfg, std)
+        adapted = logits(ref, (bank, ids))
+        merged = logits(lora.merge(ref, adapters[0], lcfg))
+        if not (torch.isfinite(adapted).all() and torch.isfinite(merged).all()):
+            raise AssertionError(f"{label}: B std {std}: logits not finite")
+        diff = (adapted - merged).abs().max().item()
+        moved = int((adapted.argmax(-1) != base).sum())
+        readings[std] = (diff, moved, x.shape[1])
+        log(f"{label}: B std {std}: adapter 1 by the delta hooks against its bf16 merge on a "
+            f"{x.shape[1]}-token prompt, largest logit difference {diff:.6g}; positions whose "
+            f"argmax it moves off the base's {moved} of {x.shape[1]}")
+        del adapters, bank, merged
+    return readings
+
+
+def _lora_engine(cfg, params, cache_dtype, bank, **kw):
+    """The serving run's paged engine (``_serving_engine``'s geometry) with
+    ``bank``."""
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    kw = dict(dict(n_slots=8, n_blocks=8 * 24 + 1, block_size=16, prompt_bucket=256,
+                   sync_interval=8, preempt_on_stall=False), **kw)
+    return PagedServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, adapter_bank=bank,
+                            device=DEV, **kw)
+
+
+def _teacher_forced_by_adapter(torch, label, cfg, params, lcfg, adapters, reqs, comps,
+                               cache_dtype, tol):
+    """Each completion teacher-forced (``_teacher_forced_all``) against the
+    plain dense path of its own adapter's merged model (``lora.merge`` of
+    the plain path's params; adapter 0: the base).  ``reqs[request_id]``
+    carries the adapter."""
+    from k8s_dra_driver_torch.models import lora
+
+    base = _dense_reference(params)
+    for k in range(len(adapters) + 1):
+        group = [c for c in comps if reqs[c.request_id].get("adapter", 0) == k]
+        if group:
+            model = base if k == 0 else lora.merge(base, adapters[k - 1], lcfg)
+            _teacher_forced_all(torch, f"{label}, adapter {k}", cfg, model, reqs, group,
+                                cache_dtype, tol)
+            del model
+
+
+def _preempted_ids(eng, comps) -> set:
+    return {c.request_id for c in comps
+            if any(e["event"] == "preempt" for e in eng.telemetry.trace(c.request_id)["events"])}
+
+
+def phase_serve_lora(torch, cfg, params, reqs, *, cache_dtype, card, tol=0.25):
+    """Per-request LoRA at full width in bf16 (8 slots, block 16, bucket
+    256, sync interval 8; a bank of two seeded adapters and the identity,
+    rank 8, alpha 16, all four block matrices), in seven legs, each timed:
+    the serving run's 16 requests with adapters 0, 1, 2 in turn through the
+    paged engine graphed (the main path) against an eager twin, every
+    token teacher-forced against its own adapter's merged model, the
+    append kernel held against its plain version on the path's first
+    window (nq 1) in every layer; adapter-0 streams against a bank-less
+    engine's (equal required; every adapted stream must differ), then the
+    B std readings (``_b_std_reading``); one prompt under adapters 1, 2 and 1 with
+    the prefix store (no hit across adapters, a hit for the same one);
+    preemption on a tight pool (re-admitted rows teacher-forced under
+    their adapters, never-preempted streams equal to the roomy run's); γ 4
+    with the int8 self-draft under the bank, graphed against eager,
+    acceptance printed; the int4 base under the bank (``int4_splitk`` and
+    ``int4_wgmma`` both reached, each product shape held on the path's own
+    x); the dense engine under the bank, graphed against eager; then the
+    adapted graphed step against the bank-less one.  Returns the main
+    path's launch counts."""
+    from k8s_dra_driver_torch.models import burnin, lora, quant, serve
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    label = "serve bf16 lora"
+    lcfg, adapters, bank = _lora_bank(torch, cfg)
+    rows = lora.bank_size(bank)
+    areqs = [dict(prompt=p, max_tokens=m, adapter=i % rows) for i, (p, m) in enumerate(reqs)]
+    one = sum(t.numel() for t in burnin.param_leaves(adapters[0]))
+    gathered = 2 * 8 * one * 4  # A and B rows for 8 slots, f32, read and written
+    g_ms, _ = bound(gathered, 0, "bfloat16")
+    log(f"{label}: bank of {rows} rows (the identity and 2 adapters, rank {lcfg.rank}, alpha "
+        f"{lcfg.alpha}, targets {list(lcfg.targets)}, B std {LORA_B_STD}); {one} f32 values an "
+        f"adapter ({one * 4 / 1e6:.2f} MB); a batch of 8 gathers its rows for every layer and "
+        f"target each step: {gathered / 1e6:.1f} MB read and written, {g_ms * 1e3:.1f} us of "
+        f"bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    out: dict = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+
+    def check_lengths(tag, comps, want_reqs):
+        short = [c.request_id for c in comps
+                 if c.status != "ok" or len(c.generated) != want_reqs[c.request_id]["max_tokens"]]
+        if len(comps) != len(want_reqs) or short:
+            raise AssertionError(f"{tag}: {len(comps)} completions, short or not ok {short}")
+
+    def main_leg():
+        def drive(eager):
+            eng = _lora_engine(cfg, params, cache_dtype, bank)
+            return eng, eng.pump(areqs)
+
+        rec, restore = _record_append_windows(torch, pa, 1)
+        try:
+            eng, comps, counts = _engine_twin(torch, label, drive, PAGED_TWIN_ATTRS, pool_from=1)
+        finally:
+            restore()
+        check_lengths(label, comps, areqs)
+        _teacher_forced_by_adapter(torch, label, cfg, params, lcfg, adapters, areqs, comps,
+                                   cache_dtype, tol)
+        _hold_append_windows(torch, label, pa, rec, cfg, cache_dtype)
+        out["counts"] = counts
+        out["main"] = {c.request_id: c.generated for c in comps}
+
+    def identity_leg():
+        plain = _serving_engine(cfg, params, cache_dtype)
+        want = {c.request_id: c.generated for c in plain.pump(reqs)}
+        ids0 = [i for i, r_ in enumerate(areqs) if r_["adapter"] == 0]
+        differ = [i for i in ids0 if out["main"][i] != want[i]]
+        stayed = [i for i, r_ in enumerate(areqs) if r_["adapter"] and out["main"][i] == want[i]]
+        log(f"{label} identity: adapter-0 streams equal to the bank-less graphed engine's: "
+            f"{len(ids0) - len(differ)} of {len(ids0)}; adapted streams that left the base's: "
+            f"{len(areqs) - len(ids0) - len(stayed)} of {len(areqs) - len(ids0)}")
+        if differ:
+            raise AssertionError(f"{label} identity: adapter-0 requests {differ} differ from "
+                                 f"the bank-less engine's")
+        if stayed:
+            raise AssertionError(f"{label} identity: adapted requests {stayed} kept the "
+                                 f"bank-less engine's stream: the bank does not move them")
+        _b_std_reading(torch, f"{label} identity", cfg, params,
+                       next(r_["prompt"] for r_ in areqs if r_["adapter"]), cache_dtype)
+
+    def prefix_leg():
+        r = np.random.RandomState(SEED + 41)
+        prompt = r.randint(0, cfg.vocab_size, size=104).tolist()  # 6 storable blocks
+        eng = _lora_engine(cfg, params, cache_dtype, bank, prefix_cache_blocks=16)
+        runs, hits = [], []
+        for adapter in (1, 2, 1):
+            comps = eng.pump([dict(prompt=prompt, max_tokens=48, adapter=adapter)])
+            runs.append(comps[0])
+            hits.append(eng.prefix_hits)
+        by_id = {c.request_id: dict(prompt=prompt, max_tokens=48, adapter=a)
+                 for c, a in zip(runs, (1, 2, 1))}
+        log(f"{label} prefix: one 104-token prompt under adapters 1, 2, 1: prefix hits after "
+            f"each {hits}, misses {eng.prefix_misses}; the repeat's stream equal to the first's "
+            f"{runs[0].generated == runs[2].generated} (reported: a hit runs the suffix chunk, "
+            f"another product shape); adapters 1 and 2 differ "
+            f"{runs[0].generated != runs[1].generated}")
+        if hits[0] != 0 or hits[1] != hits[0] or hits[2] <= hits[1]:
+            raise AssertionError(f"{label} prefix: hits {hits}: want none across adapters and "
+                                 f"one for the same adapter")
+        if runs[0].generated == runs[1].generated:
+            raise AssertionError(f"{label} prefix: adapters 1 and 2 gave the same stream")
+        _teacher_forced_by_adapter(torch, f"{label} prefix", cfg, params, lcfg, adapters, by_id,
+                                   runs, cache_dtype, tol)
+        leak_audit(f"{label} prefix", eng)
+
+    def preemption_leg():
+        eng = _lora_engine(cfg, params, cache_dtype, bank, n_blocks=LORA_TIGHT,
+                           preempt_on_stall=True)
+        comps = eng.pump(areqs)
+        check_lengths(f"{label} preemption", comps, areqs)
+        parked = _preempted_ids(eng, comps)
+        if eng.preempted_count < 1 or not parked:
+            raise AssertionError(f"{label} preemption: pool {LORA_TIGHT} never preempted")
+        by_id = {c.request_id: c.generated for c in comps}
+        kept = [i for i in by_id if i not in parked]
+        differ = [i for i in kept if by_id[i] != out["main"][i]]
+        same = sum(by_id[i] == out["main"][i] for i in parked)
+        log(f"{label} preemption: pool {LORA_TIGHT} blocks (null block included), "
+            f"{eng.preempted_count} preemptions of requests {sorted(parked)} (adapters "
+            f"{sorted(areqs[i]['adapter'] for i in parked)}), stalled steps "
+            f"{eng.stalled_steps}; never-preempted streams equal to the roomy run's: "
+            f"{len(kept) - len(differ)} of {len(kept)}; re-admitted ones: {same} of {len(parked)} "
+            f"(reported: a re-prefill runs another product shape)")
+        if differ:
+            raise AssertionError(f"{label} preemption: never-preempted requests {differ} differ "
+                                 f"from the roomy run")
+        _teacher_forced_by_adapter(torch, f"{label} preemption", cfg, params, lcfg, adapters,
+                                   areqs, [c for c in comps if c.request_id in parked],
+                                   cache_dtype, tol)
+
+    def spec_leg():
+        sreqs = areqs[:8]
+
+        def drive(eager):
+            eng = _spec_engine(cfg, params, cache_dtype, adapter_bank=bank)
+            return eng, eng.pump(sreqs)
+
+        eng, comps, _ = _engine_twin(torch, f"{label} spec", drive, PAGED_TWIN_ATTRS,
+                                     pool_from=1)
+        check_lengths(f"{label} spec", comps, sreqs)
+        per_round = {}
+        for k in range(rows):
+            mine = [c for c in comps if sreqs[c.request_id]["adapter"] == k]
+            rounds_k = sum(len(eng.telemetry.trace(c.request_id)["bursts"]) for c in mine)
+            per_round[k] = round(sum(len(c.generated) - 1 for c in mine) / max(rounds_k, 1), 3)
+        log(f"{label} spec: γ {eng.spec_gamma}, int8 self-draft of the base: {eng.host_syncs} "
+            f"rounds; acceptance {eng.spec_accepted / max(eng.spec_drafted, 1):.4f} "
+            f"({eng.spec_accepted} of {eng.spec_drafted} drafted); tokens a request commits "
+            f"a round, by adapter {per_round} (1 + its accepted proposals)")
+        _teacher_forced_by_adapter(torch, f"{label} spec", cfg, params, lcfg, adapters, sreqs,
+                                   comps, cache_dtype, tol)
+
+    def int4_leg():
+        p4 = quant.quantize_blocks(params, bits=4)
+        ireqs = areqs[:6]
+        inputs, restore = _int4_recorder(torch, i4)
+        try:
+            sync(torch)
+            _zero_serving_counts()
+            eng = _lora_engine(cfg, p4, cache_dtype, bank)
+            by_program = _int4_by_program(eng, i4)
+            comps = eng.pump(ireqs)
+            sync(torch)
+            counts = serve.launch_counts()
+        finally:
+            restore()
+        check_lengths(f"{label} int4", comps, ireqs)
+        log(f"{label} int4 (int4 base, bf16 bank): launches by program {by_program}")
+        burst, prefill = by_program.get("burst", {}), by_program.get("prefill", {})
+        if not burst.get("int4_splitk") or not prefill.get("int4_wgmma"):
+            raise AssertionError(f"{label} int4: want the bursts through int4_splitk and the "
+                                 f"prefills through int4_wgmma: {by_program}")
+        graph_bookkeeping(torch, f"{label} int4", eng)
+        _teacher_forced_by_adapter(torch, f"{label} int4", cfg, p4, lcfg, adapters, ireqs, comps,
+                                   cache_dtype, tol)
+        ms = _hold_int4_inputs(torch, f"{label} int4", i4, inputs)
+        log(f"{label} int4: {len(inputs)} product shapes of the path held against the plain "
+            f"version elementwise (INT4_STEP); M by kernel {ms}")
+        out["int4"] = counts
+
+    def dense_leg():
+        dreqs = areqs[:8]
+
+        def drive(eager):
+            eng = _dense_engine(cfg, params, cache_dtype, adapter_bank=bank)
+            return eng, eng.pump(dreqs)
+
+        eng, comps, _ = _engine_twin(torch, f"{label} dense", drive)
+        check_lengths(f"{label} dense", comps, dreqs)
+        _teacher_forced_by_adapter(torch, f"{label} dense", cfg, params, lcfg, adapters, dreqs,
+                                   comps, cache_dtype, tol)
+
+    def timing_leg(rounds=LORA_TIMING_ROUNDS, bursts=4):
+        """The adapted and the bank-less graphed engine with the same 8
+        residents (prompt 128; adapters 0, 1, 2 in turn on the adapted
+        one), 3 warm-up bursts each, then alternating rounds of ``bursts``
+        8-step bursts, host clock, medians; one profiled burst each."""
+        r = np.random.RandomState(SEED + 7)
+        prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+        engines = {"adapted": _lora_engine(cfg, params, cache_dtype, bank),
+                   "bank-less": _serving_engine(cfg, params, cache_dtype)}
+        for name, eng in engines.items():
+            for i, p in enumerate(prompts):
+                kw = dict(adapter=i % rows) if name == "adapted" else {}
+                eng.submit(p, max_tokens=8 * (3 + rounds * bursts + 2), **kw)
+            for _ in range(3):
+                eng.step_burst()
+        times = {name: [] for name in engines}
+        for rnd in range(rounds):
+            for name in (list(engines) if rnd % 2 == 0 else list(reversed(engines))):
+                eng = engines[name]
+                sync(torch)
+                t0 = time.perf_counter()
+                for _ in range(bursts):
+                    eng.step_burst()
+                sync(torch)
+                times[name].append((time.perf_counter() - t0) / (bursts * 8) * 1e3)
+        med = {name: float(np.median(t)) for name, t in times.items()}
+        for name, t in times.items():
+            log(f"{label} timing, {name}: {' / '.join(f'{x:.3f}' for x in t)} ms per graphed "
+                f"step by round (median {med[name]:.3f})")
+        log(f"{label} timing: the adapted step {med['adapted'] / med['bank-less']:.3f}x the "
+            f"bank-less one (+{med['adapted'] - med['bank-less']:.3f} ms; {card})")
+        for name, eng in engines.items():
+            prof = profile_window(torch, f"{label} timing: profile of one graphed 8-step burst, "
+                                  f"{name}", eng.step_burst, watch=("paged_attention",))
+            if prof is not None:
+                n = sum(r_[1] for r_ in prof["rows"])
+                log(f"{label} timing, {name}: device busy {prof['busy_us'] / 8e3:.3f} ms and "
+                    f"{n / 8:.0f} kernels per step")
+        out["timing"] = med
+
+    leg("main", main_leg)
+    leg("identity", identity_leg)
+    leg("prefix", prefix_leg)
+    leg("preemption", preemption_leg)
+    leg("spec", spec_leg)
+    leg("int4", int4_leg)
+    leg("dense", dense_leg)
+    leg("timing", timing_leg)
+    return {
+        "paged_attention": out["counts"][(pa.__name__, "append")],
+        "int4_matmul": out["int4"][(i4.__name__, "int4_splitk")],
+        "int4_matmul_prefill": out["int4"][(i4.__name__, "int4_wgmma")],
+    }
+
+
+def _record_flash_inputs(torch, fa):
+    """Wrap the dQ wrapper to keep the first backward call's inputs (q, k,
+    v, lse, dout, delta: one layer's, the step's own shapes) outside any
+    capture.  Returns ``(record, restore)``."""
+    rec: dict = {}
+    wrapper = fa._dq_bhsd
+
+    def recording(q, k, v, lse, dout, delta, causal):
+        if not rec and not (q.is_cuda and torch.cuda.is_current_stream_capturing()):
+            rec.update(q=q.clone(), k=k.clone(), v=v.clone(), dout=dout.clone(), causal=causal)
+        return wrapper(q, k, v, lse, dout, delta, causal)
+
+    fa._dq_bhsd = recording
+
+    def restore():
+        fa._dq_bhsd = wrapper
+
+    return rec, restore
+
+
+def phase_train_lora(torch, cfg, *, b: int = LORA_TRAIN["b"], steps: int = LORA_TRAIN["steps"]):
+    """Adapter-only training of ``cfg`` at S = max_seq in bf16 through the
+    flash kernels (``lora.build_lora_train_step``, rank 8, alpha 16, the four
+    block matrices, lr 1e-3): the graphed step (the main path; flash counts
+    zeroed just before) against an eager twin from the same seeds, bit for
+    bit over ``steps`` steps, the loss falling and the base unchanged; the
+    flash forward, dQ and dK/dV kernels held against their plain versions
+    on one layer's inputs from the step itself; then ms per step and peak
+    memory beside the full graphed step in alternating rounds.  Returns
+    the main path's flash launch counts."""
+    from k8s_dra_driver_torch.models import burnin, lora, serve
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    label = "train lora"
+    s = cfg.max_seq
+    lcfg = lora.LoraConfig(**LORA)
+    tokens = _train_tokens(torch, cfg, b, SEED + 3)
+    base = burnin.init_params(torch.Generator(device=DEV).manual_seed(SEED + 5), cfg)
+    before = [t.clone() for t in burnin.param_leaves(base)]
+    runs = {}
+    rec, restore = _record_flash_inputs(torch, fa)
+    try:
+        for mode in ("graphed", "eager"):
+            fns = lora.build_lora_train_step(cfg, lcfg, lr=LORA_TRAIN["lr"], attention="flash",
+                                             device=DEV)
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            ad, st = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 6))
+            sync(torch)
+            _zero_flash_counts()
+            with serve.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+                losses = [fns.step(ad, st, base, tokens)[2] for _ in range(steps)]
+            sync(torch)
+            runs[mode] = dict(fns=fns, ad=ad, st=st, losses=torch.stack(losses),
+                              counts=(dict(fa.launches), dict(fa.fwd_launches),
+                                      dict(fa.bwd_launches)),
+                              peak=torch.cuda.max_memory_allocated() - start)
+    finally:
+        restore()
+    graphed, eager = runs["graphed"], runs["eager"]
+    counts, fwd, bwd = graphed["counts"]
+    losses = graphed["losses"].tolist()
+    n_ad = lora.adapter_param_count(graphed["ad"])
+    log(f"{label} B={b} S={s} L={cfg.n_layers}: {n_ad} adapter values ({n_ad / 1e6:.3f} M, Adam "
+        f"moments for those alone); losses over {steps} graphed steps on one batch "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"{label}: launches {counts}, by kernel {fwd} {bwd}")
+    _graph_line(torch, label, graphed["fns"])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    n = cfg.n_layers * steps
+    if counts != {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n} or fwd != {
+            "flash_fwd_wgmma": 2 * n, "flash_fwd_fma": 0} or bwd != {
+            "flash_bwd_dq_wgmma": n, "flash_bwd_dq_fma": 0,
+            "flash_bwd_dkv_wgmma": n, "flash_bwd_dkv_fma": 0}:
+        raise AssertionError(f"{label}: flash launch counts {counts} {fwd} {bwd} are not the "
+                             f"main path's")
+    if eager["counts"] != graphed["counts"]:
+        raise AssertionError(f"{label}: graphed and eager launch counts differ")
+    if graphed["fns"].captures != 1 or eager["fns"].captures != 0:
+        raise AssertionError(f"{label}: captures graphed {graphed['fns'].captures}, eager "
+                             f"{eager['fns'].captures} (want 1 and 0)")
+
+    def bit_equal(when, with_losses=True):
+        loss_ok = not with_losses or graphed["losses"].equal(eager["losses"])
+        differ = _differing(_state_leaves(graphed["ad"], graphed["st"]),
+                            _state_leaves(eager["ad"], eager["st"]))
+        untouched = all(torch.equal(x, y) for x, y in zip(burnin.param_leaves(base), before))
+        log(f"{label}: graphed == eager twin {when}: losses {loss_ok}; adapter, count, mu and "
+            f"nu leaves that differ: {differ}; the base bit for bit unchanged: {untouched}")
+        if not loss_ok or differ or not untouched:
+            raise AssertionError(f"{label}: graphed and eager differ, or the base moved, {when}")
+
+    bit_equal(f"after {steps} steps")
+    # the flash kernels on one layer's inputs from the step itself
+    if not rec:
+        raise AssertionError(f"{label}: no flash backward call was recorded")
+    q, k, v, dout, causal = rec["q"], rec["k"], rec["v"], rec["dout"], rec["causal"]
+    step, why = FLASH_STEP["bfloat16"]
+    got_fwd = fa._forward_bhsd(q, k, v, causal)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
+    grads = fa._backward_bhsd(q, k, v, out_p, lse_p, dout, causal)
+    grads_p = fa.flash_backward_plain(q, k, v, out_p, lse_p, dout, causal)
+    want = (out_p, lse_p, *grads_p)
+    check = flash_check((*got_fwd, *grads), want, flash_limits(q, k, v, dout, causal, want, step))
+    for name, (err, limit, top, rms, over, differ) in check.items():
+        log(f"{label}: flash {name} on the step's own inputs {tuple(q.shape)} {q.dtype}: "
+            f"max_abs_err {err:.3g}, limit there {limit:.3g}, max|plain| {top:.3g}; elements "
+            f"over the limit {over}")
+        if over:
+            raise AssertionError(f"{label}: flash {name} disagrees with its plain version")
+    del got_fwd, grads, grads_p, want
+    # ms per step and peak memory beside the full graphed step
+    full = burnin.build_train_step(cfg, attention="flash", remat="blocks", lr=3e-4, device=DEV)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    params, state = full.init(torch.Generator(device=DEV).manual_seed(SEED + 5))
+    for _ in range(3):
+        full.step(params, state, tokens)
+    sync(torch)
+    full_peak = torch.cuda.max_memory_allocated() - start
+    times = alternating_rounds(torch, {
+        "lora": (lambda: graphed["fns"].step(graphed["ad"], graphed["st"], base, tokens),
+                 contextlib.nullcontext),
+        "full": (lambda: full.step(params, state, tokens), contextlib.nullcontext),
+    }, 4, 5)
+    med = {name: float(np.median(t)) for name, t in times.items()}
+    for name, t in times.items():
+        log(f"{label} timing, {name} graphed step: {' / '.join(f'{x:.2f}' for x in t)} ms by "
+            f"round (median {med[name]:.2f} ms, {b * s / med[name] * 1e3:.0f} tokens/s)")
+    log(f"{label}: the LoRA step {med['lora'] / med['full']:.3f}x the full step; peak memory "
+        f"allocated: LoRA {graphed['peak'] / 2**30:.2f} GiB (its adapters, Adam state and "
+        f"transients over the base it reads), full {full_peak / 2**30:.2f} GiB (params, AdamW "
+        f"state and transients)")
+    profile_window(torch, f"{label}: profile of one graphed LoRA step",
+                   lambda: graphed["fns"].step(graphed["ad"], graphed["st"], base, tokens),
+                   top=8, watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
+    if not all(torch.equal(x, y) for x, y in zip(burnin.param_leaves(base), before)):
+        raise AssertionError(f"{label}: the base moved over the timing rounds")
+    return {"flash_fwd": fwd["flash_fwd_wgmma"], "flash_bwd_dq": bwd["flash_bwd_dq_wgmma"],
+            "flash_bwd_dkv": bwd["flash_bwd_dkv_wgmma"]}
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -3456,15 +3995,25 @@ def main() -> int:
                                                       cache_dtype=torch.bfloat16, card=card)
 
     run("serve bf16 telemetry", serve_telemetry)
+
+    def serve_lora():
+        launches["lora"] = phase_serve_lora(torch, cfg, params, reqs,
+                                            cache_dtype=torch.bfloat16, card=card)
+
+    run("serve bf16 lora", serve_lora)
     del params
 
     def train_bf16():
         launches["train"] = phase_train_bf16(torch, cfg)
 
+    def train_lora():
+        launches["train_lora"] = phase_train_lora(torch, cfg)
+
     def train_f32():
         launches["train_f32"] = phase_train_f32(torch, cfg)
 
     run("train bf16", train_bf16)
+    run("train lora", train_lora)
     run("remat policies", lambda: phase_remat(torch, cfg))
     run("resume", lambda: phase_resume(torch, cfg))
     run("train f32", train_f32)
@@ -3473,20 +4022,23 @@ def main() -> int:
         log(f"chip_smoke: failed phases {failed}")
         return 1
     # each kernel's launches on the path that runs it: paged append on the
-    # bf16 serving run, the speculative one (its verify windows, nq 5) and
-    # the telemetry-on engines, both int4 kernels on the int4 serving run and
-    # the telemetry-on int4 engine, flash on the bf16 training run and the
-    # f32 forward on the f32 training run; the read-only paged kernel is on
-    # no path (0)
-    tel = launches["telemetry"]
+    # bf16 serving run, the speculative one (its verify windows, nq 5), the
+    # telemetry-on engines and the adapted run; both int4 kernels on the
+    # int4 serving run, the telemetry-on int4 engine and the int4 base under
+    # the bank; flash on the bf16 and the LoRA training runs and the f32
+    # forward on the f32 training run; the read-only paged kernel is on no
+    # path (0)
+    tel, lora_serve = launches["telemetry"], launches["lora"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
-                            + launches["spec"]["paged_attention"] + tel["paged_attention"]),
+                            + launches["spec"]["paged_attention"] + tel["paged_attention"]
+                            + lora_serve["paged_attention"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
-        "int4_matmul": launches["int4"]["int4_matmul"] + tel["int4_matmul"],
+        "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
+                        + lora_serve["int4_matmul"]),
         "int4_matmul_prefill": (launches["int4"]["int4_matmul_prefill"]
-                                + tel["int4_matmul_prefill"]),
-        **launches["train"],
+                                + tel["int4_matmul_prefill"] + lora_serve["int4_matmul_prefill"]),
+        **{name: n + launches["train_lora"][name] for name, n in launches["train"].items()},
         **launches["train_f32"],
     }
     log(f"card: {card}")

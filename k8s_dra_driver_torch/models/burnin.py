@@ -24,8 +24,10 @@ corrections on the device) and ``make_sgd_step`` (gradient accumulation
 with the interleaved microbatch split).  The step updates params and
 optimizer state IN PLACE (the reference's step is pure and donates its
 buffers instead) and, on the card, replays as one CUDA graph
-(:class:`GraphedTrainStep`, the reference's ``jax.jit``).  Meshes, LoRA and
-MoE training raise ``NotImplementedError``.
+(:class:`GraphedTrainStep`, the reference's ``jax.jit``).  Adapter-only
+training is ``models/lora.build_lora_train_step`` over the same step,
+with optax's ``adam`` (:class:`Adam`).  Meshes and MoE training raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -197,14 +199,18 @@ def rope_rotate(x, positions, cfg: ModelConfig):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def qkv_proj(x, p, cfg: ModelConfig, positions=None):
+def qkv_proj(x, p, cfg: ModelConfig, positions=None, delta=None):
     """ln1 + fused QKV projection -> q ``[B, S, H, hd]``, k/v
     ``[B, S, Hkv, hd]``; with RoPE, q and k rotate by absolute position
-    (default ``arange(S)``) before any cache write."""
+    (default ``arange(S)``) before any cache write.  ``delta(name, y)``:
+    an additive update of the projection from the same normalized input,
+    how per-request LoRA applies in serving (``lora.adapter_delta``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     y = _rms_norm(x, p["ln1"])
     qkv = _mm(y, p["qkv"])
+    if delta is not None:
+        qkv = qkv + delta("qkv", y)
     q, k, v = torch.split(qkv, [h * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
@@ -225,11 +231,18 @@ def repeat_kv(kv, cfg: ModelConfig):
     return torch.repeat_interleave(kv, cfg.kv_groups, dim=2)
 
 
-def mlp_residual(x, p):
-    """ln2 + dense tanh-GELU MLP with residual."""
+def mlp_residual(x, p, delta=None):
+    """ln2 + dense tanh-GELU MLP with residual; ``delta`` as in
+    :func:`qkv_proj`, the down projection's from the post-GELU ``h``."""
     y = _rms_norm(x, p["ln2"])
-    h = F.gelu(_mm(y, p["mlp_up"]), approximate="tanh")
-    return x + _mm(h, p["mlp_down"])
+    h = _mm(y, p["mlp_up"])
+    if delta is not None:
+        h = h + delta("mlp_up", y)
+    h = F.gelu(h, approximate="tanh")
+    out = _mm(h, p["mlp_down"])
+    if delta is not None:
+        out = out + delta("mlp_down", h)
+    return x + out
 
 
 def tied_logits(x, params):
@@ -500,9 +513,21 @@ class AdamW:
         torch._foreach_add_(den, self.eps)
         u = torch._foreach_div(mu, bc1)                       # mu_hat / den
         torch._foreach_div_(u, den)
-        torch._foreach_add_(u, torch._foreach_mul(leaves, self.weight_decay))
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(leaves, self.weight_decay))
         torch._foreach_mul_(u, neg_lr)
         torch._foreach_add_(leaves, u)
+
+
+class Adam(AdamW):
+    """optax's ``adam(lr)``, the LoRA step's optimizer: b1 0.9, b2 0.999,
+    eps 1e-8, a constant learning rate, no weight decay and no clipping;
+    the count, bias corrections and in-place update of :class:`AdamW`."""
+
+    b2, weight_decay = 0.999, 0.0
+
+    def __init__(self, lr: float = 1e-3):
+        super().__init__(lr)
 
 
 def make_optimizer(lr: float = 3e-4, warmup_steps: int = 0, decay_steps: int = 0,
@@ -525,6 +550,10 @@ def _state_tensors(params, opt_state) -> list:
     return [*param_leaves(params), opt_state["count"], *opt_state["mu"], *opt_state["nu"]]
 
 
+def _addresses(tensors) -> tuple:
+    return tuple(t.data_ptr() for t in tensors)
+
+
 class GraphedTrainStep:
     """The train step on the card as one CUDA graph, the counterpart of the
     reference's ``jax.jit(step, donate_argnums=(0, 1))``:
@@ -543,8 +572,11 @@ class GraphedTrainStep:
     releases the old graph first; ``captures`` counts the captures made.  A
     restore that writes into the same tensors
     (``TrainCheckpointer.restore(like=...)``) needs none.  ``sgd`` is
-    :func:`make_sgd_step`'s step; ``capture`` the capturing function (a
-    stand-in in the CPU tests)."""
+    :func:`make_sgd_step`'s step, or with ``base`` (a frozen params tree
+    the step reads and never updates, the LoRA step's base model) a step
+    ``sgd(params, opt_state, base, tokens)``: the base's tensor addresses
+    join the key, so another base starts a new program too.  ``capture``
+    the capturing function (a stand-in in the CPU tests)."""
 
     def __init__(self, sgd, device, capture=cuda_capture):
         self._sgd, self._device, self._capture = sgd, device, capture
@@ -553,16 +585,18 @@ class GraphedTrainStep:
         self.program: GraphedProgram | None = None
         self.captures = 0
 
-    def __call__(self, params, opt_state, tokens):
+    def __call__(self, params, opt_state, tokens, base=None):
         tokens = torch.as_tensor(tokens)
         key = (tuple(tokens.shape), tokens.dtype,
-               tuple(t.data_ptr() for t in _state_tensors(params, opt_state)))
+               _addresses(_state_tensors(params, opt_state)),
+               None if base is None else _addresses(param_leaves(base)))
         if key != self._key:
             self.program = self._tokens = None  # the old graph's pool goes first
             buf = torch.empty_like(tokens, device=self._device)
             sgd = self._sgd  # the program must not refer back to the holder
+            args = (params, opt_state) if base is None else (params, opt_state, base)
             self.program = GraphedProgram(
-                "train step", lambda: sgd(params, opt_state, buf)[2], self._device,
+                "train step", lambda: sgd(*args, buf)[2], self._device,
                 capture=self._capture,
             )
             self._key, self._tokens = key, buf

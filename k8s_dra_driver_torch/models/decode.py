@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
-from k8s_dra_driver_torch.models import prng
+from k8s_dra_driver_torch.models import lora, prng
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     mlp_residual,
@@ -89,35 +89,49 @@ def _masked_attention(q, k, v, mask):
 
 
 def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
-                 active=None, k_window: int | None = None, logits: bool = True):
+                 active=None, k_window: int | None = None, logits: bool = True,
+                 adapters=None):
     """Score ``S`` known tokens per row in one pass: ``tokens [B, S]`` at
     positions ``pos0 .. pos0+S-1`` (``pos0`` an int or a ``[B]`` tensor).
     Writes every chunk position's k/v into the cache (rows with ``active``
     false write back the bytes they held, so no shape depends on the data
     and the call can be captured as a CUDA graph), then each query attends
     cache positions ``<=`` its own; ``k_window`` bounds the attended key
-    positions.  Returns ``(logits [B, S, V] f32, cache)`` with the cache
-    updated in place; ``logits=False`` returns ``None`` in their place and
-    skips what only they need (the last layer's attention and MLP, the
-    head): for a caller that wants only the cache, as the reference's
-    chunked prefill, whose unused logits XLA removes as dead code."""
+    positions.  With ``active`` given, a position past the cache (a
+    speculative verify window near ``max_seq``) drops its write, as the
+    reference's scatter does: its index wraps (modulo ``max_seq``) to a
+    position the window does not cover, which writes back its own bytes.
+    ``adapters``: ``(bank, ids [B])``, per-row LoRA from a serving bank
+    (``lora.stack_adapters``) through the projections' delta hooks.
+    Returns ``(logits [B, S, V] f32, cache)`` with the cache updated in
+    place; ``logits=False`` returns ``None`` in their place and skips what
+    only they need (the last layer's attention and MLP, the head): for a
+    caller that wants only the cache, as the reference's chunked prefill,
+    whose unused logits XLA removes as dead code."""
     b, s = tokens.shape
     dev = tokens.device
+    max_seq = cache.k.shape[2]
     if isinstance(pos0, torch.Tensor):
         pos0 = pos0.to(device=dev, dtype=torch.long).expand(b)
     else:  # filled on the device: no host-to-device copy (capturable)
         pos0 = torch.full((b,), pos0, dtype=torch.long, device=dev)
     positions = pos0[:, None] + torch.arange(s, device=dev)[None, :]    # [B, S]
-    at = (torch.arange(b, device=dev)[:, None], positions)              # [B, S] each
-    keep = None if active is None else ~active[:, None, None, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    if active is None:
+        at, keep = (rows, positions), None
+    else:
+        past = positions >= max_seq
+        at = (rows, positions % max_seq)
+        keep = (~active[:, None] | past)[:, :, None, None]
     x = params["embed"][tokens]
-    if not cfg.rope:
-        x = x + params["pos_embed"][positions]
-    k_limit = cache.k.shape[2] if k_window is None else k_window
+    if not cfg.rope:  # the reference's gather clamps a position past the table
+        x = x + params["pos_embed"][positions.clamp(max=params["pos_embed"].shape[0] - 1)]
+    k_limit = max_seq if k_window is None else k_window
     k_pos = torch.arange(k_limit, device=dev)
     mask = (k_pos[None, None, :] <= positions[:, :, None])[:, None]     # [B,1,S,K]
     for li, p in enumerate(params["blocks"]):
-        q, k, v = qkv_proj(x, p, cfg, positions=positions)
+        delta = None if adapters is None else lora.layer_delta(adapters, li)
+        q, k, v = qkv_proj(x, p, cfg, positions=positions, delta=delta)
         for new, layer in ((k, cache.k[li]), (v, cache.v[li])):
             new = new.to(layer.dtype)
             layer[at] = new if keep is None else torch.where(keep, layer[at], new)
@@ -127,15 +141,18 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
             q, cache.k[li][:, :k_limit], cache.v[li][:, :k_limit], mask
         ).reshape(b, s, cfg.d_model)
         x = x + _mm(attn, p["attn_out"])
-        x = mlp_residual(x, p)
+        if delta is not None:
+            x = x + delta("attn_out", attn)
+        x = mlp_residual(x, p, delta=delta)
     return tied_logits(x, params), cache
 
 
-def decode_step(params, cache: KVCache, token, pos, *, cfg: ModelConfig, active=None):
+def decode_step(params, cache: KVCache, token, pos, *, cfg: ModelConfig, active=None,
+                adapters=None):
     """The S=1 view of :func:`decode_chunk`: ``token [B]`` at ``pos``.
     Returns ``(logits [B, V] f32, cache)``."""
     logits, cache = decode_chunk(
-        params, cache, token[:, None], pos, cfg=cfg, active=active
+        params, cache, token[:, None], pos, cfg=cfg, active=active, adapters=adapters
     )
     return logits[:, 0], cache
 
@@ -163,14 +180,17 @@ def finite_rows(logits):
     return torch.isfinite(logits).all(dim=-1)
 
 
-def prefill(params, prompt, cfg: ModelConfig, max_seq: int, cache_dtype=torch.float32):
-    """Fill a fresh cache for the whole prompt ``[B, P]`` in one forward.
-    Returns ``(cache, logits [B, V] of the last prompt position)``."""
+def prefill(params, prompt, cfg: ModelConfig, max_seq: int, cache_dtype=torch.float32,
+            adapters=None):
+    """Fill a fresh cache for the whole prompt ``[B, P]`` in one forward
+    (``adapters`` as :func:`decode_chunk` takes them).  Returns ``(cache,
+    logits [B, V] of the last prompt position)``."""
     b, p_len = prompt.shape
     if p_len > max_seq:
         raise ValueError(f"prompt {p_len} exceeds max_seq {max_seq}")
     cache = init_cache(cfg, b, max_seq, dtype=cache_dtype, device=prompt.device)
-    logits, cache = decode_chunk(params, cache, prompt, 0, cfg=cfg, k_window=p_len)
+    logits, cache = decode_chunk(params, cache, prompt, 0, cfg=cfg, k_window=p_len,
+                                 adapters=adapters)
     return cache, logits[:, -1]
 
 

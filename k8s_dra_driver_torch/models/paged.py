@@ -29,9 +29,10 @@ prefix sharing change when prefill runs and what it computes, never the
 tokens; so do speculative rounds, whose verify window goes through the same
 append kernel at ``nq = spec_gamma + 1``.  The engine's telemetry, metrics
 and journal records are the reference's, at the reference's host points.
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: LoRA, quantized KV pools, meshes, handoff and KV payloads, and the
-fleet prefix hooks.
+Per-request LoRA (an adapter bank, ``submit(adapter=k)``) runs inside the
+same programs.  Not ported yet, each raising ``NotImplementedError``
+naming its ROADMAP item: quantized KV pools, meshes, handoff and KV
+payloads, and the fleet prefix hooks.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
-from k8s_dra_driver_torch.models import decode, prng, serve
+from k8s_dra_driver_torch.models import decode, lora, prng, serve
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     mlp_residual,
@@ -189,42 +190,50 @@ def check_verify_window(spec_gamma: int, block_size: int, device) -> None:
 
 
 def paged_decode_chunk(params, cache: PagedKVCache, block_table, window, pos,
-                       *, cfg: ModelConfig, active=None):
+                       *, cfg: ModelConfig, active=None, adapters=None):
     """Score ``window [B, S]`` (token j at ``pos + j``, ``pos [B]``) in one
     pass over the paged cache: per layer, append the window's k/v to the
     pool (rows with ``active`` false do not write) and attend positions
-    ``<= pos + j``.  Returns ``(logits [B, S, V] f32, cache)``, the pools
-    updated in place."""
+    ``<= pos + j``; ``adapters`` ``(bank, ids [B])`` apply each row's LoRA
+    adapter through the projections' delta hooks.  Returns ``(logits [B, S,
+    V] f32, cache)``, the pools updated in place."""
     b, s = window.shape
     dev = window.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b)
     positions = pos.long()[:, None] + torch.arange(s, device=dev)[None, :]
     x = params["embed"][window.long()]
-    if not cfg.rope:
-        x = x + params["pos_embed"][positions]
+    if not cfg.rope:  # the reference's gather clamps a position past the table
+        x = x + params["pos_embed"][positions.clamp(max=params["pos_embed"].shape[0] - 1)]
     write_mask = None if active is None else active.to(torch.int32)  # once, not per layer
     for li, p in enumerate(params["blocks"]):
-        q, k, v = qkv_proj(x, p, cfg, positions=positions)
+        delta = None if adapters is None else lora.layer_delta(adapters, li)
+        q, k, v = qkv_proj(x, p, cfg, positions=positions, delta=delta)
         attn, _, _ = paged_attention.paged_append_attention(
             q, k, v, cache.k, cache.v, block_table, pos, li, write_mask=write_mask,
         )
-        x = x + _mm(attn.reshape(b, s, cfg.d_model), p["attn_out"])
-        x = mlp_residual(x, p)
+        attn = attn.reshape(b, s, cfg.d_model)
+        x = x + _mm(attn, p["attn_out"])
+        if delta is not None:
+            x = x + delta("attn_out", attn)
+        x = mlp_residual(x, p, delta=delta)
     return tied_logits(x, params), cache
 
 
 def paged_decode_step(params, cache: PagedKVCache, block_table, token, pos,
-                      *, cfg: ModelConfig, active=None):
+                      *, cfg: ModelConfig, active=None, adapters=None):
     """The S=1 view of :func:`paged_decode_chunk`: ``token [B]`` at
     ``pos [B]``.  Returns ``(logits [B, V] f32, cache)``."""
     logits, cache = paged_decode_chunk(
-        params, cache, block_table, token[:, None], pos, cfg=cfg, active=active
+        params, cache, block_table, token[:, None], pos, cfg=cfg, active=active,
+        adapters=adapters,
     )
     return logits[:, 0], cache
 
 
-def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: ModelConfig):
-    """Fill pool blocks for the whole prompt ``[B, P]`` in one forward: the
+def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: ModelConfig,
+                  adapters=None):
+    """Fill pool blocks for the whole prompt ``[B, P]`` in one forward
+    (under ``adapters``, as :func:`paged_decode_chunk` takes them): the
     dense ``decode.prefill`` over a block-padded scratch cache, then each
     block stripe transposed to the pool layout ``[Hkv, hd, bs]`` and
     written into the rows' blocks (``block_table [B, >= ceil(P/bs)]``) in
@@ -233,7 +242,7 @@ def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: Mode
     bs = cache.block_size
     nb = blocks_needed(p_len, bs)
     dense, last_logits = decode.prefill(
-        params, prompt, cfg, max_seq=nb * bs, cache_dtype=cache.k.dtype
+        params, prompt, cfg, max_seq=nb * bs, cache_dtype=cache.k.dtype, adapters=adapters
     )
     l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
     # [L, B, nb*bs, Hkv, hd] -> [L, B, nb, Hkv, hd, bs]
@@ -246,7 +255,7 @@ def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: Mode
 
 
 def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, done_blocks,
-                        *, cfg: ModelConfig, chunk_len: int):
+                        *, cfg: ModelConfig, chunk_len: int, adapters=None):
     """Incremental admission: gather the row's whole prefill width (``mbp``
     blocks of ``block_table_row [1, mbp]``) into a dense scratch row, run
     one ``decode.decode_chunk`` over the padded prompt's ``[1, bucket]``
@@ -261,8 +270,8 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
     ``done``.  The tokens and the chunk's block ids are picked on the
     device (``done + arange``), with no host read.  The caller keeps
     ``done * bs + chunk_len <= bucket`` (the reference's ``dynamic_slice``
-    would clamp past it; its callers never go there).  Returns the
-    cache."""
+    would clamp past it; its callers never go there).  ``adapters``: the
+    row's ``(bank, ids [1])``, or None.  Returns the cache."""
     l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
     bucket = prompt.shape[1]
     bs = cache.block_size
@@ -279,7 +288,7 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
     done = done_blocks.to(device=dev, dtype=torch.long)
     start = done * bs
     chunk = prompt[0].index_select(0, start + torch.arange(chunk_len, device=dev))[None]
-    decode.decode_chunk(params, row, chunk, start, cfg=cfg, logits=False)
+    decode.decode_chunk(params, row, chunk, start, cfg=cfg, logits=False, adapters=adapters)
     chunk_ids = done + torch.arange(blocks_needed(chunk_len, bs), device=dev)
     dest = ids.index_select(0, chunk_ids)
     for pool, dense in ((cache.k, row.k), (cache.v, row.v)):
@@ -290,39 +299,53 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
 
 
 def paged_prefill_suffix(params, prompt, cache: PagedKVCache, block_table_row, *,
-                         cfg: ModelConfig, cached_blocks: int):
+                         cfg: ModelConfig, cached_blocks: int, adapters=None):
     """Prefix-hit admission: one chunk from the ``cached_blocks`` shared
     blocks to the bucket's end (the engine runs it as the "chunk w" program
     of that width).  Returns the cache."""
     done = torch.full((), cached_blocks, dtype=torch.int32, device=prompt.device)
     return paged_prefill_chunk(
         params, prompt, cache, block_table_row, done, cfg=cfg,
-        chunk_len=prompt.shape[1] - cached_blocks * cache.block_size,
+        chunk_len=prompt.shape[1] - cached_blocks * cache.block_size, adapters=adapters,
     )
 
 
+def spec_table_width(max_seq: int, block_size: int, gamma: int) -> int:
+    """Block-table columns a speculating engine keeps: an active row's
+    verify window reaches position ``max_seq - 2 + gamma`` at most, and the
+    append kernel's rule is ``pos + nq <= columns * block_size``; the
+    columns past ``ceil(max_seq / block_size)`` hold the null block, so the
+    writes a short restored entry's window makes past ``max_seq`` land
+    there (dropped, as the reference's scatter drops them)."""
+    return max(blocks_needed(max_seq, block_size),
+               blocks_needed(max_seq - 1 + gamma, block_size))
+
+
 def _paged_spec_round(params, draft_params, cache, d_cache, table, last, pos, active,
-                      *, cfg: ModelConfig, gamma: int):
+                      *, cfg: ModelConfig, gamma: int, adapters=None):
     """One speculative round over the paged pool: the draft's proposals
-    over its dense cache (``serve.draft_propose``), then the verify window
-    ``[last, g_1..g_gamma]`` through :func:`paged_decode_chunk`, so the
-    append kernel at ``nq = gamma + 1`` on the card.  A window past a
-    slot's owned blocks writes through the null block (growth covers only
-    what the slot can still commit).  Positions are clamped as in
+    over its dense cache (``serve.draft_propose``; the base model, whatever
+    the rows' adapters), then the verify window ``[last, g_1..g_gamma]``
+    through :func:`paged_decode_chunk` under ``adapters``, so the append
+    kernel at ``nq = gamma + 1`` on the card.  A window past a slot's owned
+    blocks writes through the null block (growth covers only what the slot
+    can still commit; past ``max_seq`` the table's extra columns,
+    :func:`spec_table_width`).  Positions are clamped as in
     ``serve._spec_round`` (inactive rows only).  Returns ``(target [B,
     gamma + 1] int32, advance [B] int32, cache, d_cache)``."""
-    pos = pos.clamp(max=cfg.max_seq - 1 - gamma)
+    pos = torch.where(active, pos, pos.clamp(max=cfg.max_seq - 1 - gamma))
     d_cache, proposed = serve.draft_propose(draft_params, d_cache, last, pos, active, cfg=cfg,
                                             gamma=gamma)
     window = torch.cat([last[:, None], proposed], dim=1)
-    logits, cache = paged_decode_chunk(params, cache, table, window, pos, cfg=cfg, active=active)
+    logits, cache = paged_decode_chunk(params, cache, table, window, pos, cfg=cfg, active=active,
+                                       adapters=adapters)
     target = logits.argmax(dim=-1).to(torch.int32)
     _, advance = accept_advance(proposed, target, active)
     return target, advance, cache, d_cache
 
 
 def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, poison,
-                    *, cfg: ModelConfig, top_k: int):
+                    *, cfg: ModelConfig, top_k: int, adapters=None):
     """One paged decode step for every slot at its own position, then the
     sampling tail (``serve.sample_next``).  ``poison [B]`` (the fault
     window's NaN mask) turns rows' logits to NaN first; ``bad`` flags rows
@@ -330,7 +353,7 @@ def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, pois
     reaches another.  Returns ``(next_token [B] int32, bad [B] bool,
     cache)``."""
     logits, cache = paged_decode_step(
-        params, cache, table, tokens, pos, cfg=cfg, active=active
+        params, cache, table, tokens, pos, cfg=cfg, active=active, adapters=adapters
     )
     logits = decode.poison_rows(logits, poison)
     bad = ~decode.finite_rows(logits)
@@ -339,15 +362,17 @@ def _paged_step_all(params, cache, table, tokens, pos, active, temps, keys, pois
 
 def _paged_pipelined_burst(params, cache, table, tokens, pos, active, temps, keys,
                            stop_pos, poison, *, cfg: ModelConfig, top_k: int,
-                           eos_id: int, k: int):
+                           eos_id: int, k: int, adapters=None):
     """K paged steps with no host read inside (``serve._burst_trace``):
-    retired rows stop writing; ``temps``, ``keys`` and ``poison`` hold for
-    the whole burst.  Returns ``(trace [3, K, B] int32 — token/active/bad
-    planes stacked for ONE readback, cache, last, pos, active)``."""
+    retired rows stop writing; ``temps``, ``keys``, ``poison`` and
+    ``adapters`` hold for the whole burst.  Returns ``(trace [3, K, B]
+    int32 — token/active/bad planes stacked for ONE readback, cache, last,
+    pos, active)``."""
 
     def step(last, pos_, act):
         next_tok, bad, _ = _paged_step_all(
             params, cache, table, last, pos_, act, temps, keys, poison, cfg=cfg, top_k=top_k,
+            adapters=adapters,
         )
         return next_tok, bad
 
@@ -356,11 +381,12 @@ def _paged_pipelined_burst(params, cache, table, tokens, pos, active, temps, key
 
 
 def _paged_first_token(params, cache, table, prompt, plen, slot, temp, key,
-                       *, cfg: ModelConfig, top_k: int):
+                       *, cfg: ModelConfig, top_k: int, adapters=None):
     """Admission tail: re-run the step for every slot at ``plen - 1`` with
     only ``slot`` active (an idempotent rewrite of the last prompt
     position) and sample its first token, every row at the admission's
-    temperature and base key as the reference does.  ``plen``, ``slot``
+    temperature and base key as the reference does, under the slots'
+    ``adapters``.  ``plen``, ``slot``
     and ``temp`` are 0-d tensors and ``key`` a ``[2]`` one, as the
     reference traces them, so one captured program serves every
     admission.  Returns ``(token [1], cache)``."""
@@ -371,7 +397,7 @@ def _paged_first_token(params, cache, table, prompt, plen, slot, temp, key,
     active = torch.arange(n_slots, device=table.device) == slot
     tok, _, cache = _paged_step_all(
         params, cache, table, tokens, pos, active, temp.expand(n_slots),
-        key.expand(n_slots, 2), None, cfg=cfg, top_k=top_k,
+        key.expand(n_slots, 2), None, cfg=cfg, top_k=top_k, adapters=adapters,
     )
     return tok.index_select(0, slot.view(1)), cache
 
@@ -472,6 +498,13 @@ class PagedServeEngine:
       slot's draft row.  Greedy only (temperature 0, the verify window's
       slack under ``max_seq``), and on the card ``spec_gamma + 1 <=
       block_size`` (the kernel's window rule, :func:`check_verify_window`);
+    * with ``adapter_bank`` (``lora.stack_adapters``), ``submit(adapter=k)``
+      serves the request with the bank's adapter k inside the shared
+      programs (0, the identity row, adds exact zeros): the store keys
+      each block by ``(adapter, tokens)``, so adapted K/V never cross
+      adapters; chunked admission, preemption (the parked request keeps
+      its id), snapshots and restore carry the id; speculation applies it
+      on the verify pass (the draft stays the base model);
     * retirement drops the slot's references at once;
     * ``telemetry`` (``models/telemetry.EngineTelemetry``, off with
       ``telemetry_enabled=False``) records each request's timeline at the
@@ -492,14 +525,15 @@ class PagedServeEngine:
     ceil(bucket/bs) - 1`` with the store on, a bucket that is a multiple
     of the block size and chunks narrower than the bucket).  The device
     state those programs read and write (block table, active mask, last
-    token, position, stop depth, temperature, base key and poison mask per
-    slot; the admission's prompt, prefill table row, length, slot,
-    temperature, key and done blocks) keeps one address for the engine's
-    life and is written in place; everything else (allocation, the prefix
-    store, the admission queue, growth, stalls, preemption, retirement)
-    stays on the host.  The reference's LoRA, quantized pools, mesh,
-    handoff and fleet prefix hooks raise ``NotImplementedError`` naming
-    their ROADMAP item.  Not thread-safe; drive it from one loop.
+    token, position, stop depth, temperature, base key, poison mask and
+    adapter id per slot; the admission's prompt, prefill table row, length,
+    slot, temperature, key, adapter id and done blocks) keeps one address
+    for the engine's life and is written in place; everything else
+    (allocation, the prefix store, the admission queue, growth, stalls,
+    preemption, retirement) stays on the host.  The reference's quantized
+    pools, mesh, handoff and fleet prefix hooks raise
+    ``NotImplementedError`` naming their ROADMAP item.  Not thread-safe;
+    drive it from one loop.
     """
 
     params: dict
@@ -521,10 +555,10 @@ class PagedServeEngine:
     quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
     spec_gamma: int = 0      # > 0: speculative rounds of this many draft tokens
     draft_params: object = None  # the draft; None: the int8 self-draft
+    adapter_bank: dict | None = None  # lora.stack_adapters: per-request LoRA
     # the reference's fields the port does not serve yet: each raises
     # NotImplementedError away from its default
     kv_dtype: str | None = None
-    adapter_bank: dict | None = None
     mesh: object | None = None
     slot_axis: object = "data"
     telemetry_enabled: bool = True
@@ -534,7 +568,6 @@ class PagedServeEngine:
         cfg = self.cfg
         for unported, what, item in (
             (self.kv_dtype is not None, "a quantized KV pool (kv_dtype)", 10),
-            (self.adapter_bank is not None, "per-request LoRA (adapter_bank)", 8),
             (self.mesh is not None or self.slot_axis != "data",
              "a mesh (slot sharding, slot_axis)", 15),
         ):
@@ -604,7 +637,10 @@ class PagedServeEngine:
             )
         # the programs' device state: one address each for the engine's life
         i32 = dict(dtype=torch.int32, device=dev)
-        self._table = torch.full((self.n_slots, self._mb), NULL_BLOCK, **i32)
+        width = self._mb
+        if self.spec_gamma > 0:
+            width = spec_table_width(cfg.max_seq, bs, self.spec_gamma)
+        self._table = torch.full((self.n_slots, width), NULL_BLOCK, **i32)
         self._table_dirty = False  # _table_np changed since the last upload
         self._active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
         self._last, self._pos, self._stop_pos = (
@@ -620,6 +656,7 @@ class PagedServeEngine:
         self._admit_temp = torch.zeros((), dtype=torch.float32, device=dev)
         self._admit_key = torch.zeros((2,), dtype=torch.int64, device=dev)
         self._admit_done = torch.zeros((), **i32)  # a chunk's leading blocks already pooled
+        serve.init_adapter_state(self)
         self._eos = -1 if self.eos_id is None else self.eos_id
         self._programs: dict[str, serve.GraphedProgram] = {}
 
@@ -687,16 +724,15 @@ class PagedServeEngine:
         the steps to prefill.  ``temperature`` above 0 samples under the
         base key ``PRNGKey(seed)`` (default the request id); ``priority``
         (higher first) orders stalls, evictions and re-admissions, never
-        what is generated.  ``queued_at`` (the telemetry clock) is when the
-        request entered an upstream queue; default now.  Returns the
-        request id."""
+        what is generated; ``adapter`` is the bank row to serve it with (0:
+        the base).  ``queued_at`` (the telemetry clock) is when the request
+        entered an upstream queue; default now.  Returns the request id."""
         t_sub = self.telemetry.now()
         serve.check_submit(
             prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
             spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline,
         )
-        if adapter:
-            raise serve._unported("per-request LoRA (adapter != 0)", 8)
+        serve.check_adapter(self, adapter)
         if handoff:
             raise serve._unported("handoff with a KV payload", 11)
         if self._preempted:
@@ -711,7 +747,7 @@ class PagedServeEngine:
             raise serve.NoCapacity("no free slot")
         storable = self._storable(len(prompt))
         need = blocks_needed(len(prompt) + 1, self.block_size)
-        picked = self._pick_slot(prompt, need, storable)
+        picked = self._pick_slot(prompt, need, storable, adapter)
         if picked is None:
             raise serve.NoCapacity(
                 f"no free blocks ({need} needed, {self.free_blocks} free)"
@@ -727,7 +763,7 @@ class PagedServeEngine:
         if self.prefill_chunk_blocks > 0:
             self._next_id += 1
             self._slots[slot] = serve._Slot(
-                request_id, list(prompt), len(prompt), max_tokens, deadline
+                request_id, list(prompt), len(prompt), max_tokens, deadline, adapter
             )
             self._admitting.append(dict(
                 slot=slot, prompt=list(prompt), plen=len(prompt), done=cached,
@@ -741,8 +777,8 @@ class PagedServeEngine:
             self._update_gauges()
             return request_id
         try:
-            self._prefill_slot(slot, prompt, cached)
-            self._store_prefix_blocks(prompt, slot, storable, cached)
+            self._prefill_slot(slot, prompt, cached, adapter)
+            self._store_prefix_blocks(prompt, slot, storable, cached, adapter)
             self._prefill_draft(slot, len(prompt))
             first_tok = self._first_token_of(slot, len(prompt), temperature, base_key)
         except BaseException:
@@ -751,7 +787,7 @@ class PagedServeEngine:
             raise
         self._next_id += 1
         st = serve._Slot(
-            request_id, list(prompt) + [first_tok], len(prompt), max_tokens, deadline
+            request_id, list(prompt) + [first_tok], len(prompt), max_tokens, deadline, adapter
         )
         self._slots[slot] = st
         self._set_row(slot, st, temperature, base_key)
@@ -851,12 +887,12 @@ class PagedServeEngine:
             # entry holds the sampler state
             temp, key = (temps[slot], keys[slot]) if adm is None else (adm["temp"], adm["key"])
             reqs.append(serve._snapshot_request(
-                st, float(temp), key, priority=self._prio[slot],
+                st, float(temp), key, st.adapter, priority=self._prio[slot],
                 trace=self.telemetry.export_trace(st.request_id),
             ))
         for r in self._preempted:
             reqs.append(serve._snapshot_request(
-                r["st"], r["temp"], r["key"], priority=r["priority"],
+                r["st"], r["temp"], r["key"], r["st"].adapter, priority=r["priority"],
                 trace=self.telemetry.export_trace(r["st"].request_id),
             ))
         return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
@@ -868,15 +904,15 @@ class PagedServeEngine:
         stream exactly; what the pool cannot hold yet stays parked and
         admits as capacity frees.  Needs an idle engine unless ``merge``,
         which joins a live engine's parked queue.  A history longer than
-        the prompt bucket comes back as an "error" completion.  Each entry's
-        trace is rebuilt first, so its request keeps one timeline.  Returns
-        the request ids accepted (resident or parked)."""
+        the prompt bucket, or an adapter outside the engine's bank (a
+        bank-less engine serves any adapter with the base), comes back as
+        an "error" completion.  Each entry's trace is rebuilt first, so
+        its request keeps one timeline.  Returns the request ids accepted
+        (resident or parked)."""
         serve.check_restorable(snapshot)
         for req in snapshot["requests"]:
             if "kv" in req:
                 raise serve._unported("restoring a KV payload", 11)
-            if int(req.get("adapter", 0)):
-                raise serve._unported("per-request LoRA (adapter != 0)", 8)
         if not merge and (self.n_slots - self.free_slots() or self._admitting
                           or self._preempted):
             raise RuntimeError("restore() needs an idle engine")
@@ -888,12 +924,13 @@ class PagedServeEngine:
                 serve._unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
                                                f"{self.prompt_bucket}")
                 continue
-            why = serve._spec_unrestorable(self, req)
+            why = serve.adapter_unrestorable(self, req)
             if why:
                 serve._unrestorable(self, req, why)
                 continue
             st = serve._Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
-                             int(req["max_tokens"]), req.get("deadline"))
+                             int(req["max_tokens"]), req.get("deadline"),
+                             int(req.get("adapter", 0)))
             # keys arrive as plain ints up to 2^32 - 1: int64 holds them
             self._preempted.append(dict(
                 st=st, temp=float(req["temperature"]),
@@ -1047,7 +1084,7 @@ class PagedServeEngine:
         real_end = min(blocks_needed(adm["plen"], bs) * bs, self.prompt_bucket)
         width = self.prefill_chunk_blocks * bs
         try:
-            self._stage(slot, adm["prompt"])
+            self._stage(slot, adm["prompt"], self._slots[slot].adapter)
             if real_end - adm["done"] * bs > width:
                 self._run_chunk(adm["done"], width)
                 adm["done"] += self.prefill_chunk_blocks
@@ -1067,8 +1104,9 @@ class PagedServeEngine:
             raise
         self._admitting.pop(0)
         serve._M_REQUESTS.inc()  # counted at activation, as a whole admission
-        self._store_prefix_blocks(adm["prompt"], slot, adm["storable"], adm["cached"])
         st = self._slots[slot]
+        self._store_prefix_blocks(adm["prompt"], slot, adm["storable"], adm["cached"],
+                                  st.adapter)
         st.tokens.append(first_tok)
         self._set_row(slot, st, adm["temp"], adm["key"])
         serve._M_TOKENS.inc()
@@ -1172,14 +1210,15 @@ class PagedServeEngine:
             r = self._preempted[0]
             st = r["st"]
             need = blocks_needed(len(st.tokens) + 1, self.block_size)
-            picked = self._pick_slot(st.tokens, need, self._storable(len(st.tokens)))
+            picked = self._pick_slot(st.tokens, need, self._storable(len(st.tokens)),
+                                     st.adapter)
             if picked is None:
                 return  # stays parked; the head blocks the queue
             slot, ids, cached = picked
             self._prio[slot] = r["priority"]
             self._reserve(slot, ids)
             try:
-                self._prefill_slot(slot, st.tokens, cached)
+                self._prefill_slot(slot, st.tokens, cached, st.adapter)
                 self._prefill_draft(slot, len(st.tokens))
             except BaseException as exc:
                 self._release_slot(slot)
@@ -1199,10 +1238,11 @@ class PagedServeEngine:
         bs = self.block_size
         return min((n_tokens - 1) // bs, (self.prompt_bucket - 1) // bs)
 
-    def _pick_slot(self, tokens, need: int, storable: int):
+    def _pick_slot(self, tokens, need: int, storable: int, adapter: int = 0):
         """The first free slot with ``need`` blocks for it, the stored
-        prefix blocks ``tokens`` starts with (up to ``storable``) shared
-        among them: ``(slot, ids, cached)`` with the blocks referenced;
+        prefix blocks ``tokens`` starts with under ``adapter`` (up to
+        ``storable``) shared among them: ``(slot, ids, cached)`` with the
+        blocks referenced;
         None when no slot is free or the pool cannot cover the rest (the
         hits' references drop again; one pool: a second slot could not do
         better)."""
@@ -1212,7 +1252,7 @@ class PagedServeEngine:
             hits: list[int] = []
             if self.prefix_cache_blocks > 0:
                 for i in range(storable):
-                    key = self._prefix_key(tokens, i)
+                    key = self._prefix_key(tokens, i, adapter)
                     if key not in self._prefix_store:
                         break
                     self._prefix_store.move_to_end(key)  # LRU touch
@@ -1224,11 +1264,15 @@ class PagedServeEngine:
                 return None
         return None
 
-    def _prefix_key(self, tokens, i: int) -> tuple:
-        """The store's key of block ``i``: the tokens up to its end."""
-        return tuple(tokens[: (i + 1) * self.block_size])
+    def _prefix_key(self, tokens, i: int, adapter: int = 0) -> tuple:
+        """The store's key of block ``i``: the tokens up to its end, with a
+        bank ``(adapter, tokens)``, since adapted K/V belong to their
+        adapter."""
+        key = tuple(tokens[: (i + 1) * self.block_size])
+        return key if self.adapter_bank is None else (adapter, key)
 
-    def _store_prefix_blocks(self, prompt, slot: int, storable: int, cached: int) -> None:
+    def _store_prefix_blocks(self, prompt, slot: int, storable: int, cached: int,
+                             adapter: int = 0) -> None:
         """Put the admission's freshly computed storable blocks into the
         LRU store (one reference each, so they outlive the request), then
         evict the least recently used entries past ``prefix_cache_blocks``."""
@@ -1236,7 +1280,7 @@ class PagedServeEngine:
             return
         self.prefix_misses += max(storable - cached, 0)
         for i in range(cached, storable):
-            key = self._prefix_key(prompt, i)
+            key = self._prefix_key(prompt, i, adapter)
             if key in self._prefix_store:  # stored meanwhile by another admission
                 self._prefix_store.move_to_end(key)
                 continue
@@ -1253,21 +1297,27 @@ class PagedServeEngine:
         self._table_np[slot, : len(ids)] = ids
         self._table_dirty = True
 
-    def _stage(self, slot: int, tokens: list[int]) -> None:
+    def _stage(self, slot: int, tokens: list[int], adapter: int = 0) -> None:
         """Write an admission's inputs into the programs' buffers: the
         table, the padded prompt and ``slot``'s prefill row (entries past
-        its blocks are the null block, a scratch sink never attended)."""
+        its blocks are the null block, a scratch sink never attended), and
+        with a bank the slot's adapter id and the slot itself (``_admit[1]``,
+        whose id the prefill programs gather; the first-token step runs
+        under the slot's id too)."""
         self._sync_table()
         padded = np.zeros((1, self.prompt_bucket), np.int32)
         padded[0, : len(tokens)] = tokens
         self._prompt.copy_(torch.from_numpy(padded))
         self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
+        if self.adapter_bank is not None:
+            self._admit[1].fill_(slot)
+            self._adapter_ids[slot] = adapter
 
-    def _prefill_slot(self, slot: int, tokens: list[int], cached: int) -> None:
-        """Prefill ``tokens`` into ``slot``'s blocks: the whole bucket, or
-        with ``cached`` shared blocks only the suffix after them, as one
-        chunk (``paged_prefill_suffix``'s computation)."""
-        self._stage(slot, tokens)
+    def _prefill_slot(self, slot: int, tokens: list[int], cached: int, adapter: int = 0) -> None:
+        """Prefill ``tokens`` into ``slot``'s blocks under ``adapter``: the
+        whole bucket, or with ``cached`` shared blocks only the suffix after
+        them, as one chunk (``paged_prefill_suffix``'s computation)."""
+        self._stage(slot, tokens, adapter)
         if cached:
             self._run_chunk(cached, self.prompt_bucket - cached * self.block_size)
         else:
@@ -1316,10 +1366,11 @@ class PagedServeEngine:
         self._table_dirty = True
 
     def _sync_table(self) -> None:
-        """Upload the host block table into ``_table`` in place, once for
+        """Upload the host block table into ``_table`` in place (its first
+        columns: a speculating engine's extra ones stay null), once for
         however many changes since the last upload."""
         if self._table_dirty:
-            self._table.copy_(torch.from_numpy(self._table_np))
+            self._table[:, : self._mb].copy_(torch.from_numpy(self._table_np))
             self._table_dirty = False
 
     # -- the programs (the reference's compiled ones) ------------------------
@@ -1332,20 +1383,27 @@ class PagedServeEngine:
     def _run(self, name: str, fn):
         return serve.run_program(self, name, fn)
 
+    def _adapters(self):
+        """The programs' adapter context ``(bank, per-slot ids)``, or None
+        without a bank (the programs of an engine with no LoRA at all)."""
+        return None if self.adapter_bank is None else (self.adapter_bank, self._adapter_ids)
+
     def _prefill(self) -> None:
-        paged_prefill(self.params, self._prompt, self._cache, self._prefill_row, cfg=self.cfg)
+        paged_prefill(self.params, self._prompt, self._cache, self._prefill_row, cfg=self.cfg,
+                      adapters=serve._row_adapters(self._adapters(), self._admit[1]))
 
     def _chunk_program(self, width: int):
         def chunk():
             paged_prefill_chunk(self.params, self._prompt, self._cache, self._prefill_row,
-                                self._admit_done, cfg=self.cfg, chunk_len=width)
+                                self._admit_done, cfg=self.cfg, chunk_len=width,
+                                adapters=serve._row_adapters(self._adapters(), self._admit[1]))
         return chunk
 
     def _first_token(self):
         tok, _ = _paged_first_token(
             self.params, self._cache, self._table, self._prompt, self._admit[0],
             self._admit[1], self._admit_temp, self._admit_key, cfg=self.cfg,
-            top_k=self.top_k,
+            top_k=self.top_k, adapters=self._adapters(),
         )
         return tok
 
@@ -1357,6 +1415,7 @@ class PagedServeEngine:
         target, advance, _, _ = _paged_spec_round(
             self.params, self.draft_params, self._cache, self._d_cache, self._table, self._last,
             self._pos, self._active, cfg=self.cfg, gamma=self.spec_gamma,
+            adapters=self._adapters(),
         )
         return serve._spec_advance(target, advance, self._last, self._pos, self._active)
 
@@ -1366,6 +1425,7 @@ class PagedServeEngine:
                 self.params, self._cache, self._table, self._last, self._pos,
                 self._active, self._temps, self._keys, self._stop_pos, self._poison,
                 cfg=self.cfg, top_k=self.top_k, eos_id=self._eos, k=k,
+                adapters=self._adapters(),
             )
             self._last.copy_(last)
             self._pos.copy_(pos)

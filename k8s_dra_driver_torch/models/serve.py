@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import params_device
-from k8s_dra_driver_torch.models import decode, prng
+from k8s_dra_driver_torch.models import decode, lora, prng
 from k8s_dra_driver_torch.models.burnin import ModelConfig
 from k8s_dra_driver_torch.models.graphs import (  # noqa: F401  (re-exported)
     GraphCaptureError,
@@ -150,6 +150,7 @@ class _Slot:
     max_tokens: int
     # hard cap on GENERATED tokens, min'd with max_tokens (_slot_budget)
     deadline: int | None = None
+    adapter: int = 0  # the serving bank's row for this request (0: the base)
 
 
 @dataclass
@@ -541,27 +542,30 @@ def _burst_trace(step, k: int, last, pos, active, stop_pos, eos_id: int):
 # -- the dense engine's programs (the reference's compiled ones) -------------
 
 def _step_all_slots(params, cache, tokens, pos, active, temps, keys, poison=None,
-                    *, cfg: ModelConfig, top_k: int):
+                    *, cfg: ModelConfig, top_k: int, adapters=None):
     """One dense decode step for every slot at its own position
-    (``decode.decode_step`` with the active gate), then the sampling tail.
-    ``poison [B]`` turns rows' logits to NaN first; ``bad`` flags rows whose
-    logits are not finite.  Rows stay independent.  Returns ``(next_token
-    [B] int32, bad [B] bool, cache)``."""
-    logits, cache = decode.decode_step(params, cache, tokens.long(), pos, cfg=cfg, active=active)
+    (``decode.decode_step`` with the active gate and the slots' adapters,
+    ``(bank, ids [B])`` or None), then the sampling tail.  ``poison [B]``
+    turns rows' logits to NaN first; ``bad`` flags rows whose logits are
+    not finite.  Rows stay independent.  Returns ``(next_token [B] int32,
+    bad [B] bool, cache)``."""
+    logits, cache = decode.decode_step(params, cache, tokens.long(), pos, cfg=cfg, active=active,
+                                       adapters=adapters)
     logits = decode.poison_rows(logits, poison)
     bad = ~decode.finite_rows(logits)
     return sample_next(logits, pos, temps, keys, top_k=top_k), bad, cache
 
 
 def _pipelined_burst(params, cache, tokens, pos, active, temps, keys, stop_pos, poison=None,
-                     *, cfg: ModelConfig, top_k: int, eos_id: int, k: int):
-    """K fused dense steps (:func:`_burst_trace`); ``temps``, ``keys`` and
-    ``poison`` hold for the whole burst.  Returns ``(trace [3, K, B] int32,
-    cache, last, pos, active)``."""
+                     *, cfg: ModelConfig, top_k: int, eos_id: int, k: int, adapters=None):
+    """K fused dense steps (:func:`_burst_trace`); ``temps``, ``keys``,
+    ``poison`` and ``adapters`` hold for the whole burst.  Returns
+    ``(trace [3, K, B] int32, cache, last, pos, active)``."""
 
     def step(last, pos_, act):
         next_tok, bad, _ = _step_all_slots(
             params, cache, last, pos_, act, temps, keys, poison, cfg=cfg, top_k=top_k,
+            adapters=adapters,
         )
         return next_tok, bad
 
@@ -570,15 +574,15 @@ def _pipelined_burst(params, cache, tokens, pos, active, temps, keys, stop_pos, 
 
 
 def _commit_row_and_first_token(params, cache, row_k, row_v, prompt, plen, slot, temp, key,
-                                *, cfg: ModelConfig, top_k: int):
+                                *, cfg: ModelConfig, top_k: int, adapters=None):
     """The admission tail of both prefill paths: zero the row ``[L,
     max_seq, Hkv, hd]`` at positions ``>= plen`` and copy it into the slot,
     then compute the first token by re-running the step for all slots at
     ``plen - 1`` with only the slot active (the rewrite of that position is
     idempotent; the other rows keep their bytes), at the admission's
-    temperature and key.  ``plen``, ``slot`` and ``temp`` are 0-d tensors
-    and ``key`` a ``[2]`` one, so one captured program serves every
-    admission.  Returns ``(token [1], cache)``."""
+    temperature and key, under the slots' ``adapters``.  ``plen``, ``slot``
+    and ``temp`` are 0-d tensors and ``key`` a ``[2]`` one, so one captured
+    program serves every admission.  Returns ``(token [1], cache)``."""
     n_slots, max_seq = cache.k.shape[1], cache.k.shape[2]
     dev = prompt.device
     keep = (torch.arange(max_seq, device=dev) < plen)[None, :, None, None]
@@ -590,26 +594,37 @@ def _commit_row_and_first_token(params, cache, row_k, row_v, prompt, plen, slot,
     active = torch.arange(n_slots, device=dev) == slot
     tok, _, cache = _step_all_slots(
         params, cache, tokens, last.expand(n_slots), active, temp.expand(n_slots),
-        key.expand(n_slots, 2), cfg=cfg, top_k=top_k,
+        key.expand(n_slots, 2), cfg=cfg, top_k=top_k, adapters=adapters,
     )
     return tok.index_select(0, at), cache
 
 
+def _row_adapters(adapters, slot):
+    """The one-row view ``(bank, ids[slot] [1])`` of an engine's adapter
+    context (None stays None): what the ``[1, bucket]`` admission prefill
+    applies, picked on the device from the 0-d ``slot``."""
+    if adapters is None:
+        return None
+    bank, ids = adapters
+    return bank, ids.index_select(0, slot.view(1))
+
+
 def _prefill_into_slot(params, cache, prompt, plen, slot, temp, key, *, cfg: ModelConfig,
-                       top_k: int):
+                       top_k: int, adapters=None):
     """Fill one slot from the padded prompt ``[1, bucket]`` in one parallel
     forward (whose own last logits, at the bucket's end, are discarded),
     then the admission tail.  Returns ``(first token [1], cache)``."""
     row, _ = decode.prefill(params, prompt, cfg, max_seq=cache.k.shape[2],
-                            cache_dtype=cache.k.dtype)
+                            cache_dtype=cache.k.dtype, adapters=_row_adapters(adapters, slot))
     return _commit_row_and_first_token(
         params, cache, row.k[:, 0], row.v[:, 0], prompt, plen, slot, temp, key,
-        cfg=cfg, top_k=top_k,
+        cfg=cfg, top_k=top_k, adapters=adapters,
     )
 
 
 def _prefill_suffix_into_slot(params, cache, prefix_k, prefix_v, prompt, plen, slot, temp,
-                              key, *, cfg: ModelConfig, top_k: int, prefix_bucket: int):
+                              key, *, cfg: ModelConfig, top_k: int, prefix_bucket: int,
+                              adapters=None):
     """The prefix-cache hit: the stored prefix K/V (positions ``<
     prefix_bucket``, ``[L, prefix_bucket, Hkv, hd]``) in a fresh row, the
     suffix's K/V from one ``decode_chunk`` at ``pos0 = prefix_bucket`` over
@@ -619,10 +634,11 @@ def _prefill_suffix_into_slot(params, cache, prefix_k, prefix_v, prompt, plen, s
     row.k[:, 0, :prefix_bucket] = prefix_k
     row.v[:, 0, :prefix_bucket] = prefix_v
     _, row = decode.decode_chunk(params, row, prompt[:, prefix_bucket:], prefix_bucket,
-                                 cfg=cfg, k_window=prompt.shape[1])
+                                 cfg=cfg, k_window=prompt.shape[1],
+                                 adapters=_row_adapters(adapters, slot))
     return _commit_row_and_first_token(
         params, cache, row.k[:, 0], row.v[:, 0], prompt, plen, slot, temp, key,
-        cfg=cfg, top_k=top_k,
+        cfg=cfg, top_k=top_k, adapters=adapters,
     )
 
 
@@ -691,22 +707,29 @@ def draft_propose(draft_params, d_cache, last, pos, active, *, cfg: ModelConfig,
 
 
 def _spec_round(params, draft_params, cache, d_cache, last, pos, active, *,
-                cfg: ModelConfig, gamma: int):
+                cfg: ModelConfig, gamma: int, adapters=None):
     """One speculative round for every active slot at its own position:
     the draft's proposals, then the target scores ``[last, g_1..g_gamma]``
     in one ``decode.decode_chunk`` (rejected positions go stale in place
     and are rewritten from the committed frontier before any query attends
-    them).  An inactive row may sit past the slack after its last round
-    (the host clipped its commit); its writes are masked, and its position
-    is clamped to keep the indices in the cache (the reference's scatter
-    drops them): an active row is never clamped (``check_submit``).
-    Returns ``(target [B, gamma + 1] int32, advance [B] int32, cache,
-    d_cache)``: a row commits its first ``advance`` targets."""
-    pos = pos.clamp(max=cfg.max_seq - 1 - gamma)
+    them).  ``adapters`` apply to the verify pass only: the draft stays the
+    base model, whose proposals the target's argmax decides, so the streams
+    are the adapted model's whatever the draft proposes.  An active row
+    whose window reaches past ``max_seq`` (a short restored entry) drops
+    the writes there, in both caches, as the reference's scatter does; its
+    queries there give logits the budget clip never commits.  An inactive
+    row may sit past the slack after its last round (the host clipped its
+    commit): its writes are masked, and its position is clamped to
+    ``max_seq - 1 - gamma``, so its window stays in the cache (an active
+    row is never clamped).  Returns ``(target [B, gamma + 1] int32, advance
+    [B] int32, cache, d_cache)``: a row commits its first ``advance``
+    targets."""
+    pos = torch.where(active, pos, pos.clamp(max=cfg.max_seq - 1 - gamma))
     d_cache, proposed = draft_propose(draft_params, d_cache, last, pos, active, cfg=cfg,
                                       gamma=gamma)
     window = torch.cat([last[:, None], proposed], dim=1)
-    logits, cache = decode.decode_chunk(params, cache, window.long(), pos, cfg=cfg, active=active)
+    logits, cache = decode.decode_chunk(params, cache, window.long(), pos, cfg=cfg, active=active,
+                                        adapters=adapters)
     target = logits.argmax(dim=-1).to(torch.int32)
     _, advance = accept_advance(proposed, target, active)
     return target, advance, cache, d_cache
@@ -751,25 +774,50 @@ def _commit_spec_round(engine, readback, active) -> int:
     return committed
 
 
-def _spec_unrestorable(engine, req: dict) -> str:
-    """Why a snapshot entry cannot continue under this engine's speculative
-    rounds ("" when it can): the entry's budget must leave the verify
-    window's slack (``check_submit``'s rule), so that no window reaches
-    past the cache (a paged window past its block table).  The reference
-    takes such an entry and drops the window's writes past ``max_seq``.  A
-    sampled entry continues, greedily from here on, as the reference's
-    does: rounds verify the argmax."""
-    if engine.spec_gamma > 0 and _spec_slack_short(
-            int(req["prompt_len"]), int(req["max_tokens"]), engine.spec_gamma,
-            engine.cfg.max_seq):
-        return "prompt + max_tokens needs spec_gamma verify-window slack under max_seq"
-    return ""
-
-
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet (ROADMAP.md queue 1 item {item})"
     )
+
+
+def check_adapter(engine, adapter: int) -> None:
+    """The reference's submit checks of an adapter id against the engine's
+    bank (both engines)."""
+    if adapter and engine.adapter_bank is None:
+        raise ValueError("adapter requested but the engine has no adapter_bank")
+    if engine.adapter_bank is not None and not 0 <= adapter < engine._n_adapters:
+        raise ValueError(f"adapter {adapter} out of range [0, {engine._n_adapters})")
+
+
+def adapter_unrestorable(engine, req: dict) -> str:
+    """Why a snapshot entry's adapter cannot serve here ("" when it can):
+    an id outside the engine's bank.  A bank-less engine serves any entry
+    with the base model, as the reference's does; the id stays in the
+    request's state, so the engine's own snapshots carry it on.  The
+    reference also restores an id past its bank (its gather clamps it to
+    the last row); the port refuses that one, as submit does."""
+    if engine.adapter_bank is None:
+        return ""
+    try:
+        check_adapter(engine, int(req.get("adapter", 0)))
+    except ValueError as exc:
+        return str(exc)
+    return ""
+
+
+def init_adapter_state(engine) -> None:
+    """The engine's bank size and per-slot adapter ids (a device buffer,
+    written in place; none without a bank, whose programs are those of an
+    engine with no LoRA at all)."""
+    bank = engine.adapter_bank
+    engine._n_adapters = 0 if bank is None else lora.bank_size(bank)
+    engine._adapter_ids = None
+    if bank is not None:
+        where = next(iter(bank["blocks"][0].values()))["a"].device
+        if where.type != engine.device.type:
+            raise ValueError(f"the adapter bank lives on {where}, not {engine.device}")
+        engine._adapter_ids = torch.zeros((engine.n_slots,), dtype=torch.int32,
+                                          device=engine.device)
 
 
 @dataclass
@@ -807,6 +855,12 @@ class ServeEngine:
       commits up to ``spec_gamma + 1`` tokens with one readback; the
       streams are the greedy ones (submits take temperature 0 only, with
       the verify window's slack under ``max_seq``);
+    * with ``adapter_bank`` (``lora.stack_adapters``), ``submit(adapter=k)``
+      serves the request with the bank's adapter k inside the shared
+      programs (0, the identity row, adds exact zeros): the slots' ids live
+      in a device buffer, the prefix store keys by ``(adapter, prefix)``,
+      snapshots and restore carry the id, and speculation applies it on
+      the verify pass (the draft stays the base model);
     * ``telemetry`` (``models/telemetry.EngineTelemetry``, off with
       ``telemetry_enabled=False``) records each request's timeline at the
       host points above, outside the programs, with no added readback;
@@ -821,10 +875,10 @@ class ServeEngine:
     eagerly inside ``disable_graphs()``; on the CPU it runs eagerly.  The
     device state those programs read and write (the cache and the draft
     cache; per slot the active mask, last token, position, stop depth,
-    temperature, base key and poison mask; the admission's padded prompt,
-    length and slot, temperature and key, and the prefix-hit staging K/V)
-    keeps one address for the engine's life and is written in place.  A
-    mesh, LoRA adapters and handoff with KV payloads raise
+    temperature, base key, poison mask and adapter id; the admission's
+    padded prompt, length and slot, temperature and key, and the prefix-hit
+    staging K/V) keeps one address for the engine's life and is written in
+    place.  A mesh and handoff with KV payloads raise
     ``NotImplementedError``.  Not thread-safe; drive it from one loop.
     """
 
@@ -851,8 +905,6 @@ class ServeEngine:
         cfg = self.cfg
         if self.mesh is not None:
             raise _unported("a mesh (slot sharding)", 15)
-        if self.adapter_bank is not None:
-            raise _unported("per-request LoRA (adapter_bank)", 8)
         if self.prompt_bucket > cfg.max_seq:
             raise ValueError(
                 f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
@@ -918,6 +970,7 @@ class ServeEngine:
             self._prefix_k, self._prefix_v = (
                 torch.zeros(shape, dtype=self.cache_dtype, device=dev) for _ in range(2)
             )
+        init_adapter_state(self)
         self._eos = -1 if self.eos_id is None else self.eos_id
         self._programs: dict[str, GraphedProgram] = {}
 
@@ -933,14 +986,13 @@ class ServeEngine:
         ``temperature`` above 0 samples under the base key
         ``PRNGKey(seed)`` (default the request id); ``deadline`` caps the
         generated tokens and types the completion "deadline_exceeded" when
-        it binds first.  ``queued_at`` (the telemetry clock) is when the
-        request entered an upstream queue; default now.  Returns the
-        request id."""
+        it binds first.  ``adapter`` is the bank row to serve it with (0: the
+        base).  ``queued_at`` (the telemetry clock) is when the request
+        entered an upstream queue; default now.  Returns the request id."""
         t_sub = self.telemetry.now()
         check_submit(prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
                      spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline)
-        if adapter:
-            raise _unported("per-request LoRA (adapter != 0)", 8)
+        check_adapter(self, adapter)
         if handoff:
             raise _unported("handoff with a KV payload", 11)
         try:
@@ -949,12 +1001,15 @@ class ServeEngine:
             raise NoCapacity("no free slot") from None
         request_id = self._next_id
         base_key = prng.prng_key(request_id if seed is None else seed)
-        self._stage_admission(prompt, slot, temperature, base_key)
+        self._stage_admission(prompt, slot, temperature, base_key, adapter)
         prefix_key = (
             tuple(prompt[: self.prefix_bucket])
             if self.prefix_bucket is not None and len(prompt) > self.prefix_bucket
             else None
         )
+        if prefix_key is not None and self.adapter_bank is not None:
+            # adapted K/V belong to their adapter: a hit never crosses adapters
+            prefix_key = (adapter, prefix_key)
         if prefix_key is not None and prefix_key in self._prefix_store:
             self._prefix_store.move_to_end(prefix_key)  # LRU touch
             pk, pv = self._prefix_store[prefix_key]
@@ -976,7 +1031,7 @@ class ServeEngine:
         self._prefill_draft()
         self._next_id += 1
         st = _Slot(request_id, list(prompt) + [int(first_tok)], len(prompt), max_tokens,
-                   deadline)
+                   deadline, adapter)
         self._slots[slot] = st
         self._set_row(slot, st, temperature, base_key)
         _M_REQUESTS.inc()
@@ -1042,14 +1097,14 @@ class ServeEngine:
 
     def snapshot_active(self, include_kv: bool = False) -> dict:
         """Every in-flight request as a JSON-serialisable document (token
-        history, temperature and base key, deadline, telemetry trace); one
-        readback of the per-slot sampler state, no decode step.  A fresh
-        engine continues every stream from it with :meth:`restore`."""
+        history, temperature and base key, adapter id, deadline, telemetry
+        trace); one readback of the per-slot sampler state, no decode step.
+        A fresh engine continues every stream from it with :meth:`restore`."""
         if include_kv:
             raise _unported("snapshot_active(include_kv=True)", 11)
         temps = self._temps.to("cpu", copy=True).numpy()
         keys = self._keys.to("cpu", copy=True).numpy()
-        reqs = [_snapshot_request(st, float(temps[i]), keys[i],
+        reqs = [_snapshot_request(st, float(temps[i]), keys[i], st.adapter,
                                   trace=self.telemetry.export_trace(st.request_id))
                 for i, st in enumerate(self._slots) if st is not None]
         return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
@@ -1062,15 +1117,15 @@ class ServeEngine:
         tokens[-1]``, ``_pos = len(tokens) - 1``, so the next step samples
         what the old engine would have.  Needs an idle engine unless
         ``merge``, which fills free slots of a live one.  An entry longer
-        than the prompt bucket, or one that finds no free slot, comes back
-        as an "error" completion.  Each entry's trace is rebuilt first, so
-        its request keeps one timeline.  Returns the restored ids."""
+        than the prompt bucket, one whose adapter lies outside the engine's
+        bank (a bank-less engine serves any adapter with the base), or one
+        that finds no free slot, comes back as an "error" completion.
+        Each entry's trace is rebuilt first, so its request keeps one
+        timeline.  Returns the restored ids."""
         check_restorable(snapshot)
         for req in snapshot["requests"]:
             if "kv" in req:
                 raise _unported("restoring a KV payload", 11)
-            if int(req.get("adapter", 0)):
-                raise _unported("per-request LoRA (adapter != 0)", 8)
         if not merge and self.n_slots - self.free_slots():
             raise RuntimeError("restore() needs an idle engine")
         restored: list[int] = []
@@ -1081,7 +1136,7 @@ class ServeEngine:
                 _unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
                                          f"{self.prompt_bucket}")
                 continue
-            why = _spec_unrestorable(self, req)
+            why = adapter_unrestorable(self, req)
             if why:
                 _unrestorable(self, req, why)
                 continue
@@ -1093,11 +1148,12 @@ class ServeEngine:
             temp = float(req["temperature"])
             # keys arrive as plain ints up to 2^32 - 1: int64 holds them
             key = torch.tensor([int(x) for x in req["key"]], dtype=torch.int64)
-            self._stage_admission(tokens, slot, temp, key)
+            adapter = int(req.get("adapter", 0))
+            self._stage_admission(tokens, slot, temp, key, adapter)
             self._run("admission", self._admission)  # its token is not read
             self._prefill_draft()
             st = _Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
-                       int(req["max_tokens"]), req.get("deadline"))
+                       int(req["max_tokens"]), req.get("deadline"), adapter)
             self._slots[slot] = st
             self._set_row(slot, st, temp, key)
             restored.append(st.request_id)
@@ -1201,14 +1257,19 @@ class ServeEngine:
         if self.spec_gamma > 0:
             self._run("draft prefill", self._draft_prefill)
 
-    def _stage_admission(self, tokens: list[int], slot: int, temperature: float, key) -> None:
-        """Write an admission's inputs into the admission buffers."""
+    def _stage_admission(self, tokens: list[int], slot: int, temperature: float, key,
+                         adapter: int = 0) -> None:
+        """Write an admission's inputs into the admission buffers, and with
+        a bank the slot's adapter id (before the prefill: the first-token
+        step runs under it)."""
         padded = np.zeros((1, self.prompt_bucket), np.int32)
         padded[0, : len(tokens)] = tokens
         self._prompt.copy_(torch.from_numpy(padded))
         self._admit.copy_(torch.tensor([len(tokens), slot], dtype=torch.int32))
         self._admit_temp.fill_(temperature)
         self._admit_key.copy_(key)
+        if self._adapter_ids is not None:
+            self._adapter_ids[slot] = adapter
 
     def _set_row(self, slot: int, st, temperature: float, key) -> None:
         """A resident slot's device row: active, last token, position
@@ -1251,10 +1312,16 @@ class ServeEngine:
     def _run(self, name: str, fn):
         return run_program(self, name, fn)
 
+    def _adapters(self):
+        """The programs' adapter context ``(bank, per-slot ids)``, or None
+        without a bank (the programs of an engine with no LoRA at all)."""
+        return None if self.adapter_bank is None else (self.adapter_bank, self._adapter_ids)
+
     def _admission(self):
         tok, _ = _prefill_into_slot(
             self.params, self._cache, self._prompt, self._admit[0], self._admit[1],
             self._admit_temp, self._admit_key, cfg=self.cfg, top_k=self.top_k,
+            adapters=self._adapters(),
         )
         return tok
 
@@ -1262,7 +1329,7 @@ class ServeEngine:
         tok, _ = _prefill_suffix_into_slot(
             self.params, self._cache, self._prefix_k, self._prefix_v, self._prompt,
             self._admit[0], self._admit[1], self._admit_temp, self._admit_key, cfg=self.cfg,
-            top_k=self.top_k, prefix_bucket=self.prefix_bucket,
+            top_k=self.top_k, prefix_bucket=self.prefix_bucket, adapters=self._adapters(),
         )
         return tok
 
@@ -1273,7 +1340,7 @@ class ServeEngine:
     def _spec_program(self):
         target, advance, _, _ = _spec_round(
             self.params, self.draft_params, self._cache, self._d_cache, self._last, self._pos,
-            self._active, cfg=self.cfg, gamma=self.spec_gamma,
+            self._active, cfg=self.cfg, gamma=self.spec_gamma, adapters=self._adapters(),
         )
         return _spec_advance(target, advance, self._last, self._pos, self._active)
 
@@ -1282,7 +1349,7 @@ class ServeEngine:
             trace, _, last, pos, _ = _pipelined_burst(
                 self.params, self._cache, self._last, self._pos, self._active, self._temps,
                 self._keys, self._stop_pos, self._poison, cfg=self.cfg, top_k=self.top_k,
-                eos_id=self._eos, k=k,
+                eos_id=self._eos, k=k, adapters=self._adapters(),
             )
             self._last.copy_(last)
             self._pos.copy_(pos)

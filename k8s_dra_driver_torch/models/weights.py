@@ -5,7 +5,8 @@
 arrays, with quantized leaves carrying ``.q``/``.scale`` (int8) or
 ``.packed``/``.scale``/``.group_size`` (int4) — and returns the port's
 params with the same keys and shapes; ``opt_state_from_jax`` does the same
-for the optimizer state.  Leaves are read through numpy (``np.asarray``),
+for the optimizer state, and ``adapters_from_jax``/``bank_from_jax`` for
+LoRA adapters and serving banks.  Leaves are read through numpy (``np.asarray``),
 so nothing of JAX is imported here.
 """
 
@@ -59,6 +60,19 @@ def params_from_jax(tree, device="cuda"):
     return walk(tree)
 
 
+def adapters_from_jax(tree, device="cuda"):
+    """The JAX package's LoRA adapters (``lora.init_adapters``'s tree,
+    ``{"blocks": [{target: {"a", "b"}}]}``, float32) as the port's on
+    ``device``."""
+    return params_from_jax(tree, device)
+
+
+def bank_from_jax(bank, device="cuda") -> dict:
+    """The JAX package's serving bank (``lora.stack_adapters``) as the
+    port's on ``device``, its ``scale`` kept a Python float."""
+    return {"blocks": params_from_jax(bank["blocks"], device), "scale": float(bank["scale"])}
+
+
 def params_to_numpy(params):
     """The inverse of :func:`params_from_jax` for float params: the port's
     params tree (dicts and lists of tensors) as numpy arrays on the host,
@@ -101,10 +115,11 @@ def _adam_state(node):
 def opt_state_from_jax(state, device="cuda") -> dict:
     """The JAX package's optimizer state (optax's ``adamw`` from
     ``make_optimizer``: its ``ScaleByAdamState``, alone in the ``chain`` or
-    after ``clip_by_global_norm``) as the port's ``AdamW`` state on
-    ``device``: ``count`` an int32 0-d tensor, ``mu`` and ``nu`` lists in the
-    order of the params' leaves.  The schedule's own count in optax's state
-    always equals Adam's, so the one count carries both."""
+    after ``clip_by_global_norm``; or the LoRA step's ``adam``, over the
+    adapters) as the port's ``AdamW``/``Adam`` state on ``device``:
+    ``count`` an int32 0-d tensor, ``mu`` and ``nu`` lists in the order of
+    the params' (or adapters') leaves.  The schedule's own count in optax's
+    state always equals Adam's, so the one count carries both."""
     adam = _adam_state(state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optimizer state")

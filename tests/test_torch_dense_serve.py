@@ -561,18 +561,17 @@ def test_unported_paths_raise(weights):
     def engine(**kw):
         return ts.ServeEngine(params=tparams, cfg=TCFG, device="cpu", **dict(ENGINE, **kw))
 
-    for kw, item in ((dict(mesh=object()), 15), (dict(adapter_bank={}), 8)):
+    for kw, item in ((dict(mesh=object()), 15),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             engine(**kw)
     eng = engine()
-    for call, item in ((lambda: eng.submit([1, 2], 3, adapter=1), 8),
-                       (lambda: eng.submit([1, 2], 3, handoff=True), 11),
+    for call, item in ((lambda: eng.submit([1, 2], 3, handoff=True), 11),
                        (lambda: eng.snapshot_active(include_kv=True), 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
     entry = dict(request_id=0, tokens=[1, 2], prompt_len=1, max_tokens=3, deadline=None,
                  temperature=0.0, key=[0, 0], adapter=0, priority=0)
-    for extra, item in ((dict(kv=None), 11), (dict(adapter=2), 8)):
+    for extra, item in ((dict(kv=None), 11),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             eng.restore({"next_id": 1, "requests": [dict(entry, **extra)]})
     assert eng.free_slots() == eng.n_slots and eng._next_id == 0

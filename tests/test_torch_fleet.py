@@ -220,3 +220,63 @@ def test_drain_moves_streams_between_packages(weights, source):
         assert tr["status"] == "ok" and tr["migrations"] == 1
         assert src.telemetry.trace(rid) is None  # dropped, not retired, at the source
     assert src.stats().completed == 0 and dst.stats().completed == len(reqs)
+
+
+# -- adapters behind the router ---------------------------------------------------------
+
+def _fleet_bank():
+    """float32 weights and a bank of two numpy-seeded adapters (nonzero B)
+    for this module's model, each as ``(JAX, port)``: in bf16 a near tie
+    flips between the packages' products (seen: one token in 54)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from k8s_dra_driver_torch.models.weights import bank_from_jax
+    from k8s_dra_driver_tpu.models import lora as jl
+
+    jcfg = dataclasses.replace(JCFG, dtype=jnp.float32)
+    jparams = jb.init_params(jax.random.PRNGKey(0), jcfg)
+    lora_cfg = jl.LoraConfig(rank=4, alpha=8.0)
+    dims = jb.block_matrix_shapes(jcfg)
+    r = np.random.RandomState(5)
+    ads = [{"blocks": [
+        {n: {"a": jnp.asarray((r.standard_normal((dims[n][0], 4)) / 4).astype(np.float32)),
+             "b": jnp.asarray((0.3 * r.standard_normal((4, dims[n][1]))).astype(np.float32))}
+         for n in lora_cfg.targets}
+        for _ in range(jcfg.n_layers)]} for _ in range(2)]
+    jbank = jl.stack_adapters(jcfg, lora_cfg, ads)
+    return (jcfg, jparams, jbank), (tb.ModelConfig.from_reference(jcfg),
+                                    params_from_jax(jparams, device="cpu"),
+                                    bank_from_jax(jbank, device="cpu"))
+
+
+def test_adapter_requests_through_a_mixed_fleet():
+    """A JAX replica and a torch replica, each with the same adapter bank,
+    behind the reference's router (which scores adapter affinity): every
+    stream, adapters 0, 1 and 2 mixed, is a single JAX engine's, and both
+    replicas serve adapted requests."""
+    (jcfg, jparams, jbank), (tcfg, tparams, tbank) = _fleet_bank()
+    kw = dict(n_slots=3, n_blocks=33, block_size=4, prompt_bucket=16)
+
+    def jax_engine():
+        return jp.PagedServeEngine(params=jparams, cfg=jcfg, attn_impl="xla",
+                                   adapter_bank=jbank, **kw)
+
+    reqs = [{"prompt": [7 + i, 8, 9 + i], "max_tokens": 6, "seed": i, "adapter": i % 3}
+            for i in range(9)]
+    want = _by_prompt(jax_engine().pump([dict(r) for r in reqs]))
+    router = FleetRouter([
+        ("jax", jax_engine()),
+        ("torch", tp.PagedServeEngine(params=tparams, cfg=tcfg, adapter_bank=tbank,
+                                      device="cpu", **kw)),
+    ])
+    out = router.pump([dict(r) for r in reqs])
+    got = _by_prompt(out)
+    assert len(got) == len(reqs)
+    bad = {p: (got[p], want[p]) for p in want if got.get(p) != want[p]}
+    assert not bad, f"(prompt: port fleet stream, JAX stream): {bad}"
+    adapted = {}
+    for rep in router.replicas:
+        traces = [rep.engine.telemetry.trace(c.request_id) for c in out]
+        adapted[rep.name] = sorted({tr["adapter"] for tr in traces if tr is not None})
+    assert all(any(a > 0 for a in ads) for ads in adapted.values()), adapted

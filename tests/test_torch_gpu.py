@@ -40,7 +40,12 @@ chunk writes the pool its CPU twin writes within one bf16 step; the append
 kernel at a served verify window (nq = gamma + 1) holds the paged limits
 and writes the pages its plain version writes.  A graphed engine with
 telemetry on equals its telemetry-off twin in streams, host syncs, graph
-calls and launches."""
+calls and launches.  An engine with a LoRA bank (adapters mixed per
+request; with speculation or the prefix store) graphed equals its eager
+twin in everything, its f32 streams the CPU's, its adapter-0 streams a
+bank-less engine's; the LoRA train step graphed equals its eager twin bit
+for bit, the base unchanged, and its f32 losses are within 1e-5 relative
+of the CPU's."""
 
 import contextlib
 
@@ -1242,3 +1247,131 @@ def test_graphed_train_step_replay_runs_the_flash_kernels(cuda):
         hits = sum(n for key, n in kernels.items() if name in key)
         assert hits == per_layer * cfg.n_layers, (name, kernels)
     assert fns.graphed.program.calls == 3
+
+
+# -- LoRA: adapted engines and the adapter-only train step -------------------
+
+def _lora_bank_on(cfg, dev, seed=3):
+    """``(LoraConfig, bank)``: two adapters with A from ``init_adapters``
+    and B 0.3 times a normal (the JAX tests' recipe), stacked on ``dev``."""
+    from k8s_dra_driver_torch.models import lora as tl
+
+    lcfg = tl.LoraConfig(rank=4, alpha=8.0)
+    g = torch.Generator().manual_seed(seed)
+    ads = []
+    for _ in range(2):
+        ad = tl.init_adapters(g, cfg, lcfg)
+        for blk in ad["blocks"]:
+            for name, ab in blk.items():
+                blk[name] = {"a": ab["a"].to(dev),
+                             "b": (0.3 * torch.randn(ab["b"].shape, generator=g)).to(dev)}
+        ads.append(ad)
+    return lcfg, tl.stack_adapters(cfg, lcfg, ads)
+
+
+def _lora_engine(kind, params, cfg, device, bank, **kw):
+    kw = dict(dict(n_slots=3, prompt_bucket=24, sync_interval=4, adapter_bank=bank), **kw)
+    if kind == "dense":
+        return ts.ServeEngine(params=params, cfg=cfg, device=device, **kw)
+    return tp.PagedServeEngine(params=params, cfg=cfg, device=device, n_blocks=40,
+                               block_size=8, **kw)
+
+
+@pytest.mark.parametrize("case", ["sync4", "spec", "prefix"])
+@pytest.mark.parametrize("bits", [None, 4])
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_graphed_lora_engine_matches_the_eager_engine(cuda, kind, bits, case):
+    """Adapters 0, 1, 2 mixed in every burst (with speculation, gamma 3,
+    or with the prefix store), as CUDA graphs against the same engine run
+    eagerly: streams, host syncs, cache bytes (the pool from block 1) and
+    launch counts identical, the per-slot ids kept in one buffer; the
+    card's f32 streams equal the CPU engine's, and its adapter-0 streams
+    a bank-less graphed engine's."""
+    cfg, params = _small_engine_params(bits, cuda)
+    if case == "spec" and bits:
+        pytest.skip("an int4 target needs its draft given; the int8 self-draft is f32 here")
+    extra = {"sync4": {}, "spec": dict(spec_gamma=3),
+             "prefix": dict(prompt_bucket=40, **(dict(prefix_cache_blocks=4) if kind == "paged"
+                                                 else dict(prefix_bucket=8)))}[case]
+    system = list(range(40, 56))
+    reqs = [dict(prompt=(system if case == "prefix" else []) + p, max_tokens=m, adapter=i % 3)
+            for i, (p, m) in enumerate(_spec_traffic(n=7))]
+    _, bank = _lora_bank_on(cfg, cuda)
+
+    def serve(eager, device=cuda, with_bank=True):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        p = params if device == cuda else _to(params, "cpu")
+        b = None
+        if with_bank:
+            b = bank if device == cuda else {
+                "blocks": [{n: {k: t.cpu() for k, t in ab.items()} for n, ab in blk.items()}
+                           for blk in bank["blocks"]], "scale": bank["scale"]}
+        eng = _lora_engine(kind, p, cfg, device, b, **extra)
+        ids = None if b is None else eng._adapter_ids.data_ptr()
+        run = reqs if with_bank else [dict(r, adapter=0) for r in reqs]
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = eng.pump(run)
+        if device == cuda:
+            torch.cuda.synchronize()
+        assert b is None or eng._adapter_ids.data_ptr() == ids
+        return eng, {c.request_id: (c.generated, c.status) for c in comps}, _launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and counts == want_counts and len(streams) == len(reqs)
+    assert graphed.host_syncs == eager.host_syncs
+    start = 1 if kind == "paged" else 0
+    for a, b in zip(graphed._cache, eager._cache):
+        assert torch.equal(a[:, start:], b[:, start:])
+    assert (counts["int4.launches"] > 0) == bool(bits)
+    assert len(graphed.graphs) <= getattr(graphed, "graph_bound", 4)
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    _, base_streams, _ = serve(eager=False, with_bank=False)
+    assert all(streams[i] == base_streams[i] for i, r in enumerate(reqs) if r["adapter"] == 0)
+    assert any(streams[i] != base_streams[i] for i, r in enumerate(reqs) if r["adapter"])
+    if not bits:
+        _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
+        assert streams == on_cpu
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_lora_train_step_matches_the_eager_step(cuda, dtype):
+    """``lora.build_lora_train_step(attention="flash")`` on the card: three
+    graphed steps (one capture) against three eager ones from the same
+    adapters, bit for bit (losses, adapters, count, moments), the flash
+    kernels launched as a remat "blocks" step launches them, the base bit
+    for bit unchanged; in f32 the losses within 1e-5 of the CPU's."""
+    from k8s_dra_driver_torch.models import lora as tl
+
+    cfg = tb.ModelConfig(**dict(_TRAIN_CFG, dtype=dtype))
+    lcfg = tl.LoraConfig(rank=4, alpha=8.0)
+    base = tb.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    before = [t.clone() for t in tb.param_leaves(base)]
+    toks = _train_tokens(cfg)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        fns = tl.build_lora_train_step(cfg, lcfg, lr=1e-2, attention="flash")
+        ad, st = fns.init(torch.Generator(device="cuda").manual_seed(1))
+        _zero_flash()
+        with ts.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            losses = torch.stack([fns.step(ad, st, base, toks)[2] for _ in range(3)])
+        torch.cuda.synchronize()
+        runs[mode] = (fns, ad, st, losses, dict(tfa.launches))
+    (gf, gad, gst, gl, gc), (ef, ead, est, el, ec) = runs["graphed"], runs["eager"]
+    assert gf.captures == 1 and ef.captures == 0
+    assert torch.equal(gl, el) and gc == ec
+    assert gc == {"flash_fwd": 2 * 2 * 3, "flash_bwd_dq": 2 * 3, "flash_bwd_dkv": 2 * 3}
+    for a, b in zip(_state_leaves(gad, gst), _state_leaves(ead, est)):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(tb.param_leaves(base), before))
+    assert gl[-1] < gl[0]
+    if dtype == torch.float32:
+        cpu_fns = tl.build_lora_train_step(cfg, lcfg, lr=1e-2, attention="flash", device="cpu")
+        cpu_base = _to(base, "cpu")
+        ad, st = cpu_fns.init(torch.Generator().manual_seed(1))
+        first = tl.init_adapters(torch.Generator(device="cuda").manual_seed(1), cfg, lcfg)
+        for x, y in zip(tb.param_leaves(ad), tb.param_leaves(first)):
+            x.copy_(y.cpu())
+        cpu = [cpu_fns.step(ad, st, cpu_base, toks)[2].item() for _ in range(3)]
+        np.testing.assert_allclose(gl.cpu().numpy(), cpu, rtol=1e-5)

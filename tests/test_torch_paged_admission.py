@@ -761,13 +761,12 @@ def test_unported_fields_raise_naming_their_item(weights):
     def engine(**kw):
         return tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **dict(ENGINE, **kw))
 
-    for kw, item in ((dict(adapter_bank={}), 8), (dict(kv_dtype="int8"), 10),
+    for kw, item in ((dict(kv_dtype="int8"), 10),
                      (dict(mesh=object()), 15), (dict(slot_axis=("slice", "data")), 15)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             engine(**kw)
     eng = engine(prefix_cache_blocks=2, prefill_chunk_blocks=1)
-    calls = ((lambda: eng.submit([1, 2], 3, adapter=1), 8),
-             (lambda: eng.submit([1, 2], 3, handoff=True), 11),
+    calls = ((lambda: eng.submit([1, 2], 3, handoff=True), 11),
              (lambda: eng.snapshot_active(include_kv=True), 11),
              (lambda: setattr(eng, "on_prefix_store", print), 11),
              (lambda: setattr(eng, "on_prefix_evict", print), 11))
@@ -776,7 +775,7 @@ def test_unported_fields_raise_naming_their_item(weights):
             call()
     entry = dict(request_id=0, tokens=[1, 2], prompt_len=1, max_tokens=3, deadline=None,
                  temperature=0.0, key=[0, 0], adapter=0, priority=0)
-    for extra, item in ((dict(kv=None), 11), (dict(adapter=2), 8)):
+    for extra, item in ((dict(kv=None), 11),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             eng.restore({"next_id": 1, "requests": [dict(entry, **extra)]})
     eng.on_prefix_store = eng.on_prefix_evict = None  # the default is served

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from k8s_dra_driver_torch.models import burnin as tb
+from k8s_dra_driver_torch.models import decode as td
 from k8s_dra_driver_torch.models import paged as tp
 from k8s_dra_driver_torch.models import quant as tq
 from k8s_dra_driver_torch.models import serve as ts
@@ -34,6 +35,10 @@ JCFG = jb.ModelConfig(
     d_ff=128, max_seq=64, rope=True, dtype=jnp.float32,
 )
 TCFG = tb.ModelConfig.from_reference(JCFG)
+# Learned position embeddings: a verify window past ``max_seq`` reads the
+# table's last row, as the reference's gather clamps.
+JCFG_ABS = jb.ModelConfig(**{**JCFG.__dict__, "rope": False})
+TCFG_ABS = tb.ModelConfig.from_reference(JCFG_ABS)
 ENGINES = {
     "dense": dict(n_slots=3, prompt_bucket=24),
     "paged": dict(n_slots=3, block_size=8, prompt_bucket=32),
@@ -70,21 +75,22 @@ def _draft(weights, name):
     return j4, params_from_jax(j4, device="cpu")
 
 
-def _pair(weights, kind, draft="int8", **kw):
+def _pair(weights, kind, draft="int8", cfgs=(JCFG, TCFG), **kw):
     """A JAX engine and a port engine of ``kind`` with the same settings."""
     jparams, tparams = weights
+    jcfg, tcfg = cfgs
     jdraft, tdraft = _draft(weights, draft) if kw.get("spec_gamma") else (None, None)
     kw = dict(ENGINES[kind], **kw)
     if kind == "dense":
-        je = js.ServeEngine(params=jparams, cfg=JCFG, draft_params=jdraft, **kw)
-        te = ts.ServeEngine(params=tparams, cfg=TCFG, draft_params=tdraft, device="cpu", **kw)
+        je = js.ServeEngine(params=jparams, cfg=jcfg, draft_params=jdraft, **kw)
+        te = ts.ServeEngine(params=tparams, cfg=tcfg, draft_params=tdraft, device="cpu", **kw)
     else:
         jkw = dict(attn_impl="xla", **kw)
         if jkw.pop("kernel", False):
             jkw.update(attn_impl="kernel", interpret=True)
         kw.pop("kernel", None)
-        je = jp.PagedServeEngine(params=jparams, cfg=JCFG, draft_params=jdraft, **jkw)
-        te = tp.PagedServeEngine(params=tparams, cfg=TCFG, draft_params=tdraft, device="cpu",
+        je = jp.PagedServeEngine(params=jparams, cfg=jcfg, draft_params=jdraft, **jkw)
+        te = tp.PagedServeEngine(params=tparams, cfg=tcfg, draft_params=tdraft, device="cpu",
                                  **kw)
     return je, te
 
@@ -331,16 +337,59 @@ def test_programs_keep_their_buffers_and_their_bound(weights, monkeypatch, kind)
     assert te.graphs == {}
 
 
+def _spy_window_ends(monkeypatch):
+    """Record the last position of every active row's window that the
+    engines' rounds score (``decode.decode_chunk`` and
+    ``paged.paged_decode_chunk`` with ``active``)."""
+    ends = []
+
+    def spy(fn, at):
+        def wrapped(*args, active=None, **kw):
+            if active is not None:
+                window, pos = args[at], args[at + 1]
+                pos = torch.as_tensor(pos).expand(window.shape[0])[active]
+                ends.extend((pos + window.shape[1] - 1).tolist())
+            return fn(*args, active=active, **kw)
+        return wrapped
+
+    monkeypatch.setattr(td, "decode_chunk", spy(td.decode_chunk, 2))
+    monkeypatch.setattr(tp, "paged_decode_chunk", spy(tp.paged_decode_chunk, 3))
+    return ends
+
+
+@pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("kind", sorted(ENGINES))
-def test_unrestorable_entries_under_speculation(weights, kind):
-    """Three restored entries under ``spec_gamma=4``, each held against the
-    JAX engine: a sampled one continues greedily from the restore on, as
-    the reference's rounds verify the argmax; a greedy one with the verify
-    window's slack continues; one without the slack the reference takes
-    (its window's writes past ``max_seq`` dropped) and the port refuses
-    as an "error" completion, since its window would run past the cache
-    (the paged one past its block table): that difference is pinned here."""
-    je, te = _pair(weights, kind, "int8", spec_gamma=4)
+def test_unrestorable_entries_under_speculation(weights, monkeypatch, kind, rope):
+    """Three restored entries under ``spec_gamma=4``, with rotary or learned
+    position embeddings, each held against the JAX engine: a sampled one
+    continues greedily from the restore on, as the reference's rounds
+    verify the argmax; a greedy one with the verify window's slack
+    continues; and one without the slack continues too, as the reference's
+    does: its last rounds' windows reach past ``max_seq`` (checked), their
+    writes there are dropped (the dense cache wraps them onto positions
+    they write back unchanged, the paged table's extra null columns take
+    them), learned position embeddings read the table's last row there, as
+    the reference's gather clamps, and the budget clip stops the stream
+    before any query past ``max_seq`` commits.  Without RoPE the one-layer
+    draft rejects often enough that a window starts within ``gamma`` of
+    ``max_seq``; the int8 self-draft's full acceptance does not.
+
+    There the JAX paged engine does not drop those writes: its block-id
+    gather clamps the column past the table onto the row's last block, so
+    the window's positions past ``max_seq`` overwrite that block's first
+    positions, which the window's own queries then attend, and entry 1's
+    stream leaves the one its dense engine and the port's plain engines
+    give.  The port drops them in both engines, so without RoPE the paged
+    engine's entry 1 is held against the JAX dense engine's, and the JAX
+    paged engine's difference is checked, so that it shows if it goes."""
+    if rope:
+        pair = (weights, kind, "int8")
+        extra = {}
+    else:
+        jparams = jb.init_params(jax.random.PRNGKey(0), JCFG_ABS)
+        pair = ((jparams, params_from_jax(jparams, device="cpu")), kind, "shallow")
+        extra = dict(cfgs=(JCFG_ABS, TCFG_ABS))
+    je, te = _pair(*pair, spec_gamma=4, **extra)
     entry = dict(deadline=None, key=[0, 0], adapter=0, priority=0)
     snap = {"next_id": 3, "requests": [
         dict(entry, request_id=0, tokens=[1, 2, 3, 4], prompt_len=3, max_tokens=6,
@@ -351,15 +400,23 @@ def test_unrestorable_entries_under_speculation(weights, kind):
              temperature=0.0),
     ]}
     assert je.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
-    assert te.restore(json.loads(json.dumps(snap))) == [0, 2]
+    assert te.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
     je.run_until_drained()
+    ends = _spy_window_ends(monkeypatch)
     te.run_until_drained()
     want, got = _streams(je.completions()), _streams(te.completions())
-    assert {r: st for r, (_, st) in got.items()} == {0: "ok", 1: "error", 2: "ok"}
-    assert {r: got[r] for r in (0, 2)} == {r: want[r] for r in (0, 2)}
+    if kind == "paged" and not rope:
+        jd, _ = _pair(pair[0], "dense", pair[2], spec_gamma=4, **extra)
+        assert jd.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
+        jd.run_until_drained()
+        dense = _streams(jd.completions())
+        assert dense[1] != want[1]  # the JAX paged engine's clamped write
+        want[1] = dense[1]
+    assert {r: st for r, (_, st) in got.items()} == {0: "ok", 1: "ok", 2: "ok"}
+    assert got == want
     assert len(got[0][0]) == len(got[2][0]) == 6
-    assert want[1][1] == "ok" and len(want[1][0]) == 60  # the reference resumes it
-    assert got[1][0] == [1, 2, 3, 4][3:]  # the port delivers the history it holds
+    assert len(got[1][0]) == 60  # the reference resumes it, and so does the port
+    assert max(ends) >= TCFG.max_seq
 
 
 # -- the paged engine ---------------------------------------------------------------
