@@ -153,7 +153,34 @@ exits 2 before any result):
    against the bank-less one in alternating rounds, one profiled burst
    each (device time and kernels per step), and the bytes the bank's
    gathers move;
-13. training FLAGSHIP_MODERN at full width in bf16 through
+13. mixture-of-experts ("serve moe"): FLAGSHIP_MODERN with 8 experts and
+   top-2 routing (Mixtral-8x7B's, ``MOE``; 591.5 M parameters, every
+   expert on every token) in bf16, the serving run's first 8 requests, in
+   six legs, each timed: the paged engine graphed (the main path) against
+   an eager twin, the append kernel held against its plain version on the
+   path's first window in every layer, every token teacher-forced against
+   the plain dense path and reported with the dense path's routing margins
+   (in bf16 a near-tie flips an expert between two paths that round
+   otherwise, which moves the logits by more than any rounding), the
+   experts chosen per layer (one expert taking every choice fails); the
+   dense engine the same way; both engines in f32 at 2 layers, graphed
+   against eager and every token within 1e-3 of the dense argmax (the
+   routing gate); the int4 base (``int4_splitk`` in the bursts,
+   ``int4_wgmma`` in the prefills, on the attention projections; each
+   product shape held on the path's own x); γ 4 with the int8 self-draft,
+   graphed against eager, acceptance printed; the graphed MoE step beside
+   the dense-MLP one in alternating rounds, a profiled burst each and the
+   bytes bound;
+14. quantized KV pools ("serve kv quant"): ``kv_dtype`` "int8" and "int4"
+   at FLAGSHIP_MODERN under the bf16 serving engine's ``pool_hbm_bytes``
+   (the blocks each holds printed), each graphed against an eager twin in
+   completions, counters, pool bytes and scales from block 1 and launch
+   counts (no paged kernel: the route is the reference's XLA one in plain
+   PyTorch), each stream's first difference from the bf16 pool's printed;
+   the block codec on the card byte for byte against the CPU; the graphed
+   steps beside the bf16 kernel step in alternating rounds, a profiled
+   burst each;
+15. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -165,7 +192,7 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-14. adapter-only training ("train lora"): ``lora.build_lora_train_step``
+16. adapter-only training ("train lora"): ``lora.build_lora_train_step``
     (rank 8, alpha 16, the four block matrices, attention "flash", B 4, S
     1024, bf16) graphed (the main path) against an eager twin over 5
     steps, bit for bit, the loss falling and the base unchanged; the flash
@@ -173,21 +200,26 @@ exits 2 before any result):
     its plain version on one layer's inputs from the step itself; ms per
     step and peak memory beside the full graphed step (alternating
     rounds), and a profile of one LoRA step;
-15. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+17. MoE training ("train moe"): the MoE model of phase 13 through
+    ``build_train_step(attention="flash")`` (B 4, S 1024, bf16, remat
+    "blocks") graphed (the main path) against an eager twin over 4 steps,
+    bit for bit, the loss falling, the flash launches counted; ms per
+    step, tokens/s, peak memory and a profile of one step;
+18. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-16. resume: the graphed bf16 step saved after 2 steps by
+19. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-17. training in f32 at 2 layers: the graphed flash step against its eager
+20. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
 The line before the last lists the kernels with their launch counts on the
-paths that run them (serving, LoRA serving, training, LoRA training) and
-their times; the last line is the JSON device record.
+paths that run them (serving, LoRA and MoE serving, training, LoRA and MoE
+training) and their times; the last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -1967,6 +1999,11 @@ def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0, twin=
         if not torch.equal(a[:, pool_from:], b_[:, pool_from:]):
             raise AssertionError(f"{label}: graphed and {twin} caches differ from block "
                                  f"{pool_from} on after the drain")
+    scales = [(getattr(eng._cache, n), getattr(other._cache, n)) for n in ("k_scale", "v_scale")
+              if getattr(eng._cache, n, None) is not None]
+    if not all(torch.equal(a[:, pool_from:], b_[:, pool_from:]) for a, b_ in scales):
+        raise AssertionError(f"{label}: graphed and {twin} pool scales differ from block "
+                             f"{pool_from} on after the drain")
     if getattr(eng, "_d_cache", None) is not None and not all(
             torch.equal(a, b_) for a, b_ in zip(eng._d_cache, other._d_cache)):
         raise AssertionError(f"{label}: graphed and {twin} draft caches differ after the drain")
@@ -1978,7 +2015,7 @@ def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0, twin=
         f"({generated / wall:.1f} tokens/s), {twin_wall:.2f} s {twin} ({generated / twin_wall:.1f} "
         f"tokens/s); {', '.join(f'{a} {getattr(eng, a)}' for a in attrs)}; graphed == {twin} "
         f"twin in completions, statuses, {', '.join(attrs)}, cache bytes"
-        f"{f' from block {pool_from}' if pool_from else ''}"
+        f"{' and scales' if scales else ''}{f' from block {pool_from}' if pool_from else ''}"
         f"{', draft cache bytes' if getattr(eng, '_d_cache', None) is not None else ''} "
         f"and launch counts")
     graph_bookkeeping(torch, label, eng)
@@ -3451,6 +3488,34 @@ def _preempted_ids(eng, comps) -> set:
             if any(e["event"] == "preempt" for e in eng.telemetry.trace(c.request_id)["events"])}
 
 
+def alternating_bursts(torch, engines: dict, prompts, rounds: int, bursts: int,
+                       submit_kw=lambda name, i: {}) -> dict:
+    """Steady decode of ``engines`` ({name: engine}) with the same
+    residents (``prompts``; ``submit_kw(name, i)`` extra submit arguments),
+    none retiring inside the window: 3 warm-up bursts each (a graphed
+    engine captures in them), then ``rounds`` rounds of ``bursts`` bursts,
+    the engines taking turns (reversed every other round), on the host
+    clock around a synchronised window.  Returns {name: [ms per step by
+    round]}; a burst is ``sync_interval`` steps."""
+    for name, eng in engines.items():
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_tokens=eng.sync_interval * (3 + rounds * bursts + 2),
+                       **submit_kw(name, i))
+        for _ in range(3):
+            eng.step_burst()
+    times = {name: [] for name in engines}
+    for rnd in range(rounds):
+        for name in (list(engines) if rnd % 2 == 0 else list(reversed(engines))):
+            eng = engines[name]
+            sync(torch)
+            t0 = time.perf_counter()
+            for _ in range(bursts):
+                eng.step_burst()
+            sync(torch)
+            times[name].append((time.perf_counter() - t0) / (bursts * eng.sync_interval) * 1e3)
+    return times
+
+
 def phase_serve_lora(torch, cfg, params, reqs, *, cache_dtype, card, tol=0.25):
     """Per-request LoRA at full width in bf16 (8 slots, block 16, bucket
     256, sync interval 8; a bank of two seeded adapters and the identity,
@@ -3656,22 +3721,9 @@ def phase_serve_lora(torch, cfg, params, reqs, *, cache_dtype, card, tol=0.25):
         prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
         engines = {"adapted": _lora_engine(cfg, params, cache_dtype, bank),
                    "bank-less": _serving_engine(cfg, params, cache_dtype)}
-        for name, eng in engines.items():
-            for i, p in enumerate(prompts):
-                kw = dict(adapter=i % rows) if name == "adapted" else {}
-                eng.submit(p, max_tokens=8 * (3 + rounds * bursts + 2), **kw)
-            for _ in range(3):
-                eng.step_burst()
-        times = {name: [] for name in engines}
-        for rnd in range(rounds):
-            for name in (list(engines) if rnd % 2 == 0 else list(reversed(engines))):
-                eng = engines[name]
-                sync(torch)
-                t0 = time.perf_counter()
-                for _ in range(bursts):
-                    eng.step_burst()
-                sync(torch)
-                times[name].append((time.perf_counter() - t0) / (bursts * 8) * 1e3)
+        times = alternating_bursts(
+            torch, engines, prompts, rounds, bursts,
+            lambda name, i: dict(adapter=i % rows) if name == "adapted" else {})
         med = {name: float(np.median(t)) for name, t in times.items()}
         for name, t in times.items():
             log(f"{label} timing, {name}: {' / '.join(f'{x:.3f}' for x in t)} ms per graphed "
@@ -3847,6 +3899,466 @@ def phase_train_lora(torch, cfg, *, b: int = LORA_TRAIN["b"], steps: int = LORA_
             "flash_bwd_dkv": bwd["flash_bwd_dkv_wgmma"]}
 
 
+# mixture-of-experts at the flagship's widths: Mixtral-8x7B's 8 experts and
+# top-2 routing (its published config.json: num_local_experts 8,
+# num_experts_per_tok 2) over FLAGSHIP_MODERN
+MOE = dict(n_experts=8, moe_top_k=2)
+MOE_TIMING_ROUNDS = 4         # alternating rounds of 4 graphed 8-step bursts
+MOE_TRAIN = dict(b=4, steps=4)
+KV_QUANT = ("int8", "int4")
+
+
+def moe_config(cfg):
+    return dataclasses.replace(cfg, **MOE)
+
+
+def _routing_recorder(torch, burnin, n_layers: int, n_experts: int):
+    """Wrap ``burnin.top_k_experts`` to count each layer's expert choices
+    and keep each call's routing margin per token (the k-th best score
+    less the next one: how far the choice is from a tie); calls come layer
+    by layer, so call i is layer i mod L.  Returns ``(counts [L][E],
+    margins [calls], restore)``."""
+    counts = [[0] * n_experts for _ in range(n_layers)]
+    margins: list = []
+    wrapped = burnin.top_k_experts
+
+    def recorded(scores, k):
+        vals, idx = wrapped(scores, k)
+        top = scores.sort(dim=-1, descending=True).values
+        margins.append((top[:, k - 1] - top[:, k]) if k < scores.shape[-1] else
+                       torch.full_like(top[:, 0], float("inf")))
+        hist = torch.bincount(idx.flatten(), minlength=n_experts).tolist()
+        layer = counts[len(margins) % n_layers - 1]
+        for e, n in enumerate(hist):
+            layer[e] += n
+        return vals, idx
+
+    burnin.top_k_experts = recorded
+
+    def restore():
+        burnin.top_k_experts = wrapped
+
+    return counts, margins, restore
+
+
+def _moe_teacher_forced(torch, label, cfg, params, reqs, comps, cache_dtype, tol, gate):
+    """Every greedy completion of an MoE model against the plain dense
+    path, teacher-forced: each token's logit gap below the dense argmax,
+    and the dense path's routing margins (:func:`_routing_recorder`),
+    smallest over layers at the token's own position and up to it.  A
+    routing near-tie flips an expert when the two paths round their bf16
+    activations at other places, and the flipped expert's output moves
+    the logits by more than any rounding does, so the tokens over ``tol``
+    are printed beside those margins; with ``gate`` any token over ``tol``
+    fails.  Returns the per-layer expert choices on the served tokens."""
+    from k8s_dra_driver_torch.models import burnin, decode
+
+    ref = _dense_reference(params)
+    counts, margins, restore = _routing_recorder(torch, burnin, cfg.n_layers, cfg.n_experts)
+    over, worst, exact, total, typical = [], 0.0, 0, 0, []
+    try:
+        for c in comps:
+            plen, n = len(reqs[c.request_id]["prompt"]), len(c.generated)
+            seq = torch.tensor([c.tokens], device=DEV)
+            cache = decode.init_cache(cfg, 1, seq.shape[1], dtype=cache_dtype, device=DEV)
+            margins.clear()
+            logits, _ = decode.decode_chunk(ref, cache, seq, 0, cfg=cfg)
+            logits = logits[0, plen - 1: plen - 1 + n].float()
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{label}: non-finite reference logits")
+            gen = torch.tensor(c.generated, device=DEV)
+            gaps = logits.max(dim=-1).values - logits.gather(1, gen[:, None])[:, 0]
+            at = torch.stack(margins).min(dim=0).values       # [positions], over layers
+            upto = torch.cummin(at, dim=0).values
+            typical.append(at[plen - 1: plen - 1 + n])
+            worst = max(worst, gaps.max().item())
+            exact += int((gaps == 0).sum().item())
+            total += n
+            for j in torch.nonzero(gaps > tol).flatten().tolist():
+                p_ = plen - 1 + j
+                over.append((c.request_id, j, round(gaps[j].item(), 4),
+                             round(at[p_].item(), 5), round(upto[p_].item(), 5)))
+    finally:
+        restore()
+    med = torch.cat(typical).median().item()
+    log(f"{label}: teacher-forced vs plain dense decode: {exact}/{total} tokens the dense "
+        f"argmax, worst gap {worst:.4g}; {len(over)} tokens over {tol} "
+        f"({TOL_WHY[cache_dtype == torch.float32]}); the dense path's routing margin, median "
+        f"over served positions {med:.4g}")
+    if over:
+        log(f"{label}: over the gap (request, token, gap, routing margin there, smallest up to "
+            f"there): {over[:12]}{' ...' if len(over) > 12 else ''}")
+    if gate and over:
+        raise AssertionError(f"{label}: {len(over)} tokens over the {tol} logit gap")
+    return counts
+
+
+def phase_serve_moe(torch, cfg, params, reqs, *, cache_dtype, card, tol=0.25):
+    """A mixture-of-experts model at the flagship's widths (``MOE``: 8
+    experts, top-2, every expert on every token) in bf16 with random
+    weights from a seed, in six legs, each timed: the serving run's first
+    8 requests through the paged engine graphed (the main path, the append
+    kernel) against an eager twin, the append kernel held against its
+    plain version on the path's first window in every layer, every token
+    teacher-forced against the plain dense path (reported with the
+    routing margins: in bf16 a near-tie flips an expert between the two
+    paths; ``_moe_teacher_forced``), the experts chosen per layer on those
+    tokens printed (the run fails if one expert takes every choice); the
+    dense engine the same way; both engines in f32 at 2 layers, every
+    token held within 1e-3 of the plain dense argmax; the int4 base
+    (``int4_splitk`` and ``int4_wgmma`` on the attention projections, each
+    product shape held on the path's own x); γ 4 with the int8 self-draft,
+    graphed against eager; then the graphed MoE step beside the dense-MLP
+    one in alternating rounds, one profiled burst each (device time and
+    kernels per step) and the bytes bound.  Returns the main path's launch
+    counts."""
+    from k8s_dra_driver_torch.models import burnin, quant, serve
+    from k8s_dra_driver_torch.ops import int4_matmul as i4
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    label = "serve moe"
+    mcfg = moe_config(cfg)
+    mparams = burnin.init_params(torch.Generator(device=DEV).manual_seed(SEED + 61), mcfg)
+    counted = {"experts": 0, "attention": 0, "embedding": 0, "other": 0}
+    for key, leaf in [(k, v) for k, v in mparams.items() if k != "blocks"] + [
+            (k, v) for blk in mparams["blocks"] for k, v in blk.items()]:
+        part = ("experts" if key.startswith("expert") or key == "router" else
+                "attention" if key in ("qkv", "attn_out") else
+                "embedding" if key == "embed" else "other")
+        counted[part] += leaf.numel()
+    total = sum(counted.values())
+    log(f"{label}: FLAGSHIP_MODERN with {MOE} (Mixtral-8x7B's routing at the flagship's "
+        f"widths): {total / 1e6:.1f} M parameters, {quant.quantized_bytes(mparams)[0] / 1e9:.3f} GB in bf16 "
+        f"(router f32); " + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in counted.items()))
+    mreqs = _greedy_dicts(reqs[:8])
+    out: dict = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+
+    def check_lengths(tag, comps, want):
+        short = [c.request_id for c in comps
+                 if c.status != "ok" or len(c.generated) != want[c.request_id]["max_tokens"]]
+        if len(comps) != len(want) or short:
+            raise AssertionError(f"{tag}: {len(comps)} completions, short or not ok {short}")
+
+    def paged_leg():
+        def drive(twin):
+            eng = _serving_engine(mcfg, mparams, cache_dtype)
+            return eng, eng.pump(mreqs)
+
+        rec, restore = _record_append_windows(torch, pa, 1)
+        try:
+            eng, comps, counts = _engine_twin(torch, label, drive, PAGED_TWIN_ATTRS, pool_from=1)
+        finally:
+            restore()
+        check_lengths(label, comps, mreqs)
+        _hold_append_windows(torch, label, pa, rec, mcfg, cache_dtype)
+        choices = _moe_teacher_forced(torch, label, mcfg, mparams, mreqs, comps, cache_dtype, tol,
+                                      gate=False)
+        for li, row in enumerate(choices):
+            log(f"{label}: layer {li} expert choices on the served tokens "
+                f"{row} (top-{mcfg.moe_top_k} of {mcfg.n_experts}, {sum(row)} in all)")
+            if max(row) == sum(row):
+                raise AssertionError(f"{label}: layer {li} routes every choice to one expert")
+        out["counts"] = counts
+        out["paged"] = {c.request_id: c.generated for c in comps}
+
+    def dense_leg():
+        def drive(twin):
+            eng = _dense_engine(mcfg, mparams, cache_dtype)
+            return eng, eng.pump(mreqs)
+
+        _, comps, _ = _engine_twin(torch, f"{label} dense", drive)
+        check_lengths(f"{label} dense", comps, mreqs)
+        same = sum(c.generated == out["paged"][c.request_id] for c in comps)
+        log(f"{label} dense: streams equal to the paged engine's: {same} of {len(comps)} "
+            f"(reported: bf16 batch products round at other places)")
+        _moe_teacher_forced(torch, f"{label} dense", mcfg, mparams, mreqs, comps, cache_dtype, tol,
+                            gate=False)
+
+    def f32_leg():
+        """The paged and the dense engine over the MoE model in f32 at 2
+        layers (full width): f32 rounding leaves routing near-ties alone,
+        so every token is held within 1e-3 of the plain dense argmax."""
+        cfg32 = dataclasses.replace(mcfg, n_layers=2, dtype=torch.float32)
+        p32 = burnin.init_params(torch.Generator(device=DEV).manual_seed(SEED + 62), cfg32)
+        for kind, make in (("paged", _serving_engine), ("dense", _dense_engine)):
+            def drive(twin, make=make):
+                eng = make(cfg32, p32, torch.float32)
+                return eng, eng.pump(mreqs)
+
+            tag = f"{label} f32 {kind}"
+            _, comps, counts = _engine_twin(
+                torch, tag, drive, PAGED_TWIN_ATTRS if kind == "paged" else DENSE_TWIN_ATTRS,
+                pool_from=1 if kind == "paged" else 0)
+            check_lengths(tag, comps, mreqs)
+            _moe_teacher_forced(torch, tag, cfg32, p32, mreqs, comps, torch.float32, 1e-3,
+                                gate=True)
+            if kind == "paged":
+                out["f32"] = counts
+
+    def int4_leg():
+        p4 = quant.quantize_blocks(mparams, bits=4)
+        kinds = {k: type(v).__name__ for k, v in p4["blocks"][0].items()}
+        log(f"{label} int4: block leaves {kinds}")
+        if not isinstance(p4["blocks"][0]["expert_up"], torch.Tensor):
+            raise AssertionError(f"{label} int4: the expert stacks were quantized")
+        ireqs = mreqs[:6]
+        inputs, restore = _int4_recorder(torch, i4)
+        try:
+            sync(torch)
+            _zero_serving_counts()
+            eng = _serving_engine(mcfg, p4, cache_dtype)
+            by_program = _int4_by_program(eng, i4)
+            comps = eng.pump(ireqs)
+            sync(torch)
+            counts = serve.launch_counts()
+        finally:
+            restore()
+        check_lengths(f"{label} int4", comps, ireqs)
+        log(f"{label} int4: launches by program {by_program}")
+        burst, prefill = by_program.get("burst", {}), by_program.get("prefill", {})
+        if not burst.get("int4_splitk") or not prefill.get("int4_wgmma"):
+            raise AssertionError(f"{label} int4: want the bursts through int4_splitk and the "
+                                 f"prefills through int4_wgmma: {by_program}")
+        graph_bookkeeping(torch, f"{label} int4", eng)
+        _moe_teacher_forced(torch, f"{label} int4", mcfg, p4, ireqs, comps, cache_dtype, tol,
+                            gate=False)
+        ms = _hold_int4_inputs(torch, f"{label} int4", i4, inputs)
+        log(f"{label} int4: {len(inputs)} product shapes (the attention projections) held "
+            f"against the plain version elementwise (INT4_STEP); M by kernel {ms}")
+        out["int4"] = counts
+
+    def spec_leg():
+        def drive(twin):
+            eng = _spec_engine(mcfg, mparams, cache_dtype)
+            return eng, eng.pump(mreqs)
+
+        eng, comps, _ = _engine_twin(torch, f"{label} spec", drive, PAGED_TWIN_ATTRS,
+                                     pool_from=1)
+        check_lengths(f"{label} spec", comps, mreqs)
+        log(f"{label} spec: γ {eng.spec_gamma}, int8 self-draft (attention matrices int8, "
+            f"expert stacks bf16): {eng.host_syncs} rounds; acceptance "
+            f"{eng.spec_accepted / max(eng.spec_drafted, 1):.4f} ({eng.spec_accepted} of "
+            f"{eng.spec_drafted} drafted)")
+        same = sum(c.generated == out["paged"][c.request_id] for c in comps)
+        log(f"{label} spec: streams equal to the plain paged engine's: {same} of {len(comps)} "
+            f"(reported: the verify window rounds at other places than a step)")
+        _moe_teacher_forced(torch, f"{label} spec", mcfg, mparams, mreqs, comps, cache_dtype, tol,
+                            gate=False)
+
+    def timing_leg(rounds=MOE_TIMING_ROUNDS, bursts=4):
+        r = np.random.RandomState(SEED + 63)
+        prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+        engines = {"moe": _serving_engine(mcfg, mparams, cache_dtype),
+                   "dense-MLP": _serving_engine(cfg, params, cache_dtype)}
+        times = alternating_bursts(torch, engines, prompts, rounds, bursts)
+        med = {name: float(np.median(t)) for name, t in times.items()}
+        for name, t in times.items():
+            log(f"{label} timing, {name}: {' / '.join(f'{x:.3f}' for x in t)} ms per graphed "
+                f"step by round (median {med[name]:.3f})")
+        ctx = 128 + 8 * (3 + rounds * bursts)
+        kv = 8 * ctx * 2 * mcfg.n_layers * mcfg.kv_heads * mcfg.head_dim * 2
+        for name, p_ in (("moe", mparams), ("dense-MLP", params)):
+            b_ms, _ = bound(quant.quantized_bytes(p_)[0] + kv, 0, "bfloat16")
+            log(f"{label} timing, {name}: bytes bound {b_ms:.3f} ms a step (parameters "
+                f"{quant.quantized_bytes(p_)[0] / 1e9:.3f} GB + KV {kv / 1e6:.1f} MB at B 8, context {ctx}, "
+                f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); median {med[name] / b_ms:.2f}x it")
+        log(f"{label} timing: the MoE step {med['moe'] / med['dense-MLP']:.3f}x the dense-MLP "
+            f"step ({card})")
+        for name, eng in engines.items():
+            prof = profile_window(torch, f"{label} timing: profile of one graphed 8-step burst, "
+                                  f"{name}", eng.step_burst, watch=("paged_attention",))
+            if prof is not None:
+                n = sum(r_[1] for r_ in prof["rows"])
+                log(f"{label} timing, {name}: device busy {prof['busy_us'] / 8e3:.3f} ms and "
+                    f"{n / 8:.0f} kernels per step")
+
+    leg("paged", paged_leg)
+    leg("dense", dense_leg)
+    leg("f32", f32_leg)
+    leg("int4", int4_leg)
+    leg("spec", spec_leg)
+    leg("timing", timing_leg)
+    return {
+        "paged_attention": (out["counts"][(pa.__name__, "append")]
+                            + out["f32"][(pa.__name__, "append")]),
+        "int4_matmul": out["int4"][(i4.__name__, "int4_splitk")],
+        "int4_matmul_prefill": out["int4"][(i4.__name__, "int4_wgmma")],
+    }
+
+
+def phase_train_moe(torch, cfg, *, b: int = MOE_TRAIN["b"], steps: int = MOE_TRAIN["steps"]):
+    """bf16 training of the MoE model (``MOE`` over ``cfg``) at S = max_seq
+    through the flash kernels, remat "blocks": the graphed step (the main
+    path; flash counts zeroed just before) against an eager twin from the
+    same seed, bit for bit over ``steps`` steps, the loss falling; ms per
+    graphed step, tokens/s and peak memory; one profiled step.  Returns
+    the main path's flash launch counts."""
+    from k8s_dra_driver_torch.models import burnin, serve
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    label = "train moe"
+    mcfg = moe_config(cfg)
+    s = mcfg.max_seq
+    tokens = _train_tokens(torch, mcfg, b, SEED + 3)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        fns = burnin.build_train_step(mcfg, attention="flash", remat="blocks", lr=3e-4,
+                                      device=DEV)
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 65))
+        sync(torch)
+        _zero_flash_counts()
+        with serve.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
+        sync(torch)
+        runs[mode] = dict(fns=fns, params=params, state=state, losses=torch.stack(losses),
+                          counts=(dict(fa.launches), dict(fa.fwd_launches),
+                                  dict(fa.bwd_launches)),
+                          peak=torch.cuda.max_memory_allocated() - base)
+    graphed, eager = runs["graphed"], runs["eager"]
+    counts, fwd, bwd = graphed["counts"]
+    losses = graphed["losses"].tolist()
+    log(f"{label} B={b} S={s} L={mcfg.n_layers} {MOE}: losses over {steps} graphed steps on one "
+        f"batch " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"{label}: launches {counts}, by kernel {fwd} {bwd}")
+    _graph_line(torch, label, graphed["fns"])
+    log(f"{label}: peak memory allocated over the {steps} steps under remat 'blocks': graphed "
+        f"{graphed['peak'] / 2**30:.2f} GiB, eager {eager['peak'] / 2**30:.2f} GiB (model, "
+        f"AdamW state and the step's transients)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall")
+    n = mcfg.n_layers * steps
+    if counts != {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n} or fwd != {
+            "flash_fwd_wgmma": 2 * n, "flash_fwd_fma": 0} or bwd != {
+            "flash_bwd_dq_wgmma": n, "flash_bwd_dq_fma": 0,
+            "flash_bwd_dkv_wgmma": n, "flash_bwd_dkv_fma": 0}:
+        raise AssertionError(f"{label}: flash launch counts {counts} {fwd} {bwd} are not the "
+                             f"main path's")
+    if eager["counts"] != graphed["counts"]:
+        raise AssertionError(f"{label}: graphed and eager launch counts differ")
+    if graphed["fns"].captures != 1 or eager["fns"].captures != 0:
+        raise AssertionError(f"{label}: captures graphed {graphed['fns'].captures}, eager "
+                             f"{eager['fns'].captures} (want 1 and 0)")
+    differ = _differing(_state_leaves(graphed["params"], graphed["state"]),
+                        _state_leaves(eager["params"], eager["state"]))
+    loss_ok = graphed["losses"].equal(eager["losses"])
+    log(f"{label}: graphed == eager twin after {steps} steps: losses {loss_ok}; params, count, "
+        f"mu and nu leaves that differ: {differ}")
+    if not loss_ok or differ:
+        raise AssertionError(f"{label}: the graphed and eager steps differ")
+    del eager, runs
+    times = alternating_rounds(torch, {"graphed": (
+        lambda: graphed["fns"].step(graphed["params"], graphed["state"], tokens),
+        contextlib.nullcontext)}, 2, 3)["graphed"]
+    med = float(np.median(times))
+    log(f"{label}: {' / '.join(f'{x:.2f}' for x in times)} ms per graphed step by round "
+        f"(median {med:.2f} ms, {b * s / med * 1e3:.0f} tokens/s)")
+    profile_window(torch, f"{label}: profile of one graphed step",
+                   lambda: graphed["fns"].step(graphed["params"], graphed["state"], tokens),
+                   top=10, watch=("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
+    return {"flash_fwd": fwd["flash_fwd_wgmma"], "flash_bwd_dq": bwd["flash_bwd_dq_wgmma"],
+            "flash_bwd_dkv": bwd["flash_bwd_dkv_wgmma"]}
+
+
+def _kv_codec_on_the_card(torch, label):
+    """``quantize_kv_blocks``/``dequant_kv_blocks`` on a fixed f32 input on
+    the card against the CPU's, byte for byte (bytes, scales, values), for
+    both modes."""
+    from k8s_dra_driver_torch.models import quant
+
+    x = torch.from_numpy(
+        (np.random.RandomState(SEED + 71).standard_normal((8, 64, 4, 64, 16)) * 2)
+        .astype(np.float32))
+    x[0, 1] = 0.0
+    for kv_dtype in KV_QUANT:
+        q_c, s_c = quant.quantize_kv_blocks(x, kv_dtype)
+        q_d, s_d = quant.quantize_kv_blocks(x.to(DEV), kv_dtype)
+        same = (torch.equal(q_d.cpu(), q_c) and torch.equal(s_d.cpu(), s_c) and torch.equal(
+            quant.dequant_kv_blocks(q_d, s_d).cpu(), quant.dequant_kv_blocks(q_c, s_c)))
+        log(f"{label}: {kv_dtype} codec on the card == the CPU's on {tuple(x.shape)} f32 "
+            f"(bytes, scales, dequantized values): {same}")
+        if not same:
+            raise AssertionError(f"{label}: the {kv_dtype} codec differs between the card and "
+                                 f"the CPU")
+
+
+def phase_serve_kv_quant(torch, cfg, params, reqs, *, card):
+    """Quantized KV pools (``kv_dtype`` "int8" and "int4") at
+    FLAGSHIP_MODERN in bf16 under the bf16 serving engine's
+    ``pool_hbm_bytes``: the blocks each budget holds; for each mode the
+    serving run's first 8 requests graphed against an eager twin
+    (completions, counters, pool bytes and scales from block 1, launch
+    counts: the append kernel never launches, the route is plain PyTorch),
+    each stream's first difference from the bf16 pool's stream (reported);
+    the block codec on the card against the CPU; ms per graphed step
+    beside the bf16 kernel step in alternating rounds."""
+    from k8s_dra_driver_torch.models import paged
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    label = "serve kv quant"
+    qreqs = _greedy_dicts(reqs[:8])
+    geometry = dict(n_slots=8, block_size=16, prompt_bucket=256, sync_interval=8,
+                    preempt_on_stall=False)
+    budget = (8 * 24 + 1) * paged.kv_block_bytes(cfg, 16, torch.bfloat16)
+
+    def engine(kv_dtype):
+        return paged.PagedServeEngine(params=params, cfg=cfg, cache_dtype=torch.bfloat16,
+                                      kv_dtype=kv_dtype, pool_hbm_bytes=budget, device=DEV,
+                                      **geometry)
+
+    blocks = {kv: engine(kv).n_blocks for kv in (None, *KV_QUANT)}
+    log(f"{label}: pool_hbm_bytes {budget} ({budget / 2**20:.1f} MiB) holds "
+        + ", ".join(f"{kv or 'bfloat16'} {n} blocks ({n / blocks[None]:.3f}x)"
+                    for kv, n in blocks.items())
+        + f"; a block costs {[paged.kv_block_bytes(cfg, 16, kv or torch.bfloat16) for kv in blocks]}"
+          f" B (values and scales)")
+    base = engine(None)
+    want = {c.request_id: c.generated for c in base.pump(qreqs)}
+    del base
+    for kv_dtype in KV_QUANT:
+        def drive(twin, kv_dtype=kv_dtype):
+            eng = engine(kv_dtype)
+            return eng, eng.pump(qreqs)
+
+        eng, comps, counts = _engine_twin(torch, f"{label} {kv_dtype}", drive, PAGED_TWIN_ATTRS,
+                                          pool_from=1)
+        if counts.get((pa.__name__, "append"), 0) or len(comps) != len(qreqs):
+            raise AssertionError(f"{label} {kv_dtype}: {len(comps)} completions, launches "
+                                 f"{counts}: a quantized pool takes no paged kernel")
+        first = {}
+        for c in comps:
+            base_ = want[c.request_id]
+            first[c.request_id] = next(
+                (i for i, (a, b_) in enumerate(zip(c.generated, base_)) if a != b_), None)
+        log(f"{label} {kv_dtype}: each stream's first token that differs from the bf16 pool's "
+            f"(None: equal throughout; reported, not gated): {first}")
+    _kv_codec_on_the_card(torch, label)
+    r = np.random.RandomState(SEED + 73)
+    prompts = [r.randint(0, cfg.vocab_size, size=128).tolist() for _ in range(8)]
+    rounds, bursts = 4, 4
+    engines = {kv or "bfloat16": engine(kv) for kv in (None, *KV_QUANT)}
+    times = alternating_bursts(torch, engines, prompts, rounds, bursts)
+    med = {name: float(np.median(t)) for name, t in times.items()}
+    for name, t in times.items():
+        log(f"{label} timing, {name}: {' / '.join(f'{x:.3f}' for x in t)} ms per graphed step "
+            f"by round (median {med[name]:.3f}, {med[name] / med['bfloat16']:.3f}x the bf16 "
+            f"kernel step; {card})")
+    for name in KV_QUANT:
+        prof = profile_window(torch, f"{label} timing: profile of one graphed 8-step burst, "
+                              f"{name}", engines[name].step_burst)
+        if prof is not None:
+            n = sum(r_[1] for r_ in prof["rows"])
+            log(f"{label} timing, {name}: device busy {prof['busy_us'] / 8e3:.3f} ms and "
+                f"{n / 8:.0f} kernels per step")
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -4001,6 +4513,13 @@ def main() -> int:
                                             cache_dtype=torch.bfloat16, card=card)
 
     run("serve bf16 lora", serve_lora)
+
+    def serve_moe():
+        launches["moe"] = phase_serve_moe(torch, cfg, params, reqs, cache_dtype=torch.bfloat16,
+                                          card=card)
+
+    run("serve moe", serve_moe)
+    run("serve kv quant", lambda: phase_serve_kv_quant(torch, cfg, params, reqs, card=card))
     del params
 
     def train_bf16():
@@ -4012,8 +4531,12 @@ def main() -> int:
     def train_f32():
         launches["train_f32"] = phase_train_f32(torch, cfg)
 
+    def train_moe():
+        launches["train_moe"] = phase_train_moe(torch, cfg)
+
     run("train bf16", train_bf16)
     run("train lora", train_lora)
+    run("train moe", train_moe)
     run("remat policies", lambda: phase_remat(torch, cfg))
     run("resume", lambda: phase_resume(torch, cfg))
     run("train f32", train_f32)
@@ -4023,22 +4546,25 @@ def main() -> int:
         return 1
     # each kernel's launches on the path that runs it: paged append on the
     # bf16 serving run, the speculative one (its verify windows, nq 5), the
-    # telemetry-on engines and the adapted run; both int4 kernels on the
-    # int4 serving run, the telemetry-on int4 engine and the int4 base under
-    # the bank; flash on the bf16 and the LoRA training runs and the f32
-    # forward on the f32 training run; the read-only paged kernel is on no
-    # path (0)
-    tel, lora_serve = launches["telemetry"], launches["lora"]
+    # telemetry-on engines, the adapted run and the MoE paged run; both int4
+    # kernels on the int4 serving run, the telemetry-on int4 engine, the
+    # int4 base under the bank and the MoE int4 base; flash on the bf16,
+    # LoRA and MoE training runs and the f32 forward on the f32 training
+    # run; the read-only paged kernel is on no path (0); the quantized
+    # pools take no kernel
+    tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
                             + launches["spec"]["paged_attention"] + tel["paged_attention"]
-                            + lora_serve["paged_attention"]),
+                            + lora_serve["paged_attention"] + moe["paged_attention"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
-                        + lora_serve["int4_matmul"]),
+                        + lora_serve["int4_matmul"] + moe["int4_matmul"]),
         "int4_matmul_prefill": (launches["int4"]["int4_matmul_prefill"]
-                                + tel["int4_matmul_prefill"] + lora_serve["int4_matmul_prefill"]),
-        **{name: n + launches["train_lora"][name] for name, n in launches["train"].items()},
+                                + tel["int4_matmul_prefill"] + lora_serve["int4_matmul_prefill"]
+                                + moe["int4_matmul_prefill"]),
+        **{name: n + launches["train_lora"][name] + launches["train_moe"][name]
+           for name, n in launches["train"].items()},
         **launches["train_f32"],
     }
     log(f"card: {card}")

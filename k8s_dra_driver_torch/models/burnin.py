@@ -3,8 +3,10 @@ PyTorch: config, parameter init and the forward pass.
 
 Parameters are a plain dict of tensors with the JAX package's keys and
 shapes (``embed``, ``ln_f``, ``blocks[i]`` with ``ln1``/``qkv``/
-``attn_out``/``ln2``/``mlp_up``/``mlp_down``; ``pos_embed`` without RoPE),
-so a checkpoint moves between the two packages key for key
+``attn_out``/``ln2``/``mlp_up``/``mlp_down``, or under mixture-of-experts
+``router``/``expert_up``/``expert_down`` in place of the MLP pair;
+``pos_embed`` without RoPE), so a checkpoint moves between the two
+packages key for key
 (``models/weights.params_from_jax``).  Weight matrices are ``[in, out]``
 and every weight-consuming product goes through ``quant.matmul_last``.
 
@@ -12,8 +14,11 @@ Numerics follow the reference's cast order: RMS-norm variance in f32 with
 ``rsqrt`` cast back to the activation dtype before the multiply; RoPE
 angles in f32, half-split (NeoX) pairs; tanh-approximated GELU (JAX's
 default); tied logits contracted in the parameter dtype and cast to f32
-afterwards; masked attention scores are ``-1e30``.  Mixture-of-experts
-blocks are not ported yet.
+afterwards; masked attention scores are ``-1e30``.  A mixture-of-experts
+block (``n_experts > 0``, the Mixtral shape) routes each token to its
+``moe_top_k`` best experts from f32 router scores and runs every expert on
+every token (:func:`_moe_mlp`, the reference's shape-static choice), so no
+shape depends on the data.
 
 The training half is the single-device branch of the reference's
 ``build_train_step``: ``forward`` with the reference's rematerialization
@@ -26,8 +31,8 @@ optimizer state IN PLACE (the reference's step is pure and donates its
 buffers instead) and, on the card, replays as one CUDA graph
 (:class:`GraphedTrainStep`, the reference's ``jax.jit``).  Adapter-only
 training is ``models/lora.build_lora_train_step`` over the same step,
-with optax's ``adam`` (:class:`Adam`).  Meshes and MoE training raise
-``NotImplementedError``.
+with optax's ``adam`` (:class:`Adam`).  A mesh raises
+``NotImplementedError``; MoE models train on one device like dense ones.
 """
 
 from __future__ import annotations
@@ -57,12 +62,15 @@ _DTYPES = {
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a numpy dtype or a dtype-like
-    object with a numpy name (the JAX package's ``jnp.bfloat16`` and
+    """A torch dtype from a torch dtype, its name, a numpy dtype or a
+    dtype-like object with a numpy name (the JAX package's ``jnp.bfloat16`` and
     ``jnp.float32`` are such objects)."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    name = getattr(dtype, "name", None) or getattr(dtype, "__name__", None)
+    if isinstance(dtype, str):
+        name = dtype
+    else:
+        name = getattr(dtype, "name", None) or getattr(dtype, "__name__", None)
     if name is None:
         name = np.dtype(dtype).name
     try:
@@ -99,9 +107,12 @@ class ModelConfig:
                 f"(d_model {self.d_model} / n_heads {self.n_heads})"
             )
         if self.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not ported yet (n_experts must be 0)"
-            )
+            if self.n_experts < 2:
+                raise ValueError(f"n_experts ({self.n_experts}) must be >= 2 (0 = dense)")
+            if not 1 <= self.moe_top_k <= self.n_experts:
+                raise ValueError(
+                    f"moe_top_k ({self.moe_top_k}) must be in [1, n_experts={self.n_experts}]"
+                )
 
     @classmethod
     def from_reference(cls, ref) -> "ModelConfig":
@@ -133,28 +144,34 @@ TINY = ModelConfig()
 
 
 def block_matrix_shapes(cfg: ModelConfig) -> dict:
-    """The ``[in, out]`` shapes of a block's weight matrices (the
-    reference's single source of truth, ``burnin.block_matrix_shapes``)."""
-    return {
+    """The ``[in, out]`` shapes of a block's 2-D weight matrices (the
+    reference's single source of truth, ``burnin.block_matrix_shapes``).
+    Under MoE the dense MLP pair gives way to the 3-D expert stacks, so
+    adapters and quantization target the attention matrices only."""
+    shapes = {
         "qkv": (cfg.d_model, (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim),
         "attn_out": (cfg.d_model, cfg.d_model),
-        "mlp_up": (cfg.d_model, cfg.d_ff),
-        "mlp_down": (cfg.d_ff, cfg.d_model),
     }
+    if not cfg.n_experts:
+        shapes["mlp_up"] = (cfg.d_model, cfg.d_ff)
+        shapes["mlp_down"] = (cfg.d_ff, cfg.d_model)
+    return shapes
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters (normal, scaled by ``d_model**-0.5``; norm gains
-    one) on ``generator``'s device, drawn in the reference's order.  The
-    numbers differ from ``jax.random``'s: parity tests build their weights
-    with numpy and load them through ``params_from_jax`` instead."""
+    one) on ``generator``'s device, drawn in the reference's order; an MoE
+    block's router ``[d, E]`` stays f32 (routing compares scores), its
+    expert stacks ``[E, d, F]`` and ``[E, F, d]`` take the model dtype.
+    The numbers differ from ``jax.random``'s: parity tests build their
+    weights with numpy and load them through ``params_from_jax`` instead."""
     device = generator.device
     scale = cfg.d_model**-0.5
     shapes = block_matrix_shapes(cfg)
 
-    def dense(shape):
+    def dense(shape, dtype=cfg.dtype):
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (w * scale).to(cfg.dtype)
+        return (w * scale).to(dtype)
 
     def ones(n):
         return torch.ones((n,), dtype=cfg.dtype, device=device)
@@ -165,14 +182,21 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
     params["ln_f"] = ones(cfg.d_model)
     params["blocks"] = []
     for _ in range(cfg.n_layers):
-        params["blocks"].append({
+        block = {
             "ln1": ones(cfg.d_model),
             "qkv": dense(shapes["qkv"]),
             "attn_out": dense(shapes["attn_out"]),
             "ln2": ones(cfg.d_model),
-            "mlp_up": dense(shapes["mlp_up"]),
-            "mlp_down": dense(shapes["mlp_down"]),
-        })
+        }
+        if cfg.n_experts:
+            e = cfg.n_experts
+            block["router"] = dense((cfg.d_model, e), torch.float32)
+            block["expert_up"] = dense((e, cfg.d_model, cfg.d_ff))
+            block["expert_down"] = dense((e, cfg.d_ff, cfg.d_model))
+        else:
+            block["mlp_up"] = dense(shapes["mlp_up"])
+            block["mlp_down"] = dense(shapes["mlp_down"])
+        params["blocks"].append(block)
     return params
 
 
@@ -231,10 +255,62 @@ def repeat_kv(kv, cfg: ModelConfig):
     return torch.repeat_interleave(kv, cfg.kv_groups, dim=2)
 
 
-def mlp_residual(x, p, delta=None):
-    """ln2 + dense tanh-GELU MLP with residual; ``delta`` as in
-    :func:`qkv_proj`, the down projection's from the post-GELU ``h``."""
+def top_k_experts(scores, k: int):
+    """The ``k`` best experts of each row of f32 ``scores [T, E]``, as
+    ``jax.lax.top_k`` picks them: highest first, the lower index first on
+    equal scores, and -0.0 below +0.0 (XLA's total order).  ``torch.topk``
+    promises no order on ties, so this is a stable descending sort of the
+    scores' order-preserving int32 keys, cut to ``k``.  Returns ``(values,
+    indices)``, each ``[T, k]``."""
+    bits = scores.contiguous().view(torch.int32)
+    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # IEEE total order as signed ints
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True).indices[:, :k]
+    return scores.gather(-1, idx), idx
+
+
+def _moe_mlp(y, p, top_k: int):
+    """Top-k expert MLP over normalized tokens ``y [..., d]`` (the
+    reference's ``_moe_mlp``): f32 router scores, the top ``top_k``
+    (:func:`top_k_experts`), a softmax over the selected scores, and the
+    experts' tanh-GELU MLPs combined by those gates.  Every expert runs on
+    every token and the gates zero out the rest: no shape depends on the
+    routing, so the serving programs still capture as CUDA graphs.  The
+    combine weights are f32 cast to the experts' dtype before the last
+    product, the expert products in the parameter dtype.  The up product
+    broadcasts the tokens over the expert stack (a ``bmm`` whose first
+    operand has batch stride 0: no batch dim in the reference's sense, so
+    the ``"dots"`` policy saves it), the down product is batched over the
+    experts."""
+    *lead, d = y.shape
+    t = y.reshape(-1, d)
+    n_experts = p["router"].shape[1]
+    scores = t.float() @ p["router"]                                   # [T, E] f32
+    top_vals, top_idx = top_k_experts(scores, top_k)                   # [T, k]
+    gates = torch.softmax(top_vals, dim=-1)
+    onehot = F.one_hot(top_idx, n_experts).float()                     # [T, k, E]
+    combine = torch.einsum("tk,tke->te", gates, onehot)                # [T, E] f32
+    # the tokens broadcast over the stack: ``matmul`` would fold the
+    # product into one ``mm`` over a transposed copy of the expert weights
+    up = torch.bmm(t.expand(n_experts, *t.shape), p["expert_up"])      # [E, T, F]
+    h = F.gelu(up, approximate="tanh")
+    outs = torch.bmm(h, p["expert_down"])                              # [E, T, d]
+    out = torch.einsum("te,etd->td", combine.to(outs.dtype), outs)
+    return out.reshape(*lead, d)
+
+
+def mlp_residual(x, p, delta=None, top_k: int | None = None):
+    """ln2 + MLP with residual: the dense tanh-GELU MLP, or the top-k
+    expert mixture when the block carries a ``router`` (:func:`_moe_mlp`;
+    ``top_k``, ``cfg.moe_top_k``, is then required, as the reference
+    requires it, so a call site that forgot it raises instead of routing
+    the wrong number of experts).  ``delta`` as in :func:`qkv_proj`, the
+    down projection's from the post-GELU ``h``; adapters target the 2-D
+    matrices only, so an MoE block takes no MLP delta."""
     y = _rms_norm(x, p["ln2"])
+    if "router" in p:
+        if top_k is None:
+            raise ValueError("MoE block needs top_k (pass cfg.moe_top_k through mlp_residual)")
+        return x + _moe_mlp(y, p, top_k)
     h = _mm(y, p["mlp_up"])
     if delta is not None:
         h = h + delta("mlp_up", y)
@@ -276,17 +352,23 @@ def _block(x, p, cfg: ModelConfig, attn_fn=_full_attention):
     # backend sees the MHA shape
     attn = attn_fn(q, repeat_kv(k, cfg), repeat_kv(v, cfg)).reshape(b, s, d)
     x = x + _mm(attn, p["attn_out"])
-    return mlp_residual(x, p)
+    return mlp_residual(x, p, top_k=cfg.moe_top_k)
 
 
-# the products without batch dims: ``_mm(x, W)`` reaches ``aten.mm`` through
-# ``matmul``'s fold of x's leading dims (the reference's
-# ``dots_with_no_batch_dims_saveable``)
+# the products without batch dims (the reference's
+# ``dots_with_no_batch_dims_saveable``): ``_mm(x, W)`` and the MoE router
+# reach ``aten.mm`` through ``matmul``'s fold of x's leading dims; the MoE
+# up product is a ``bmm`` whose token operand broadcasts over the experts
+# (batch stride 0), while its down product and the routing combines are
+# batched over a real dim and recompute
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+    saved = op in _SAVED_DOTS or (
+        op is torch.ops.aten.bmm.default and 0 in (args[0].stride(0), args[1].stride(0))
+    )
+    return CheckpointPolicy.MUST_SAVE if saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _wrap_remat(block, remat: str):
@@ -296,8 +378,10 @@ def _wrap_remat(block, remat: str):
 
     * ``"blocks"``: recompute every block intermediate in the backward;
     * ``"dots"``: save the outputs of the products without batch dims
-      (``aten.mm``/``addmm``: the four weight products) and recompute the
-      rest, norms, RoPE, GELU and attention; the flash forward, launched
+      (``aten.mm``/``addmm``: the four weight products, or under MoE the
+      two attention ones and the router; the MoE up product, a ``bmm``
+      over broadcast tokens) and recompute the rest, norms, RoPE, GELU,
+      attention, the MoE down product and combines; the flash forward, launched
       from ctypes where no dispatch mode sees it, reruns as the reference's
       ``pallas_call`` does under its policy;
     * ``"none"``: save everything."""

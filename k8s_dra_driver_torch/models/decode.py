@@ -143,7 +143,7 @@ def decode_chunk(params, cache: KVCache, tokens, pos0, *, cfg: ModelConfig,
         x = x + _mm(attn, p["attn_out"])
         if delta is not None:
             x = x + delta("attn_out", attn)
-        x = mlp_residual(x, p, delta=delta)
+        x = mlp_residual(x, p, delta=delta, top_k=cfg.moe_top_k)
     return tied_logits(x, params), cache
 
 

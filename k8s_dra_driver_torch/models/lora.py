@@ -61,8 +61,8 @@ class LoraConfig:
             raise ValueError(
                 f"rank {self.rank} >= d_model {cfg.d_model}: low-rank in name only"
             )
-        # MoE blocks replace the dense MLP pair (unreachable while the
-        # port's ModelConfig refuses n_experts)
+        # MoE blocks replace the dense MLP pair with per-expert stacks;
+        # adapters target the 2-D matrices only (burnin.block_matrix_shapes)
         missing = [t for t in self.targets if t not in burnin.block_matrix_shapes(cfg)]
         if missing:
             raise ValueError(

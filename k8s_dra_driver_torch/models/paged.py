@@ -30,9 +30,12 @@ tokens; so do speculative rounds, whose verify window goes through the same
 append kernel at ``nq = spec_gamma + 1``.  The engine's telemetry, metrics
 and journal records are the reference's, at the reference's host points.
 Per-request LoRA (an adapter bank, ``submit(adapter=k)``) runs inside the
-same programs.  Not ported yet, each raising ``NotImplementedError``
-naming its ROADMAP item: quantized KV pools, meshes, handoff and KV
-payloads, and the fleet prefix hooks.
+same programs.  A quantized pool (``kv_dtype`` "int8" or "int4") stores
+blocks as integers with per-block scales and takes the reference's XLA
+route in plain PyTorch on every device (:func:`paged_decode_chunk`); the
+append kernel stays float-only, as the reference's Pallas kernel does.
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: meshes, handoff and KV payloads, and the fleet prefix hooks.
 """
 
 from __future__ import annotations
@@ -46,12 +49,13 @@ import numpy as np
 import torch
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
-from k8s_dra_driver_torch.models import decode, lora, prng, serve
+from k8s_dra_driver_torch.models import decode, lora, prng, quant, serve
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     mlp_residual,
     qkv_proj,
     tied_logits,
+    torch_dtype,
 )
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
 from k8s_dra_driver_torch.models.speculative import accept_advance
@@ -77,32 +81,122 @@ _M_KV_BYTES = REGISTRY.gauge(
 
 
 class PagedKVCache(NamedTuple):
-    """Per-layer stacked block pools ``[L, n_blocks, Hkv, hd, block_size]``."""
+    """Per-layer stacked block pools ``[L, n_blocks, Hkv, hd, block_size]``.
+
+    A quantized pool stores int8, or packed int4 as uint8 with two
+    positions per lane byte (the lane axis then holds ``block_size // 2``
+    bytes), with one f32 scale per (layer, block, KV head) in
+    ``k_scale``/``v_scale`` ``[L, n_blocks, Hkv]`` (None for a float
+    pool).  Whether it is quantized follows from the array dtype."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype in (torch.int8, torch.uint8)
+
+    @property
+    def kv_dtype(self) -> str | None:
+        """"int8"/"int4" for a quantized pool, None for a float one."""
+        return {torch.int8: "int8", torch.uint8: "int4"}.get(self.k.dtype)
 
     @property
     def block_size(self) -> int:
-        return self.k.shape[4]
+        bs = self.k.shape[4]
+        return bs * 2 if self.k.dtype == torch.uint8 else bs
 
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
-                     dtype=torch.float32, device="cuda") -> PagedKVCache:
+                     dtype=torch.float32, device="cuda", kv_dtype: str | None = None
+                     ) -> PagedKVCache:
     """A zeroed pool on ``device`` (the card by default; raises without
-    one unless the caller passes ``device="cpu"``)."""
+    one unless the caller passes ``device="cpu"``).  ``kv_dtype`` "int8" or
+    "int4" makes a quantized pool (``dtype`` then unused): int4 zeros are
+    ``0x88`` (both nibbles a biased 0) and every scale starts at 1.0, the
+    all-zero block's."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, n_blocks, cfg.kv_heads, cfg.head_dim, block_size)
+    if kv_dtype is None:
+        shape = (cfg.n_layers, n_blocks, cfg.kv_heads, cfg.head_dim, block_size)
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+        )
+    quant.kv_dtype_bits(kv_dtype)  # validates the name
+    if kv_dtype == "int4" and block_size % 2:
+        raise ValueError(f"int4 pools need an even block_size, got {block_size}")
+    lanes = block_size if kv_dtype == "int8" else block_size // 2
+    shape = (cfg.n_layers, n_blocks, cfg.kv_heads, cfg.head_dim, lanes)
+    fill, qdtype = (0, torch.int8) if kv_dtype == "int8" else (0x88, torch.uint8)
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        *(torch.full(shape, fill, dtype=qdtype, device=device) for _ in range(2)),
+        *(torch.ones(shape[:3], dtype=torch.float32, device=device) for _ in range(2)),
     )
 
 
-def kv_block_bytes(cfg: ModelConfig, block_size: int, dtype=torch.float32) -> int:
-    """Bytes ONE pool block costs across all layers, k + v."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * block_size * itemsize
+def kv_block_bytes(cfg: ModelConfig, block_size: int, kv_dtype=torch.float32) -> int:
+    """Bytes ONE pool block costs across all layers, k + v, with a
+    quantized pool's scales (one f32 per layer and KV head): the unit a
+    ``pool_hbm_bytes`` budget divides by.  ``kv_dtype`` is "int8"/"int4"
+    or a torch dtype."""
+    hd = cfg.head_dim
+    if isinstance(kv_dtype, str):
+        per_head = hd * block_size * quant.kv_dtype_bits(kv_dtype) // 8 + 4
+    else:
+        per_head = hd * block_size * torch.empty((), dtype=kv_dtype).element_size()
+    return 2 * cfg.n_layers * cfg.kv_heads * per_head
+
+
+def _quantized_block_write(pool, scale, li: int, bids, offs, vals, kv_dtype: str) -> None:
+    """Insert one new ``[Hkv, hd]`` vector per row (``vals [B, Hkv, hd]``)
+    at lane ``offs [B]`` of block ``bids [B]`` of a quantized pool's layer
+    ``li``, in place: gather the blocks and scales, dequantize, put the
+    value in, zero every lane past it, requantize, scatter back (the
+    reference's ``_quantized_block_write``).  The zero tail keeps a
+    recycled block's stale lanes out of the fresh block's scale, so a
+    block's bytes follow from its history alone.  Duplicate ``bids`` occur
+    only at the null block (inactive rows), which is never attended."""
+    deq = quant.dequant_kv_blocks(pool[li].index_select(0, bids),
+                                  scale[li].index_select(0, bids))   # [B, Hkv, hd, bs] f32
+    lane = torch.arange(deq.shape[-1], device=deq.device)
+    off = offs[:, None, None, None]
+    deq = torch.where(lane == off, vals.float()[..., None], deq)
+    deq = torch.where(lane <= off, deq, 0.0)
+    qb, qs = quant.quantize_kv_blocks(deq, kv_dtype)
+    pool[li].index_copy_(0, bids, qb)
+    scale[li].index_copy_(0, bids, qs)
+
+
+def quantized_window_attention(q, k_pool, v_pool, k_scale, v_scale, block_table, pos):
+    """Window attention over one layer of a quantized pool (the
+    reference's ``paged_window_attention_xla_gqa`` with scales): ``q [B,
+    nq, Hq, d]``, query j of a row at ``pos + j`` attends the row's table
+    positions ``<= pos + j``.  The int-sized blocks are gathered, then
+    dequantized to f32; the grouped einsums contract on the block layout
+    in f32 with ``-1e30`` masking.  Plain PyTorch on every device: the
+    reference serves quantized pools only on its XLA route, and the append
+    kernel (``ops/paged_attention``) takes float pools only.  Returns
+    ``[B, nq, Hq, d]`` in q's dtype."""
+    b, nq, hq, d = q.shape
+    hkv = k_pool.shape[1]
+    groups = hq // hkv
+    ids = block_table.long()
+    kb = quant.dequant_kv_blocks(k_pool[ids], k_scale[ids])  # [B, mb, Hkv, d, bs] f32
+    vb = quant.dequant_kv_blocks(v_pool[ids], v_scale[ids])
+    qg = q.reshape(b, nq, hkv, groups, d).float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    scores = torch.einsum("bqhgd,bmhds->bhgqms", qg, kb) * scale
+    mb, bs = scores.shape[-2:]
+    scores = scores.reshape(b, hkv, groups, nq, mb * bs)
+    k_pos = torch.arange(mb * bs, device=q.device)
+    qpos = pos.long()[:, None] + torch.arange(nq, device=q.device)[None, :]
+    mask = (k_pos[None, None, :] <= qpos[:, :, None])[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).reshape(b, hkv, groups, nq, mb, bs)
+    out = torch.einsum("bhgqms,bmhds->bqhgd", probs, vb)
+    return out.to(q.dtype).reshape(b, nq, hq, d)
 
 
 class OutOfBlocks(RuntimeError):
@@ -177,12 +271,15 @@ def blocks_needed(tokens: int, block_size: int) -> int:
     return -(-tokens // block_size)
 
 
-def check_verify_window(spec_gamma: int, block_size: int, device) -> None:
+def check_verify_window(spec_gamma: int, block_size: int, device, kv_dtype=None) -> None:
     """The append kernel takes a window of at most one block
     (``ops/paged_attention.check_kernel_shape``), so on the card a
-    speculating engine needs ``spec_gamma + 1 <= block_size``.  The CPU's
-    plain path takes any window, as the reference's XLA path does."""
-    if torch.device(device).type == "cuda" and spec_gamma + 1 > block_size:
+    speculating engine over a float pool needs ``spec_gamma + 1 <=
+    block_size``.  The CPU's plain path takes any window, as the
+    reference's XLA path does, and so does a quantized pool's route
+    (:func:`quantized_window_attention`) on any device."""
+    if (kv_dtype is None and torch.device(device).type == "cuda"
+            and spec_gamma + 1 > block_size):
         raise ValueError(
             f"the verify window spec_gamma + 1 = {spec_gamma + 1} exceeds block_size "
             f"{block_size} (the paged kernel's append rule)"
@@ -196,7 +293,17 @@ def paged_decode_chunk(params, cache: PagedKVCache, block_table, window, pos,
     pool (rows with ``active`` false do not write) and attend positions
     ``<= pos + j``; ``adapters`` ``(bank, ids [B])`` apply each row's LoRA
     adapter through the projections' delta hooks.  Returns ``(logits [B, S,
-    V] f32, cache)``, the pools updated in place."""
+    V] f32, cache)``, the pools updated in place.
+
+    A float pool goes through the append kernel (its plain version on the
+    CPU).  A quantized pool takes the reference's XLA route in plain
+    PyTorch on every device, chosen here by the pool's dtype: per layer a
+    sequential :func:`_quantized_block_write` over the window's positions
+    (inactive rows write to the null block, as the reference's do; a
+    position past the table's last column writes where the column clamps,
+    as the reference's gather does), then
+    :func:`quantized_window_attention`.  The scales are updated in place
+    like the pools, so a captured program's addresses stay valid."""
     b, s = window.shape
     dev = window.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b)
@@ -204,18 +311,34 @@ def paged_decode_chunk(params, cache: PagedKVCache, block_table, window, pos,
     x = params["embed"][window.long()]
     if not cfg.rope:  # the reference's gather clamps a position past the table
         x = x + params["pos_embed"][positions.clamp(max=params["pos_embed"].shape[0] - 1)]
-    write_mask = None if active is None else active.to(torch.int32)  # once, not per layer
+    if cache.quantized:
+        bs = cache.block_size
+        col = (positions // bs).clamp(max=block_table.shape[1] - 1)
+        block_ids = block_table.long().gather(1, col)                  # [B, S]
+        if active is not None:
+            block_ids = torch.where(active[:, None], block_ids, NULL_BLOCK)
+        offs = positions % bs
+    else:
+        write_mask = None if active is None else active.to(torch.int32)  # once, not per layer
     for li, p in enumerate(params["blocks"]):
         delta = None if adapters is None else lora.layer_delta(adapters, li)
         q, k, v = qkv_proj(x, p, cfg, positions=positions, delta=delta)
-        attn, _, _ = paged_attention.paged_append_attention(
-            q, k, v, cache.k, cache.v, block_table, pos, li, write_mask=write_mask,
-        )
+        if cache.quantized:
+            for si in range(s):
+                for pool, sc, new in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
+                    _quantized_block_write(pool, sc, li, block_ids[:, si], offs[:, si],
+                                           new[:, si], cache.kv_dtype)
+            attn = quantized_window_attention(q, cache.k[li], cache.v[li], cache.k_scale[li],
+                                              cache.v_scale[li], block_table, pos)
+        else:
+            attn, _, _ = paged_attention.paged_append_attention(
+                q, k, v, cache.k, cache.v, block_table, pos, li, write_mask=write_mask,
+            )
         attn = attn.reshape(b, s, cfg.d_model)
         x = x + _mm(attn, p["attn_out"])
         if delta is not None:
             x = x + delta("attn_out", attn)
-        x = mlp_residual(x, p, delta=delta)
+        x = mlp_residual(x, p, delta=delta, top_k=cfg.moe_top_k)
     return tied_logits(x, params), cache
 
 
@@ -237,21 +360,37 @@ def paged_prefill(params, prompt, cache: PagedKVCache, block_table, *, cfg: Mode
     dense ``decode.prefill`` over a block-padded scratch cache, then each
     block stripe transposed to the pool layout ``[Hkv, hd, bs]`` and
     written into the rows' blocks (``block_table [B, >= ceil(P/bs)]``) in
-    place.  Returns ``(cache, logits [B, V] of the last prompt position)``."""
+    place.  A quantized pool takes an f32 scratch and whole blocks
+    quantized (per-block scales over ``(hd, bs)``).  Returns ``(cache,
+    logits [B, V] of the last prompt position)``."""
     b, p_len = prompt.shape
     bs = cache.block_size
     nb = blocks_needed(p_len, bs)
     dense, last_logits = decode.prefill(
-        params, prompt, cfg, max_seq=nb * bs, cache_dtype=cache.k.dtype, adapters=adapters
+        params, prompt, cfg, max_seq=nb * bs,
+        cache_dtype=torch.float32 if cache.quantized else cache.k.dtype, adapters=adapters,
     )
     l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
     # [L, B, nb*bs, Hkv, hd] -> [L, B, nb, Hkv, hd, bs]
     kb = dense.k.reshape(l, b, nb, bs, hkv, hd).permute(0, 1, 2, 4, 5, 3)
     vb = dense.v.reshape(l, b, nb, bs, hkv, hd).permute(0, 1, 2, 4, 5, 3)
     ids = block_table[:, :nb].long()
-    cache.k[:, ids] = kb
-    cache.v[:, ids] = vb
+    _write_blocks(cache, ids, kb, vb)
     return cache, last_logits
+
+
+def _write_blocks(cache: PagedKVCache, ids, kb, vb) -> None:
+    """Write float block stripes ``[L, ..., Hkv, hd, bs]`` into the pool
+    blocks ``ids`` (indexing the block axis), in place: cast to a float
+    pool's dtype, or quantized whole with their scales."""
+    if not cache.quantized:
+        cache.k[:, ids] = kb
+        cache.v[:, ids] = vb
+        return
+    for pool, sc, blocks in ((cache.k, cache.k_scale, kb), (cache.v, cache.v_scale, vb)):
+        q, scale = quant.quantize_kv_blocks(blocks, cache.kv_dtype)
+        pool[:, ids] = q
+        sc[:, ids] = scale
 
 
 def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, done_blocks,
@@ -260,7 +399,8 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
     blocks of ``block_table_row [1, mbp]``) into a dense scratch row, run
     one ``decode.decode_chunk`` over the padded prompt's ``[1, bucket]``
     tokens at positions ``done * bs .. done * bs + chunk_len - 1``, and
-    write back only the chunk's blocks, in place.  The done blocks are
+    write back only the chunk's blocks, in place (a quantized pool's
+    gathered row dequantized to f32, the chunk's blocks quantized whole).  The done blocks are
     never rewritten, whether this request's earlier chunks or shared
     prefix-store blocks wrote them; positions past the frontier (the null
     block included) are masked to ``-1e30`` and add an exact 0.
@@ -280,10 +420,13 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
         raise ValueError(f"chunk_len {chunk_len} exceeds bucket {bucket}")
     dev = prompt.device
     ids = block_table_row[0].long()
-    # pool [L, mbp, Hkv, hd, bs] -> seq-major [L, 1, mbp*bs, Hkv, hd]
+    gathered = [cache.k[:, ids], cache.v[:, ids]]   # [L, mbp, Hkv, hd, lanes]
+    if cache.quantized:  # the attended history is the dequantized one, as in decode
+        gathered = [quant.dequant_kv_blocks(g, sc[:, ids])
+                    for g, sc in zip(gathered, (cache.k_scale, cache.v_scale))]
+    # [L, mbp, Hkv, hd, bs] -> seq-major [L, 1, mbp*bs, Hkv, hd]
     row = decode.KVCache(*(
-        pool[:, ids].permute(0, 1, 4, 2, 3).reshape(l, 1, mbp * bs, hkv, hd)
-        for pool in (cache.k, cache.v)
+        g.permute(0, 1, 4, 2, 3).reshape(l, 1, mbp * bs, hkv, hd) for g in gathered
     ))
     done = done_blocks.to(device=dev, dtype=torch.long)
     start = done * bs
@@ -291,10 +434,10 @@ def paged_prefill_chunk(params, prompt, cache: PagedKVCache, block_table_row, do
     decode.decode_chunk(params, row, chunk, start, cfg=cfg, logits=False, adapters=adapters)
     chunk_ids = done + torch.arange(blocks_needed(chunk_len, bs), device=dev)
     dest = ids.index_select(0, chunk_ids)
-    for pool, dense in ((cache.k, row.k), (cache.v, row.v)):
-        # [L, 1, mbp*bs, Hkv, hd] -> [L, mbp, Hkv, hd, bs], the chunk's blocks
-        blocks = dense.reshape(l, mbp, bs, hkv, hd).permute(0, 1, 3, 4, 2)
-        pool[:, dest] = blocks.index_select(1, chunk_ids)
+    # [L, 1, mbp*bs, Hkv, hd] -> [L, mbp, Hkv, hd, bs], the chunk's blocks
+    kb, vb = (dense.reshape(l, mbp, bs, hkv, hd).permute(0, 1, 3, 4, 2).index_select(1, chunk_ids)
+              for dense in (row.k, row.v))
+    _write_blocks(cache, dest, kb, vb)
     return cache
 
 
@@ -496,8 +639,17 @@ class PagedServeEngine:
       1`` tokens with one readback; every admission path (whole, prefix
       hit, the last chunk, a re-admission, a restore) also fills the
       slot's draft row.  Greedy only (temperature 0, the verify window's
-      slack under ``max_seq``), and on the card ``spec_gamma + 1 <=
-      block_size`` (the kernel's window rule, :func:`check_verify_window`);
+      slack under ``max_seq``), and on the card over a float pool
+      ``spec_gamma + 1 <= block_size`` (the kernel's window rule,
+      :func:`check_verify_window`);
+    * with ``kv_dtype`` "int8" or "int4" the pool stores quantized blocks
+      with one f32 scale per (layer, block, KV head), so a
+      ``pool_hbm_bytes`` budget holds about 2x or 4x the blocks; every
+      program takes the reference's XLA route for such a pool in plain
+      PyTorch (:func:`paged_decode_chunk`), and prefix sharing, chunked
+      admission, preemption, speculation and snapshots work unchanged (the
+      scales follow the block ids).  int4 needs an even ``block_size``;
+      a float dtype's name sets ``cache_dtype`` instead;
     * with ``adapter_bank`` (``lora.stack_adapters``), ``submit(adapter=k)``
       serves the request with the bank's adapter k inside the shared
       programs (0, the identity row, adds exact zeros): the store keys
@@ -530,8 +682,8 @@ class PagedServeEngine:
     slot, temperature, key, adapter id and done blocks) keeps one address
     for the engine's life and is written in place; everything else
     (allocation, the prefix store, the admission queue, growth, stalls,
-    preemption, retirement) stays on the host.  The reference's quantized
-    pools, mesh, handoff and fleet prefix hooks raise
+    preemption, retirement) stays on the host.  The reference's mesh,
+    handoff and fleet prefix hooks raise
     ``NotImplementedError`` naming their ROADMAP item.  Not thread-safe;
     drive it from one loop.
     """
@@ -556,9 +708,11 @@ class PagedServeEngine:
     spec_gamma: int = 0      # > 0: speculative rounds of this many draft tokens
     draft_params: object = None  # the draft; None: the int8 self-draft
     adapter_bank: dict | None = None  # lora.stack_adapters: per-request LoRA
+    # "int8"/"int4": a quantized pool (the reference's XLA route, plain
+    # PyTorch on every device); a float dtype's name sets cache_dtype
+    kv_dtype: str | None = None
     # the reference's fields the port does not serve yet: each raises
     # NotImplementedError away from its default
-    kv_dtype: str | None = None
     mesh: object | None = None
     slot_axis: object = "data"
     telemetry_enabled: bool = True
@@ -566,13 +720,8 @@ class PagedServeEngine:
 
     def __post_init__(self):
         cfg = self.cfg
-        for unported, what, item in (
-            (self.kv_dtype is not None, "a quantized KV pool (kv_dtype)", 10),
-            (self.mesh is not None or self.slot_axis != "data",
-             "a mesh (slot sharding, slot_axis)", 15),
-        ):
-            if unported:
-                raise serve._unported(what, item)
+        if self.mesh is not None or self.slot_axis != "data":
+            raise serve._unported("a mesh (slot sharding, slot_axis)", 15)
         if self.prompt_bucket > cfg.max_seq:
             raise ValueError(
                 f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
@@ -586,10 +735,15 @@ class PagedServeEngine:
         if self.quarantine_limit < 1:
             raise ValueError(f"quarantine_limit must be >= 1, got {self.quarantine_limit}")
         self.device = params_device(self.params, self.device)
-        check_verify_window(self.spec_gamma, self.block_size, self.device)
         bs = self.block_size
+        if self.kv_dtype is not None and self.kv_dtype not in quant.KV_DTYPES:
+            self.cache_dtype = torch_dtype(self.kv_dtype)  # raises on junk
+            self.kv_dtype = None
+        if self.kv_dtype == "int4" and bs % 2:
+            raise ValueError(f"int4 pools need an even block_size, got {bs}")
+        check_verify_window(self.spec_gamma, bs, self.device, self.kv_dtype)
         if self.pool_hbm_bytes is not None:
-            per_block = kv_block_bytes(cfg, bs, self.cache_dtype)
+            per_block = kv_block_bytes(cfg, bs, self.kv_dtype or self.cache_dtype)
             derived = self.pool_hbm_bytes // per_block
             if derived < 2:
                 raise ValueError(
@@ -628,7 +782,7 @@ class PagedServeEngine:
         self.telemetry = EngineTelemetry(self, enabled=self.telemetry_enabled)
         dev = self.device
         self._cache = init_paged_cache(
-            cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev
+            cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev, kv_dtype=self.kv_dtype
         )
         self._d_cache = None
         if self.spec_gamma > 0:
@@ -904,10 +1058,12 @@ class PagedServeEngine:
         stream exactly; what the pool cannot hold yet stays parked and
         admits as capacity frees.  Needs an idle engine unless ``merge``,
         which joins a live engine's parked queue.  A history longer than
-        the prompt bucket, or an adapter outside the engine's bank (a
-        bank-less engine serves any adapter with the base), comes back as
-        an "error" completion.  Each entry's trace is rebuilt first, so
-        its request keeps one timeline.  Returns the request ids accepted
+        the prompt bucket comes back as an "error" completion.  An adapter
+        id outside the engine's bank serves with the row the reference's
+        gather reads (``serve.bank_row``), and a bank-less engine serves
+        any adapter with the base; either way the entry keeps its id.
+        Each entry's trace is rebuilt first, so its request keeps one
+        timeline.  Returns the request ids accepted
         (resident or parked)."""
         serve.check_restorable(snapshot)
         for req in snapshot["requests"]:
@@ -923,10 +1079,6 @@ class PagedServeEngine:
             if len(tokens) > self.prompt_bucket:
                 serve._unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
                                                f"{self.prompt_bucket}")
-                continue
-            why = serve.adapter_unrestorable(self, req)
-            if why:
-                serve._unrestorable(self, req, why)
                 continue
             st = serve._Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
                              int(req["max_tokens"]), req.get("deadline"),
@@ -1311,7 +1463,7 @@ class PagedServeEngine:
         self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
         if self.adapter_bank is not None:
             self._admit[1].fill_(slot)
-            self._adapter_ids[slot] = adapter
+            self._adapter_ids[slot] = serve.bank_row(self, adapter)
 
     def _prefill_slot(self, slot: int, tokens: list[int], cached: int, adapter: int = 0) -> None:
         """Prefill ``tokens`` into ``slot``'s blocks under ``adapter``: the
@@ -1445,6 +1597,7 @@ class PagedServeEngine:
         serve._M_OCCUPANCY.set(self.n_slots - self.free_slots())
         _M_POOL_FREE.set(self.free_blocks)
         _M_KV_BYTES.set(
-            self.n_blocks * kv_block_bytes(self.cfg, self.block_size, self.cache_dtype),
-            dtype=str(self.cache_dtype).removeprefix("torch."),
+            self.n_blocks * kv_block_bytes(self.cfg, self.block_size,
+                                           self.kv_dtype or self.cache_dtype),
+            dtype=self.kv_dtype or str(self.cache_dtype).removeprefix("torch."),
         )

@@ -9,7 +9,12 @@ values are identical to the reference's.
 ``matmul_last`` is the one weight-consuming product.  On a CUDA tensor an
 int4 matrix goes through the hand-written dequant-dot kernel
 (``ops/int4_matmul.py``); on a CPU tensor through its plain version.
-KV-block quantization is not ported yet.
+
+KV-block quantization (:func:`quantize_kv_blocks`) stores a paged pool's
+blocks as int8 or packed int4 with one f32 scale per ``[hd, bs]`` block
+stripe (per layer, block and KV head); int4 packs two positions per byte
+along the lane axis, half-split like the weights.  Plain PyTorch: the
+reference quantizes and dequantizes pools in XLA, outside any kernel.
 """
 
 from __future__ import annotations
@@ -102,6 +107,46 @@ def unpack_int4(packed: torch.Tensor, dim: int = -1) -> torch.Tensor:
     lo = (packed & 0xF).to(torch.int8) - 8
     hi = (packed >> 4).to(torch.int8) - 8
     return torch.cat([lo, hi], dim=dim)
+
+
+KV_DTYPES = ("int8", "int4")
+
+
+def kv_dtype_bits(kv_dtype: str) -> int:
+    """Stored bits per pooled k/v element of a quantized pool mode."""
+    if kv_dtype == "int8":
+        return 8
+    if kv_dtype == "int4":
+        return 4
+    raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+
+
+def quantize_kv_blocks(x: torch.Tensor, kv_dtype: str):
+    """Symmetric per-block quantization of pool stripes ``x [..., hd, bs]``
+    (any float dtype): ``(q, scale)`` with ``scale`` f32 ``x.shape[:-2]``,
+    ``amax / 127`` (int8) or ``amax / 7`` (int4), 1.0 for an all-zero
+    block; ``q`` int8 ``[..., hd, bs]`` in [-127, 127], or for int4 values
+    in [-7, 7] packed to uint8 ``[..., hd, bs // 2]``.  Rounding is half to
+    even, as ``jnp.round``'s."""
+    kv_dtype_bits(kv_dtype)  # validates the name
+    x32 = x.float()
+    amax = x32.abs().amax(dim=(-2, -1))
+    top = 127.0 if kv_dtype == "int8" else 7.0
+    # a tensor divisor: CUDA divides by a scalar as a multiply by its
+    # reciprocal, one ulp off the CPU's (and XLA's) true division
+    scale = torch.where(amax == 0, torch.ones_like(amax), amax / torch.full_like(amax, top))
+    q = torch.clamp(torch.round(x32 / scale[..., None, None]), -top, top).to(torch.int8)
+    return (q if kv_dtype == "int8" else pack_int4(q)), scale
+
+
+def dequant_kv_blocks(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32):
+    """The inverse of :func:`quantize_kv_blocks`: int8 ``[..., hd, bs]`` or
+    packed uint8 ``[..., hd, bs // 2]`` (whose nibbles become int8 in
+    :func:`unpack_int4`, before any float) with ``scale [...]`` back to
+    float blocks ``[..., hd, bs]`` in ``dtype``."""
+    if q.dtype == torch.uint8:
+        q = unpack_int4(q)
+    return (q.float() * scale[..., None, None]).to(dtype)
 
 
 def mat(w):

@@ -789,20 +789,18 @@ def check_adapter(engine, adapter: int) -> None:
         raise ValueError(f"adapter {adapter} out of range [0, {engine._n_adapters})")
 
 
-def adapter_unrestorable(engine, req: dict) -> str:
-    """Why a snapshot entry's adapter cannot serve here ("" when it can):
-    an id outside the engine's bank.  A bank-less engine serves any entry
-    with the base model, as the reference's does; the id stays in the
-    request's state, so the engine's own snapshots carry it on.  The
-    reference also restores an id past its bank (its gather clamps it to
-    the last row); the port refuses that one, as submit does."""
-    if engine.adapter_bank is None:
-        return ""
-    try:
-        check_adapter(engine, int(req.get("adapter", 0)))
-    except ValueError as exc:
-        return str(exc)
-    return ""
+def bank_row(engine, adapter: int) -> int:
+    """The bank row a slot's adapter id reads on the device: the
+    reference's gather normalizes a negative id (``id + rows``) and clamps
+    into ``[0, rows - 1]``.  ``submit`` never passes such an id; a
+    restored entry may, and serves with the clamped row while its
+    request's state keeps the id as given, so snapshots carry it on.  On
+    the card an out-of-range index is a device assert, not a clamp, so the
+    clamp is written out here, where the id reaches the device."""
+    rows = engine._n_adapters
+    if adapter < 0:
+        adapter += rows
+    return min(max(adapter, 0), rows - 1)
 
 
 def init_adapter_state(engine) -> None:
@@ -1117,9 +1115,11 @@ class ServeEngine:
         tokens[-1]``, ``_pos = len(tokens) - 1``, so the next step samples
         what the old engine would have.  Needs an idle engine unless
         ``merge``, which fills free slots of a live one.  An entry longer
-        than the prompt bucket, one whose adapter lies outside the engine's
-        bank (a bank-less engine serves any adapter with the base), or one
-        that finds no free slot, comes back as an "error" completion.
+        than the prompt bucket, or one that finds no free slot, comes back
+        as an "error" completion.  An adapter id outside the engine's bank
+        serves with the row the reference's gather reads (:func:`bank_row`),
+        and a bank-less engine serves any adapter with the base; either way
+        the entry keeps its id.
         Each entry's trace is rebuilt first, so its request keeps one
         timeline.  Returns the restored ids."""
         check_restorable(snapshot)
@@ -1135,10 +1135,6 @@ class ServeEngine:
             if len(tokens) > self.prompt_bucket:
                 _unrestorable(self, req, f"history {len(tokens)} exceeds prompt_bucket "
                                          f"{self.prompt_bucket}")
-                continue
-            why = adapter_unrestorable(self, req)
-            if why:
-                _unrestorable(self, req, why)
                 continue
             try:
                 slot = self._slots.index(None)
@@ -1269,7 +1265,7 @@ class ServeEngine:
         self._admit_temp.fill_(temperature)
         self._admit_key.copy_(key)
         if self._adapter_ids is not None:
-            self._adapter_ids[slot] = adapter
+            self._adapter_ids[slot] = bank_row(self, adapter)
 
     def _set_row(self, slot: int, st, temperature: float, key) -> None:
         """A resident slot's device row: active, last token, position

@@ -55,8 +55,9 @@ def test_config_from_reference_reads_every_field():
     assert cfg.dtype == torch.bfloat16
     assert (cfg.head_dim, cfg.kv_heads, cfg.kv_groups) == (64, 4, 4)
     assert tb.ModelConfig.from_reference(jb.TINY) == tb.TINY
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tb.ModelConfig(n_experts=4)
+    moe = dataclasses.replace(jb.FLAGSHIP_MODERN, n_experts=8, moe_top_k=2)
+    assert tb.ModelConfig.from_reference(moe) == dataclasses.replace(
+        tb.FLAGSHIP_MODERN, n_experts=8, moe_top_k=2)
 
 
 def test_param_tree_matches_jax_keys_shapes_dtypes():

@@ -45,7 +45,13 @@ request; with speculation or the prefix store) graphed equals its eager
 twin in everything, its f32 streams the CPU's, its adapter-0 streams a
 bank-less engine's; the LoRA train step graphed equals its eager twin bit
 for bit, the base unchanged, and its f32 losses are within 1e-5 relative
-of the CPU's."""
+of the CPU's.  An MoE model's engines (int4 base included) and train step
+graphed equal their eager twins in everything, their f32 streams and
+losses the CPU's (1e-5 relative).  A quantized pool's engine (int8, int4;
+with speculation over a window wider than a block, and with chunks and the
+store) graphed equals its eager twin in streams, pool bytes and scales,
+launches no paged kernel, and its f32 streams equal the CPU's; the block
+codec on the card gives the CPU's bytes and scales."""
 
 import contextlib
 
@@ -313,6 +319,12 @@ def _tight_drive(eng, seed=8):
 
 
 _TIGHT = dict(n_slots=3, block_size=4, prompt_bucket=24, n_blocks=19, sync_interval=4)
+
+
+def _cache_tensors(cache) -> list:
+    """A cache's tensors: k and v, and a quantized pool's scales (a float
+    paged pool's scale fields are None)."""
+    return [t for t in cache if t is not None]
 
 
 def _launch_counts():
@@ -689,7 +701,7 @@ def test_graphed_spec_engine_matches_the_eager_engine(cuda, kind, bits):
     for attr in ("host_syncs", "spec_drafted", "spec_accepted"):
         assert getattr(graphed, attr) == getattr(eager, attr), attr
     start = 1 if kind == "paged" else 0  # the null block: a window's spare positions
-    for a, b in zip(graphed._cache, eager._cache):
+    for a, b in zip(_cache_tensors(graphed._cache), _cache_tensors(eager._cache)):
         assert torch.equal(a[:, start:], b[:, start:])
     for a, b in zip(graphed._d_cache, eager._d_cache):
         assert torch.equal(a, b)
@@ -1322,7 +1334,7 @@ def test_graphed_lora_engine_matches_the_eager_engine(cuda, kind, bits, case):
     assert streams == want and counts == want_counts and len(streams) == len(reqs)
     assert graphed.host_syncs == eager.host_syncs
     start = 1 if kind == "paged" else 0
-    for a, b in zip(graphed._cache, eager._cache):
+    for a, b in zip(_cache_tensors(graphed._cache), _cache_tensors(eager._cache)):
         assert torch.equal(a[:, start:], b[:, start:])
     assert (counts["int4.launches"] > 0) == bool(bits)
     assert len(graphed.graphs) <= getattr(graphed, "graph_bound", 4)
@@ -1375,3 +1387,146 @@ def test_graphed_lora_train_step_matches_the_eager_step(cuda, dtype):
             x.copy_(y.cpu())
         cpu = [cpu_fns.step(ad, st, cpu_base, toks)[2].item() for _ in range(3)]
         np.testing.assert_allclose(gl.cpu().numpy(), cpu, rtol=1e-5)
+
+
+# -- mixture-of-experts and quantized pools -------------------------------------
+
+_MOE = dict(n_experts=4, moe_top_k=2)
+
+
+@pytest.mark.parametrize("bits", [None, 4])
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_graphed_moe_engine_matches_the_eager_engine(cuda, kind, bits):
+    """An MoE model (4 experts, top-2, every expert on every token) served
+    as CUDA graphs against the same engine run eagerly: streams, host
+    syncs, cache bytes (the pool from block 1) and launch counts
+    identical, each graph captured once; the card's f32 streams equal the
+    CPU engine's; the int4 base launches the int4 kernels on the attention
+    projections and leaves the expert stacks in f32."""
+    cfg = tb.ModelConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2, n_layers=2,
+                         d_ff=128, max_seq=64, rope=True, dtype=torch.float32, **_MOE)
+    params = tb.init_params(torch.Generator().manual_seed(0), cfg)
+    if bits:
+        params = tq.quantize_blocks(params, bits=bits)
+        assert isinstance(params["blocks"][0]["expert_up"], torch.Tensor)
+    reqs = _spec_traffic(n=7)
+
+    def serve(eager, device=cuda):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        ti4.add_launch_counts({k: -n for k, n in ti4.launch_counts().items()})
+        kw = dict(n_slots=3, prompt_bucket=24, sync_interval=4)
+        p = _to(params, device)
+        if kind == "dense":
+            eng = ts.ServeEngine(params=p, cfg=cfg, device=device, **kw)
+        else:
+            eng = tp.PagedServeEngine(params=p, cfg=cfg, device=device, n_blocks=40,
+                                      block_size=8, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = eng.pump(reqs)
+        if device == cuda:
+            torch.cuda.synchronize()
+        return eng, {c.request_id: (c.generated, c.status) for c in comps}, _launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and counts == want_counts and len(streams) == len(reqs)
+    assert graphed.host_syncs == eager.host_syncs
+    start = 1 if kind == "paged" else 0
+    for a, b in zip(_cache_tensors(graphed._cache), _cache_tensors(eager._cache)):
+        assert torch.equal(a[:, start:], b[:, start:])
+    assert (counts["int4.launches"] > 0) == bool(bits)
+    assert (counts["append"] > 0) == (kind == "paged")
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    if not bits:
+        _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
+        assert streams == on_cpu
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_moe_train_step_matches_the_eager_step(cuda, dtype):
+    """``build_train_step(attention="flash")`` over an MoE model on the
+    card: three graphed steps (one capture) against three eager ones from
+    the same init, bit for bit (losses, params, count, moments), the
+    flash kernels launched as a remat "blocks" step launches them, the
+    loss falling; in f32 the losses within 1e-5 relative of the CPU's."""
+    cfg = tb.ModelConfig(dtype=dtype, **_TRAIN_CFG, **_MOE)
+    toks = _train_tokens(cfg)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        fns = tb.build_train_step(cfg, attention="flash", device=cuda)
+        params, state = _train_state(cfg, fns)
+        _zero_flash()
+        with ts.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            losses = torch.stack([fns.step(params, state, toks)[2] for _ in range(3)])
+        torch.cuda.synchronize()
+        runs[mode] = (fns, losses, _state_leaves(params, state), dict(tfa.launches))
+    (gf, gl, gleaves, gc), (ef, el, eleaves, ec) = runs["graphed"], runs["eager"]
+    assert gf.captures == 1 and ef.captures == 0
+    _bit_equal(gl, el, "losses")
+    for a, b in zip(gleaves, eleaves):
+        _bit_equal(a, b, "state")
+    assert gc == ec == {"flash_fwd": 2 * 2 * 3, "flash_bwd_dq": 2 * 3, "flash_bwd_dkv": 2 * 3}
+    assert gl[-1] < gl[0]
+    if dtype == torch.float32:
+        cpu_fns = tb.build_train_step(cfg, attention="flash", device="cpu")
+        params, state = cpu_fns.init(torch.Generator().manual_seed(0))
+        first, _ = _train_state(cfg, tb.build_train_step(cfg, attention="flash", device=cuda))
+        for x, y in zip(tb.param_leaves(params), tb.param_leaves(first)):
+            x.copy_(y.cpu())
+        cpu = [cpu_fns.step(params, state, toks)[2].item() for _ in range(3)]
+        np.testing.assert_allclose(gl.cpu().numpy(), cpu, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["sync4", "spec", "prefix"])
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_graphed_quantized_pool_engine_matches_the_eager_engine(cuda, kv_dtype, case):
+    """A quantized pool (the reference's XLA route in plain PyTorch) served
+    as CUDA graphs against the same engine run eagerly: streams, host
+    syncs, pool bytes and scales from block 1 identical, each graph
+    captured once, and no paged kernel launched; the card's f32 streams
+    equal the CPU engine's.  With speculation the verify window (gamma 4)
+    is wider than a block of 4: the quantized route takes any window."""
+    cfg, params = _small_engine_params(None, cuda)
+    extra = {"sync4": {}, "spec": dict(spec_gamma=4, block_size=4, n_blocks=80),
+             "prefix": dict(prompt_bucket=40, prefix_cache_blocks=4, prefill_chunk_blocks=1)}[case]
+    system = list(range(40, 56))
+    reqs = [((system if case == "prefix" else []) + p, m) for p, m in _spec_traffic(n=7)]
+
+    def serve(eager, device=cuda):
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        kw = dict(dict(n_slots=3, prompt_bucket=24, sync_interval=4, n_blocks=40, block_size=8,
+                       kv_dtype=kv_dtype), **extra)
+        eng = tp.PagedServeEngine(params=params if device == cuda else _to(params, "cpu"),
+                                  cfg=cfg, device=device, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            comps = eng.pump(reqs)
+        if device == cuda:
+            torch.cuda.synchronize()
+        return eng, {c.request_id: (c.generated, c.status) for c in comps}, tpa.launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and len(streams) == len(reqs)
+    assert counts == want_counts == {"append": 0, "window": 0}
+    assert graphed.host_syncs == eager.host_syncs and graphed._cache.kv_dtype == kv_dtype
+    for a, b in zip(_cache_tensors(graphed._cache), _cache_tensors(eager._cache)):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    assert len(graphed.graphs) <= graphed.graph_bound
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
+    assert streams == on_cpu
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_kv_block_codec_on_the_card_equals_the_cpu(cuda, kv_dtype):
+    """``quantize_kv_blocks`` and ``dequant_kv_blocks`` on the card give
+    the CPU's bytes, scales and values on the same f32 input (an all-zero
+    block and x.5 ties included)."""
+    x = torch.from_numpy((np.random.RandomState(3).standard_normal((2, 6, 2, 16, 8)) * 3)
+                         .astype(np.float32))
+    x[0, 1] = 0.0
+    x[1, 2] = torch.tensor([0.5, 1.5, 2.5, -2.5]).repeat(64).reshape(2, 16, 8)
+    qc, sc = tq.quantize_kv_blocks(x, kv_dtype)
+    qd, sd = tq.quantize_kv_blocks(x.to(cuda), kv_dtype)
+    assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)
+    assert torch.equal(tq.dequant_kv_blocks(qd, sd).cpu(), tq.dequant_kv_blocks(qc, sc))

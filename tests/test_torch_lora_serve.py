@@ -11,10 +11,9 @@ host's own clock aside) and every request's trace under a step-per-read
 fake clock.  Identity-adapter streams also equal a bank-less port
 engine's, and permuting the bank with the ids gives the same streams (no
 row reads another's adapter).  A bank-less engine restores an adapted
-snapshot entry with the base model, as the JAX engine does.  One
-difference is pinned: an entry whose adapter lies past the engine's bank
-restores in the JAX engine (its gather clamps the id) and comes back as
-an "error" completion in the port, as ``submit`` refuses it."""
+snapshot entry with the base model, as the JAX engine does, and an entry
+whose adapter lies outside the engine's bank serves with the row the JAX
+engine's gather reads (the id normalized and clamped into the bank)."""
 
 import json
 
@@ -305,11 +304,12 @@ def test_stats_and_traces_equal_the_jax_engine(weights, banks, kind):
 
 @pytest.mark.parametrize("kind", sorted(ENGINES))
 def test_adapter_checks_and_an_unservable_restored_adapter(weights, banks, kind):
-    """``submit`` raises the reference's ValueErrors; a restored entry whose
-    adapter lies past the bank is delivered "error" by the port (the JAX
-    engine takes it), the other entries restore.  A bank-less engine
-    restores both entries and serves them with the base model, as the JAX
-    one does, and its snapshot carries their adapter ids on."""
+    """``submit`` raises the reference's ValueErrors.  A restored entry
+    whose adapter lies outside the bank (5 and -1 in a 3-row bank) serves
+    as in the JAX engine, whose gather normalizes a negative id and clamps
+    into the bank: streams and statuses equal, and the engine's own
+    snapshot carries the ids on as given.  A bank-less engine restores
+    every entry and serves them with the base model, as the JAX one does."""
     for pkg in ("port", "jax"):
         plain = _engine(weights, kind, pkg)
         with pytest.raises(ValueError, match="no adapter_bank"):
@@ -320,22 +320,26 @@ def test_adapter_checks_and_an_unservable_restored_adapter(weights, banks, kind)
             eng.submit([1, 2], 2, adapter=3)
     entry = dict(deadline=None, key=[0, 0], priority=0, temperature=0.0, prompt_len=2,
                  max_tokens=4)
-    snap = {"next_id": 2, "requests": [dict(entry, request_id=0, tokens=[1, 2, 3], adapter=5),
-                                       dict(entry, request_id=1, tokens=[4, 5, 6], adapter=2)]}
+    snap = {"next_id": 3, "requests": [dict(entry, request_id=0, tokens=[1, 2, 3], adapter=5),
+                                       dict(entry, request_id=1, tokens=[4, 5, 6], adapter=2),
+                                       dict(entry, request_id=2, tokens=[7, 8, 9], adapter=-1)]}
+    ids = lambda eng: {r["request_id"]: r["adapter"] for r in eng.snapshot_active()["requests"]}
     je, te = _pair(weights, banks, kind)
-    assert je.restore(json.loads(json.dumps(snap))) == [0, 1]
-    assert te.restore(json.loads(json.dumps(snap))) == [1]
+    assert je.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
+    assert te.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
+    te.step_burst()
+    je.step_burst()
+    assert ids(te) == ids(je) == {0: 5, 1: 2, 2: -1}
     te.run_until_drained()
     je.run_until_drained()
     got, want = _streams(te.completions()), _streams(je.completions())
-    assert got[0] == ([3], "error") and got[1] == want[1]
+    assert got == want and {st for _, st in got.values()} == {"ok"}
     jplain, tplain = _engine(weights, kind, "jax"), _engine(weights, kind)
-    assert jplain.restore(json.loads(json.dumps(snap))) == [0, 1]
-    assert tplain.restore(json.loads(json.dumps(snap))) == [0, 1]
+    assert jplain.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
+    assert tplain.restore(json.loads(json.dumps(snap))) == [0, 1, 2]
     tplain.step_burst()
     jplain.step_burst()
-    ids = lambda eng: {r["request_id"]: r["adapter"] for r in eng.snapshot_active()["requests"]}
-    assert ids(tplain) == ids(jplain) == {0: 5, 1: 2}
+    assert ids(tplain) == ids(jplain) == {0: 5, 1: 2, 2: -1}
     tplain.run_until_drained()
     jplain.run_until_drained()
     got, want = _streams(tplain.completions()), _streams(jplain.completions())
