@@ -180,7 +180,21 @@ exits 2 before any result):
    the block codec on the card byte for byte against the CPU; the graphed
    steps beside the bf16 kernel step in alternating rounds, a profiled
    burst each;
-15. training FLAGSHIP_MODERN at full width in bf16 through
+15. KV handoff ("serve bf16 handoff"): FLAGSHIP_MODERN in bf16, 8 slots,
+   block 16, bucket 256, 8 requests (prompts of 16-256 tokens, 32-64 new
+   ones), in six legs, each timed: a paged prefill engine's
+   ``handoff=True`` payloads through the port's ``to_wire``/``from_wire``
+   into a graphed paged decode engine (the main path) against an eager
+   twin, the injected blocks equal to the source's byte for byte, the
+   append kernel on each layer's first injected window against its plain
+   version, every token teacher-forced within 0.25, streams equal to the
+   unsplit engine's counted; the same with int8 pools (blocks and scales);
+   the dense engine's payloads into the paged engine; bf16 payloads into
+   an int8 pool, re-prefilled and counted "incompatible"; the fleet prefix
+   tier (a 240-token prefix exported, sent and injected, the next admission
+   hitting all 15 blocks with the owner's cold first token); capture, wire
+   and inject of a 256-token request timed against its re-prefill;
+16. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -192,7 +206,7 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-16. adapter-only training ("train lora"): ``lora.build_lora_train_step``
+17. adapter-only training ("train lora"): ``lora.build_lora_train_step``
     (rank 8, alpha 16, the four block matrices, attention "flash", B 4, S
     1024, bf16) graphed (the main path) against an eager twin over 5
     steps, bit for bit, the loss falling and the base unchanged; the flash
@@ -200,26 +214,26 @@ exits 2 before any result):
     its plain version on one layer's inputs from the step itself; ms per
     step and peak memory beside the full graphed step (alternating
     rounds), and a profile of one LoRA step;
-17. MoE training ("train moe"): the MoE model of phase 13 through
+18. MoE training ("train moe"): the MoE model of phase 13 through
     ``build_train_step(attention="flash")`` (B 4, S 1024, bf16, remat
     "blocks") graphed (the main path) against an eager twin over 4 steps,
     bit for bit, the loss falling, the flash launches counted; ms per
     step, tokens/s, peak memory and a profile of one step;
-18. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+19. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-19. resume: the graphed bf16 step saved after 2 steps by
+20. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-20. training in f32 at 2 layers: the graphed flash step against its eager
+21. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only).
 
 The line before the last lists the kernels with their launch counts on the
-paths that run them (serving, LoRA and MoE serving, training, LoRA and MoE
-training) and their times; the last line is the JSON device record.
+paths that run them (serving, LoRA and MoE serving, the decode engines
+after a handoff, training, LoRA and MoE training) and their times; the last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -4359,6 +4373,294 @@ def phase_serve_kv_quant(torch, cfg, params, reqs, *, card):
                 f"{n / 8:.0f} kernels per step")
 
 
+HANDOFF = dict(n_slots=8, block_size=16, prompt_bucket=256, sync_interval=8,
+               preempt_on_stall=False)
+HANDOFF_POOL = 8 * 24 + 1      # blocks, the null block included: this traffic never stalls
+HANDOFF_PREFIX_BLOCKS = 16     # the prefix tier leg's store
+HANDOFF_TIMING = 5             # timed repeats of each part, after 2 warm-ups
+HANDOFF_TIMING_BUCKET = 272    # the timing leg's decode engine: 257 tokens of history fit
+
+
+def _handoff_engine(cfg, params, cache_dtype, **kw):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    kw = dict(HANDOFF, **kw)
+    kw.setdefault("n_blocks", HANDOFF_POOL)
+    return PagedServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, device=DEV, **kw)
+
+
+def _held_kv(eng, slot: int, valid_len: int) -> list:
+    """Device copies of what ``eng`` holds for ``slot`` at positions below
+    ``valid_len``: a dense cache's rows, and a float pool's blocks as rows,
+    ``[L, valid_len, Hkv, hd]``; a quantized pool's whole blocks and their
+    scales (its payload carries the blocks' padded extent)."""
+    cache = eng._cache
+    if not hasattr(eng, "_owned"):
+        return [t[:, slot, :valid_len].clone() for t in (cache.k, cache.v)]
+    ids = eng._owned[slot][: -(-valid_len // eng.block_size)]
+    if cache.quantized:
+        return [t[:, ids].clone() for t in cache]
+    n_layers, _, hkv, hd, bs = cache.k.shape
+    return [t[:, ids].permute(0, 1, 4, 2, 3).reshape(n_layers, len(ids) * bs, hkv, hd)
+            [:, :valid_len].clone() for t in (cache.k, cache.v)]
+
+
+def _fallback_counts() -> dict:
+    from k8s_dra_driver_torch.utils.metrics import REGISTRY, parse_prom_text
+
+    got = parse_prom_text(REGISTRY.render()).get("tpu_disagg_fallback_total", {})
+    return {dict(key)["reason"]: int(n) for key, n in got.items()}
+
+
+def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
+    """KV handoff, the wire frames and the fleet prefix tier at
+    FLAGSHIP_MODERN in bf16: 8 seeded requests (prompts of 16-256 tokens,
+    32-64 new ones), 8 slots, block 16, bucket 256, in six legs, each
+    timed.  (a) a paged prefill engine with ``handoff=True`` hands off
+    through the port's ``to_wire``/``from_wire`` to a graphed paged decode
+    engine (the main path: launch counts zeroed just before the restore),
+    held against an eager twin (streams, counters, pool bytes from block
+    1, launches); the injected blocks equal the source's byte for byte;
+    the append kernel on each layer's first injected decode window against
+    its plain version on that engine's pool; every token teacher-forced
+    within the 0.25 gap; streams equal to the unsplit graphed engine's
+    counted.  (b) the same with int8 pools (blocks and scales byte for
+    byte; no paged kernel).  (c) the dense bf16 engine's handoffs into the
+    paged bf16 engine.  (d) (a)'s bf16 payloads into an int8 pool:
+    re-prefilled, ``incompatible`` counted 8 times.  (e) the fleet prefix
+    tier: ``export_prefix_kv`` of a 256-token prompt from a paged engine
+    with a 16-block store, over the wire into a second engine's
+    ``inject_prefix_kv``, whose next ``submit`` hits every pulled block and
+    whose first token is the first engine's cold one.  (f) host-clock
+    medians of 5 for a 256-token request: capture, ``to_wire``,
+    ``from_wire`` and inject, against the same request's re-prefill
+    (``"kv"`` absent), and the payload's size in bf16 and int8.  Returns
+    the append kernel's launches on the main paths of (a) and (c)."""
+    from k8s_dra_driver_torch.models import serve
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    label = "serve bf16 handoff"
+    hreqs = _greedy_dicts(_traffic(cfg.vocab_size, 8, 256, 64, SEED + 81))
+    out: dict = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        log(f"{label}: leg {name}: {time.perf_counter() - t0:.1f} s")
+
+    def handed_off(tag, pre):
+        """Every request through ``pre`` with ``handoff=True``, each payload
+        through the wire and back; the source's K/V kept at capture."""
+        src, capture = {}, pre._capture_kv
+
+        def capturing(slot, valid_len):
+            src[pre._slots[slot].request_id] = _held_kv(pre, slot, valid_len)
+            return capture(slot, valid_len)
+
+        pre._capture_kv = capturing
+        for r in hreqs:
+            pre.submit(handoff=True, **r)
+        entries = [dict(e, kv=serve.KVSlice.from_wire(e["kv"].to_wire(e["request_id"]))[1])
+                   for e in pre.take_handoffs()]
+        if len(entries) != len(hreqs) or pre.free_slots() != pre.n_slots:
+            raise AssertionError(f"{tag}: {len(entries)} handoffs, {pre.free_slots()} free slots")
+        kv0 = entries[0]["kv"]
+        log(f"{tag}: {len(entries)} handoffs through the wire frame, payloads "
+            f"{sum(e['kv'].nbytes for e in entries) / 2**20:.3f} MiB together ({kv0.dtype}, "
+            f"block_size {kv0.block_size}; valid lengths {[e['kv'].valid_len for e in entries]})")
+        return entries, src
+
+    def check_injected(tag, eng, entries, src):
+        held = 0
+        for slot, st in enumerate(eng._slots):
+            if st is None:
+                continue
+            kv = next(e["kv"] for e in entries if e["request_id"] == st.request_id)
+            mine = _held_kv(eng, slot, kv.valid_len)
+            if not all(torch.equal(a, b) for a, b in zip(mine, src[st.request_id], strict=True)):
+                raise AssertionError(f"{tag}: request {st.request_id}'s injected K/V differ from "
+                                     f"the source's")
+            held += 1
+        if held != len(entries):
+            raise AssertionError(f"{tag}: {held} of {len(entries)} entries resident after restore")
+
+    def inject_leg(tag, pre, make_dec, kernel, unsplit=None):
+        entries, src = handed_off(tag, pre)
+        before = _fallback_counts()
+
+        def drive(twin):
+            eng = make_dec()
+            eng.restore({"next_id": len(hreqs), "requests": entries})
+            check_injected(tag, eng, entries, src)
+            eng.run_until_drained()
+            return eng, eng.completions()
+
+        rec, restore = _record_append_windows(torch, pa, 1) if kernel else ({}, lambda: None)
+        try:
+            eng, comps, counts = _engine_twin(torch, tag, drive, PAGED_TWIN_ATTRS, pool_from=1)
+        finally:
+            restore()
+        log(f"{tag}: injected K/V equal the source's byte for byte"
+            f"{' (blocks and scales)' if eng._cache.quantized else ''}, all {len(entries)} "
+            f"requests, in both runs")
+        short = [c.request_id for c in comps
+                 if c.status != "ok" or len(c.generated) != hreqs[c.request_id]["max_tokens"]]
+        if len(comps) != len(hreqs) or short:
+            raise AssertionError(f"{tag}: {len(comps)} completions, short or not ok {short}")
+        if _fallback_counts() != before:
+            raise AssertionError(f"{tag}: fallbacks counted {_fallback_counts()}")
+        appended = counts.get((pa.__name__, "append"), 0)
+        if kernel:
+            if appended == 0:
+                raise AssertionError(f"{tag}: the append kernel never launched")
+            _hold_append_windows(torch, tag, pa, rec, cfg, cache_dtype)
+        elif appended:
+            raise AssertionError(f"{tag}: a quantized pool launched the append kernel")
+        _teacher_forced_all(torch, tag, cfg, params, hreqs, comps, cache_dtype, tol)
+        if unsplit is not None:
+            same = sum(c.generated == unsplit[c.request_id] for c in comps)
+            log(f"{tag}: streams equal to the unsplit graphed engine's, token for token: {same} "
+                f"of {len(comps)} (reported; expected {len(comps)}: the same bytes, the same "
+                f"programs)")
+        return entries, appended
+
+    def unsplit(**kw):
+        eng = _handoff_engine(cfg, params, cache_dtype, **kw)
+        return {c.request_id: c.generated for c in eng.pump(hreqs)}
+
+    def paged_leg():
+        out["unsplit"] = unsplit()
+        out["entries"], out["a"] = inject_leg(
+            f"{label} (a) paged", _handoff_engine(cfg, params, cache_dtype),
+            lambda: _handoff_engine(cfg, params, cache_dtype), True, out["unsplit"])
+
+    def int8_leg():
+        inject_leg(f"{label} (b) int8", _handoff_engine(cfg, params, cache_dtype, kv_dtype="int8"),
+                   lambda: _handoff_engine(cfg, params, cache_dtype, kv_dtype="int8"), False,
+                   unsplit(kv_dtype="int8"))
+
+    def dense_leg():
+        tag = f"{label} (c) dense -> paged"
+        entries, out["c"] = inject_leg(tag, _dense_engine(cfg, params, cache_dtype),
+                                       lambda: _handoff_engine(cfg, params, cache_dtype), True,
+                                       out["unsplit"])
+        # where the streams part from (a)'s: each engine's first-token step
+        # rewrites position plen - 1 through its own attention
+        paged_ = {e["request_id"]: e for e in out["entries"]}
+
+        def same(e, last):
+            theirs = paged_[e["request_id"]]["kv"]
+            return all(np.array_equal(getattr(e["kv"], n)[:, :last],
+                                      getattr(theirs, n)[:, :last]) for n in ("k", "v"))
+
+        log(f"{tag}: against the paged prefill's handoffs of (a): payloads equal "
+            f"{sum(same(e, None) for e in entries)} of {len(entries)}, equal but for position "
+            f"plen - 1 {sum(same(e, -1) for e in entries)}, first tokens equal "
+            f"{sum(e['tokens'] == paged_[e['request_id']]['tokens'] for e in entries)} (reported: "
+            f"the first-token step rewrites position plen - 1 through the dense masked "
+            f"attention in one engine and the paged kernel in the other)")
+
+    def incompatible_leg():
+        tag = f"{label} (d) bf16 -> int8"
+        before = _fallback_counts().get("incompatible", 0)
+        eng = _handoff_engine(cfg, params, cache_dtype, kv_dtype="int8")
+        eng.restore({"next_id": len(hreqs), "requests": out["entries"]})
+        counted = _fallback_counts().get("incompatible", 0) - before
+        eng.run_until_drained()
+        comps = eng.completions()
+        log(f"{tag}: incompatible counted {counted}, {len(comps)} streams re-prefilled, "
+            f"statuses {sorted({c.status for c in comps})}")
+        if counted != len(hreqs) or len(comps) != len(hreqs) or any(
+                c.status != "ok" for c in comps):
+            raise AssertionError(f"{tag}: incompatible {counted}, {len(comps)} completions")
+        _teacher_forced_all(torch, tag, cfg, params, hreqs, comps, cache_dtype, tol)
+
+    def tier_leg():
+        tag = f"{label} (e) prefix tier"
+        prompt = np.random.RandomState(SEED + 82).randint(0, cfg.vocab_size, size=256).tolist()
+        req = dict(prompt=prompt, max_tokens=32)
+        owner = _handoff_engine(cfg, params, cache_dtype, prefix_cache_blocks=HANDOFF_PREFIX_BLOCKS)
+        peer = _handoff_engine(cfg, params, cache_dtype, prefix_cache_blocks=HANDOFF_PREFIX_BLOCKS)
+        (cold,) = owner.pump([req])
+        kv = owner.export_prefix_kv(prompt)
+        frame = kv.to_wire(7)
+        installed = peer.inject_prefix_kv(prompt, serve.KVSlice.from_wire(frame)[1])
+        ids = [[eng._prefix_store[eng._prefix_key(prompt, i)]
+                for i in range(len(eng._prefix_store))] for eng in (owner, peer)]
+        same_blocks = all(torch.equal(a[:, ids[0]], b[:, ids[1]])
+                          for a, b in ((owner._cache.k, peer._cache.k),
+                                       (owner._cache.v, peer._cache.v)))
+        (hot,) = peer.pump([req])
+        log(f"{tag}: exported {kv.valid_len} tokens ({len(ids[0])} blocks, "
+            f"{len(frame) / 2**20:.3f} MiB on the wire), {installed} installed, pulled blocks "
+            f"equal the owner's {same_blocks}; the next submit's hits {peer.prefix_hits} blocks, misses {peer.prefix_misses}; first "
+            f"token {hot.generated[0]} against the owner's cold {cold.generated[0]}; whole stream "
+            f"equal {hot.generated == cold.generated} (reported)")
+        if (installed != 240 or not same_blocks or peer.prefix_hits != 15
+                or hot.generated[0] != cold.generated[0]):
+            raise AssertionError(f"{tag}: installed {installed}, blocks equal {same_blocks}, hits "
+                                 f"{peer.prefix_hits}, first tokens {hot.generated[0]} / "
+                                 f"{cold.generated[0]}")
+        _teacher_forced_all(torch, tag, cfg, params, [req], [hot], cache_dtype, tol)
+
+    def timing_leg():
+        prompt = np.random.RandomState(SEED + 83).randint(0, cfg.vocab_size, size=256).tolist()
+        for kv_dtype in (None, "int8"):
+            tag = f"{label} (f) timing, {kv_dtype or 'bfloat16'}"
+            src = _handoff_engine(cfg, params, cache_dtype, kv_dtype=kv_dtype)
+            # the history (prompt and first token, 257) must fit the decode
+            # engine's bucket, or restore refuses the entry before its payload
+            dec = _handoff_engine(cfg, params, cache_dtype, kv_dtype=kv_dtype,
+                                  prompt_bucket=HANDOFF_TIMING_BUCKET)
+            src.submit(prompt, max_tokens=64)
+            entry = src.snapshot_active()["requests"][0]
+            parts = {name: [] for name in ("capture", "to_wire", "from_wire", "inject",
+                                           "re-prefill")}
+
+            def clocked(name, fn, i):
+                sync(torch)
+                t0 = time.perf_counter()
+                res = fn()
+                sync(torch)
+                if i >= 2:
+                    parts[name].append((time.perf_counter() - t0) * 1e3)
+                return res
+
+            before = _fallback_counts()
+            for i in range(2 + HANDOFF_TIMING):
+                kv = clocked("capture", lambda: src._capture_kv(0, 256), i)
+                frame = clocked("to_wire", lambda: kv.to_wire(0), i)
+                _, got = clocked("from_wire", lambda: serve.KVSlice.from_wire(frame), i)
+                for part, doc in (("inject", dict(entry, kv=got)), ("re-prefill", entry)):
+                    restored = clocked(part, lambda: dec.restore(
+                        {"next_id": 1, "requests": [doc]}), i)
+                    if restored != [0] or dec.free_slots() != dec.n_slots - 1:
+                        raise AssertionError(f"{tag}: {part} restored {restored}, "
+                                             f"{dec.free_slots()} free slots")
+                    dec.release_active()
+            if _fallback_counts() != before or dec.completions():
+                raise AssertionError(f"{tag}: fallbacks {_fallback_counts()} or completions")
+            med = {name: float(np.median(t)) for name, t in parts.items()}
+            scales = 0 if kv.k_scale is None else kv.k_scale.nbytes + kv.v_scale.nbytes
+            log(f"{tag}: payload of a 256-token prompt {(kv.nbytes - scales) / 2**20:.3f} MiB"
+                f"{f' + {scales / 2**10:.1f} KiB of scales' if scales else ''}, frame "
+                f"{len(frame) / 2**20:.3f} MiB; host-clock medians of {HANDOFF_TIMING} (ms, a sync "
+                f"around each part): " + ", ".join(f"{n} {m:.3f}" for n, m in med.items())
+                + f"; capture + wire + inject "
+                f"{sum(med[n] for n in ('capture', 'to_wire', 'from_wire', 'inject')):.3f} "
+                f"against re-prefill {med['re-prefill']:.3f} ({card})")
+            for name, t in parts.items():
+                log(f"{tag}: {name}: {' / '.join(f'{x:.3f}' for x in t)} ms")
+
+    leg("(a) paged -> paged", paged_leg)
+    leg("(b) int8", int8_leg)
+    leg("(c) dense -> paged", dense_leg)
+    leg("(d) bf16 -> int8", incompatible_leg)
+    leg("(e) prefix tier", tier_leg)
+    leg("(f) timing", timing_leg)
+    return {"paged_attention": out["a"] + out["c"]}
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -4520,6 +4822,12 @@ def main() -> int:
 
     run("serve moe", serve_moe)
     run("serve kv quant", lambda: phase_serve_kv_quant(torch, cfg, params, reqs, card=card))
+
+    def serve_handoff():
+        launches["handoff"] = phase_serve_handoff(torch, cfg, params, cache_dtype=torch.bfloat16,
+                                                  card=card)
+
+    run("serve bf16 handoff", serve_handoff)
     del params
 
     def train_bf16():
@@ -4551,12 +4859,14 @@ def main() -> int:
     # int4 base under the bank and the MoE int4 base; flash on the bf16,
     # LoRA and MoE training runs and the f32 forward on the f32 training
     # run; the read-only paged kernel is on no path (0); the quantized
-    # pools take no kernel
+    # pools take no kernel; the handoff phase's decode engines after an
+    # inject run the append kernel too
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
                             + launches["spec"]["paged_attention"] + tel["paged_attention"]
-                            + lora_serve["paged_attention"] + moe["paged_attention"]),
+                            + lora_serve["paged_attention"] + moe["paged_attention"]
+                            + launches["handoff"]["paged_attention"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
                         + lora_serve["int4_matmul"] + moe["int4_matmul"]),

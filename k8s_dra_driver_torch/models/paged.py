@@ -34,8 +34,12 @@ same programs.  A quantized pool (``kv_dtype`` "int8" or "int4") stores
 blocks as integers with per-block scales and takes the reference's XLA
 route in plain PyTorch on every device (:func:`paged_decode_chunk`); the
 append kernel stays float-only, as the reference's Pallas kernel does.
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: meshes, handoff and KV payloads, and the fleet prefix hooks.
+KV payloads (``serve.KVSlice``) leave a pool in the canonical layout
+(handoff, ``snapshot_active(include_kv=True)``, the fleet prefix tier's
+export) and are written back into pool blocks in place (restore, the
+tier's inject), a quantized pool's as its raw bytes and scales.  Not
+ported yet: meshes, which raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -658,6 +662,16 @@ class PagedServeEngine:
       its id), snapshots and restore carry the id; speculation applies it
       on the verify pass (the draft stays the base model);
     * retirement drops the slot's references at once;
+    * ``submit(handoff=True)`` retires the request at its first token into
+      :meth:`take_handoffs` with its prompt's K/V as a ``serve.KVSlice``
+      (the disaggregated prefill side), ``snapshot_active(include_kv=True)``
+      attaches each activated slot's, and ``restore`` writes a fitting
+      payload into fresh blocks in place instead of re-prefilling (the
+      decode side; :meth:`_restore_inject`);
+    * the fleet prefix tier's surface: ``on_prefix_store`` /
+      ``on_prefix_evict`` hooks, ``prefix_geometry``,
+      ``local_prefix_depth``, ``export_prefix_kv`` and ``inject_prefix_kv``
+      (pulled blocks land in the store, so the next admission shares them);
     * ``telemetry`` (``models/telemetry.EngineTelemetry``, off with
       ``telemetry_enabled=False``) records each request's timeline at the
       host points above (admission chunks, activation, preemption and
@@ -682,9 +696,8 @@ class PagedServeEngine:
     slot, temperature, key, adapter id and done blocks) keeps one address
     for the engine's life and is written in place; everything else
     (allocation, the prefix store, the admission queue, growth, stalls,
-    preemption, retirement) stays on the host.  The reference's mesh,
-    handoff and fleet prefix hooks raise
-    ``NotImplementedError`` naming their ROADMAP item.  Not thread-safe;
+    preemption, retirement) stays on the host.  The reference's mesh raises
+    ``NotImplementedError`` naming its ROADMAP item.  Not thread-safe;
     drive it from one loop.
     """
 
@@ -764,6 +777,12 @@ class PagedServeEngine:
         self._prefix_store: OrderedDict = OrderedDict()
         self.prefix_hits = 0    # blocks an admission shared from the store
         self.prefix_misses = 0  # storable blocks an admission computed
+        # the fleet prefix tier's hooks (the reference's fleet_prefix binds
+        # them): on_prefix_store(tokens, n_tokens, adapter) after a block
+        # lands in the store, on_prefix_evict(tokens, adapter) after an LRU drop
+        self.on_prefix_store = None
+        self.on_prefix_evict = None
+        self._handoffs: list[dict] = []  # first-token retirements with their payloads
         self._next_id = 0
         self._step_no = 0       # the fault window's step number
         self._completions: list = []
@@ -842,26 +861,6 @@ class PagedServeEngine:
             widths |= {bucket - c * bs for c in range(1, (bucket - 1) // bs + 1)}
         return 4 + len(widths) + (2 if self.spec_gamma > 0 else 0)
 
-    @property
-    def on_prefix_store(self):
-        """The reference's fleet prefix-cache hook; only None is served."""
-        return None
-
-    @on_prefix_store.setter
-    def on_prefix_store(self, hook) -> None:
-        if hook is not None:
-            raise serve._unported("the fleet prefix hooks (on_prefix_store)", 11)
-
-    @property
-    def on_prefix_evict(self):
-        """The reference's fleet prefix-cache hook; only None is served."""
-        return None
-
-    @on_prefix_evict.setter
-    def on_prefix_evict(self, hook) -> None:
-        if hook is not None:
-            raise serve._unported("the fleet prefix hooks (on_prefix_evict)", 11)
-
     def free_slots(self) -> int:
         return sum(1 for s in self._slots if s is None)
 
@@ -880,15 +879,17 @@ class PagedServeEngine:
         (higher first) orders stalls, evictions and re-admissions, never
         what is generated; ``adapter`` is the bank row to serve it with (0:
         the base).  ``queued_at`` (the telemetry clock) is when the request
-        entered an upstream queue; default now.  Returns the request id."""
+        entered an upstream queue; default now.  With ``handoff`` the
+        request retires at its first token (after its last chunk, when
+        chunked) without a completion: its snapshot entry and KV payload go
+        to :meth:`take_handoffs` and its blocks are refunded.  Returns the
+        request id."""
         t_sub = self.telemetry.now()
         serve.check_submit(
             prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
             spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline,
         )
         serve.check_adapter(self, adapter)
-        if handoff:
-            raise serve._unported("handoff with a KV payload", 11)
         if self._preempted:
             # parked requests hold no reservation: re-admit what fits,
             # and refuse new work while any remain parked
@@ -922,6 +923,7 @@ class PagedServeEngine:
             self._admitting.append(dict(
                 slot=slot, prompt=list(prompt), plen=len(prompt), done=cached,
                 storable=storable, cached=cached, temp=temperature, key=base_key,
+                handoff=handoff,
             ))
             # admitted and first token stamp when the final chunk activates
             self.telemetry.on_admit(
@@ -952,9 +954,19 @@ class PagedServeEngine:
             request_id, prompt_len=len(prompt), max_tokens=max_tokens, deadline=deadline,
             adapter=adapter, submitted_at=t_sub, queued_at=queued_at,
         )
+        if handoff:
+            self._handoff_retire(slot, temperature, base_key, adapter)
+            return request_id
         self._retire(slot)  # max_tokens=1 or eos on the first token
         self._update_gauges()
         return request_id
+
+    def take_handoffs(self) -> list[dict]:
+        """Drain the handoff queue: the snapshot entries, each with its KV
+        payload under ``"kv"``, of the requests submitted with
+        ``handoff=True`` that retired here at their first token."""
+        out, self._handoffs = self._handoffs, []
+        return out
 
     def cancel(self, request_id: int) -> bool:
         """Cancel a request between steps: a resident one retires
@@ -1026,9 +1038,11 @@ class PagedServeEngine:
         document: resident slots (temperature and base key read back once),
         slots still mid-admission (the queue entry holds their sampler
         state; their history is the prompt) and parked requests.  No
-        decode step, no block traffic."""
-        if include_kv:
-            raise serve._unported("snapshot_active(include_kv=True)", 11)
+        decode step, no block traffic.  ``include_kv`` adds each activated
+        resident slot's blocks as a ``serve.KVSlice`` under ``"kv"`` (one
+        counted host sync each; entries still admitting or parked carry
+        none and re-prefill), so ``restore`` injects them; such a snapshot
+        is not JSON."""
         temps = self._temps.to("cpu", copy=True).numpy()
         keys = self._keys.to("cpu", copy=True).numpy()
         admitting = {a["slot"]: a for a in self._admitting}
@@ -1040,10 +1054,13 @@ class PagedServeEngine:
             # the device row is set at activation: mid-admission, the queue
             # entry holds the sampler state
             temp, key = (temps[slot], keys[slot]) if adm is None else (adm["temp"], adm["key"])
-            reqs.append(serve._snapshot_request(
+            req = serve._snapshot_request(
                 st, float(temp), key, st.adapter, priority=self._prio[slot],
                 trace=self.telemetry.export_trace(st.request_id),
-            ))
+            )
+            if include_kv and adm is None and len(st.tokens) > 1:
+                req["kv"] = self._capture_kv(slot, len(st.tokens) - 1)
+            reqs.append(req)
         for r in self._preempted:
             reqs.append(serve._snapshot_request(
                 r["st"], r["temp"], r["key"], r["st"].adapter, priority=r["priority"],
@@ -1062,13 +1079,15 @@ class PagedServeEngine:
         id outside the engine's bank serves with the row the reference's
         gather reads (``serve.bank_row``), and a bank-less engine serves
         any adapter with the base; either way the entry keeps its id.
+        An entry whose ``"kv"`` payload fits this pool
+        (``serve._kv_geometry_ok``) injects instead when a slot and its
+        blocks are free now (:meth:`_restore_inject`); otherwise it parks
+        and re-prefills, counting ``tpu_disagg_fallback_total`` by reason
+        ("no_capacity", "incompatible"; ``"kv": None`` counts nothing).
         Each entry's trace is rebuilt first, so its request keeps one
         timeline.  Returns the request ids accepted
         (resident or parked)."""
         serve.check_restorable(snapshot)
-        for req in snapshot["requests"]:
-            if "kv" in req:
-                raise serve._unported("restoring a KV payload", 11)
         if not merge and (self.n_slots - self.free_slots() or self._admitting
                           or self._preempted):
             raise RuntimeError("restore() needs an idle engine")
@@ -1083,6 +1102,20 @@ class PagedServeEngine:
             st = serve._Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
                              int(req["max_tokens"]), req.get("deadline"),
                              int(req.get("adapter", 0)))
+            kv = req.get("kv")
+            if kv is not None and serve._kv_geometry_ok(self, kv, len(tokens)):
+                if self._restore_inject(req, st, kv):
+                    restored.append(st.request_id)
+                    JOURNAL.record("serve", "request.restore",
+                                   correlation=f"req-{st.request_id}", resumed_at=len(tokens),
+                                   kv_inject=True)
+                    self.telemetry.on_restore(st.request_id, resumed_at=len(tokens))
+                    continue
+                # no slot or blocks now: park without the payload, which
+                # the re-prefill reproduces whenever capacity frees
+                serve._M_DISAGG_FALLBACK.inc(reason="no_capacity")
+            elif kv is not None:
+                serve._M_DISAGG_FALLBACK.inc(reason="incompatible")
             # keys arrive as plain ints up to 2^32 - 1: int64 holds them
             self._preempted.append(dict(
                 st=st, temp=float(req["temperature"]),
@@ -1128,6 +1161,215 @@ class PagedServeEngine:
         self.telemetry.drop_trace(st.request_id)
         JOURNAL.record("serve", "request.released", correlation=f"req-{st.request_id}",
                        slot=slot, generated=len(st.tokens) - st.prompt_len)
+
+    # -- KV payloads: handoff, inject and the fleet prefix tier ---------------
+    def _label(self) -> str:
+        """The pool's payload label: "int8"/"int4", or the float dtype's."""
+        return self.kv_dtype or serve.dtype_label(self.cache_dtype)
+
+    def _blocks_payload(self, ids: list[int], valid_len: int) -> serve.KVSlice:
+        """Pool blocks ``ids`` as a payload in the canonical layout ``[L,
+        positions, Hkv, hd]`` (positions moved off the lane axis): a float
+        pool's clipped to ``valid_len``; a quantized pool's raw values over
+        the blocks' whole extent, int4 repacked from the lanes onto
+        ``head_dim``, with the blocks' scales.  Gathered and laid out on the
+        device, then one copy to the host per tensor: one counted host sync."""
+        cfg, bs, quant_name = self.cfg, self.block_size, self._cache.kv_dtype
+        l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+        at = torch.tensor(ids, dtype=torch.long).to(self.device)
+        planes = []
+        for pool in (self._cache.k, self._cache.v):
+            blocks = pool.index_select(1, at)                        # [L, nb, Hkv, hd, lanes]
+            if quant_name == "int4":
+                blocks = quant.unpack_int4(blocks)
+            x = blocks.permute(0, 1, 4, 2, 3).reshape(l, len(ids) * bs, hkv, hd)
+            if quant_name is None:
+                x = x[:, :valid_len]
+            elif quant_name == "int4":
+                x = quant.pack_int4(x)
+            planes.append(serve.host_array(x))
+        extra = {}
+        if quant_name is not None:
+            extra = dict(k_scale=serve.host_array(self._cache.k_scale.index_select(1, at)),
+                         v_scale=serve.host_array(self._cache.v_scale.index_select(1, at)),
+                         block_size=bs)
+        self.host_syncs += 1
+        serve._M_HOST_SYNCS.inc()
+        return serve.KVSlice(k=planes[0], v=planes[1], valid_len=valid_len, n_layers=l,
+                             kv_heads=hkv, head_dim=hd, dtype=self._label(), **extra)
+
+    def _payload_stripes(self, kv, nb: int) -> list:
+        """The inverse layout: a payload's first ``nb`` blocks as pool
+        stripes ``[L, nb, Hkv, hd, lanes]`` on the device (one copy per
+        tensor; a float payload clipped or zero-padded to ``nb`` blocks of
+        this pool's size), then the scales' first ``nb`` blocks for a
+        quantized one: ``[k, v]`` or ``[k, v, k_scale, v_scale]``."""
+        cfg, bs = self.cfg, self.block_size
+        l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+        out = []
+        for part in (kv.k, kv.v):
+            x = serve.device_tensor(part, kv.dtype, self.device)[:, : nb * bs]
+            if x.shape[1] < nb * bs:
+                x = torch.cat([x, x.new_zeros((l, nb * bs - x.shape[1], *x.shape[2:]))], dim=1)
+            if kv.dtype == "int4":
+                x = quant.unpack_int4(x)
+            x = x.reshape(l, nb, bs, hkv, hd).permute(0, 1, 3, 4, 2)
+            out.append(quant.pack_int4(x) if kv.dtype == "int4" else x)
+        if kv.block_size > 0:
+            out += [serve.device_tensor(np.asarray(sc)[:, :nb], "float32", self.device)
+                    for sc in (kv.k_scale, kv.v_scale)]
+        return out
+
+    def _write_stripes(self, ids: list[int], stripes) -> None:
+        """Write stripes (:meth:`_payload_stripes`) into pool blocks ``ids``
+        in place (the captured programs keep reading the same pool)."""
+        at = torch.tensor(ids, dtype=torch.long).to(self.device)
+        for whole, part in zip(self._cache, stripes):
+            whole.index_copy_(1, at, part)
+
+    def _capture_kv(self, slot: int, valid_len: int) -> serve.KVSlice:
+        """The slot's K/V at positions ``< valid_len`` as a payload (its
+        first ``ceil(valid_len / block_size)`` blocks)."""
+        return self._blocks_payload(self._owned[slot][: blocks_needed(valid_len, self.block_size)],
+                                    valid_len)
+
+    def _handoff_retire(self, slot: int, temperature: float, key, adapter: int) -> None:
+        """The first-token retirement of a handoff: the request's snapshot
+        entry with its prompt's K/V, the slot's references dropped (a
+        shared prefix block stays pooled: the payload holds a copy) with
+        no completion, its trace exported into the entry and dropped here
+        (the decode engine imports it), the entry queued for
+        :meth:`take_handoffs`."""
+        st = self._slots[slot]
+        entry = serve._snapshot_request(st, temperature, key, adapter, self._prio[slot],
+                                        trace=self.telemetry.export_trace(st.request_id))
+        entry["kv"] = self._capture_kv(slot, st.prompt_len)
+        self._slots[slot] = None
+        self._release_slot(slot)
+        self.telemetry.drop_trace(st.request_id)
+        self._handoffs.append(entry)
+        JOURNAL.record("serve", "request.handoff", correlation=f"req-{st.request_id}",
+                       slot=slot, kv_bytes=entry["kv"].nbytes)
+        self._update_gauges()
+
+    def _restore_inject(self, req: dict, st, kv) -> bool:
+        """Install a restored entry from its payload: a free slot and
+        blocks of its own (none shared from the store: a shared block is
+        never written), the payload's blocks written in place, the draft
+        row re-prefilled (the draft cache never travels), the slot's row
+        set as a re-admission would.  Returns False when no slot or blocks
+        are free; a failure in between refunds the blocks and raises."""
+        tokens = st.tokens
+        need = blocks_needed(len(tokens) + 1, self.block_size)
+        picked = self._pick_slot(tokens, need, 0, st.adapter)
+        if picked is None:
+            return False
+        slot, ids, _ = picked
+        self._reserve(slot, ids)
+        try:
+            nb = blocks_needed(kv.valid_len, self.block_size)
+            self._write_stripes(ids[:nb], self._payload_stripes(kv, nb))
+            self._prio[slot] = int(req.get("priority", 0))
+            self._stage(slot, tokens, st.adapter)
+            self._prefill_draft(slot, len(tokens))
+        except BaseException:
+            self._release_slot(slot)  # never resident: no retirement would free them
+            raise
+        self._slots[slot] = st
+        # keys arrive as plain ints up to 2^32 - 1: int64 holds them
+        self._set_row(slot, st, float(req["temperature"]),
+                      torch.tensor([int(x) for x in req["key"]], dtype=torch.int64))
+        self._retire(slot)  # the history may already sit at its budget
+        self._update_gauges()
+        return True
+
+    def prefix_geometry(self) -> dict:
+        """The payload geometry a pulled prefix must have to inject here;
+        ``kv_dtype`` is the pool's storage label."""
+        return {
+            "block_size": self.block_size,
+            "kv_dtype": self._label(),
+            "n_layers": self.cfg.n_layers,
+            "kv_heads": self.cfg.kv_heads,
+            "head_dim": self.cfg.head_dim,
+        }
+
+    def _prefix_limit(self, prompt) -> int:
+        bs = self.block_size
+        return min((len(prompt) - 1) // bs, (self.prompt_bucket - 1) // bs)
+
+    def local_prefix_depth(self, prompt, adapter: int = 0) -> int:
+        """Tokens of the longest run of ``prompt``'s blocks the store
+        holds; read only (no LRU touch, no references, no device work)."""
+        if self.prefix_cache_blocks <= 0:
+            return 0
+        prompt = [int(t) for t in prompt]
+        depth, limit = 0, self._prefix_limit(prompt)
+        while depth < limit and self._prefix_key(prompt, depth, adapter) in self._prefix_store:
+            depth += 1
+        return depth * self.block_size
+
+    def export_prefix_kv(self, prompt, max_tokens=None, adapter: int = 0):
+        """The longest run of ``prompt``'s stored blocks as a payload
+        (``valid_len`` its tokens; one counted host sync), or None."""
+        del max_tokens  # advisory; the stored depth caps it
+        depth = self.local_prefix_depth(prompt, adapter) // self.block_size
+        if depth == 0:
+            return None
+        prompt = [int(t) for t in prompt]
+        ids = [int(self._prefix_store[self._prefix_key(prompt, i, adapter)])
+               for i in range(depth)]
+        return self._blocks_payload(ids, depth * self.block_size)
+
+    def inject_prefix_kv(self, prompt, kv, adapter: int = 0) -> int:
+        """Write a pulled prefix payload into fresh pool blocks and put them
+        in the store, so the next ``submit`` of ``prompt`` takes the
+        prefix-hit admission.  A quantized pool takes its own format and
+        block size only (the scales are per block); a float payload of the
+        pool's dtype may come in another block size (the whole blocks of
+        this pool it covers install).  Returns the tokens installed; 0 (a
+        cold prefill) for a payload of another geometry, nothing missing,
+        or no free blocks.  A failed write refunds its blocks and raises."""
+        if self.prefix_cache_blocks <= 0 or not serve.is_kv_payload(kv):
+            return 0
+        cfg, bs = self.cfg, self.block_size
+        if (kv.n_layers, kv.kv_heads, kv.head_dim) != (cfg.n_layers, cfg.kv_heads, cfg.head_dim):
+            return 0
+        quantized = self._cache.quantized
+        if kv.dtype != self._label() or kv.block_size != (bs if quantized else 0):
+            return 0
+        if quantized and (kv.valid_len % bs or kv.k_scale is None):
+            return 0
+        prompt = [int(t) for t in prompt]
+        depth = min(kv.valid_len // bs, self._prefix_limit(prompt))
+        missing = []
+        for i in range(depth):
+            key = self._prefix_key(prompt, i, adapter)
+            if key in self._prefix_store:
+                self._prefix_store.move_to_end(key)
+            else:
+                missing.append(i)
+        if not missing:
+            return 0
+        try:
+            ids = self._alloc.alloc(len(missing))
+        except OutOfBlocks:
+            return 0
+        try:
+            sel = torch.tensor(missing, dtype=torch.long).to(self.device)
+            self._write_stripes(ids, [x.index_select(1, sel)
+                                      for x in self._payload_stripes(kv, depth)])
+            for i, bid in zip(missing, ids):
+                self._prefix_store[self._prefix_key(prompt, i, adapter)] = int(bid)
+                if self.on_prefix_store is not None:
+                    n = (i + 1) * bs
+                    self.on_prefix_store(tuple(prompt[:n]), n, adapter)
+        except BaseException:
+            self._alloc.free(ids)  # the reference's refund: nothing else would free them
+            raise
+        self._trim_prefix_store()
+        self._update_gauges()
+        return len(missing) * bs
 
     # -- internals ---------------------------------------------------------
     def _step(self, k: int) -> int:
@@ -1263,6 +1505,9 @@ class PagedServeEngine:
         self._set_row(slot, st, adm["temp"], adm["key"])
         serve._M_TOKENS.inc()
         self.telemetry.on_activate(st.request_id)  # the slot is live, its first token in
+        if adm["handoff"]:
+            self._handoff_retire(slot, adm["temp"], adm["key"], st.adapter)
+            return
         self._retire(slot)
         self._update_gauges()
 
@@ -1437,9 +1682,18 @@ class PagedServeEngine:
                 self._prefix_store.move_to_end(key)
                 continue
             self._prefix_store[key] = self._alloc.share(int(self._table_np[slot, i]))
+            if self.on_prefix_store is not None:
+                n = (i + 1) * self.block_size
+                self.on_prefix_store(tuple(prompt[:n]), n, adapter)
+        self._trim_prefix_store()
+
+    def _trim_prefix_store(self) -> None:
         while len(self._prefix_store) > self.prefix_cache_blocks:
-            _, old = self._prefix_store.popitem(last=False)
+            old_key, old = self._prefix_store.popitem(last=False)
             self._alloc.free([old])
+            if self.on_prefix_evict is not None:
+                adapter, tokens = serve.split_prefix_key(self, old_key)
+                self.on_prefix_evict(tokens, adapter)
 
     def _reserve(self, slot: int, ids: list[int]) -> None:
         """Point ``slot``'s table row at ``ids`` (uploaded before the next

@@ -4,7 +4,9 @@ What the engines share: slot state and completions, admission checks,
 retirement and its early funnel (cancel, quarantine, a parked request's
 death), the sampling tail, the fault window, the wedge error, snapshot
 entries and their restore checks, load shedding and the
-continuous-batching ``_pump``; the serving metrics (the reference's
+continuous-batching ``_pump``; KV payloads (:class:`KVSlice`, with the
+reference's wire frame byte for byte, ``to_wire``/``from_wire``) and the
+check of whether one fits an engine (``_kv_geometry_ok``); the serving metrics (the reference's
 ``tpu_serve_*`` families in the port's ``utils/metrics.REGISTRY``), the
 journal records and the request telemetry (``models/telemetry``) along
 every one of those paths; and, re-exported from ``models/graphs``,
@@ -16,12 +18,15 @@ The dense :class:`ServeEngine`: a fixed pool of slots over one dense KV
 cache ``[L, n_slots, max_seq, Hkv, hd]``, its programs (admission, prefix-hit
 admission, K-step bursts) written as plain functions on tensors that
 update the cache in place, with a prefix cache, cancel, quarantine,
-snapshot and restore, and ``stats()``.
+snapshot and restore (with KV payloads: handoff and inject), the fleet
+prefix tier's surface, and ``stats()``.
 """
 
 from __future__ import annotations
 
+import struct
 import time
+import zlib
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -101,6 +106,331 @@ _M_QUEUE_DEPTH = REGISTRY.gauge(
 TERMINAL_STATUSES = frozenset(
     {"ok", "deadline_exceeded", "cancelled", "quarantined", "shed", "error"}
 )
+
+# The KVSlice wire frame, the reference's byte for byte: a header (rid,
+# geometry, payload CRC), its own CRC, then the payload in length-prefixed
+# chunks closed by a zero-length sentinel, so a truncation always shows.
+# Version 2 adds quantized payloads (a block_size field, scale planes).
+WIRE_MAGIC = b"TKV1"
+WIRE_VERSION = 2
+WIRE_CHUNK = 256 * 1024
+_WIRE_HEADER = "!BQIIIIII"
+
+# counted by the engines when a payload arrives but cannot inject (the
+# reference's family; its router counts the channel's losses in its own)
+_M_DISAGG_FALLBACK = REGISTRY.counter(
+    "tpu_disagg_fallback_total",
+    "KV handoffs that fell back to re-prefill instead of injecting, by reason",
+)
+
+
+class WireFormatError(ValueError):
+    """A :class:`KVSlice` wire frame that does not decode: a truncation, a
+    flipped bit, an impossible geometry or a checksum mismatch, raised
+    before any payload exists.  ``request_id`` is the frame's once its
+    header could be read, else -1."""
+
+    def __init__(self, message: str, request_id: int = -1):
+        super().__init__(message)
+        self.request_id = int(request_id)
+
+
+def dtype_label(dtype: torch.dtype) -> str:
+    """A float cache dtype's payload label: "float32", "bfloat16", "float16"."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _storage(label: str) -> np.dtype:
+    """The numpy storage of a float payload: bf16 travels as its raw 16-bit
+    words (numpy has no bf16 of its own)."""
+    return np.dtype(np.uint16) if label == "bfloat16" else np.dtype(label)
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as a contiguous numpy array that owns its bytes
+    (one device-to-host copy; on the CPU a copy too, never a view of the
+    cache), bf16 as uint16 words."""
+    t = t.contiguous().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def device_tensor(a, label: str, device) -> torch.Tensor:
+    """A payload array on ``device`` (one host-to-device copy): a bf16
+    payload's 16-bit words, whether uint16 or the reference's
+    ``ml_dtypes`` bfloat16, reinterpreted as bf16."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a frame's buffer: torch wants memory it may write
+        a = a.copy()
+    if label == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).to(device).view(torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def _chained_crc(planes) -> int:
+    crc = 0
+    for plane in planes:
+        crc = zlib.crc32(plane, crc)
+    return crc
+
+
+@dataclass
+class KVSlice:
+    """One request's KV payload (the reference's ``KVSlice``): the ``"kv"``
+    of a handoff entry or of ``snapshot_active(include_kv=True)``, and the
+    fleet prefix tier's pull unit.  Layout ``[n_layers, valid_len,
+    kv_heads, head_dim]`` for both engines, ``valid_len = len(tokens) - 1``
+    (the frontier's K/V are rewritten by the next step).  Arrays are numpy
+    on the host; bf16 as uint16 words under the label "bfloat16", so no
+    ``ml_dtypes`` is needed and the bytes are the reference's.
+
+    A quantized pool's payload (``block_size > 0``, dtype "int8" or
+    "int4") carries the pool's raw values over the padded ``ceil(valid_len
+    / block_size) * block_size`` positions, int4 as packed uint8 along
+    ``head_dim`` (``head_dim // 2``), and the per-block f32 scales
+    ``[n_layers, n_blocks, kv_heads]``, so the receiving pool gets the
+    source's bytes.  Not JSON: a snapshot carrying payloads is a transfer
+    artifact."""
+
+    k: np.ndarray
+    v: np.ndarray
+    valid_len: int
+    n_layers: int
+    kv_heads: int
+    head_dim: int
+    dtype: str
+    k_scale: np.ndarray | None = None
+    v_scale: np.ndarray | None = None
+    block_size: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return self.block_size > 0
+
+    @property
+    def nbytes(self) -> int:
+        n = int(self.k.nbytes) + int(self.v.nbytes)
+        if self.k_scale is not None:
+            n += int(self.k_scale.nbytes) + int(self.v_scale.nbytes)
+        return n
+
+    def _planes(self) -> list[bytes]:
+        planes = [self.k, self.v]
+        if self.k_scale is not None:
+            planes += [self.k_scale, self.v_scale]
+        return [np.ascontiguousarray(p).tobytes() for p in planes]
+
+    def checksum(self) -> int:
+        """CRC32 chained over k, v and, when quantized, the two scale planes."""
+        return _chained_crc(self._planes())
+
+    def to_wire(self, request_id: int) -> bytes:
+        """The wire frame of this payload for ``request_id``."""
+        planes = self._planes()
+        kb, vb, ksb, vsb = (planes + [b"", b""])[:4]
+        dt = self.dtype.encode("ascii")
+        parts = [
+            WIRE_MAGIC,
+            struct.pack(_WIRE_HEADER, WIRE_VERSION, int(request_id), self.n_layers,
+                        self.valid_len, self.kv_heads, self.head_dim, self.block_size,
+                        _chained_crc(planes)),
+            struct.pack("!B", len(dt)),
+            dt,
+            struct.pack("!QQQQ", len(kb), len(vb), len(ksb), len(vsb)),
+        ]
+        # the header's own CRC: a flipped rid or geometry shows even when
+        # the payload bytes arrive intact
+        parts.append(struct.pack("!I", zlib.crc32(b"".join(parts))))
+        payload = kb + vb + ksb + vsb
+        for off in range(0, len(payload), WIRE_CHUNK):
+            chunk = payload[off:off + WIRE_CHUNK]
+            parts += [struct.pack("!I", len(chunk)), chunk]
+        parts.append(struct.pack("!I", 0))
+        return b"".join(parts)
+
+    @staticmethod
+    def from_wire(buf: bytes) -> "tuple[int, KVSlice]":
+        """Decode one frame into ``(request_id, KVSlice)``, raising
+        :class:`WireFormatError` on every malformation, in the reference's
+        order of checks and with its messages."""
+        off = 0
+
+        def need(n: int, what: str, rid: int = -1) -> int:
+            if off + n > len(buf):
+                raise WireFormatError(
+                    f"kv wire frame truncated in {what}: need {n} bytes at offset {off}, "
+                    f"have {len(buf) - off}", rid,
+                )
+            return off + n
+
+        off = need(len(WIRE_MAGIC), "magic")
+        if buf[:off] != WIRE_MAGIC:
+            raise WireFormatError(f"bad kv wire magic {buf[:off]!r}")
+        end = need(struct.calcsize(_WIRE_HEADER), "header")
+        ver, rid, n_layers, valid_len, kv_heads, head_dim, block_size, crc = struct.unpack(
+            _WIRE_HEADER, buf[off:end])
+        off = end
+        if ver != WIRE_VERSION:
+            raise WireFormatError(f"kv wire version {ver} != {WIRE_VERSION}")
+        end = need(1, "dtype length", rid)
+        (dt_len,) = struct.unpack("!B", buf[off:end])
+        off = end
+        end = need(dt_len, "dtype", rid)
+        try:
+            dtype = buf[off:end].decode("ascii")
+        except UnicodeDecodeError as exc:
+            raise WireFormatError(f"kv wire dtype unreadable: {exc}", rid) from None
+        if block_size > 0:  # a quant format's name: int4 has no numpy dtype
+            if dtype not in ("int8", "int4"):
+                raise WireFormatError(
+                    f"kv wire block_size={block_size} with non-quantized dtype {dtype!r} for "
+                    f"req-{rid}", rid,
+                )
+            storage = np.dtype(np.uint8 if dtype == "int4" else np.int8)
+        else:
+            try:
+                storage = _storage(dtype)
+            except TypeError as exc:
+                raise WireFormatError(f"kv wire dtype unreadable: {exc}", rid) from None
+        off = end
+        end = need(32, "payload sizes", rid)
+        k_nbytes, v_nbytes, ks_nbytes, vs_nbytes = struct.unpack("!QQQQ", buf[off:end])
+        off = end
+        end = need(4, "header checksum", rid)
+        (hcrc,) = struct.unpack("!I", buf[off:end])
+        if zlib.crc32(buf[:off]) != hcrc:
+            raise WireFormatError(f"kv wire header checksum mismatch (claimed req-{rid})", rid)
+        off = end
+        n_blocks = -(-valid_len // block_size) if block_size > 0 else 0
+        if block_size > 0:  # the padded block extent, and one f32 scale per (layer, block, head)
+            if head_dim % 2 and dtype == "int4":
+                raise WireFormatError(
+                    f"kv wire int4 payload with odd head_dim {head_dim} for req-{rid}", rid)
+            padded = n_blocks * block_size
+            last_dim = head_dim // 2 if dtype == "int4" else head_dim
+            want = n_layers * padded * kv_heads * last_dim
+            want_scale = n_layers * n_blocks * kv_heads * 4
+            if (k_nbytes != want or v_nbytes != want
+                    or ks_nbytes != want_scale or vs_nbytes != want_scale):
+                raise WireFormatError(
+                    f"kv wire geometry mismatch for req-{rid}: header says "
+                    f"[{n_layers},{padded},{kv_heads},{last_dim}]/{dtype}"
+                    f"+scales[{n_layers},{n_blocks},{kv_heads}] = {want}B/{want_scale}B but "
+                    f"carries k={k_nbytes}B v={v_nbytes}B ks={ks_nbytes}B vs={vs_nbytes}B", rid,
+                )
+            shape = (n_layers, padded, kv_heads, last_dim)
+        else:
+            want = n_layers * valid_len * kv_heads * head_dim * storage.itemsize
+            if k_nbytes != want or v_nbytes != want or ks_nbytes or vs_nbytes:
+                raise WireFormatError(
+                    f"kv wire geometry mismatch for req-{rid}: header says "
+                    f"[{n_layers},{valid_len},{kv_heads},{head_dim}]/{dtype} = {want}B per "
+                    f"tensor but carries k={k_nbytes}B v={v_nbytes}B ks={ks_nbytes}B "
+                    f"vs={vs_nbytes}B", rid,
+                )
+            shape = (n_layers, valid_len, kv_heads, head_dim)
+        total = k_nbytes + v_nbytes + ks_nbytes + vs_nbytes
+        chunks, got = [], 0
+        while True:
+            end = need(4, "chunk length", rid)
+            (n,) = struct.unpack("!I", buf[off:end])
+            off = end
+            if n == 0:
+                break
+            if got + n > total:
+                raise WireFormatError(
+                    f"kv wire chunk overrun for req-{rid}: {got + n}B exceeds declared payload "
+                    f"{total}B", rid,
+                )
+            end = need(n, "chunk body", rid)
+            chunks.append(buf[off:end])
+            off = end
+        if off != len(buf):
+            raise WireFormatError(
+                f"kv wire frame for req-{rid} carries {len(buf) - off} trailing bytes after the "
+                f"sentinel", rid,
+            )
+        payload = bytearray().join(chunks)  # writable: the arrays below own it
+        if len(payload) != total:
+            raise WireFormatError(
+                f"kv wire frame truncated for req-{rid}: sentinel after {len(payload)}B of a "
+                f"declared {total}B payload", rid,
+            )
+        cuts = np.cumsum([0, k_nbytes, v_nbytes, ks_nbytes, vs_nbytes]).tolist()
+        view = memoryview(payload)
+        got_crc = _chained_crc(view[lo:hi] for lo, hi in zip(cuts, cuts[1:]))
+        if got_crc != crc:
+            raise WireFormatError(
+                f"kv wire checksum mismatch for req-{rid}: header {crc:#010x} != payload "
+                f"{got_crc:#010x}", rid,
+            )
+
+        def plane(i, dt, shp):
+            return np.frombuffer(payload, dt, count=(cuts[i + 1] - cuts[i]) // dt.itemsize,
+                                 offset=cuts[i]).reshape(shp)
+
+        scales = {}
+        if block_size > 0:
+            sshape = (n_layers, n_blocks, kv_heads)
+            scales = dict(k_scale=plane(2, np.dtype(np.float32), sshape),
+                          v_scale=plane(3, np.dtype(np.float32), sshape), block_size=block_size)
+        return rid, KVSlice(
+            k=plane(0, storage, shape), v=plane(1, storage, shape), valid_len=valid_len,
+            n_layers=n_layers, kv_heads=kv_heads, head_dim=head_dim, dtype=dtype, **scales,
+        )
+
+
+_KV_FIELDS = ("k", "v", "valid_len", "n_layers", "kv_heads", "head_dim", "dtype", "k_scale",
+              "v_scale", "block_size")
+
+
+def is_kv_payload(kv) -> bool:
+    """Whether ``kv`` carries a KVSlice's fields: the port's class or the
+    reference's (a fleet prefix pull decodes through the reference's
+    ``from_wire``), told apart by nothing but their fields."""
+    return all(hasattr(kv, f) for f in _KV_FIELDS)
+
+
+def _kv_geometry_ok(engine, kv, n_tokens: int) -> bool:
+    """Whether payload ``kv`` can inject into ``engine`` for a history of
+    ``n_tokens``: the ``valid_len == n_tokens - 1`` invariant, the model's
+    geometry, and the pool's format; anything else re-prefills (the same
+    tokens, at the cost of compute).  A quantized payload injects only
+    into a pool of the same quant format and block size (its scales are
+    per source block); a float one only into a float cache of its dtype."""
+    cfg = engine.cfg
+    if not (is_kv_payload(kv)
+            and kv.valid_len == n_tokens - 1
+            and 0 < kv.valid_len <= cfg.max_seq
+            and kv.n_layers == cfg.n_layers
+            and kv.kv_heads == cfg.kv_heads
+            and kv.head_dim == cfg.head_dim):
+        return False
+    if kv.block_size > 0:
+        if (getattr(engine, "kv_dtype", None) != kv.dtype
+                or getattr(engine, "block_size", 0) != kv.block_size
+                or kv.k_scale is None or kv.v_scale is None):
+            return False
+        n_blocks = -(-kv.valid_len // kv.block_size)
+        last = cfg.head_dim // 2 if kv.dtype == "int4" else cfg.head_dim
+        return (tuple(kv.k.shape) == (cfg.n_layers, n_blocks * kv.block_size, cfg.kv_heads, last)
+                and tuple(kv.v.shape) == tuple(kv.k.shape)
+                and tuple(kv.k_scale.shape) == (cfg.n_layers, n_blocks, cfg.kv_heads)
+                and tuple(kv.v_scale.shape) == tuple(kv.k_scale.shape))
+    if getattr(engine, "kv_dtype", None) is not None:
+        return False
+    return (kv.dtype == dtype_label(engine.cache_dtype)
+            and tuple(kv.k.shape) == (cfg.n_layers, kv.valid_len, cfg.kv_heads, cfg.head_dim)
+            and tuple(kv.v.shape) == tuple(kv.k.shape))
+
+
+def split_prefix_key(engine, key) -> tuple:
+    """A prefix store key back to ``(adapter, tokens)`` (both engines key
+    by ``(adapter, tokens)`` with a bank, by the tokens without)."""
+    if engine.adapter_bank is not None:
+        return int(key[0]), key[1]
+    return 0, key
 
 
 class NoCapacity(RuntimeError):
@@ -862,7 +1192,15 @@ class ServeEngine:
     * ``telemetry`` (``models/telemetry.EngineTelemetry``, off with
       ``telemetry_enabled=False``) records each request's timeline at the
       host points above, outside the programs, with no added readback;
-      ``stats()`` returns its ``EngineStats``.
+      ``stats()`` returns its ``EngineStats``;
+    * ``submit(handoff=True)`` retires the request at its first token into
+      :meth:`take_handoffs` with its prompt's K/V as a :class:`KVSlice`
+      (the disaggregated prefill side), ``snapshot_active(include_kv=True)``
+      attaches every entry's, and ``restore`` writes a fitting payload into
+      the slot's rows instead of re-prefilling (the decode side);
+    * the fleet prefix tier's surface: ``on_prefix_store`` /
+      ``on_prefix_evict`` hooks, ``prefix_geometry``,
+      ``local_prefix_depth``, ``export_prefix_kv`` and ``inject_prefix_kv``.
 
     Runs on ``device`` (default the card; raises without one unless
     ``device="cpu"``); ``params`` must live there.  On the card each of the
@@ -876,8 +1214,8 @@ class ServeEngine:
     temperature, base key, poison mask and adapter id; the admission's
     padded prompt, length and slot, temperature and key, and the prefix-hit
     staging K/V) keeps one address for the engine's life and is written in
-    place.  A mesh and handoff with KV payloads raise
-    ``NotImplementedError``.  Not thread-safe; drive it from one loop.
+    place, an injected payload too.  A mesh raises ``NotImplementedError``.
+    Not thread-safe; drive it from one loop.
     """
 
     params: dict
@@ -937,6 +1275,12 @@ class ServeEngine:
         self._prefix_store: OrderedDict = OrderedDict()
         self.prefix_hits = 0
         self.prefix_misses = 0
+        # the fleet prefix tier's hooks (the reference's fleet_prefix binds
+        # them): on_prefix_store(tokens, n_tokens, adapter) after an entry
+        # lands in the store, on_prefix_evict(tokens, adapter) after an LRU drop
+        self.on_prefix_store = None
+        self.on_prefix_evict = None
+        self._handoffs: list[dict] = []  # first-token retirements with their payloads
         # port-only, outside EngineStats (whose fields are the reference's)
         self.spec_drafted = 0    # draft tokens proposed to active slots
         self.spec_accepted = 0   # of those, the ones the target agreed with
@@ -986,13 +1330,14 @@ class ServeEngine:
         generated tokens and types the completion "deadline_exceeded" when
         it binds first.  ``adapter`` is the bank row to serve it with (0: the
         base).  ``queued_at`` (the telemetry clock) is when the request
-        entered an upstream queue; default now.  Returns the request id."""
+        entered an upstream queue; default now.  With ``handoff`` the
+        request retires at its first token without a completion: its
+        snapshot entry and KV payload go to :meth:`take_handoffs`, for a
+        decode engine to ``restore``.  Returns the request id."""
         t_sub = self.telemetry.now()
         check_submit(prompt, max_tokens, self.prompt_bucket, self.cfg.max_seq,
                      spec_gamma=self.spec_gamma, temperature=temperature, deadline=deadline)
         check_adapter(self, adapter)
-        if handoff:
-            raise _unported("handoff with a KV payload", 11)
         try:
             slot = self._slots.index(None)
         except ValueError:
@@ -1000,14 +1345,7 @@ class ServeEngine:
         request_id = self._next_id
         base_key = prng.prng_key(request_id if seed is None else seed)
         self._stage_admission(prompt, slot, temperature, base_key, adapter)
-        prefix_key = (
-            tuple(prompt[: self.prefix_bucket])
-            if self.prefix_bucket is not None and len(prompt) > self.prefix_bucket
-            else None
-        )
-        if prefix_key is not None and self.adapter_bank is not None:
-            # adapted K/V belong to their adapter: a hit never crosses adapters
-            prefix_key = (adapter, prefix_key)
+        prefix_key = self._dense_prefix_key(prompt, adapter)
         if prefix_key is not None and prefix_key in self._prefix_store:
             self._prefix_store.move_to_end(prefix_key)  # LRU touch
             pk, pv = self._prefix_store[prefix_key]
@@ -1024,8 +1362,10 @@ class ServeEngine:
                 self._prefix_store[prefix_key] = _extract_prefix(
                     self._cache, slot, prefix_bucket=self.prefix_bucket
                 )
-                while len(self._prefix_store) > self.prefix_cache_entries:
-                    self._prefix_store.popitem(last=False)
+                if self.on_prefix_store is not None:
+                    self.on_prefix_store(tuple(prompt[: self.prefix_bucket]), self.prefix_bucket,
+                                         adapter)
+                self._trim_prefix_store()
         self._prefill_draft()
         self._next_id += 1
         st = _Slot(request_id, list(prompt) + [int(first_tok)], len(prompt), max_tokens,
@@ -1043,9 +1383,19 @@ class ServeEngine:
             request_id, prompt_len=len(prompt), max_tokens=max_tokens, deadline=deadline,
             adapter=adapter, submitted_at=t_sub, queued_at=queued_at,
         )
+        if handoff:
+            self._handoff_retire(slot, temperature, base_key, adapter)
+            return request_id
         self._retire(slot)  # max_tokens=1 or eos on the first token
         self._update_gauges()
         return request_id
+
+    def take_handoffs(self) -> list[dict]:
+        """Drain the handoff queue: the snapshot entries, each with its KV
+        payload under ``"kv"``, of the requests submitted with
+        ``handoff=True`` that retired here at their first token."""
+        out, self._handoffs = self._handoffs, []
+        return out
 
     def cancel(self, request_id: int) -> bool:
         """Retire a resident request "cancelled" with its tokens so far
@@ -1097,21 +1447,32 @@ class ServeEngine:
         """Every in-flight request as a JSON-serialisable document (token
         history, temperature and base key, adapter id, deadline, telemetry
         trace); one readback of the per-slot sampler state, no decode step.
-        A fresh engine continues every stream from it with :meth:`restore`."""
-        if include_kv:
-            raise _unported("snapshot_active(include_kv=True)", 11)
+        A fresh engine continues every stream from it with :meth:`restore`.
+        ``include_kv`` adds each entry's cache rows as a :class:`KVSlice`
+        under ``"kv"`` (one counted host sync each), so ``restore`` injects
+        them instead of re-prefilling; such a snapshot is not JSON."""
         temps = self._temps.to("cpu", copy=True).numpy()
         keys = self._keys.to("cpu", copy=True).numpy()
-        reqs = [_snapshot_request(st, float(temps[i]), keys[i], st.adapter,
-                                  trace=self.telemetry.export_trace(st.request_id))
-                for i, st in enumerate(self._slots) if st is not None]
+        reqs = []
+        for i, st in enumerate(self._slots):
+            if st is None:
+                continue
+            req = _snapshot_request(st, float(temps[i]), keys[i], st.adapter,
+                                    trace=self.telemetry.export_trace(st.request_id))
+            if include_kv and len(st.tokens) > 1:
+                req["kv"] = self._capture_kv(i, len(st.tokens) - 1)
+            reqs.append(req)
         return {"engine": type(self).__name__, "next_id": self._next_id, "requests": reqs}
 
     def restore(self, snapshot: dict, merge: bool = False) -> list[int]:
         """Rebuild a snapshot's requests in this engine: each history
         re-prefills through the admission program under the entry's
         temperature and key (bypassing the prefix store), its sampled
-        token is discarded, and the frontier re-arms at ``_last =
+        token is discarded, or, when the entry's ``"kv"`` payload fits this
+        cache (``_kv_geometry_ok``), the payload is written into the slot's
+        rows in place instead (a payload that does not fit counts
+        ``tpu_disagg_fallback_total{reason="incompatible"}`` and
+        re-prefills; ``"kv": None`` re-prefills); the frontier re-arms at ``_last =
         tokens[-1]``, ``_pos = len(tokens) - 1``, so the next step samples
         what the old engine would have.  Needs an idle engine unless
         ``merge``, which fills free slots of a live one.  An entry longer
@@ -1123,9 +1484,6 @@ class ServeEngine:
         Each entry's trace is rebuilt first, so its request keeps one
         timeline.  Returns the restored ids."""
         check_restorable(snapshot)
-        for req in snapshot["requests"]:
-            if "kv" in req:
-                raise _unported("restoring a KV payload", 11)
         if not merge and self.n_slots - self.free_slots():
             raise RuntimeError("restore() needs an idle engine")
         restored: list[int] = []
@@ -1146,8 +1504,18 @@ class ServeEngine:
             key = torch.tensor([int(x) for x in req["key"]], dtype=torch.int64)
             adapter = int(req.get("adapter", 0))
             self._stage_admission(tokens, slot, temp, key, adapter)
-            self._run("admission", self._admission)  # its token is not read
-            self._prefill_draft()
+            kv = req.get("kv")
+            if kv is not None and _kv_geometry_ok(self, kv, len(tokens)):
+                # the payload's rows in place; the frontier's stay stale, as
+                # after a re-prefill: the next step rewrites them first
+                for whole, part in ((self._cache.k, kv.k), (self._cache.v, kv.v)):
+                    whole[:, slot, : kv.valid_len].copy_(device_tensor(part, kv.dtype,
+                                                                       self.device))
+            else:
+                if kv is not None:
+                    _M_DISAGG_FALLBACK.inc(reason="incompatible")
+                self._run("admission", self._admission)  # its token is not read
+            self._prefill_draft()  # the draft cache never travels
             st = _Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
                        int(req["max_tokens"]), req.get("deadline"), adapter)
             self._slots[slot] = st
@@ -1182,7 +1550,113 @@ class ServeEngine:
         self._update_gauges()
         return released
 
+    # -- the fleet prefix tier's surface (the reference's fleet_prefix) -----
+    def _trim_prefix_store(self) -> None:
+        while len(self._prefix_store) > self.prefix_cache_entries:
+            old_key, _ = self._prefix_store.popitem(last=False)
+            if self.on_prefix_evict is not None:
+                adapter, tokens = split_prefix_key(self, old_key)
+                self.on_prefix_evict(tokens, adapter)
+
+    def prefix_geometry(self) -> dict:
+        """The payload geometry a pulled prefix must have to inject here:
+        one "block" of ``prefix_bucket`` tokens per store entry."""
+        return {
+            "block_size": 0 if self.prefix_bucket is None else self.prefix_bucket,
+            "kv_dtype": dtype_label(self.cache_dtype),
+            "n_layers": self.cfg.n_layers,
+            "kv_heads": self.cfg.kv_heads,
+            "head_dim": self.cfg.head_dim,
+        }
+
+    def _dense_prefix_key(self, prompt, adapter: int):
+        """The store's key of ``prompt``: its first ``prefix_bucket``
+        tokens, with a bank ``(adapter, tokens)`` (adapted K/V belong to
+        their adapter); None for a prompt no longer than the bucket."""
+        if self.prefix_bucket is None or len(prompt) <= self.prefix_bucket:
+            return None
+        key = tuple(int(t) for t in prompt[: self.prefix_bucket])
+        return (adapter, key) if self.adapter_bank is not None else key
+
+    def local_prefix_depth(self, prompt, adapter: int = 0) -> int:
+        """Tokens of ``prompt`` the store holds (``prefix_bucket`` or 0)."""
+        key = self._dense_prefix_key(prompt, adapter)
+        return 0 if key is None or key not in self._prefix_store else self.prefix_bucket
+
+    def export_prefix_kv(self, prompt, max_tokens=None, adapter: int = 0):
+        """The stored prefix of ``prompt`` as a :class:`KVSlice` (an LRU
+        touch and one counted host sync), or None."""
+        del max_tokens  # advisory; the bucket sets the depth
+        key = self._dense_prefix_key(prompt, adapter)
+        if key is None or key not in self._prefix_store:
+            return None
+        self._prefix_store.move_to_end(key)
+        pk, pv = self._prefix_store[key]
+        k, v = host_array(pk), host_array(pv)
+        self.host_syncs += 1
+        _M_HOST_SYNCS.inc()
+        cfg = self.cfg
+        return KVSlice(k=k, v=v, valid_len=self.prefix_bucket, n_layers=cfg.n_layers,
+                       kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+                       dtype=dtype_label(self.cache_dtype))
+
+    def inject_prefix_kv(self, prompt, kv, adapter: int = 0) -> int:
+        """Store a pulled float prefix payload (its first ``prefix_bucket``
+        positions) as this prompt's entry, so the next ``submit`` of it
+        takes the prefix-hit admission.  Returns the tokens installed; 0
+        (a cold prefill) for a payload of another geometry or dtype, a
+        short one, or a prefix already stored."""
+        key = self._dense_prefix_key(prompt, adapter)
+        if key is None or not is_kv_payload(kv) or kv.block_size > 0:
+            return 0
+        cfg = self.cfg
+        if (kv.n_layers, kv.kv_heads, kv.head_dim) != (cfg.n_layers, cfg.kv_heads, cfg.head_dim):
+            return 0
+        if kv.dtype != dtype_label(self.cache_dtype) or kv.valid_len < self.prefix_bucket:
+            return 0
+        if key in self._prefix_store:
+            self._prefix_store.move_to_end(key)
+            return 0
+        self._prefix_store[key] = tuple(
+            device_tensor(np.asarray(part)[:, : self.prefix_bucket], kv.dtype, self.device)
+            for part in (kv.k, kv.v))
+        if self.on_prefix_store is not None:
+            self.on_prefix_store(tuple(int(t) for t in prompt[: self.prefix_bucket]),
+                                 self.prefix_bucket, adapter)
+        self._trim_prefix_store()
+        return self.prefix_bucket
+
     # -- internals ---------------------------------------------------------
+    def _capture_kv(self, slot: int, valid_len: int) -> KVSlice:
+        """A host copy of the slot's cache rows ``[L, valid_len, Hkv, hd]``,
+        one copy per tensor and one counted host sync (the transfer's cost
+        shows in ``host_syncs``)."""
+        k = host_array(self._cache.k[:, slot, :valid_len])
+        v = host_array(self._cache.v[:, slot, :valid_len])
+        self.host_syncs += 1
+        _M_HOST_SYNCS.inc()
+        cfg = self.cfg
+        return KVSlice(k=k, v=v, valid_len=valid_len, n_layers=cfg.n_layers,
+                       kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+                       dtype=dtype_label(self.cache_dtype))
+
+    def _handoff_retire(self, slot: int, temperature: float, key, adapter: int) -> None:
+        """The first-token retirement of a handoff: the request's snapshot
+        entry with its prompt's K/V, the slot freed without a completion,
+        its trace exported into the entry and dropped here (the decode
+        engine imports it), the entry queued for :meth:`take_handoffs`."""
+        st = self._slots[slot]
+        entry = _snapshot_request(st, temperature, key, adapter,
+                                  trace=self.telemetry.export_trace(st.request_id))
+        entry["kv"] = self._capture_kv(slot, st.prompt_len)
+        self._slots[slot] = None
+        self._release_slot(slot)
+        self.telemetry.drop_trace(st.request_id)
+        self._handoffs.append(entry)
+        JOURNAL.record("serve", "request.handoff", correlation=f"req-{st.request_id}",
+                       slot=slot, kv_bytes=entry["kv"].nbytes)
+        self._update_gauges()
+
     def _step(self, k: int) -> int:
         """Open the fault window and run a K-step burst over the resident
         slots (``step`` asks for K = 1)."""

@@ -554,8 +554,12 @@ def test_submit_and_engine_validation_match_jax(weights):
 
 
 def test_unported_paths_raise(weights):
-    """What the port leaves out raises ``NotImplementedError`` naming its
-    ROADMAP item; nothing falls back quietly."""
+    """What the port leaves out (a mesh, ROADMAP item 15) raises
+    ``NotImplementedError`` naming its item; nothing falls back quietly.
+    The item-11 paths behave as the reference's: ``submit(handoff=True)``
+    retires into ``take_handoffs`` with a payload, ``snapshot_active(
+    include_kv=True)`` attaches one, and an entry with ``"kv": None``
+    re-prefills, its stream the JAX engine's."""
     _, tparams = weights
 
     def engine(**kw):
@@ -564,17 +568,23 @@ def test_unported_paths_raise(weights):
     for kw, item in ((dict(mesh=object()), 15),):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             engine(**kw)
-    eng = engine()
-    for call, item in ((lambda: eng.submit([1, 2], 3, handoff=True), 11),
-                       (lambda: eng.snapshot_active(include_kv=True), 11)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
+    je, te = _pair(weights, **ENGINE)
+    for eng in (je, te):
+        eng.submit([1, 2], 3, handoff=True)
+        (entry,) = eng.take_handoffs()
+        assert entry["kv"].valid_len == 2 and eng.free_slots() == eng.n_slots
+        eng.submit([1, 2, 3], 3)
+        (entry,) = eng.snapshot_active(include_kv=True)["requests"]
+        assert entry["kv"].valid_len == 3
+        eng.release_active()
     entry = dict(request_id=0, tokens=[1, 2], prompt_len=1, max_tokens=3, deadline=None,
                  temperature=0.0, key=[0, 0], adapter=0, priority=0)
-    for extra, item in ((dict(kv=None), 11),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            eng.restore({"next_id": 1, "requests": [dict(entry, **extra)]})
-    assert eng.free_slots() == eng.n_slots and eng._next_id == 0
+    streams = []
+    for eng in _pair(weights, **ENGINE):
+        assert eng.restore({"next_id": 1, "requests": [dict(entry, kv=None)]}) == [0]
+        eng.run_until_drained()
+        streams.append([(c.request_id, c.generated, c.status) for c in eng.completions()])
+    assert streams[0] == streams[1] and len(streams[0][0][1]) == 3
 
 
 def test_engine_defaults_to_the_card(weights, monkeypatch):

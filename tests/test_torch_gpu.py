@@ -51,7 +51,9 @@ losses the CPU's (1e-5 relative).  A quantized pool's engine (int8, int4;
 with speculation over a window wider than a block, and with chunks and the
 store) graphed equals its eager twin in streams, pool bytes and scales,
 launches no paged kernel, and its f32 streams equal the CPU's; the block
-codec on the card gives the CPU's bytes and scales."""
+codec on the card gives the CPU's bytes and scales.  After a paged -> paged
+handoff through the wire frame, the decode engine's injected blocks hold
+the source's bytes and scales, and its graphs equal its eager twin."""
 
 import contextlib
 
@@ -1530,3 +1532,56 @@ def test_kv_block_codec_on_the_card_equals_the_cpu(cuda, kv_dtype):
     qd, sd = tq.quantize_kv_blocks(x.to(cuda), kv_dtype)
     assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)
     assert torch.equal(tq.dequant_kv_blocks(qd, sd).cpu(), tq.dequant_kv_blocks(qc, sc))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_engine_after_a_handoff_matches_the_eager_engine(cuda, dtype, kv_dtype):
+    """A paged -> paged handoff on the card through the wire frame: the
+    decode engine's injected blocks hold the source's bytes (and scales),
+    the graphed decode engine equals its eager twin in streams, host syncs,
+    launches and pool bytes from block 1 (the inject writes the pool the
+    graphs were captured over, in place), the append kernel launches on a
+    float pool, and the f32 streams equal the CPU engine's."""
+    cfg, params = _small_engine_params(None, cuda)
+    reqs = [dict(prompt=p, max_tokens=m) for p, m in _spec_traffic(n=5)]
+    kw = dict(n_slots=3, prompt_bucket=24, sync_interval=4, n_blocks=40, block_size=8,
+              cache_dtype=dtype, kv_dtype=kv_dtype)
+
+    def serve(eager, device=cuda):
+        p = params if device == cuda else _to(params, "cpu")
+        pre = tp.PagedServeEngine(params=p, cfg=cfg, device=device, **kw)
+        for r in reqs:
+            pre.submit(handoff=True, **r)
+        entries = []
+        for e in pre.take_handoffs():
+            rid, kv = ts.KVSlice.from_wire(e["kv"].to_wire(e["request_id"]))
+            entries.append(dict(e, kv=kv))
+        tpa.add_launch_counts({k: -n for k, n in tpa.launch_counts().items()})
+        dec = tp.PagedServeEngine(params=p, cfg=cfg, device=device, **kw)
+        with ts.disable_graphs() if eager else contextlib.nullcontext():
+            dec.restore({"next_id": len(reqs), "requests": entries})
+            for slot, st in enumerate(dec._slots):
+                if st is not None:
+                    kv = next(e["kv"] for e in entries if e["request_id"] == st.request_id)
+                    got = dec._capture_kv(slot, kv.valid_len)
+                    for name in ("k", "v", "k_scale", "v_scale"):
+                        if getattr(kv, name) is not None:
+                            assert np.array_equal(getattr(got, name), getattr(kv, name)), name
+            dec.run_until_drained()
+            comps = dec.completions()
+        if device == cuda:
+            torch.cuda.synchronize()
+        return dec, {c.request_id: (c.generated, c.status) for c in comps}, tpa.launch_counts()
+
+    graphed, streams, counts = serve(eager=False)
+    eager, want, want_counts = serve(eager=True)
+    assert streams == want and len(streams) == len(reqs)
+    assert counts == want_counts and (counts["append"] > 0) == (kv_dtype is None)
+    assert graphed.host_syncs == eager.host_syncs
+    for a, b in zip(_cache_tensors(graphed._cache), _cache_tensors(eager._cache)):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    assert all(g.graph is not None for g in graphed.graphs.values() if g.calls >= 2)
+    if dtype == torch.float32:
+        _, on_cpu, _ = serve(eager=True, device=torch.device("cpu"))
+        assert streams == on_cpu

@@ -764,24 +764,30 @@ def test_unported_fields_raise_naming_their_item(weights):
     for kw, item in ((dict(mesh=object()), 15), (dict(slot_axis=("slice", "data")), 15)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             engine(**kw)
-    eng = engine(prefix_cache_blocks=2, prefill_chunk_blocks=1)
-    calls = ((lambda: eng.submit([1, 2], 3, handoff=True), 11),
-             (lambda: eng.snapshot_active(include_kv=True), 11),
-             (lambda: setattr(eng, "on_prefix_store", print), 11),
-             (lambda: setattr(eng, "on_prefix_evict", print), 11))
-    for call, item in calls:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
+    # the item-11 paths behave as the reference's: a chunked handoff
+    # retires at activation with its payload, the hooks are plain
+    # attributes, and a "kv": None entry re-prefills
+    seen = []
+    for eng in _pair(weights, **ENGINE, prefix_cache_blocks=2, prefill_chunk_blocks=1):
+        eng.on_prefix_store = lambda toks, n, adapter: seen.append(n)
+        eng.submit(list(range(1, 12)), 3, handoff=True)
+        eng.run_until_drained()
+        (handed,) = eng.take_handoffs()
+        assert handed["kv"].valid_len == 11 and eng.free_slots() == eng.n_slots
+        assert eng.completions() == []
+    assert seen == [8, 8]
     entry = dict(request_id=0, tokens=[1, 2], prompt_len=1, max_tokens=3, deadline=None,
                  temperature=0.0, key=[0, 0], adapter=0, priority=0)
-    for extra, item in ((dict(kv=None), 11),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            eng.restore({"next_id": 1, "requests": [dict(entry, **extra)]})
-    eng.on_prefix_store = eng.on_prefix_evict = None  # the default is served
-    assert eng.free_slots() == eng.n_slots and eng._next_id == 0 and not eng._preempted
-    eng.submit([1, 2, 3], 2, queued_at=0.5)
-    eng.run_until_drained()
-    assert [c.status for c in eng.completions()] == ["ok"]
+    streams = []
+    for eng in _pair(weights, **ENGINE):
+        assert eng.restore({"next_id": 1, "requests": [dict(entry, kv=None)]}) == [0]
+        eng.run_until_drained()
+        streams.append([(c.request_id, c.generated, c.status) for c in eng.completions()])
+        eng.on_prefix_store = eng.on_prefix_evict = None  # the default is served
+        eng.submit([1, 2, 3], 2, queued_at=0.5)
+        eng.run_until_drained()
+        assert [c.status for c in eng.completions()] == ["ok"]
+    assert streams[0] == streams[1] and len(streams[0][0][1]) == 3
 
 
 def test_engine_defaults_to_the_card(weights, monkeypatch):
