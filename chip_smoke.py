@@ -25,7 +25,11 @@ exits 2 before any result):
    path's shapes (B·H 64, S 256 and 1024, D 64, causal and full, f32 and
    bf16), timed at B·H 64, S 1024, causal, bf16 beside SDPA's forward and
    its backward through autograd, and the f32 kernels beside SDPA in f32
-   (one profiled f32 backward; the f32 kernels also at D 128);
+   (one profiled f32 backward; the f32 kernels also at D 128); and in the
+   ring's mode at B·H 64, S 256, D 64, f32 and bf16: the forward writing
+   f32 partials, causal and not, and the dQ and dK/dV kernels with the
+   global lse of a two-block merge and a given ``delta``, each elementwise
+   against its plain version on the same operands;
 4. serving FLAGSHIP_MODERN (random weights from a seed, bf16 weights and
    pool) through ``PagedServeEngine.pump``, the engine's programs as CUDA
    graphs (at most 4, each captured once; capture time and pool bytes
@@ -229,11 +233,27 @@ exits 2 before any result):
     capture;
 21. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
-    kernels only).
+    kernels only);
+22. mesh training ("train mesh"): four ranks started once on the one card
+    (``parallel/ranks.RankPool``, a gloo group over CUDA tensors; what gloo
+    cannot take crosses through pinned host memory, counted), running
+    ``build_train_step(mesh=..., attention="flash")`` at FLAGSHIP_MODERN,
+    B 4, S 1024, remat "blocks", lr 3e-4, 3 steps from seeded weights: (a)
+    ``MeshShape(seq=4)`` ring, (b) ``MeshShape(data=2, model=2)`` (sharded
+    flash, tensor parallel), (c) ``MeshShape(seq=4)`` Ulysses, (d) 2 slices
+    x ``MeshShape(data=2)`` in bf16, then (a)-(d) in f32 at 2 layers, and
+    (e) a world-1 NCCL group in this process at ``MeshShape()``: each
+    leg's losses against the single-card step from the same weights and
+    tokens (1e-3 relative in bf16, 1e-5 in f32), its step-1 gradients
+    (within 5e-2 of each leaf's largest in bf16, 1e-4 in f32) and its
+    parameters after 3 steps (within lr x steps / 2 plus 4 rounding units
+    of each leaf's largest), its flash launches summed over ranks equal
+    to the ring's schedule, and per leg ms per step, collective bytes by
+    kind (and through the host) and peak memory by rank.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
-after a handoff, training, LoRA and MoE training) and their times; the last line is the JSON device record.
+after a handoff, training, LoRA, MoE and mesh training) and their times; the last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -885,6 +905,8 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
                 for name, err in (("flash_fwd", errs["out"]), ("flash_bwd_dq", errs["dq"]),
                                   ("flash_bwd_dkv", max(errs["dk"], errs["dv"]))):
                     worst[name + tag] = max(worst[name + tag], err)
+    for name, err in flash_ring_mode(torch, bh, seqs[0], d).items():
+        worst[name] = max(worst[name], err)
 
     # times at the main path's shape, in bf16 (the training path) and f32,
     # beside yardsticks the port never calls: SDPA's forward, and its
@@ -941,6 +963,65 @@ def phase_flash_kernels(torch, timer: Timer, bh: int = 64, seqs=(256, 1024), d: 
                 top=2, watch=kern_names(fa, dtype)[1:])
     flash_f32_d128(torch, timer, bh, s)
     return results
+
+
+def _check_rows(label, rows):
+    for name, (err, limit, top, rms, over, differ) in rows.items():
+        log(f"  {label} {name}: max_abs_err {err:.3g}, limit there {limit:.3g}, max|plain| "
+            f"{top:.3g}, rms {rms:.3g}; elements over the limit {over}, differing at all "
+            f"{differ}")
+        if over:
+            raise AssertionError(f"{label} {name} disagrees: {over} elements over their limit")
+
+
+def flash_ring_mode(torch, bh: int, s: int, d: int) -> dict:
+    """The flash kernels as the ring runs them (``ops/ring_attention``), at
+    the ring's shapes, each against its plain version on the same operands:
+    the forward writing f32 partials (``out_dtype=float32``), causal and
+    not; and the dQ and dK/dV kernels on the causal own block and a
+    non-causal earlier block with the GLOBAL lse of the two blocks' merge
+    and ``delta`` from the merged output, where a block's probabilities do
+    not sum to 1.  Limits as ``FLASH_STEP``.  Returns the worst error per
+    kernels-line row."""
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+    from k8s_dra_driver_torch.ops.ring_attention import _merge_blocks
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tag = "_f32" if dtype == torch.float32 else ""
+        step = FLASH_STEP[dname][0]
+        g = torch.Generator(device=DEV).manual_seed(SEED + 21)
+        q, k_own, v_own, k_prev, v_prev, dout = (
+            torch.randn((bh, s, d), generator=g, device=DEV).to(dtype) for _ in range(6))
+        parts = {}
+        for causal, k, v in ((True, k_own, v_own), (False, k_prev, v_prev)):
+            got = fa._forward_bhsd(q, k, v, causal, out_dtype=torch.float32)
+            want = fa.flash_forward_plain(q, k, v, causal, out_dtype=torch.float32)
+            sync(torch)
+            limits = flash_limits(q, k, v, dout, causal, (*want, *[want[0]] * 3), step)[:2]
+            rows = flash_check(got, want, limits)
+            _check_rows(f"flash ring f32-out forward {dname} BH={bh} S={s} D={d} "
+                        f"causal={causal}", rows)
+            worst["flash_fwd" + tag] = max(worst.get("flash_fwd" + tag, 0.0), rows["out"][0])
+            parts[causal] = want
+        out32, lse = _merge_blocks(*parts[True], *parts[False])
+        out = out32.to(dtype)  # the ring keeps its output in q's dtype
+        delta = fa._delta(dout, out)
+        for causal, k, v in ((True, k_own, v_own), (False, k_prev, v_prev)):
+            got = fa._backward_bhsd(q, k, v, out, lse, dout, causal, delta=delta)
+            want = fa.flash_backward_plain(q, k, v, out, lse, dout, causal, delta=delta)
+            sync(torch)
+            limits = flash_limits(q, k, v, dout, causal, (out, lse, *want), step)[2:]
+            rows = flash_check(got, want, limits)
+            _check_rows(f"flash ring backward (global lse, given delta) {dname} BH={bh} "
+                        f"S={s} D={d} causal={causal}",
+                        dict(zip(("dq", "dk", "dv"), rows.values())))
+            errs = [r[0] for r in rows.values()]
+            worst["flash_bwd_dq" + tag] = max(worst.get("flash_bwd_dq" + tag, 0.0), errs[0])
+            worst["flash_bwd_dkv" + tag] = max(worst.get("flash_bwd_dkv" + tag, 0.0),
+                                               *errs[1:])
+    return worst
 
 
 def kern_names(fa, dtype):
@@ -1360,6 +1441,229 @@ def phase_train_f32(torch, cfg, steps: int = 3, b: int = 4):
         raise AssertionError(f"f32 flash launches {fwd} {bwd} are not the f32 path's")
     return {"flash_fwd_f32": fwd["flash_fwd_fma"], "flash_bwd_dq_f32": bwd["flash_bwd_dq_fma"],
             "flash_bwd_dkv_f32": bwd["flash_bwd_dkv_fma"]}
+
+
+MESH_TRAIN = dict(b=4, steps=3, lr=3e-4)
+# leg: (what it runs, (slices, MeshShape fields), build_train_step options)
+MESH_LEGS = {
+    "a": ("ring, flash", (0, {"seq": 4}), {}),
+    "b": ("sharded flash, tensor parallel", (0, {"data": 2, "model": 2}), {}),
+    "c": ("Ulysses, flash", (0, {"seq": 4}), {"sequence_parallel": "ulysses"}),
+    "d": ("multislice 2 x data 2, flash", (2, {"data": 2}), {}),
+}
+MESH_TOL = {
+    # (loss relative, step-1 gradient per element over its leaf's largest, why)
+    "bfloat16": (1e-3, 5e-2, "bf16: both paths round at other points (the ring merges f32 "
+                 "partials, the single card runs one flash pass; the all-reduces sum bf16 "
+                 "gradients in another order); a few bf16 steps (2^-7) of the leaf's largest "
+                 "gradient, which a gradient left unreduced over an axis, off by about "
+                 "itself, cannot meet"),
+    "float32": (1e-5, 1e-4, "f32 throughout, TF32 off; the ranks' parts summed in another "
+                "order (the CPU tests see 1e-6 of each leaf's largest gradient)"),
+}
+# parameters after the steps, per leaf: an AdamW step moves an element by
+# about lr, so lr x steps / 2 (half the room of a sign flip in every step,
+# which a rank updating from its own rows alone would show) plus this many
+# rounding units of the leaf's largest value (2^-8 in bf16, 2^-24 in f32)
+MESH_PARAM_UNITS = 4
+
+
+def _rank_mesh(layout, dev):
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.parallel import mesh as pm
+
+    ranks = list(range(dist.get_world_size()))
+    shape = pm.MeshShape(**layout[1])
+    if layout[0]:
+        return pm.build_multislice_mesh(ranks, layout[0], shape, dev)
+    return pm.build_mesh(ranks, shape, dev)
+
+
+def mesh_leg(cfg, layout, kw, steps: int, b: int, dev: str) -> dict:
+    """One "train mesh" leg on this rank (every rank of the pool runs it;
+    the parent runs the world-1 leg itself): ``cfg`` through
+    ``build_train_step(mesh=..., attention="flash")`` on ``dev`` (the
+    parent's ``DEV``: spawned ranks import this module afresh), ``steps``
+    steps on one batch, timed on the host clock, the flash and collective
+    counts zeroed just before; then the params unsharded, and on rank 0 the
+    single-card step from the same seed and tokens, and the step-1
+    gradients of both."""
+    import torch
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, mesh_train, serve, weights
+    from k8s_dra_driver_torch.ops import collectives
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    global DEV
+    DEV = dev
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = dev == "cuda"
+    mesh = _rank_mesh(layout, dev)
+    tokens = _train_tokens(torch, cfg, b, SEED + 7)
+    fns = burnin.build_train_step(cfg, mesh=mesh, attention="flash", remat="blocks",
+                                  lr=MESH_TRAIN["lr"], device=DEV, **kw)
+    sync(torch)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+    plan = mesh_train.mesh_plan(cfg, mesh, kw.get("sequence_parallel", "auto"), "flash")
+    _, g = mesh_train.loss_and_grads(params, tokens, cfg, plan)
+    grads = burnin.param_leaves(weights.unshard_params(cfg, mesh, g)[0])
+    del g
+    sync(torch)
+    dist.barrier()
+    _zero_flash_counts()
+    collectives.reset_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(fns.step(params, state, tokens)[2])
+        sync(torch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(losses=[float(x) for x in losses], ms=ms, fwd=dict(fa.fwd_launches),
+               bwd=dict(fa.bwd_launches), comm=dict(collectives.comm_bytes),
+               host=dict(collectives.host_bytes),
+               peak=torch.cuda.max_memory_allocated() if card else 0)
+    after = burnin.param_leaves(weights.unshard_params(cfg, mesh, params)[0])
+    if dist.get_rank():
+        return out
+    single = burnin.build_train_step(cfg, attention="flash", remat="blocks",
+                                     lr=MESH_TRAIN["lr"], device=DEV)
+    p1, s1 = single.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+    _, g1 = burnin.value_and_grad(
+        lambda p, t: burnin.loss_fn(p, t, cfg, fa.flash_attention), p1, tokens)
+    out["grad_err"] = max(((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+                          for x, y in zip(grads, burnin.param_leaves(g1)))
+    del g1, grads
+    with serve.disable_graphs():
+        out["single"] = [float(single.step(p1, s1, tokens)[2]) for _ in range(steps)]
+    unit = torch.finfo(cfg.dtype).eps / 2
+    diffs, room = [], []
+    for x, y in zip(after, burnin.param_leaves(p1)):
+        diffs.append((x.float() - y.float()).abs().max().item())
+        room.append(MESH_TRAIN["lr"] * steps / 2
+                    + MESH_PARAM_UNITS * unit * y.float().abs().max().item())
+    out["param_diff"] = max(diffs)
+    out["param_ratio"] = max(d / r for d, r in zip(diffs, room))
+    return out
+
+
+def _mesh_flash_expected(layout, kw, n_layers: int, steps: int) -> tuple[int, int]:
+    """(forward, dQ = dK/dV) flash launches summed over the ranks: each
+    rank's attention calls a layer, twice in the forward under remat
+    "blocks"; on the causal ring a rank at seq index i runs its own block
+    and the i earlier ones."""
+    shape = layout[1]
+    n_seq = shape.get("seq", 1)
+    world = max(layout[0], 1) * int(np.prod(list(shape.values()) or [1]))
+    ring = n_seq > 1 and kw.get("sequence_parallel", "auto") in ("auto", "ring")
+    calls = (world // n_seq) * sum(1 + i for i in range(n_seq)) if ring else world
+    return 2 * n_layers * steps * calls, n_layers * steps * calls
+
+
+def _mesh_report(torch, label, results, cfg, layout, kw, steps, card):
+    """Print one leg's numbers and hold its gates; returns its launches
+    by kernel, summed over the ranks."""
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    dtype, n_layers = cfg.dtype, cfg.n_layers
+    dtype_name = str(dtype).split(".")[-1]
+    loss_tol, grad_tol, why = MESH_TOL[dtype_name]
+    head = results[0]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(head["losses"], head["single"]))
+    log(f"{label}: losses mesh {' '.join(f'{x:.5f}' for x in head['losses'])}, single card "
+        f"{' '.join(f'{x:.5f}' for x in head['single'])}; worst rel {rel:.3g} (tolerance "
+        f"{loss_tol}: {why})")
+    log(f"{label}: step-1 gradients, worst |mesh - single| over the leaf's largest "
+        f"{head['grad_err']:.3g} (bound {grad_tol}); params after {steps} steps, largest "
+        f"difference {head['param_diff']:.3g}, worst leaf at {head['param_ratio']:.3g} of its "
+        f"bound (lr x steps / 2 + {MESH_PARAM_UNITS} rounding units of the leaf's largest)")
+    ms = np.median(np.array([r["ms"] for r in results]), axis=0)
+    log(f"{label}: {' / '.join(f'{x:.1f}' for x in ms)} ms per step (host clock, median over "
+        f"ranks; 4 ranks sharing one card: not a scaling figure; {card})"
+        if len(results) > 1 else
+        f"{label}: {' / '.join(f'{x:.1f}' for x in ms)} ms per step (host clock; {card})")
+    for kind in head["comm"]:
+        sent = [r["comm"][kind] / steps for r in results]
+        host = [r["host"][kind] / steps for r in results]
+        if max(sent) or max(host):
+            log(f"{label}: {kind} per rank per step: {' '.join(f'{x / 2**20:.2f}' for x in sent)}"
+                f" MiB sent, {' '.join(f'{x / 2**20:.2f}' for x in host)} MiB through the host")
+    log(f"{label}: peak memory by rank {' '.join(f'{r['peak'] / 2**30:.2f}' for r in results)} GiB")
+    fwd_name = fa.forward_kernel_for(dtype)
+    dq_name, dkv_name = fa.backward_kernel_for(dtype)
+    got = {name: sum(r["fwd"].get(name, 0) + r["bwd"].get(name, 0) for r in results)
+           for name in (*fa.fwd_launches, *fa.bwd_launches)}
+    fwd_n, bwd_n = _mesh_flash_expected(layout, kw, n_layers, steps)
+    want = {name: 0 for name in got} | {fwd_name: fwd_n, dq_name: bwd_n, dkv_name: bwd_n}
+    log(f"{label}: flash launches summed over ranks {got} (the schedule's: {fwd_name} "
+        f"{fwd_n}, {dq_name} and {dkv_name} {bwd_n} each)")
+    if got != want or not fwd_n:
+        raise AssertionError(f"{label}: flash launches {got} are not the schedule's {want}")
+    if any(r["losses"] != head["losses"] for r in results):
+        raise AssertionError(f"{label}: the ranks report different losses")
+    if not (np.isfinite(head["losses"]).all() and rel <= loss_tol):
+        raise AssertionError(f"{label}: the mesh losses leave the single card's")
+    if not head["grad_err"] <= grad_tol:
+        raise AssertionError(f"{label}: the step-1 gradients leave the single card's")
+    if not head["param_ratio"] <= 1:
+        raise AssertionError(f"{label}: the params after {steps} steps leave the single card's")
+    tag = "_f32" if dtype == torch.float32 else ""
+    return {"flash_fwd" + tag: got[fwd_name], "flash_bwd_dq" + tag: got[dq_name],
+            "flash_bwd_dkv" + tag: got[dkv_name]}
+
+
+def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
+    """Mesh training ("train mesh"): four ranks on the one card on a gloo
+    group (CUDA tensors; ``ops/collectives`` copies what gloo cannot take
+    through pinned host memory and counts it), started once; legs (a)-(d)
+    of ``MESH_LEGS`` at ``cfg`` (FLAGSHIP_MODERN, full width) in bf16, then
+    (a)-(d) in f32 at 2 layers; then (e), a world-1 NCCL group in this process
+    running the mesh step at ``MeshShape()``.  Each leg: B 4, S 1024, remat
+    "blocks", lr 3e-4, 3 steps from seeded weights, held against the
+    single-card step (``MESH_TOL``, ``MESH_PARAM_UNITS``), its flash launches against the
+    schedule's.  Returns the launches by kernels-line row."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.parallel.ranks import RankPool, free_port, init_ranks
+
+    b, steps = MESH_TRAIN["b"], MESH_TRAIN["steps"]
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, n_layers=f32_layers, dtype=torch.float32)
+    with RankPool(4, backend="gloo", device_type=DEV, timeout_s=600) as pool:
+        for leg_cfg, keys in ((cfg, "abcd"), (f32, "abcd")):
+            for key in keys:
+                what, layout, kw = MESH_LEGS[key]
+                label = (f"train mesh ({key}) {what}, {str(leg_cfg.dtype)[6:]} "
+                         f"L={leg_cfg.n_layers}")
+                t1 = time.perf_counter()
+                results = pool.run(mesh_leg, leg_cfg, layout, kw, steps, b, DEV)
+                log(f"{label}: {time.perf_counter() - t1:.1f} s"
+                    + (" (the 4 gloo ranks started in it)" if key + str(leg_cfg.dtype)
+                       == "atorch.bfloat16" else ""))
+                add(_mesh_report(torch, label, results, leg_cfg, layout, kw, steps, card))
+    # NCCL takes CUDA tensors only: a CPU rehearsal runs this leg on gloo
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    label = f"train mesh (e) world-1 {backend}, MeshShape(), {str(cfg.dtype)[6:]} L={cfg.n_layers}"
+    t1 = time.perf_counter()
+    init_ranks(0, 1, backend, free_port(), DEV)
+    try:
+        results = [mesh_leg(cfg, (0, {}), {}, steps, b, DEV)]
+    finally:
+        dist.destroy_process_group()
+    log(f"{label}: {time.perf_counter() - t1:.1f} s")
+    add(_mesh_report(torch, label, results, cfg, (0, {}), {}, steps, card))
+    return total
 
 
 def _traffic(vocab: int, n: int, max_prompt: int, max_new: int, seed: int):
@@ -4849,6 +5153,11 @@ def main() -> int:
     run("resume", lambda: phase_resume(torch, cfg))
     run("train f32", train_f32)
 
+    def train_mesh():
+        launches["train_mesh"] = phase_train_mesh(torch, cfg, card)
+
+    run("train mesh", train_mesh)
+
     if failed:
         log(f"chip_smoke: failed phases {failed}")
         return 1
@@ -4860,7 +5169,8 @@ def main() -> int:
     # LoRA and MoE training runs and the f32 forward on the f32 training
     # run; the read-only paged kernel is on no path (0); the quantized
     # pools take no kernel; the handoff phase's decode engines after an
-    # inject run the append kernel too
+    # inject run the append kernel too; the mesh legs' flash launches,
+    # summed over ranks, join the bf16 and f32 flash rows
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
@@ -4874,8 +5184,8 @@ def main() -> int:
                                 + tel["int4_matmul_prefill"] + lora_serve["int4_matmul_prefill"]
                                 + moe["int4_matmul_prefill"]),
         **{name: n + launches["train_lora"][name] + launches["train_moe"][name]
-           for name, n in launches["train"].items()},
-        **launches["train_f32"],
+           + launches["train_mesh"][name] for name, n in launches["train"].items()},
+        **{name: n + launches["train_mesh"][name] for name, n in launches["train_f32"].items()},
     }
     log(f"card: {card}")
     kernels = []

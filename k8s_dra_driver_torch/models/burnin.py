@@ -31,8 +31,11 @@ optimizer state IN PLACE (the reference's step is pure and donates its
 buffers instead) and, on the card, replays as one CUDA graph
 (:class:`GraphedTrainStep`, the reference's ``jax.jit``).  Adapter-only
 training is ``models/lora.build_lora_train_step`` over the same step,
-with optax's ``adam`` (:class:`Adam`).  A mesh raises
-``NotImplementedError``; MoE models train on one device like dense ones.
+with optax's ``adam`` (:class:`Adam`).  MoE models train like dense ones.
+On a mesh (``build_train_step(mesh=...)``) each rank runs its shard of the
+step eagerly (``models/mesh_train``); :func:`param_pspecs` is the
+reference's Megatron layout, and :func:`mlp_residual` takes the ``model``
+axis's group for it.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from torch.utils.checkpoint import (
 from k8s_dra_driver_torch.device import params_device, resolve_device
 from k8s_dra_driver_torch.models.graphs import GraphedProgram, cuda_capture, graphs_enabled
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
+from k8s_dra_driver_torch.ops import collectives
+from k8s_dra_driver_torch.ops.ring_attention import reference_attention
 
 _DTYPES = {
     "float32": torch.float32,
@@ -200,6 +205,34 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
+def param_pspecs(cfg: ModelConfig) -> dict:
+    """The reference's Megatron layout over the ``model`` axis, a tree like
+    the params of :class:`~k8s_dra_driver_torch.parallel.mesh.PartitionSpec`:
+    ``qkv``, ``mlp_up`` and ``expert_up`` column-parallel, ``attn_out``,
+    ``mlp_down`` and ``expert_down`` row-parallel (a psum after), the
+    embedding vocab-sharded, norms and the MoE router replicated.  A column
+    shard of ``qkv`` holds whole KV groups (``weights.shard_params``
+    reorders its columns group-major first)."""
+    from k8s_dra_driver_torch.parallel.mesh import P
+
+    block = {"ln1": P(), "qkv": P(None, "model"), "attn_out": P("model", None), "ln2": P()}
+    if cfg.n_experts:
+        block["router"] = P()
+        block["expert_up"] = P(None, None, "model")
+        block["expert_down"] = P(None, "model", None)
+    else:
+        block["mlp_up"] = P(None, "model")
+        block["mlp_down"] = P("model", None)
+    out = {
+        "embed": P("model", None),
+        "ln_f": P(),
+        "blocks": [dict(block) for _ in range(cfg.n_layers)],
+    }
+    if not cfg.rope:
+        out["pos_embed"] = P()
+    return out
+
+
 def _rms_norm(x, gamma):
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * gamma
@@ -268,7 +301,7 @@ def top_k_experts(scores, k: int):
     return scores.gather(-1, idx), idx
 
 
-def _moe_mlp(y, p, top_k: int):
+def _moe_mlp(y, p, top_k: int, group=None):
     """Top-k expert MLP over normalized tokens ``y [..., d]`` (the
     reference's ``_moe_mlp``): f32 router scores, the top ``top_k``
     (:func:`top_k_experts`), a softmax over the selected scores, and the
@@ -280,7 +313,10 @@ def _moe_mlp(y, p, top_k: int):
     broadcasts the tokens over the expert stack (a ``bmm`` whose first
     operand has batch stride 0: no batch dim in the reference's sense, so
     the ``"dots"`` policy saves it), the down product is batched over the
-    experts."""
+    experts.  ``group``: the ``model`` axis's group when the stacks hold
+    this rank's FF columns (``param_pspecs``); the output is then this
+    rank's partial sum, and the tokens and the combine weights enter
+    through ``collectives.pvary`` so their gradients sum over the group."""
     *lead, d = y.shape
     t = y.reshape(-1, d)
     n_experts = p["router"].shape[1]
@@ -291,34 +327,38 @@ def _moe_mlp(y, p, top_k: int):
     combine = torch.einsum("tk,tke->te", gates, onehot)                # [T, E] f32
     # the tokens broadcast over the stack: ``matmul`` would fold the
     # product into one ``mm`` over a transposed copy of the expert weights
+    t = collectives.pvary(t, group)
     up = torch.bmm(t.expand(n_experts, *t.shape), p["expert_up"])      # [E, T, F]
     h = F.gelu(up, approximate="tanh")
     outs = torch.bmm(h, p["expert_down"])                              # [E, T, d]
+    combine = collectives.pvary(combine, group)
     out = torch.einsum("te,etd->td", combine.to(outs.dtype), outs)
     return out.reshape(*lead, d)
 
 
-def mlp_residual(x, p, delta=None, top_k: int | None = None):
+def mlp_residual(x, p, delta=None, top_k: int | None = None, group=None):
     """ln2 + MLP with residual: the dense tanh-GELU MLP, or the top-k
     expert mixture when the block carries a ``router`` (:func:`_moe_mlp`;
     ``top_k``, ``cfg.moe_top_k``, is then required, as the reference
     requires it, so a call site that forgot it raises instead of routing
     the wrong number of experts).  ``delta`` as in :func:`qkv_proj`, the
     down projection's from the post-GELU ``h``; adapters target the 2-D
-    matrices only, so an MoE block takes no MLP delta."""
+    matrices only, so an MoE block takes no MLP delta.  ``group``: the
+    ``model`` axis's group under tensor parallelism (column-parallel up,
+    row-parallel down, a psum after; None on one device)."""
     y = _rms_norm(x, p["ln2"])
     if "router" in p:
         if top_k is None:
             raise ValueError("MoE block needs top_k (pass cfg.moe_top_k through mlp_residual)")
-        return x + _moe_mlp(y, p, top_k)
-    h = _mm(y, p["mlp_up"])
+        return x + collectives.psum(_moe_mlp(y, p, top_k, group), group)
+    h = _mm(collectives.pvary(y, group), p["mlp_up"])
     if delta is not None:
         h = h + delta("mlp_up", y)
     h = F.gelu(h, approximate="tanh")
     out = _mm(h, p["mlp_down"])
     if delta is not None:
         out = out + delta("mlp_down", h)
-    return x + out
+    return x + collectives.psum(out, group)
 
 
 def tied_logits(x, params):
@@ -326,19 +366,6 @@ def tied_logits(x, params):
     dtype, cast to f32 afterwards."""
     x = _rms_norm(x, params["ln_f"])
     return torch.matmul(x, params["embed"].t()).float()
-
-
-def reference_attention(q, k, v, causal: bool = True):
-    """Plain full attention ``[B, S, H, D]`` (the reference's
-    ``ops/ring_attention.reference_attention``): scores in the input dtype
-    cast to f32, ``-1e30`` causal mask, probabilities cast back."""
-    d = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
-    if causal:
-        mask = torch.tril(torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device))
-        s = torch.where(mask, s, torch.full_like(s, -1e30))
-    w = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 def _full_attention(q, k, v):
@@ -462,14 +489,17 @@ def value_and_grad(loss_fn_, params, tokens):
     return loss.detach(), _unflatten(params, iter(grads))
 
 
-def make_sgd_step(loss_fn_, opt, accum_steps: int = 1):
+def make_sgd_step(loss_fn_, opt, accum_steps: int = 1, reduce=None):
     """``step(params, opt_state, tokens) -> (params, opt_state, loss)``:
     gradients of ``loss_fn_``, then ``opt``'s update, IN PLACE on params
     and state (the same objects come back).  ``accum_steps > 1`` splits the
     batch into that many microbatches, interleaved (microbatch i takes rows
     i, i + accum_steps, ...), sums their gradients in f32, averages and
     casts them to the params' dtypes, and updates once.  No host read: the
-    loss comes back as a device tensor."""
+    loss comes back as a device tensor.  ``reduce([loss, *grads])``, when
+    given, combines the ranks' losses and gradients before the update (the
+    mesh step's all-reduces, ``models/mesh_train.reduce_fn``); under
+    accumulation it takes the averaged f32 sums, before the cast."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -477,6 +507,8 @@ def make_sgd_step(loss_fn_, opt, accum_steps: int = 1):
         if accum_steps == 1:
             loss, grads = value_and_grad(loss_fn_, params, tokens)
             grads = param_leaves(grads)
+            if reduce is not None:
+                loss, *grads = reduce([loss, *grads])
         else:
             if tokens.shape[0] % accum_steps:
                 raise ValueError(
@@ -493,7 +525,10 @@ def make_sgd_step(loss_fn_, opt, accum_steps: int = 1):
                     acc.add_(g)
             inv = 1.0 / accum_steps
             loss = loss_sum * inv
-            grads = [(g * inv).to(t.dtype) for g, t in zip(grad_sum, leaves)]
+            grads = [g * inv for g in grad_sum]
+            if reduce is not None:
+                loss, *grads = reduce([loss, *grads])
+            grads = [g.to(t.dtype) for g, t in zip(grads, leaves)]
         opt.update_(params, grads, opt_state)
         return params, opt_state, loss
 
@@ -695,13 +730,13 @@ class GraphedTrainStep:
 class TrainStepFns:
     init: callable
     step: callable
-    graphed: GraphedTrainStep  # the step's graph holder on the card
+    graphed: GraphedTrainStep | None  # the step's graph holder on the card (None on a mesh)
 
     @property
     def captures(self) -> int:
-        """CUDA graphs the step has captured (0 on the CPU and under
-        ``disable_graphs()``)."""
-        return self.graphed.captures
+        """CUDA graphs the step has captured (0 on the CPU, under
+        ``disable_graphs()`` and on a mesh)."""
+        return 0 if self.graphed is None else self.graphed.captures
 
 
 def build_train_step(
@@ -727,8 +762,13 @@ def build_train_step(
     (plain PyTorch) or ``"flash"`` (the CUDA flash kernels, forward and
     backward; their plain versions on the CPU).  ``remat``: ``"blocks"``,
     ``"dots"`` or ``"none"`` (:func:`_wrap_remat`; the same numbers under
-    each).  A mesh (the reference's sharded, ring and Ulysses branches) is
-    not ported yet."""
+    each).
+
+    ``mesh``: a ``DeviceMesh`` (``parallel/mesh.build_mesh``): this rank's
+    step of the reference's mesh branch (``models/mesh_train``; data,
+    tensor and sequence parallelism, ``sequence_parallel`` "auto" taking
+    the ring when the ``seq`` axis is > 1, "ring", "ulysses" or "none"),
+    run eagerly on ``device`` (the mesh's device type)."""
     valid = ("auto", "ring", "ulysses", "none")
     if sequence_parallel not in valid:
         raise ValueError(f"sequence_parallel must be one of {valid}, got {sequence_parallel!r}")
@@ -739,13 +779,22 @@ def build_train_step(
         )
     if attention not in ("dense", "flash"):
         raise ValueError(f"attention must be 'dense' or 'flash', got {attention!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training (sharded, ring and Ulysses attention) is not ported yet; "
-            "pass mesh=None for one device"
-        )
     _wrap_remat(_block, remat)  # an unknown policy raises here
     dev = resolve_device(device)
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from k8s_dra_driver_torch.models.mesh_train import build_mesh_train_step
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh must be a torch.distributed DeviceMesh (parallel/mesh.build_mesh), "
+                f"got {type(mesh).__name__}"
+            )
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh trains on {mesh.device_type}, not {dev}")
+        return build_mesh_train_step(cfg, mesh, lr, sequence_parallel, attention,
+                                     accum_steps, remat, dev)
     opt = make_optimizer(lr)
     attn_fn = None
     if attention == "flash":

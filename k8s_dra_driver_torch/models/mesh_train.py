@@ -1,0 +1,288 @@
+"""Training on a mesh: the mesh branch of the reference's
+``burnin.build_train_step`` (``k8s_dra_driver_tpu/models/burnin.py:590-672``),
+reached through :func:`~k8s_dra_driver_torch.models.burnin.build_train_step`
+with ``mesh=`` a ``DeviceMesh`` (``parallel/mesh.build_mesh``).
+
+The reference jits one program and GSPMD partitions it.  Here every rank
+runs its shard of the step and the collectives GSPMD would insert are
+written out:
+
+* **batch** over ``data`` (and ``slice`` on a multislice mesh: hybrid data
+  parallelism): the caller passes the whole batch ``[B, S]`` to every rank,
+  as the reference's tokens are sharded over the batch axes only, and each
+  rank takes its block of rows;
+* **sequence** over ``seq``: a rank runs positions
+  ``[i·S/n, (i+1)·S/n)`` (RoPE rotates by them), attention by ring, flash
+  ring or Ulysses (``ops/ring_attention``), and takes the targets of its
+  positions from the whole sequence, so no target is lost at a shard edge;
+* **tensors** over ``model`` (Megatron): ``qkv`` group-major by KV group
+  (``weights.shard_params``), ``mlp_up``/``expert_up`` column-parallel
+  behind ``collectives.pvary``, ``attn_out``/``mlp_down``/``expert_down``
+  row-parallel with a ``psum`` after, the router replicated; the
+  vocab-sharded embedding is all-gathered once per forward for the lookup
+  and the tied logits (:class:`_GatherVocab`), and since everything after
+  the gather is replicated over ``model``, its gradient is the same on
+  every model rank and each keeps its own rows, with no collective;
+* **the loss** is the global mean: each rank's NLL sum over its targets,
+  divided by its rows x (S - 1); those are summed over ``seq`` and
+  averaged over the batch axes, and so is every gradient (one all-reduce
+  per dtype and axis over the flattened gradients) before AdamW updates
+  the rank's shards in place.
+
+The step runs eagerly; ``remat`` recomputes a block's collectives with it,
+on every rank alike.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import torch
+
+from k8s_dra_driver_torch.models.burnin import (
+    TrainStepFns,
+    _mm,
+    _rms_norm,
+    _unflatten,
+    _wrap_remat,
+    init_params,
+    make_optimizer,
+    make_sgd_step,
+    mlp_residual,
+    param_leaves,
+    repeat_kv,
+    rope_rotate,
+    tied_logits,
+    value_and_grad,
+)
+from k8s_dra_driver_torch.ops import collectives
+from k8s_dra_driver_torch.parallel.mesh import axis_index, mesh_shape
+
+
+class _GatherVocab(torch.autograd.Function):
+    """The whole embedding table from this rank's vocab rows; the gradient,
+    the same on every model rank, keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, shard, group):
+        ctx.group = group
+        return collectives.all_gather_raw(shard, group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, 0)[r].contiguous(), None
+
+
+def _gathered_attention(q, k, v, group):
+    """Scheme ``"none"`` on a sequence-sharded mesh with plain attention:
+    K/V all-gathered over ``seq`` (what GSPMD does there), causal attention
+    of this rank's queries, the reference's casts."""
+    import torch.distributed as dist
+
+    idx = dist.get_rank(group)
+    k_all, v_all = (collectives.all_gather(t, group, 1) for t in (k, v))
+    s_loc, s_all, d = q.shape[1], k_all.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_all).float() / d ** 0.5
+    q_pos = idx * s_loc + torch.arange(s_loc, device=q.device)
+    keep = torch.arange(s_all, device=q.device)[None, :] <= q_pos[:, None]
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v_all)
+
+
+@dataclass
+class MeshPlan:
+    """What one rank runs on ``mesh``: its groups, blocks and attention."""
+
+    attn_fn: callable
+    model_group: object | None  # None without tensor parallelism
+    reduce_groups: list  # seq, then the batch axes, each of size > 1
+    tp: int
+    n_seq: int
+    seq_index: int
+    n_batch: int
+    batch_index: int
+
+
+def mesh_plan(cfg, mesh, sequence_parallel: str = "auto", attention: str = "dense") -> MeshPlan:
+    """This rank's plan, with the reference's scheme choice and refusals."""
+    from k8s_dra_driver_torch.ops.flash_attention import flash_attention
+    from k8s_dra_driver_torch.ops.ring_attention import (
+        reference_attention,
+        ring_attention_local,
+        ring_flash_attention_local,
+        ulysses_attention_local,
+    )
+
+    shape = mesh_shape(mesh)
+    batch_axes = ("slice", "data") if "slice" in shape else ("data",)
+    n_seq, tp = shape["seq"], shape["model"]
+    seq_group = mesh.get_group("seq")
+    scheme = sequence_parallel
+    if scheme == "auto":
+        scheme = "ring" if n_seq > 1 else "none"
+    attn_fn = None
+    if scheme == "ring":
+        ring = ring_flash_attention_local if attention == "flash" else ring_attention_local
+        attn_fn = functools.partial(ring, group=seq_group, causal=True)
+    elif scheme == "ulysses":
+        if tp > 1:
+            raise ValueError(
+                "ulysses sequence parallelism needs the full head dim per "
+                "shard; use model axis 1 or sequence_parallel='ring'"
+            )
+        attn_fn = functools.partial(
+            ulysses_attention_local, group=seq_group, causal=True,
+            attn_fn=flash_attention if attention == "flash" else None,
+        )
+    if attention == "flash" and attn_fn is None:
+        if n_seq > 1:
+            raise ValueError(
+                "attention='flash' with sequence_parallel='none' needs an "
+                "unsharded sequence; use sequence_parallel='ring'/'ulysses' "
+                "(flash composes with both)"
+            )
+        attn_fn = functools.partial(flash_attention, causal=True)  # local heads and rows
+    if attn_fn is None:
+        attn_fn = (functools.partial(_gathered_attention, group=seq_group) if n_seq > 1
+                   else functools.partial(reference_attention, causal=True))
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"tensor parallelism needs kv_heads ({cfg.kv_heads}) divisible by the model "
+            f"axis ({tp}): a shard holds whole KV groups"
+        )
+    seq_index, _ = axis_index(mesh, "seq")
+    batch_index, n_batch = axis_index(mesh, batch_axes)
+    reduce_groups = [mesh.get_group(a) for a in ("seq", *batch_axes) if shape[a] > 1]
+    return MeshPlan(attn_fn, mesh.get_group("model") if tp > 1 else None, reduce_groups, tp,
+                    n_seq, seq_index, n_batch, batch_index)
+
+
+def _mesh_block(x, p, cfg, plan: MeshPlan, positions):
+    """One block on this rank's rows and positions, its heads and FF
+    columns those of its ``model`` shard."""
+    b, s, _ = x.shape
+    g, hd = cfg.kv_groups, cfg.head_dim
+    hkv = cfg.kv_heads // plan.tp
+    y = _rms_norm(x, p["ln1"])
+    # group-major columns: per local KV group its G query heads, k, v
+    qkv = _mm(collectives.pvary(y, plan.model_group), p["qkv"]).reshape(b, s, hkv, (g + 2) * hd)
+    q = qkv[..., : g * hd].reshape(b, s, hkv * g, hd)
+    k, v = qkv[..., g * hd: (g + 1) * hd], qkv[..., (g + 1) * hd:]
+    if cfg.rope:
+        q, k = rope_rotate(q, positions, cfg), rope_rotate(k, positions, cfg)
+    attn = plan.attn_fn(q, repeat_kv(k, cfg), repeat_kv(v, cfg)).reshape(b, s, -1)
+    x = x + collectives.psum(_mm(attn, p["attn_out"]), plan.model_group)
+    return mlp_residual(x, p, top_k=cfg.moe_top_k, group=plan.model_group)
+
+
+def _local_tokens(tokens, plan: MeshPlan):
+    """(this rank's input block ``[b, s]``, its targets, its first
+    position): its batch rows, its positions, and the next token of each
+    position from the whole sequence (the last position has none)."""
+    rows = tokens.chunk(plan.n_batch, 0)[plan.batch_index]
+    s_loc = tokens.shape[1] // plan.n_seq
+    lo = plan.seq_index * s_loc
+    return rows[:, lo: lo + s_loc], rows[:, lo + 1: lo + s_loc + 1], lo
+
+
+def mesh_loss(params, tokens, cfg, plan: MeshPlan, remat: str = "blocks"):
+    """This rank's part of the global mean NLL of ``tokens`` (the whole
+    batch): its targets' NLL sum over its rows x (S - 1).  Summed over
+    ``seq`` and averaged over the batch axes it is the reference's
+    ``loss_fn``."""
+    b_all, s_all = tokens.shape
+    if b_all % plan.n_batch or s_all % plan.n_seq:
+        raise ValueError(
+            f"tokens {tuple(tokens.shape)} do not split into {plan.n_batch} batch and "
+            f"{plan.n_seq} sequence blocks"
+        )
+    inputs, targets, lo = _local_tokens(tokens, plan)
+    b, s = inputs.shape
+    positions = lo + torch.arange(s, dtype=torch.int32, device=tokens.device)
+    table = params["embed"]
+    if plan.model_group is not None:
+        table = _GatherVocab.apply(table, plan.model_group)
+    x = table[inputs]
+    if not cfg.rope:
+        x = x + params["pos_embed"][lo: lo + s]
+    block = _wrap_remat(functools.partial(_mesh_block, cfg=cfg, plan=plan,
+                                          positions=positions), remat)
+    for p in params["blocks"]:
+        x = block(x, p)
+    logits = tied_logits(x, {"ln_f": params["ln_f"], "embed": table})
+    logp = torch.log_softmax(logits[:, : targets.shape[1]], dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long()).sum()
+    return nll / (b * (s_all - 1))
+
+
+def reduce_fn(plan: MeshPlan):
+    """``reduce(tensors) -> tensors``: each summed over ``seq`` and averaged
+    over the batch axes, flattened into one buffer per dtype, one
+    all-reduce per axis."""
+
+    def reduce(tensors):
+        out = list(tensors)
+        if not plan.reduce_groups:
+            return out
+        by_dtype: dict = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            for group in plan.reduce_groups:
+                collectives.all_reduce_raw(flat, group)
+            if plan.n_batch > 1:
+                flat = flat / plan.n_batch
+            for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+                out[i] = part.view_as(tensors[i])
+        return out
+
+    return reduce
+
+
+def loss_and_grads(params, tokens, cfg, plan: MeshPlan, remat: str = "blocks"):
+    """The global loss and this rank's gradient shards (a tree like
+    ``params``), as one step of the mesh branch computes them, with no
+    update."""
+    loss, grads = value_and_grad(
+        lambda p, t: mesh_loss(p, t, cfg, plan, remat), params, tokens)
+    loss, *leaves = reduce_fn(plan)([loss, *param_leaves(grads)])
+    return loss, _unflatten(params, iter(leaves))
+
+
+def build_mesh_train_step(cfg, mesh, lr: float = 3e-4, sequence_parallel: str = "auto",
+                          attention: str = "dense", accum_steps: int = 1,
+                          remat: str = "blocks", device=None) -> TrainStepFns:
+    """``(init, step)`` of the mesh branch for this rank.  ``init(generator)``
+    draws the whole model on the generator's device (the same seed on every
+    rank) and keeps this rank's shards of it and of AdamW's state;
+    ``step(params, opt_state, tokens)`` takes the whole batch, updates the
+    shards IN PLACE and returns the global mean loss (the same on every
+    rank) as a device tensor."""
+    from k8s_dra_driver_torch.device import params_device
+    from k8s_dra_driver_torch.models.weights import shard_params
+
+    plan = mesh_plan(cfg, mesh, sequence_parallel, attention)
+    opt = make_optimizer(lr)
+
+    def init(generator: torch.Generator):
+        full = init_params(generator, cfg)
+        params_device(full, device)
+        params, _ = shard_params(cfg, mesh, full)
+        return params, opt.init(params)
+
+    sgd = make_sgd_step(
+        lambda params, tokens: mesh_loss(params, tokens, cfg, plan, remat), opt,
+        accum_steps=accum_steps, reduce=reduce_fn(plan),
+    )
+
+    def step(params, opt_state, tokens):
+        params_device(params, device)
+        return sgd(params, opt_state, torch.as_tensor(tokens, device=device))
+
+    return TrainStepFns(init=init, step=step, graphed=None)

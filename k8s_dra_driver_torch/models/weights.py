@@ -129,3 +129,84 @@ def opt_state_from_jax(state, device="cuda") -> dict:
         "mu": param_leaves(params_from_jax(adam.mu, dev)),
         "nu": param_leaves(params_from_jax(adam.nu, dev)),
     }
+
+
+def groupmajor_qkv(w, cfg):
+    """``[D, q(H) | k(Hkv) | v(Hkv)]`` -> ``[D, Hkv x (G·hd q | hd k | hd
+    v)]``, the reference's ``pp_burnin._groupmajor_qkv``: a column shard of
+    the result holds whole KV groups, G query heads with their KV head."""
+    d = w.shape[0]
+    h, hkv, hd, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.kv_groups
+    wq = w[:, : h * hd].reshape(d, hkv, g * hd)
+    wk = w[:, h * hd: (h + hkv) * hd].reshape(d, hkv, hd)
+    wv = w[:, (h + hkv) * hd:].reshape(d, hkv, hd)
+    return torch.cat([wq, wk, wv], dim=2).reshape(d, (h + 2 * hkv) * hd)
+
+
+def packed_qkv(w, cfg):
+    """The inverse of :func:`groupmajor_qkv`."""
+    d = w.shape[0]
+    h, hkv, hd, g = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.kv_groups
+    x = w.reshape(d, hkv, (g + 2) * hd)
+    parts = (x[..., : g * hd], x[..., g * hd: (g + 1) * hd], x[..., (g + 1) * hd:])
+    return torch.cat([p.reshape(d, -1) for p in parts], dim=1)
+
+
+def _leaf_specs(specs, key=None) -> list:
+    """``[(key, spec)]`` of a spec tree in the params' leaf order."""
+    from k8s_dra_driver_torch.parallel.mesh import PartitionSpec
+
+    if isinstance(specs, PartitionSpec):
+        return [(key, specs)]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _leaf_specs(specs[k], k)]
+    return [x for s in specs for x in _leaf_specs(s, key)]
+
+
+def _relayout(cfg, params, opt_state, leaf_fn):
+    """``params`` and ``opt_state`` (None, or an AdamW state over them) with
+    each float leaf ``t`` replaced by ``leaf_fn(t, key, spec)``."""
+    from k8s_dra_driver_torch.models.burnin import _unflatten, param_pspecs
+
+    specs = _leaf_specs(param_pspecs(cfg))
+    leaves = param_leaves(params)
+    if len(leaves) != len(specs):
+        raise ValueError(f"params have {len(leaves)} leaves, the config's layout {len(specs)}")
+
+    def each(ts):
+        return [leaf_fn(t, key, spec) for t, (key, spec) in zip(ts, specs)]
+
+    out = _unflatten(params, iter(each(leaves)))
+    if opt_state is None:
+        return out, None
+    return out, {"count": opt_state["count"].clone(), "mu": each(opt_state["mu"]),
+                 "nu": each(opt_state["nu"])}
+
+
+def shard_params(cfg, mesh, params, opt_state=None):
+    """Full params (and an AdamW state over them, or None) -> this rank's
+    shards under ``burnin.param_pspecs``: ``(params, opt_state)``.  ``qkv``
+    (and its moments) is reordered group-major before its columns are cut,
+    so a model shard holds whole KV groups; every shard is a new contiguous
+    tensor on the params' device."""
+    from k8s_dra_driver_torch.parallel.mesh import shard
+
+    def leaf(t, key, spec):
+        if key == "qkv":
+            t = groupmajor_qkv(t, cfg)
+        return shard(t, mesh, spec).clone()
+
+    return _relayout(cfg, params, opt_state, leaf)
+
+
+def unshard_params(cfg, mesh, params, opt_state=None):
+    """The inverse of :func:`shard_params` on every rank: each shard
+    all-gathered over its spec's axes, ``qkv`` put back in the packed
+    layout."""
+    from k8s_dra_driver_torch.parallel.mesh import gather
+
+    def leaf(t, key, spec):
+        t = gather(t, mesh, spec)
+        return packed_qkv(t, cfg) if key == "qkv" else t
+
+    return _relayout(cfg, params, opt_state, leaf)

@@ -7,11 +7,20 @@ with ``ctypes``.  The library's file name carries a hash of its source, so
 an edited kernel is rebuilt and a stale one is never loaded; the hash covers
 the shared headers (``csrc/*.cuh``) too.  Nothing here
 runs at import time: the CPU tests import every module without ``nvcc``.
+
+Builds are safe across processes (the ranks of a mesh on one host load the
+same libraries): a build holds an exclusive ``flock`` on
+``build/torch_kernels/build.lock`` while it checks what exists and runs
+``nvcc``, so concurrent callers compile a source once and the others wait
+and load it; ``nvcc`` writes a temporary name that ``os.replace`` moves
+into place, so no process ever opens a half-written library.  The kernel
+releases the lock of a process that dies.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,7 +66,6 @@ def _start_build(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
@@ -78,12 +86,15 @@ def _finish_build(name: str, started) -> None:
 
 def build(names) -> None:
     """Compile the named sources that are not built yet, all ``nvcc``
-    processes started together."""
+    processes started together, under the build directory's lock."""
     with _lock:
-        started = {n: _start_build(n) for n in names}
-        for n, s in started.items():
-            if s is not None:
-                _finish_build(n, s)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            started = {n: _start_build(n) for n in names}
+            for n, s in started.items():
+                if s is not None:
+                    _finish_build(n, s)
 
 
 def load(name: str, launchers: dict) -> ctypes.CDLL:

@@ -331,3 +331,10 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int | None = None,
             raise ValueError(f"sequence {s} not divisible by blocks ({bq},{bk})")
     out = FlashCore.apply(to_bh(q), to_bh(k), to_bh(v), causal)
     return from_bh(out, b, h)
+
+
+# The reference's ``sharded_flash_attention`` wraps flash in ``shard_map``
+# over a data x model mesh (B on "data", H on "model", S whole).  Attention
+# needs nothing from another head or batch row, so each rank's body is
+# flash_attention on its own blocks, with no collective: the same function.
+sharded_flash_attention = flash_attention

@@ -230,7 +230,7 @@ def test_partial_schedule_and_unported_paths_raise():
     tcfg = tb.ModelConfig.from_reference(JCFG)
     with pytest.raises(ValueError, match="schedule needs"):
         tb.make_optimizer(1e-3, warmup_steps=5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tb.build_train_step(tcfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="remat must be"):
         tb.build_train_step(tcfg, remat="all", device="cpu")

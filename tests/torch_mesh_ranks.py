@@ -1,0 +1,203 @@
+"""Functions the mesh tests run on every rank of a ``RankPool``.
+
+Spawned ranks import this module by name, so it imports torch, numpy and
+the port only (never JAX).  Each function builds its mesh on the CPU ranks
+(cached per layout), runs its case on this rank's blocks, and returns numpy
+arrays that the test reassembles with ``parallel.mesh.unshard``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from k8s_dra_driver_torch.parallel import mesh as pm
+
+_MESHES: dict = {}
+
+
+def make_mesh(layout):
+    """``layout``: ``(n_slices, {MeshShape fields})``; n_slices 0 builds the
+    plain 4-axis mesh."""
+    key = (layout[0], tuple(sorted(layout[1].items())))
+    if key not in _MESHES:
+        import torch.distributed as dist
+
+        ranks = list(range(dist.get_world_size()))
+        shape = pm.MeshShape(**layout[1])
+        _MESHES[key] = (pm.build_multislice_mesh(ranks, layout[0], shape, "cpu") if layout[0]
+                        else pm.build_mesh(ranks, shape, "cpu"))
+    return _MESHES[key]
+
+
+def numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [numpy_tree(v) for v in tree]
+    return tree.detach().cpu().float().numpy()
+
+
+def mesh_layout(layout):
+    """The mesh's rank array, axis names, this rank's coordinate and the
+    group ranks of each axis."""
+    import torch.distributed as dist
+
+    mesh = make_mesh(layout)
+    groups = {name: dist.get_process_group_ranks(mesh.get_group(name))
+              for name in mesh.mesh_dim_names}
+    return mesh.mesh.tolist(), mesh.mesh_dim_names, mesh.get_coordinate(), groups
+
+
+def shard_roundtrip(layout, spec, x):
+    """(this rank's block of ``x`` under ``spec``, the all-gathered whole)."""
+    mesh = make_mesh(layout)
+    block = pm.shard(torch.from_numpy(x), mesh, pm.P(*spec))
+    return block.numpy(), pm.gather(block, mesh, pm.P(*spec)).numpy()
+
+
+def attention_case(layout, kind, spec, q, k, v, causal, dtype="float32", grads=True):
+    """One attention scheme on this rank's blocks of q/k/v: (out block,
+    and with ``grads`` the blocks of the gradients of sum(out²))."""
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+    from k8s_dra_driver_torch.ops import ring_attention as ra
+
+    mesh = make_mesh(layout)
+    fns = {
+        "ring": ra.ring_attention,
+        "ring_flash": ra.ring_flash_attention,
+        "ulysses": ra.ulysses_attention,
+        "ulysses_flash": functools.partial(ra.ulysses_attention, use_flash=True),
+        # the per-rank body of the reference's sharded flash takes no mesh
+        "sharded_flash": lambda q, k, v, mesh, causal: fa.sharded_flash_attention(q, k, v, causal),
+    }
+    blocks = [pm.shard(torch.from_numpy(x), mesh, pm.P(*spec)).to(getattr(torch, dtype))
+              .requires_grad_(grads) for x in (q, k, v)]
+    out = fns[kind](*blocks, mesh=mesh, causal=causal)
+    result = [out.detach().float().numpy()]
+    if grads:
+        out.float().square().sum().backward()
+        result += [b.grad.float().numpy() for b in blocks]
+    return result
+
+
+def _train_setup(cfg_kw, layout, params):
+    from k8s_dra_driver_torch.models import burnin, weights
+
+    cfg = burnin.ModelConfig(**{**cfg_kw, "dtype": torch.float32})
+    mesh = make_mesh(layout)
+    full = weights.params_from_jax(params, "cpu")
+    return cfg, mesh, full
+
+
+def train_case(cfg_kw, layout, params, tokens, steps, **kw):
+    """``steps`` mesh steps from ``params`` (numpy, the whole model) on
+    ``tokens`` (the whole batch): (the losses, rank 0's unsharded params
+    after them, rank 0's unsharded step-1 gradients, before any update;
+    the others return None for both)."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, mesh_train, weights
+
+    cfg, mesh, full = _train_setup(cfg_kw, layout, params)
+    tokens = torch.from_numpy(tokens)
+    fns = burnin.build_train_step(cfg, mesh=mesh, device="cpu", **kw)
+    local, _ = weights.shard_params(cfg, mesh, full)
+    plan = mesh_train.mesh_plan(cfg, mesh, kw.get("sequence_parallel", "auto"),
+                                kw.get("attention", "dense"))
+    _, grads = mesh_train.loss_and_grads(local, tokens, cfg, plan, kw.get("remat", "blocks"))
+    grads, _ = weights.unshard_params(cfg, mesh, grads)
+    state = burnin.make_optimizer(kw.get("lr", 3e-4)).init(local)
+    losses = [float(fns.step(local, state, tokens)[2]) for _ in range(steps)]
+    after, _ = weights.unshard_params(cfg, mesh, local)
+    if dist.get_rank():
+        return losses, None, None
+    return losses, numpy_tree(after), numpy_tree(grads)
+
+
+def train_refusal(cfg_kw, layout, **kw):
+    """The message ``build_train_step`` raises on this mesh, or None."""
+    from k8s_dra_driver_torch.models import burnin
+
+    cfg = burnin.ModelConfig(**{**cfg_kw, "dtype": torch.float32})
+    try:
+        burnin.build_train_step(cfg, mesh=make_mesh(layout), device="cpu", **kw)
+    except ValueError as exc:
+        return str(exc)
+    return None
+
+
+def params_roundtrip(cfg_kw, layout, params, state):
+    """shard_params then unshard_params of the whole ``params`` and an
+    AdamW state (numpy): (this rank's qkv block, the whole tree back, the
+    state back)."""
+    from k8s_dra_driver_torch.models import weights
+
+    cfg, mesh, full = _train_setup(cfg_kw, layout, params)
+    opt = {"count": torch.tensor(3, dtype=torch.int32),
+           "mu": [torch.from_numpy(x) for x in state["mu"]],
+           "nu": [torch.from_numpy(x) for x in state["nu"]]}
+    local, local_opt = weights.shard_params(cfg, mesh, full, opt)
+    back, back_opt = weights.unshard_params(cfg, mesh, local, local_opt)
+    return (local["blocks"][0]["qkv"].numpy(), numpy_tree(back),
+            {"count": int(back_opt["count"]), "mu": numpy_tree(back_opt["mu"]),
+             "nu": numpy_tree(back_opt["nu"])})
+
+
+def probe_results(layout):
+    """The bandwidth probes over each axis of size > 1, tiny payloads."""
+    from k8s_dra_driver_torch.ops import collectives as co
+
+    mesh = make_mesh(layout)
+    out = [co.psum_bandwidth(mesh, "model", mib=1, dtype=torch.float32, iters=2),
+           co.all_gather_bandwidth(mesh, "model", mib=1, dtype=torch.float32, iters=2),
+           co.all_to_all_bandwidth(mesh, "data", mib=1, dtype=torch.float32, iters=2)]
+    return out, co.ring_latency_us(mesh, "model", iters=3), co.summarize(out)
+
+
+def _outcome(fn, *args):
+    import re
+
+    try:
+        return fn(*args)
+    except ValueError as exc:
+        return type(exc).__name__, re.sub(r"\(mesh has .*\)", "", str(exc))
+
+
+def mesh_checks(layout, slot_axes, bounds):
+    """``slot_axis_size`` for each of ``slot_axes`` and
+    ``validate_claimed_mesh`` for each env of ``bounds``: results or
+    (exception name, message)."""
+    mesh = make_mesh(layout)
+    return ([_outcome(pm.slot_axis_size, mesh, a) for a in slot_axes],
+            [_outcome(pm.validate_claimed_mesh, mesh, b) for b in bounds])
+
+
+def consumer_mesh(env):
+    """The mesh ``consumer.attach(environ=env).build_mesh()`` builds on the
+    CPU: its rank array and axis names."""
+    from k8s_dra_driver_torch import consumer
+
+    mesh = consumer.attach(environ=env, init_distributed=False).build_mesh(device_type="cpu")
+    return mesh.mesh.tolist(), mesh.mesh_dim_names
+
+
+def build_stand_in(tmpdir, compiler):
+    """Every rank builds ``csrc/stand_in.cu`` under ``tmpdir`` through the
+    stand-in ``compiler`` at once; the size of the library each then finds."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.ops import _build
+
+    old = (_build.CSRC, _build.BUILD_DIR, _build.nvcc_path)
+    _build.CSRC, _build.BUILD_DIR = Path(tmpdir) / "csrc", Path(tmpdir) / "build"
+    _build.nvcc_path = lambda: compiler
+    try:
+        dist.barrier()
+        _build.build(["stand_in"])
+        return _build.library_path("stand_in").stat().st_size
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build.nvcc_path = old
