@@ -249,7 +249,24 @@ exits 2 before any result):
     parameters after 3 steps (within lr x steps / 2 plus 4 rounding units
     of each leaf's largest), its flash launches summed over ranks equal
     to the ring's schedule, and per leg ms per step, collective bytes by
-    kind (and through the host) and peak memory by rank.
+    kind (and through the host) and peak memory by rank.  In the same
+    pool: (f) ``pp_burnin.build_pp_train_step`` on ``MeshShape(pipe=2,
+    model=2)``, megatron, 2 microbatches, and (g) the same in megatron-sp
+    (the ``collective_matmul`` rings), bf16 at 8 layers and f32 at 2, held
+    like (a)-(e) against the single card's ``attention="dense"`` step,
+    with no flash launch (the pipeline's attention is plain, as the
+    reference's); (h) ``moe.topk_moe`` over ``MeshShape(data=4)``,
+    Mixtral-8x7B's 8 experts and top 2 at d 1024, d_ff 4096, 4096 tokens:
+    in f32 at capacity factor 8 the output and the expert stacks'
+    gradients within 1e-4 of each one's largest element of the dropless
+    oracle on rank 0, the dropped copies at factors 2 and 1 equal to a
+    host recount of the queues (some at 1), forward + backward timed in
+    f32 and bf16 at factor 2; (i) ``sharded_tp_mlp`` on ``MeshShape(
+    model=4)``, bidirectional, ``[4, 1024, 1024] x [1024, 4096]``: the
+    output and the three gradients against the dense MLP within 1e-4 of
+    the largest in f32 and 4 bf16 steps in bf16, each timed.  The gloo
+    hops go through the host, so the rings' numbers are correctness and
+    bytes, not overlap.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
@@ -1480,39 +1497,27 @@ def _rank_mesh(layout, dev):
     return pm.build_mesh(ranks, shape, dev)
 
 
-def mesh_leg(cfg, layout, kw, steps: int, b: int, dev: str) -> dict:
-    """One "train mesh" leg on this rank (every rank of the pool runs it;
-    the parent runs the world-1 leg itself): ``cfg`` through
-    ``build_train_step(mesh=..., attention="flash")`` on ``dev`` (the
-    parent's ``DEV``: spawned ranks import this module afresh), ``steps``
-    steps on one batch, timed on the host clock, the flash and collective
-    counts zeroed just before; then the params unsharded, and on rank 0 the
-    single-card step from the same seed and tokens, and the step-1
-    gradients of both."""
+def _leg_setup(dev):
+    """A leg's rank-side start: ``DEV`` set (spawned ranks import this
+    module afresh), TF32 off."""
     import torch
-    import torch.distributed as dist
-
-    from k8s_dra_driver_torch.models import burnin, mesh_train, serve, weights
-    from k8s_dra_driver_torch.ops import collectives
-    from k8s_dra_driver_torch.ops import flash_attention as fa
 
     global DEV
     DEV = dev
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = dev == "cuda"
-    mesh = _rank_mesh(layout, dev)
-    tokens = _train_tokens(torch, cfg, b, SEED + 7)
-    fns = burnin.build_train_step(cfg, mesh=mesh, attention="flash", remat="blocks",
-                                  lr=MESH_TRAIN["lr"], device=DEV, **kw)
-    sync(torch)
-    if card:
-        torch.cuda.reset_peak_memory_stats()
-    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
-    plan = mesh_train.mesh_plan(cfg, mesh, kw.get("sequence_parallel", "auto"), "flash")
-    _, g = mesh_train.loss_and_grads(params, tokens, cfg, plan)
-    grads = burnin.param_leaves(weights.unshard_params(cfg, mesh, g)[0])
-    del g
+    return torch
+
+
+def _timed_steps(torch, fns, params, state, tokens, steps: int) -> dict:
+    """``steps`` steps on one batch, each timed on the host clock, the
+    flash and collective counts zeroed just before: the losses, ms, flash
+    launches, bytes sent and through the host by kind, and peak memory."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.ops import collectives
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
     sync(torch)
     dist.barrier()
     _zero_flash_counts()
@@ -1523,21 +1528,28 @@ def mesh_leg(cfg, layout, kw, steps: int, b: int, dev: str) -> dict:
         losses.append(fns.step(params, state, tokens)[2])
         sync(torch)
         ms.append((time.perf_counter() - t0) * 1e3)
-    out = dict(losses=[float(x) for x in losses], ms=ms, fwd=dict(fa.fwd_launches),
-               bwd=dict(fa.bwd_launches), comm=dict(collectives.comm_bytes),
-               host=dict(collectives.host_bytes),
-               peak=torch.cuda.max_memory_allocated() if card else 0)
-    after = burnin.param_leaves(weights.unshard_params(cfg, mesh, params)[0])
-    if dist.get_rank():
-        return out
-    single = burnin.build_train_step(cfg, attention="flash", remat="blocks",
+    return dict(losses=[float(x) for x in losses], ms=ms, fwd=dict(fa.fwd_launches),
+                bwd=dict(fa.bwd_launches), comm=dict(collectives.comm_bytes),
+                host=dict(collectives.host_bytes),
+                peak=torch.cuda.max_memory_allocated() if DEV == "cuda" else 0)
+
+
+def _against_single_card(torch, cfg, tokens, grads, after, steps: int, attention: str) -> dict:
+    """Rank 0's reference: the single-card step (``attention``) from the
+    same seed and tokens; the worst step-1 gradient error over each leaf's
+    largest, its losses over ``steps`` eager steps, and the params after
+    them against ``after`` (``MESH_PARAM_UNITS``)."""
+    from k8s_dra_driver_torch.models import burnin, serve
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    attn_fn = fa.flash_attention if attention == "flash" else None
+    single = burnin.build_train_step(cfg, attention=attention, remat="blocks",
                                      lr=MESH_TRAIN["lr"], device=DEV)
     p1, s1 = single.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
-    _, g1 = burnin.value_and_grad(
-        lambda p, t: burnin.loss_fn(p, t, cfg, fa.flash_attention), p1, tokens)
-    out["grad_err"] = max(((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
-                          for x, y in zip(grads, burnin.param_leaves(g1)))
-    del g1, grads
+    _, g1 = burnin.value_and_grad(lambda p, t: burnin.loss_fn(p, t, cfg, attn_fn), p1, tokens)
+    out = {"grad_err": max(((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+                           for x, y in zip(grads, burnin.param_leaves(g1)))}
+    del g1
     with serve.disable_graphs():
         out["single"] = [float(single.step(p1, s1, tokens)[2]) for _ in range(steps)]
     unit = torch.finfo(cfg.dtype).eps / 2
@@ -1548,6 +1560,83 @@ def mesh_leg(cfg, layout, kw, steps: int, b: int, dev: str) -> dict:
                     + MESH_PARAM_UNITS * unit * y.float().abs().max().item())
     out["param_diff"] = max(diffs)
     out["param_ratio"] = max(d / r for d, r in zip(diffs, room))
+    return out
+
+
+def mesh_leg(cfg, layout, kw, steps: int, b: int, dev: str) -> dict:
+    """One "train mesh" leg on this rank (every rank of the pool runs it;
+    the parent runs the world-1 leg itself): ``cfg`` through
+    ``build_train_step(mesh=..., attention="flash")`` on ``dev`` (the
+    parent's ``DEV``: spawned ranks import this module afresh), ``steps``
+    steps on one batch, timed on the host clock, the flash and collective
+    counts zeroed just before; then the params unsharded, and on rank 0 the
+    single-card step from the same seed and tokens, and the step-1
+    gradients of both."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, mesh_train, weights
+
+    torch = _leg_setup(dev)
+    mesh = _rank_mesh(layout, dev)
+    tokens = _train_tokens(torch, cfg, b, SEED + 7)
+    fns = burnin.build_train_step(cfg, mesh=mesh, attention="flash", remat="blocks",
+                                  lr=MESH_TRAIN["lr"], device=DEV, **kw)
+    sync(torch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+    plan = mesh_train.mesh_plan(cfg, mesh, kw.get("sequence_parallel", "auto"), "flash")
+    _, g = mesh_train.loss_and_grads(params, tokens, cfg, plan)
+    grads = burnin.param_leaves(weights.unshard_params(cfg, mesh, g)[0])
+    del g
+    out = _timed_steps(torch, fns, params, state, tokens, steps)
+    after = burnin.param_leaves(weights.unshard_params(cfg, mesh, params)[0])
+    if dist.get_rank():
+        return out
+    out.update(_against_single_card(torch, cfg, tokens, grads, after, steps, "flash"))
+    return out
+
+
+# leg: (what it runs, (slices, MeshShape fields), build_pp_train_step options)
+PP_LEGS = {
+    "f": ("pipeline, megatron", (0, {"pipe": 2, "model": 2}),
+          {"tp_mode": "megatron", "n_micro": 2}),
+    "g": ("pipeline, megatron-sp", (0, {"pipe": 2, "model": 2}),
+          {"tp_mode": "megatron-sp", "n_micro": 2}),
+}
+
+
+def pp_leg(cfg, layout, kw, steps: int, b: int, dev: str) -> dict:
+    """One pipeline leg on this rank: ``models/pp_burnin.build_pp_train_step``
+    as :func:`mesh_leg` runs the mesh step, held on rank 0 against the
+    single card's ``attention="dense"`` step (the pipeline's attention is
+    plain, as the reference's is)."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, pp_burnin, weights
+
+    torch = _leg_setup(dev)
+    mesh = _rank_mesh(layout, dev)
+    tokens = _train_tokens(torch, cfg, b, SEED + 7)
+    fns = pp_burnin.build_pp_train_step(cfg, mesh, lr=MESH_TRAIN["lr"], device=DEV, **kw)
+    sync(torch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+    plan = pp_burnin.pp_plan(cfg, mesh, kw.get("n_micro"), kw.get("tp_mode", "megatron"))
+    _, g = pp_burnin.loss_and_grads(params, tokens, cfg, plan)
+
+    def dense(tree):
+        return burnin.param_leaves(
+            weights.dense_params(cfg, weights.unshard_pipeline_params(cfg, mesh, tree)[0]))
+
+    grads = dense(g)
+    del g
+    out = _timed_steps(torch, fns, params, state, tokens, steps)
+    after = dense(params)
+    if dist.get_rank():
+        return out
+    out.update(_against_single_card(torch, cfg, tokens, grads, after, steps, "dense"))
     return out
 
 
@@ -1564,12 +1653,32 @@ def _mesh_flash_expected(layout, kw, n_layers: int, steps: int) -> tuple[int, in
     return 2 * n_layers * steps * calls, n_layers * steps * calls
 
 
-def _mesh_report(torch, label, results, cfg, layout, kw, steps, card):
-    """Print one leg's numbers and hold its gates; returns its launches
-    by kernel, summed over the ranks."""
+def _leg_numbers(label, results, steps, card, note=""):
+    """A leg's host-clock ms a step (median over ranks), the bytes a rank
+    sends a step and those it copies through the host, by kind, and its
+    peak memory, from each rank's ``ms``, ``comm``, ``host`` and ``peak``."""
+    ms = np.median(np.array([r["ms"] for r in results]), axis=0)
+    log(f"{label}: {' / '.join(f'{x:.1f}' for x in ms)} ms per step (host clock, median over "
+        f"ranks; 4 ranks sharing one card: not a scaling figure{note}; {card})"
+        if len(results) > 1 else
+        f"{label}: {' / '.join(f'{x:.1f}' for x in ms)} ms per step (host clock; {card})")
+    for kind in results[0]["comm"]:
+        sent = [r["comm"][kind] / steps for r in results]
+        host = [r["host"][kind] / steps for r in results]
+        if max(sent) or max(host):
+            log(f"{label}: {kind} per rank per step: {' '.join(f'{x / 2**20:.2f}' for x in sent)}"
+                f" MiB sent, {' '.join(f'{x / 2**20:.2f}' for x in host)} MiB through the host")
+    log(f"{label}: peak memory by rank {' '.join(f'{r['peak'] / 2**30:.2f}' for r in results)} GiB")
+
+
+def _mesh_report(torch, label, results, cfg, steps, card, flash: tuple[int, int] | None):
+    """Print one leg's numbers and hold its gates, ``flash`` the (forward,
+    dQ = dK/dV) launches its schedule makes summed over the ranks (None for
+    the pipeline legs, whose attention is plain: no launch); returns its
+    launches by kernel, summed over the ranks."""
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
-    dtype, n_layers = cfg.dtype, cfg.n_layers
+    dtype = cfg.dtype
     dtype_name = str(dtype).split(".")[-1]
     loss_tol, grad_tol, why = MESH_TOL[dtype_name]
     head = results[0]
@@ -1581,27 +1690,16 @@ def _mesh_report(torch, label, results, cfg, layout, kw, steps, card):
         f"{head['grad_err']:.3g} (bound {grad_tol}); params after {steps} steps, largest "
         f"difference {head['param_diff']:.3g}, worst leaf at {head['param_ratio']:.3g} of its "
         f"bound (lr x steps / 2 + {MESH_PARAM_UNITS} rounding units of the leaf's largest)")
-    ms = np.median(np.array([r["ms"] for r in results]), axis=0)
-    log(f"{label}: {' / '.join(f'{x:.1f}' for x in ms)} ms per step (host clock, median over "
-        f"ranks; 4 ranks sharing one card: not a scaling figure; {card})"
-        if len(results) > 1 else
-        f"{label}: {' / '.join(f'{x:.1f}' for x in ms)} ms per step (host clock; {card})")
-    for kind in head["comm"]:
-        sent = [r["comm"][kind] / steps for r in results]
-        host = [r["host"][kind] / steps for r in results]
-        if max(sent) or max(host):
-            log(f"{label}: {kind} per rank per step: {' '.join(f'{x / 2**20:.2f}' for x in sent)}"
-                f" MiB sent, {' '.join(f'{x / 2**20:.2f}' for x in host)} MiB through the host")
-    log(f"{label}: peak memory by rank {' '.join(f'{r['peak'] / 2**30:.2f}' for r in results)} GiB")
+    _leg_numbers(label, results, steps, card)
     fwd_name = fa.forward_kernel_for(dtype)
     dq_name, dkv_name = fa.backward_kernel_for(dtype)
     got = {name: sum(r["fwd"].get(name, 0) + r["bwd"].get(name, 0) for r in results)
            for name in (*fa.fwd_launches, *fa.bwd_launches)}
-    fwd_n, bwd_n = _mesh_flash_expected(layout, kw, n_layers, steps)
+    fwd_n, bwd_n = flash or (0, 0)
     want = {name: 0 for name in got} | {fwd_name: fwd_n, dq_name: bwd_n, dkv_name: bwd_n}
     log(f"{label}: flash launches summed over ranks {got} (the schedule's: {fwd_name} "
         f"{fwd_n}, {dq_name} and {dkv_name} {bwd_n} each)")
-    if got != want or not fwd_n:
+    if got != want or (flash is not None and not fwd_n):
         raise AssertionError(f"{label}: flash launches {got} are not the schedule's {want}")
     if any(r["losses"] != head["losses"] for r in results):
         raise AssertionError(f"{label}: the ranks report different losses")
@@ -1616,6 +1714,261 @@ def _mesh_report(torch, label, results, cfg, layout, kw, steps, card):
             "flash_bwd_dkv" + tag: got[dkv_name]}
 
 
+# leg (h): Mixtral-8x7B's routing (8 experts, top 2) at FLAGSHIP_MODERN's
+# width over (data 4); the f32 gate at ample capacity (nothing drops), the
+# drop counts at the reference's default factor 2 and at 1 (drops)
+EP = dict(tokens=4096, d=1024, d_ff=4096, experts=8, k=2, ample=8.0, factors=(2.0, 1.0),
+          timed_factor=2.0, steps=3)
+# leg (i): sharded_tp_mlp on (model 4), bidirectional, x [B, S, D] x w_in [D, F]
+TP_MLP = dict(b=4, s=1024, d=1024, d_ff=4096, steps=3)
+# f32 gates of (h) and (i), over the largest element of each output and
+# gradient: the same products summed in another order and GEMM tiling
+EP_TP_F32_TOL = 1e-4
+# bf16 gates of (i), each error taken against the f32 dense MLP on the
+# same inputs: the ring's output and w_out gradient (the scatter's f32
+# accumulators) within half a bf16 step (2^-9 of the largest element) of
+# the bf16 dense MLP's own error, which an accumulator rounded to bf16 at
+# each hop leaves; the x and w_in gradients (the gather's backward, whose
+# n cotangents autograd sums in bf16) within TP_MLP_BF16_STEPS steps
+TP_MLP_BF16_SLACK = 2.0 ** -9
+TP_MLP_BF16_STEPS = 4
+
+
+def _recount_queues(experts, capacity: int):
+    """The kept copies of one rank's routing ``experts [T, k]`` (numpy),
+    counted on the host: every first choice in token order, then every
+    second, each taking its expert's next slot while one is left."""
+    used: dict = {}
+    keep = np.zeros(experts.shape, bool)
+    for r in range(experts.shape[1]):
+        for t in range(experts.shape[0]):
+            e = int(experts[t, r])
+            keep[t, r] = used.get(e, 0) < capacity
+            used[e] = used.get(e, 0) + 1
+    return keep
+
+
+def _timed_reps(torch, fn, steps: int) -> dict:
+    """``fn()`` (a forward and backward) once to warm, then ``steps`` times
+    on the host clock with the collective counts zeroed just before."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.ops import collectives
+
+    fn()
+    sync(torch)
+    dist.barrier()
+    collectives.reset_counts()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms=ms, comm=dict(collectives.comm_bytes), host=dict(collectives.host_bytes))
+
+
+def _rel_err(torch, got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def ep_leg(dev: str, ep: dict) -> dict:
+    """Leg (h) on this rank at the sizes of ``ep`` (``EP``):
+    ``ops/moe.topk_moe`` over ``(data 4)`` on this rank's blocks (its
+    tokens and experts) of whole tensors made from one seed on every rank.
+    f32 at capacity factor ``ep["ample"]``: forward and backward of
+    ``sum(out · ct)``, the output and the experts' gradients all-gathered; the drops of each factor of ``ep["factors"]``
+    (``moe.route``, the queues ``topk_moe`` fills) against a host recount;
+    f32 and bf16 forward + backward timed at ``ep["timed_factor"]``; on
+    rank 0 the dropless oracle
+    (``reference_topk_moe`` over each rank's rows, so the router's product
+    has the ranks' shape) with its gradients."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.ops import collectives, moe
+
+    torch = _leg_setup(dev)
+    mesh = _rank_mesh((0, {"data": 4}), dev)
+    group = mesh.get_group("data")
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    t, d, f, e, k = ep["tokens"], ep["d"], ep["d_ff"], ep["experts"], ep["k"]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 90)
+    x = torch.randn((t, d), generator=gen, device=DEV)
+    wr = torch.randn((d, e), generator=gen, device=DEV) * d ** -0.5
+    wu = torch.randn((e, d, f), generator=gen, device=DEV) * d ** -0.5
+    wd = torch.randn((e, f, d), generator=gen, device=DEV) * f ** -0.5
+    ct = torch.randn((t, d), generator=gen, device=DEV)
+    t_loc, e_loc = t // n, e // n
+    rows, mine = slice(idx * t_loc, (idx + 1) * t_loc), slice(idx * e_loc, (idx + 1) * e_loc)
+
+    def fwd_bwd(dtype, factor):
+        ins = [a.detach().to(dtype).contiguous().requires_grad_()
+               for a in (x[rows], wu[mine], wd[mine])]
+        out = moe.topk_moe(ins[0], wr, ins[1], ins[2], mesh, capacity_factor=factor, k=k)
+        (out.float() * ct[rows]).sum().backward()
+        return out.detach(), ins
+
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out, ins = fwd_bwd(torch.float32, ep["ample"])
+    got = [collectives.all_gather_raw(out, group, 0),
+           collectives.all_gather_raw(ins[1].grad, group, 0),
+           collectives.all_gather_raw(ins[2].grad, group, 0)]
+    del out, ins
+    drops = {}
+    for factor in ep["factors"]:
+        cap = moe.moe_capacity(factor, t_loc, k, e)
+        _, experts, _, keep = moe.route(x[rows], wr, e, cap, k)
+        host = _recount_queues(experts.cpu().numpy(), cap)
+        keep = keep.cpu().numpy()
+        drops[factor] = (cap, int((~keep).sum()), int((~host).sum()), bool((keep == host).all()))
+    res = {"drops": drops}
+    for dtype in (torch.float32, torch.bfloat16):
+        res[str(dtype)[6:]] = _timed_reps(torch, lambda: fwd_bwd(dtype, ep["timed_factor"]),
+                                          ep["steps"])
+    res["peak"] = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    if idx:
+        return res
+    ref_w = [a.clone().requires_grad_() for a in (wu, wd)]
+    ref = torch.cat([moe.reference_topk_moe(x[r * t_loc:(r + 1) * t_loc], wr, *ref_w, k=k)
+                     for r in range(n)])
+    (ref * ct).sum().backward()
+    res["err"] = {name: _rel_err(torch, a, b) for name, a, b in
+                  zip(("output", "w_up grad", "w_down grad"), got, [ref, *(w.grad for w in ref_w)])}
+    return res
+
+
+def tp_mlp_leg(dev: str, tp: dict) -> dict:
+    """Leg (i) on this rank at the sizes of ``tp`` (``TP_MLP``):
+    ``sharded_tp_mlp`` on ``(model 4)``,
+    bidirectional, on its blocks of x ``[B, S, D]`` (S over ``model``),
+    w_in ``[D, F]`` (its columns), w_out ``[F, D]`` (its rows), made from
+    one seed on every rank; forward and backward of ``sum(out · ct)`` in f32
+    and bf16, the output and gradients all-gathered, each timed; on rank
+    0 the dense tanh-GELU MLP with its gradients in f32, against which both
+    the ring's and the bf16 dense MLP's bf16 errors are taken, and the
+    output of a scatter accumulating in bf16, emulated."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_torch.ops import collective_matmul as cm
+    from k8s_dra_driver_torch.ops import collectives
+
+    torch = _leg_setup(dev)
+    mesh = _rank_mesh((0, {"model": 4}), dev)
+    group = mesh.get_group("model")
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    b, s, d, f = tp["b"], tp["s"], tp["d"], tp["d_ff"]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 91)
+    x = torch.randn((b, s, d), generator=gen, device=DEV)
+    wi = torch.randn((d, f), generator=gen, device=DEV) * d ** -0.5
+    wo = torch.randn((f, d), generator=gen, device=DEV) * f ** -0.5
+    ct = torch.randn((b, s, d), generator=gen, device=DEV)
+    seq, cols = slice(idx * s // n, (idx + 1) * s // n), slice(idx * f // n, (idx + 1) * f // n)
+
+    def fwd_bwd(dtype):
+        ins = [a.detach().to(dtype).contiguous().requires_grad_()
+               for a in (x[:, seq], wi[:, cols], wo[cols])]
+        out = cm.sharded_tp_mlp(*ins, mesh, bidirectional=True)
+        (out.float() * ct[:, seq]).sum().backward()
+        return out.detach(), ins
+
+    def dense_mlp(dtype):
+        dense = [a.detach().to(dtype).requires_grad_() for a in (x, wi, wo)]
+        h = F.gelu(dense[0] @ dense[1], approximate="tanh")
+        y = h @ dense[2]
+        (y.float() * ct).sum().backward()
+        return [y.detach(), *(t.grad for t in dense)], h.detach(), dense[2].detach()
+
+    labels = ("output", "x grad", "w_in grad", "w_out grad")
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        out, ins = fwd_bwd(dtype)
+        got = [collectives.all_gather_raw(out, group, 1),
+               collectives.all_gather_raw(ins[0].grad, group, 1),
+               collectives.all_gather_raw(ins[1].grad, group, 1),
+               collectives.all_gather_raw(ins[2].grad, group, 0)]
+        res[name] = _timed_reps(torch, lambda: fwd_bwd(dtype), tp["steps"])
+        if idx:
+            continue
+        if dtype == torch.float32:
+            want, _, _ = dense_mlp(dtype)
+            res[name]["err"] = {k: _rel_err(torch, a, w) for k, a, w in zip(labels, got, want)}
+            continue
+        dense, h, wob = dense_mlp(dtype)
+        res[name]["err"] = {k: _rel_err(torch, a, w) for k, a, w in zip(labels, got, want)}
+        res[name]["dense_err"] = {k: _rel_err(torch, a, w)
+                                  for k, a, w in zip(labels, dense, want)}
+        # what a scatter whose accumulator is rounded to bf16 at each hop
+        # would give: the n partial products summed in bf16
+        acc = None
+        for r in range(n):
+            part = h[..., r * f // n:(r + 1) * f // n] @ wob[r * f // n:(r + 1) * f // n]
+            acc = part if acc is None else acc + part
+        res[name]["bf16_acc_err"] = _rel_err(torch, acc, want[0])
+    res["peak"] = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    return res
+
+
+def _ep_report(torch, label, results, card) -> None:
+    """Print leg (h)'s numbers and hold its gates."""
+    head = results[0]
+    for name, err in head["err"].items():
+        log(f"{label}: f32 {name} at capacity factor {EP['ample']} against the dropless oracle: "
+            f"worst |EP - oracle| over the largest {err:.3g} (bound {EP_TP_F32_TOL})")
+    for factor in EP["factors"]:
+        caps = {r["drops"][factor][0] for r in results}
+        got = [r["drops"][factor][1] for r in results]
+        host = [r["drops"][factor][2] for r in results]
+        log(f"{label}: capacity factor {factor} ({caps} slots an expert and rank): dropped "
+            f"copies by rank {got}, host recount {host}, of {EP['tokens'] // 4 * EP['k']} a rank")
+        if got != host or not all(r["drops"][factor][3] for r in results):
+            raise AssertionError(f"{label}: the dropped copies at factor {factor} are not the "
+                                 f"host recount's")
+    if sum(r["drops"][min(EP["factors"])][1] for r in results) == 0:
+        raise AssertionError(f"{label}: nothing dropped at factor {min(EP['factors'])}")
+    if not max(head["err"].values()) <= EP_TP_F32_TOL:
+        raise AssertionError(f"{label}: expert parallelism leaves the dropless oracle")
+    note = ("; capacity factor " + str(EP["timed_factor"]) + ", forward + backward; the "
+            "all-to-alls go through the host on gloo")
+    for dtype in ("float32", "bfloat16"):
+        _leg_numbers(f"{label} {dtype}", [r[dtype] | {"peak": r["peak"]} for r in results],
+                     EP["steps"], card, note)
+
+
+def _tp_mlp_report(torch, label, results, card) -> None:
+    """Print leg (i)'s numbers and hold its gates."""
+    head = results[0]
+    note = ("; forward + backward; the rings' hops go through the host on gloo: correctness "
+            "and bytes, not overlap")
+    for name, err in head["float32"]["err"].items():
+        log(f"{label} float32: {name} against the dense MLP: worst |ring - dense| over the "
+            f"largest {err:.3g} (bound {EP_TP_F32_TOL})")
+    if not max(head["float32"]["err"].values()) <= EP_TP_F32_TOL:
+        raise AssertionError(f"{label}: the float32 rings leave the dense MLP")
+    bf16 = head["bfloat16"]
+    bounds = {}
+    for name, err in bf16["err"].items():
+        slack = (TP_MLP_BF16_SLACK if name in ("output", "w_out grad")
+                 else TP_MLP_BF16_STEPS * 2.0 ** -8)
+        bounds[name] = bf16["dense_err"][name] + slack
+        log(f"{label} bfloat16: {name} against the f32 dense MLP: worst error over the "
+            f"largest, ring {err:.3g}, bf16 dense MLP {bf16['dense_err'][name]:.3g} "
+            f"(bound {bounds[name]:.3g})")
+    log(f"{label} bfloat16: a scatter accumulating in bf16 (emulated on rank 0: the "
+        f"{len(results)} partial products summed in bf16) would read {bf16['bf16_acc_err']:.3g} "
+        f"on the output (bound {bounds['output']:.3g}: "
+        f"{'caught' if bf16['bf16_acc_err'] > bounds['output'] else 'not caught'})")
+    if any(err > bounds[name] for name, err in bf16["err"].items()):
+        raise AssertionError(f"{label}: the bfloat16 rings leave the dense MLP")
+    for dtype in ("float32", "bfloat16"):
+        _leg_numbers(f"{label} {dtype}", [r[dtype] | {"peak": r["peak"]} for r in results],
+                     TP_MLP["steps"], card, note)
+
+
 def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     """Mesh training ("train mesh"): four ranks on the one card on a gloo
     group (CUDA tensors; ``ops/collectives`` copies what gloo cannot take
@@ -1625,7 +1978,10 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     running the mesh step at ``MeshShape()``.  Each leg: B 4, S 1024, remat
     "blocks", lr 3e-4, 3 steps from seeded weights, held against the
     single-card step (``MESH_TOL``, ``MESH_PARAM_UNITS``), its flash launches against the
-    schedule's.  Returns the launches by kernels-line row."""
+    schedule's.  In the same pool, legs (f)-(i): the pipeline
+    (``PP_LEGS``) in bf16 at ``cfg`` and in f32 at 2 layers, expert
+    parallelism (``EP``) and the tensor-parallel MLP (``TP_MLP``), each
+    printing its seconds.  Returns the launches by kernels-line row."""
     import torch.distributed as dist
 
     from k8s_dra_driver_torch.parallel.ranks import RankPool, free_port, init_ranks
@@ -1651,7 +2007,30 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
                 log(f"{label}: {time.perf_counter() - t1:.1f} s"
                     + (" (the 4 gloo ranks started in it)" if key + str(leg_cfg.dtype)
                        == "atorch.bfloat16" else ""))
-                add(_mesh_report(torch, label, results, leg_cfg, layout, kw, steps, card))
+                add(_mesh_report(torch, label, results, leg_cfg, steps, card,
+                                 _mesh_flash_expected(layout, kw, leg_cfg.n_layers, steps)))
+        for leg_cfg in (cfg, f32):
+            for key, (what, layout, kw) in PP_LEGS.items():
+                label = (f"train mesh ({key}) {what} {layout[1]}, {str(leg_cfg.dtype)[6:]} "
+                         f"L={leg_cfg.n_layers}")
+                t1 = time.perf_counter()
+                results = pool.run(pp_leg, leg_cfg, layout, kw, steps, b, DEV)
+                log(f"{label}: {time.perf_counter() - t1:.1f} s")
+                if kw["tp_mode"] == "megatron-sp":
+                    log(f"{label}: the rings' hops go through the host on gloo: correctness "
+                        f"and bytes, not overlap")
+                add(_mesh_report(torch, label, results, leg_cfg, steps, card, None))
+        label = (f"train mesh (h) expert parallelism {{'data': 4}}, {EP['experts']} experts "
+                 f"top {EP['k']}, T {EP['tokens']}, d {EP['d']}, d_ff {EP['d_ff']}")
+        t1 = time.perf_counter()
+        _ep_report(torch, label, pool.run(ep_leg, DEV, EP), card)
+        log(f"{label}: {time.perf_counter() - t1:.1f} s")
+        label = (f"train mesh (i) sharded_tp_mlp {{'model': 4}} bidirectional, "
+                 f"[{TP_MLP['b']}, {TP_MLP['s']}, {TP_MLP['d']}] x [{TP_MLP['d']}, "
+                 f"{TP_MLP['d_ff']}]")
+        t1 = time.perf_counter()
+        _tp_mlp_report(torch, label, pool.run(tp_mlp_leg, DEV, TP_MLP), card)
+        log(f"{label}: {time.perf_counter() - t1:.1f} s")
     # NCCL takes CUDA tensors only: a CPU rehearsal runs this leg on gloo
     backend = "nccl" if DEV == "cuda" else "gloo"
     label = f"train mesh (e) world-1 {backend}, MeshShape(), {str(cfg.dtype)[6:]} L={cfg.n_layers}"
@@ -1662,7 +2041,8 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     finally:
         dist.destroy_process_group()
     log(f"{label}: {time.perf_counter() - t1:.1f} s")
-    add(_mesh_report(torch, label, results, cfg, (0, {}), {}, steps, card))
+    add(_mesh_report(torch, label, results, cfg, steps, card,
+                     _mesh_flash_expected((0, {}), {}, cfg.n_layers, steps)))
     return total
 
 

@@ -100,22 +100,48 @@ class ClaimContext:
             )
         return (self.global_worker_id or 0) * self.local_cards + local
 
+    def claimed_card(self, cards: int) -> int:
+        """This process's card among the ``cards`` the container sees:
+        card :attr:`local_rank` where the runtime showed the claim's cards
+        alone (``cards`` is :attr:`local_cards`), else the claim's host
+        index ``visible_devices[local_rank]``, never a card outside the
+        claim."""
+        local = self.local_rank or 0
+        card = local if cards == self.local_cards or not self.visible_devices \
+            else self.visible_devices[local]
+        if card >= cards:
+            raise ValueError(
+                f"the claim's card {card} is not among the {cards} card(s) this container sees"
+            )
+        return card
+
     def initialize_distributed(self, backend: str | None) -> None:
         """Join the claim's process group, rank :attr:`rank` of
         :attr:`world_size` (nothing for a claim of one card on one host), at
         ``tcp://`` the coordinator (under multislice the megascale one;
-        without one, torch's ``env://`` rendezvous)."""
+        without one, torch's ``env://`` rendezvous).  Where the host has
+        cards, the process first takes its :meth:`claimed_card` as its
+        current device (NCCL is bound to it)."""
         if self.world_size == 1:
             return
+        import torch
         import torch.distributed as dist
 
-        from k8s_dra_driver_torch.parallel.mesh import check_backend
+        from k8s_dra_driver_torch.parallel.mesh import check_backend, set_rank_card
 
         if backend is None:
             raise ValueError("a claim of several cards needs backend='gloo' or 'nccl'")
         rank = self.rank
         check_backend(backend, self.local_cards, "cuda" if backend == "nccl" else "cpu")
         kwargs: dict = {"world_size": self.world_size, "rank": rank}
+        if torch.cuda.device_count():
+            # the claim's card LOCAL_RANK names, never rank % cards: a host's
+            # ranks are numbered from its worker id, and the container may
+            # see cards outside the claim
+            card = self.claimed_card(torch.cuda.device_count())
+            set_rank_card(card)
+            if backend == "nccl":
+                kwargs["device_id"] = torch.device("cuda", card)  # NCCL binds its card now
         address = self.megascale_coordinator if self.multi_slice else self.coordinator_address
         if address:
             kwargs["init_method"] = f"tcp://{address}"

@@ -226,63 +226,65 @@ def reduce_fn(plan: MeshPlan):
     all-reduce per axis."""
 
     def reduce(tensors):
-        out = list(tensors)
-        if not plan.reduce_groups:
-            return out
-        by_dtype: dict = {}
-        for i, t in enumerate(tensors):
-            by_dtype.setdefault(t.dtype, []).append(i)
-        for idx in by_dtype.values():
-            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            for group in plan.reduce_groups:
-                collectives.all_reduce_raw(flat, group)
-            if plan.n_batch > 1:
-                flat = flat / plan.n_batch
-            for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
-                out[i] = part.view_as(tensors[i])
-        return out
+        out = collectives.all_reduce_buckets(tensors, lambda i: plan.reduce_groups)
+        return [t / plan.n_batch for t in out] if plan.n_batch > 1 else out
 
     return reduce
+
+
+def reduced_grads(loss_fn, reduce, params, tokens):
+    """``loss_fn(params, tokens)`` and its gradient (a tree like ``params``),
+    both passed through ``reduce`` (``[loss, *param_leaves]``), with no
+    update: the part of a step the mesh steps share."""
+    loss, grads = value_and_grad(loss_fn, params, tokens)
+    loss, *leaves = reduce([loss, *param_leaves(grads)])
+    return loss, _unflatten(params, iter(leaves))
 
 
 def loss_and_grads(params, tokens, cfg, plan: MeshPlan, remat: str = "blocks"):
     """The global loss and this rank's gradient shards (a tree like
     ``params``), as one step of the mesh branch computes them, with no
     update."""
-    loss, grads = value_and_grad(
-        lambda p, t: mesh_loss(p, t, cfg, plan, remat), params, tokens)
-    loss, *leaves = reduce_fn(plan)([loss, *param_leaves(grads)])
-    return loss, _unflatten(params, iter(leaves))
+    return reduced_grads(functools.partial(mesh_loss, cfg=cfg, plan=plan, remat=remat),
+                         reduce_fn(plan), params, tokens)
 
 
-def build_mesh_train_step(cfg, mesh, lr: float = 3e-4, sequence_parallel: str = "auto",
-                          attention: str = "dense", accum_steps: int = 1,
-                          remat: str = "blocks", device=None) -> TrainStepFns:
-    """``(init, step)`` of the mesh branch for this rank.  ``init(generator)``
+def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device,
+                   accum_steps: int = 1) -> TrainStepFns:
+    """The ``(init, step)`` shell of the mesh steps.  ``init(generator)``
     draws the whole model on the generator's device (the same seed on every
-    rank) and keeps this rank's shards of it and of AdamW's state;
-    ``step(params, opt_state, tokens)`` takes the whole batch, updates the
-    shards IN PLACE and returns the global mean loss (the same on every
-    rank) as a device tensor."""
+    rank), moves it to ``device`` and keeps ``shard(full)``, this rank's
+    shards, with AdamW's state; ``step(params, opt_state, tokens)`` takes
+    the whole batch, runs ``loss_fn`` and ``reduce`` (``make_sgd_step``),
+    updates the shards IN PLACE and returns the global mean loss (the same
+    on every rank) as a device tensor."""
     from k8s_dra_driver_torch.device import params_device
-    from k8s_dra_driver_torch.models.weights import shard_params
 
-    plan = mesh_plan(cfg, mesh, sequence_parallel, attention)
     opt = make_optimizer(lr)
 
     def init(generator: torch.Generator):
         full = init_params(generator, cfg)
         params_device(full, device)
-        params, _ = shard_params(cfg, mesh, full)
+        params = shard(full)
         return params, opt.init(params)
 
-    sgd = make_sgd_step(
-        lambda params, tokens: mesh_loss(params, tokens, cfg, plan, remat), opt,
-        accum_steps=accum_steps, reduce=reduce_fn(plan),
-    )
+    sgd = make_sgd_step(loss_fn, opt, accum_steps=accum_steps, reduce=reduce)
 
     def step(params, opt_state, tokens):
         params_device(params, device)
         return sgd(params, opt_state, torch.as_tensor(tokens, device=device))
 
     return TrainStepFns(init=init, step=step, graphed=None)
+
+
+def build_mesh_train_step(cfg, mesh, lr: float = 3e-4, sequence_parallel: str = "auto",
+                          attention: str = "dense", accum_steps: int = 1,
+                          remat: str = "blocks", device=None) -> TrainStepFns:
+    """``(init, step)`` of the mesh branch for this rank
+    (:func:`train_step_fns`): the shards are ``weights.shard_params``'."""
+    from k8s_dra_driver_torch.models.weights import shard_params
+
+    plan = mesh_plan(cfg, mesh, sequence_parallel, attention)
+    return train_step_fns(
+        cfg, functools.partial(mesh_loss, cfg=cfg, plan=plan, remat=remat), reduce_fn(plan),
+        lambda full: shard_params(cfg, mesh, full)[0], lr, device, accum_steps)

@@ -7,7 +7,12 @@ arrays, with quantized leaves carrying ``.q``/``.scale`` (int8) or
 params with the same keys and shapes; ``opt_state_from_jax`` does the same
 for the optimizer state, and ``adapters_from_jax``/``bank_from_jax`` for
 LoRA adapters and serving banks.  Leaves are read through numpy (``np.asarray``),
-so nothing of JAX is imported here.
+so nothing of JAX is imported here.  On a mesh, ``shard_params`` and
+``unshard_params`` cut the params into a rank's Megatron shards and back;
+``pipeline_params``/``dense_params`` turn them into the pipeline layout
+(stacked blocks, group-major ``qkv``: the JAX package's pipeline tree
+loads through ``params_from_jax`` as it stands) and back, and
+``shard_pipeline_params``/``unshard_pipeline_params`` cut that.
 """
 
 from __future__ import annotations
@@ -163,12 +168,13 @@ def _leaf_specs(specs, key=None) -> list:
     return [x for s in specs for x in _leaf_specs(s, key)]
 
 
-def _relayout(cfg, params, opt_state, leaf_fn):
+def _relayout(cfg, params, opt_state, leaf_fn, spec_tree=None):
     """``params`` and ``opt_state`` (None, or an AdamW state over them) with
-    each float leaf ``t`` replaced by ``leaf_fn(t, key, spec)``."""
+    each float leaf ``t`` replaced by ``leaf_fn(t, key, spec)``; the specs
+    ``spec_tree``'s (default ``burnin.param_pspecs``)."""
     from k8s_dra_driver_torch.models.burnin import _unflatten, param_pspecs
 
-    specs = _leaf_specs(param_pspecs(cfg))
+    specs = _leaf_specs(param_pspecs(cfg) if spec_tree is None else spec_tree)
     leaves = param_leaves(params)
     if len(leaves) != len(specs):
         raise ValueError(f"params have {len(leaves)} leaves, the config's layout {len(specs)}")
@@ -210,3 +216,53 @@ def unshard_params(cfg, mesh, params, opt_state=None):
         return packed_qkv(t, cfg) if key == "qkv" else t
 
     return _relayout(cfg, params, opt_state, leaf)
+
+
+def pipeline_params(cfg, params) -> dict:
+    """Dense params (``burnin.init_params``'s layout) -> the pipeline
+    layout of the reference's ``pp_burnin.pp_params_from_dense``: the
+    blocks stacked, ``{leaf: [L, ...]}``, ``qkv`` group-major; ``embed``,
+    ``ln_f`` and (without RoPE) ``pos_embed`` as they are.  The JAX
+    package's pipeline tree loads through :func:`params_from_jax` as it
+    stands."""
+    from k8s_dra_driver_torch.ops.pipeline import stack_blocks
+
+    blocks = [{**blk, "qkv": groupmajor_qkv(blk["qkv"], cfg)} for blk in params["blocks"]]
+    out = {"embed": params["embed"], "ln_f": params["ln_f"], "blocks": stack_blocks(blocks)}
+    if not cfg.rope:
+        out["pos_embed"] = params["pos_embed"]
+    return out
+
+
+def dense_params(cfg, pipeline) -> dict:
+    """The inverse of :func:`pipeline_params`: the stacked blocks as a
+    list, ``qkv`` packed again."""
+    stacked = pipeline["blocks"]
+    blocks = [{k: v[i] for k, v in stacked.items()} for i in range(stacked["qkv"].shape[0])]
+    for blk in blocks:
+        blk["qkv"] = packed_qkv(blk["qkv"], cfg)
+    out = {k: v for k, v in pipeline.items() if k != "blocks"}
+    out["blocks"] = blocks
+    return out
+
+
+def shard_pipeline_params(cfg, mesh, params, opt_state=None):
+    """Pipeline-layout params (and an AdamW state over them, or None) ->
+    this rank's shards under ``pp_burnin.pp_param_pspecs``: its stage's
+    blocks (leading dim over ``pipe``), their Megatron columns or rows
+    over ``model``, its vocab rows of ``embed``; new contiguous tensors."""
+    from k8s_dra_driver_torch.models.pp_burnin import pp_param_pspecs
+    from k8s_dra_driver_torch.parallel.mesh import shard
+
+    return _relayout(cfg, params, opt_state,
+                     lambda t, key, spec: shard(t, mesh, spec).clone(), pp_param_pspecs(cfg))
+
+
+def unshard_pipeline_params(cfg, mesh, params, opt_state=None):
+    """The inverse of :func:`shard_pipeline_params` on every rank, by
+    all-gathers."""
+    from k8s_dra_driver_torch.models.pp_burnin import pp_param_pspecs
+    from k8s_dra_driver_torch.parallel.mesh import gather
+
+    return _relayout(cfg, params, opt_state,
+                     lambda t, key, spec: gather(t, mesh, spec), pp_param_pspecs(cfg))

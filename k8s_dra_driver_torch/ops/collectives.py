@@ -48,8 +48,15 @@ def reset_counts() -> None:
             counter[key] = 0
 
 
+def group_index(group) -> tuple[int, int]:
+    """(ranks in ``group``, this rank's index there); None is one device."""
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
 def _size(group) -> int:
-    return dist.get_world_size(group)
+    return group_index(group)[0]
 
 
 def _via_host(t: torch.Tensor, group) -> bool:
@@ -81,6 +88,26 @@ def all_reduce_raw(t: torch.Tensor, group) -> torch.Tensor:
         comm_bytes["all_reduce"] += 2 * (n - 1) * _nbytes(t) // n
         dist.all_reduce(t, group=group)
     return t
+
+
+def all_reduce_buckets(tensors: list, groups_for) -> list:
+    """Each of ``tensors`` summed over the groups ``groups_for(i)`` lists
+    (none: left as it is), in one flat buffer per dtype and list of groups,
+    one all-reduce per group; returns the sums as new tensors."""
+    out = list(tensors)
+    buckets: dict = {}
+    for i, t in enumerate(tensors):
+        groups = [g for g in groups_for(i) if g is not None]
+        if groups:
+            key = (t.dtype, tuple(map(id, groups)))
+            buckets.setdefault(key, (groups, []))[1].append(i)
+    for groups, idx in buckets.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        for group in groups:
+            all_reduce_raw(flat, group)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
 
 
 def ppermute_raw(tensors: list, group, perm) -> list:
@@ -118,6 +145,11 @@ def ring_perm(n: int) -> list:
     """``[(j, (j + 1) % n)]``: every rank sends to its successor, the
     reference's ring."""
     return [(j, (j + 1) % n) for j in range(n)]
+
+
+def inverse_perm(perm) -> list:
+    """``perm`` run backward: each ``(src, dst)`` as ``(dst, src)``."""
+    return [(d, s) for s, d in perm]
 
 
 def all_gather_raw(t: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -177,8 +209,7 @@ class _PPermute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        back = [(d, s) for s, d in ctx.perm]
-        return ppermute_raw([g], ctx.group, back)[0], None, None
+        return ppermute_raw([g], ctx.group, inverse_perm(ctx.perm))[0], None, None
 
 
 class _Psum(torch.autograd.Function):
@@ -234,7 +265,7 @@ def psum(x, group):
     """``jax.lax.psum``: the sum over ``group`` on every rank; the gradient
     passes unchanged (Megatron's all-reduce after a row-parallel product).
     ``group`` None (one device) returns ``x``."""
-    if group is None or _size(group) == 1:
+    if _size(group) == 1:
         return x
     return _Psum.apply(x, group)
 
@@ -243,7 +274,7 @@ def pvary(x, group):
     """Identity forward, all-reduce of the gradient: Megatron's conjugate of
     :func:`psum`, on the replicated input of a column-parallel product.
     ``group`` None returns ``x``."""
-    if group is None or _size(group) == 1:
+    if _size(group) == 1:
         return x
     return _Pvary.apply(x, group)
 

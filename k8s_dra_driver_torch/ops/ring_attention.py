@@ -54,12 +54,6 @@ def reference_attention(q, k, v, causal: bool = True):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
-def _group_index(group) -> tuple[int, int]:
-    import torch.distributed as dist
-
-    return dist.get_world_size(group), dist.get_rank(group)
-
-
 # ---------------------------------------------------------------------------
 # Ring attention
 # ---------------------------------------------------------------------------
@@ -68,7 +62,7 @@ def _group_index(group) -> tuple[int, int]:
 def ring_attention_local(q, k, v, group, causal: bool = True):
     """Ring attention on this rank's blocks over ``group``; accumulators in
     f32, output in q's dtype."""
-    n, idx = _group_index(group)
+    n, idx = collectives.group_index(group)
     b, s_loc, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     q32 = q.float()
@@ -122,7 +116,7 @@ def _merge_blocks(out_a, lse_a, out_b, lse_b):
 
 
 def _ring_flash_fwd(q, k, v, group, causal):
-    n, idx = _group_index(group)
+    n, idx = collectives.group_index(group)
     b, s_loc, h, d = q.shape
     q_bh, k_bh, v_bh = to_bh(q), to_bh(k), to_bh(v)
     # f32 partials: rounding each to q's dtype before the merge would
@@ -139,7 +133,7 @@ def _ring_flash_fwd(q, k, v, group, causal):
 
 
 def _ring_flash_bwd(q, k, v, out, lse, dout, group, causal):
-    n, idx = _group_index(group)
+    n, idx = collectives.group_index(group)
     b, s_loc, h, d = q.shape
     q_bh, out_bh = to_bh(q), to_bh(out)
     dout_bh = to_bh(dout.to(q.dtype))
@@ -205,7 +199,7 @@ def ulysses_attention_local(q, k, v, group, causal: bool = True, attn_fn=None):
     """Ulysses on this rank's blocks ``[B, S_local, H, D]`` (full heads;
     H % n == 0).  ``attn_fn(q, k, v, causal=...)`` is the full-sequence
     inner attention, :func:`reference_attention` by default."""
-    n, _ = _group_index(group)
+    n, _ = collectives.group_index(group)
     h = q.shape[2]
     if h % n != 0:
         raise ValueError(f"Ulysses needs heads ({h}) divisible by axis size ({n})")

@@ -96,10 +96,27 @@ def check_backend(backend: str, world_size: int, device_type: str) -> None:
         )
 
 
+# the card this process took by set_rank_card; None: it took none
+_rank_card: int | None = None
+
+
+def set_rank_card(card: int) -> None:
+    """Take ``card`` as this process's current device and record it for
+    :func:`rank_device`."""
+    global _rank_card
+    torch.cuda.set_device(card)
+    _rank_card = card
+
+
 def rank_device(device_type: str) -> torch.device:
-    """This rank's device: ``cuda:{rank % cards}`` or the CPU."""
+    """This rank's device: the CPU, or the card this process took
+    (:func:`set_rank_card`, which ``ranks.init_ranks`` and
+    ``consumer.attach`` call); where it took none, ``cuda:{rank %
+    cards}``."""
     if device_type == "cpu":
         return torch.device("cpu")
+    if _rank_card is not None:
+        return torch.device("cuda", _rank_card)
     import torch.distributed as dist
 
     rank = dist.get_rank() if dist.is_initialized() else 0

@@ -37,13 +37,13 @@ def init_ranks(rank: int, world_size: int, backend: str, port: int, device_type:
     ``rank % device_count``."""
     import torch.distributed as dist
 
-    from k8s_dra_driver_torch.parallel.mesh import check_backend
+    from k8s_dra_driver_torch.parallel.mesh import check_backend, set_rank_card
 
     check_backend(backend, world_size, device_type)
     kwargs = {}
     if device_type == "cuda":
         card = rank % torch.cuda.device_count()
-        torch.cuda.set_device(card)
+        set_rank_card(card)
         if backend == "nccl":
             kwargs["device_id"] = torch.device("cuda", card)  # NCCL binds its card now
     dist.init_process_group(

@@ -209,6 +209,53 @@ def test_a_claim_of_several_cards_gives_each_card_a_rank(monkeypatch, env, world
         tconsumer.attach(environ={**env, "LOCAL_RANK": "4"}, backend="gloo")
 
 
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+@pytest.mark.parametrize("seen,visible,local,card", [
+    (8, "0,1", 0, 0),  # the queue's input: worker 1 is rank 2, yet takes card 0
+    (8, "2,3", 0, 2),  # the container sees 8 cards, the claim holds 2 and 3
+    (8, "2,3", 1, 3),
+    (2, "2,3", 1, 1),  # the runtime showed the claim's 2 cards alone
+], ids=["claim-0,1-of-8", "claim-2,3-of-8-local-0", "claim-2,3-of-8-local-1", "narrowed"])
+def test_a_rank_takes_the_card_its_local_rank_names(monkeypatch, backend, seen, visible,
+                                                    local, card):
+    """2 cards a host on 4 hosts, worker 1: rank 2 + LOCAL_RANK of 8 takes
+    the claim's card LOCAL_RANK names, never rank % cards or a card outside
+    the claim, and ``rank_device`` then reports it."""
+    import torch.distributed as dist
+
+    calls = _init_calls(monkeypatch)
+    cards = []
+    monkeypatch.setattr(tm, "_rank_card", None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: seen)
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    env = {"TPU_VISIBLE_DEVICES": visible, "TPU_WORKER_ID": "1", "TPU_HOST_COUNT": "4",
+           "LOCAL_RANK": str(local)}
+    # a process whose CUDA is up but which took no card: rank % cards
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 2 + local)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert tm.rank_device("cuda") == torch.device("cuda", (2 + local) % seen)
+    ctx = tconsumer.attach(environ=env, backend=backend)
+    assert (ctx.world_size, ctx.rank) == (8, 2 + local)
+    assert cards == [card]
+    ((args, kwargs),) = calls
+    assert args == (backend,) and (kwargs["world_size"], kwargs["rank"]) == (8, 2 + local)
+    assert kwargs.get("device_id") == (torch.device("cuda", card) if backend == "nccl" else None)
+    assert tm.rank_device("cuda") == torch.device("cuda", card)
+
+
+def test_a_claimed_card_the_container_does_not_see_is_refused(monkeypatch):
+    monkeypatch.setattr(tm, "_rank_card", None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda card: None)
+    _init_calls(monkeypatch)
+    env = {"TPU_VISIBLE_DEVICES": "2,3", "TPU_WORKER_ID": "1", "TPU_HOST_COUNT": "4",
+           "LOCAL_RANK": "1"}
+    with pytest.raises(ValueError, match="card 3 is not among the 3"):
+        tconsumer.attach(environ=env, backend="gloo")
+
+
 def test_consumer_builds_the_reference_mesh(pool, monkeypatch):
     devs = cpu_devices(4)
     monkeypatch.setattr(jax, "devices", lambda *a: devs)

@@ -201,3 +201,142 @@ def build_stand_in(tmpdir, compiler):
         return _build.library_path("stand_in").stat().st_size
     finally:
         _build.CSRC, _build.BUILD_DIR, _build.nvcc_path = old
+
+
+def _collective_fns():
+    from k8s_dra_driver_torch.ops import collective_matmul as cm
+
+    def ring(fn):
+        # the leading dim is the data axis's block (one slice a rank), the
+        # ring runs over ``model``
+        return lambda *xs, mesh, **kw: fn(*(x[0] for x in xs), mesh.get_group("model"),
+                                          **kw)[None]
+
+    return {
+        "all_gather_matmul": ring(cm.all_gather_matmul),
+        "matmul_reduce_scatter": ring(cm.matmul_reduce_scatter),
+        "tp_mlp": ring(cm.tp_mlp),
+        "sharded_tp_mlp": cm.sharded_tp_mlp,
+    }
+
+
+def spec_case(layout, name, arrays, specs, out_spec, ct, dtype="float32", **kw):
+    """``name`` (a function of ``ops/collective_matmul``) on this rank's
+    blocks of ``arrays`` under ``specs``: (its output block, the blocks of
+    the gradients of ``sum(out · ct)`` for each input), ``ct`` the whole
+    cotangent, cut here by ``out_spec``; or the message of the ValueError
+    it raises."""
+    mesh = make_mesh(layout)
+    blocks = [pm.shard(torch.from_numpy(a), mesh, pm.P(*s)).to(getattr(torch, dtype))
+              .requires_grad_() for a, s in zip(arrays, specs)]
+    try:
+        out = _collective_fns()[name](*blocks, mesh=mesh, **kw)
+    except ValueError as exc:
+        return str(exc)
+    (out.float() * pm.shard(torch.from_numpy(ct), mesh, pm.P(*out_spec))).sum().backward()
+    return [out.detach().float().numpy()] + [b.grad.float().numpy() for b in blocks]
+
+
+def pipeline_case(layout, ws, xs, ct):
+    """``pipeline_apply`` of a tanh stage (``tanh(x @ w)``, one matrix a
+    stage: this rank's block of ``ws`` over ``pipe``) on the whole ``xs``:
+    (the output, this rank's gradient of its stage matrix, the gradient of
+    ``xs`` summed over ``pipe``), for ``sum(out · ct)``."""
+    from k8s_dra_driver_torch.ops import collectives
+    from k8s_dra_driver_torch.ops.pipeline import pipeline_apply
+
+    mesh = make_mesh(layout)
+    w = pm.shard(torch.from_numpy(ws), mesh, pm.P("pipe")).requires_grad_()
+    x = torch.from_numpy(xs).requires_grad_()
+    group = mesh.get_group("pipe")
+    out = pipeline_apply(lambda p, y: torch.tanh(y @ p[0]), w, x, group)
+    (out * torch.from_numpy(ct)).sum().backward()
+    return (out.detach().numpy(), w.grad.numpy(),
+            collectives.all_reduce_raw(x.grad.clone(), group).numpy())
+
+
+def pp_train_case(cfg_kw, layout, params, tokens, steps, **kw):
+    """``steps`` pipeline steps (``build_pp_train_step(**kw)``) from the
+    dense ``params`` (numpy) on ``tokens`` (the whole batch): (the losses,
+    rank 0's dense params after them, rank 0's dense step-1 gradients;
+    the others return None for both)."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, pp_burnin, weights
+
+    cfg, mesh, full = _train_setup(cfg_kw, layout, params)
+    tokens = torch.from_numpy(tokens)
+    fns = pp_burnin.build_pp_train_step(cfg, mesh, device="cpu", **kw)
+    local, _ = weights.shard_pipeline_params(cfg, mesh, pp_burnin.pp_params_from_dense(full, cfg))
+    plan = pp_burnin.pp_plan(cfg, mesh, kw.get("n_micro"), kw.get("tp_mode", "megatron"))
+    _, grads = pp_burnin.loss_and_grads(local, tokens, cfg, plan)
+    grads = weights.dense_params(cfg, weights.unshard_pipeline_params(cfg, mesh, grads)[0])
+    state = burnin.make_optimizer(kw.get("lr", 3e-4)).init(local)
+    losses = [float(fns.step(local, state, tokens)[2]) for _ in range(steps)]
+    after = weights.dense_params(cfg, weights.unshard_pipeline_params(cfg, mesh, local)[0])
+    if dist.get_rank():
+        return losses, None, None
+    return losses, numpy_tree(after), numpy_tree(grads)
+
+
+def pp_refusal(cfg_kw, layout, tokens=None, init=False, **kw):
+    """The message ``build_pp_train_step`` raises on this mesh (at build,
+    at ``init`` with ``init``, or at the first step on ``tokens``), or
+    None."""
+    from k8s_dra_driver_torch.models import burnin, pp_burnin
+
+    cfg = burnin.ModelConfig(**{**cfg_kw, "dtype": torch.float32})
+    try:
+        fns = pp_burnin.build_pp_train_step(cfg, make_mesh(layout), device="cpu", **kw)
+        if init or tokens is not None:
+            params, state = fns.init(torch.Generator().manual_seed(0))
+        if tokens is not None:
+            fns.step(params, state, torch.from_numpy(tokens))
+    except ValueError as exc:
+        return str(exc)
+    return None
+
+
+def _moe_blocks(mesh, x, wr, wu, wd):
+    """This rank's blocks of the whole MoE tensors: its rows of ``x``, the
+    router whole, its experts of ``wu`` and ``wd``."""
+    n = pm.mesh_shape(mesh)["data"]
+    idx, _ = pm.axis_index(mesh, "data")
+    t_loc, e_loc = x.shape[0] // n, wu.shape[0] // n
+    return (x[idx * t_loc:(idx + 1) * t_loc], wr, wu[idx * e_loc:(idx + 1) * e_loc],
+            wd[idx * e_loc:(idx + 1) * e_loc])
+
+
+def moe_case(layout, x, wr, wu, wd, ct, capacity_factor, k):
+    """``topk_moe`` over ``data`` on this rank's blocks of the whole
+    tensors: (its output block, its gradients of its blocks of x, w_router
+    (whole: its tokens' part), w_up and w_down for ``sum(out · ct)``, ``ct``
+    its rows of the whole cotangent, its tokens' expert choices and kept
+    copies)."""
+    from k8s_dra_driver_torch.ops import moe
+
+    mesh = make_mesh(layout)
+    ins = [torch.from_numpy(a).requires_grad_()
+           for a in _moe_blocks(mesh, x, wr, wu, wd)]
+    out = moe.topk_moe(*ins, mesh=mesh, capacity_factor=capacity_factor, k=k)
+    n = pm.mesh_shape(mesh)["data"]
+    idx, _ = pm.axis_index(mesh, "data")
+    t_loc = x.shape[0] // n
+    (out * torch.from_numpy(ct[idx * t_loc:(idx + 1) * t_loc])).sum().backward()
+    capacity = moe.moe_capacity(capacity_factor, t_loc, k, wu.shape[0])
+    _, experts, _, keep = moe.route(ins[0].detach(), ins[1].detach(), wu.shape[0], capacity, k)
+    return ([out.detach().numpy()] + [t.grad.numpy() for t in ins]
+            + [experts.numpy(), keep.numpy()])
+
+
+def moe_refusal(layout, shapes, k):
+    """The message ``topk_moe`` raises on this rank's blocks of tensors of
+    ``shapes`` (x, w_router, w_up, w_down), or None."""
+    from k8s_dra_driver_torch.ops import moe
+
+    try:
+        mesh = make_mesh(layout)
+        moe.topk_moe(*_moe_blocks(mesh, *(torch.zeros(s) for s in shapes)), mesh=mesh, k=k)
+    except ValueError as exc:
+        return str(exc)
+    return None
