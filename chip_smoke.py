@@ -198,7 +198,23 @@ exits 2 before any result):
    tier (a 240-token prefix exported, sent and injected, the next admission
    hitting all 15 blocks with the owner's cold first token); capture, wire
    and inject of a 256-token request timed against its re-prefill;
-16. training FLAGSHIP_MODERN at full width in bf16 through
+16. slot-sharded serving ("serve mesh"): the append kernel at the sharded
+   batch (B 2, bf16, nq 1, ctx 512) against its plain version, elementwise,
+   and bit for bit against the same rows of a B 8 call; then four ranks on
+   the one card on a gloo group (``parallel/ranks.RankPool``): the paged
+   engine over ``MeshShape(data=4)`` (8 slots, 2 a rank; 196 blocks, 4
+   shards of a null block and 48; block 16, bucket 256, sync interval 8)
+   at FLAGSHIP_MODERN in bf16 on the serving run's 16 requests, graphed on
+   every rank (the main path) and held on each rank against its eager twin
+   (completions, statuses, counters, launch counts, cache bytes from its
+   shard's block 1); every rank's completions and counters identical,
+   every token teacher-forced within 0.25, one host sync a burst; the
+   streams equal to the single-card engine's counted; host-clock ms a
+   decode step, the gather's bytes a burst (and through the host), graphs,
+   pool MiB and peak memory a rank, the append launches summed over
+   ranks; then the dense engine the same way in f32 at 2 layers on 8
+   requests, within 1e-3;
+17. training FLAGSHIP_MODERN at full width in bf16 through
    ``build_train_step(attention="flash")`` (B 4, S 1024, remat "blocks"):
    step 0's loss and gradients against ``attention="dense"``; then 8 steps
    of the graphed step (one CUDA graph from the third call; the main path,
@@ -210,7 +226,7 @@ exits 2 before any result):
    times in 4 alternating rounds of 5 steps in one process (tokens/s,
    share of 989 TFLOP/s), and a profile of one step of each (the card's
    busy share);
-17. adapter-only training ("train lora"): ``lora.build_lora_train_step``
+18. adapter-only training ("train lora"): ``lora.build_lora_train_step``
     (rank 8, alpha 16, the four block matrices, attention "flash", B 4, S
     1024, bf16) graphed (the main path) against an eager twin over 5
     steps, bit for bit, the loss falling and the base unchanged; the flash
@@ -218,23 +234,23 @@ exits 2 before any result):
     its plain version on one layer's inputs from the step itself; ms per
     step and peak memory beside the full graphed step (alternating
     rounds), and a profile of one LoRA step;
-18. MoE training ("train moe"): the MoE model of phase 13 through
+19. MoE training ("train moe"): the MoE model of phase 13 through
     ``build_train_step(attention="flash")`` (B 4, S 1024, bf16, remat
     "blocks") graphed (the main path) against an eager twin over 4 steps,
     bit for bit, the loss falling, the flash launches counted; ms per
     step, tokens/s, peak memory and a profile of one step;
-19. the graphed bf16 step under remat "dots", "blocks" and "none" from the
+20. the graphed bf16 step under remat "dots", "blocks" and "none" from the
     same init: bit-equal over 3 steps, the flash forward 2·L a step under
     "dots" and "blocks" and L under "none", each policy's peak memory and
     step time (alternating rounds);
-20. resume: the graphed bf16 step saved after 2 steps by
+21. resume: the graphed bf16 step saved after 2 steps by
     ``TrainCheckpointer``, step 3 run, the state restored into the step's
     own tensors, step 3 run again: the same loss bit for bit, no new
     capture;
-21. training in f32 at 2 layers: the graphed flash step against its eager
+22. training in f32 at 2 layers: the graphed flash step against its eager
     twin bit for bit and against dense over 3 steps (through the fma
     kernels only);
-22. mesh training ("train mesh"): four ranks started once on the one card
+23. mesh training ("train mesh"): four ranks started once on the one card
     (``parallel/ranks.RankPool``, a gloo group over CUDA tensors; what gloo
     cannot take crosses through pinned host memory, counted), running
     ``build_train_step(mesh=..., attention="flash")`` at FLAGSHIP_MODERN,
@@ -264,13 +280,19 @@ exits 2 before any result):
     f32 and bf16 at factor 2; (i) ``sharded_tp_mlp`` on ``MeshShape(
     model=4)``, bidirectional, ``[4, 1024, 1024] x [1024, 4096]``: the
     output and the three gradients against the dense MLP within 1e-4 of
-    the largest in f32 and 4 bf16 steps in bf16, each timed.  The gloo
+    the largest in f32 and 4 bf16 steps in bf16, each timed; (j)
+    ``data.TokenBatches`` over a seeded ``[16, 1024]`` token array feeding
+    leg (b)'s step each rank's rows only, B 4, 3 steps: every block its
+    rows of the host's global batch, the losses within the bf16 loss
+    tolerance of the same step fed the whole batches (bit for bit
+    printed), the flash launches the schedule's.  The gloo
     hops go through the host, so the rings' numbers are correctness and
     bytes, not overlap.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
-after a handoff, training, LoRA, MoE and mesh training) and their times; the last line is the JSON device record.
+after a handoff, the sharded engine's ranks, training, LoRA, MoE and mesh
+training) and their times; the last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -1969,6 +1991,101 @@ def _tp_mlp_report(torch, label, results, card) -> None:
                      TP_MLP["steps"], card, note)
 
 
+# leg (j): data.TokenBatches feeding leg (b)'s step; a seeded dataset of
+# 16 rows of max_seq tokens (the step's targets are its own rows shifted),
+# B 4: 4 batches an epoch, the first 3 run
+TOKENS_LEG = dict(rows=16, layout=(0, {"data": 2, "model": 2}))
+
+
+def tokens_leg(cfg, steps: int, b: int, dev: str) -> dict:
+    """Leg (j) on this rank: ``models/data.TokenBatches`` over a seeded
+    ``[16, max_seq]`` token array on ``MeshShape(data=2, model=2)``, each of
+    its first ``steps`` blocks (this rank's rows only) fed to leg (b)'s
+    step (the main path: the flash and collective counts zeroed just
+    before, each step timed), then the same steps from the same init fed
+    the whole batches, computed here from the reference's permutation.
+    Returns each block's agreement with its rows of the host's global
+    batch, both runs' losses and the fed run's counts."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin
+    from k8s_dra_driver_torch.models.data import TokenBatches
+    from k8s_dra_driver_torch.ops import collectives
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+    from k8s_dra_driver_torch.parallel.mesh import axis_index
+
+    torch = _leg_setup(dev)
+    mesh = _rank_mesh(TOKENS_LEG["layout"], dev)
+    data = np.random.RandomState(SEED + 9).randint(
+        0, cfg.vocab_size, size=(TOKENS_LEG["rows"], cfg.max_seq)).astype(np.int32)
+    blocks = list(TokenBatches(data, b, mesh, seed=SEED, device=DEV).epoch(0))[:steps]
+    order = np.random.default_rng((SEED, 0)).permutation(len(data))
+    wholes = [data[order[s * b:(s + 1) * b]] for s in range(steps)]
+    d, n = axis_index(mesh, "data")
+    rows_ok = [bool(np.array_equal(blk.rows.cpu().numpy(), w[d * b // n:(d + 1) * b // n]))
+               for blk, w in zip(blocks, wholes)]
+    fns = burnin.build_train_step(cfg, mesh=mesh, attention="flash", remat="blocks",
+                                  lr=MESH_TRAIN["lr"], device=DEV)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"rows_ok": rows_ok, "rows": int(blocks[0].rows.shape[0])}
+    for name, feed in (("fed", blocks), ("whole", [torch.from_numpy(w).to(DEV) for w in wholes])):
+        params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+        sync(torch)
+        dist.barrier()
+        _zero_flash_counts()
+        collectives.reset_counts()
+        losses, ms = [], []
+        for batch in feed:
+            t0 = time.perf_counter()
+            losses.append(fns.step(params, state, batch)[2])
+            sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = [float(x) for x in losses]
+        if name == "fed":
+            out.update(ms=ms, fwd=dict(fa.fwd_launches), bwd=dict(fa.bwd_launches),
+                       comm=dict(collectives.comm_bytes), host=dict(collectives.host_bytes))
+        del params, state
+    out["peak"] = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    return out
+
+
+def _tokens_report(torch, label, results, cfg, steps, card) -> dict:
+    """Print leg (j)'s numbers and hold its gates: every block its rows of
+    the host's global batch, ranks that differ only on ``model`` holding
+    the same rows, the fed losses within ``MESH_TOL`` of the whole-batch
+    run's, the flash launches the schedule's.  Returns its launches by
+    kernels-line row."""
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    head = results[0]
+    loss_tol, _, why = MESH_TOL[str(cfg.dtype).split(".")[-1]]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(head["fed"], head["whole"]))
+    log(f"{label}: {head['rows']} rows a rank a step; blocks equal to their rows of the host's "
+        f"global batch on every rank: {all(all(r['rows_ok']) for r in results)}")
+    log(f"{label}: losses fed blocks {' '.join(f'{x:.5f}' for x in head['fed'])}, fed whole "
+        f"batches {' '.join(f'{x:.5f}' for x in head['whole'])}; worst rel {rel:.3g}, bit "
+        f"for bit {head['fed'] == head['whole']} (tolerance {loss_tol}: {why})")
+    _leg_numbers(label, results, steps, card)
+    fwd_n, bwd_n = _mesh_flash_expected(TOKENS_LEG["layout"], {}, cfg.n_layers, steps)
+    got = {name: sum(r["fwd"].get(name, 0) + r["bwd"].get(name, 0) for r in results)
+           for name in (*fa.fwd_launches, *fa.bwd_launches)}
+    fwd_name = fa.forward_kernel_for(cfg.dtype)
+    dq_name, dkv_name = fa.backward_kernel_for(cfg.dtype)
+    want = {name: 0 for name in got} | {fwd_name: fwd_n, dq_name: bwd_n, dkv_name: bwd_n}
+    log(f"{label}: flash launches of the fed run summed over ranks {got}")
+    if not all(all(r["rows_ok"]) for r in results):
+        raise AssertionError(f"{label}: a block is not its rows of the global batch")
+    if any(r["fed"] != head["fed"] for r in results):
+        raise AssertionError(f"{label}: the ranks report different losses")
+    if not (np.isfinite(head["fed"]).all() and rel <= loss_tol):
+        raise AssertionError(f"{label}: the fed losses leave the whole-batch step's")
+    if got != want:
+        raise AssertionError(f"{label}: flash launches {got} are not the schedule's {want}")
+    return {"flash_fwd": got[fwd_name], "flash_bwd_dq": got[dq_name],
+            "flash_bwd_dkv": got[dkv_name]}
+
+
 def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     """Mesh training ("train mesh"): four ranks on the one card on a gloo
     group (CUDA tensors; ``ops/collectives`` copies what gloo cannot take
@@ -1980,7 +2097,8 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     single-card step (``MESH_TOL``, ``MESH_PARAM_UNITS``), its flash launches against the
     schedule's.  In the same pool, legs (f)-(i): the pipeline
     (``PP_LEGS``) in bf16 at ``cfg`` and in f32 at 2 layers, expert
-    parallelism (``EP``) and the tensor-parallel MLP (``TP_MLP``), each
+    parallelism (``EP``) and the tensor-parallel MLP (``TP_MLP``), and (j)
+    ``data.TokenBatches`` feeding leg (b)'s step (``TOKENS_LEG``), each
     printing its seconds.  Returns the launches by kernels-line row."""
     import torch.distributed as dist
 
@@ -2030,6 +2148,13 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
                  f"{TP_MLP['d_ff']}]")
         t1 = time.perf_counter()
         _tp_mlp_report(torch, label, pool.run(tp_mlp_leg, DEV, TP_MLP), card)
+        log(f"{label}: {time.perf_counter() - t1:.1f} s")
+        label = (f"train mesh (j) TokenBatches into (b) {TOKENS_LEG['layout'][1]}, "
+                 f"{str(cfg.dtype)[6:]} L={cfg.n_layers}, [{TOKENS_LEG['rows']}, {cfg.max_seq}] "
+                 f"tokens, B {b}")
+        t1 = time.perf_counter()
+        add(_tokens_report(torch, label, pool.run(tokens_leg, cfg, steps, b, DEV), cfg, steps,
+                           card))
         log(f"{label}: {time.perf_counter() - t1:.1f} s")
     # NCCL takes CUDA tensors only: a CPU rehearsal runs this leg on gloo
     backend = "nccl" if DEV == "cuda" else "gloo"
@@ -2213,6 +2338,7 @@ def phase_serve(torch, label, cfg, params, reqs, *, cache_dtype, logit_tol):
     log(f"{label}: launches {counts}")
     if counts["paged_attention"] == 0:
         raise AssertionError(f"{label}: the paged kernel was never launched")
+    SERVED[label] = {c.request_id: c.generated for c in comps}
     del eng
     steady_decode(torch, label, cfg, params, cache_dtype=cache_dtype)
     return counts
@@ -5345,6 +5471,212 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
     return {"paged_attention": out["a"] + out["c"]}
 
 
+# "serve mesh": the serving run's traffic on 4 ranks of one card over
+# MeshShape(data=4): 8 slots (2 a rank), block 16, bucket 256, sync
+# interval 8; the pool is 4 shards of a null block and 48 blocks, the
+# single-card engine's 24 blocks a slot (this traffic never stalls)
+SERVE_MESH = dict(n_slots=8, prompt_bucket=256, sync_interval=8)
+SERVE_MESH_PAGED = dict(block_size=16, n_blocks=4 * (1 + 2 * 24), preempt_on_stall=False)
+SERVE_MESH_LAYOUT = (0, {"data": 4})
+SERVE_MESH_F32 = dict(n_layers=2, requests=8)
+SERVE_MESH_ATTRS = ("host_syncs", "stalled_steps", "prefix_hits", "prefix_misses", "quarantined")
+SERVED: dict = {}  # label -> {request id: generated tokens} of the single-card phases
+
+
+def serve_mesh_rank(kind: str, cfg, seed: int, reqs, dev: str) -> dict:
+    """One rank of "serve mesh": the engine (``kind`` "paged" or "dense")
+    sharded over ``SERVE_MESH_LAYOUT`` with seeded weights (the same on
+    every rank), ``reqs`` through ``pump`` graphed (the main path, launch
+    and collective counts zeroed just before), then an eager twin
+    (``serve.disable_graphs()``) that must give this rank the same
+    completions, statuses, counters, launch counts and cache bytes (a
+    paged pool's from its shard's block 1).  Returns the graphed run's
+    completions, counters and numbers."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, serve
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+    from k8s_dra_driver_torch.ops import collectives
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    torch = _leg_setup(dev)
+    mesh = _rank_mesh(SERVE_MESH_LAYOUT, dev)
+    params = burnin.init_params(torch.Generator(device=DEV).manual_seed(seed), cfg)
+    pool_from = 1 if kind == "paged" else 0
+    runs = {}
+    for name in ("graphed", "eager"):
+        kw = dict(params=params, cfg=cfg, cache_dtype=cfg.dtype, mesh=mesh, slot_axis="data",
+                  device=DEV, **SERVE_MESH)
+        eng = (PagedServeEngine(**kw, **SERVE_MESH_PAGED) if kind == "paged"
+               else serve.ServeEngine(**kw))
+        sync(torch)
+        dist.barrier()
+        _zero_serving_counts()
+        collectives.reset_counts()
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with serve.disable_graphs() if name == "eager" else contextlib.nullcontext():
+            comps = eng.pump(reqs)
+        sync(torch)
+        runs[name] = dict(
+            eng=eng, wall=time.perf_counter() - t0, counts=serve.launch_counts(),
+            append=pa.launches["append"], comm=dict(collectives.comm_bytes),
+            host=dict(collectives.host_bytes),
+            peak=torch.cuda.max_memory_allocated() if DEV == "cuda" else 0,
+            streams=sorted((c.request_id, c.generated, c.status) for c in comps), comps=comps)
+    g, e = runs["graphed"], runs["eager"]
+    rank = dist.get_rank()
+    if g["streams"] != e["streams"]:
+        raise AssertionError(f"rank {rank}: graphed and eager completions differ")
+    for attr in SERVE_MESH_ATTRS:
+        if getattr(g["eng"], attr, None) != getattr(e["eng"], attr, None):
+            raise AssertionError(f"rank {rank}: graphed and eager {attr} differ")
+    if g["counts"] != e["counts"]:
+        raise AssertionError(f"rank {rank}: launch counts differ: {g['counts']}, {e['counts']}")
+    for a, b_ in zip(g["eng"]._cache[:2], e["eng"]._cache[:2]):
+        if not torch.equal(a[:, pool_from:], b_[:, pool_from:]):
+            raise AssertionError(f"rank {rank}: graphed and eager caches differ from "
+                                 f"{'block' if pool_from else 'row'} {pool_from} on")
+    eng = g["eng"]
+    graphs = {name: (prog.calls, graph_pool_bytes(torch, prog.graph) if prog.graph is not None
+                     else 0, prog.graph is not None) for name, prog in eng.graphs.items()}
+    stats = eng.stats().to_json()
+    return dict(
+        comps=g["comps"], streams=g["streams"],
+        counters={a: getattr(eng, a, None) for a in SERVE_MESH_ATTRS + ("free_blocks",)}
+        | {k: stats[k] for k in ("completed", "statuses", "tokens_generated", "bursts",
+                                 "host_syncs", "free_slots", "free_blocks")},
+        wall=g["wall"], eager_wall=e["wall"], decode_steps=getattr(eng, "decode_steps", None),
+        comm=g["comm"], host=g["host"], peak=g["peak"], append=g["append"], graphs=graphs,
+        graph_bound=getattr(eng, "graph_bound", 4))
+
+
+def _append_at_batch_2(torch, label, ctx: int = 512):
+    """The append kernel at the sharded engine's batch (2 rows a rank),
+    bf16, nq 1, context ``ctx``: each pair of rows of a B 8 case held
+    elementwise against its plain version (``PAGED_STEP``), and equal bit
+    for bit to the same rows of the B 8 call (a row's split-K result does
+    not depend on the batch)."""
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    step, cap, _ = PAGED_STEP["bfloat16"]
+    kp, vp, table, pos, q, nk, nv = _paged_case(torch, torch.bfloat16, 1, [ctx] * 8)
+    layer = 3
+    out8, _, _ = pa.paged_append_attention(q, nk, nv, kp.clone(), vp.clone(), table, pos, layer)
+    worst, same = 0.0, True
+    for lo in range(0, 8, 2):
+        rows = slice(lo, lo + 2)
+        args = (q[rows], nk[rows], nv[rows])
+        k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        out2, _, _ = pa.paged_append_attention(*args, k1, v1, table[rows], pos[rows], layer)
+        plain = pa.paged_append_attention_plain(*args, k2, v2, table[rows], pos[rows], layer)
+        mag = pa.paged_append_attention_plain(
+            q[rows].float(), nk[rows].float(), nv[rows].float().abs(), kp.float(),
+            vp.float().abs(), table[rows], pos[rows], layer)
+        sync(torch)
+        err, limit, top, over = paged_check(out2, plain, mag, step, cap)
+        same = same and bool(torch.equal(out2, out8[rows]))
+        worst = max(worst, err)
+        if over or not (torch.equal(k1[:, 1:], k2[:, 1:]) and torch.equal(v1[:, 1:], v2[:, 1:])):
+            raise AssertionError(f"{label}: the append kernel at B 2 disagrees (rows {lo}-{lo + 1}:"
+                                 f" {over} elements over the limit)")
+        del k1, v1, k2, v2
+    log(f"{label}: append kernel bf16 B 2 nq 1 ctx {ctx}, four row pairs of a B 8 case: "
+        f"max_abs_err {worst:.3g} against the plain version (elementwise PAGED_STEP limits), "
+        f"equal bit for bit to the same rows of the B 8 call: {same}")
+    if not same:
+        raise AssertionError(f"{label}: a row's append result depends on the batch")
+
+
+def _serve_mesh_report(torch, label, results, kind, cfg, params, reqs, single, tol, card) -> int:
+    """Hold "serve mesh"'s gates on the ranks' results and print its
+    numbers; returns the append kernel's launches summed over the ranks."""
+    head = results[0]
+    for r in results[1:]:
+        if (r["streams"], r["counters"]) != (head["streams"], head["counters"]):
+            raise AssertionError(f"{label}: the ranks' completions or counters differ")
+    comps = head["comps"]
+    if len(comps) != len(reqs) or {c.status for c in comps} != {"ok"}:
+        raise AssertionError(f"{label}: {len(comps)} completions for {len(reqs)} requests")
+    c = head["counters"]
+    log(f"{label}: every rank's completions, statuses and counters identical: {c}")
+    log(f"{label}: each rank's graphed run == its eager twin in completions, statuses, "
+        f"{', '.join(SERVE_MESH_ATTRS)}, launch counts and cache bytes"
+        f"{' from block 1' if kind == 'paged' else ''}")
+    _teacher_forced_all(torch, label, cfg, params, _greedy_dicts(reqs), comps, cfg.dtype, tol)
+    equal = sum(single[x.request_id] == x.generated for x in comps)
+    log(f"{label}: {equal}/{len(comps)} streams equal to the single-card engine's (each rank's "
+        f"products run at M 2 where the single card's run at M 8: near ties may flip)")
+    if c["host_syncs"] != c["bursts"]:
+        raise AssertionError(f"{label}: {c['host_syncs']} host syncs for {c['bursts']} bursts")
+    generated = sum(len(x.generated) for x in comps)
+    walls = [r["wall"] for r in results]
+    steps = head["decode_steps"] or c["bursts"] * SERVE_MESH["sync_interval"]
+    log(f"{label}: {generated} tokens in {np.median(walls):.2f} s graphed, "
+        f"{np.median([r['eager_wall'] for r in results]):.2f} s eager (median over ranks); "
+        f"{np.median(walls) / steps * 1e3:.2f} ms a decode step on the host clock over "
+        f"{steps} steps, admissions included (4 ranks sharing one card: not a scaling figure; "
+        f"{card})")
+    bursts = c["bursts"]
+    sent = [r["comm"]["all_gather"] / bursts for r in results]
+    host = [r["host"]["all_gather"] / bursts for r in results]
+    log(f"{label}: the burst's trace gather per rank: {' '.join(f'{x:.0f}' for x in sent)} B "
+        f"sent a burst, {' '.join(f'{x:.0f}' for x in host)} B a burst copied to the host")
+    log(f"{label}: first-token broadcasts per rank: "
+        f"{' '.join(str(r['comm']['broadcast']) for r in results)} B sent in all (the "
+        f"admissions of the slots a rank holds)")
+    log(f"{label}: host_syncs a burst {c['host_syncs'] / bursts:.3g} ({c['host_syncs']} over "
+        f"{bursts} bursts)")
+    for rank, r in enumerate(results):
+        pools = sum(p for _, p, _ in r["graphs"].values())
+        log(f"{label}: rank {rank}: {len(r['graphs'])} graphs ({', '.join(f'{n!r} {calls} calls' for n, (calls, _, _) in r['graphs'].items())}), pools {pools / 2**20:.2f} MiB, "
+            f"peak memory {r['peak'] / 2**30:.2f} GiB, append launches {r['append']}")
+        if not 0 < len(r["graphs"]) <= r["graph_bound"]:
+            raise AssertionError(f"{label}: rank {rank} has {len(r['graphs'])} graphs")
+        if any(calls >= 2 and not captured for calls, _, captured in r["graphs"].values()):
+            raise AssertionError(f"{label}: rank {rank}: a graph called twice was never captured")
+    launches = sum(r["append"] for r in results)
+    if kind == "paged" and not all(r["append"] for r in results):
+        raise AssertionError(f"{label}: a rank never launched the append kernel")
+    log(f"{label}: append launches summed over ranks {launches}")
+    return launches
+
+
+def phase_serve_mesh(torch, cfg, params, reqs, *, card, tol=0.25):
+    """Slot-sharded serving ("serve mesh"): the append kernel at the
+    sharded batch (B 2), then four ranks on the one card on a gloo group
+    (one ``RankPool``): the paged engine over ``MeshShape(data=4)``
+    (``SERVE_MESH``) at ``cfg`` in bf16 on the serving run's 16 requests,
+    then the dense engine in f32 at 2 layers on 8 requests (gated at
+    1e-3).  Returns the append launches summed over the ranks."""
+    from k8s_dra_driver_torch.models import burnin, serve
+    from k8s_dra_driver_torch.parallel.ranks import RankPool
+
+    label = "serve mesh"
+    _append_at_batch_2(torch, label)
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_MESH_F32["n_layers"], dtype=torch.float32)
+    p32 = burnin.init_params(torch.Generator(device=DEV).manual_seed(SEED + 1), cfg32)
+    reqs32 = _traffic(cfg32.vocab_size, SERVE_MESH_F32["requests"], 256, 64, SEED + 1)
+    single32 = {c.request_id: c.generated for c in serve.ServeEngine(
+        params=p32, cfg=cfg32, cache_dtype=torch.float32, device=DEV, **SERVE_MESH).pump(reqs32)}
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    with RankPool(4, backend="gloo", device_type=DEV, timeout_s=600) as pool:
+        sub = f"{label} paged bf16 {SERVE_MESH_LAYOUT[1]} L={cfg.n_layers}"
+        t1 = time.perf_counter()
+        results = pool.run(serve_mesh_rank, "paged", cfg, SEED, reqs, DEV)
+        log(f"{sub}: {time.perf_counter() - t1:.1f} s (the 4 gloo ranks started in it)")
+        launches = _serve_mesh_report(torch, sub, results, "paged", cfg, params, reqs,
+                                      SERVED["serve bf16"], tol, card)
+        sub = f"{label} dense f32 {SERVE_MESH_LAYOUT[1]} L={cfg32.n_layers}"
+        t1 = time.perf_counter()
+        results = pool.run(serve_mesh_rank, "dense", cfg32, SEED + 1, reqs32, DEV)
+        log(f"{sub}: {time.perf_counter() - t1:.1f} s")
+        _serve_mesh_report(torch, sub, results, "dense", cfg32, p32, reqs32, single32, 1e-3, card)
+    return launches
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -5512,6 +5844,11 @@ def main() -> int:
                                                   card=card)
 
     run("serve bf16 handoff", serve_handoff)
+
+    def serve_mesh():
+        launches["mesh"] = phase_serve_mesh(torch, cfg, params, reqs, card=card)
+
+    run("serve mesh", serve_mesh)
     del params
 
     def train_bf16():
@@ -5549,14 +5886,15 @@ def main() -> int:
     # LoRA and MoE training runs and the f32 forward on the f32 training
     # run; the read-only paged kernel is on no path (0); the quantized
     # pools take no kernel; the handoff phase's decode engines after an
-    # inject run the append kernel too; the mesh legs' flash launches,
+    # inject run the append kernel too, and so do the sharded paged
+    # engine's ranks (summed over ranks); the mesh legs' flash launches,
     # summed over ranks, join the bf16 and f32 flash rows
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
                             + launches["spec"]["paged_attention"] + tel["paged_attention"]
                             + lora_serve["paged_attention"] + moe["paged_attention"]
-                            + launches["handoff"]["paged_attention"]),
+                            + launches["handoff"]["paged_attention"] + launches["mesh"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
                         + lora_serve["int4_matmul"] + moe["int4_matmul"]),

@@ -10,7 +10,8 @@ written out:
 * **batch** over ``data`` (and ``slice`` on a multislice mesh: hybrid data
   parallelism): the caller passes the whole batch ``[B, S]`` to every rank,
   as the reference's tokens are sharded over the batch axes only, and each
-  rank takes its block of rows;
+  rank takes its block of rows; or only that block, a ``data.RowBlock``
+  (``data.TokenBatches`` yields them);
 * **sequence** over ``seq``: a rank runs positions
   ``[i·S/n, (i+1)·S/n)`` (RoPE rotates by them), attention by ring, flash
   ring or Ulysses (``ops/ring_attention``), and takes the targets of its
@@ -56,6 +57,7 @@ from k8s_dra_driver_torch.models.burnin import (
     tied_logits,
     value_and_grad,
 )
+from k8s_dra_driver_torch.models.data import RowBlock, as_batch, local_rows
 from k8s_dra_driver_torch.ops import collectives
 from k8s_dra_driver_torch.parallel.mesh import axis_index, mesh_shape
 
@@ -180,30 +182,30 @@ def _mesh_block(x, p, cfg, plan: MeshPlan, positions):
     return mlp_residual(x, p, top_k=cfg.moe_top_k, group=plan.model_group)
 
 
-def _local_tokens(tokens, plan: MeshPlan):
+def _local_tokens(rows, plan: MeshPlan):
     """(this rank's input block ``[b, s]``, its targets, its first
-    position): its batch rows, its positions, and the next token of each
-    position from the whole sequence (the last position has none)."""
-    rows = tokens.chunk(plan.n_batch, 0)[plan.batch_index]
-    s_loc = tokens.shape[1] // plan.n_seq
+    position) from its batch ``rows``: its positions, and the next token of
+    each position from the whole sequence (the last position has none)."""
+    s_loc = rows.shape[1] // plan.n_seq
     lo = plan.seq_index * s_loc
     return rows[:, lo: lo + s_loc], rows[:, lo + 1: lo + s_loc + 1], lo
 
 
 def mesh_loss(params, tokens, cfg, plan: MeshPlan, remat: str = "blocks"):
     """This rank's part of the global mean NLL of ``tokens`` (the whole
-    batch): its targets' NLL sum over its rows x (S - 1).  Summed over
-    ``seq`` and averaged over the batch axes it is the reference's
-    ``loss_fn``."""
+    batch, or this rank's ``data.RowBlock`` of it): its targets' NLL sum
+    over its rows x (S - 1).  Summed over ``seq`` and averaged over the
+    batch axes it is the reference's ``loss_fn``."""
     b_all, s_all = tokens.shape
     if b_all % plan.n_batch or s_all % plan.n_seq:
         raise ValueError(
             f"tokens {tuple(tokens.shape)} do not split into {plan.n_batch} batch and "
             f"{plan.n_seq} sequence blocks"
         )
-    inputs, targets, lo = _local_tokens(tokens, plan)
+    rows, _ = local_rows(tokens, plan.n_batch, plan.batch_index)
+    inputs, targets, lo = _local_tokens(rows, plan)
     b, s = inputs.shape
-    positions = lo + torch.arange(s, dtype=torch.int32, device=tokens.device)
+    positions = lo + torch.arange(s, dtype=torch.int32, device=rows.device)
     table = params["embed"]
     if plan.model_group is not None:
         table = _GatherVocab.apply(table, plan.model_group)
@@ -255,7 +257,9 @@ def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device,
     draws the whole model on the generator's device (the same seed on every
     rank), moves it to ``device`` and keeps ``shard(full)``, this rank's
     shards, with AdamW's state; ``step(params, opt_state, tokens)`` takes
-    the whole batch, runs ``loss_fn`` and ``reduce`` (``make_sgd_step``),
+    the whole batch or this rank's ``data.RowBlock`` of it (gathered whole
+    first under accumulation, whose microbatches interleave the whole
+    batch's rows), runs ``loss_fn`` and ``reduce`` (``make_sgd_step``),
     updates the shards IN PLACE and returns the global mean loss (the same
     on every rank) as a device tensor."""
     from k8s_dra_driver_torch.device import params_device
@@ -272,7 +276,10 @@ def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device,
 
     def step(params, opt_state, tokens):
         params_device(params, device)
-        return sgd(params, opt_state, torch.as_tensor(tokens, device=device))
+        tokens = as_batch(tokens, device)
+        if accum_steps > 1 and isinstance(tokens, RowBlock):
+            tokens = tokens.whole()
+        return sgd(params, opt_state, tokens)
 
     return TrainStepFns(init=init, step=step, graphed=None)
 

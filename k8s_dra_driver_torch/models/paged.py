@@ -37,9 +37,11 @@ append kernel stays float-only, as the reference's Pallas kernel does.
 KV payloads (``serve.KVSlice``) leave a pool in the canonical layout
 (handoff, ``snapshot_active(include_kv=True)``, the fleet prefix tier's
 export) and are written back into pool blocks in place (restore, the
-tier's inject), a quantized pool's as its raw bytes and scales.  Not
-ported yet: meshes, which raise ``NotImplementedError`` naming their
-ROADMAP item.
+tier's inject), a quantized pool's as its raw bytes and scales.  On a
+mesh (``mesh``, ``slot_axis``) the slots and the pool's blocks split into
+contiguous shards, one a rank of the slot group, each with its own null
+block, allocator and prefix store: the reference's data-parallel serving,
+one process a rank in lockstep (``serve.slot_shards``).
 """
 
 from __future__ import annotations
@@ -696,9 +698,35 @@ class PagedServeEngine:
     slot, temperature, key, adapter id and done blocks) keeps one address
     for the engine's life and is written in place; everything else
     (allocation, the prefix store, the admission queue, growth, stalls,
-    preemption, retirement) stays on the host.  The reference's mesh raises
-    ``NotImplementedError`` naming its ROADMAP item.  Not thread-safe;
-    drive it from one loop.
+    preemption, retirement) stays on the host.  Not thread-safe; drive it
+    from one loop.
+
+    On a mesh (``mesh`` a ``parallel/mesh`` ``DeviceMesh``, ``slot_axis``
+    one of its axes or a tuple of them, flattened slice-major) the engine
+    is the reference's data-parallel paged server, one process a rank:
+    the ``slot_axis`` shards each own ``n_slots / shards`` slots and
+    ``n_blocks / shards`` pool blocks (their own null block 0 included),
+    table entries are shard-local block ids, and the host keeps one
+    allocator and one prefix store per shard (``_allocs``,
+    ``_prefix_stores``; ``_alloc`` and ``_prefix_store`` are shard 0's).
+    Every rank runs the same scheduler on the same requests in the same
+    order and makes the same decisions; a rank runs device work for its
+    shard's slots only, on its rows of the per-slot state, its pool shard
+    and its draft rows, with the weights whole on every rank.  The decode
+    burst and the speculative round hold no collective, so they capture as
+    graphs on every rank; the one collective of a burst is its readback,
+    the ``[3, K, n_slots / shards]`` trace gathered over the slot group with
+    one host copy (``host_syncs`` one a burst).  An admission prefills on
+    the shard that holds the slot, whose first token reaches every
+    controller by one broadcast; KV payloads (handoff, snapshots, the
+    prefix tier's export) go from the shard holding the blocks to every
+    controller the same way.  Temperatures and keys are mirrored on the
+    host, so preemption and snapshots read no device row.  A request's
+    blocks must fit one shard, a stored prefix block serves admissions to
+    its own shard, and preemption is per shard: a shard whose whole
+    resident set stalls evicts from itself.  Ranks that differ only on
+    other mesh axes hold the same slots and compute them alike.  Quantized
+    pools are single-shard only, as the reference's are.
     """
 
     params: dict
@@ -724,8 +752,8 @@ class PagedServeEngine:
     # "int8"/"int4": a quantized pool (the reference's XLA route, plain
     # PyTorch on every device); a float dtype's name sets cache_dtype
     kv_dtype: str | None = None
-    # the reference's fields the port does not serve yet: each raises
-    # NotImplementedError away from its default
+    # data-parallel serving: slots and pool blocks sharded over slot_axis of
+    # this parallel/mesh DeviceMesh (see the class docstring)
     mesh: object | None = None
     slot_axis: object = "data"
     telemetry_enabled: bool = True
@@ -733,8 +761,6 @@ class PagedServeEngine:
 
     def __post_init__(self):
         cfg = self.cfg
-        if self.mesh is not None or self.slot_axis != "data":
-            raise serve._unported("a mesh (slot sharding, slot_axis)", 15)
         if self.prompt_bucket > cfg.max_seq:
             raise ValueError(
                 f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
@@ -752,6 +778,11 @@ class PagedServeEngine:
         if self.kv_dtype is not None and self.kv_dtype not in quant.KV_DTYPES:
             self.cache_dtype = torch_dtype(self.kv_dtype)  # raises on junk
             self.kv_dtype = None
+        if self.kv_dtype is not None and self.mesh is not None:
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} is single-shard only: quantized pools carry "
+                "scale arrays the sharded specs do not cover"
+            )
         if self.kv_dtype == "int4" and bs % 2:
             raise ValueError(f"int4 pools need an even block_size, got {bs}")
         check_verify_window(self.spec_gamma, bs, self.device, self.kv_dtype)
@@ -766,15 +797,33 @@ class PagedServeEngine:
             self.n_blocks = int(derived)
         self._mb = blocks_needed(cfg.max_seq, bs)          # table width
         self._mbp = blocks_needed(self.prompt_bucket, bs)  # prefill width
-        self._alloc = BlockAllocator(self.n_blocks)
+        self._shards = serve.slot_shards(self)
+        ax = self._axis_size = self._shards.count
+        if self.n_blocks % ax:
+            raise ValueError(
+                f"n_blocks ({self.n_blocks}) must divide over {self.slot_axis!r} axis size {ax}"
+            )
+        if self.n_blocks // ax < 2:
+            raise ValueError(
+                f"n_blocks ({self.n_blocks}) leaves < 2 blocks per shard (each shard "
+                "reserves its own null block)"
+            )
+        # slots and blocks split contiguously: shard g holds slots
+        # [g * spg, (g + 1) * spg) and its own npd blocks, table entries local
+        self._spg = self.n_slots // ax   # slots per shard
+        self._npd = self.n_blocks // ax  # blocks per shard
+        self._allocs = [BlockAllocator(self._npd) for _ in range(ax)]
+        self._alloc = self._allocs[0]   # shard 0's (the one pool unsharded)
         self._table_np = np.full((self.n_slots, self._mb), NULL_BLOCK, np.int32)
         self._owned: list[list[int]] = [[] for _ in range(self.n_slots)]
         self._slots: list = [None] * self.n_slots
         self._prio: list[int] = [0] * self.n_slots
         self._preempted: list[dict] = []  # parked requests, re-admission order
         self._admitting: list[dict] = []  # chunked admissions, FIFO; the head advances
-        # prompt tokens up to the end of block i -> that pool block (one reference)
-        self._prefix_store: OrderedDict = OrderedDict()
+        # one store a shard: prompt tokens up to the end of block i -> that
+        # shard's pool block (one reference)
+        self._prefix_stores = [OrderedDict() for _ in range(ax)]
+        self._prefix_store = self._prefix_stores[0]
         self.prefix_hits = 0    # blocks an admission shared from the store
         self.prefix_misses = 0  # storable blocks an admission computed
         # the fleet prefix tier's hooks (the reference's fleet_prefix binds
@@ -800,29 +849,32 @@ class PagedServeEngine:
         self.spec_accepted = 0   # of those, the ones the target agreed with
         self.telemetry = EngineTelemetry(self, enabled=self.telemetry_enabled)
         dev = self.device
+        # this rank's shard of the pool and of every per-slot buffer
         self._cache = init_paged_cache(
-            cfg, self.n_blocks, bs, dtype=self.cache_dtype, device=dev, kv_dtype=self.kv_dtype
+            cfg, self._npd, bs, dtype=self.cache_dtype, device=dev, kv_dtype=self.kv_dtype
         )
         self._d_cache = None
         if self.spec_gamma > 0:
             self.draft_params, self._d_cache = serve.make_draft_state(
-                self.params, self.draft_params, cfg, self.n_slots, self.cache_dtype, dev
+                self.params, self.draft_params, cfg, self._spg, self.cache_dtype, dev
             )
         # the programs' device state: one address each for the engine's life
         i32 = dict(dtype=torch.int32, device=dev)
         width = self._mb
         if self.spec_gamma > 0:
             width = spec_table_width(cfg.max_seq, bs, self.spec_gamma)
-        self._table = torch.full((self.n_slots, width), NULL_BLOCK, **i32)
+        spg = self._spg
+        self._table = torch.full((spg, width), NULL_BLOCK, **i32)
         self._table_dirty = False  # _table_np changed since the last upload
-        self._active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
-        self._last, self._pos, self._stop_pos = (
-            torch.zeros((self.n_slots,), **i32) for _ in range(3)
-        )
-        self._temps = torch.zeros((self.n_slots,), dtype=torch.float32, device=dev)
-        self._keys = torch.zeros((self.n_slots, 2), dtype=torch.int64, device=dev)
-        self._poison = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
-        self._poison_np = np.zeros((self.n_slots,), bool)  # what _poison holds
+        self._active = torch.zeros((spg,), dtype=torch.bool, device=dev)
+        self._last, self._pos, self._stop_pos = (torch.zeros((spg,), **i32) for _ in range(3))
+        self._temps = torch.zeros((spg,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((spg, 2), dtype=torch.int64, device=dev)
+        # every slot's temperature and base key, as the device rows hold them
+        self._temps_np = np.zeros((self.n_slots,), np.float32)
+        self._keys_np = np.zeros((self.n_slots, 2), np.int64)
+        self._poison = torch.zeros((spg,), dtype=torch.bool, device=dev)
+        self._poison_np = np.zeros((self.n_slots,), bool)  # every slot's; _poison holds ours
         self._prompt = torch.zeros((1, self.prompt_bucket), **i32)   # padded
         self._prefill_row = torch.zeros((1, self._mbp), **i32)
         self._admit = torch.zeros((2,), **i32)                       # (plen, slot)
@@ -836,12 +888,12 @@ class PagedServeEngine:
     # -- public API --------------------------------------------------------
     @property
     def free_blocks(self) -> int:
-        return self._alloc.free_blocks
+        return sum(a.free_blocks for a in self._allocs)
 
     @property
     def reservable_blocks(self) -> int:
-        """Usable KV blocks (the null block excluded)."""
-        return self._alloc.n_blocks - 1
+        """Usable KV blocks (each shard's null block excluded)."""
+        return sum(a.n_blocks - 1 for a in self._allocs)
 
     @property
     def graph_bound(self) -> int:
@@ -905,7 +957,8 @@ class PagedServeEngine:
         picked = self._pick_slot(prompt, need, storable, adapter)
         if picked is None:
             raise serve.NoCapacity(
-                f"no free blocks ({need} needed, {self.free_blocks} free)"
+                f"no free blocks ({need} needed, {self.free_blocks} free "
+                f"across {self._axis_size} shard(s))"
             )
         slot, ids, cached = picked
         request_id = self._next_id
@@ -1035,7 +1088,8 @@ class PagedServeEngine:
 
     def snapshot_active(self, include_kv: bool = False) -> dict:
         """Every in-flight request as the dense engine's JSON-serialisable
-        document: resident slots (temperature and base key read back once),
+        document: resident slots (temperature and base key from the host's
+        mirror of the device rows),
         slots still mid-admission (the queue entry holds their sampler
         state; their history is the prompt) and parked requests.  No
         decode step, no block traffic.  ``include_kv`` adds each activated
@@ -1043,8 +1097,7 @@ class PagedServeEngine:
         counted host sync each; entries still admitting or parked carry
         none and re-prefill), so ``restore`` injects them; such a snapshot
         is not JSON."""
-        temps = self._temps.to("cpu", copy=True).numpy()
-        keys = self._keys.to("cpu", copy=True).numpy()
+        temps, keys = self._temps_np, self._keys_np
         admitting = {a["slot"]: a for a in self._admitting}
         reqs = []
         for slot, st in enumerate(self._slots):
@@ -1167,18 +1220,24 @@ class PagedServeEngine:
         """The pool's payload label: "int8"/"int4", or the float dtype's."""
         return self.kv_dtype or serve.dtype_label(self.cache_dtype)
 
-    def _blocks_payload(self, ids: list[int], valid_len: int) -> serve.KVSlice:
-        """Pool blocks ``ids`` as a payload in the canonical layout ``[L,
-        positions, Hkv, hd]`` (positions moved off the lane axis): a float
-        pool's clipped to ``valid_len``; a quantized pool's raw values over
-        the blocks' whole extent, int4 repacked from the lanes onto
-        ``head_dim``, with the blocks' scales.  Gathered and laid out on the
-        device, then one copy to the host per tensor: one counted host sync."""
+    def _blocks_payload(self, ids: list[int], valid_len: int, shard: int = 0) -> serve.KVSlice:
+        """Pool blocks ``ids`` of ``shard`` as a payload in the canonical
+        layout ``[L, positions, Hkv, hd]`` (positions moved off the lane
+        axis): a float pool's clipped to ``valid_len``; a quantized pool's
+        raw values over the blocks' whole extent, int4 repacked from the
+        lanes onto ``head_dim``, with the blocks' scales.  Gathered and laid
+        out on the device of the shard's rank, broadcast to the other
+        controllers on a mesh, then one copy to the host per tensor: one
+        counted host sync."""
         cfg, bs, quant_name = self.cfg, self.block_size, self._cache.kv_dtype
         l, hkv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
         at = torch.tensor(ids, dtype=torch.long).to(self.device)
         planes = []
         for pool in (self._cache.k, self._cache.v):
+            if shard != self._shards.index:  # a float pool's (meshes take no other)
+                planes.append(torch.empty((l, valid_len, hkv, hd), dtype=pool.dtype,
+                                          device=self.device))
+                continue
             blocks = pool.index_select(1, at)                        # [L, nb, Hkv, hd, lanes]
             if quant_name == "int4":
                 blocks = quant.unpack_int4(blocks)
@@ -1187,7 +1246,8 @@ class PagedServeEngine:
                 x = x[:, :valid_len]
             elif quant_name == "int4":
                 x = quant.pack_int4(x)
-            planes.append(serve.host_array(x))
+            planes.append(x.contiguous())
+        planes = [serve.host_array(x) for x in serve.from_owner(self, shard, planes)]
         extra = {}
         if quant_name is not None:
             extra = dict(k_scale=serve.host_array(self._cache.k_scale.index_select(1, at)),
@@ -1221,8 +1281,9 @@ class PagedServeEngine:
         return out
 
     def _write_stripes(self, ids: list[int], stripes) -> None:
-        """Write stripes (:meth:`_payload_stripes`) into pool blocks ``ids``
-        in place (the captured programs keep reading the same pool)."""
+        """Write stripes (:meth:`_payload_stripes`) into this rank's pool
+        blocks ``ids`` in place (the captured programs keep reading the
+        same pool)."""
         at = torch.tensor(ids, dtype=torch.long).to(self.device)
         for whole, part in zip(self._cache, stripes):
             whole.index_copy_(1, at, part)
@@ -1231,7 +1292,7 @@ class PagedServeEngine:
         """The slot's K/V at positions ``< valid_len`` as a payload (its
         first ``ceil(valid_len / block_size)`` blocks)."""
         return self._blocks_payload(self._owned[slot][: blocks_needed(valid_len, self.block_size)],
-                                    valid_len)
+                                    valid_len, self._group(slot))
 
     def _handoff_retire(self, slot: int, temperature: float, key, adapter: int) -> None:
         """The first-token retirement of a handoff: the request's snapshot
@@ -1268,7 +1329,8 @@ class PagedServeEngine:
         self._reserve(slot, ids)
         try:
             nb = blocks_needed(kv.valid_len, self.block_size)
-            self._write_stripes(ids[:nb], self._payload_stripes(kv, nb))
+            if serve.owned_row(self, slot) is not None:
+                self._write_stripes(ids[:nb], self._payload_stripes(kv, nb))
             self._prio[slot] = int(req.get("priority", 0))
             self._stage(slot, tokens, st.adapter)
             self._prefill_draft(slot, len(tokens))
@@ -1298,28 +1360,37 @@ class PagedServeEngine:
         bs = self.block_size
         return min((len(prompt) - 1) // bs, (self.prompt_bucket - 1) // bs)
 
+    def _deepest_store(self, prompt, adapter: int) -> tuple:
+        """(the shard whose store holds the longest run of ``prompt``'s
+        blocks, the first such shard, and that run's block ids)."""
+        limit, best = self._prefix_limit(prompt), (0, [])
+        for g, store in enumerate(self._prefix_stores):
+            ids = []
+            while len(ids) < limit and self._prefix_key(prompt, len(ids), adapter) in store:
+                ids.append(int(store[self._prefix_key(prompt, len(ids), adapter)]))
+            if len(ids) > len(best[1]):
+                best = (g, ids)
+        return best
+
     def local_prefix_depth(self, prompt, adapter: int = 0) -> int:
-        """Tokens of the longest run of ``prompt``'s blocks the store
-        holds; read only (no LRU touch, no references, no device work)."""
+        """Tokens of the longest run of ``prompt``'s blocks any shard's
+        store holds; read only (no LRU touch, no references, no device
+        work)."""
         if self.prefix_cache_blocks <= 0:
             return 0
-        prompt = [int(t) for t in prompt]
-        depth, limit = 0, self._prefix_limit(prompt)
-        while depth < limit and self._prefix_key(prompt, depth, adapter) in self._prefix_store:
-            depth += 1
-        return depth * self.block_size
+        return len(self._deepest_store([int(t) for t in prompt], adapter)[1]) * self.block_size
 
     def export_prefix_kv(self, prompt, max_tokens=None, adapter: int = 0):
-        """The longest run of ``prompt``'s stored blocks as a payload
-        (``valid_len`` its tokens; one counted host sync), or None."""
+        """The longest run of ``prompt``'s stored blocks in any shard's
+        store as a payload (``valid_len`` its tokens; one counted host
+        sync), or None."""
         del max_tokens  # advisory; the stored depth caps it
-        depth = self.local_prefix_depth(prompt, adapter) // self.block_size
-        if depth == 0:
+        if self.prefix_cache_blocks <= 0:
             return None
-        prompt = [int(t) for t in prompt]
-        ids = [int(self._prefix_store[self._prefix_key(prompt, i, adapter)])
-               for i in range(depth)]
-        return self._blocks_payload(ids, depth * self.block_size)
+        shard, ids = self._deepest_store([int(t) for t in prompt], adapter)
+        if not ids:
+            return None
+        return self._blocks_payload(ids, len(ids) * self.block_size, shard)
 
     def inject_prefix_kv(self, prompt, kv, adapter: int = 0) -> int:
         """Write a pulled prefix payload into fresh pool blocks and put them
@@ -1342,32 +1413,37 @@ class PagedServeEngine:
             return 0
         prompt = [int(t) for t in prompt]
         depth = min(kv.valid_len // bs, self._prefix_limit(prompt))
+        # one shard takes it, the one with the most free blocks: a stored
+        # block serves only admissions to its own shard
+        g = max(range(self._axis_size), key=lambda i: self._allocs[i].free_blocks)
+        store = self._prefix_stores[g]
         missing = []
         for i in range(depth):
             key = self._prefix_key(prompt, i, adapter)
-            if key in self._prefix_store:
-                self._prefix_store.move_to_end(key)
+            if key in store:
+                store.move_to_end(key)
             else:
                 missing.append(i)
         if not missing:
             return 0
         try:
-            ids = self._alloc.alloc(len(missing))
+            ids = self._allocs[g].alloc(len(missing))
         except OutOfBlocks:
             return 0
         try:
-            sel = torch.tensor(missing, dtype=torch.long).to(self.device)
-            self._write_stripes(ids, [x.index_select(1, sel)
-                                      for x in self._payload_stripes(kv, depth)])
+            if g == self._shards.index:
+                sel = torch.tensor(missing, dtype=torch.long).to(self.device)
+                self._write_stripes(ids, [x.index_select(1, sel)
+                                          for x in self._payload_stripes(kv, depth)])
             for i, bid in zip(missing, ids):
-                self._prefix_store[self._prefix_key(prompt, i, adapter)] = int(bid)
+                store[self._prefix_key(prompt, i, adapter)] = int(bid)
                 if self.on_prefix_store is not None:
                     n = (i + 1) * bs
                     self.on_prefix_store(tuple(prompt[:n]), n, adapter)
         except BaseException:
-            self._alloc.free(ids)  # the reference's refund: nothing else would free them
+            self._allocs[g].free(ids)  # the reference's refund: nothing else would free them
             raise
-        self._trim_prefix_store()
+        self._trim_prefix_store(g)
         self._update_gauges()
         return len(missing) * bs
 
@@ -1394,7 +1470,7 @@ class PagedServeEngine:
         if not active.any():
             return quarantined  # quarantining is progress, stalling is not
         if (poison != self._poison_np).any():
-            self._poison.copy_(torch.from_numpy(poison))
+            self._poison.copy_(torch.from_numpy(poison[serve.local_slots(self)]))
             self._poison_np = poison
         return self._burst(k, active, single)
 
@@ -1406,9 +1482,10 @@ class PagedServeEngine:
         the reference's ``step()``: in slot order among the commits)."""
         t0 = time.perf_counter()
         self.telemetry.burst_begin(k, self._step_no)  # on the host, before the replay
-        self._active.copy_(torch.from_numpy(active))
+        self._active.copy_(torch.from_numpy(active[serve.local_slots(self)]))
         trace = self._run(f"burst k={k}", self._burst_program(k))
-        trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
+        # the burst's one readback: [3, K, slots], gathered over the shards
+        trace_t, trace_a, trace_b = serve.gather_slots(self, trace, 2)
         self.host_syncs += 1
         serve._M_HOST_SYNCS.inc()
         self.decode_steps += k
@@ -1452,8 +1529,8 @@ class PagedServeEngine:
             return 0
         t0 = time.perf_counter()
         self.telemetry.burst_begin(self.spec_gamma + 1, self._step_no)
-        self._active.copy_(torch.from_numpy(active))
-        readback = self._run("spec round", self._spec_program).cpu().numpy()
+        self._active.copy_(torch.from_numpy(active[serve.local_slots(self)]))
+        readback = serve.gather_slots(self, self._run("spec round", self._spec_program), 0)
         self.host_syncs += 1
         serve._M_HOST_SYNCS.inc()
         committed = serve._commit_spec_round(self, readback, active)
@@ -1480,12 +1557,12 @@ class PagedServeEngine:
         try:
             self._stage(slot, adm["prompt"], self._slots[slot].adapter)
             if real_end - adm["done"] * bs > width:
-                self._run_chunk(adm["done"], width)
+                self._run_chunk(slot, adm["done"], width)
                 adm["done"] += self.prefill_chunk_blocks
                 self.telemetry.on_admission_chunk(self._slots[slot].request_id)
                 return
             if real_end > adm["done"] * bs:
-                self._run_chunk(adm["done"], real_end - adm["done"] * bs)
+                self._run_chunk(slot, adm["done"], real_end - adm["done"] * bs)
                 self.telemetry.on_admission_chunk(self._slots[slot].request_id)
             self._prefill_draft(slot, adm["plen"])
             first_tok = self._first_token_of(slot, adm["plen"], adm["temp"], adm["key"])
@@ -1534,7 +1611,7 @@ class PagedServeEngine:
             grew = True
             while len(self._owned[slot]) < needed:
                 try:
-                    (new_id,) = self._alloc.alloc(1)
+                    (new_id,) = self._alloc_for(slot).alloc(1)
                 except OutOfBlocks:
                     self.stalled_steps += 1  # resumes after a retirement
                     grew = False
@@ -1547,32 +1624,41 @@ class PagedServeEngine:
         return active
 
     def _grow_or_preempt(self, lookahead: int):
-        """Block growth; with ``preempt_on_stall``, while every resident
-        slot stalls and nothing is admitting, evict one request and grow
-        again.  Returns the host active mask."""
+        """Block growth; with ``preempt_on_stall``, per shard, while every
+        resident slot of a shard stalls and nothing admits there, evict one
+        of its requests and grow again (a wedged shard's pool breathes only
+        through its own retirements; with one shard, the whole engine).
+        Returns the host active mask."""
         active = self._grow_active_slots(lookahead)
-        if self.preempt_on_stall and not self._admitting:
+        if self.preempt_on_stall:
+            busy = {self._group(a["slot"]) for a in self._admitting}
             evicted = False
-            while True:
-                resident = [s for s in range(self.n_slots) if self._slots[s] is not None]
-                if not resident or active[resident].any() or not self._preempt_one():
-                    break
-                evicted = True
-                active = self._grow_active_slots(lookahead)
+            for g in range(self._axis_size):
+                if g in busy:
+                    continue  # the admitting head will activate and retire
+                shard = range(g * self._spg, (g + 1) * self._spg)
+                while True:
+                    resident = [s for s in shard if self._slots[s] is not None]
+                    if not resident or active[resident].any() or not self._preempt_one(g):
+                        break
+                    evicted = True
+                    active = self._grow_active_slots(lookahead)
             if evicted:
                 self._update_gauges()
         return active
 
-    def _preempt_one(self) -> bool:
-        """Evict the lowest-priority resident request still short enough to
-        re-prefill in one pass (the youngest within a tier), never one
-        admitting: park its tokens, temperature and base key (read back
-        from the device) and drop its references.  Returns whether a
-        request was evicted."""
+    def _preempt_one(self, group: int) -> bool:
+        """Evict the lowest-priority resident request of shard ``group``
+        still short enough to re-prefill in one pass (the youngest within a
+        tier), never one admitting: park its tokens, temperature and base
+        key (the host's mirror of its device row) and drop its references.
+        Returns whether a request was evicted."""
         admitting = {a["slot"] for a in self._admitting}
         victim, vslot = None, -1
         for slot, st in enumerate(self._slots):
-            if st is None or slot in admitting or len(st.tokens) + 1 > self.prompt_bucket:
+            if st is None or slot in admitting or self._group(slot) != group:
+                continue
+            if len(st.tokens) + 1 > self.prompt_bucket:
                 continue  # grown past one-pass re-prefill: not resumable
             if victim is None or (
                 (self._prio[slot], -st.request_id) < (self._prio[vslot], -victim.request_id)
@@ -1580,11 +1666,10 @@ class PagedServeEngine:
                 victim, vslot = st, slot
         if victim is None:
             return False
-        # a copy: on the CPU ``.cpu()`` would alias the row the slot's next
-        # request overwrites
+        # a copy: the mirror's row is the slot's next request's
         self._preempted.append(dict(
-            st=victim, temp=float(self._temps[vslot].cpu()),
-            key=self._keys[vslot].to("cpu", copy=True), priority=self._prio[vslot],
+            st=victim, temp=float(self._temps_np[vslot]),
+            key=torch.from_numpy(self._keys_np[vslot].copy()), priority=self._prio[vslot],
         ))
         # re-admission: high priority first, FIFO within a tier (stable)
         self._preempted.sort(key=lambda r: -r["priority"])
@@ -1635,30 +1720,41 @@ class PagedServeEngine:
         bs = self.block_size
         return min((n_tokens - 1) // bs, (self.prompt_bucket - 1) // bs)
 
+    def _group(self, slot: int) -> int:
+        """The shard holding ``slot`` (0 unsharded)."""
+        return slot // self._spg
+
+    def _alloc_for(self, slot: int) -> BlockAllocator:
+        return self._allocs[self._group(slot)]
+
     def _pick_slot(self, tokens, need: int, storable: int, adapter: int = 0):
-        """The first free slot with ``need`` blocks for it, the stored
-        prefix blocks ``tokens`` starts with under ``adapter`` (up to
-        ``storable``) shared among them: ``(slot, ids, cached)`` with the
-        blocks referenced;
-        None when no slot is free or the pool cannot cover the rest (the
-        hits' references drop again; one pool: a second slot could not do
-        better)."""
+        """The reference's shard walk: the first free slot whose shard has
+        ``need`` blocks for it, the stored prefix blocks ``tokens`` starts
+        with under ``adapter`` (up to ``storable``, in that shard's store)
+        shared among them: ``(slot, ids, cached)`` with the blocks
+        referenced.  One candidate a shard (a second slot there could not do
+        better); None when no slot is free or no shard can cover the rest
+        (the hits' references drop again).  The same order on every
+        controller, so every rank picks the same slot."""
+        tried: set[int] = set()
         for slot in range(self.n_slots):
-            if self._slots[slot] is not None:
+            g = self._group(slot)
+            if self._slots[slot] is not None or g in tried:
                 continue
+            tried.add(g)
+            alloc, store = self._allocs[g], self._prefix_stores[g]
             hits: list[int] = []
             if self.prefix_cache_blocks > 0:
                 for i in range(storable):
                     key = self._prefix_key(tokens, i, adapter)
-                    if key not in self._prefix_store:
+                    if key not in store:
                         break
-                    self._prefix_store.move_to_end(key)  # LRU touch
-                    hits.append(self._alloc.share(self._prefix_store[key]))
+                    store.move_to_end(key)  # LRU touch
+                    hits.append(alloc.share(store[key]))
             try:
-                return slot, hits + self._alloc.alloc(need - len(hits)), len(hits)
+                return slot, hits + alloc.alloc(need - len(hits)), len(hits)
             except OutOfBlocks:
-                self._alloc.free(hits)
-                return None
+                alloc.free(hits)
         return None
 
     def _prefix_key(self, tokens, i: int, adapter: int = 0) -> tuple:
@@ -1676,21 +1772,26 @@ class PagedServeEngine:
         if self.prefix_cache_blocks <= 0:
             return
         self.prefix_misses += max(storable - cached, 0)
+        g = self._group(slot)
+        store = self._prefix_stores[g]
         for i in range(cached, storable):
             key = self._prefix_key(prompt, i, adapter)
-            if key in self._prefix_store:  # stored meanwhile by another admission
-                self._prefix_store.move_to_end(key)
+            if key in store:  # stored meanwhile by another admission
+                store.move_to_end(key)
                 continue
-            self._prefix_store[key] = self._alloc.share(int(self._table_np[slot, i]))
+            store[key] = self._allocs[g].share(int(self._table_np[slot, i]))
             if self.on_prefix_store is not None:
                 n = (i + 1) * self.block_size
                 self.on_prefix_store(tuple(prompt[:n]), n, adapter)
-        self._trim_prefix_store()
+        self._trim_prefix_store(g)
 
-    def _trim_prefix_store(self) -> None:
-        while len(self._prefix_store) > self.prefix_cache_blocks:
-            old_key, old = self._prefix_store.popitem(last=False)
-            self._alloc.free([old])
+    def _trim_prefix_store(self, g: int) -> None:
+        """Evict shard ``g``'s least recently used entries past
+        ``prefix_cache_blocks`` (a bound per store, as the reference's)."""
+        store = self._prefix_stores[g]
+        while len(store) > self.prefix_cache_blocks:
+            old_key, old = store.popitem(last=False)
+            self._allocs[g].free([old])
             if self.on_prefix_evict is not None:
                 adapter, tokens = serve.split_prefix_key(self, old_key)
                 self.on_prefix_evict(tokens, adapter)
@@ -1704,69 +1805,88 @@ class PagedServeEngine:
         self._table_dirty = True
 
     def _stage(self, slot: int, tokens: list[int], adapter: int = 0) -> None:
-        """Write an admission's inputs into the programs' buffers: the
+        """Write an admission's inputs into the programs' buffers on the
+        rank holding ``slot`` (the others run none of its programs): the
         table, the padded prompt and ``slot``'s prefill row (entries past
         its blocks are the null block, a scratch sink never attended), and
-        with a bank the slot's adapter id and the slot itself (``_admit[1]``,
-        whose id the prefill programs gather; the first-token step runs
-        under the slot's id too)."""
+        with a bank the slot's adapter id and its row (``_admit[1]``, whose
+        id the prefill programs gather; the first-token step runs under the
+        slot's id too)."""
         self._sync_table()
+        row = serve.owned_row(self, slot)
+        if row is None:
+            return
         padded = np.zeros((1, self.prompt_bucket), np.int32)
         padded[0, : len(tokens)] = tokens
         self._prompt.copy_(torch.from_numpy(padded))
         self._prefill_row.copy_(torch.from_numpy(self._table_np[slot : slot + 1, : self._mbp]))
         if self.adapter_bank is not None:
-            self._admit[1].fill_(slot)
-            self._adapter_ids[slot] = serve.bank_row(self, adapter)
+            self._admit[1].fill_(row)
+            self._adapter_ids[row] = serve.bank_row(self, adapter)
 
     def _prefill_slot(self, slot: int, tokens: list[int], cached: int, adapter: int = 0) -> None:
-        """Prefill ``tokens`` into ``slot``'s blocks under ``adapter``: the
-        whole bucket, or with ``cached`` shared blocks only the suffix after
-        them, as one chunk (``paged_prefill_suffix``'s computation)."""
+        """Prefill ``tokens`` into ``slot``'s blocks under ``adapter`` on
+        the rank holding it: the whole bucket, or with ``cached`` shared
+        blocks only the suffix after them, as one chunk
+        (``paged_prefill_suffix``'s computation)."""
         self._stage(slot, tokens, adapter)
         if cached:
-            self._run_chunk(cached, self.prompt_bucket - cached * self.block_size)
-        else:
+            self._run_chunk(slot, cached, self.prompt_bucket - cached * self.block_size)
+        elif serve.owned_row(self, slot) is not None:
             self._run("prefill", self._prefill)
 
-    def _run_chunk(self, done: int, width: int) -> None:
+    def _run_chunk(self, slot: int, done: int, width: int) -> None:
         """One chunk of ``width`` tokens after ``done`` pooled blocks, for
-        the staged admission."""
+        the staged admission of ``slot`` (on the rank holding it)."""
         assert done * self.block_size + width <= self.prompt_bucket
-        self._admit_done.fill_(done)
-        self._run(f"chunk {width}", self._chunk_program(width))
+        if serve.owned_row(self, slot) is not None:
+            self._admit_done.fill_(done)
+            self._run(f"chunk {width}", self._chunk_program(width))
 
     def _prefill_draft(self, slot: int, plen: int) -> None:
         """With speculation on, fill ``slot``'s draft row from the staged
         padded prompt (the whole prompt, whatever the target shared or
-        chunked)."""
-        if self.spec_gamma > 0:
-            self._admit.copy_(torch.tensor([plen, slot], dtype=torch.int32))
+        chunked), on the rank holding it."""
+        row = serve.owned_row(self, slot)
+        if self.spec_gamma > 0 and row is not None:
+            self._admit.copy_(torch.tensor([plen, row], dtype=torch.int32))
             self._run("draft prefill", self._draft_prefill)
 
     def _first_token_of(self, slot: int, plen: int, temperature: float, key) -> int:
-        """The staged admission's first token (its readback is not counted
+        """The staged admission's first token, sampled on the rank holding
+        ``slot`` and sent to every controller (its readback is not counted
         in ``host_syncs``)."""
-        self._admit.copy_(torch.tensor([plen, slot], dtype=torch.int32))
-        self._admit_temp.fill_(temperature)
-        self._admit_key.copy_(key)
-        return int(self._run("first token", self._first_token))
+
+        def run():
+            self._admit.copy_(torch.tensor([plen, serve.owned_row(self, slot)],
+                                           dtype=torch.int32))
+            self._admit_temp.fill_(temperature)
+            self._admit_key.copy_(key)
+            return self._run("first token", self._first_token)
+
+        return serve.owner_token(self, slot, run)
 
     def _set_row(self, slot: int, st, temperature: float, key) -> None:
-        """A resident slot's device row: last token, position (``len(tokens)
-        - 1``), stop depth (from the original prompt length and budget),
-        temperature and base key."""
-        self._last[slot] = st.tokens[-1]
-        self._pos[slot] = len(st.tokens) - 1
-        self._stop_pos[slot] = st.prompt_len + serve._slot_budget(st) - 1
-        self._temps[slot] = temperature
-        self._keys[slot] = key
+        """A resident slot's device row (on the rank holding it): last
+        token, position (``len(tokens) - 1``), stop depth (from the original
+        prompt length and budget), temperature and base key; the last two
+        mirrored on the host on every rank."""
+        self._temps_np[slot] = temperature
+        self._keys_np[slot] = torch.as_tensor(key).cpu().numpy()
+        row = serve.owned_row(self, slot)
+        if row is None:
+            return
+        self._last[row] = st.tokens[-1]
+        self._pos[row] = len(st.tokens) - 1
+        self._stop_pos[row] = st.prompt_len + serve._slot_budget(st) - 1
+        self._temps[row] = temperature
+        self._keys[row] = key
 
     def _release_slot(self, slot: int) -> None:
         """Drop ``slot``'s references (a shared block stays with its other
         holders) and point its table row at the null block (uploaded
         before the next program)."""
-        self._alloc.free(self._owned[slot])
+        self._alloc_for(slot).free(self._owned[slot])
         self._owned[slot] = []
         self._table_np[slot, :] = NULL_BLOCK
         self._table_dirty = True
@@ -1776,7 +1896,8 @@ class PagedServeEngine:
         columns: a speculating engine's extra ones stay null), once for
         however many changes since the last upload."""
         if self._table_dirty:
-            self._table[:, : self._mb].copy_(torch.from_numpy(self._table_np))
+            self._table[:, : self._mb].copy_(
+                torch.from_numpy(self._table_np[serve.local_slots(self)]))
             self._table_dirty = False
 
     # -- the programs (the reference's compiled ones) ------------------------

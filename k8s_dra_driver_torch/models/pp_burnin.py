@@ -64,6 +64,7 @@ import torch.nn.functional as F
 
 from k8s_dra_driver_torch.device import resolve_device
 from k8s_dra_driver_torch.models import weights
+from k8s_dra_driver_torch.models.data import RowBlock
 from k8s_dra_driver_torch.models.burnin import (
     ModelConfig,
     TrainStepFns,
@@ -222,7 +223,11 @@ def pp_plan(cfg: ModelConfig, mesh, n_micro: int | None = None,
 def pp_loss(params, tokens, cfg: ModelConfig, plan: PipePlan):
     """This rank's part of the global mean NLL of ``tokens`` (the whole
     batch), summed over ``data`` (and under "megatron-sp" over ``model``)
-    it is the reference's loss."""
+    it is the reference's loss.  A ``data.RowBlock`` is gathered whole over
+    ``data`` first, as the reference's reshard does: the microbatches
+    interleave the whole batch's rows."""
+    if isinstance(tokens, RowBlock):
+        tokens = tokens.whole()
     b, s = tokens.shape
     if b % plan.n_micro or (b // plan.n_micro) % plan.n_data:
         raise ValueError(

@@ -47,6 +47,8 @@ from k8s_dra_driver_torch.models.graphs import (  # noqa: F401  (re-exported)
 from k8s_dra_driver_torch.models.quant import quantize_blocks
 from k8s_dra_driver_torch.models.speculative import accept_advance
 from k8s_dra_driver_torch.models.telemetry import EngineTelemetry, terminal_retirer
+from k8s_dra_driver_torch.ops import collectives
+from k8s_dra_driver_torch.parallel.mesh import SlotGroup, slot_group
 from k8s_dra_driver_torch.utils.journal import JOURNAL
 from k8s_dra_driver_torch.utils.metrics import REGISTRY
 
@@ -972,14 +974,6 @@ def _prefill_suffix_into_slot(params, cache, prefix_k, prefix_v, prompt, plen, s
     )
 
 
-def _extract_prefix(cache, slot: int, *, prefix_bucket: int):
-    """A copy of the slot's K/V at positions ``< prefix_bucket`` (a store
-    entry): a view would change when the slot's next request overwrites
-    the row."""
-    return (cache.k[:, slot, :prefix_bucket].clone(),
-            cache.v[:, slot, :prefix_bucket].clone())
-
-
 # -- speculative rounds, shared by the dense and paged engines ----------------
 
 def make_draft_state(params, draft_params, cfg: ModelConfig, n_slots: int, cache_dtype,
@@ -1104,12 +1098,6 @@ def _commit_spec_round(engine, readback, active) -> int:
     return committed
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP.md queue 1 item {item})"
-    )
-
-
 def check_adapter(engine, adapter: int) -> None:
     """The reference's submit checks of an adapter id against the engine's
     bank (both engines)."""
@@ -1144,8 +1132,81 @@ def init_adapter_state(engine) -> None:
         where = next(iter(bank["blocks"][0].values()))["a"].device
         if where.type != engine.device.type:
             raise ValueError(f"the adapter bank lives on {where}, not {engine.device}")
-        engine._adapter_ids = torch.zeros((engine.n_slots,), dtype=torch.int32,
+        engine._adapter_ids = torch.zeros((engine._spg,), dtype=torch.int32,
                                           device=engine.device)
+
+
+# -- slot sharding over a mesh (both engines) ----------------------------------
+#
+# On a mesh every rank runs the same host scheduler on the same requests in
+# lockstep (the reference's multi-controller serving) and holds the device
+# state of its slot shard only: rows ``[index * spg, (index + 1) * spg)`` of
+# every per-slot buffer and cache, ``spg = n_slots / shards``.  Programs run
+# on those rows with no collective inside; what crosses ranks goes through
+# the helpers below, called by every rank of the slot group in the same
+# order (a collective that only some ranks reach would hang the others).
+
+def slot_shards(engine) -> SlotGroup:
+    """The engine's slot shards: one without a mesh; on a mesh
+    ``parallel.mesh.slot_group`` over ``slot_axis`` (a TypeError for a mesh
+    that is no ``DeviceMesh``, the reference's ValueError for an axis the
+    mesh lacks), then the reference's ``n_slots`` check."""
+    if engine.mesh is None:
+        return SlotGroup(None, 0, 1, (0,))
+    shards = slot_group(engine.mesh, engine.slot_axis)
+    if engine.mesh.device_type != engine.device.type:
+        raise ValueError(f"a {engine.mesh.device_type} mesh serves on "
+                         f"{engine.mesh.device_type}, not on {engine.device}")
+    if engine.n_slots % shards.count:
+        raise ValueError(f"n_slots ({engine.n_slots}) must divide over "
+                         f"{engine.slot_axis!r} axis size {shards.count}")
+    return shards
+
+
+def owned_row(engine, slot: int) -> int | None:
+    """``slot``'s row in this rank's device state, or None where another
+    shard holds it."""
+    shard, row = divmod(slot, engine._spg)
+    return row if shard == engine._shards.index else None
+
+
+def local_slots(engine) -> slice:
+    """The engine's global slots whose rows this rank holds."""
+    lo = engine._shards.index * engine._spg
+    return slice(lo, lo + engine._spg)
+
+
+def gather_slots(engine, t: torch.Tensor, dim: int) -> np.ndarray:
+    """A program's per-slot output (this rank's rows along ``dim``) as the
+    whole engine's host array, gathered over the slot group with one
+    device-to-host copy a rank: a burst's or a round's one readback."""
+    shards = engine._shards
+    return collectives.all_gather_to_host(t, shards.group, dim, shards.shards).numpy()
+
+
+def from_owner(engine, shard: int, tensors: list) -> list:
+    """``tensors`` from the ranks holding ``shard`` to every rank of the
+    slot group, in place (elsewhere the caller passes empty tensors of the
+    same shapes and dtypes)."""
+    shards = engine._shards
+    if shards.group is not None:
+        for t in tensors:
+            collectives.broadcast_raw(t, shards.src(shard), shards.group)
+    return tensors
+
+
+def owner_token(engine, slot: int, run) -> int:
+    """An admission's first token: ``run()`` (the program, ``[1]`` int32)
+    on the rank holding ``slot``, then one small broadcast to every
+    controller, outside any graph (the reference's ``psum`` of it)."""
+    if engine._shards.group is None:
+        return int(run())
+    if owned_row(engine, slot) is not None:
+        tok = run().reshape(1).to(torch.int32)
+    else:
+        tok = torch.zeros((1,), dtype=torch.int32, device=engine.device)
+    (tok,) = from_owner(engine, slot // engine._spg, [tok])
+    return int(tok.item())
 
 
 @dataclass
@@ -1214,8 +1275,26 @@ class ServeEngine:
     temperature, base key, poison mask and adapter id; the admission's
     padded prompt, length and slot, temperature and key, and the prefix-hit
     staging K/V) keeps one address for the engine's life and is written in
-    place, an injected payload too.  A mesh raises ``NotImplementedError``.
-    Not thread-safe; drive it from one loop.
+    place, an injected payload too.  Not thread-safe; drive it from one
+    loop.
+
+    On a mesh (``mesh`` a ``parallel/mesh`` ``DeviceMesh``, ``slot_axis``
+    one of its axes or a tuple of them, flattened slice-major) the engine
+    is the reference's data-parallel server, one process a rank: each of
+    the ``slot_axis`` shards holds ``n_slots / shards`` rows of the cache,
+    of every per-slot buffer and of the draft cache, the weights whole.
+    Every rank runs the same scheduler on the same requests in the same
+    order; a rank runs the programs of its own slots only.  The burst and
+    the speculative round hold no collective, so they capture as graphs on
+    every rank; the one collective of a burst is its readback, the trace
+    gathered over the slot group with one host copy (``host_syncs`` one a
+    burst).  An admission runs on the rank holding its slot and its first
+    token reaches every controller by one broadcast; a stored prefix is
+    broadcast from there too, so the prefix store stays whole on every
+    rank and a hit admits on any shard; handoff and snapshot payloads come
+    from the slot's rank the same way.  Temperatures and keys are mirrored
+    on the host.  Ranks that differ only on other mesh axes hold the same
+    slots and compute them alike.
     """
 
     params: dict
@@ -1230,7 +1309,10 @@ class ServeEngine:
     prefix_cache_entries: int = 8
     fault_injector: object | None = None  # utils/faults.FaultInjector
     quarantine_limit: int = 3  # distinct quarantined requests before "poisoned"
+    # data-parallel serving: slots sharded over slot_axis of this
+    # parallel/mesh DeviceMesh (see the class docstring)
     mesh: object | None = None
+    slot_axis: object = "data"
     spec_gamma: int = 0      # > 0: speculative rounds of this many draft tokens
     draft_params: object = None  # the draft; None: the int8 self-draft
     adapter_bank: dict | None = None
@@ -1239,8 +1321,6 @@ class ServeEngine:
 
     def __post_init__(self):
         cfg = self.cfg
-        if self.mesh is not None:
-            raise _unported("a mesh (slot sharding)", 15)
         if self.prompt_bucket > cfg.max_seq:
             raise ValueError(
                 f"prompt_bucket ({self.prompt_bucket}) exceeds max_seq ({cfg.max_seq})"
@@ -1262,6 +1342,8 @@ class ServeEngine:
             if self.prefix_cache_entries < 1:
                 raise ValueError("prefix_cache_entries must be >= 1")
         self.device = dev = params_device(self.params, self.device)
+        self._shards = slot_shards(self)
+        self._spg = spg = self.n_slots // self._shards.count  # this rank's rows
         self._slots: list = [None] * self.n_slots
         self._next_id = 0
         self._step_no = 0        # the fault window's step number
@@ -1285,24 +1367,23 @@ class ServeEngine:
         self.spec_drafted = 0    # draft tokens proposed to active slots
         self.spec_accepted = 0   # of those, the ones the target agreed with
         self.telemetry = EngineTelemetry(self, enabled=self.telemetry_enabled)
-        self._cache = decode.init_cache(
-            cfg, self.n_slots, cfg.max_seq, dtype=self.cache_dtype, device=dev
-        )
+        self._cache = decode.init_cache(cfg, spg, cfg.max_seq, dtype=self.cache_dtype, device=dev)
         self._d_cache = None
         if self.spec_gamma > 0:
             self.draft_params, self._d_cache = make_draft_state(
-                self.params, self.draft_params, cfg, self.n_slots, self.cache_dtype, dev
+                self.params, self.draft_params, cfg, spg, self.cache_dtype, dev
             )
         # the programs' device state: one address each for the engine's life
         i32 = dict(dtype=torch.int32, device=dev)
-        self._active = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
-        self._last, self._pos, self._stop_pos = (
-            torch.zeros((self.n_slots,), **i32) for _ in range(3)
-        )
-        self._temps = torch.zeros((self.n_slots,), dtype=torch.float32, device=dev)
-        self._keys = torch.zeros((self.n_slots, 2), dtype=torch.int64, device=dev)
-        self._poison = torch.zeros((self.n_slots,), dtype=torch.bool, device=dev)
-        self._poison_np = np.zeros((self.n_slots,), bool)  # what _poison holds
+        self._active = torch.zeros((spg,), dtype=torch.bool, device=dev)
+        self._last, self._pos, self._stop_pos = (torch.zeros((spg,), **i32) for _ in range(3))
+        self._temps = torch.zeros((spg,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((spg, 2), dtype=torch.int64, device=dev)
+        # every slot's temperature and base key, as the device rows hold them
+        self._temps_np = np.zeros((self.n_slots,), np.float32)
+        self._keys_np = np.zeros((self.n_slots, 2), np.int64)
+        self._poison = torch.zeros((spg,), dtype=torch.bool, device=dev)
+        self._poison_np = np.zeros((self.n_slots,), bool)  # every slot's; _poison holds ours
         self._prompt = torch.zeros((1, self.prompt_bucket), **i32)   # padded
         self._admit = torch.zeros((2,), **i32)                       # (plen, slot)
         self._admit_temp = torch.zeros((), dtype=torch.float32, device=dev)
@@ -1344,29 +1425,35 @@ class ServeEngine:
             raise NoCapacity("no free slot") from None
         request_id = self._next_id
         base_key = prng.prng_key(request_id if seed is None else seed)
+        row = owned_row(self, slot)  # None: another rank runs the admission
         self._stage_admission(prompt, slot, temperature, base_key, adapter)
         prefix_key = self._dense_prefix_key(prompt, adapter)
         if prefix_key is not None and prefix_key in self._prefix_store:
             self._prefix_store.move_to_end(prefix_key)  # LRU touch
-            pk, pv = self._prefix_store[prefix_key]
-            self._prefix_k.copy_(pk)
-            self._prefix_v.copy_(pv)
             self.prefix_hits += 1
             _M_PREFIX.inc(outcome="hit")
-            first_tok = self._run("prefix admission", self._prefix_admission)
+
+            def admit():
+                pk, pv = self._prefix_store[prefix_key]
+                self._prefix_k.copy_(pk)
+                self._prefix_v.copy_(pv)
+                return self._run("prefix admission", self._prefix_admission)
+
+            first_tok = owner_token(self, slot, admit)
         else:
-            first_tok = self._run("admission", self._admission)
+            first_tok = owner_token(self, slot, lambda: self._run("admission", self._admission))
             if prefix_key is not None:
                 self.prefix_misses += 1
                 _M_PREFIX.inc(outcome="miss")
-                self._prefix_store[prefix_key] = _extract_prefix(
-                    self._cache, slot, prefix_bucket=self.prefix_bucket
-                )
+                # a copy: a view would change when the slot's next request
+                # overwrites the row; on every rank, so each holds the store
+                self._prefix_store[prefix_key] = tuple(self._rows_of(slot, row,
+                                                                     self.prefix_bucket))
                 if self.on_prefix_store is not None:
                     self.on_prefix_store(tuple(prompt[: self.prefix_bucket]), self.prefix_bucket,
                                          adapter)
                 self._trim_prefix_store()
-        self._prefill_draft()
+        self._prefill_draft(slot)
         self._next_id += 1
         st = _Slot(request_id, list(prompt) + [int(first_tok)], len(prompt), max_tokens,
                    deadline, adapter)
@@ -1446,13 +1533,12 @@ class ServeEngine:
     def snapshot_active(self, include_kv: bool = False) -> dict:
         """Every in-flight request as a JSON-serialisable document (token
         history, temperature and base key, adapter id, deadline, telemetry
-        trace); one readback of the per-slot sampler state, no decode step.
+        trace); the sampler state from the host's mirror, no decode step.
         A fresh engine continues every stream from it with :meth:`restore`.
         ``include_kv`` adds each entry's cache rows as a :class:`KVSlice`
         under ``"kv"`` (one counted host sync each), so ``restore`` injects
         them instead of re-prefilling; such a snapshot is not JSON."""
-        temps = self._temps.to("cpu", copy=True).numpy()
-        keys = self._keys.to("cpu", copy=True).numpy()
+        temps, keys = self._temps_np, self._keys_np
         reqs = []
         for i, st in enumerate(self._slots):
             if st is None:
@@ -1505,17 +1591,20 @@ class ServeEngine:
             adapter = int(req.get("adapter", 0))
             self._stage_admission(tokens, slot, temp, key, adapter)
             kv = req.get("kv")
+            row = owned_row(self, slot)
             if kv is not None and _kv_geometry_ok(self, kv, len(tokens)):
                 # the payload's rows in place; the frontier's stay stale, as
                 # after a re-prefill: the next step rewrites them first
                 for whole, part in ((self._cache.k, kv.k), (self._cache.v, kv.v)):
-                    whole[:, slot, : kv.valid_len].copy_(device_tensor(part, kv.dtype,
-                                                                       self.device))
+                    if row is not None:
+                        whole[:, row, : kv.valid_len].copy_(device_tensor(part, kv.dtype,
+                                                                          self.device))
             else:
                 if kv is not None:
                     _M_DISAGG_FALLBACK.inc(reason="incompatible")
-                self._run("admission", self._admission)  # its token is not read
-            self._prefill_draft()  # the draft cache never travels
+                if row is not None:
+                    self._run("admission", self._admission)  # its token is not read
+            self._prefill_draft(slot)  # the draft cache never travels
             st = _Slot(int(req["request_id"]), tokens, int(req["prompt_len"]),
                        int(req["max_tokens"]), req.get("deadline"), adapter)
             self._slots[slot] = st
@@ -1627,12 +1716,26 @@ class ServeEngine:
         return self.prefix_bucket
 
     # -- internals ---------------------------------------------------------
+    def _rows_of(self, slot: int, row, length: int) -> list:
+        """The slot's cache rows at positions ``< length``, ``[L, length,
+        Hkv, hd]`` each (copies), from the rank holding ``slot`` (``row``
+        there, None elsewhere) on every controller: a prefix store entry,
+        or a payload's planes."""
+        cfg = self.cfg
+        if row is None:
+            parts = [torch.empty((cfg.n_layers, length, cfg.kv_heads, cfg.head_dim),
+                                 dtype=self._cache.k.dtype, device=self.device)
+                     for _ in range(2)]
+        else:
+            parts = [x[:, row, :length].clone(memory_format=torch.contiguous_format)
+                     for x in (self._cache.k, self._cache.v)]
+        return from_owner(self, slot // self._spg, parts)
+
     def _capture_kv(self, slot: int, valid_len: int) -> KVSlice:
         """A host copy of the slot's cache rows ``[L, valid_len, Hkv, hd]``,
         one copy per tensor and one counted host sync (the transfer's cost
         shows in ``host_syncs``)."""
-        k = host_array(self._cache.k[:, slot, :valid_len])
-        v = host_array(self._cache.v[:, slot, :valid_len])
+        k, v = (host_array(x) for x in self._rows_of(slot, owned_row(self, slot), valid_len))
         self.host_syncs += 1
         _M_HOST_SYNCS.inc()
         cfg = self.cfg
@@ -1672,10 +1775,11 @@ class ServeEngine:
         t0 = time.perf_counter()
         self.telemetry.burst_begin(k, self._step_no)  # on the host, before the replay
         if (poison != self._poison_np).any():
-            self._poison.copy_(torch.from_numpy(poison))
+            self._poison.copy_(torch.from_numpy(poison[local_slots(self)]))
             self._poison_np = poison
         trace = self._run(f"burst k={k}", self._burst_program(k))
-        trace_t, trace_a, trace_b = trace.cpu().numpy()  # the burst's one readback
+        # the burst's one readback: [3, K, slots], gathered over the shards
+        trace_t, trace_a, trace_b = gather_slots(self, trace, 2)
         self.host_syncs += 1
         _M_HOST_SYNCS.inc()
         trace_a = trace_a.astype(bool)
@@ -1711,7 +1815,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         n_active = self.n_slots - self.free_slots()
         self.telemetry.burst_begin(self.spec_gamma + 1, self._step_no)
-        readback = self._run("spec round", self._spec_program).cpu().numpy()
+        readback = gather_slots(self, self._run("spec round", self._spec_program), 0)
         self.host_syncs += 1
         _M_HOST_SYNCS.inc()
         committed = _commit_spec_round(self, readback, [st is not None for st in self._slots])
@@ -1721,41 +1825,54 @@ class ServeEngine:
         self._last_step_s = time.perf_counter() - t0
         return n_active
 
-    def _prefill_draft(self) -> None:
+    def _prefill_draft(self, slot: int) -> None:
         """With speculation on, fill the staged admission's draft row (its
-        whole padded prompt, a prefix hit's too)."""
-        if self.spec_gamma > 0:
+        whole padded prompt, a prefix hit's too), on the rank holding
+        ``slot``."""
+        if self.spec_gamma > 0 and owned_row(self, slot) is not None:
             self._run("draft prefill", self._draft_prefill)
 
     def _stage_admission(self, tokens: list[int], slot: int, temperature: float, key,
                          adapter: int = 0) -> None:
         """Write an admission's inputs into the admission buffers, and with
         a bank the slot's adapter id (before the prefill: the first-token
-        step runs under it)."""
+        step runs under it), on the rank holding ``slot`` (the others run
+        none of its programs)."""
+        row = owned_row(self, slot)
+        if row is None:
+            return
         padded = np.zeros((1, self.prompt_bucket), np.int32)
         padded[0, : len(tokens)] = tokens
         self._prompt.copy_(torch.from_numpy(padded))
-        self._admit.copy_(torch.tensor([len(tokens), slot], dtype=torch.int32))
+        self._admit.copy_(torch.tensor([len(tokens), row], dtype=torch.int32))
         self._admit_temp.fill_(temperature)
         self._admit_key.copy_(key)
         if self._adapter_ids is not None:
-            self._adapter_ids[slot] = bank_row(self, adapter)
+            self._adapter_ids[row] = bank_row(self, adapter)
 
     def _set_row(self, slot: int, st, temperature: float, key) -> None:
-        """A resident slot's device row: active, last token, position
-        (``len(tokens) - 1``), stop depth (from the original prompt length
-        and budget), temperature and base key."""
-        self._active[slot] = True
-        self._last[slot] = st.tokens[-1]
-        self._pos[slot] = len(st.tokens) - 1
-        self._stop_pos[slot] = st.prompt_len + _slot_budget(st) - 1
-        self._temps[slot] = temperature
-        self._keys[slot] = key
+        """A resident slot's device row (on the rank holding it): active,
+        last token, position (``len(tokens) - 1``), stop depth (from the
+        original prompt length and budget), temperature and base key; the
+        last two mirrored on the host on every rank."""
+        self._temps_np[slot] = temperature
+        self._keys_np[slot] = torch.as_tensor(key).cpu().numpy()
+        row = owned_row(self, slot)
+        if row is None:
+            return
+        self._active[row] = True
+        self._last[row] = st.tokens[-1]
+        self._pos[row] = len(st.tokens) - 1
+        self._stop_pos[row] = st.prompt_len + _slot_budget(st) - 1
+        self._temps[row] = temperature
+        self._keys[row] = key
 
     def _release_slot(self, slot: int) -> None:
         """A freed slot's row stops stepping; its stale K/V are masked out
         until an admission rewrites them."""
-        self._active[slot] = False
+        row = owned_row(self, slot)
+        if row is not None:
+            self._active[row] = False
 
     def _update_gauges(self) -> None:
         """The slot occupancy gauge."""

@@ -20,8 +20,9 @@ table), so every other collective on a gloo group copies its CUDA operands
 through pinned host memory here, explicitly.  ``comm_bytes`` counts the
 bytes this rank sends under a direct or ring algorithm (all-reduce
 2(n-1)/n of the payload, all-gather (n-1) blocks, all-to-all (n-1)/n of the
-input, a permutation the tensor), ``host_bytes`` the bytes copied to the
-host and back for a gloo group; set them to 0 with :func:`reset_counts`.
+input, a permutation the tensor, a broadcast the tensor from its source),
+``host_bytes`` the bytes copied to the host and back for a gloo group; set
+them to 0 with :func:`reset_counts`.
 
 The probes (:func:`psum_bandwidth` and the rest) keep the reference's
 algbw formulas and timing discipline; each rank runs them on its own
@@ -37,7 +38,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-_KINDS = ("all_reduce", "reduce_scatter", "ppermute", "all_gather", "all_to_all")
+_KINDS = ("all_reduce", "reduce_scatter", "ppermute", "all_gather", "all_to_all", "broadcast")
 comm_bytes = dict.fromkeys(_KINDS, 0)
 host_bytes = dict.fromkeys(_KINDS, 0)
 
@@ -166,6 +167,43 @@ def all_gather_raw(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     if staged:
         parts = [_device_copy(p, t, "all_gather") for p in parts]
     return torch.cat(parts, dim)
+
+
+def all_gather_to_host(t: torch.Tensor, group, dim: int, order=None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` as a CPU tensor, with one
+    device-to-host copy a rank: on a gloo group (or a CPU ``t``) the block
+    goes to the host first and the host blocks are gathered; on NCCL the
+    device blocks are gathered and the whole comes back once.  ``order[j]``
+    is where group rank ``j``'s block goes (default: group-rank order)."""
+    n = _size(group)
+    if n == 1:
+        return t.to("cpu", copy=True)
+    t = t.contiguous()
+    host = t.is_cuda and dist.get_backend(group) == "gloo"
+    if host:
+        t = t.to("cpu", copy=True)
+        host_bytes["all_gather"] += _nbytes(t)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    comm_bytes["all_gather"] += (n - 1) * _nbytes(t)
+    dist.all_gather(parts, t, group=group)
+    if order is not None:
+        placed = [None] * n
+        for j, at in enumerate(order):
+            placed[at] = parts[j]
+        parts = placed
+    return torch.cat(parts, dim).cpu()
+
+
+def broadcast_raw(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` from global rank ``src`` to every rank of ``group``, in place
+    (gloo takes CUDA tensors here); the bytes move as a byte view, so any
+    dtype goes."""
+    if _size(group) == 1:
+        return t
+    if dist.get_rank() == src:
+        comm_bytes["broadcast"] += _nbytes(t)
+    dist.broadcast(t.view(-1).view(torch.uint8), src, group=group)
+    return t
 
 
 def reduce_scatter_raw(t: torch.Tensor, group, dim: int) -> torch.Tensor:

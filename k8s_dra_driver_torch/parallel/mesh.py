@@ -193,6 +193,82 @@ def slot_axis_size(mesh, slot_axis) -> int:
     return math.prod(shape[n] for n in names)
 
 
+@dataclass(frozen=True)
+class SlotGroup:
+    """A serving engine's slot shards on this rank: the process group over
+    the slot axes (None on a one-shard axis), this rank's shard index and
+    the shard count, and ``shards[j]``, the shard that group rank ``j``
+    holds (the gathers put the blocks in shard order by it)."""
+
+    group: object | None
+    index: int
+    count: int
+    shards: tuple
+
+    def src(self, shard: int) -> int:
+        """The global rank in this group that holds ``shard``."""
+        import torch.distributed as dist
+
+        return dist.get_global_rank(self.group, self.shards.index(shard))
+
+
+_FLAT_GROUPS: dict = {}
+
+
+def _flat_group(mesh, names: tuple):
+    """The process group over the flattened axes ``names``: every rank of
+    the world makes every such group (one per coordinate of the other axes,
+    in order), and keeps the one it is in."""
+    import torch.distributed as dist
+
+    key = (id(mesh), names)
+    if key not in _FLAT_GROUPS:
+        dims = list(mesh.mesh_dim_names)
+        arr = mesh.mesh.numpy()
+        moved = np.moveaxis(arr, [dims.index(n) for n in names],
+                            range(arr.ndim - len(names), arr.ndim))
+        mine = None
+        for ranks in moved.reshape(-1, math.prod(arr.shape[dims.index(n)] for n in names)):
+            group = dist.new_group([int(r) for r in ranks])
+            if dist.get_rank() in ranks:
+                mine = group
+        _FLAT_GROUPS[key] = (mesh, mine)  # the mesh kept alive with its id
+    return _FLAT_GROUPS[key][1]
+
+
+def slot_group(mesh, slot_axis) -> SlotGroup:
+    """The slot shards of a serving engine on ``mesh`` over ``slot_axis``
+    (one axis name or a tuple, flattened slice-major as :func:`axis_index`
+    numbers it), validated as :func:`slot_axis_size` validates it.  A
+    tuple's group is made collectively: every rank of the world calls this
+    with the same arguments."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed DeviceMesh (parallel/mesh.build_mesh), "
+            f"got {type(mesh).__name__}"
+        )
+    count = slot_axis_size(mesh, slot_axis)
+    names = (slot_axis,) if isinstance(slot_axis, str) else tuple(slot_axis)
+    index, _ = axis_index(mesh, names)
+    if count == 1:
+        return SlotGroup(None, 0, 1, (0,))
+    import torch.distributed as dist
+
+    group = mesh.get_group(names[0]) if len(names) == 1 else _flat_group(mesh, names)
+    shape = mesh_shape(mesh)
+    arr = mesh.mesh.numpy()
+    shards = []
+    for r in dist.get_process_group_ranks(group):
+        coord = dict(zip(mesh.mesh_dim_names, (int(c[0]) for c in np.nonzero(arr == r))))
+        shard = 0
+        for n in names:
+            shard = shard * shape[n] + coord[n]
+        shards.append(shard)
+    return SlotGroup(group, index, count, tuple(shards))
+
+
 def validate_claimed_mesh(mesh, env: dict[str, str]) -> None:
     """Cross-check a mesh against the driver-injected bounds env."""
     bounds = env.get("TPU_CHIPS_PER_PROCESS_BOUNDS")

@@ -554,9 +554,10 @@ def test_submit_and_engine_validation_match_jax(weights):
 
 
 def test_unported_paths_raise(weights):
-    """What the port leaves out (a mesh, ROADMAP item 15) raises
-    ``NotImplementedError`` naming its item; nothing falls back quietly.
-    The item-11 paths behave as the reference's: ``submit(handoff=True)``
+    """A mesh that is no ``DeviceMesh`` raises a TypeError at construction
+    (a real mesh is served: ``tests/test_torch_sharded_serve.py``); nothing
+    falls back quietly.  The item-11 paths behave as the reference's:
+    ``submit(handoff=True)``
     retires into ``take_handoffs`` with a payload, ``snapshot_active(
     include_kv=True)`` attaches one, and an entry with ``"kv": None``
     re-prefills, its stream the JAX engine's."""
@@ -565,9 +566,8 @@ def test_unported_paths_raise(weights):
     def engine(**kw):
         return ts.ServeEngine(params=tparams, cfg=TCFG, device="cpu", **dict(ENGINE, **kw))
 
-    for kw, item in ((dict(mesh=object()), 15),):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            engine(**kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        engine(mesh=object())
     je, te = _pair(weights, **ENGINE)
     for eng in (je, te):
         eng.submit([1, 2], 3, handoff=True)

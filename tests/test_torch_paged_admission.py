@@ -753,7 +753,7 @@ def test_release_active_leaves_the_allocator_balanced(weights):
     assert out[0] == out[1]
 
 
-# -- 7. what the port leaves out ---------------------------------------------------
+# -- 7. the constructor refusals and the item-11 paths ----------------------------
 
 def test_unported_fields_raise_naming_their_item(weights):
     _, tparams = weights
@@ -761,9 +761,14 @@ def test_unported_fields_raise_naming_their_item(weights):
     def engine(**kw):
         return tp.PagedServeEngine(params=tparams, cfg=TCFG, device="cpu", **dict(ENGINE, **kw))
 
-    for kw, item in ((dict(mesh=object()), 15), (dict(slot_axis=("slice", "data")), 15)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            engine(**kw)
+    # a mesh is served (tests/test_torch_sharded_serve.py); what is no
+    # DeviceMesh, or a quantized pool on a mesh, is refused at construction,
+    # and slot_axis without a mesh is unused, as the reference's
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        engine(mesh=object())
+    with pytest.raises(ValueError, match="single-shard only"):
+        engine(mesh=object(), kv_dtype="int8")
+    assert engine(slot_axis=("slice", "data"))._axis_size == 1
     # the item-11 paths behave as the reference's: a chunked handoff
     # retires at activation with its payload, the hooks are plain
     # attributes, and a "kv": None entry re-prefills

@@ -340,3 +340,189 @@ def moe_refusal(layout, shapes, k):
     except ValueError as exc:
         return str(exc)
     return None
+
+
+# -- slot-sharded serving ------------------------------------------------------
+
+def fifo_streams(engine, reqs, max_steps: int = 10_000, step=None) -> dict:
+    """``reqs`` (``(prompt, max_tokens, submit kwargs)``) through a FIFO
+    queue in front of ``engine``, one ``step()`` between admission rounds
+    (the reference's sharded tests' harness): ``{request_id: (generated,
+    status)}``."""
+    pending, out = list(reqs), {}
+    step = step or engine.step
+    for _ in range(max_steps):
+        while pending:
+            prompt, max_tokens, kw = pending[0]
+            try:
+                engine.submit(prompt, max_tokens, **kw)
+            except RuntimeError:
+                break
+            pending.pop(0)
+        stepped = step()
+        for c in engine.completions():
+            out[c.request_id] = (c.generated, c.status)
+        if (not pending and stepped == 0 and engine.free_slots() == engine.n_slots
+                and not getattr(engine, "_preempted", None)
+                and not getattr(engine, "_admitting", None)):
+            return out
+    raise RuntimeError("queue did not drain")
+
+
+# EngineStats fields that count (the rest are clocks, or the engine's
+# process-wide sequence number)
+STATS_COUNTERS = ("n_slots", "resident_slots", "free_slots", "queue_depth", "admitting",
+                  "preempted", "free_blocks", "quarantined", "shed_count", "in_flight",
+                  "completed", "statuses", "tokens_generated", "bursts", "host_syncs",
+                  "sync_interval")
+ENGINE_COUNTERS = ("host_syncs", "prefix_hits", "prefix_misses", "free_blocks",
+                   "reservable_blocks", "preempted_count", "stalled_steps", "spec_drafted",
+                   "spec_accepted")
+
+
+def engine_counters(engine) -> dict:
+    """The engine's host counters and its ``stats()`` counters."""
+    stats = engine.stats().to_json()
+    out = {k: getattr(engine, k) for k in ENGINE_COUNTERS if hasattr(engine, k)}
+    out.update({f"stats.{k}": stats[k] for k in STATS_COUNTERS})
+    return out
+
+
+def serving_engine(kind, cfg, params, mesh=None, slot_axis="data", bank=None, **kw):
+    """A port engine (``kind`` "paged" or "dense") on the CPU from numpy
+    ``params`` (and a numpy LoRA ``bank``), on ``mesh`` when given."""
+    from k8s_dra_driver_torch.models import paged, serve, weights
+
+    if bank is not None:
+        kw["adapter_bank"] = weights.bank_from_jax(bank, "cpu")
+    cls = paged.PagedServeEngine if kind == "paged" else serve.ServeEngine
+    return cls(params=weights.params_from_jax(params, "cpu"), cfg=cfg, mesh=mesh,
+               slot_axis=slot_axis, device="cpu", **kw)
+
+
+def sharded_streams(kind, cfg, layout, slot_axis, params, engine_kw, reqs, bank=None,
+                    burst=False):
+    """``reqs`` through a sharded engine on this rank (``step`` between
+    admission rounds, ``step_burst`` with ``burst``): (its streams, its
+    counters, the bytes its collectives sent by kind)."""
+    from k8s_dra_driver_torch.ops import collectives
+
+    collectives.reset_counts()
+    eng = serving_engine(kind, cfg, params, make_mesh(layout), slot_axis, bank, **engine_kw)
+    streams = fifo_streams(eng, reqs, step=eng.step_burst if burst else None)
+    return streams, engine_counters(eng), dict(collectives.comm_bytes)
+
+
+def engine_refusal(kind, cfg, layout, slot_axis, params, engine_kw):
+    """(the exception's type name, its message) a sharded engine raises at
+    construction, or None."""
+    try:
+        serving_engine(kind, cfg, params, make_mesh(layout), slot_axis, **engine_kw)
+    except (TypeError, ValueError) as exc:
+        return type(exc).__name__, str(exc)
+    return None
+
+
+def capacity_case(cfg, layout, params, engine_kw, big, prompts):
+    """A paged engine sharded over ``data``: the refusal of the prompt
+    ``big`` (None: none) that fits no shard (its message, the free blocks
+    after it), then each of ``prompts`` submitted: the shards their slots
+    fall in, the free and reservable blocks."""
+    eng = serving_engine("paged", cfg, params, make_mesh(layout), **engine_kw)
+    refused = None
+    if big is not None:
+        try:
+            eng.submit(big, 4)
+        except RuntimeError as exc:
+            refused = str(exc)
+    free_after = eng.free_blocks
+    for p in prompts:
+        eng.submit(p, 4)
+    groups = sorted({eng._group(s) for s, st in enumerate(eng._slots) if st is not None})
+    return refused, free_after, groups, eng.free_blocks, eng.reservable_blocks
+
+
+def payload_case(kind, cfg, layout, params, engine_kw, reqs, handoff_prompt, steps: int):
+    """The payload paths of a sharded engine (or, ``layout`` None, the
+    unsharded one): ``reqs`` submitted, ``steps`` steps, a
+    ``snapshot_active(include_kv=True)`` (each entry's K/V as numpy), then
+    ``handoff_prompt`` handed off (the slot it took, its payload), then the
+    snapshot restored, payloads and all, into a fresh engine of the same
+    kind and drained:
+    (snapshot entries without their payloads, their payloads, the handoff's
+    slot and payload, the restored streams, the counters of both engines)."""
+    mesh = None if layout is None else make_mesh(layout)
+    eng = serving_engine(kind, cfg, params, mesh, **engine_kw)
+    for prompt, max_tokens, kw in reqs:
+        eng.submit(prompt, max_tokens, **kw)
+    for _ in range(steps):
+        eng.step()
+    snap = eng.snapshot_active(include_kv=True)
+    kvs = {r["request_id"]: (r["kv"].k, r["kv"].v) for r in snap["requests"] if "kv" in r}
+    entries = [{k: v for k, v in r.items() if k not in ("kv", "trace")} for r in snap["requests"]]
+    slots, retire = [], eng._handoff_retire
+    eng._handoff_retire = lambda slot, *a: (slots.append(slot), retire(slot, *a))[1]
+    rid = eng.submit(handoff_prompt, 4, handoff=True)
+    (entry,) = eng.take_handoffs()
+    handoff = (rid, slots[0], entry["kv"].k, entry["kv"].v)
+    counters = engine_counters(eng)
+    eng.release_active()
+    fresh = serving_engine(kind, cfg, params, mesh, **engine_kw)
+    fresh.restore(snap)  # the payloads inject where they fit
+    fresh.run_until_drained()
+    streams = {c.request_id: (c.generated, c.status) for c in fresh.completions()}
+    return entries, kvs, handoff, streams, counters, engine_counters(fresh)
+
+
+# -- the host-sharded token pipeline -------------------------------------------
+
+def token_batches_case(layout, data, batch_size, seed, epochs, data_axis="data"):
+    """This rank's ``TokenBatches`` blocks: (steps a epoch, and per epoch
+    in ``epochs`` the blocks' (rows, global shape, index, count))."""
+    from k8s_dra_driver_torch.models.data import TokenBatches
+
+    tb = TokenBatches(data, batch_size, make_mesh(layout), data_axis, seed=seed, device="cpu")
+    return tb.steps_per_epoch, [
+        [(b.rows.numpy(), b.shape, b.index, b.count) for b in tb.epoch(e)] for e in epochs]
+
+
+def token_batches_refusal(layout, data, batch_size, data_axis="data"):
+    """The message ``TokenBatches`` raises, or None."""
+    from k8s_dra_driver_torch.models.data import TokenBatches
+
+    try:
+        TokenBatches(data, batch_size, make_mesh(layout), data_axis, device="cpu")
+    except ValueError as exc:
+        return str(exc)
+    return None
+
+
+def fed_train_case(kind, cfg_kw, layout, data, batch_size, steps, **kw):
+    """``steps`` steps of the mesh step (``kind`` "mesh") or the pipeline
+    step ("pp") fed this rank's ``TokenBatches`` blocks of epoch 0, then the
+    same steps from the same init fed the whole batches (computed here from
+    the reference's permutation): (the losses of both, the bytes each run
+    all-gathered)."""
+    import numpy as np
+
+    from k8s_dra_driver_torch.models import burnin, pp_burnin
+    from k8s_dra_driver_torch.models.data import TokenBatches
+    from k8s_dra_driver_torch.ops import collectives
+
+    cfg = burnin.ModelConfig(**{**cfg_kw, "dtype": torch.float32})
+    mesh = make_mesh(layout)
+    if kind == "pp":
+        fns = pp_burnin.build_pp_train_step(cfg, mesh, device="cpu", **kw)
+    else:
+        fns = burnin.build_train_step(cfg, mesh=mesh, device="cpu", **kw)
+    order = np.random.default_rng((0, 0)).permutation(len(data))
+    wholes = [torch.from_numpy(data[order[s * batch_size:(s + 1) * batch_size]])
+              for s in range(steps)]
+    blocks = list(TokenBatches(data, batch_size, mesh, seed=0, device="cpu").epoch(0))[:steps]
+    out = []
+    for feed in (blocks, wholes):
+        collectives.reset_counts()
+        params, state = fns.init(torch.Generator().manual_seed(0))
+        out.append([float(fns.step(params, state, b)[2]) for b in feed])
+        out.append(collectives.comm_bytes["all_gather"])
+    return out[0], out[2], out[1], out[3]
