@@ -287,12 +287,35 @@ exits 2 before any result):
     tolerance of the same step fed the whole batches (bit for bit
     printed), the flash launches the schedule's.  The gloo
     hops go through the host, so the rings' numbers are correctness and
-    bytes, not overlap.
+    bytes, not overlap.  (k) the mesh checkpoint (``TrainCheckpointer`` with
+    ``MeshLayout``) of leg (b)'s step at FLAGSHIP_MODERN in bf16: 2 steps, a
+    save, step 3, a restore on the same mesh and step 3 again, the loss and
+    state bit for bit; then the save restored into a ``MeshShape(seq=4)``
+    ring step, its gathered params and AdamW state equal to the saved ones
+    byte for byte and its step 3 within the bf16 loss tolerance; the bytes
+    each rank writes, the save and restore times, the flash launches the
+    schedule's;
+24. the pod's entry points ("pod entry points"), each leg timed: (a)
+    ``python -m k8s_dra_driver_torch.consumer --check --serve-demo`` with
+    ``TPU_VISIBLE_DEVICES=0`` (exit 0; 4 requests, 36 tokens, a prefix hit,
+    free blocks, unsharded); (b) ``--check`` on a claim of cards 0,1 on the
+    one card (exit 1 with "DEVICE MISMATCH", before any process group);
+    (c) ``consumer.serve_demo`` in this process (head dim 32), every token
+    teacher-forced within 0.25, the append kernel at nq 1 and nq 3 on each
+    layer's first window against its plain version; (d) the demo on 2 gloo
+    ranks sharing the card over ``MeshShape(data=2)``, every token
+    teacher-forced, its streams against (c)'s counted; (e) ``python -m
+    k8s_dra_driver_torch.e2e.dryrun 4``, 4 gloo ranks on the card: exit 0,
+    the reference's lines at 4 (losses masked, finite), the flash launches
+    summed over ranks the first leg's schedule, and the flash forward, dQ
+    and dK/dV at D 16 in bf16 on that leg's layer-0 inputs, as it calls
+    them and in the ring's mode, elementwise against their plain versions.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
 after a handoff, the sharded engine's ranks, training, LoRA, MoE and mesh
-training) and their times; the last line is the JSON device record.
+training, the serving demo and the dry run) and their times; the last line
+is the JSON device record.
 """
 
 from __future__ import annotations
@@ -1013,25 +1036,27 @@ def _check_rows(label, rows):
             raise AssertionError(f"{label} {name} disagrees: {over} elements over their limit")
 
 
-def flash_ring_mode(torch, bh: int, s: int, d: int) -> dict:
+def flash_ring_mode(torch, bh: int, s: int, d: int, operands=None) -> dict:
     """The flash kernels as the ring runs them (``ops/ring_attention``), at
     the ring's shapes, each against its plain version on the same operands:
     the forward writing f32 partials (``out_dtype=float32``), causal and
     not; and the dQ and dK/dV kernels on the causal own block and a
     non-causal earlier block with the GLOBAL lse of the two blocks' merge
     and ``delta`` from the merged output, where a block's probabilities do
-    not sum to 1.  Limits as ``FLASH_STEP``.  Returns the worst error per
-    kernels-line row."""
+    not sum to 1.  Limits as ``FLASH_STEP``.  Seeded operands in f32 and
+    bf16, or ``operands`` (q, own k and v, earlier k and v, dout, each
+    ``[bh, s, d]`` in one dtype).  Returns the worst error per kernels-line
+    row."""
     from k8s_dra_driver_torch.ops import flash_attention as fa
     from k8s_dra_driver_torch.ops.ring_attention import _merge_blocks
 
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in ((operands[0].dtype,) if operands else (torch.float32, torch.bfloat16)):
         dname = str(dtype).split(".")[-1]
         tag = "_f32" if dtype == torch.float32 else ""
         step = FLASH_STEP[dname][0]
         g = torch.Generator(device=DEV).manual_seed(SEED + 21)
-        q, k_own, v_own, k_prev, v_prev, dout = (
+        q, k_own, v_own, k_prev, v_prev, dout = operands or (
             torch.randn((bh, s, d), generator=g, device=DEV).to(dtype) for _ in range(6))
         parts = {}
         for causal, k, v in ((True, k_own, v_own), (False, k_prev, v_prev)):
@@ -1490,6 +1515,10 @@ MESH_LEGS = {
     "c": ("Ulysses, flash", (0, {"seq": 4}), {"sequence_parallel": "ulysses"}),
     "d": ("multislice 2 x data 2, flash", (2, {"data": 2}), {}),
 }
+# leg (l): the config with fewer KV groups than model ranks (n_kv_heads 2
+# on model 4): the mesh step gathers the qkv projection over model and each
+# rank attends with its own query heads
+KV_SPLIT_LEG = ("kv-split, flash", (0, {"model": 4}), {}, 2)
 MESH_TOL = {
     # (loss relative, step-1 gradient per element over its leaf's largest, why)
     "bfloat16": (1e-3, 5e-2, "bf16: both paths round at other points (the ring merges f32 "
@@ -2086,6 +2115,129 @@ def _tokens_report(torch, label, results, cfg, steps, card) -> dict:
             "flash_bwd_dkv": got[dkv_name]}
 
 
+# leg (k): the mesh checkpoint of leg (b)'s step, resharded onto leg (a)'s ring
+CKPT_LEG = dict(layout=(0, {"data": 2, "model": 2}), ring=(0, {"seq": 4}), before=2)
+
+
+def checkpoint_leg(cfg, b: int, dev: str, directory: str) -> dict:
+    """Leg (k) on this rank: leg (b)'s step (``CKPT_LEG["layout"]``) for 2
+    steps, saved by the mesh checkpointer, step 3, the save restored into
+    the same tensors, step 3 again; then the save restored into a fresh
+    ``(seq 4)`` ring step's shards and its step 3.  The flash counts are
+    zeroed before the first step.  Returns the losses, whether the two
+    step-3 states are equal bit for bit, whether the ring's gathered state
+    equals the saved one byte for byte, the file's bytes and the times."""
+    import os
+
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, weights
+    from k8s_dra_driver_torch.models.train_checkpoint import MeshLayout, TrainCheckpointer
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    torch = _leg_setup(dev)
+    rank = dist.get_rank()
+    tokens = _train_tokens(torch, cfg, b, SEED + 7)
+
+    def built(layout, seed):
+        mesh = _rank_mesh(layout, dev)
+        fns = burnin.build_train_step(cfg, mesh=mesh, attention="flash", remat="blocks",
+                                      lr=MESH_TRAIN["lr"], device=DEV)
+        return mesh, fns, *fns.init(torch.Generator(device=DEV).manual_seed(seed))
+
+    def whole(mesh, params, state):
+        full, opt = weights.unshard_params(cfg, mesh, params, state)
+        # copies: a replicated leaf gathers to itself, and the steps update it
+        return [t.to("cpu", copy=True) for t in (*burnin.param_leaves(full), opt["count"],
+                                                 *opt["mu"], *opt["nu"])]
+
+    def timed(fn):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    mesh, fns, params, state = built(CKPT_LEG["layout"], SEED + 66)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(torch)
+    dist.barrier()
+    _zero_flash_counts()
+    losses = [float(fns.step(params, state, tokens)[2]) for _ in range(CKPT_LEG["before"])]
+    ckpt = TrainCheckpointer(directory, keep=1, layout=MeshLayout(cfg, mesh))
+    step = CKPT_LEG["before"]
+    _, save_ms = timed(lambda: ckpt.save(step, (params, state)))
+    nbytes = os.path.getsize(os.path.join(directory, str(step), f"rank-{rank}.pt"))
+    saved = whole(mesh, params, state)
+    l3 = float(fns.step(params, state, tokens)[2])
+    after = [t.clone() for t in _state_leaves(params, state)]
+    _, restore_ms = timed(lambda: ckpt.restore(step, like=(params, state)))
+    l3b = float(fns.step(params, state, tokens)[2])
+    same = not _differing(after, _state_leaves(params, state))
+    ckpt.close()
+    del after, params, state, fns
+    mesh2, fns2, p2, s2 = built(CKPT_LEG["ring"], SEED + 67)
+    ckpt2 = TrainCheckpointer(directory, keep=1, layout=MeshLayout(cfg, mesh2))
+    _, reshard_ms = timed(lambda: ckpt2.restore(step, like=(p2, s2)))
+    ckpt2.close()
+    resharded = whole(mesh2, p2, s2)
+    whole_equal = len(saved) == len(resharded) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(saved, resharded))
+    l3_ring = float(fns2.step(p2, s2, tokens)[2])
+    sync(torch)
+    return dict(losses=losses, l3=l3, l3b=l3b, same=same, whole_equal=whole_equal,
+                l3_ring=l3_ring, bytes=nbytes, save_ms=save_ms, restore_ms=restore_ms,
+                reshard_ms=reshard_ms, fwd=dict(fa.fwd_launches), bwd=dict(fa.bwd_launches),
+                peak=torch.cuda.max_memory_allocated() if DEV == "cuda" else 0)
+
+
+def _checkpoint_report(torch, label, results, cfg, card) -> dict:
+    """Hold leg (k)'s gates and print its numbers; returns its flash
+    launches by kernels-line row."""
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    head = results[0]
+    loss_tol, _, why = MESH_TOL[str(cfg.dtype).split(".")[-1]]
+    rel = abs(head["l3_ring"] - head["l3"]) / abs(head["l3"])
+    log(f"{label}: losses {' '.join(f'{x:.5f}' for x in head['losses'])}, step 3 "
+        f"{head['l3']!r}, again after the restore {head['l3b']!r}; the state after it bit for "
+        f"bit on every rank: {all(r['same'] for r in results)}")
+    log(f"{label}: restored onto {CKPT_LEG['ring'][1]}: the gathered params and AdamW state "
+        f"equal the saved ones byte for byte on every rank: "
+        f"{all(r['whole_equal'] for r in results)}; its step 3 {head['l3_ring']!r}, rel "
+        f"{rel:.3g} of the {CKPT_LEG['layout'][1]} step 3 (tolerance {loss_tol}: {why})")
+    log(f"{label}: bytes written by rank {' '.join(str(r['bytes']) for r in results)} "
+        f"({sum(r['bytes'] for r in results) / 2**20:.2f} MiB in all); save "
+        f"{' / '.join(f'{r['save_ms']:.0f}' for r in results)} ms, restore on the same mesh "
+        f"{' / '.join(f'{r['restore_ms']:.0f}' for r in results)} ms, onto the ring "
+        f"{' / '.join(f'{r['reshard_ms']:.0f}' for r in results)} ms by rank (host clock, 4 "
+        f"ranks sharing one card and one disk; {card}); peak memory by rank "
+        f"{' '.join(f'{r['peak'] / 2**30:.2f}' for r in results)} GiB")
+    steps = CKPT_LEG["before"] + 2
+    f1, b1 = _mesh_flash_expected(CKPT_LEG["layout"], {}, cfg.n_layers, steps)
+    f2, b2 = _mesh_flash_expected(CKPT_LEG["ring"], {}, cfg.n_layers, 1)
+    got = {name: sum(r["fwd"].get(name, 0) + r["bwd"].get(name, 0) for r in results)
+           for name in (*fa.fwd_launches, *fa.bwd_launches)}
+    fwd_name = fa.forward_kernel_for(cfg.dtype)
+    dq_name, dkv_name = fa.backward_kernel_for(cfg.dtype)
+    want = {name: 0 for name in got} | {fwd_name: f1 + f2, dq_name: b1 + b2,
+                                         dkv_name: b1 + b2}
+    log(f"{label}: flash launches summed over ranks {got} (the schedule's {want})")
+    if any(r["losses"] != head["losses"] or r["l3"] != head["l3"] for r in results):
+        raise AssertionError(f"{label}: the ranks report different losses")
+    if not all(r["l3b"] == r["l3"] and r["same"] for r in results):
+        raise AssertionError(f"{label}: the restored step 3 is not bit for bit the first one")
+    if not all(r["whole_equal"] for r in results):
+        raise AssertionError(f"{label}: the state restored onto the ring is not the saved one")
+    if not (np.isfinite(head["l3_ring"]) and rel <= loss_tol):
+        raise AssertionError(f"{label}: the ring's step 3 leaves the saved mesh's")
+    if got != want:
+        raise AssertionError(f"{label}: flash launches {got} are not the schedule's {want}")
+    return {"flash_fwd": got[fwd_name], "flash_bwd_dq": got[dq_name],
+            "flash_bwd_dkv": got[dkv_name]}
+
+
 def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     """Mesh training ("train mesh"): four ranks on the one card on a gloo
     group (CUDA tensors; ``ops/collectives`` copies what gloo cannot take
@@ -2097,9 +2249,15 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     single-card step (``MESH_TOL``, ``MESH_PARAM_UNITS``), its flash launches against the
     schedule's.  In the same pool, legs (f)-(i): the pipeline
     (``PP_LEGS``) in bf16 at ``cfg`` and in f32 at 2 layers, expert
-    parallelism (``EP``) and the tensor-parallel MLP (``TP_MLP``), and (j)
-    ``data.TokenBatches`` feeding leg (b)'s step (``TOKENS_LEG``), each
-    printing its seconds.  Returns the launches by kernels-line row."""
+    parallelism (``EP``) and the tensor-parallel MLP (``TP_MLP``), (j)
+    ``data.TokenBatches`` feeding leg (b)'s step (``TOKENS_LEG``) and (k)
+    the mesh checkpoint of leg (b)'s step (``CKPT_LEG``), each printing its
+    seconds; (l) the mesh step at ``KV_SPLIT_LEG``'s fewer KV groups than
+    model ranks, in bf16 and f32, held as (a)-(d) are.  Returns the
+    launches by kernels-line row."""
+    import shutil
+    from pathlib import Path
+
     import torch.distributed as dist
 
     from k8s_dra_driver_torch.parallel.ranks import RankPool, free_port, init_ranks
@@ -2127,6 +2285,16 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
                        == "atorch.bfloat16" else ""))
                 add(_mesh_report(torch, label, results, leg_cfg, steps, card,
                                  _mesh_flash_expected(layout, kw, leg_cfg.n_layers, steps)))
+        what, layout, kw, n_kv = KV_SPLIT_LEG
+        for leg_cfg in (cfg, f32):
+            leg_cfg = dataclasses.replace(leg_cfg, n_kv_heads=n_kv)
+            label = (f"train mesh (l) {what} {layout[1]}, n_kv_heads {n_kv}, "
+                     f"{str(leg_cfg.dtype)[6:]} L={leg_cfg.n_layers}")
+            t1 = time.perf_counter()
+            results = pool.run(mesh_leg, leg_cfg, layout, kw, steps, b, DEV)
+            log(f"{label}: {time.perf_counter() - t1:.1f} s")
+            add(_mesh_report(torch, label, results, leg_cfg, steps, card,
+                             _mesh_flash_expected(layout, kw, leg_cfg.n_layers, steps)))
         for leg_cfg in (cfg, f32):
             for key, (what, layout, kw) in PP_LEGS.items():
                 label = (f"train mesh ({key}) {what} {layout[1]}, {str(leg_cfg.dtype)[6:]} "
@@ -2155,6 +2323,17 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
         t1 = time.perf_counter()
         add(_tokens_report(torch, label, pool.run(tokens_leg, cfg, steps, b, DEV), cfg, steps,
                            card))
+        log(f"{label}: {time.perf_counter() - t1:.1f} s")
+        label = (f"train mesh (k) mesh checkpoint of (b) {CKPT_LEG['layout'][1]}, restored "
+                 f"there and onto {CKPT_LEG['ring'][1]}, {str(cfg.dtype)[6:]} L={cfg.n_layers}")
+        where = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh_checkpoint"
+        shutil.rmtree(where, ignore_errors=True)
+        t1 = time.perf_counter()
+        try:
+            add(_checkpoint_report(torch, label, pool.run(checkpoint_leg, cfg, b, DEV,
+                                                          str(where)), cfg, card))
+        finally:
+            shutil.rmtree(where, ignore_errors=True)
         log(f"{label}: {time.perf_counter() - t1:.1f} s")
     # NCCL takes CUDA tensors only: a CPU rehearsal runs this leg on gloo
     backend = "nccl" if DEV == "cuda" else "gloo"
@@ -2846,11 +3025,13 @@ def _engine_twin(torch, label, drive, attrs=DENSE_TWIN_ATTRS, pool_from=0, twin=
     return eng, comps, counts
 
 
-def _teacher_forced_all(torch, label, cfg, params, reqs, comps, cache_dtype, tol, by_id=None):
+def _teacher_forced_all(torch, label, cfg, params, reqs, comps, cache_dtype, tol, by_id=None,
+                        why=None):
     """Every completion teacher-forced against the plain dense path
     (``_teacher_forced``); ``reqs[request_id]`` unless ``by_id`` maps ids
-    to requests.  Prints and returns the count of tokens that are the dense
-    choice."""
+    to requests; ``why`` the tolerance's reason (default ``TOL_WHY``'s for
+    the cache's dtype).  Prints and returns the count of tokens that are
+    the dense choice."""
     ref = _dense_reference(params)
     worst, hit, total = 0.0, 0, 0
     for c in comps:
@@ -2860,7 +3041,7 @@ def _teacher_forced_all(torch, label, cfg, params, reqs, comps, cache_dtype, tol
         worst, hit, total = max(worst, gap), hit + h, total + n
     log(f"{label}: teacher-forced vs plain dense decode: {hit}/{total} tokens the dense choice, "
         f"worst gap {worst:.4g} (tolerance {tol} greedy, {tol / LIFECYCLE_TEMP:.4g} sampled: "
-        f"{TOL_WHY[cache_dtype == torch.float32]})")
+        f"{why or TOL_WHY[cache_dtype == torch.float32]})")
     return hit
 
 
@@ -5677,6 +5858,280 @@ def phase_serve_mesh(torch, cfg, params, reqs, *, card, tol=0.25):
     return launches
 
 
+# "pod entry points": the commands a pod that holds a claim runs
+POD_DRYRUN_RANKS = 4
+# the lines the JAX package's dry run prints at 4 devices, each loss masked
+POD_DRYRUN_LINES = (
+    "dryrun_multichip: mesh data=1 seq=1 model=4 loss=<masked>",
+    "dryrun_multichip: mesh data=1 seq=1 model=4 (gqa kv=2 + rope) loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, megatron) loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, megatron-sp) loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, gqa kv=2 + rope, megatron) "
+    "loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, gqa kv=2 + rope, megatron-sp) "
+    "loss=<masked>",
+    "dryrun_multichip: mesh expert=4 (top-2 moe grad) ok",
+    "dryrun_multichip: mesh model=4 (overlapped tp-mlp grad) ok",
+    "dryrun_multichip: mesh data=4 (sharded serving, 16 tokens) ok",
+    "dryrun_multichip: mesh data=4 (sharded PAGED serving + spec + lora, 16 tokens, bit-equal "
+    "single-device) ok",
+    "dryrun_multichip: mesh data=4 (MoE top-2 serving, 16 tokens, bit-equal single-device) ok",
+    "dryrun_multichip: mesh slice=2 (multislice DP serving over ('slice','data'), 16 tokens, "
+    "bit-equal single-slice) ok",
+)
+# the dry run's kernel counters as kernels-line rows (None: the flash
+# wrapper's per-pass totals, which repeat its per-kernel counts)
+POD_KERNEL_ROWS = {
+    "flash_attention:flash_fwd": None, "flash_attention:flash_bwd_dq": None,
+    "flash_attention:flash_bwd_dkv": None,
+    "flash_attention:flash_fwd_wgmma": "flash_fwd", "flash_attention:flash_fwd_fma": "flash_fwd_f32",
+    "flash_attention:flash_bwd_dq_wgmma": "flash_bwd_dq",
+    "flash_attention:flash_bwd_dq_fma": "flash_bwd_dq_f32",
+    "flash_attention:flash_bwd_dkv_wgmma": "flash_bwd_dkv",
+    "flash_attention:flash_bwd_dkv_fma": "flash_bwd_dkv_f32",
+    "paged_attention:append": "paged_attention", "paged_attention:window": "paged_attention_window",
+}
+
+
+def _pod_command(args, env_extra: dict, timeout: float = 600):
+    """``python -m <args>`` from the repository root in an environment
+    without the claim variables of this process, plus ``env_extra``:
+    (exit code, stdout, stderr, seconds)."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "MEGASCALE_", "JAX_COORDINATOR")) and k != "LOCAL_RANK"}
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (str(root), env.get("PYTHONPATH", "")) if x)
+    env.update(env_extra)
+    if DEV == "cpu":  # a rehearsal on the CPU
+        args = [*args, "--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def _demo_streams_held(torch, label, params, streams, cache_dtype, tol):
+    """Every token of the demo's streams teacher-forced against the plain
+    dense path (the bank's adapter adds zeros: its B starts at 0)."""
+    import types
+
+    from k8s_dra_driver_torch import consumer
+    from k8s_dra_driver_torch.models import burnin
+
+    cfg = burnin.ModelConfig(**consumer.DEMO_CFG)
+    reqs = {rid: dict(prompt=list(p), max_tokens=m) for rid, (p, m, _) in
+            enumerate(consumer.DEMO_REQUESTS)}
+    comps = [types.SimpleNamespace(request_id=rid, generated=gen, tokens=reqs[rid]["prompt"] + gen)
+             for rid, gen in sorted(streams.items())]
+    _teacher_forced_all(torch, label, cfg, params, None, comps, cache_dtype, tol, by_id=reqs,
+                        why=f"{cfg.dtype} weights and activations rounded at other places by "
+                            f"the paged kernel and the engine's batched products than by the "
+                            f"batch-1 dense path; the pool and the dense cache {cache_dtype}")
+
+
+def pod_demo_rank(dev: str) -> dict:
+    """Leg (d) on one of two ranks sharing the card: ``consumer.serve_demo``
+    over ``MeshShape(data=2)``, the append count zeroed just before."""
+    from k8s_dra_driver_torch import consumer
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+    from k8s_dra_driver_torch.parallel import mesh as pm
+
+    torch = _leg_setup(dev)
+    mesh = pm.build_mesh([0, 1], pm.MeshShape(data=2), dev)
+    sync(torch)
+    pa.add_launch_counts({k: -n for k, n in pa.launch_counts().items()})
+    t0 = time.perf_counter()
+    summary, streams = consumer.serve_demo(dev, mesh=mesh)
+    sync(torch)
+    return dict(summary=summary, streams=streams, seconds=time.perf_counter() - t0,
+                append=pa.launches["append"])
+
+
+def _tiny_layer0_heads(torch, n_model: int):
+    """The dry run's first leg, layer 0, on rank 0 of ``(model n)``: its
+    attention inputs q, k, v ``[B·H_rank, S, 16]``, recomputed here (the
+    whole model drawn from seed 0 as every rank draws it, tokens from seed
+    1, rank 0's heads of ``TINY``'s 8, through the whole projection where
+    the rank multiplies by its columns)."""
+    from k8s_dra_driver_torch.models import burnin
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    cfg = burnin.TINY
+    params = burnin.init_params(torch.Generator(device=DEV).manual_seed(0), cfg)
+    tokens = burnin.sample_tokens(torch.Generator(device=DEV).manual_seed(1), cfg, 4, 64)
+    with torch.no_grad():
+        x = params["embed"][tokens] + params["pos_embed"][:64]
+        q, k, v = burnin.qkv_proj(x, params["blocks"][0], cfg)
+    heads = slice(0, cfg.n_heads // n_model)
+    return tuple(fa.to_bh(t[:, :, heads].contiguous()) for t in (q, k, v))
+
+
+def _flash_at_d16(torch, label) -> dict:
+    """The flash forward, dQ and dK/dV at D 16 in bf16 on the dry run's
+    first leg's layer-0 inputs: as that leg calls them (causal, the whole
+    sequence a rank), and in the ring's mode on its two halves (the
+    forward's f32 partials, the backward with the merge's global lse),
+    each elementwise against its plain version (``FLASH_STEP``).  Returns
+    the worst error by kernels-line row."""
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    q, k, v = _tiny_layer0_heads(torch, POD_DRYRUN_RANKS)
+    bh, s, d = q.shape
+    dout = torch.randn(q.shape, generator=torch.Generator(device=DEV).manual_seed(SEED + 23),
+                       device=DEV).to(q.dtype)
+    step = FLASH_STEP[str(q.dtype).split(".")[-1]][0]
+    out, lse = fa._forward_bhsd(q, k, v, True)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, True)
+    grads = fa._backward_bhsd(q, k, v, out_p, lse_p, dout, True)
+    want = (out_p, lse_p, *fa.flash_backward_plain(q, k, v, out_p, lse_p, dout, True))
+    sync(torch)
+    rows = flash_check((out, lse, *grads), want, flash_limits(q, k, v, dout, True, want, step))
+    _check_rows(f"{label} flash as the leg calls it, bf16 BH={bh} S={s} D={d} causal=True", rows)
+    worst = {"flash_fwd": rows["out"][0], "flash_bwd_dq": rows["dq"][0],
+             "flash_bwd_dkv": max(rows["dk"][0], rows["dv"][0])}
+    half = s // 2
+    ring = flash_ring_mode(torch, bh, half, d, operands=(
+        q[:, half:].contiguous(), k[:, half:].contiguous(), v[:, half:].contiguous(),
+        k[:, :half].contiguous(), v[:, :half].contiguous(), dout[:, half:].contiguous()))
+    return {n: max(worst[n], ring[n]) for n in worst}
+
+
+def phase_pod_entry_points(torch, card, tol=0.25):
+    """The pod's own entry points ("pod entry points"), each leg timed: (a)
+    ``python -m k8s_dra_driver_torch.consumer --check --serve-demo`` with
+    ``TPU_VISIBLE_DEVICES=0``; (b) ``--check`` on a claim of cards 0,1 on
+    this one card: exit 1, "DEVICE MISMATCH", before any process group;
+    (c) ``consumer.serve_demo`` in this process, every token teacher-forced,
+    the append kernel at nq 1 and nq 3 held against its plain version on
+    each layer's first window; (d) the demo on 2 gloo ranks sharing the
+    card over ``MeshShape(data=2)``, every token teacher-forced, the streams
+    equal to (c)'s counted; (e) ``python -m k8s_dra_driver_torch.e2e.dryrun
+    4``, 4 gloo ranks on the card, every line of the reference's set, its
+    flash launches the schedule's, the three flash kernels at D 16 on its
+    first leg's inputs.  Returns the launches by kernels-line row."""
+    from k8s_dra_driver_torch import consumer
+    from k8s_dra_driver_torch.models import burnin, lora
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+    from k8s_dra_driver_torch.parallel.ranks import RankPool
+
+    label = "pod entry points"
+    total: dict = {}
+    want_demo = dict(completed=4, generated_tokens=36, sharded_over=0)
+
+    def demo_gates(sub, summary, shards):
+        log(f"{sub}: summary {json.dumps(summary, sort_keys=True)}")
+        bad = {k: summary.get(k) for k, v in dict(want_demo, sharded_over=shards).items()
+               if summary.get(k) != v}
+        if bad or not summary["prefix_block_hits"] > 0 or not summary["pool_free_blocks"] > 0:
+            raise AssertionError(f"{sub}: the demo's summary is off: {summary}")
+
+    sub = f"{label} (a) consumer --check --serve-demo, TPU_VISIBLE_DEVICES=0"
+    rc, out, err, secs = _pod_command(["k8s_dra_driver_torch.consumer", "--check",
+                                       "--serve-demo"], {"TPU_VISIBLE_DEVICES": "0"})
+    log(f"{sub}: exit {rc} in {secs:.1f} s; stdout:\n" + out.rstrip())
+    if rc != 0:
+        raise AssertionError(f"{sub}: exit {rc}; stderr tail:\n{err[-3000:]}")
+    demo_gates(sub, json.loads(out.strip().splitlines()[-1])["serve_demo"], 0)
+
+    sub = f"{label} (b) consumer --check --serve-demo, TPU_VISIBLE_DEVICES=0,1 on one card"
+    rc, out, err, secs = _pod_command(["k8s_dra_driver_torch.consumer", "--check",
+                                       "--serve-demo"], {"TPU_VISIBLE_DEVICES": "0,1"}, 120)
+    log(f"{sub}: exit {rc} in {secs:.1f} s; stderr: {err.strip()}")
+    if rc != 1 or "DEVICE MISMATCH" not in err or "Traceback" in err or "serve_demo" in out:
+        raise AssertionError(f"{sub}: want exit 1 with DEVICE MISMATCH before any group; got "
+                             f"{rc}, stdout {out!r}, stderr {err[-2000:]!r}")
+
+    sub = f"{label} (c) serve_demo on the card"
+    cfg = burnin.ModelConfig(**consumer.DEMO_CFG)
+    params = burnin.init_params(torch.Generator(device=DEV).manual_seed(0), cfg)
+    lcfg = lora.LoraConfig(rank=4)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    bank = lora.stack_adapters(cfg, lcfg, [lora.init_adapters(gen, cfg, lcfg)])
+    if any(blk[t]["b"].abs().max().item() for blk in bank["blocks"] for t in blk):
+        raise AssertionError(f"{sub}: the demo's adapter has a nonzero B")
+    recs = {}
+    restores = []
+    for nq in (1, 1 + consumer.DEMO_ENGINE["spec_gamma"]):
+        recs[nq], restore = _record_append_windows(torch, pa, nq)
+        restores.append(restore)
+    pa.add_launch_counts({k: -n for k, n in pa.launch_counts().items()})
+    t0 = time.perf_counter()
+    try:
+        summary, single = consumer.serve_demo(DEV, params=params, bank=bank)
+        sync(torch)
+    finally:
+        for restore in reversed(restores):
+            restore()
+    appends = pa.launches["append"]
+    log(f"{sub}: {time.perf_counter() - t0:.1f} s, append launches {appends}")
+    demo_gates(sub, summary, 0)
+    pool_dtype = next(iter(recs[1].values()))[3].dtype
+    _demo_streams_held(torch, sub, params, single, pool_dtype, tol)
+    for nq, rec in recs.items():
+        _hold_append_windows(torch, f"{sub} nq {nq}", pa, rec, cfg, pool_dtype)
+    if not appends:
+        raise AssertionError(f"{sub}: the append kernel was never launched")
+    total["paged_attention"] = appends
+
+    sub = f"{label} (d) serve_demo on 2 gloo ranks sharing the card, MeshShape(data=2)"
+    t0 = time.perf_counter()
+    with RankPool(2, backend="gloo", device_type=DEV, timeout_s=600) as pool:
+        results = pool.run(pod_demo_rank, DEV)
+    log(f"{sub}: {time.perf_counter() - t0:.1f} s (the 2 ranks started in it); the demo "
+        f"{' / '.join(f'{r['seconds']:.1f}' for r in results)} s by rank; append launches "
+        f"{' '.join(str(r['append']) for r in results)} by rank")
+    head = results[0]
+    if results[1]["streams"] != head["streams"] or results[1]["summary"] != head["summary"]:
+        raise AssertionError(f"{sub}: the two ranks' streams or summaries differ")
+    demo_gates(sub, head["summary"], 2)
+    _demo_streams_held(torch, sub, params, head["streams"], pool_dtype, tol)
+    equal = sum(head["streams"][rid] == single[rid] for rid in single)
+    log(f"{sub}: {equal}/{len(single)} streams equal to (c)'s single-card streams (a rank's "
+        f"products run at M 1, the single card's at M 2: near ties may flip)")
+    if not all(r["append"] for r in results):
+        raise AssertionError(f"{sub}: a rank never launched the append kernel")
+    total["paged_attention"] += sum(r["append"] for r in results)
+
+    sub = f"{label} (e) e2e.dryrun {POD_DRYRUN_RANKS}, gloo ranks sharing the card"
+    rc, out, err, secs = _pod_command(["k8s_dra_driver_torch.e2e.dryrun",
+                                       str(POD_DRYRUN_RANKS)], {}, 900)
+    log(f"{sub}: exit {rc} in {secs:.1f} s; stdout:\n" + out.rstrip())
+    if rc != 0:
+        raise AssertionError(f"{sub}: exit {rc}; stderr tail:\n{err[-4000:]}")
+    lines = [line for line in out.splitlines() if line.startswith("dryrun_multichip:")]
+    masked = [line.split(" loss=")[0] + " loss=<masked>" if " loss=" in line else line
+              for line in lines]
+    losses = [float(line.split(" loss=")[1]) for line in lines if " loss=" in line]
+    if tuple(masked) != POD_DRYRUN_LINES or not np.isfinite(losses).all():
+        raise AssertionError(f"{sub}: the lines are not the reference's set at "
+                             f"{POD_DRYRUN_RANKS}: {masked}")
+    report = json.loads(err.split("dryrun launches summed over ranks:")[1].splitlines()[0])
+    counts: dict = {}
+    for leg, by_kernel in report.items():
+        log(f"{sub}: leg {leg!r}: kernel launches summed over ranks {by_kernel}")
+        for key, n in by_kernel.items():
+            row = POD_KERNEL_ROWS[key]
+            if row is not None:
+                counts[row] = counts.get(row, 0) + n
+    fwd_n, bwd_n = _mesh_flash_expected((0, {"model": POD_DRYRUN_RANKS}), {},
+                                        burnin.TINY.n_layers, 1)
+    flash = {n: counts.get(n, 0) for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"{sub}: flash launches summed over ranks {flash} (the first leg's schedule: forward "
+        f"{fwd_n}, dQ and dK/dV {bwd_n} each); append {counts.get('paged_attention', 0)}")
+    if flash != {"flash_fwd": fwd_n, "flash_bwd_dq": bwd_n, "flash_bwd_dkv": bwd_n}:
+        raise AssertionError(f"{sub}: flash launches {flash} are not the schedule's")
+    if not counts.get("paged_attention"):
+        raise AssertionError(f"{sub}: the paged legs never launched the append kernel")
+    worst = _flash_at_d16(torch, sub)
+    log(f"{sub}: flash kernels at D 16 on the first leg's inputs, worst max_abs_err {worst}")
+    for row, n in counts.items():
+        total[row] = total.get(row, 0) + n
+    return total
+
+
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     time over the window and the kernels that take it (and, with
@@ -5875,6 +6330,11 @@ def main() -> int:
 
     run("train mesh", train_mesh)
 
+    def pod_entry_points():
+        launches["pod"] = phase_pod_entry_points(torch, card)
+
+    run("pod entry points", pod_entry_points)
+
     if failed:
         log(f"chip_smoke: failed phases {failed}")
         return 1
@@ -5888,7 +6348,9 @@ def main() -> int:
     # pools take no kernel; the handoff phase's decode engines after an
     # inject run the append kernel too, and so do the sharded paged
     # engine's ranks (summed over ranks); the mesh legs' flash launches,
-    # summed over ranks, join the bf16 and f32 flash rows
+    # summed over ranks, join the bf16 and f32 flash rows; so do the pod
+    # entry points' (the demo's appends in this process and on its two
+    # ranks, the dry run's flash and appends summed over its ranks)
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
@@ -5910,7 +6372,7 @@ def main() -> int:
     for name, meta in KERNELS.items():
         nums = kernel_numbers[name]
         kernels.append({
-            "name": name, **meta, "launches": main_counts[name],
+            "name": name, **meta, "launches": main_counts[name] + launches["pod"].get(name, 0),
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
             "library_ms": nums["library_ms"],

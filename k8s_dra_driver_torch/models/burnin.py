@@ -211,8 +211,9 @@ def param_pspecs(cfg: ModelConfig) -> dict:
     ``qkv``, ``mlp_up`` and ``expert_up`` column-parallel, ``attn_out``,
     ``mlp_down`` and ``expert_down`` row-parallel (a psum after), the
     embedding vocab-sharded, norms and the MoE router replicated.  A column
-    shard of ``qkv`` holds whole KV groups (``weights.shard_params``
-    reorders its columns group-major first)."""
+    shard of ``qkv`` holds whole KV groups where the groups divide over
+    ``model`` (``weights.shard_params`` reorders its columns group-major
+    first)."""
     from k8s_dra_driver_torch.parallel.mesh import P
 
     block = {"ln1": P(), "qkv": P(None, "model"), "attn_out": P("model", None), "ln2": P()}

@@ -17,7 +17,9 @@ written out:
   ring or Ulysses (``ops/ring_attention``), and takes the targets of its
   positions from the whole sequence, so no target is lost at a shard edge;
 * **tensors** over ``model`` (Megatron): ``qkv`` group-major by KV group
-  (``weights.shard_params``), ``mlp_up``/``expert_up`` column-parallel
+  (``weights.shard_params``; with fewer KV groups than model ranks the
+  projection is all-gathered and each rank attends with its own query
+  heads), ``mlp_up``/``expert_up`` column-parallel
   behind ``collectives.pvary``, ``attn_out``/``mlp_down``/``expert_down``
   row-parallel with a ``psum`` after, the router replicated; the
   vocab-sharded embedding is all-gathered once per forward for the lookup
@@ -108,6 +110,7 @@ class MeshPlan:
     seq_index: int
     n_batch: int
     batch_index: int
+    model_index: int
 
 
 def mesh_plan(cfg, mesh, sequence_parallel: str = "auto", attention: str = "dense") -> MeshPlan:
@@ -152,16 +155,17 @@ def mesh_plan(cfg, mesh, sequence_parallel: str = "auto", attention: str = "dens
     if attn_fn is None:
         attn_fn = (functools.partial(_gathered_attention, group=seq_group) if n_seq > 1
                    else functools.partial(reference_attention, causal=True))
-    if cfg.kv_heads % tp:
+    if cfg.n_heads % tp:
         raise ValueError(
-            f"tensor parallelism needs kv_heads ({cfg.kv_heads}) divisible by the model "
-            f"axis ({tp}): a shard holds whole KV groups"
+            f"tensor parallelism needs n_heads ({cfg.n_heads}) divisible by the model "
+            f"axis ({tp}): a shard holds whole query heads"
         )
     seq_index, _ = axis_index(mesh, "seq")
     batch_index, n_batch = axis_index(mesh, batch_axes)
+    model_index, _ = axis_index(mesh, "model")
     reduce_groups = [mesh.get_group(a) for a in ("seq", *batch_axes) if shape[a] > 1]
     return MeshPlan(attn_fn, mesh.get_group("model") if tp > 1 else None, reduce_groups, tp,
-                    n_seq, seq_index, n_batch, batch_index)
+                    n_seq, seq_index, n_batch, batch_index, model_index)
 
 
 def _mesh_block(x, p, cfg, plan: MeshPlan, positions):
@@ -169,15 +173,27 @@ def _mesh_block(x, p, cfg, plan: MeshPlan, positions):
     columns those of its ``model`` shard."""
     b, s, _ = x.shape
     g, hd = cfg.kv_groups, cfg.head_dim
-    hkv = cfg.kv_heads // plan.tp
     y = _rms_norm(x, p["ln1"])
-    # group-major columns: per local KV group its G query heads, k, v
-    qkv = _mm(collectives.pvary(y, plan.model_group), p["qkv"]).reshape(b, s, hkv, (g + 2) * hd)
+    qkv = _mm(collectives.pvary(y, plan.model_group), p["qkv"])
+    if cfg.kv_heads % plan.tp:
+        # fewer KV groups than model ranks: a column shard cuts a group, so
+        # the projection is gathered whole (its gradient reduce-scattered
+        # back) and this rank attends with its query heads and their groups'
+        # K/V, as GSPMD partitions the reference's packed columns
+        qkv = collectives.all_gather(qkv, plan.model_group, -1)
+    hkv = qkv.shape[-1] // ((g + 2) * hd)
+    # group-major columns: per KV group its G query heads, k, v
+    qkv = qkv.reshape(b, s, hkv, (g + 2) * hd)
     q = qkv[..., : g * hd].reshape(b, s, hkv * g, hd)
     k, v = qkv[..., g * hd: (g + 1) * hd], qkv[..., (g + 1) * hd:]
     if cfg.rope:
         q, k = rope_rotate(q, positions, cfg), rope_rotate(k, positions, cfg)
-    attn = plan.attn_fn(q, repeat_kv(k, cfg), repeat_kv(v, cfg)).reshape(b, s, -1)
+    k, v = repeat_kv(k, cfg), repeat_kv(v, cfg)
+    if hkv * g != cfg.n_heads // plan.tp:
+        heads = slice(plan.model_index * cfg.n_heads // plan.tp,
+                      (plan.model_index + 1) * cfg.n_heads // plan.tp)
+        q, k, v = q[:, :, heads], k[:, :, heads], v[:, :, heads]
+    attn = plan.attn_fn(q, k, v).reshape(b, s, -1)
     x = x + collectives.psum(_mm(attn, p["attn_out"]), plan.model_group)
     return mlp_residual(x, p, top_k=cfg.moe_top_k, group=plan.model_group)
 

@@ -365,7 +365,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     root = Path(__file__).resolve().parents[1]
     pattern = re.compile(r"^\s*(import|from)\s+(jax|k8s_dra_driver_tpu)\b", re.M)
     files = [*sorted((root / "k8s_dra_driver_torch").rglob("*.py")), root / "chip_smoke.py",
-             root / "tests" / "torch_mesh_ranks.py"]
+             root / "tests" / "torch_mesh_ranks.py", root / "tests" / "torch_pod_ranks.py"]
     offenders = [str(f.relative_to(root)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 

@@ -119,6 +119,11 @@ CASES = {
                                     dict(attention="flash", remat="dots")),
     "moe-data2-model2": (MOE, (0, {"data": 2, "model": 2}), dict()),
     "moe-flash-seq2-model2": (MOE, (0, {"seq": 2, "model": 2}), dict(attention="flash")),
+    # fewer KV groups than model ranks (the dry run's GQA leg at model 4):
+    # the projection gathered whole, each rank its query heads' groups
+    "kv-split-model4": (CFG, (0, {"model": 4}), dict()),
+    "kv-split-flash-data2-model2": (dict(CFG, n_kv_heads=1), (0, {"data": 2, "model": 2}),
+                                    dict(attention="flash")),
 }
 
 
@@ -197,11 +202,13 @@ def test_ulysses_refuses_indivisible_heads_at_the_first_step(pool):
 
 
 def test_port_refusals(pool):
-    """Port-only: a model shard must hold whole KV groups (GSPMD splits the
-    reference's packed columns freely), and a batch must split over the
-    batch axes."""
-    msgs = pool.run(R.train_refusal, dict(CFG, n_kv_heads=1), (0, {"data": 2, "model": 2}))
-    assert all("whole KV groups" in m for m in msgs)
+    """Port-only: a model shard must hold whole query heads (GSPMD splits
+    the reference's packed columns freely; fewer KV groups than model ranks
+    train, ``kv-split-*`` above), and a batch must split over the batch
+    axes."""
+    msgs = pool.run(R.train_refusal, dict(CFG, d_model=36, n_heads=6, n_kv_heads=None),
+                    (0, {"model": 4}))
+    assert all("whole query heads" in m for m in msgs)
     params, tokens, *_ = _reference(CFG)
     with pytest.raises(RuntimeError, match="do not split"):
         pool.run(R.train_case, CFG, (0, {"data": 2, "seq": 2}), params, tokens[:3], 1)

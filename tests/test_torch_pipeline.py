@@ -10,8 +10,8 @@ side runs on the conftest's virtual CPU devices.
   and the input, within 1e-5 of each one's largest element.
 * ``build_pp_train_step`` with the GQA + RoPE config of
   ``tests/test_torch_mesh_train.py`` at 4 layers and an MHA config with
-  learned positions, on ``(pipe 2, model 2)`` in both ``tp_mode``\\ s,
-  ``(pipe 2, data 2)`` and ``(pipe 4)``, held to the JAX single-device
+  learned positions, on ``(pipe 2, model 2)`` and ``(pipe 2, data 2)`` in
+  both ``tp_mode``\\ s and ``(pipe 4)``, held to the JAX single-device
   ``build_train_step`` from the same weights and tokens by that file's
   bounds: losses over 3 steps within 1e-5 relative, step-1 gradients
   within 1e-5 of each leaf's largest (Adam's first step cannot see a
@@ -45,6 +45,8 @@ MESHES = {
     "megatron-pipe2-model2": ((0, {"pipe": 2, "model": 2}), dict(tp_mode="megatron")),
     "sp-pipe2-model2": ((0, {"pipe": 2, "model": 2}), dict(tp_mode="megatron-sp")),
     "pipe2-data2": ((0, {"pipe": 2, "data": 2}), dict()),
+    # the dry run's pipeline legs at 4 ranks: megatron-sp over a model axis of 1
+    "sp-pipe2-data2": ((0, {"pipe": 2, "data": 2}), dict(tp_mode="megatron-sp")),
     "pipe4": ((0, {"pipe": 4}), dict()),
 }
 
