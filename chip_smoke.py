@@ -309,13 +309,29 @@ exits 2 before any result):
     the reference's lines at 4 (losses masked, finite), the flash launches
     summed over ranks the first leg's schedule, and the flash forward, dQ
     and dK/dV at D 16 in bf16 on that leg's layer-0 inputs, as it calls
-    them and in the ring's mode, elementwise against their plain versions.
+    them and in the ring's mode, elementwise against their plain versions;
+25. (run right after phase 15) serving across worker processes ("serve
+    workers"): this script listens on 127.0.0.1 and spawns two ``python -m
+    k8s_dra_driver_torch.models.transport`` workers on the card, a prefill
+    and a decode one, each one paged engine of phase 15's leg (a)
+    (FLAGSHIP_MODERN in bf16, 8 slots, block 16, bucket 256, seed 0), and
+    sends them (a)'s 8 requests through the port's own framing, each
+    HANDOFF on to the decode worker as a KV frame: every request completes
+    once, every ACK ok, every token teacher-forced within 0.25, the
+    streams (a)'s bit for bit, the decode worker's append launches (from
+    its launch line) above 0; the same in f32 at 2 layers against an
+    in-process run of (a)'s path; each worker's start-up, the KV frame's
+    bytes, HANDOFF-to-ACK host-clock medians beside the in-process
+    capture, wire and inject medians, and tokens/s;
+26. (run last) the self-test ("selftest"): ``tpuinfo.selftest.run_selftest()``
+    in its subprocess on the card, ``ok`` with platform "gpu", one device a
+    card and its latency.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
-after a handoff, the sharded engine's ranks, training, LoRA, MoE and mesh
-training, the serving demo and the dry run) and their times; the last line
-is the JSON device record.
+after a handoff, in this process and in the decode workers, the sharded
+engine's ranks, training, LoRA, MoE and mesh training, the serving demo
+and the dry run) and their times; the last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -5426,7 +5442,8 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
     medians of 5 for a 256-token request: capture, ``to_wire``,
     ``from_wire`` and inject, against the same request's re-prefill
     (``"kv"`` absent), and the payload's size in bf16 and int8.  Returns
-    the append kernel's launches on the main paths of (a) and (c)."""
+    the append kernel's launches on the main paths of (a) and (c), (a)'s
+    streams by request id and (f)'s bf16 medians by part."""
     from k8s_dra_driver_torch.models import serve
     from k8s_dra_driver_torch.ops import paged_attention as pa
 
@@ -5513,7 +5530,7 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
             log(f"{tag}: streams equal to the unsplit graphed engine's, token for token: {same} "
                 f"of {len(comps)} (reported; expected {len(comps)}: the same bytes, the same "
                 f"programs)")
-        return entries, appended
+        return entries, appended, {c.request_id: c.generated for c in comps}
 
     def unsplit(**kw):
         eng = _handoff_engine(cfg, params, cache_dtype, **kw)
@@ -5521,7 +5538,7 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
 
     def paged_leg():
         out["unsplit"] = unsplit()
-        out["entries"], out["a"] = inject_leg(
+        out["entries"], out["a"], out["streams"] = inject_leg(
             f"{label} (a) paged", _handoff_engine(cfg, params, cache_dtype),
             lambda: _handoff_engine(cfg, params, cache_dtype), True, out["unsplit"])
 
@@ -5532,7 +5549,7 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
 
     def dense_leg():
         tag = f"{label} (c) dense -> paged"
-        entries, out["c"] = inject_leg(tag, _dense_engine(cfg, params, cache_dtype),
+        entries, out["c"], _ = inject_leg(tag, _dense_engine(cfg, params, cache_dtype),
                                        lambda: _handoff_engine(cfg, params, cache_dtype), True,
                                        out["unsplit"])
         # where the streams part from (a)'s: each engine's first-token step
@@ -5632,6 +5649,7 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
             if _fallback_counts() != before or dec.completions():
                 raise AssertionError(f"{tag}: fallbacks {_fallback_counts()} or completions")
             med = {name: float(np.median(t)) for name, t in parts.items()}
+            out.setdefault("timing", {})[kv_dtype or "bfloat16"] = med
             scales = 0 if kv.k_scale is None else kv.k_scale.nbytes + kv.v_scale.nbytes
             log(f"{tag}: payload of a 256-token prompt {(kv.nbytes - scales) / 2**20:.3f} MiB"
                 f"{f' + {scales / 2**10:.1f} KiB of scales' if scales else ''}, frame "
@@ -5649,7 +5667,321 @@ def phase_serve_handoff(torch, cfg, params, *, cache_dtype, card, tol=0.25):
     leg("(d) bf16 -> int8", incompatible_leg)
     leg("(e) prefix tier", tier_leg)
     leg("(f) timing", timing_leg)
-    return {"paged_attention": out["a"] + out["c"]}
+    return {"paged_attention": out["a"] + out["c"], "streams": out["streams"],
+            "timing": out["timing"]["bfloat16"]}
+
+
+# "serve workers": leg (a) of "serve bf16 handoff" across two worker
+# processes (``python -m k8s_dra_driver_torch.models.transport``), this
+# script the supervisor; each worker's engine is (a)'s
+WORKER_ENGINE = dict(HANDOFF, kind="paged", n_blocks=HANDOFF_POOL)
+WORKER_F32_LAYERS = 2
+WORKER_TIMEOUT_S = 300  # a worker's start, or a stream's completion, beyond this fails
+
+
+def _worker_doc(cfg, cache_dtype, seed: int, port: int, name: str, role: str,
+                hold: bool) -> dict:
+    """The reference's worker document for one paged engine of ``cfg``."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = str(cfg.dtype).split(".")[-1]
+    engine = dict(WORKER_ENGINE, cache_dtype=str(cache_dtype).split(".")[-1])
+    return {"cfg": fields, "engines": [engine], "seed": seed, "host": "127.0.0.1",
+            "port": port, "name": name, "role": role, "hold_ticks": hold}
+
+
+class _WorkerPeer:
+    """One spawned worker as the supervisor sees it: its process, its
+    connection once its HELLO named it, and when each thing arrived."""
+
+    def __init__(self, name: str, proc, err_path, t0: float):
+        self.name, self.proc, self.err_path, self.t0 = name, proc, err_path, t0
+        self.conn = None  # a SocketConn once the worker's HELLO arrived
+        self.buf = None   # its FrameBuffer, which may already hold frames
+        self.ready_s = None
+
+    def launches(self) -> dict:
+        err = self.err_path.read_text()
+        line = [x for x in err.splitlines() if x.startswith("worker kernel launches: ")]
+        if not line:
+            raise AssertionError(f"worker {self.name}: no launch line; stderr tail:\n{err[-3000:]}")
+        return json.loads(line[-1].split(": ", 1)[1])
+
+
+def _serve_two_workers(torch, tag, cfg, cache_dtype, seed: int, reqs, tmp) -> dict:
+    """Spawn a prefill worker and a decode worker (its ticks held), submit
+    ``reqs`` to the prefill one, forward each HANDOFF as a KV frame to the
+    decode one, resume it once every ACK is in, and gather the completions;
+    then hang up and read each worker's launch line.  Returns the streams,
+    the per-request clocks and the start-up times."""
+    import os
+    import socket
+    from pathlib import Path
+
+    from k8s_dra_driver_torch.models import transport as T
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "DRA_FAULTS"}
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (str(root), env.get("PYTHONPATH", "")) if x)
+    listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(4)
+    port = listener.getsockname()[1]
+    peers = {}
+    try:
+        for name, role in (("prefill", "prefill"), ("decode", "decode")):
+            path = Path(tmp) / f"{tag.replace(' ', '_')}_{name}.json"
+            path.write_text(json.dumps(_worker_doc(cfg, cache_dtype, seed, port, name, role,
+                                                   hold=role == "decode")))
+            err_path = path.with_suffix(".stderr")
+            args = [sys.executable, "-m", "k8s_dra_driver_torch.models.transport", str(path)]
+            if DEV == "cpu":  # a rehearsal on the CPU
+                args += ["--device", "cpu"]
+            with open(err_path, "w") as err:
+                proc = subprocess.Popen(args, cwd=root, env=env, stdout=subprocess.PIPE,
+                                        stderr=err, text=True)
+            peers[name] = _WorkerPeer(name, proc, err_path, time.perf_counter())
+        listener.settimeout(WORKER_TIMEOUT_S)
+        while any(p.conn is None for p in peers.values()):
+            sock, _ = listener.accept()
+            buf = T.FrameBuffer()
+            sock.settimeout(30)
+            hello = None
+            while hello is None:
+                buf.feed(sock.recv(1 << 16))
+                hello = next((json.loads(b) for f, b in buf.frames() if f == T.HELLO), None)
+            peer = peers[hello["name"]]
+            line = json.loads(peer.proc.stdout.readline())
+            if line != {"ready": True, "pid": peer.proc.pid} or hello["pid"] != peer.proc.pid:
+                raise AssertionError(f"{tag}: worker {peer.name}: ready line {line}, hello {hello}")
+            peer.ready_s = time.perf_counter() - peer.t0
+            peer.conn = T.SocketConn(sock, peer=peer.name)
+            peer.buf = buf
+        pre, dec = peers["prefill"], peers["decode"]
+        handoff_at, ack_at, frame_bytes, comps, other = {}, {}, {}, {}, {}
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+
+        def frames_of(peer):
+            """The frames that have arrived from ``peer`` (none: a short nap)."""
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: {len(handoff_at)} handoffs, {len(ack_at)} acks, "
+                                     f"{len(comps)} completions in {WORKER_TIMEOUT_S} s")
+            if peer.proc.poll() is not None:
+                raise AssertionError(f"{tag}: worker {peer.name} exited {peer.proc.returncode}; "
+                                     f"stderr tail:\n{peer.err_path.read_text()[-3000:]}")
+            data = peer.conn.recv_available()
+            if not data:
+                time.sleep(0.0002)
+                return []
+            peer.buf.feed(data)
+            return list(peer.buf.frames())
+
+        def from_decode(ftype, body):
+            if ftype == T.ACK:
+                doc = json.loads(body)
+                if doc.get("outcome") != "ok" or not doc.get("placed"):
+                    raise AssertionError(f"{tag}: ACK {doc}")
+                if doc["rid"] in ack_at:
+                    raise AssertionError(f"{tag}: a second ACK for {doc['rid']}")
+                ack_at[doc["rid"]] = time.perf_counter()
+            elif ftype == T.COMPLETION:
+                doc = json.loads(body)
+                if doc["request_id"] in comps:
+                    raise AssertionError(f"{tag}: request {doc['request_id']} completed twice")
+                comps[doc["request_id"]] = (doc, time.perf_counter())
+            else:
+                other[ftype] = other.get(ftype, 0) + 1
+
+        t_submit = time.perf_counter()
+        for seq, r in enumerate(reqs):
+            pre.conn.send(T.encode_frame(T.SUBMIT, json.dumps(
+                {"seq": seq, "prompt": r["prompt"], "max_tokens": r["max_tokens"],
+                 "kwargs": {}}).encode()))
+        # each HANDOFF, as it is taken, goes on as a KV frame and its ACK is
+        # awaited before the next: HANDOFF taken to ACK received is one
+        # request's round trip, no other request's queued behind it
+        while len(ack_at) < len(reqs):
+            for ftype, body in frames_of(pre):
+                if ftype == T.SUBMITTED:
+                    doc = json.loads(body)
+                    if not doc["ok"] or doc["rid"] != doc["seq"]:
+                        raise AssertionError(f"{tag}: submit answered {doc}")
+                elif ftype == T.HANDOFF:
+                    taken = time.perf_counter()
+                    meta, wire = T.decode_meta_frame(body)
+                    rid = int(meta["request_id"])
+                    if rid in handoff_at or not wire:
+                        raise AssertionError(f"{tag}: handoff of {rid} repeated or KV-less")
+                    handoff_at[rid] = taken
+                    meta["_correlation"] = f"handoff-req-{rid}"
+                    frame = T.encode_meta_frame(T.KV, meta, wire)
+                    frame_bytes[rid] = len(frame)
+                    dec.conn.send(frame, request_id=rid)
+                    while rid not in ack_at:
+                        for f, b in frames_of(dec):
+                            from_decode(f, b)
+                else:
+                    other[ftype] = other.get(ftype, 0) + 1
+        resumed = time.perf_counter()
+        dec.conn.send(T.encode_frame(T.CONTROL, json.dumps({"op": "resume"}).encode()))
+        while len(comps) < len(reqs):
+            for f, b in frames_of(dec):
+                from_decode(f, b)
+        t_done = time.perf_counter()
+    finally:
+        listener.close()
+        for peer in peers.values():
+            if peer.conn is not None:
+                peer.conn.close()
+        for peer in peers.values():
+            try:
+                peer.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                peer.proc.kill()
+                peer.proc.wait()
+    for peer in peers.values():
+        if peer.proc.returncode != 0:
+            raise AssertionError(f"{tag}: worker {peer.name} exited {peer.proc.returncode}; "
+                                 f"stderr tail:\n{peer.err_path.read_text()[-3000:]}")
+    return dict(comps=comps, handoff_at=handoff_at, ack_at=ack_at, frame_bytes=frame_bytes,
+                t_submit=t_submit, resumed=resumed, t_done=t_done, other=other,
+                ready={n: p.ready_s for n, p in peers.items()},
+                spawned={n: p.t0 for n, p in peers.items()},
+                launches={n: p.launches() for n, p in peers.items()})
+
+
+def _in_process_handoff(torch, cfg, params, cache_dtype, reqs) -> dict:
+    """Leg (a)'s path in this process, each part clocked with a sync
+    around it: every request through a prefill engine with
+    ``handoff=True`` (capture), its payload through ``to_wire`` and
+    ``from_wire``, each entry restored into the decode engine by itself
+    (inject, as a worker places a KV frame), then the decode engine
+    drained.  Returns the streams and the parts' medians (ms)."""
+    from k8s_dra_driver_torch.models import serve
+
+    pre = _handoff_engine(cfg, params, cache_dtype)
+    dec = _handoff_engine(cfg, params, cache_dtype)
+    parts = {name: [] for name in ("capture", "to_wire", "from_wire", "inject")}
+
+    def clocked(name, fn):
+        sync(torch)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch)
+        parts[name].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    capture = pre._capture_kv
+    pre._capture_kv = lambda slot, n: clocked("capture", lambda: capture(slot, n))
+    for r in reqs:
+        pre.submit(handoff=True, **r)
+    for e in pre.take_handoffs():
+        frame = clocked("to_wire", lambda: e["kv"].to_wire(e["request_id"]))
+        _, kv = clocked("from_wire", lambda: serve.KVSlice.from_wire(frame))
+        clocked("inject", lambda: dec.restore({"next_id": 0, "requests": [dict(e, kv=kv)]},
+                                              merge=True))
+    dec.run_until_drained()
+    return dict(streams={c.request_id: c.generated for c in dec.completions()},
+                med={name: float(np.median(t)) for name, t in parts.items()})
+
+
+def phase_serve_workers(torch, cfg, params, handoff, *, card, tol=0.25):
+    """Leg (a) of "serve bf16 handoff" across a process boundary ("serve
+    workers"): this script listens on 127.0.0.1 and spawns two workers on
+    the card, a ``role: "prefill"`` one and a ``role: "decode"`` one, each
+    one paged engine of (a)'s (8 slots, block 16, bucket 256, its weights
+    from seed 0 on the card, as this script's), and sends (a)'s 8 requests
+    to the prefill worker; each ``HANDOFF`` frame goes on to the decode
+    worker as a ``KV`` frame, and once every ``ACK`` is in the decode
+    worker resumes its ticks.  Gates: every request completes once, every
+    ACK ok and placed, every token teacher-forced within the 0.25 gap, the
+    streams (a)'s in this run bit for bit (``handoff["streams"]``), the
+    decode worker's append launches above 0.  Then the same in f32 at 2
+    layers (weights from seed 1, tolerance 1e-3), against an in-process
+    run of (a)'s path.  Printed: each worker's start (ready line, first
+    handoff or completion), the KV frame's bytes a request, the host-clock
+    median of 8 from HANDOFF received to ACK received beside the
+    in-process capture, wire and inject medians, and tokens/s from the
+    first SUBMIT to the last COMPLETION.  Returns the decode workers'
+    append launches."""
+    import tempfile
+    import types
+
+    from k8s_dra_driver_torch.models import burnin
+
+    label = "serve workers"
+    hreqs = _greedy_dicts(_traffic(cfg.vocab_size, 8, 256, 64, SEED + 81))
+    appends = 0
+    cfg32 = dataclasses.replace(cfg, n_layers=WORKER_F32_LAYERS, dtype=torch.float32)
+    runs = (("bf16", cfg, params, torch.bfloat16, SEED, tol),
+            ("f32", cfg32, None, torch.float32, SEED + 1, 1e-3))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cfg_, params_, cache_dtype, seed, tol_ in runs:
+            tag = f"{label} {name}"
+            t0 = time.perf_counter()
+            if params_ is None:
+                params_ = burnin.init_params(torch.Generator(device=DEV).manual_seed(seed), cfg_)
+            local = _in_process_handoff(torch, cfg_, params_, cache_dtype, hreqs)
+            run = _serve_two_workers(torch, tag, cfg_, cache_dtype, seed, hreqs, tmp)
+            comps = run["comps"]
+            streams = {rid: doc["generated"] for rid, (doc, _) in comps.items()}
+            bad = [rid for rid, (doc, _) in comps.items()
+                   if doc["status"] != "ok" or len(doc["generated"]) != hreqs[rid]["max_tokens"]]
+            if sorted(comps) != list(range(len(hreqs))) or bad:
+                raise AssertionError(f"{tag}: completions {sorted(comps)}, short or not ok {bad}")
+            want = handoff["streams"] if name == "bf16" else local["streams"]
+            same = sum(streams[rid] == want[rid] for rid in want)
+            log(f"{tag}: streams equal to {'(a)' if name == 'bf16' else 'the in-process path'}'s "
+                f"bit for bit: {same} of {len(want)}; the in-process path's against (a)'s: "
+                f"{sum(local['streams'][r] == want[r] for r in want)} of {len(want)}")
+            if same != len(want):
+                raise AssertionError(f"{tag}: the two-process streams differ from the in-process "
+                                     f"ones for {[r for r in want if streams[r] != want[r]]}")
+            sns = [types.SimpleNamespace(request_id=rid, generated=doc["generated"],
+                                         tokens=doc["tokens"]) for rid, (doc, _) in comps.items()]
+            _teacher_forced_all(torch, tag, cfg_, params_, hreqs, sns, cache_dtype, tol_)
+            launched = run["launches"]
+            log(f"{tag}: kernel launches by worker {json.dumps(launched, sort_keys=True)}")
+            n_append = launched["decode"].get("paged_attention:append", 0)
+            if not n_append and DEV == "cuda":  # a CPU rehearsal takes the plain version
+                raise AssertionError(f"{tag}: the decode worker never launched the append kernel")
+            appends += n_append
+            waits = [(run["ack_at"][r] - run["handoff_at"][r]) * 1e3 for r in sorted(comps)]
+            first_handoff = min(run["handoff_at"].values()) - run["spawned"]["prefill"]
+            first_done = min(t for _, t in comps.values()) - run["spawned"]["decode"]
+            tokens = sum(len(s) for s in streams.values())
+            wall = run["t_done"] - run["t_submit"]
+            inproc = local["med"] if name != "bf16" else handoff["timing"]
+            log(f"{tag}: start-up: prefill worker ready line {run['ready']['prefill']:.2f} s, "
+                f"first handoff {first_handoff:.2f} s; decode worker ready line "
+                f"{run['ready']['decode']:.2f} s, first completion {first_done:.2f} s (from each "
+                f"spawn); KV frame bytes a request {sorted(run['frame_bytes'].values())}; "
+                f"HANDOFF received to ACK received, host clock, median of {len(waits)} "
+                f"{float(np.median(waits)):.3f} ms ({' / '.join(f'{w:.3f}' for w in waits)}); "
+                f"in process: " + ", ".join(f"{k} {inproc[k]:.3f}" for k in
+                                            ("capture", "to_wire", "from_wire", "inject"))
+                + f" ms ({'(f) medians of a 256-token prompt' if name == 'bf16' else 'medians of these 8 requests'}); "
+                f"two-process run {tokens} tokens in {wall:.3f} s, {tokens / wall:.1f} tokens/s "
+                f"(first SUBMIT to last COMPLETION); other frames {run['other']}; "
+                f"{time.perf_counter() - t0:.1f} s in all ({card})")
+    return appends
+
+
+def phase_selftest(torch, card):
+    """``tpuinfo.selftest.run_selftest()`` (its subprocess, the card by
+    default): ``ok``, platform "gpu", one device a visible card, each with
+    a latency."""
+    from k8s_dra_driver_torch.tpuinfo import selftest
+
+    t0 = time.perf_counter()
+    report = selftest.run_selftest(timeout_s=120)
+    log(f"selftest: {json.dumps(report, sort_keys=True)} in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    ids = [d.get("id") for d in report.get("devices", [])]
+    if (report.get("ok") is not True or report.get("platform") != "gpu"
+            or ids != list(range(torch.cuda.device_count()))
+            or not all(d.get("ok") is True and d.get("latency_ms", -1) >= 0
+                       for d in report["devices"])):
+        raise AssertionError(f"selftest: the report is off: {report}")
 
 
 # "serve mesh": the serving run's traffic on 4 ranks of one card over
@@ -6300,6 +6632,12 @@ def main() -> int:
 
     run("serve bf16 handoff", serve_handoff)
 
+    def serve_workers():
+        launches["workers"] = phase_serve_workers(torch, cfg, params, launches["handoff"],
+                                                  card=card)
+
+    run("serve workers", serve_workers)
+
     def serve_mesh():
         launches["mesh"] = phase_serve_mesh(torch, cfg, params, reqs, card=card)
 
@@ -6334,6 +6672,7 @@ def main() -> int:
         launches["pod"] = phase_pod_entry_points(torch, card)
 
     run("pod entry points", pod_entry_points)
+    run("selftest", lambda: phase_selftest(torch, card))
 
     if failed:
         log(f"chip_smoke: failed phases {failed}")
@@ -6350,13 +6689,16 @@ def main() -> int:
     # engine's ranks (summed over ranks); the mesh legs' flash launches,
     # summed over ranks, join the bf16 and f32 flash rows; so do the pod
     # entry points' (the demo's appends in this process and on its two
-    # ranks, the dry run's flash and appends summed over its ranks)
+    # ranks, the dry run's flash and appends summed over its ranks); the
+    # serve workers phase adds its decode workers' appends, read from
+    # their launch lines
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
                             + launches["spec"]["paged_attention"] + tel["paged_attention"]
                             + lora_serve["paged_attention"] + moe["paged_attention"]
-                            + launches["handoff"]["paged_attention"] + launches["mesh"]),
+                            + launches["handoff"]["paged_attention"] + launches["mesh"]
+                            + launches["workers"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
                         + lora_serve["int4_matmul"] + moe["int4_matmul"]),

@@ -1,13 +1,24 @@
-"""Fault injection for the serving engines: the engine half of
-``k8s_dra_driver_tpu/utils/faults.py`` (the API-server and transport kinds
-stay in the reference).
+"""Fault injection for the serving engines, the fleet router and the
+transport's worker half: those kinds of
+``k8s_dra_driver_tpu/utils/faults.py`` (the API-server, scheduler,
+autoscaler and handoff-channel kinds stay in the reference).
 
-A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted by
-the engine once per step before it dispatches: added step latency, an
-injected :class:`StepFault` attributable to one slot, or NaN logits for
-one slot.  Decisions come from ``random.Random(seed)``, drawn in the
-reference's order, so an injector of each package armed alike makes the
-same decisions.
+A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
+
+* by the engine once per step before it dispatches: added step latency,
+  an injected :class:`StepFault` attributable to one slot, or NaN logits
+  for one slot;
+* by the fleet router once per (replica, tick) before that replica's
+  burst: a :class:`ReplicaCrash`, a wedge (no burst this tick) or a stale
+  ``stats()`` read;
+* at the transport's send and receive seams (``models/transport.py``):
+  a frame cut mid-body, a reset, accounted latency, a one-way partition,
+  or a receiver poll that stalls.
+
+Decisions come from ``random.Random(seed)``, drawn in the reference's
+order, so an injector of each package armed alike makes the same
+decisions.  ``FaultInjector.from_env`` reads the reference's
+``DRA_FAULTS`` grammar for these kinds and refuses any other key by name.
 """
 
 from __future__ import annotations
@@ -16,6 +27,8 @@ import random
 import threading
 import time
 from dataclasses import dataclass, field
+
+ENV_VAR = "DRA_FAULTS"
 
 
 class StepFault(RuntimeError):
@@ -28,18 +41,43 @@ class StepFault(RuntimeError):
         self.slot = slot
 
 
+class ReplicaCrash(RuntimeError):
+    """An injected whole-replica death attributable to ONE fleet replica,
+    raised by :meth:`FaultInjector.maybe_crash_replica` before the
+    replica's burst dispatches, so its host state is still consistent
+    when the router snapshots it."""
+
+    def __init__(self, replica: int, message: str):
+        super().__init__(message)
+        self.replica = replica
+
+
 @dataclass
 class FaultProfile:
-    """One armed fault source.  Rates are probabilities per (slot, step);
-    ``slots``/``steps`` scope it (empty = all); ``limit`` caps its
-    injections (0 = unlimited)."""
+    """One armed fault source.  Rates are probabilities per matching
+    decision; ``slots``/``steps``/``replicas``/``peers`` scope it (empty =
+    all; ``steps`` are engine steps, router ticks or a connection's sent
+    frames, by the hook); ``limit`` caps its injections (0 = unlimited)."""
 
     name: str = "fault"
+    # engine kinds, per (slot, step)
     nan_logits_rate: float = 0.0  # probability a slot's logits go NaN
     step_raise_rate: float = 0.0  # probability of a StepFault pre-dispatch
     step_latency_s: float = 0.0  # added to every matching engine step
     slots: tuple = ()  # e.g. (1, 3); empty = all slots
     steps: tuple = ()  # e.g. (5,); empty = all engine steps
+    # fleet router kinds, per (replica, tick)
+    replica_crash_rate: float = 0.0  # probability a replica dies (ReplicaCrash)
+    replica_wedge_rate: float = 0.0  # probability a replica hangs this tick
+    stats_stale_rate: float = 0.0  # probability stats() serves a frozen copy
+    replicas: tuple = ()  # e.g. (1,); empty = all replicas
+    # transport kinds, per frame (latency accounted, never slept)
+    sock_truncate_rate: float = 0.0  # probability a sent frame is cut mid-body
+    sock_reset_rate: float = 0.0  # probability the peer resets mid-transfer
+    sock_latency_s: float = 0.0  # simulated seconds added per frame
+    sock_partition_rate: float = 0.0  # probability a sent frame vanishes
+    peer_hang: int = 0  # next N receiver polls stall silently
+    peers: tuple = ()  # e.g. ("decode-w",); empty = all peers
     limit: int = 0  # total-injection cap, 0 = unlimited
     injected: int = field(default=0, compare=False)
 
@@ -96,6 +134,81 @@ class FaultInjector:
                     f"fault injected by profile {p.name!r} (slot {slot}, step {step})",
                 )
 
+    # -- fleet router decision points ------------------------------------------
+
+    def maybe_crash_replica(self, replica: int, tick: int) -> None:
+        """Raise a :class:`ReplicaCrash` for ``replica`` at this router
+        tick, or return."""
+        for p in self._matching_replica(replica, tick):
+            if p.replica_crash_rate and self._roll(p, p.replica_crash_rate, "replica_crash"):
+                raise ReplicaCrash(
+                    replica,
+                    f"fault injected by profile {p.name!r} (replica {replica}, tick {tick})",
+                )
+
+    def take_replica_wedge(self, replica: int, tick: int) -> bool:
+        """Should this replica hang (skip its burst) this tick?"""
+        for p in self._matching_replica(replica, tick):
+            if p.replica_wedge_rate and self._roll(p, p.replica_wedge_rate, "replica_wedge"):
+                return True
+        return False
+
+    def take_stats_stale(self, replica: int, tick: int) -> bool:
+        """Should this replica's ``stats()`` read be served from the
+        router's stale copy?"""
+        for p in self._matching_replica(replica, tick):
+            if p.stats_stale_rate and self._roll(p, p.stats_stale_rate, "stats_stale"):
+                return True
+        return False
+
+    # -- transport decision points ------------------------------------------------
+
+    def take_sock_truncate(self, peer: str) -> bool:
+        """Send seam: should this frame be cut mid-body (then the
+        connection dies)?"""
+        for p in self._matching_engine(None, None):
+            if p.sock_truncate_rate and self._roll(p, p.sock_truncate_rate, "sock_truncate"):
+                return True
+        return False
+
+    def take_sock_reset(self, peer: str) -> bool:
+        """Send seam: should the connection reset before this frame lands?"""
+        for p in self._matching_engine(None, None):
+            if p.sock_reset_rate and self._roll(p, p.sock_reset_rate, "sock_reset"):
+                return True
+        return False
+
+    def take_sock_latency(self) -> float:
+        """Send seam: simulated seconds this frame spends on the wire
+        (accounted, never slept)."""
+        total = 0.0
+        for p in self._matching_engine(None, None):
+            if p.sock_latency_s > 0:
+                with self._lock:
+                    if not self._budget_ok(p):
+                        continue
+                    self._record(p, "sock_latency")
+                total += p.sock_latency_s
+        return total
+
+    def take_sock_partition(self, peer: str, step: int | None = None) -> bool:
+        """Send seam: should this frame silently vanish, the connection
+        left open (a one-way partition)?"""
+        for p in self._matching_peer(peer, step):
+            if p.sock_partition_rate and self._roll(p, p.sock_partition_rate, "sock_partition"):
+                return True
+        return False
+
+    def take_peer_hang(self) -> bool:
+        """Receive seam: should the receiver process nothing this poll?"""
+        for p in self._matching_engine(None, None):
+            with self._lock:
+                if p.peer_hang > 0 and self._budget_ok(p):
+                    p.peer_hang -= 1
+                    self._record(p, "peer_hang")
+                    return True
+        return False
+
     def stats(self) -> dict[str, int]:
         """Injections so far by fault kind."""
         with self._lock:
@@ -107,6 +220,24 @@ class FaultInjector:
                 p
                 for p in self._profiles
                 if (slot is None or not p.slots or slot in p.slots)
+                and (step is None or not p.steps or step in p.steps)
+            ]
+
+    def _matching_replica(self, replica: int, tick: int) -> list[FaultProfile]:
+        with self._lock:
+            return [
+                p
+                for p in self._profiles
+                if (not p.replicas or replica in p.replicas)
+                and (not p.steps or tick in p.steps)
+            ]
+
+    def _matching_peer(self, peer: str, step: int | None) -> list[FaultProfile]:
+        with self._lock:
+            return [
+                p
+                for p in self._profiles
+                if (not p.peers or peer in p.peers)
                 and (step is None or not p.steps or step in p.steps)
             ]
 
@@ -127,3 +258,46 @@ class FaultInjector:
         # called with the lock held
         p.injected += 1
         self._counts[fault] = self._counts.get(fault, 0) + 1
+
+    @staticmethod
+    def from_env(raw: str) -> "FaultInjector":
+        """Parse a ``DRA_FAULTS`` spec (``replica_wedge_rate=1.0,replicas=0,
+        steps=2+3,seed=7``) into an injector armed with one profile named
+        "env".  Any other key (a typo, or a kind only the reference injects:
+        API-server, scheduler, autoscaler, handoff channel) raises
+        ValueError naming it: a chaos run that silently injects nothing
+        proves the wrong thing."""
+        fields = {}
+        seed = 0
+        for part in raw.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            key, _, value = part.partition("=")
+            if key == "seed":
+                seed = int(value)
+            elif key in _MS_KEYS:
+                fields[_MS_KEYS[key]] = float(value) / 1000.0
+            elif key in _RATE_ALIASES:
+                fields[_RATE_ALIASES[key]] = float(value)
+            elif key in _FLOAT_KEYS:
+                fields[key] = float(value)
+            elif key in ("peer_hang", "limit"):
+                fields[key] = int(value)
+            elif key == "peers":
+                fields["peers"] = tuple(value.split("+"))
+            elif key in ("slots", "steps", "replicas"):
+                fields[key] = tuple(int(v) for v in value.split("+"))
+            else:
+                raise ValueError(f"{ENV_VAR}: fault key {key!r} is not one the port injects")
+        injector = FaultInjector(seed=seed)
+        injector.arm(FaultProfile(name="env", **fields))
+        return injector
+
+
+_MS_KEYS = {"step_latency_ms": "step_latency_s", "sock_latency_ms": "sock_latency_s"}
+_RATE_ALIASES = {"sock_truncate": "sock_truncate_rate", "sock_reset": "sock_reset_rate",
+                 "sock_partition": "sock_partition_rate"}
+_FLOAT_KEYS = ("nan_logits_rate", "step_raise_rate", "step_latency_s", "replica_crash_rate",
+               "replica_wedge_rate", "stats_stale_rate", "sock_truncate_rate",
+               "sock_reset_rate", "sock_latency_s", "sock_partition_rate")

@@ -4,7 +4,8 @@ copied: the port imports nothing of the JAX package).
 A bounded, thread-safe ring of timestamped events, each carrying a
 correlation id (``req-<id>`` for a served request).  The serving engines
 journal admissions, restores, releases and every terminal status, never
-individual decode steps; ``tail`` reads the ring back.
+individual decode steps; ``tail`` reads the ring back, and
+``export_since`` hands a telemetry shipper what it has not shipped yet.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ class Journal:
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
         self._lock = threading.Lock()
         self._events: deque[Event] = deque(maxlen=capacity)
+        self._dropped = 0
+        self._recorded = 0
 
     def record(self, component: str, event: str, correlation: str = "", **attrs) -> None:
         e = Event(
@@ -53,7 +56,16 @@ class Journal:
             attrs=attrs,
         )
         with self._lock:
+            if len(self._events) == self._events.maxlen:
+                self._dropped += 1
+            self._recorded += 1
             self._events.append(e)
+
+    def record_lazy(self, component: str, event: str, correlation: str = "",
+                    attrs=None) -> None:
+        """``record`` with ``attrs`` a zero-argument callable returning the
+        attrs dict (the reference's hot-path form)."""
+        self.record(component, event, correlation, **(attrs() if attrs is not None else {}))
 
     def tail(self, limit: int = 200, correlation: str | None = None,
              component: str | None = None) -> list[dict]:
@@ -66,9 +78,32 @@ class Journal:
             events = [e for e in events if e.component == component]
         return [e.to_json() for e in events[-limit:]]
 
+    def export_since(self, cursor: int) -> tuple[int, list[dict]]:
+        """Events recorded after ``cursor`` (a value this method returned
+        before; start from 0) and the new cursor, each with its raw epoch
+        time under ``ts_s``.  Events the ring dropped before export show as
+        a larger skip, never an error."""
+        with self._lock:
+            total = self._recorded
+            events = list(self._events)
+        start = total - len(events)  # sequence number of events[0]
+        skip = max(0, int(cursor) - start)
+        return total, [{**e.to_json(), "ts_s": e.ts} for e in events[skip:]]
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "capacity": self._events.maxlen,
+                "buffered": len(self._events),
+                "recorded": self._recorded,
+                "dropped": self._dropped,
+            }
+
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
+            self._dropped = 0
+            self._recorded = 0
 
     def __len__(self) -> int:
         with self._lock:

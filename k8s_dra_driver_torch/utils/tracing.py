@@ -4,7 +4,8 @@ copied: the port imports nothing of the JAX package).
 :data:`TRACER` keeps finished presentation spans (``Span``, wall time) in
 a bounded ring; :data:`TRACES` keeps flat :class:`SpanRecord` s in the
 recording process's monotonic clock.  ``models/telemetry`` adds one of
-each when a request retires.
+each when a request retires; a worker's telemetry shipper reads the
+records it has not shipped yet through ``TraceBuffer.export_since``.
 """
 
 from __future__ import annotations
@@ -123,6 +124,17 @@ class TraceBuffer:
             self._records.append(rec)
             self._seq += 1
         return rec
+
+    def export_since(self, cursor: int) -> tuple[int, list[dict]]:
+        """Records appended after ``cursor`` (a value this method returned
+        before; start from 0) and the new cursor.  Records the ring evicted
+        before export show as a larger skip."""
+        with self._lock:
+            total = self._seq
+            records = list(self._records)
+        start = total - len(records)  # sequence number of records[0]
+        skip = max(0, int(cursor) - start)
+        return total, [r.to_json() for r in records[skip:]]
 
     def snapshot(self, limit: int = 256) -> list[dict]:
         with self._lock:

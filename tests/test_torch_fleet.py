@@ -15,7 +15,12 @@ JAX), on the CPU, with the weights of the JAX engines
   would flip is reported with its request).
 * Drain: ``FleetRouter.drain`` of either replica moves its streams into
   the other through ``snapshot_active``/``release_active``/``restore``,
-  and every greedy stream continues bit for bit."""
+  and every greedy stream continues bit for bit.
+* The port's own ``FleetRouter`` against the reference's, each over its
+  own pair of port engines (a paged and a dense replica): submit, drain,
+  remove, shed, evacuate (an injected replica crash) and a ``DRA_FAULTS``
+  replica wedge give the same completions, shed counts and ``stats()``
+  but for clock readings and process-wide sequence numbers."""
 
 import dataclasses
 import inspect
@@ -36,6 +41,8 @@ from k8s_dra_driver_tpu.models import paged as jp
 from k8s_dra_driver_tpu.models import serve as js
 from k8s_dra_driver_tpu.models import telemetry as jt
 from k8s_dra_driver_tpu.models.fleet import DRAINED, FleetRouter
+from k8s_dra_driver_tpu.utils import faults as jfaults
+from k8s_dra_driver_torch.utils import faults as tfaults
 
 JCFG = jb.ModelConfig(vocab_size=64, d_model=32, n_heads=2, n_layers=1, d_ff=64, max_seq=64)
 TCFG = tb.ModelConfig.from_reference(JCFG)
@@ -220,6 +227,145 @@ def test_drain_moves_streams_between_packages(weights, source):
         assert tr["status"] == "ok" and tr["migrations"] == 1
         assert src.telemetry.trace(rid) is None  # dropped, not retired, at the source
     assert src.stats().completed == 0 and dst.stats().completed == len(reqs)
+
+
+# -- the port's router against the reference's ---------------------------------------------
+
+ROUTERS = {"port": (tfleet.FleetRouter, tfaults.FaultInjector),
+           "reference": (FleetRouter, jfaults.FaultInjector)}
+SCENARIO_REQS = [{"prompt": [3 + i, 9, 2 * i + 1], "max_tokens": 5 + i % 3, "seed": 40 + i}
+                 for i in range(8)]
+
+
+def _until_idle(router, limit: int = 200) -> None:
+    for _ in range(limit):
+        if router.idle():
+            return
+        router.tick()
+    raise AssertionError("the router did not go idle")
+
+
+def _scenario(weights, pkg, name, monkeypatch):
+    """One scenario on a router of ``pkg`` over a paged replica "a" and a
+    dense one "b": (completions, shed count, ``stats()``)."""
+    cls, injector = ROUTERS[pkg]
+    faults = None
+    if name == "evacuate":  # replica a dies before its burst at tick 3
+        faults = injector.from_env("replica_crash_rate=1.0,replicas=0,steps=3,seed=2")
+    if name == "wedge":  # replica a hangs from tick 2 on: stalls, then evacuation
+        monkeypatch.setenv("DRA_FAULTS", "replica_wedge_rate=1.0,replicas=0,steps=2+3+4+5+6+7+8")
+    router = cls([("a", _paged(weights)), ("b", _dense(weights))], fault_injector=faults)
+    monkeypatch.delenv("DRA_FAULTS", raising=False)
+    reqs = [dict(r) for r in SCENARIO_REQS]
+    comps = []
+    if name == "submit":
+        rids = [router.submit(**r) for r in reqs[:6]]
+        assert len(set(rids)) == 6
+        _until_idle(router)
+    elif name == "drain":
+        for r in reqs[:4]:
+            router.submit(**r)
+        router.tick()
+        router.tick()
+        moved = router.drain("a")
+        assert moved and router.replica("a").state == DRAINED
+        _until_idle(router)
+    elif name == "remove":
+        router.submit(**reqs[0])
+        _until_idle(router)
+        router.drain("a")
+        assert isinstance(router.remove_replica("a"), tp.PagedServeEngine)
+        with pytest.raises(KeyError):
+            router.replica("a")
+        comps += router.pump(reqs[1:5])
+    elif name == "shed":
+        comps += router.pump(reqs, queue_limit=1)
+    else:  # evacuate, wedge
+        comps += router.pump(reqs[:6])
+        assert router.replica("a").state == DRAINED
+    comps += router.completions()
+    view = sorted((c.request_id, c.status, tuple(c.tokens), tuple(c.generated),
+                   c.error.split("; retry after")[0]) for c in comps)
+    stats = router.stats()
+    stats.pop("router_seq")
+    for rep in stats["replicas"]:
+        if rep["stats"] is not None:
+            rep["stats"] = {k: v for k, v in rep["stats"].items()
+                            if not k.endswith("_s") and k != "engine_seq"}
+    return view, router.shed_count, stats
+
+
+@pytest.mark.parametrize("name", ["submit", "drain", "remove", "shed", "evacuate", "wedge"])
+def test_port_router_equals_the_reference_router(weights, name, monkeypatch):
+    """The same scenario on the port's router and on the reference's, each
+    over fresh port engines: the same completions (ids, statuses, tokens,
+    errors but for a shed's fleet-wide retry-after), shed counts and
+    ``stats()`` (tick, queue, parked, replica states, breakers, verdicts,
+    evacuations and the replicas' ``EngineStats`` but for clock readings
+    and engine sequence numbers)."""
+    got = {pkg: _scenario(weights, pkg, name, monkeypatch) for pkg in ROUTERS}
+    assert got["port"] == got["reference"]
+    view, shed, stats = got["port"]
+    served = [v for v in view if v[1] == "ok"]
+    assert served, view
+    if name == "shed":
+        assert shed > 0 and sum(v[1] == "shed" for v in view) == shed
+    if name in ("evacuate", "wedge"):
+        rep = stats["replicas"][0]
+        assert rep["state"] == DRAINED and rep["evacuations"] == 1
+        assert rep["verdict"] == ("replica_crash" if name == "evacuate" else "wedged")
+
+
+def test_fault_grammar_decides_as_the_reference():
+    """One ``DRA_FAULTS`` spec of the router and socket kinds armed in each
+    package: the same decisions hook by hook over 40 ticks and frames, the
+    same counts; a key of a kind only the reference injects, or a typo, is
+    refused by name."""
+    spec = ("replica_crash_rate=0.1,replica_wedge_rate=0.3,stats_stale_rate=0.2,replicas=0+2,"
+            "sock_truncate=0.1,sock_reset=0.05,sock_latency_ms=7,sock_partition=0.2,"
+            "peers=w,peer_hang=3,limit=25,seed=11")
+    runs = {}
+    for pkg, (_, injector) in ROUTERS.items():
+        inj, seen = injector.from_env(spec), []
+        for t in range(40):
+            for rep in range(3):
+                try:
+                    inj.maybe_crash_replica(rep, t)
+                    crash = False
+                except (tfaults.ReplicaCrash, jfaults.ReplicaCrash):
+                    crash = True
+                seen.append((crash, inj.take_replica_wedge(rep, t), inj.take_stats_stale(rep, t)))
+            seen.append((inj.take_sock_latency(), inj.take_sock_reset("w"),
+                         inj.take_sock_truncate("w"), inj.take_sock_partition("w", t),
+                         inj.take_sock_partition("v", t), inj.take_peer_hang()))
+        runs[pkg] = (seen, inj.stats())
+    assert runs["port"] == runs["reference"]
+    assert sum(runs["port"][1].values()) == 25
+    for key in ("error_rate=0.5", "handoff_drop=1.0", "replica_wedge=1.0"):
+        with pytest.raises(ValueError, match=repr(key.split("=")[0])):
+            tfaults.FaultInjector.from_env(key)
+
+
+def test_port_router_tick_place_and_debug_doc(weights):
+    """``place`` of a handed-off entry (the worker's KV path) onto the port
+    router's replica continues it as the unsplit engine does; the router
+    appears in ``debug_fleet_doc`` and registers the reference's metric
+    names in the port's registry."""
+    from k8s_dra_driver_torch.utils.metrics import REGISTRY, parse_prom_text
+
+    want = _paged(weights).pump([dict(SCENARIO_REQS[0])])[0].generated
+    pre = _paged(weights)
+    pre.submit(handoff=True, **SCENARIO_REQS[0])
+    (entry,) = pre.take_handoffs()
+    router = tfleet.FleetRouter([_paged(weights)])
+    assert router.place([entry], correlation="t") == [entry["request_id"]]
+    _until_idle(router)
+    (c,) = router.completions()
+    assert c.generated == want
+    assert router.stats() in tfleet.debug_fleet_doc()["fleets"]
+    assert router in tfleet.live_routers()
+    names = parse_prom_text(REGISTRY.render())
+    assert {"tpu_fleet_replicas", "dra_circuit_state"} <= set(names)
 
 
 # -- adapters behind the router ---------------------------------------------------------
