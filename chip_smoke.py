@@ -258,7 +258,8 @@ exits 2 before any result):
     ``MeshShape(seq=4)`` ring, (b) ``MeshShape(data=2, model=2)`` (sharded
     flash, tensor parallel), (c) ``MeshShape(seq=4)`` Ulysses, (d) 2 slices
     x ``MeshShape(data=2)`` in bf16, then (a)-(d) in f32 at 2 layers, and
-    (e) a world-1 NCCL group in this process at ``MeshShape()``: each
+    (e) a world-1 NCCL group in this process at ``MeshShape()`` (its step
+    one CUDA graph, as on any NCCL mesh): each
     leg's losses against the single-card step from the same weights and
     tokens (1e-3 relative in bf16, 1e-5 in f32), its step-1 gradients
     (within 5e-2 of each leaf's largest in bf16, 1e-4 in f32) and its
@@ -294,7 +295,18 @@ exits 2 before any result):
     ring step, its gathered params and AdamW state equal to the saved ones
     byte for byte and its step 3 within the bf16 loss tolerance; the bytes
     each rank writes, the save and restore times, the flash launches the
-    schedule's;
+    schedule's.  Leg (e) then probes capture: each collective the mesh
+    steps issue (all-reduce, the list all-gather, all_to_all_single, batch
+    isend/irecv, an all-reduce from autograd's backward thread; and
+    all_gather_into_tensor, reduce_scatter_tensor and broadcast, reported)
+    called directly on the world-1 NCCL group, past the port's one-rank
+    short-circuits, captured by ``graphs.cuda_capture`` and replayed on new
+    inputs == eager calls (a used one that fails fails the phase); and
+    runs the world-1 mesh step graphed against an eager twin, 5 steps bit
+    for bit (losses, params, count, moments), 1 capture (ms, pool MiB),
+    the flash launches the schedule's, then host-clock ms a step of the
+    graphed and eager mesh steps and the single card's graphed step in 4
+    alternating rounds of 5;
 24. the pod's entry points ("pod entry points"), each leg timed: (a)
     ``python -m k8s_dra_driver_torch.consumer --check --serve-demo`` with
     ``TPU_VISIBLE_DEVICES=0`` (exit 0; 4 requests, 36 tokens, a prefix hit,
@@ -304,12 +316,7 @@ exits 2 before any result):
     teacher-forced within 0.25, the append kernel at nq 1 and nq 3 on each
     layer's first window against its plain version; (d) the demo on 2 gloo
     ranks sharing the card over ``MeshShape(data=2)``, every token
-    teacher-forced, its streams against (c)'s counted; (e) ``python -m
-    k8s_dra_driver_torch.e2e.dryrun 4``, 4 gloo ranks on the card: exit 0,
-    the reference's lines at 4 (losses masked, finite), the flash launches
-    summed over ranks the first leg's schedule, and the flash forward, dQ
-    and dK/dV at D 16 in bf16 on that leg's layer-0 inputs, as it calls
-    them and in the ring's mode, elementwise against their plain versions;
+    teacher-forced, its streams against (c)'s counted;
 25. (run right after phase 15) serving across worker processes ("serve
     workers"): this script listens on 127.0.0.1 and spawns two ``python -m
     k8s_dra_driver_torch.models.transport`` workers on the card, a prefill
@@ -325,13 +332,27 @@ exits 2 before any result):
     capture, wire and inject medians, and tokens/s;
 26. (run last) the self-test ("selftest"): ``tpuinfo.selftest.run_selftest()``
     in its subprocess on the card, ``ok`` with platform "gpu", one device a
-    card and its latency.
+    card and its latency;
+27. (run right after phase 24) the port's entry point ("entry point",
+    ``k8s_dra_driver_torch/entry.py``), each leg timed: (a) ``entry()``'s FLAGSHIP_MODERN forward at B 8 x
+    1024 as a ``GraphedProgram("forward")``, its logits ``[8, 1024,
+    32768]`` f32 bit for bit an eager call's, capture ms, pool MiB, peak
+    memory, graphed and eager ms in alternating rounds beside the bound;
+    (b) the classic ``FLAGSHIP`` forward (seeds 2 and 3), finite, two calls
+    bit for bit; (c) ``entry.dryrun_multichip(8)``, 8 gloo ranks sharing
+    the card: the reference's 13 lines at 8 (losses masked, finite; the
+    multislice training leg runs only from 8), the flash launches summed
+    over ranks the first leg's schedule (the ring over ``seq`` 2 at
+    ``model`` 4), the append kernel launched, and the flash forward, dQ
+    and dK/dV at D 16 in bf16 on that leg's layer-0 inputs, causal and in
+    the ring's mode, elementwise against their plain versions.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
 after a handoff, in this process and in the decode workers, the sharded
 engine's ranks, training, LoRA, MoE and mesh training, the serving demo
-and the dry run) and their times; the last line is the JSON device record.
+and the dry run at 8) and their times; the last line is the JSON device
+record.
 """
 
 from __future__ import annotations
@@ -1141,15 +1162,21 @@ def flash_f32_d128(torch, timer: Timer, bh: int, s: int, d: int = 128):
         f"{(ms['flash_bwd_dq'] + ms['flash_bwd_dkv']) * 1e3:.1f} us against {ms_bwd * 1e3:.1f} us")
 
 
+def model_weights(cfg) -> int:
+    """The weights a token's products meet: the blocks' matrices and the
+    tied embedding table."""
+    from k8s_dra_driver_torch.models.burnin import block_matrix_shapes
+
+    block = sum(a * b for a, b in block_matrix_shapes(cfg).values())
+    return cfg.n_layers * block + cfg.vocab_size * cfg.d_model
+
+
 def train_flops(cfg, batch: int, seq: int) -> int:
     """Model FLOPs of one train step as ``bench.py``'s ``_train_mfu``
     counts them: 6 per weight per token (no credit for the remat
     re-forward) plus 12·B·S²·d per layer for attention."""
-    from k8s_dra_driver_torch.models.burnin import block_matrix_shapes
-
-    block = sum(a * b for a, b in block_matrix_shapes(cfg).values())
-    weights = cfg.n_layers * block + cfg.vocab_size * cfg.d_model
-    return 6 * weights * batch * seq + 12 * batch * seq * seq * cfg.d_model * cfg.n_layers
+    return (6 * model_weights(cfg) * batch * seq
+            + 12 * batch * seq * seq * cfg.d_model * cfg.n_layers)
 
 
 def _rel_l2(a, b) -> float:
@@ -1781,6 +1808,240 @@ def _mesh_report(torch, label, results, cfg, steps, card, flash: tuple[int, int]
             "flash_bwd_dkv" + tag: got[dkv_name]}
 
 
+# leg (e) graphed: steps held bit for bit, then alternating timing rounds
+WORLD1_GRAPH = dict(steps=5, rounds=4, per_round=5)
+# the collectives the mesh and pipeline steps issue (``ops/collectives``:
+# psum, pvary, the bucketed all-reduce and reduce-scatter are all-reduces,
+# the gathers list all-gathers, Ulysses and the experts all-to-alls, the
+# rings and the pipeline batched point-to-point), and an all-reduce from
+# autograd's backward thread (``_Pvary``/``psum``'s backward); a graphed
+# step cannot run without them
+CAPTURE_USED = ("all_reduce", "all_gather", "all_to_all_single", "batch_isend_irecv",
+                "all_reduce in backward")
+
+
+def _all_reduce_grad(torch, x, group):
+    """An identity whose gradient is all-reduced on ``group`` by a direct
+    ``dist.all_reduce`` (no short-circuit at one rank), from autograd's
+    backward thread as ``collectives._Pvary``'s is."""
+    import torch.distributed as dist
+
+    class AllReduceGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.clone()
+            dist.all_reduce(g, group=group)
+            return g
+
+    return AllReduceGrad.apply(x)
+
+
+def _probe_collectives(torch, group, peer: int) -> dict:
+    """``{name: fn(inp, out)}``: each collective on ``group``, called
+    directly, writing its result into ``out``."""
+    import torch.distributed as dist
+
+    def all_reduce(inp, out):
+        out.copy_(inp)
+        dist.all_reduce(out, group=group)
+
+    def all_gather(inp, out):
+        parts = [torch.empty_like(inp)]
+        dist.all_gather(parts, inp, group=group)
+        out.copy_(torch.cat(parts))
+
+    def broadcast(inp, out):
+        out.copy_(inp)
+        dist.broadcast(out, peer, group=group)
+
+    def p2p(inp, out):
+        ops = [dist.P2POp(dist.isend, inp, peer, group), dist.P2POp(dist.irecv, out, peer, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    def backward(inp, out):
+        leaf = inp.detach().requires_grad_()
+        with torch.enable_grad():
+            y = _all_reduce_grad(torch, leaf, group)
+            out.copy_(torch.autograd.grad((y * 3).sum(), leaf)[0])
+
+    return {
+        "all_reduce": all_reduce,
+        "all_gather": all_gather,
+        "all_gather_into_tensor": lambda i, o: dist.all_gather_into_tensor(o, i, group=group),
+        "reduce_scatter_tensor": lambda i, o: dist.reduce_scatter_tensor(o, i, group=group),
+        "all_to_all_single": lambda i, o: dist.all_to_all_single(o, i, group=group),
+        "broadcast": broadcast,
+        "batch_isend_irecv": p2p,
+        "all_reduce in backward": backward,
+    }
+
+
+def collective_capture_probe(torch, label, capture=None) -> dict:
+    """Each collective of :func:`_probe_collectives` on this process's
+    world-1 group (NCCL on the card), past ``ops/collectives``'
+    short-circuits at one rank: an eager call (which also makes the
+    communicator's first use), then ``graphs.cuda_capture`` of the same
+    call on fixed buffers and 3 replays on new inputs, each against an
+    eager call on the same input, bit for bit.  Then an all-reduce on a
+    new group whose first call is the capture.  Prints a line a
+    collective; fails if one of ``CAPTURE_USED`` does not capture or its
+    replay differs.  Returns ``{name: (captured, replay == eager)}``."""
+    import os
+
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import graphs
+
+    capture = capture or graphs.cuda_capture
+    dev = torch.device(DEV)
+    group = dist.group.WORLD
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    inputs = [torch.randn((4, 256), generator=gen, device=DEV) for _ in range(4)]
+    nccl = ".".join(map(str, torch.cuda.nccl.version())) if DEV == "cuda" else "-"
+    log(f"{label}: torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL {nccl}; backend "
+        f"{dist.get_backend(group)}, world {dist.get_world_size(group)}; "
+        f"capture_begin in its default mode (global), on a side stream "
+        f"(graphs.cuda_capture); TORCH_NCCL_ASYNC_ERROR_HANDLING="
+        f"{os.environ.get('TORCH_NCCL_ASYNC_ERROR_HANDLING', '<unset>')}, "
+        f"TORCH_NCCL_BLOCKING_WAIT={os.environ.get('TORCH_NCCL_BLOCKING_WAIT', '<unset>')}")
+
+    def eager(fn, inp):
+        out = torch.full_like(inp, float("nan"))
+        fn(inp.clone(), out)
+        sync(torch)
+        return out
+
+    results = {}
+    for name, fn in _probe_collectives(torch, group, 0).items():
+        inp, out = inputs[0].clone(), torch.full_like(inputs[0], float("nan"))
+        stage = "the eager call"
+        try:  # the probe reports each failure; the gate below decides
+            want = [eager(fn, x) for x in inputs]
+            stage = "the capture"
+            graph, _ = capture(lambda: fn(inp, out), dev)
+        except Exception as exc:
+            results[name] = (False, False)
+            log(f"{label}: {name}: NOT captured ({stage} raised): {type(exc).__name__}: "
+                f"{str(exc)[:300]}")
+            continue
+        same = []
+        for x, w in zip(inputs[1:], want[1:]):
+            inp.copy_(x)
+            out.fill_(float("nan"))
+            graph.replay()
+            sync(torch)
+            same.append(bool(out.equal(w)))
+        results[name] = (True, all(same))
+        log(f"{label}: {name}: captured; 3 replays on new inputs == eager calls: {same}")
+        del graph
+    fresh = dist.new_group([0])
+    inp, out = inputs[0].clone(), torch.empty_like(inputs[0])
+    try:
+        graph, _ = capture(lambda: _probe_collectives(torch, fresh, 0)["all_reduce"](inp, out),
+                           dev)
+        graph.replay()
+        sync(torch)
+        log(f"{label}: all_reduce on a new group, first call inside the capture: captured, "
+            f"replay == input {bool(out.equal(inp))} (init_process_group took device_id, so "
+            f"groups made after it open their communicator at creation)")
+    except Exception as exc:
+        log(f"{label}: all_reduce on a new group, first call inside the capture: NOT captured: "
+            f"{type(exc).__name__}: {str(exc)[:300]}")
+    dist.destroy_process_group(fresh)
+    bad = [n for n in CAPTURE_USED if results.get(n) != (True, True)]
+    if bad:
+        raise AssertionError(f"{label}: collectives the graphed steps use do not capture or "
+                             f"replay wrong: {bad}")
+    return results
+
+
+def world1_graph_leg(torch, cfg, b: int, card, label) -> dict:
+    """Leg (e) as one CUDA graph: the world-1 mesh step (this process's
+    group, ``MeshShape()``) graphed and an eager twin
+    (``serve.disable_graphs()``) from the same seed, ``steps`` steps each
+    on one batch: losses, params, count and moments bit for bit; one
+    capture (its ms and pool MiB); the graphed run's flash launches (the
+    capture's counts added per replay) the schedule's; then host-clock ms a
+    step of the graphed and eager mesh steps and the single card's graphed
+    step in alternating rounds.  Returns the graphed run's launches by
+    kernels-line row."""
+    from k8s_dra_driver_torch.models import burnin, serve
+    from k8s_dra_driver_torch.ops import collectives
+    from k8s_dra_driver_torch.ops import flash_attention as fa
+
+    steps = WORLD1_GRAPH["steps"]
+    mesh = _rank_mesh((0, {}), DEV)
+    tokens = _train_tokens(torch, cfg, b, SEED + 7)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        fns = burnin.build_train_step(cfg, mesh=mesh, attention="flash", remat="blocks",
+                                      lr=MESH_TRAIN["lr"], device=DEV)
+        params, state = fns.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+        sync(torch)
+        _zero_flash_counts()
+        collectives.reset_counts()
+        with serve.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            losses = [fns.step(params, state, tokens)[2] for _ in range(steps)]
+        sync(torch)
+        runs[mode] = dict(fns=fns, params=params, state=state, losses=torch.stack(losses),
+                          fwd=dict(fa.fwd_launches), bwd=dict(fa.bwd_launches),
+                          comm=sum(collectives.comm_bytes.values()))
+    graphed, eager = runs["graphed"], runs["eager"]
+    log(f"{label}: losses over {steps} graphed steps "
+        + " ".join(f"{x:.5f}" for x in graphed["losses"].tolist()))
+    _graph_line(torch, label, graphed["fns"])
+    fwd_n, bwd_n = _mesh_flash_expected((0, {}), {}, cfg.n_layers, steps)
+    fwd_name = fa.forward_kernel_for(cfg.dtype)
+    dq_name, dkv_name = fa.backward_kernel_for(cfg.dtype)
+    want = {fwd_name: fwd_n, dq_name: bwd_n, dkv_name: bwd_n}
+    for mode, run in runs.items():
+        got = {**run["fwd"], **run["bwd"]}
+        log(f"{label}: {mode} flash launches {got} (the schedule's {want}); bytes sent "
+            f"{run['comm']} (world 1: none)")
+        if got != dict.fromkeys(got, 0) | want or run["comm"]:
+            raise AssertionError(f"{label}: {mode} launches {got} or bytes {run['comm']} are "
+                                 f"not the schedule's")
+    if graphed["fns"].graphed is None or graphed["fns"].captures != 1 or eager["fns"].captures:
+        raise AssertionError(f"{label}: captures graphed {graphed['fns'].captures}, eager "
+                             f"{eager['fns'].captures} (want 1 and 0)")
+    loss_ok = graphed["losses"].equal(eager["losses"])
+    differ = _differing(_state_leaves(graphed["params"], graphed["state"]),
+                        _state_leaves(eager["params"], eager["state"]))
+    log(f"{label}: graphed == eager twin after {steps} steps: losses {loss_ok}; params, count, "
+        f"mu and nu leaves that differ: {differ}")
+    if not loss_ok or differ:
+        raise AssertionError(f"{label}: the graphed and eager world-1 mesh steps differ")
+    single = burnin.build_train_step(cfg, attention="flash", remat="blocks",
+                                     lr=MESH_TRAIN["lr"], device=DEV)
+    sp, ss = single.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+    for _ in range(2):  # eager, then the capture
+        single.step(sp, ss, tokens)
+
+    def stepper(fns, params, state):
+        return lambda: fns.step(params, state, tokens)
+
+    times = alternating_rounds(torch, {
+        "mesh graphed": (stepper(graphed["fns"], graphed["params"], graphed["state"]),
+                         contextlib.nullcontext),
+        "mesh eager": (stepper(eager["fns"], eager["params"], eager["state"]),
+                       serve.disable_graphs),
+        "single card graphed": (stepper(single, sp, ss), contextlib.nullcontext),
+    }, WORLD1_GRAPH["rounds"], WORLD1_GRAPH["per_round"])
+    flops = train_flops(cfg, b, cfg.max_seq)
+    med = {k: _step_line(f"{label} {k}", t, b * cfg.max_seq, flops) for k, t in times.items()}
+    log(f"{label}: mesh graphed / single card graphed {med['mesh graphed'] / med['single card graphed']:.3f}, "
+        f"mesh graphed / mesh eager {med['mesh graphed'] / med['mesh eager']:.3f} "
+        f"({WORLD1_GRAPH['rounds']} alternating rounds of {WORLD1_GRAPH['per_round']} steps; "
+        f"{card})")
+    return {"flash_fwd": graphed["fwd"][fwd_name], "flash_bwd_dq": graphed["bwd"][dq_name],
+            "flash_bwd_dkv": graphed["bwd"][dkv_name]}
+
+
 # leg (h): Mixtral-8x7B's routing (8 experts, top 2) at FLAGSHIP_MODERN's
 # width over (data 4); the f32 gate at ample capacity (nothing drops), the
 # drop counts at the reference's default factor 2 and at 1 (drops)
@@ -2263,7 +2524,8 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     running the mesh step at ``MeshShape()``.  Each leg: B 4, S 1024, remat
     "blocks", lr 3e-4, 3 steps from seeded weights, held against the
     single-card step (``MESH_TOL``, ``MESH_PARAM_UNITS``), its flash launches against the
-    schedule's.  In the same pool, legs (f)-(i): the pipeline
+    schedule's; (e) also probes the collectives' capture and runs its step
+    graphed against an eager twin (:func:`world1_legs`).  In the same pool, legs (f)-(i): the pipeline
     (``PP_LEGS``) in bf16 at ``cfg`` and in f32 at 2 layers, expert
     parallelism (``EP``) and the tensor-parallel MLP (``TP_MLP``), (j)
     ``data.TokenBatches`` feeding leg (b)'s step (``TOKENS_LEG``) and (k)
@@ -2274,9 +2536,7 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
     import shutil
     from pathlib import Path
 
-    import torch.distributed as dist
-
-    from k8s_dra_driver_torch.parallel.ranks import RankPool, free_port, init_ranks
+    from k8s_dra_driver_torch.parallel.ranks import RankPool
 
     b, steps = MESH_TRAIN["b"], MESH_TRAIN["steps"]
     total: dict = {}
@@ -2351,19 +2611,39 @@ def phase_train_mesh(torch, cfg, card, f32_layers: int = 2):
         finally:
             shutil.rmtree(where, ignore_errors=True)
         log(f"{label}: {time.perf_counter() - t1:.1f} s")
-    # NCCL takes CUDA tensors only: a CPU rehearsal runs this leg on gloo
+    add(world1_legs(torch, cfg, card, steps, b))
+    return total
+
+
+def world1_legs(torch, cfg, card, steps: int, b: int) -> dict:
+    """Leg (e): a world-1 NCCL group in this process (gloo in a CPU
+    rehearsal: NCCL takes CUDA tensors only) running the mesh step at
+    ``MeshShape()`` as :func:`mesh_leg` runs a leg, held as (a)-(d) are;
+    then :func:`collective_capture_probe` and :func:`world1_graph_leg`.
+    Returns the launches by kernels-line row."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.parallel.ranks import free_port, init_ranks
+
+    total: dict = {}
     backend = "nccl" if DEV == "cuda" else "gloo"
     label = f"train mesh (e) world-1 {backend}, MeshShape(), {str(cfg.dtype)[6:]} L={cfg.n_layers}"
     t1 = time.perf_counter()
     init_ranks(0, 1, backend, free_port(), DEV)
     try:
         results = [mesh_leg(cfg, (0, {}), {}, steps, b, DEV)]
+        log(f"{label}: {time.perf_counter() - t1:.1f} s")
+        total = _mesh_report(torch, label, results, cfg, steps, card,
+                             _mesh_flash_expected((0, {}), {}, cfg.n_layers, steps))
+        t1 = time.perf_counter()
+        collective_capture_probe(torch, f"train mesh (e) capture probe, world-1 {backend}")
+        log(f"train mesh (e) capture probe: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        graphed = world1_graph_leg(torch, cfg, b, card, f"train mesh (e) graphed, {backend}")
+        log(f"train mesh (e) graphed: {time.perf_counter() - t1:.1f} s")
     finally:
         dist.destroy_process_group()
-    log(f"{label}: {time.perf_counter() - t1:.1f} s")
-    add(_mesh_report(torch, label, results, cfg, steps, card,
-                     _mesh_flash_expected((0, {}), {}, cfg.n_layers, steps)))
-    return total
+    return {k: n + graphed[k] for k, n in total.items()}
 
 
 def _traffic(vocab: int, n: int, max_prompt: int, max_new: int, seed: int):
@@ -6190,24 +6470,26 @@ def phase_serve_mesh(torch, cfg, params, reqs, *, card, tol=0.25):
     return launches
 
 
-# "pod entry points": the commands a pod that holds a claim runs
-POD_DRYRUN_RANKS = 4
-# the lines the JAX package's dry run prints at 4 devices, each loss masked
-POD_DRYRUN_LINES = (
-    "dryrun_multichip: mesh data=1 seq=1 model=4 loss=<masked>",
-    "dryrun_multichip: mesh data=1 seq=1 model=4 (gqa kv=2 + rope) loss=<masked>",
-    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, megatron) loss=<masked>",
-    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, megatron-sp) loss=<masked>",
-    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, gqa kv=2 + rope, megatron) "
+# "entry point": the dry run over 8 ranks, the size that runs every leg
+ENTRY_DRYRUN_RANKS = 8
+# the lines the JAX package's dry run prints at 8 devices, each loss masked
+ENTRY_DRYRUN_LINES = (
+    "dryrun_multichip: mesh data=1 seq=2 model=4 loss=<masked>",
+    "dryrun_multichip: mesh data=1 seq=2 model=4 (gqa kv=2 + rope) loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=2 (pipeline, megatron) loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=2 (pipeline, megatron-sp) loss=<masked>",
+    "dryrun_multichip: mesh pipe=2 data=2 model=2 (pipeline, gqa kv=2 + rope, megatron) "
     "loss=<masked>",
-    "dryrun_multichip: mesh pipe=2 data=2 model=1 (pipeline, gqa kv=2 + rope, megatron-sp) "
+    "dryrun_multichip: mesh pipe=2 data=2 model=2 (pipeline, gqa kv=2 + rope, megatron-sp) "
     "loss=<masked>",
-    "dryrun_multichip: mesh expert=4 (top-2 moe grad) ok",
-    "dryrun_multichip: mesh model=4 (overlapped tp-mlp grad) ok",
-    "dryrun_multichip: mesh data=4 (sharded serving, 16 tokens) ok",
-    "dryrun_multichip: mesh data=4 (sharded PAGED serving + spec + lora, 16 tokens, bit-equal "
+    "dryrun_multichip: mesh slice=2 data=2 model=2 (multislice hybrid-dp over dcn) "
+    "loss=<masked>",
+    "dryrun_multichip: mesh expert=8 (top-2 moe grad) ok",
+    "dryrun_multichip: mesh model=8 (overlapped tp-mlp grad) ok",
+    "dryrun_multichip: mesh data=8 (sharded serving, 32 tokens) ok",
+    "dryrun_multichip: mesh data=8 (sharded PAGED serving + spec + lora, 32 tokens, bit-equal "
     "single-device) ok",
-    "dryrun_multichip: mesh data=4 (MoE top-2 serving, 16 tokens, bit-equal single-device) ok",
+    "dryrun_multichip: mesh data=8 (MoE top-2 serving, 32 tokens, bit-equal single-device) ok",
     "dryrun_multichip: mesh slice=2 (multislice DP serving over ('slice','data'), 16 tokens, "
     "bit-equal single-slice) ok",
 )
@@ -6301,16 +6583,17 @@ def _tiny_layer0_heads(torch, n_model: int):
     return tuple(fa.to_bh(t[:, :, heads].contiguous()) for t in (q, k, v))
 
 
-def _flash_at_d16(torch, label) -> dict:
+def _flash_at_d16(torch, label, n_model: int) -> dict:
     """The flash forward, dQ and dK/dV at D 16 in bf16 on the dry run's
-    first leg's layer-0 inputs: as that leg calls them (causal, the whole
-    sequence a rank), and in the ring's mode on its two halves (the
-    forward's f32 partials, the backward with the merge's global lse),
-    each elementwise against its plain version (``FLASH_STEP``).  Returns
-    the worst error by kernels-line row."""
+    first leg's layer-0 inputs (rank 0's heads of ``(model n_model)``):
+    causal over the whole sequence, and in the ring's mode on its two
+    halves (the forward's f32 partials, the backward with the merge's
+    global lse: what the leg runs over ``seq`` 2), each elementwise against
+    its plain version (``FLASH_STEP``).  Returns the worst error by
+    kernels-line row."""
     from k8s_dra_driver_torch.ops import flash_attention as fa
 
-    q, k, v = _tiny_layer0_heads(torch, POD_DRYRUN_RANKS)
+    q, k, v = _tiny_layer0_heads(torch, n_model)
     bh, s, d = q.shape
     dout = torch.randn(q.shape, generator=torch.Generator(device=DEV).manual_seed(SEED + 23),
                        device=DEV).to(q.dtype)
@@ -6340,10 +6623,9 @@ def phase_pod_entry_points(torch, card, tol=0.25):
     the append kernel at nq 1 and nq 3 held against its plain version on
     each layer's first window; (d) the demo on 2 gloo ranks sharing the
     card over ``MeshShape(data=2)``, every token teacher-forced, the streams
-    equal to (c)'s counted; (e) ``python -m k8s_dra_driver_torch.e2e.dryrun
-    4``, 4 gloo ranks on the card, every line of the reference's set, its
-    flash launches the schedule's, the three flash kernels at D 16 on its
-    first leg's inputs.  Returns the launches by kernels-line row."""
+    equal to (c)'s counted.  (The dry run runs at 8 ranks in "entry
+    point", :func:`phase_entry_point`.)  Returns the launches by
+    kernels-line row."""
     from k8s_dra_driver_torch import consumer
     from k8s_dra_driver_torch.models import burnin, lora
     from k8s_dra_driver_torch.ops import paged_attention as pa
@@ -6426,42 +6708,137 @@ def phase_pod_entry_points(torch, card, tol=0.25):
     if not all(r["append"] for r in results):
         raise AssertionError(f"{sub}: a rank never launched the append kernel")
     total["paged_attention"] += sum(r["append"] for r in results)
+    return total
 
-    sub = f"{label} (e) e2e.dryrun {POD_DRYRUN_RANKS}, gloo ranks sharing the card"
-    rc, out, err, secs = _pod_command(["k8s_dra_driver_torch.e2e.dryrun",
-                                       str(POD_DRYRUN_RANKS)], {}, 900)
-    log(f"{sub}: exit {rc} in {secs:.1f} s; stdout:\n" + out.rstrip())
-    if rc != 0:
-        raise AssertionError(f"{sub}: exit {rc}; stderr tail:\n{err[-4000:]}")
-    lines = [line for line in out.splitlines() if line.startswith("dryrun_multichip:")]
+
+def forward_flops(cfg, batch: int, seq: int) -> int:
+    """FLOPs of one forward: 2 per weight per token (the tied logits'
+    table included) plus QK^T and PV, 4·B·H·S²·hd a layer."""
+    return (2 * model_weights(cfg) * batch * seq
+            + 4 * batch * cfg.n_heads * seq * seq * cfg.head_dim * cfg.n_layers)
+
+
+def _entry_forward(torch, label, card) -> None:
+    """Leg (a): ``entry.entry()``'s forward as ``entry.compiled_forward``
+    (call 1 eager, call 2 capture and replay), the graph's logits bit for
+    bit the eager call's, finite, ``[8, 1024, 32768]`` f32; capture ms,
+    pool MiB and peak memory; host-clock ms of a replay and of an eager
+    call in alternating rounds beside the bound."""
+    from k8s_dra_driver_torch import entry
+
+    fn, (params, tokens) = entry.entry(DEV)
+    cfg = fn.keywords["cfg"]
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prog = entry.compiled_forward(fn, params, tokens, DEV)
+    eager = prog()
+    graphed = prog()
+    sync(torch)
+    peak = torch.cuda.max_memory_allocated() - base
+    equal = bool(graphed.equal(eager))
+    finite = bool(torch.isfinite(graphed).all())
+    log(f"{label}: logits {tuple(graphed.shape)} {graphed.dtype}; graph == eager bit for bit "
+        f"{equal}; finite {finite}; captured in {prog.capture_s * 1e3:.1f} ms, pool "
+        f"{graph_pool_bytes(torch, prog.graph) / 2**20:.1f} MiB; peak memory over the two "
+        f"calls {peak / 2**30:.2f} GiB above the weights and tokens")
+    if not (equal and finite) or tuple(graphed.shape) != (entry.BATCH, cfg.max_seq,
+                                                          cfg.vocab_size):
+        raise AssertionError(f"{label}: the graphed forward is not the eager one's")
+    del eager, graphed
+
+    def run_eager():
+        with torch.no_grad():
+            fn(params, tokens)
+
+    times = alternating_rounds(torch, {"graphed": (prog, contextlib.nullcontext),
+                                       "eager": (run_eager, contextlib.nullcontext)},
+                               rounds=4, per_round=3)
+    flops = forward_flops(cfg, entry.BATCH, cfg.max_seq)
+    bound = flops / PEAK_OPS["bfloat16"] * 1e3
+    med = {k: float(np.median(t)) for k, t in times.items()}
+    for k, t in times.items():
+        log(f"{label} {k}: {' / '.join(f'{x:.2f}' for x in t)} ms a forward by round (median "
+            f"{med[k]:.2f}; {flops / med[k] / 1e9:.1f} TFLOP/s = "
+            f"{flops / med[k] / 1e9 / 989:.4f} of 989 TFLOP/s)")
+    log(f"{label}: {flops / 1e12:.3f} TFLOP a forward (bound {bound:.2f} ms at 989 TFLOP/s); "
+        f"graphed / eager {med['graphed'] / med['eager']:.3f}; 4 alternating rounds of 3; "
+        f"{card}")
+    prof = profile_window(torch, f"{label}: profile of one graphed forward", prog, top=8)
+    if prof is not None:
+        device_time_by_class(f"{label}: graphed forward", prof)
+
+
+def phase_entry_point(torch, card):
+    """The port's entry point ("entry point", ``k8s_dra_driver_torch/entry.py``),
+    each leg timed: (a) :func:`_entry_forward`; (b) the classic
+    ``FLAGSHIP`` forward on seeds 2 and 3, ``[8, 1024, 32768]`` finite, two
+    calls bit for bit; (c) ``entry.dryrun_multichip(8)``, 8 gloo ranks
+    sharing the card: every line of the reference's set at 8 (losses
+    masked, finite), the flash launches summed over ranks the first leg's
+    schedule (the ring over ``seq`` 2 at ``model`` 4), the append kernel
+    launched, and the flash kernels at D 16 on that leg's layer-0 inputs
+    against their plain versions.  Returns the launches by kernels-line
+    row."""
+    from k8s_dra_driver_torch import entry
+    from k8s_dra_driver_torch.models import burnin
+    from k8s_dra_driver_torch.parallel.mesh import auto_mesh_shape
+
+    label = "entry point"
+    t0 = time.perf_counter()
+    _entry_forward(torch, f"{label} (a) entry() forward, FLAGSHIP_MODERN, B 8 x 1024", card)
+    log(f"{label} (a): {time.perf_counter() - t0:.1f} s")
+
+    sub = f"{label} (b) classic FLAGSHIP forward, B 8 x 1024"
+    t0 = time.perf_counter()
+    cfn, (cparams, ctokens) = entry.classic(DEV)
+    with torch.no_grad():
+        outs = [cfn(cparams, ctokens) for _ in range(2)]
+    sync(torch)
+    log(f"{sub}: logits {tuple(outs[0].shape)} {outs[0].dtype}, finite "
+        f"{bool(torch.isfinite(outs[0]).all())}, two calls bit for bit {bool(outs[0].equal(outs[1]))}; "
+        f"{time.perf_counter() - t0:.1f} s (weights and both calls)")
+    ccfg = cfn.keywords["cfg"]
+    if (tuple(outs[0].shape) != (entry.BATCH, ccfg.max_seq, ccfg.vocab_size)
+            or not torch.isfinite(outs[0]).all() or not outs[0].equal(outs[1])):
+        raise AssertionError(f"{sub}: the classic forward's logits are off")
+    del outs, cparams, ctokens
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    n = ENTRY_DRYRUN_RANKS
+    sub = f"{label} (c) dryrun_multichip({n}), gloo ranks sharing the card"
+    t0 = time.perf_counter()
+    proc = entry.dryrun_multichip(n, DEV)
+    log(f"{sub}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("dryrun_multichip:")]
     masked = [line.split(" loss=")[0] + " loss=<masked>" if " loss=" in line else line
               for line in lines]
     losses = [float(line.split(" loss=")[1]) for line in lines if " loss=" in line]
-    if tuple(masked) != POD_DRYRUN_LINES or not np.isfinite(losses).all():
-        raise AssertionError(f"{sub}: the lines are not the reference's set at "
-                             f"{POD_DRYRUN_RANKS}: {masked}")
-    report = json.loads(err.split("dryrun launches summed over ranks:")[1].splitlines()[0])
+    if tuple(masked) != ENTRY_DRYRUN_LINES or not np.isfinite(losses).all():
+        raise AssertionError(f"{sub}: the lines are not the reference's set at {n}: {masked}")
+    report = json.loads(proc.stderr.split("dryrun launches summed over ranks:")[1].splitlines()[0])
     counts: dict = {}
     for leg, by_kernel in report.items():
         log(f"{sub}: leg {leg!r}: kernel launches summed over ranks {by_kernel}")
-        for key, n in by_kernel.items():
+        for key, k in by_kernel.items():
             row = POD_KERNEL_ROWS[key]
             if row is not None:
-                counts[row] = counts.get(row, 0) + n
-    fwd_n, bwd_n = _mesh_flash_expected((0, {"model": POD_DRYRUN_RANKS}), {},
-                                        burnin.TINY.n_layers, 1)
-    flash = {n: counts.get(n, 0) for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-    log(f"{sub}: flash launches summed over ranks {flash} (the first leg's schedule: forward "
-        f"{fwd_n}, dQ and dK/dV {bwd_n} each); append {counts.get('paged_attention', 0)}")
+                counts[row] = counts.get(row, 0) + k
+    shape = auto_mesh_shape(n, want_seq=True)
+    layout = (0, {"data": shape.data, "seq": shape.seq, "model": shape.model})
+    fwd_n, bwd_n = _mesh_flash_expected(layout, {}, burnin.TINY.n_layers, 1)
+    flash = {k: counts.get(k, 0) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"{sub}: flash launches summed over ranks {flash} (the first leg's schedule on "
+        f"{layout[1]}: forward {fwd_n}, dQ and dK/dV {bwd_n} each); append "
+        f"{counts.get('paged_attention', 0)}")
     if flash != {"flash_fwd": fwd_n, "flash_bwd_dq": bwd_n, "flash_bwd_dkv": bwd_n}:
         raise AssertionError(f"{sub}: flash launches {flash} are not the schedule's")
     if not counts.get("paged_attention"):
         raise AssertionError(f"{sub}: the paged legs never launched the append kernel")
-    worst = _flash_at_d16(torch, sub)
+    worst = _flash_at_d16(torch, sub, shape.model)
     log(f"{sub}: flash kernels at D 16 on the first leg's inputs, worst max_abs_err {worst}")
-    for row, n in counts.items():
-        total[row] = total.get(row, 0) + n
-    return total
+    return counts
 
 
 def profile_window(torch, label: str, fn, top: int = 8, host_top: int = 0, watch=()):
@@ -6672,6 +7049,11 @@ def main() -> int:
         launches["pod"] = phase_pod_entry_points(torch, card)
 
     run("pod entry points", pod_entry_points)
+
+    def entry_point():
+        launches["entry"] = phase_entry_point(torch, card)
+
+    run("entry point", entry_point)
     run("selftest", lambda: phase_selftest(torch, card))
 
     if failed:
@@ -6687,9 +7069,10 @@ def main() -> int:
     # pools take no kernel; the handoff phase's decode engines after an
     # inject run the append kernel too, and so do the sharded paged
     # engine's ranks (summed over ranks); the mesh legs' flash launches,
-    # summed over ranks, join the bf16 and f32 flash rows; so do the pod
-    # entry points' (the demo's appends in this process and on its two
-    # ranks, the dry run's flash and appends summed over its ranks); the
+    # summed over ranks, join the bf16 and f32 flash rows (leg (e) also its
+    # graphed twin's run); so do the pod entry points' (the demo's appends
+    # in this process and on its two ranks) and the entry point's (the dry
+    # run's flash and appends at 8, summed over its ranks); the
     # serve workers phase adds its decode workers' appends, read from
     # their launch lines
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
@@ -6714,7 +7097,9 @@ def main() -> int:
     for name, meta in KERNELS.items():
         nums = kernel_numbers[name]
         kernels.append({
-            "name": name, **meta, "launches": main_counts[name] + launches["pod"].get(name, 0),
+            "name": name, **meta,
+            "launches": (main_counts[name] + launches["pod"].get(name, 0)
+                         + launches["entry"].get(name, 0)),
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
             "library_ms": nums["library_ms"],

@@ -33,13 +33,15 @@ buffers instead) and, on the card, replays as one CUDA graph
 training is ``models/lora.build_lora_train_step`` over the same step,
 with optax's ``adam`` (:class:`Adam`).  MoE models train like dense ones.
 On a mesh (``build_train_step(mesh=...)``) each rank runs its shard of the
-step eagerly (``models/mesh_train``); :func:`param_pspecs` is the
+step, one CUDA graph on NCCL and eagerly on gloo (``models/mesh_train``);
+:func:`param_pspecs` is the
 reference's Megatron layout, and :func:`mlp_residual` takes the ``model``
 axis's group for it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass, fields
@@ -54,6 +56,7 @@ from torch.utils.checkpoint import (
 )
 
 from k8s_dra_driver_torch.device import params_device, resolve_device
+from k8s_dra_driver_torch.models.data import RowBlock
 from k8s_dra_driver_torch.models.graphs import GraphedProgram, cuda_capture, graphs_enabled
 from k8s_dra_driver_torch.models.quant import matmul_last as _mm
 from k8s_dra_driver_torch.ops import collectives
@@ -141,6 +144,11 @@ class ModelConfig:
         return self.n_heads // self.kv_heads
 
 
+# the reference's classic flagship: MHA with learned positions
+FLAGSHIP = ModelConfig(
+    vocab_size=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096, max_seq=1024
+)
+# the serving-era variant: 4 KV heads (GQA) and rotary positions
 FLAGSHIP_MODERN = ModelConfig(
     vocab_size=32768, d_model=1024, n_heads=16, n_kv_heads=4, n_layers=8,
     d_ff=4096, max_seq=1024, rope=True,
@@ -685,42 +693,49 @@ class GraphedTrainStep:
     A graph replays the addresses it captured.  The step updates params and
     optimizer state in place, so they keep theirs: that is what the
     reference's donation gives, with no second copy of the model.  Each
-    batch is copied into one token buffer (outside the graph) before the
-    replay, and the loss comes back as a copy, since the next replay
-    overwrites the graph's own.  Another params or state tensor, or another
-    token shape or dtype, starts a new program (eager, then captured) and
-    releases the old graph first; ``captures`` counts the captures made.  A
-    restore that writes into the same tensors
+    batch (a tensor, or a mesh rank's ``data.RowBlock``: its rows, the
+    step then reading a block of the same layout over the buffer) is
+    copied into one token buffer (outside the graph) before the replay,
+    and the loss comes back as a copy, since the next replay overwrites
+    the graph's own.  Another params or state tensor, or another token
+    shape, dtype or block layout, starts a new program (eager, then
+    captured) and releases the old graph first; ``captures`` counts the
+    captures made.  A restore that writes into the same tensors
     (``TrainCheckpointer.restore(like=...)``) needs none.  ``sgd`` is
-    :func:`make_sgd_step`'s step, or with ``base`` (a frozen params tree
-    the step reads and never updates, the LoRA step's base model) a step
-    ``sgd(params, opt_state, base, tokens)``: the base's tensor addresses
-    join the key, so another base starts a new program too.  ``capture``
-    the capturing function (a stand-in in the CPU tests)."""
+    :func:`make_sgd_step`'s step (or the mesh steps' shell around one,
+    ``models/mesh_train.train_step_fns``), or with ``base`` (a frozen
+    params tree the step reads and never updates, the LoRA step's base
+    model) a step ``sgd(params, opt_state, base, tokens)``: the base's
+    tensor addresses join the key, so another base starts a new program
+    too.  ``capture`` the capturing function (a stand-in in the CPU
+    tests); ``name`` the program's, which a failed capture names."""
 
-    def __init__(self, sgd, device, capture=cuda_capture):
+    def __init__(self, sgd, device, capture=cuda_capture, name: str = "train step"):
         self._sgd, self._device, self._capture = sgd, device, capture
+        self.name = name
         self._key = None
         self._tokens = None
         self.program: GraphedProgram | None = None
         self.captures = 0
 
     def __call__(self, params, opt_state, tokens, base=None):
-        tokens = torch.as_tensor(tokens)
-        key = (tuple(tokens.shape), tokens.dtype,
+        block = tokens if isinstance(tokens, RowBlock) else None
+        rows = torch.as_tensor(tokens if block is None else block.rows)
+        key = (tuple(rows.shape), rows.dtype, None if block is None else block.layout,
                _addresses(_state_tensors(params, opt_state)),
                None if base is None else _addresses(param_leaves(base)))
         if key != self._key:
             self.program = self._tokens = None  # the old graph's pool goes first
-            buf = torch.empty_like(tokens, device=self._device)
+            buf = torch.empty_like(rows, device=self._device)
+            batch = buf if block is None else dataclasses.replace(block, rows=buf)
             sgd = self._sgd  # the program must not refer back to the holder
             args = (params, opt_state) if base is None else (params, opt_state, base)
             self.program = GraphedProgram(
-                "train step", lambda: sgd(*args, buf)[2], self._device,
+                self.name, lambda: sgd(*args, batch)[2], self._device,
                 capture=self._capture,
             )
             self._key, self._tokens = key, buf
-        self._tokens.copy_(tokens)
+        self._tokens.copy_(rows)
         captured = self.program.graph is not None
         loss = self.program()
         self.captures += int(self.program.graph is not None and not captured)
@@ -731,12 +746,12 @@ class GraphedTrainStep:
 class TrainStepFns:
     init: callable
     step: callable
-    graphed: GraphedTrainStep | None  # the step's graph holder on the card (None on a mesh)
+    graphed: GraphedTrainStep | None  # the step's graph holder (None on a gloo mesh)
 
     @property
     def captures(self) -> int:
         """CUDA graphs the step has captured (0 on the CPU, under
-        ``disable_graphs()`` and on a mesh)."""
+        ``disable_graphs()`` and on a gloo mesh)."""
         return 0 if self.graphed is None else self.graphed.captures
 
 
@@ -769,7 +784,8 @@ def build_train_step(
     step of the reference's mesh branch (``models/mesh_train``; data,
     tensor and sequence parallelism, ``sequence_parallel`` "auto" taking
     the ring when the ``seq`` axis is > 1, "ring", "ulysses" or "none"),
-    run eagerly on ``device`` (the mesh's device type)."""
+    on ``device`` (the mesh's device type): one CUDA graph on an NCCL mesh,
+    eager on gloo (``mesh_train.train_step_fns``)."""
     valid = ("auto", "ring", "ulysses", "none")
     if sequence_parallel not in valid:
         raise ValueError(f"sequence_parallel must be one of {valid}, got {sequence_parallel!r}")

@@ -49,6 +49,12 @@ class RowBlock:
         """The global batch's shape."""
         return (self.global_rows, *self.rows.shape[1:])
 
+    @property
+    def layout(self) -> tuple:
+        """Everything but the rows: which block of which batch over which
+        mesh (a graphed step keys its program on it)."""
+        return self.global_rows, self.index, self.count, self.axes, id(self.mesh)
+
     def to(self, device) -> "RowBlock":
         return RowBlock(self.rows.to(device), self.global_rows, self.index, self.count,
                         self.axes, self.mesh)

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-from k8s_dra_driver_torch.ops import flash_attention, int4_matmul, paged_attention
+from k8s_dra_driver_torch.ops import collectives, flash_attention, int4_matmul, paged_attention
 
 # the kernel wrappers whose launch counters a replay must keep counting
 LAUNCH_COUNTERS = (paged_attention, int4_matmul, flash_attention)
@@ -33,6 +33,17 @@ def add_launch_counts(delta: dict) -> None:
     """Add ``delta`` (keys as :func:`launch_counts` gives them)."""
     for mod in LAUNCH_COUNTERS:
         mod.add_launch_counts({key: n for (m, key), n in delta.items() if m == mod.__name__})
+
+
+def _counts() -> dict:
+    """What a replay must keep counting: the launch counters and the
+    collectives' byte counters (``collectives.byte_counts``)."""
+    return {**launch_counts(), **collectives.byte_counts()}
+
+
+def _add_counts(delta: dict) -> None:
+    add_launch_counts(delta)
+    collectives.add_byte_counts(delta)
 
 
 def _change(after: dict, before: dict) -> dict:
@@ -110,7 +121,8 @@ class GraphedProgram:
     The kernel wrappers count a launch when their Python runs, which a
     replay skips: the holder takes back the change in the counters across
     the capture and adds it at every replay, so the counts are those of
-    eager calls.  A capture that raises leaves the counters as they were
+    eager calls.  The collectives' byte counters (``comm_bytes``,
+    ``host_bytes``) are carried the same way.  A capture that raises leaves the counters as they were
     and raises :class:`GraphCaptureError` naming the program; nothing runs
     eagerly in its place.  ``capture(fn, device)`` is the capturing
     function (a stand-in in the CPU tests)."""
@@ -133,11 +145,11 @@ class GraphedProgram:
                 return self._fn()
             self._capture_now()
         self.graph.replay()
-        add_launch_counts(self._delta)
+        _add_counts(self._delta)
         return self._out
 
     def _capture_now(self) -> None:
-        before = launch_counts()
+        before = _counts()
         t0 = time.perf_counter()
         try:
             graph, out = self._capture(self._fn, self._device)
@@ -146,7 +158,7 @@ class GraphedProgram:
                 f"capturing {self.name} as a CUDA graph failed: {type(exc).__name__}: {exc}"
             ) from exc
         finally:
-            after = launch_counts()
-            add_launch_counts(_change(before, after))  # the capture launched nothing
+            after = _counts()
+            _add_counts(_change(before, after))  # the capture launched and sent nothing
         self.capture_s = time.perf_counter() - t0
         self.graph, self._out, self._delta = graph, out, _change(after, before)

@@ -32,8 +32,37 @@ written out:
   per dtype and axis over the flattened gradients) before AdamW updates
   the rank's shards in place.
 
-The step runs eagerly; ``remat`` recomputes a block's collectives with it,
-on every rank alike.
+On an NCCL mesh the step is one CUDA graph (:func:`train_step_fns`), the
+reference's ``jax.jit`` with donation; on gloo it runs eagerly.  ``remat``
+recomputes a block's collectives with it, on every rank alike.
+
+Capturing NCCL (``chip_smoke.collective_capture_probe`` on an H100 with
+torch 2.11 and NCCL 2.28, a world-1 NCCL group, each collective called
+directly):
+
+* ``graphs.cuda_capture`` (``capture_begin`` in its default "global"
+  error mode, on a side stream) captures ``all_reduce``, the list
+  ``all_gather`` the port issues, ``all_gather_into_tensor``,
+  ``reduce_scatter_tensor``, ``all_to_all_single``, ``broadcast`` and
+  ``batch_isend_irecv``; ProcessGroupNCCL's own stream joins the capture
+  through its events.  So does an ``all_reduce`` issued from autograd's
+  backward thread, as the backward functions of ``collectives`` issue
+  theirs (``_Pvary``, ``_AllGather``, ``_PPermute``): autograd runs a
+  backward function on its forward's stream, the capturing one.  Every replay equals an eager
+  call.  No collective the steps use failed, so no NCCL step stays eager.
+* The communicator exists before the capture: ``ranks.init_ranks`` and
+  ``consumer`` pass NCCL its ``device_id``, which opens the default
+  group's communicator at init and a later group's at its creation (an
+  all-reduce whose first call on a new group is inside the capture
+  captures too).  Call 1 of a step runs eagerly anyway.
+* The watchdog (``TORCH_NCCL_ASYNC_ERROR_HANDLING`` unset, torch's
+  default): the captures and replays raised nothing and the runs ended
+  cleanly.
+* One card holds a world of 1 under NCCL (it refuses two ranks of one
+  communicator on a card), where the shell issues no collective at all.
+  A graph over several ranks is checked on the CPU only, through a
+  stand-in capture on gloo (``tests/test_torch_mesh_graph.py``); its check
+  on several cards waits for such a machine.
 """
 
 from __future__ import annotations
@@ -44,6 +73,7 @@ from dataclasses import dataclass
 import torch
 
 from k8s_dra_driver_torch.models.burnin import (
+    GraphedTrainStep,
     TrainStepFns,
     _mm,
     _rms_norm,
@@ -60,6 +90,7 @@ from k8s_dra_driver_torch.models.burnin import (
     value_and_grad,
 )
 from k8s_dra_driver_torch.models.data import RowBlock, as_batch, local_rows
+from k8s_dra_driver_torch.models.graphs import cuda_capture, graphs_enabled
 from k8s_dra_driver_torch.ops import collectives
 from k8s_dra_driver_torch.parallel.mesh import axis_index, mesh_shape
 
@@ -267,8 +298,19 @@ def loss_and_grads(params, tokens, cfg, plan: MeshPlan, remat: str = "blocks"):
                          reduce_fn(plan), params, tokens)
 
 
-def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device,
-                   accum_steps: int = 1) -> TrainStepFns:
+def nccl_mesh(mesh) -> bool:
+    """True where every axis group of ``mesh`` is NCCL, whose collectives
+    a CUDA graph captures; a gloo group stages CUDA tensors through pinned
+    host memory and waits on the host, which no graph holds."""
+    import torch.distributed as dist
+
+    return all(dist.get_backend(mesh.get_group(name)) == "nccl"
+               for name in mesh.mesh_dim_names)
+
+
+def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device, mesh,
+                   accum_steps: int = 1, capture=None,
+                   name: str = "mesh train step") -> TrainStepFns:
     """The ``(init, step)`` shell of the mesh steps.  ``init(generator)``
     draws the whole model on the generator's device (the same seed on every
     rank), moves it to ``device`` and keeps ``shard(full)``, this rank's
@@ -277,7 +319,19 @@ def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device,
     first under accumulation, whose microbatches interleave the whole
     batch's rows), runs ``loss_fn`` and ``reduce`` (``make_sgd_step``),
     updates the shards IN PLACE and returns the global mean loss (the same
-    on every rank) as a device tensor."""
+    on every rank) as a device tensor.
+
+    On an NCCL ``mesh`` (:func:`nccl_mesh`) the step is one CUDA graph, the
+    reference's jitted step with its donation: ``graphed`` holds a
+    ``burnin.GraphedTrainStep`` named ``name`` (call 1 eager, call 2
+    captures and replays, later calls replay; ``captures`` counts), which
+    copies the batch or the block's rows into one token buffer; the
+    accumulation's gather, the collectives and the update run inside the
+    graph.  On gloo the step stays eager (``graphed`` None), decided here
+    from the backend, never by a capture that failed.  ``capture``, where
+    given, graphs the step through that capturing function on any backend
+    (a stand-in in the CPU tests); ``graphs.disable_graphs()`` runs a
+    graphed step eagerly."""
     from k8s_dra_driver_torch.device import params_device
 
     opt = make_optimizer(lr)
@@ -290,24 +344,35 @@ def train_step_fns(cfg, loss_fn, reduce, shard, lr: float, device,
 
     sgd = make_sgd_step(loss_fn, opt, accum_steps=accum_steps, reduce=reduce)
 
-    def step(params, opt_state, tokens):
-        params_device(params, device)
-        tokens = as_batch(tokens, device)
+    def run(params, opt_state, tokens):
         if accum_steps > 1 and isinstance(tokens, RowBlock):
             tokens = tokens.whole()
         return sgd(params, opt_state, tokens)
 
-    return TrainStepFns(init=init, step=step, graphed=None)
+    if capture is None and nccl_mesh(mesh):
+        capture = cuda_capture
+    graphed = None if capture is None else GraphedTrainStep(run, device, capture, name)
+
+    def step(params, opt_state, tokens):
+        params_device(params, device)
+        tokens = as_batch(tokens, device)
+        if graphed is not None and graphs_enabled():
+            return graphed(params, opt_state, tokens)
+        return run(params, opt_state, tokens)
+
+    return TrainStepFns(init=init, step=step, graphed=graphed)
 
 
 def build_mesh_train_step(cfg, mesh, lr: float = 3e-4, sequence_parallel: str = "auto",
                           attention: str = "dense", accum_steps: int = 1,
-                          remat: str = "blocks", device=None) -> TrainStepFns:
+                          remat: str = "blocks", device=None, capture=None) -> TrainStepFns:
     """``(init, step)`` of the mesh branch for this rank
-    (:func:`train_step_fns`): the shards are ``weights.shard_params``'."""
+    (:func:`train_step_fns`: one CUDA graph on NCCL, eager on gloo): the
+    shards are ``weights.shard_params``'."""
     from k8s_dra_driver_torch.models.weights import shard_params
 
     plan = mesh_plan(cfg, mesh, sequence_parallel, attention)
     return train_step_fns(
         cfg, functools.partial(mesh_loss, cfg=cfg, plan=plan, remat=remat), reduce_fn(plan),
-        lambda full: shard_params(cfg, mesh, full)[0], lr, device, accum_steps)
+        lambda full: shard_params(cfg, mesh, full)[0], lr, device, mesh, accum_steps,
+        capture)

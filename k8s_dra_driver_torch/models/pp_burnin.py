@@ -8,7 +8,8 @@ column shard holds whole KV groups; ``mlp_up`` column-parallel,
 ``attn_out``/``mlp_down`` row-parallel), and the batch splits over
 ``data``.  The embedding, ``ln_f`` and the tied logits sit outside the
 pipeline.  As in ``models/mesh_train``, each rank runs its shard of the
-step eagerly and takes the whole batch; the collectives the reference's
+step (one CUDA graph on NCCL, eagerly on gloo) and takes the whole batch;
+the collectives the reference's
 ``shard_map`` and GSPMD insert are written out.
 
 * **Rows.** The batch ``[B, S]`` is reshaped to ``[n_micro, B/n_micro,
@@ -297,7 +298,7 @@ def loss_and_grads(params, tokens, cfg: ModelConfig, plan: PipePlan):
 
 
 def build_pp_train_step(cfg: ModelConfig, mesh, lr: float = 3e-4, n_micro: int | None = None,
-                        tp_mode: str = "megatron", device="cuda") -> TrainStepFns:
+                        tp_mode: str = "megatron", device="cuda", capture=None) -> TrainStepFns:
     """``(init, step)`` of pipeline-parallel training for this rank of
     ``mesh`` (a ``DeviceMesh`` with ``pipe >= 2``, ``seq`` 1) on ``device``
     (default the card; raises without one unless ``device="cpu"``), on
@@ -305,8 +306,9 @@ def build_pp_train_step(cfg: ModelConfig, mesh, lr: float = 3e-4, n_micro: int |
     model to the pipeline layout and keeps this rank's shards; ``step``
     takes the whole batch and returns the global mean loss.  ``n_micro``
     defaults to the ``pipe`` size.  ``tp_mode``: "megatron" or
-    "megatron-sp" (the module docstring).  The step runs eagerly
-    (``graphed`` is None)."""
+    "megatron-sp" (the module docstring).  On an NCCL mesh the step is one
+    CUDA graph (``graphed``, "pipeline train step"); on gloo it runs
+    eagerly (``graphed`` is None); ``capture`` as the shell takes it."""
     plan = pp_plan(cfg, mesh, n_micro, tp_mode)
     dev = resolve_device(device)
     if mesh.device_type != dev.type:
@@ -314,4 +316,4 @@ def build_pp_train_step(cfg: ModelConfig, mesh, lr: float = 3e-4, n_micro: int |
     return train_step_fns(
         cfg, functools.partial(pp_loss, cfg=cfg, plan=plan), reduce_fn(cfg, plan),
         lambda full: weights.shard_pipeline_params(cfg, mesh, pp_params_from_dense(full, cfg))[0],
-        lr, dev)
+        lr, dev, mesh, capture=capture, name="pipeline train step")

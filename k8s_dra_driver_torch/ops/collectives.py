@@ -41,12 +41,28 @@ import torch.distributed as dist
 _KINDS = ("all_reduce", "reduce_scatter", "ppermute", "all_gather", "all_to_all", "broadcast")
 comm_bytes = dict.fromkeys(_KINDS, 0)
 host_bytes = dict.fromkeys(_KINDS, 0)
+_COUNTERS = {"comm_bytes": comm_bytes, "host_bytes": host_bytes}
 
 
 def reset_counts() -> None:
     for counter in (comm_bytes, host_bytes):
         for key in counter:
             counter[key] = 0
+
+
+def byte_counts() -> dict:
+    """Both byte counters, ``{("comm_bytes" or "host_bytes", kind): n}``
+    (read by the CUDA-graph holder, ``models/graphs.GraphedProgram``)."""
+    return {(name, kind): n for name, counter in _COUNTERS.items()
+            for kind, n in counter.items()}
+
+
+def add_byte_counts(delta: dict) -> None:
+    """Add ``delta`` (keys as :func:`byte_counts` gives them; others are
+    ignored): a graph replay counts the bytes its capture recorded."""
+    for name, counter in _COUNTERS.items():
+        for kind in counter:
+            counter[kind] += delta.get((name, kind), 0)
 
 
 def group_index(group) -> tuple[int, int]:

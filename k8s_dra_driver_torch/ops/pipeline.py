@@ -41,8 +41,9 @@ def pipeline_apply(stage_fn, stage_params, x_microbatches, group):
     ticks = n_micro + n_stages - 1
     perm = collectives.ring_perm(n_stages)
     dev = x_microbatches.device
-    is_first = torch.tensor(idx == 0, device=dev)
-    is_last = torch.tensor(idx == n_stages - 1, device=dev)
+    # filled on the device: a CUDA graph of the step holds no host copy
+    is_first = torch.full((), idx == 0, dtype=torch.bool, device=dev)
+    is_last = torch.full((), idx == n_stages - 1, dtype=torch.bool, device=dev)
     buf = torch.zeros_like(x_microbatches[0])
     outs = []
     for t in range(ticks):

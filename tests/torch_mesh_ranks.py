@@ -11,6 +11,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from k8s_dra_driver_torch.parallel import mesh as pm
 
@@ -526,3 +527,214 @@ def fed_train_case(kind, cfg_kw, layout, data, batch_size, steps, **kw):
         out.append([float(fns.step(params, state, b)[2]) for b in feed])
         out.append(collectives.comm_bytes["all_gather"])
     return out[0], out[2], out[1], out[3]
+
+
+class HostTraffic(TorchDispatchMode):
+    """A dispatch mode that refuses what a CUDA graph cannot hold: a read
+    of the device from the host (``.item()``), data copied from the host
+    (``torch.tensor(x, device=...)``) and a data-dependent shape
+    (``nonzero``, a boolean-mask index)."""
+
+    REFUSED = ("aten._local_scalar_dense.default", "aten.lift_fresh.default",
+               "aten.nonzero.default")
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        masked = func is torch.ops.aten.index.Tensor and any(
+            t is not None and t.dtype == torch.bool for t in args[1])
+        if str(func) in self.REFUSED or masked:
+            raise RuntimeError(f"{func} moves data between the host and the device: "
+                               f"a CUDA graph cannot hold it")
+        return func(*args, **(kwargs or {}))
+
+
+def _counters() -> dict:
+    from k8s_dra_driver_torch.models import graphs
+    from k8s_dra_driver_torch.ops import collectives
+
+    return {**graphs.launch_counts(), **collectives.byte_counts()}
+
+
+def _add_counters(delta: dict) -> None:
+    from k8s_dra_driver_torch.models import graphs
+    from k8s_dra_driver_torch.ops import collectives
+
+    graphs.add_launch_counts(delta)
+    collectives.add_byte_counts(delta)
+
+
+class _Replay:
+    """A captured graph's stand-in: a replay reruns the program with every
+    counter held (a replay runs no Python) and leaves its result in the
+    captured output."""
+
+    def __init__(self, fn, out):
+        self.fn, self.out, self.replays = fn, out, 0
+
+    def replay(self):
+        before = _counters()
+        result = self.fn()
+        _add_counters({k: before[k] - n for k, n in _counters().items()})
+        with torch.no_grad():
+            self.out.copy_(result)
+        self.replays += 1
+
+
+class StandInCapture:
+    """A capture that behaves on the CPU as a CUDA capture does: ``fn``'s
+    Python runs once under :class:`HostTraffic` (the counters move, which
+    the graph holder takes back), and the tensors of ``keep`` (the step's
+    params and optimizer state, set after ``init``) are left as they were,
+    since a capture runs no kernel.  ``fail``: raise after the Python ran,
+    as a ``capture_end`` that fails."""
+
+    def __init__(self, fail: bool = False):
+        self.keep: list = []
+        self.fail = fail
+        self.graphs: list = []
+
+    def __call__(self, fn, device):
+        saved = [t.clone() for t in self.keep]
+        with HostTraffic():
+            out = fn()
+        with torch.no_grad():
+            for t, s in zip(self.keep, saved):
+                t.copy_(s)
+        if self.fail:
+            raise RuntimeError("operation not permitted when stream is capturing")
+        self.graphs.append(_Replay(fn, out))
+        return self.graphs[-1], out
+
+
+def _graph_twins(kind, cfg_kw, layout, params, **kw):
+    """(cfg, mesh, a graphed step on a :class:`StandInCapture`, its
+    capture, its eager twin, the sharded params of each, their optimizer
+    states), ``kind`` "mesh" or "pp", both from the whole ``params``."""
+    from k8s_dra_driver_torch.models import burnin, mesh_train, pp_burnin, weights
+
+    cfg, mesh, full = _train_setup(cfg_kw, layout, params)
+    cap = StandInCapture(kw.pop("fail", False))
+    if kind == "pp":
+        def build(**extra):
+            return pp_burnin.build_pp_train_step(cfg, mesh, device="cpu", **kw, **extra)
+
+        def shard():
+            return weights.shard_pipeline_params(cfg, mesh,
+                                                 pp_burnin.pp_params_from_dense(full, cfg))[0]
+    else:
+        def build(**extra):
+            return mesh_train.build_mesh_train_step(cfg, mesh, device="cpu", **kw, **extra)
+
+        def shard():
+            return weights.shard_params(cfg, mesh, full)[0]
+    graphed, eager = build(capture=cap), build()
+    states = []
+    for _ in range(2):
+        local = shard()
+        states.append((local, burnin.make_optimizer().init(local)))
+    cap.keep = burnin._state_tensors(*states[0])
+    return cfg, mesh, graphed, cap, eager, states
+
+
+def _feed(tokens, mesh, feed: str):
+    """The batch as the step takes it: ``"whole"``, or ``"blocks"``, this
+    rank's ``data.RowBlock`` over ``data``."""
+    from k8s_dra_driver_torch.models.data import RowBlock
+
+    tokens = torch.from_numpy(tokens)
+    if feed == "whole":
+        return tokens
+    index, count = pm.axis_index(mesh, "data")
+    return RowBlock(tokens.chunk(count, 0)[index], tokens.shape[0], index, count, ("data",), mesh)
+
+
+def graph_case(kind, cfg_kw, layout, params, tokens, steps, feed="whole", **kw):
+    """``steps`` steps of the graphed step and of its eager twin on
+    ``tokens`` (fed as :func:`_feed` gives them), the byte counters zeroed
+    before each run: (the graphed losses, the eager ones, whether every
+    shard and optimizer tensor is bit for bit its twin's, captures, the
+    program's calls, the stand-in graph's replays, the bytes each run sent
+    and copied through the host by kind, rank 0's unsharded params after
+    the graphed run, dense for the pipeline; the others None)."""
+    import torch.distributed as dist
+
+    from k8s_dra_driver_torch.models import burnin, weights
+    from k8s_dra_driver_torch.ops import collectives
+
+    cfg, mesh, graphed, cap, eager, states = _graph_twins(kind, cfg_kw, layout, params, **kw)
+    batch = _feed(tokens, mesh, feed)
+    out = []
+    for fns, (local, state) in zip((graphed, eager), states):
+        collectives.reset_counts()
+        out.append([float(fns.step(local, state, batch)[2]) for _ in range(steps)])
+        out.append((dict(collectives.comm_bytes), dict(collectives.host_bytes)))
+    (g_local, g_state), (e_local, e_state) = states
+    same = all(torch.equal(a, b) for a, b in zip(burnin._state_tensors(g_local, g_state),
+                                                   burnin._state_tensors(e_local, e_state)))
+    if kind == "pp":
+        after = weights.dense_params(cfg, weights.unshard_pipeline_params(cfg, mesh, g_local)[0])
+    else:
+        after = weights.unshard_params(cfg, mesh, g_local)[0]
+    return dict(graphed=out[0], eager=out[2], same=same, captures=graphed.captures,
+                calls=graphed.graphed.program.calls, replays=cap.graphs[0].replays,
+                bytes_graphed=out[1], bytes_eager=out[3], eager_holder=eager.graphed,
+                after=numpy_tree(after) if dist.get_rank() == 0 else None)
+
+
+def recapture_case(cfg_kw, layout, params, tokens):
+    """The graphed mesh step's captures after 3 calls, then 2 calls on a
+    longer batch, then 2 on another params tree, with the stand-in graphs
+    made and the program's calls."""
+    from k8s_dra_driver_torch.models import burnin
+
+    cfg, mesh, graphed, cap, _, states = _graph_twins("mesh", cfg_kw, layout, params)
+    (local, state), (other, other_state) = states
+    short = torch.from_numpy(tokens[:, :16])
+    whole = torch.from_numpy(tokens)
+    seen = []
+    for args, calls in (((local, state, short), 3), ((local, state, whole), 2)):
+        for _ in range(calls):
+            graphed.step(*args)
+        seen.append(graphed.captures)
+    cap.keep = burnin._state_tensors(other, other_state)
+    for _ in range(2):
+        graphed.step(other, other_state, whole)
+    seen.append(graphed.captures)
+    return seen, len(cap.graphs), graphed.graphed.program.calls
+
+
+def failed_capture_case(kind, cfg_kw, layout, params, tokens, **kw):
+    """A capture that raises: (the error's type and message, whether the
+    shards and state after it are those after the eager call 1, whether
+    the counters are, the program's graph)."""
+    from k8s_dra_driver_torch.models import burnin, graphs
+
+    _, _, graphed, _, _, states = _graph_twins(kind, cfg_kw, layout, params, fail=True, **kw)
+    local, state = states[0]
+    batch = torch.from_numpy(tokens)
+    graphed.step(local, state, batch)
+    before = [t.clone() for t in burnin._state_tensors(local, state)]
+    counts = _counters()
+    try:
+        graphed.step(local, state, batch)
+        err = None
+    except graphs.GraphCaptureError as exc:
+        err = (type(exc).__name__, str(exc))
+    kept = all(torch.equal(a, b) for a, b in zip(before, burnin._state_tensors(local, state)))
+    return err, kept, _counters() == counts, graphed.graphed.program.graph
+
+
+def gloo_holders(cfg_kw, layout, pp_layout):
+    """On real gloo groups: the mesh step's and the pipeline step's
+    ``graphed`` and ``captures`` after two steps, and ``nccl_mesh``."""
+    from k8s_dra_driver_torch.models import burnin, mesh_train, pp_burnin
+
+    cfg = burnin.ModelConfig(**{**cfg_kw, "dtype": torch.float32})
+    out = []
+    tokens = torch.zeros((4, 16), dtype=torch.int32)
+    for fns in (burnin.build_train_step(cfg, mesh=make_mesh(layout), device="cpu"),
+                pp_burnin.build_pp_train_step(cfg, make_mesh(pp_layout), device="cpu")):
+        params, state = fns.init(torch.Generator().manual_seed(0))
+        for _ in range(2):
+            fns.step(params, state, tokens)
+        out.append((fns.graphed, fns.captures))
+    return out, mesh_train.nccl_mesh(make_mesh(layout))
