@@ -345,11 +345,34 @@ exits 2 before any result):
     over ranks the first leg's schedule (the ring over ``seq`` 2 at
     ``model`` 4), the append kernel launched, and the flash forward, dQ
     and dK/dV at D 16 in bf16 on that leg's layer-0 inputs, causal and in
-    the ring's mode, elementwise against their plain versions.
+    the ring's mode, elementwise against their plain versions;
+28. (run right after phase 25) the port's own serving supervisor ("serve
+    disagg"): (a) the reference's disaggregated mix (4 long requests of
+    255 prompt and 128 new tokens queued ahead of 8 short ones of 16 and
+    8, greedy, seed ``SEED + 91``) through one graphed paged engine of 8
+    slots and through the port's ``DisaggRouter`` over 2 prefill engines
+    (4 slots, 4 x 16 + 1 blocks) and 2 decode engines (4 slots, 4 x 24 + 1
+    blocks) of one set of weights, each after a warm-up through its own
+    engines: every request once at its token count, 12 handoffs, no
+    fallback, every transfer ``ok``, every token teacher-forced within
+    0.25, append launches in the decode pools, the append kernel against
+    its plain version on decode engine 0's first injected window, every
+    pool's blocks back; the short requests' TTFT and end-to-end tails
+    from the request traces, wall time and tokens/s of each run; (b) the
+    router over the port's ``TransportHub`` and phase 25's two workers
+    (``RemotePool`` s, a ``TransportChannel``) on phase 25's 8 requests
+    after a warm-up: every request once, every ACK ok, no fallback,
+    teacher-forced, the decode worker's append launches; HANDOFF to ACK
+    medians split at the KV frame's send, ``FLEET``'s TELEM frames, tokens/s;
+    (c) (a)'s router with its channel dropping one transfer, putting one
+    over its deadline and corrupting one: those three fall back under
+    their reasons and re-prefill (teacher-forced), the others ``ok``, no
+    block leaked.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
-after a handoff, in this process and in the decode workers, the sharded
+after a handoff, in this process and in the decode workers, the
+disaggregated router's engines and its decode worker, the sharded
 engine's ranks, training, LoRA, MoE and mesh training, the serving demo
 and the dry run at 8) and their times; the last line is the JSON device
 record.
@@ -4069,16 +4092,18 @@ def _split_round(torch, label, eng):
         return None
 
 
-def _record_append_windows(torch, pa, nq: int):
+def _record_append_windows(torch, pa, nq: int, pools=()):
     """Wrap the append wrapper to keep, per layer, the first window of
     ``nq`` queries the path gives it (q, new k/v, the layer's pools before
-    the write, table, pos, write mask), outside any capture.  Returns
+    the write, table, pos, write mask), outside any capture; with ``pools``
+    (engines' K pools) only a window writing into one of them.  Returns
     ``(records by layer, restore)``."""
     rec: dict = {}
     wrapper = pa.paged_append_attention
 
     def recording(q, new_k, new_v, k_pools, v_pools, block_table, pos, layer, write_mask=None):
         if (q.shape[1] == nq and layer not in rec
+                and (not pools or any(k_pools.data_ptr() == p.data_ptr() for p in pools))
                 and not (q.is_cuda and torch.cuda.is_current_stream_capturing())):
             rec[layer] = tuple(None if t is None else t.clone() for t in (
                 q, new_k, new_v, k_pools[layer], v_pools[layer], block_table, pos, write_mask))
@@ -5979,6 +6004,16 @@ class _WorkerPeer:
         self.buf = None   # its FrameBuffer, which may already hold frames
         self.ready_s = None
 
+    def stderr_tail(self) -> str:
+        return self.err_path.read_text()[-3000:]
+
+    def check_ready(self, tag: str) -> None:
+        """Its first stdout line must be ``{"ready": true, "pid": ...}``."""
+        line = self.proc.stdout.readline()
+        if not line or json.loads(line) != {"ready": True, "pid": self.proc.pid}:
+            raise AssertionError(f"{tag}: worker {self.name}: ready line {line!r}")
+        self.ready_s = time.perf_counter() - self.t0
+
     def launches(self) -> dict:
         err = self.err_path.read_text()
         line = [x for x in err.splitlines() if x.startswith("worker kernel launches: ")]
@@ -5987,31 +6022,25 @@ class _WorkerPeer:
         return json.loads(line[-1].split(": ", 1)[1])
 
 
-def _serve_two_workers(torch, tag, cfg, cache_dtype, seed: int, reqs, tmp) -> dict:
-    """Spawn a prefill worker and a decode worker (its ticks held), submit
-    ``reqs`` to the prefill one, forward each HANDOFF as a KV frame to the
-    decode one, resume it once every ACK is in, and gather the completions;
-    then hang up and read each worker's launch line.  Returns the streams,
-    the per-request clocks and the start-up times."""
+@contextlib.contextmanager
+def _spawned_workers(tag, cfg, cache_dtype, seed: int, port: int, tmp, workers):
+    """Spawn one ``python -m k8s_dra_driver_torch.models.transport`` worker
+    per ``(name, role, hold_ticks)`` of ``workers``, each dialing ``port``,
+    and yield them by name as :class:`_WorkerPeer` s.  The caller hangs up
+    before the block ends; then each worker has 60 s to exit (it is killed
+    after) and must have exited 0."""
     import os
-    import socket
     from pathlib import Path
-
-    from k8s_dra_driver_torch.models import transport as T
 
     root = Path(__file__).resolve().parent
     env = {k: v for k, v in os.environ.items() if k != "DRA_FAULTS"}
     env["PYTHONPATH"] = os.pathsep.join(x for x in (str(root), env.get("PYTHONPATH", "")) if x)
-    listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    listener.bind(("127.0.0.1", 0))
-    listener.listen(4)
-    port = listener.getsockname()[1]
     peers = {}
     try:
-        for name, role in (("prefill", "prefill"), ("decode", "decode")):
+        for name, role, hold in workers:
             path = Path(tmp) / f"{tag.replace(' ', '_')}_{name}.json"
             path.write_text(json.dumps(_worker_doc(cfg, cache_dtype, seed, port, name, role,
-                                                   hold=role == "decode")))
+                                                   hold=hold)))
             err_path = path.with_suffix(".stderr")
             args = [sys.executable, "-m", "k8s_dra_driver_torch.models.transport", str(path)]
             if DEV == "cpu":  # a rehearsal on the CPU
@@ -6020,98 +6049,8 @@ def _serve_two_workers(torch, tag, cfg, cache_dtype, seed: int, reqs, tmp) -> di
                 proc = subprocess.Popen(args, cwd=root, env=env, stdout=subprocess.PIPE,
                                         stderr=err, text=True)
             peers[name] = _WorkerPeer(name, proc, err_path, time.perf_counter())
-        listener.settimeout(WORKER_TIMEOUT_S)
-        while any(p.conn is None for p in peers.values()):
-            sock, _ = listener.accept()
-            buf = T.FrameBuffer()
-            sock.settimeout(30)
-            hello = None
-            while hello is None:
-                buf.feed(sock.recv(1 << 16))
-                hello = next((json.loads(b) for f, b in buf.frames() if f == T.HELLO), None)
-            peer = peers[hello["name"]]
-            line = json.loads(peer.proc.stdout.readline())
-            if line != {"ready": True, "pid": peer.proc.pid} or hello["pid"] != peer.proc.pid:
-                raise AssertionError(f"{tag}: worker {peer.name}: ready line {line}, hello {hello}")
-            peer.ready_s = time.perf_counter() - peer.t0
-            peer.conn = T.SocketConn(sock, peer=peer.name)
-            peer.buf = buf
-        pre, dec = peers["prefill"], peers["decode"]
-        handoff_at, ack_at, frame_bytes, comps, other = {}, {}, {}, {}, {}
-        deadline = time.monotonic() + WORKER_TIMEOUT_S
-
-        def frames_of(peer):
-            """The frames that have arrived from ``peer`` (none: a short nap)."""
-            if time.monotonic() > deadline:
-                raise AssertionError(f"{tag}: {len(handoff_at)} handoffs, {len(ack_at)} acks, "
-                                     f"{len(comps)} completions in {WORKER_TIMEOUT_S} s")
-            if peer.proc.poll() is not None:
-                raise AssertionError(f"{tag}: worker {peer.name} exited {peer.proc.returncode}; "
-                                     f"stderr tail:\n{peer.err_path.read_text()[-3000:]}")
-            data = peer.conn.recv_available()
-            if not data:
-                time.sleep(0.0002)
-                return []
-            peer.buf.feed(data)
-            return list(peer.buf.frames())
-
-        def from_decode(ftype, body):
-            if ftype == T.ACK:
-                doc = json.loads(body)
-                if doc.get("outcome") != "ok" or not doc.get("placed"):
-                    raise AssertionError(f"{tag}: ACK {doc}")
-                if doc["rid"] in ack_at:
-                    raise AssertionError(f"{tag}: a second ACK for {doc['rid']}")
-                ack_at[doc["rid"]] = time.perf_counter()
-            elif ftype == T.COMPLETION:
-                doc = json.loads(body)
-                if doc["request_id"] in comps:
-                    raise AssertionError(f"{tag}: request {doc['request_id']} completed twice")
-                comps[doc["request_id"]] = (doc, time.perf_counter())
-            else:
-                other[ftype] = other.get(ftype, 0) + 1
-
-        t_submit = time.perf_counter()
-        for seq, r in enumerate(reqs):
-            pre.conn.send(T.encode_frame(T.SUBMIT, json.dumps(
-                {"seq": seq, "prompt": r["prompt"], "max_tokens": r["max_tokens"],
-                 "kwargs": {}}).encode()))
-        # each HANDOFF, as it is taken, goes on as a KV frame and its ACK is
-        # awaited before the next: HANDOFF taken to ACK received is one
-        # request's round trip, no other request's queued behind it
-        while len(ack_at) < len(reqs):
-            for ftype, body in frames_of(pre):
-                if ftype == T.SUBMITTED:
-                    doc = json.loads(body)
-                    if not doc["ok"] or doc["rid"] != doc["seq"]:
-                        raise AssertionError(f"{tag}: submit answered {doc}")
-                elif ftype == T.HANDOFF:
-                    taken = time.perf_counter()
-                    meta, wire = T.decode_meta_frame(body)
-                    rid = int(meta["request_id"])
-                    if rid in handoff_at or not wire:
-                        raise AssertionError(f"{tag}: handoff of {rid} repeated or KV-less")
-                    handoff_at[rid] = taken
-                    meta["_correlation"] = f"handoff-req-{rid}"
-                    frame = T.encode_meta_frame(T.KV, meta, wire)
-                    frame_bytes[rid] = len(frame)
-                    dec.conn.send(frame, request_id=rid)
-                    while rid not in ack_at:
-                        for f, b in frames_of(dec):
-                            from_decode(f, b)
-                else:
-                    other[ftype] = other.get(ftype, 0) + 1
-        resumed = time.perf_counter()
-        dec.conn.send(T.encode_frame(T.CONTROL, json.dumps({"op": "resume"}).encode()))
-        while len(comps) < len(reqs):
-            for f, b in frames_of(dec):
-                from_decode(f, b)
-        t_done = time.perf_counter()
+        yield peers
     finally:
-        listener.close()
-        for peer in peers.values():
-            if peer.conn is not None:
-                peer.conn.close()
         for peer in peers.values():
             try:
                 peer.proc.wait(timeout=60)
@@ -6121,7 +6060,119 @@ def _serve_two_workers(torch, tag, cfg, cache_dtype, seed: int, reqs, tmp) -> di
     for peer in peers.values():
         if peer.proc.returncode != 0:
             raise AssertionError(f"{tag}: worker {peer.name} exited {peer.proc.returncode}; "
-                                 f"stderr tail:\n{peer.err_path.read_text()[-3000:]}")
+                                 f"stderr tail:\n{peer.stderr_tail()}")
+
+
+def _serve_two_workers(torch, tag, cfg, cache_dtype, seed: int, reqs, tmp) -> dict:
+    """Spawn a prefill worker and a decode worker (its ticks held), submit
+    ``reqs`` to the prefill one, forward each HANDOFF as a KV frame to the
+    decode one, resume it once every ACK is in, and gather the completions;
+    then hang up and read each worker's launch line.  Returns the streams,
+    the per-request clocks and the start-up times."""
+    import socket
+
+    from k8s_dra_driver_torch.models import transport as T
+
+    listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    listener.bind(("127.0.0.1", 0))
+    listener.listen(4)
+    workers = (("prefill", "prefill", False), ("decode", "decode", True))
+    with _spawned_workers(tag, cfg, cache_dtype, seed, listener.getsockname()[1], tmp,
+                          workers) as peers:
+        try:
+            listener.settimeout(WORKER_TIMEOUT_S)
+            while any(p.conn is None for p in peers.values()):
+                sock, _ = listener.accept()
+                buf = T.FrameBuffer()
+                sock.settimeout(30)
+                hello = None
+                while hello is None:
+                    buf.feed(sock.recv(1 << 16))
+                    hello = next((json.loads(b) for f, b in buf.frames() if f == T.HELLO), None)
+                peer = peers[hello["name"]]
+                peer.check_ready(tag)
+                if hello["pid"] != peer.proc.pid:
+                    raise AssertionError(f"{tag}: worker {peer.name}: hello {hello}")
+                peer.conn = T.SocketConn(sock, peer=peer.name)
+                peer.buf = buf
+            pre, dec = peers["prefill"], peers["decode"]
+            handoff_at, ack_at, frame_bytes, comps, other = {}, {}, {}, {}, {}
+            deadline = time.monotonic() + WORKER_TIMEOUT_S
+
+            def frames_of(peer):
+                """The frames that have arrived from ``peer`` (none: a short nap)."""
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{tag}: {len(handoff_at)} handoffs, {len(ack_at)} acks, "
+                                         f"{len(comps)} completions in {WORKER_TIMEOUT_S} s")
+                if peer.proc.poll() is not None:
+                    raise AssertionError(f"{tag}: worker {peer.name} exited "
+                                         f"{peer.proc.returncode}; stderr tail:\n"
+                                         f"{peer.stderr_tail()}")
+                data = peer.conn.recv_available()
+                if not data:
+                    time.sleep(0.0002)
+                    return []
+                peer.buf.feed(data)
+                return list(peer.buf.frames())
+
+            def from_decode(ftype, body):
+                if ftype == T.ACK:
+                    doc = json.loads(body)
+                    if doc.get("outcome") != "ok" or not doc.get("placed"):
+                        raise AssertionError(f"{tag}: ACK {doc}")
+                    if doc["rid"] in ack_at:
+                        raise AssertionError(f"{tag}: a second ACK for {doc['rid']}")
+                    ack_at[doc["rid"]] = time.perf_counter()
+                elif ftype == T.COMPLETION:
+                    doc = json.loads(body)
+                    if doc["request_id"] in comps:
+                        raise AssertionError(f"{tag}: request {doc['request_id']} completed "
+                                             f"twice")
+                    comps[doc["request_id"]] = (doc, time.perf_counter())
+                else:
+                    other[ftype] = other.get(ftype, 0) + 1
+
+            t_submit = time.perf_counter()
+            for seq, r in enumerate(reqs):
+                pre.conn.send(T.encode_frame(T.SUBMIT, json.dumps(
+                    {"seq": seq, "prompt": r["prompt"], "max_tokens": r["max_tokens"],
+                     "kwargs": {}}).encode()))
+            # each HANDOFF, as it is taken, goes on as a KV frame and its ACK
+            # is awaited before the next: HANDOFF taken to ACK received is one
+            # request's round trip, no other request's queued behind it
+            while len(ack_at) < len(reqs):
+                for ftype, body in frames_of(pre):
+                    if ftype == T.SUBMITTED:
+                        doc = json.loads(body)
+                        if not doc["ok"] or doc["rid"] != doc["seq"]:
+                            raise AssertionError(f"{tag}: submit answered {doc}")
+                    elif ftype == T.HANDOFF:
+                        taken = time.perf_counter()
+                        meta, wire = T.decode_meta_frame(body)
+                        rid = int(meta["request_id"])
+                        if rid in handoff_at or not wire:
+                            raise AssertionError(f"{tag}: handoff of {rid} repeated or KV-less")
+                        handoff_at[rid] = taken
+                        meta["_correlation"] = f"handoff-req-{rid}"
+                        frame = T.encode_meta_frame(T.KV, meta, wire)
+                        frame_bytes[rid] = len(frame)
+                        dec.conn.send(frame, request_id=rid)
+                        while rid not in ack_at:
+                            for f, b in frames_of(dec):
+                                from_decode(f, b)
+                    else:
+                        other[ftype] = other.get(ftype, 0) + 1
+            resumed = time.perf_counter()
+            dec.conn.send(T.encode_frame(T.CONTROL, json.dumps({"op": "resume"}).encode()))
+            while len(comps) < len(reqs):
+                for f, b in frames_of(dec):
+                    from_decode(f, b)
+            t_done = time.perf_counter()
+        finally:
+            listener.close()
+            for peer in peers.values():
+                if peer.conn is not None:
+                    peer.conn.close()
     return dict(comps=comps, handoff_at=handoff_at, ack_at=ack_at, frame_bytes=frame_bytes,
                 t_submit=t_submit, resumed=resumed, t_done=t_done, other=other,
                 ready={n: p.ready_s for n, p in peers.items()},
@@ -6244,6 +6295,396 @@ def phase_serve_workers(torch, cfg, params, handoff, *, card, tol=0.25):
                 f"(first SUBMIT to last COMPLETION); other frames {run['other']}; "
                 f"{time.perf_counter() - t0:.1f} s in all ({card})")
     return appends
+
+
+# "serve disagg": the reference's disaggregated serving headline
+# (bench.py's serving_disagg) through the port's own DisaggRouter at
+# FLAGSHIP_MODERN in bf16, in this process and across worker processes
+DISAGG = dict(block_size=16, prompt_bucket=256, sync_interval=8, preempt_on_stall=False)
+# 4 long requests queued ahead of 8 short ones.  A long prompt is 255
+# tokens, not 256: a handoff's history (the prompt and its first token)
+# must fit the decode engine's bucket of 256, or restore refuses the entry
+# in both packages; 255 also keeps a long prompt at 16 blocks of 16
+DISAGG_MIX = dict(n_long=4, long_prompt=255, long_tokens=128, n_short=8, short_prompt=16,
+                  short_tokens=8)
+DISAGG_UNIFIED = dict(n_slots=8, n_blocks=8 * 24 + 1)   # every slot a whole long stream
+DISAGG_PREFILL = dict(n_slots=4, n_blocks=4 * 16 + 1)   # a prefill slot holds a prompt only
+DISAGG_DECODE = dict(n_slots=4, n_blocks=4 * 24 + 1)    # a decode slot holds a whole stream
+# requests through each run's engines before the clock starts: each engine
+# runs its programs eagerly once and captures them on the second call.  The
+# first, a long prompt, goes through alone: the eager decode window it gives
+# a decode engine is where (a) holds the append kernel against its plain
+# version, at a context of several 64-key page ranges, as the measured
+# long streams give it
+DISAGG_WARMUP = dict(n=8, prompt=16, max_tokens=24, long_prompt=255)
+# leg (c): the first transfer dropped (its 1 s of accounted latency moot),
+# the second 1 s over its 0.25 s deadline, the third corrupted
+DISAGG_FAULTS = (dict(name="drop", handoff_drop_rate=1.0, limit=1),
+                 dict(name="late", handoff_latency_s=1.0, limit=2),
+                 dict(name="corrupt", handoff_corrupt_rate=1.0, limit=1))
+
+
+def _disagg_engine(cfg, params, **kw):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    return PagedServeEngine(params=params, cfg=cfg, cache_dtype=kw.pop("cache_dtype"),
+                            device=DEV, **DISAGG, **kw)
+
+
+def _disagg_warmup(vocab: int) -> list:
+    """The warm-up: one long request, then ``n`` short ones."""
+    w = DISAGG_WARMUP
+    sizes = [w["long_prompt"]] + [w["prompt"]] * w["n"]
+    return [dict(prompt=np.random.RandomState(SEED + 92 + i).randint(0, vocab, size=n).tolist(),
+                 max_tokens=w["max_tokens"]) for i, n in enumerate(sizes)]
+
+
+def _disagg_traffic(vocab: int, seed: int) -> list:
+    """The reference's mix at the smoke's sizes: greedy, longs first."""
+    r, m = np.random.RandomState(seed), DISAGG_MIX
+    longs = [r.randint(0, vocab, size=m["long_prompt"]).tolist() for _ in range(m["n_long"])]
+    shorts = [r.randint(0, vocab, size=m["short_prompt"]).tolist() for _ in range(m["n_short"])]
+    return ([dict(prompt=p, max_tokens=m["long_tokens"]) for p in longs]
+            + [dict(prompt=p, max_tokens=m["short_tokens"]) for p in shorts])
+
+
+def _tails(samples: list) -> str:
+    """p50 and p99 in ms, bench.py's rank rule."""
+    xs = sorted(samples)
+    if not xs:
+        return "none"
+    pick = lambda q: xs[min(len(xs) - 1, int(q * (len(xs) - 1) + 0.5))]  # noqa: E731
+    return f"p50 {pick(0.5) * 1e3:.3f} ms, p99 {pick(0.99) * 1e3:.3f} ms"
+
+
+def _prompt_of(c) -> tuple:
+    return tuple(c.tokens[: len(c.tokens) - len(c.generated)])
+
+
+def _short_tails(engines, comps, shorts) -> tuple[str, str]:
+    """The short requests' TTFT and end-to-end tails, from the request
+    traces of the engines they retire on (one timeline across the pools;
+    a later engine's trace of an id wins, as ``bench.py`` merges them)."""
+    traces = {}
+    for eng in engines:
+        for c in comps:
+            tr = eng.telemetry.trace(c.request_id)
+            if tr is not None and _prompt_of(c) in shorts:
+                traces[c.request_id] = tr
+    return tuple(_tails([tr[k] for tr in traces.values() if tr[k] is not None])
+                 for k in ("ttft_s", "e2e_s"))
+
+
+def _check_served(label, reqs, comps) -> dict:
+    """Every request completed once, ok, at its token count; returns the
+    requests by the completions' ids."""
+    by_prompt = {tuple(r["prompt"]): r for r in reqs}
+    ids = [c.request_id for c in comps]
+    bad = [c.request_id for c in comps if c.status != "ok" or _prompt_of(c) not in by_prompt
+           or len(c.generated) != by_prompt[_prompt_of(c)]["max_tokens"]]
+    if (len(comps) != len(reqs) or len(set(ids)) != len(ids) or bad
+            or {_prompt_of(c) for c in comps} != set(by_prompt)):
+        raise AssertionError(f"{label}: {len(comps)} completions of {len(reqs)} requests, "
+                             f"ids {sorted(ids)}, short or not ok {bad}")
+    return {c.request_id: by_prompt[_prompt_of(c)] for c in comps}
+
+
+def _count_delta(before: dict, after: dict) -> dict:
+    """What each count gained from ``before`` to ``after`` (the changed ones)."""
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after if after.get(k, 0) != before.get(k, 0)}
+
+
+def _graph_launches(engines) -> dict:
+    """The launch counts the engines' CUDA graphs have added so far: each
+    call adds what a replay does (the eager first call launched the same);
+    a program never captured counts nothing (none on the CPU)."""
+    got: dict = {}
+    for eng in engines:
+        for prog in eng.graphs.values():
+            for key, n in prog.replay_counts.items():
+                got[key] = got.get(key, 0) + n * prog.calls
+    return got
+
+
+def _disagg_in_process(torch, label, cfg, params, reqs, cache_dtype, tol, card) -> dict:
+    """Legs (a) and (c): the unified engine, then the router over 2 prefill
+    and 2 decode engines, each after a warm-up through its own engines;
+    then the router again under ``DISAGG_FAULTS``."""
+    from k8s_dra_driver_torch.models import disagg, serve
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+    from k8s_dra_driver_torch.utils.faults import FaultInjector, FaultProfile
+
+    shorts = {tuple(r["prompt"]) for r in reqs if r["max_tokens"] == DISAGG_MIX["short_tokens"]}
+    warm = _disagg_warmup(cfg.vocab_size)
+    tokens = sum(r["max_tokens"] for r in reqs)
+    append = (pa.__name__, "append")
+    out: dict = {}
+
+    tag = f"{label} (a) unified"
+    uni = _disagg_engine(cfg, params, cache_dtype=cache_dtype, **DISAGG_UNIFIED)
+    uni.pump([dict(r) for r in warm])
+    sync(torch)
+    t0 = time.perf_counter()
+    uni_comps = uni.pump([dict(r) for r in reqs])
+    sync(torch)
+    uni_wall = time.perf_counter() - t0
+    _check_served(tag, reqs, uni_comps)
+    ttft, e2e = _short_tails([uni], uni_comps, shorts)
+    log(f"{tag}: one graphed paged engine, {DISAGG_UNIFIED['n_slots']} slots, "
+        f"{DISAGG_UNIFIED['n_blocks']} blocks: {len(reqs)} requests, {tokens} tokens in "
+        f"{uni_wall:.3f} s, {tokens / uni_wall:.1f} tokens/s (after {len(warm)} warm-up requests); "
+        f"short requests' TTFT {ttft}, end to end {e2e} ({card})")
+
+    tag = f"{label} (a) disaggregated"
+    pre = [_disagg_engine(cfg, params, cache_dtype=cache_dtype, **DISAGG_PREFILL)
+           for _ in range(2)]
+    dec = [_disagg_engine(cfg, params, cache_dtype=cache_dtype, **DISAGG_DECODE)
+           for _ in range(2)]
+    router = disagg.DisaggRouter(prefill=pre, decode=dec)
+    fell: list = []
+    fallback = router._fallback
+
+    def noted(entry, reason):
+        fell.append((int(entry["request_id"]), reason))
+        return fallback(entry, reason)
+
+    router._fallback = noted
+    rec, restore = _record_append_windows(torch, pa, 1, pools=[e._cache.k for e in dec])
+    try:
+        router.pump([dict(warm[0])])
+    finally:
+        restore()
+    router.pump([dict(r) for r in warm[1:]])
+    if router.fallbacks or router.handoffs != len(warm):
+        raise AssertionError(f"{tag}: warm-up handoffs {router.handoffs}, fallbacks "
+                             f"{router.fallbacks}")
+    _hold_append_windows(torch, f"{tag} (the long warm-up stream's first window in its decode "
+                         f"engine's pool)", pa, rec, cfg, cache_dtype)
+    reach = int(rec[0][6].max())
+    if reach < 2 * pa.SPLIT_KEYS:
+        raise AssertionError(f"{tag}: the held window reaches position {reach}, within two "
+                             f"{pa.SPLIT_KEYS}-key page ranges")
+    free0 = [e.free_blocks for e in pre + dec]
+    dec0 = _graph_launches(dec)
+    handoffs0, counts0 = router.handoffs, dict(router.channel.counts)
+    sync(torch)
+    _zero_serving_counts()
+    t0 = time.perf_counter()
+    comps = router.pump([dict(r) for r in reqs])
+    sync(torch)
+    wall = time.perf_counter() - t0
+    out["launches"] = serve.launch_counts().get(append, 0)
+    appended = _count_delta(dec0, _graph_launches(dec)).get(append, 0)
+    by_id = _check_served(tag, reqs, comps)
+    counts = _count_delta(counts0, dict(router.channel.counts))
+    if (router.handoffs - handoffs0 != len(reqs) or fell or counts != {"ok": len(reqs)}):
+        raise AssertionError(f"{tag}: handoffs {router.handoffs - handoffs0}, fallbacks {fell}, "
+                             f"channel outcomes {counts}")
+    if [e.free_blocks for e in pre + dec] != free0 or any(
+            e.free_blocks != e.n_blocks - 1 for e in pre + dec):
+        raise AssertionError(f"{tag}: free blocks {[e.free_blocks for e in pre + dec]} after the "
+                             f"drain, {free0} before")
+    if not appended and DEV == "cuda":  # a CPU rehearsal takes the plain version
+        raise AssertionError(f"{tag}: the decode pools never launched the append kernel")
+    _teacher_forced_all(torch, tag, cfg, params, reqs, comps, cache_dtype, tol, by_id=by_id)
+    uni_by = {_prompt_of(c): c.generated for c in uni_comps}
+    same = sum(c.generated == uni_by[_prompt_of(c)] for c in comps)
+    ttft, e2e = _short_tails(dec + pre, comps, shorts)
+    log(f"{tag}: DisaggRouter over 2 prefill engines ({DISAGG_PREFILL['n_slots']} slots, "
+        f"{DISAGG_PREFILL['n_blocks']} blocks) and 2 decode engines ({DISAGG_DECODE['n_slots']} "
+        f"slots, {DISAGG_DECODE['n_blocks']} blocks), one set of weights: {len(reqs)} requests, "
+        f"{tokens} tokens in {wall:.3f} s, {tokens / wall:.1f} tokens/s (after {len(warm)} warm-up "
+        f"requests); short requests' TTFT {ttft}, end to end {e2e}; handoffs {len(reqs)}, "
+        f"fallbacks 0, channel {counts}; append launches {appended} in the decode pools' graphs, "
+        f"{out['launches']} in all; streams equal to the unified engine's bit for bit: {same} "
+        f"of {len(comps)} (reported); every pool's blocks back ({card})")
+    for doc in disagg.debug_disagg_doc()["disagg"]:
+        if doc["router_seq"] == router.seq:
+            ch = doc["channel"]
+            log(f"{tag}: debug_disagg_doc channel: claim {ch['claim']['name']} "
+                f"({ch['bandwidth_gbps']} Gb/s, deadline {ch['transfer_deadline_s']} s, budget "
+                f"{ch['max_in_flight_bytes']} B), in flight {ch['in_flight_bytes']} B / "
+                f"{ch['in_flight_transfers']}, outcomes {ch['outcomes']}, bytes moved "
+                f"{ch['bytes_moved']}")
+
+    tag = f"{label} (c) fallback ladder"
+    inj = FaultInjector(seed=SEED + 93)
+    for kw in DISAGG_FAULTS:
+        inj.arm(FaultProfile(**kw))
+    router.channel.fault_injector = inj
+    fell.clear()
+    handoffs0, counts0, fallbacks0 = router.handoffs, dict(router.channel.counts), router.fallbacks
+    comps = router.pump([dict(r) for r in reqs])
+    router.channel.fault_injector = None
+    by_id = _check_served(tag, reqs, comps)
+    counts = _count_delta(counts0, dict(router.channel.counts))
+    reasons = sorted(r for _, r in fell)
+    if (reasons != ["corrupt", "deadline", "dropped"] or router.fallbacks - fallbacks0 != 3
+            or counts != {"ok": len(reqs) - 3, "dropped": 1, "deadline": 1, "corrupt": 1}
+            or router.handoffs - handoffs0 != len(reqs)):
+        raise AssertionError(f"{tag}: fallbacks {fell}, channel outcomes {counts}")
+    if any(e.free_blocks != e.n_blocks - 1 for e in pre + dec):
+        raise AssertionError(f"{tag}: free blocks {[e.free_blocks for e in pre + dec]}")
+    fallen = {rid for rid, _ in fell}
+    _teacher_forced_all(torch, f"{tag}, the re-prefilled streams", cfg, params, reqs,
+                        [c for c in comps if c.request_id in fallen], cache_dtype, tol,
+                        by_id=by_id)
+    log(f"{tag}: fallbacks by request {sorted(fell)}, each re-prefilled on a decode engine; "
+        f"channel outcomes {counts}; the other {len(reqs) - 3} handoffs ok; every pool's "
+        f"blocks back; injections {inj.stats()}")
+    return out
+
+
+def _disagg_workers(torch, label, cfg, params, reqs, handoff, cache_dtype, tol, card, tmp):
+    """Leg (b): the port's ``TransportHub`` and the two workers of "serve
+    workers" behind a ``DisaggRouter`` of two ``RemotePool``s and a
+    ``TransportChannel``; after a warm-up, each worker's launch counts
+    restart at 0 (``CONTROL zero_launches``), so its exit line counts the
+    measured run only."""
+    from k8s_dra_driver_torch.models import disagg, obs_plane
+    from k8s_dra_driver_torch.models import transport as T
+
+    tag = f"{label} (b) two workers"
+    hub = T.TransportHub(host="127.0.0.1", liveness_timeout_s=WORKER_TIMEOUT_S,
+                         ack_timeout_s=WORKER_TIMEOUT_S)
+    links = {}
+    t_spawn = time.perf_counter()
+    workers = [(f"disagg-{role}", role, False) for role in ("prefill", "decode")]
+    with _spawned_workers(tag, cfg, cache_dtype, SEED, hub.port, tmp, workers) as peers:
+        try:
+            deadline = time.monotonic() + WORKER_TIMEOUT_S
+            while len(links) < len(peers):
+                hub.poll()
+                for name, peer in peers.items():
+                    if peer.proc.poll() is not None:
+                        raise AssertionError(f"{tag}: worker {name} exited {peer.proc.returncode} "
+                                             f"before its link; stderr tail:\n"
+                                             f"{peer.stderr_tail()}")
+                    link = hub.links.get(name)
+                    if name not in links and link is not None and not link.dead:
+                        links[name] = link
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{tag}: workers {sorted(set(peers) - set(links))} did "
+                                         f"not dial in {WORKER_TIMEOUT_S} s")
+                time.sleep(0.01)
+            for peer in peers.values():
+                peer.check_ready(tag)
+            ready_s = time.perf_counter() - t_spawn
+            pools = {name: T.RemotePool(link, name=f"{name}-pool") for name, link in links.items()}
+            pre_pool = pools["disagg-prefill"]
+            channel = T.TransportChannel(links["disagg-decode"])
+            router = disagg.DisaggRouter(prefill=pre_pool, decode=pools["disagg-decode"],
+                                         channel=channel)
+            # the workers run their programs eagerly once and capture them
+            # on the second call: a warm-up first, as in (a)
+            warm = _disagg_warmup(cfg.vocab_size)
+            t0 = time.perf_counter()
+            _check_served(f"{tag} warm-up", warm, router.pump([dict(r) for r in warm]))
+            warm_s = time.perf_counter() - t0
+            for link in links.values():
+                link.send_json(T.CONTROL, {"op": "zero_launches"})
+            handoffs0, counts0 = router.handoffs, dict(channel.counts)
+            handoff_at, sent_at, ack_at, acks = {}, {}, {}, []
+            drain, await_ack = pre_pool._drain_frames, channel._await_ack
+
+            def draining():
+                n0 = len(pre_pool._handoffs)
+                drain()
+                now = time.perf_counter()
+                for e in pre_pool._handoffs[n0:]:
+                    handoff_at.setdefault(int(e["request_id"]), now)
+
+            def awaiting(rid):
+                sent_at[rid] = time.perf_counter()  # the KV frame has just gone out
+                ack = await_ack(rid)
+                ack_at[rid] = time.perf_counter()
+                acks.append(ack)
+                return ack
+
+            pre_pool._drain_frames, channel._await_ack = draining, awaiting
+            t_submit = time.perf_counter()
+            comps = router.pump([dict(r) for r in reqs])
+            t_done = time.perf_counter()
+            by_id = _check_served(tag, reqs, comps)
+            bad = [a for a in acks if a is None or a.get("outcome") != "ok" or not a.get("placed")]
+            counts = _count_delta(counts0, dict(channel.counts))
+            if (bad or len(acks) != len(reqs) or router.fallbacks
+                    or router.handoffs - handoffs0 != len(reqs) or counts != {"ok": len(reqs)}):
+                raise AssertionError(f"{tag}: acks {acks}, fallbacks {router.fallbacks}, "
+                                     f"handoffs {router.handoffs - handoffs0}, channel {counts}")
+            _teacher_forced_all(torch, tag, cfg, params, reqs, comps, cache_dtype, tol,
+                                by_id=by_id)
+            want = {tuple(r["prompt"]): handoff["streams"][rid] for rid, r in enumerate(reqs)}
+            same = sum(c.generated == want[_prompt_of(c)] for c in comps)
+            waits = {part: [(b[r] - a[r]) * 1e3 for r in sorted(ack_at)] for part, (a, b) in (
+                ("HANDOFF received to ACK received", (handoff_at, ack_at)),
+                ("HANDOFF received to KV sent (the router's queue)", (handoff_at, sent_at)),
+                ("KV sent to ACK received", (sent_at, ack_at)))}
+            fleet = obs_plane.FLEET.bundle_doc(journal_limit=1)["instances"]
+            frames = {name: st["frames"] for name, st in fleet.items()}
+            generated = sum(len(c.generated) for c in comps)
+            wall = t_done - t_submit
+        finally:
+            hub.close()
+            for link in hub.links.values():
+                link.conn.close()
+    launched = {name: peer.launches() for name, peer in peers.items()}
+    n_append = launched["disagg-decode"].get("paged_attention:append", 0)
+    if not n_append and DEV == "cuda":
+        raise AssertionError(f"{tag}: the decode worker never launched the append kernel")
+    log(f"{tag}: the port's TransportHub, a prefill and a decode worker ({ready_s:.2f} s to both "
+        f"ready lines, a warm-up of {len(warm)} requests {warm_s:.2f} s), a RemotePool each and a "
+        f"TransportChannel: {len(comps)} requests once each, {len(acks)} ACKs ok and placed, "
+        f"fallbacks 0; streams equal to \"serve workers\"' bit for bit: {same} of {len(comps)} "
+        f"(reported); host clock, medians of {len(acks)} by request id: " + "; ".join(
+            f"{part} {float(np.median(x)):.3f} ms ({' / '.join(f'{v:.3f}' for v in x)})"
+            for part, x in waits.items())
+        + f"; FLEET ingested TELEM frames {frames} "
+        f"(instances {sorted(frames)}); {generated} tokens in {wall:.3f} s, "
+        f"{generated / wall:.1f} tokens/s (first SUBMIT to last COMPLETION); kernel launches by "
+        f"worker since the warm-up {json.dumps(launched, sort_keys=True)} ({card})")
+    return n_append
+
+
+def phase_serve_disagg(torch, cfg, params, handoff, *, card, tol=0.25):
+    """The port's ``DisaggRouter`` on the card ("serve disagg").  (a) the
+    reference's disaggregated mix (``bench.py``'s ``serving_disagg``) at
+    FLAGSHIP_MODERN in bf16: 4 long requests (255-token prompts, 128 new
+    tokens) queued ahead of 8 short ones (16, 8), greedy, through one
+    graphed paged engine of 8 slots, then through the router over 2
+    prefill engines (4 slots, 4 x 16 blocks + the null block) and 2 decode
+    engines (4 slots, 4 x 24 + 1), one set of weights, block 16, bucket
+    256, sync interval 8; each run after a warm-up through its own
+    engines.  Gates: every request once at its token count, 12 handoffs,
+    no fallback and every transfer ``ok``, every token teacher-forced
+    within the 0.25 gap, append launches in the decode pools, the append
+    kernel against its plain version on the first window a long warm-up
+    stream gives its decode engine's pool (past two 64-key page ranges),
+    every pool's blocks back.  (b) "serve workers"' two worker processes
+    and its 8 requests behind the port's ``TransportHub``, two
+    ``RemotePool`` s and a ``TransportChannel``: every request once, every
+    ACK ok, no fallback, teacher-forced, the decode worker's append
+    launches in the measured run.  (c) (a)'s router again, its channel dropping the first
+    transfer, putting the second over its deadline and corrupting the
+    third: those three fall back under their reasons and re-prefill
+    (teacher-forced), the others ``ok``, no block leaked.  Returns the
+    append launches of (a)'s disaggregated run and of (b)'s decode
+    worker."""
+    import tempfile
+
+    label = "serve disagg"
+    cache_dtype = torch.bfloat16
+    reqs = _disagg_traffic(cfg.vocab_size, SEED + 91)
+    t0 = time.perf_counter()
+    out = _disagg_in_process(torch, label, cfg, params, reqs, cache_dtype, tol, card)
+    log(f"{label}: legs (a) and (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wreqs = _greedy_dicts(_traffic(cfg.vocab_size, 8, 256, 64, SEED + 81))
+    with tempfile.TemporaryDirectory() as tmp:
+        workers = _disagg_workers(torch, label, cfg, params, wreqs, handoff, cache_dtype, tol,
+                                  card, tmp)
+    log(f"{label}: leg (b) {time.perf_counter() - t0:.1f} s")
+    return out["launches"] + workers
 
 
 def phase_selftest(torch, card):
@@ -7015,6 +7456,12 @@ def main() -> int:
 
     run("serve workers", serve_workers)
 
+    def serve_disagg():
+        launches["disagg"] = phase_serve_disagg(torch, cfg, params, launches["handoff"],
+                                                card=card)
+
+    run("serve disagg", serve_disagg)
+
     def serve_mesh():
         launches["mesh"] = phase_serve_mesh(torch, cfg, params, reqs, card=card)
 
@@ -7074,14 +7521,15 @@ def main() -> int:
     # in this process and on its two ranks) and the entry point's (the dry
     # run's flash and appends at 8, summed over its ranks); the
     # serve workers phase adds its decode workers' appends, read from
-    # their launch lines
+    # their launch lines; the serve disagg phase its disaggregated run's
+    # appends (prefill and decode engines) and its decode worker's
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
                             + launches["spec"]["paged_attention"] + tel["paged_attention"]
                             + lora_serve["paged_attention"] + moe["paged_attention"]
                             + launches["handoff"]["paged_attention"] + launches["mesh"]
-                            + launches["workers"]),
+                            + launches["workers"] + launches["disagg"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
                         + lora_serve["int4_matmul"] + moe["int4_matmul"]),

@@ -162,3 +162,8 @@ class GraphedProgram:
             _add_counts(_change(before, after))  # the capture launched and sent nothing
         self.capture_s = time.perf_counter() - t0
         self.graph, self._out, self._delta = graph, out, _change(after, before)
+
+    @property
+    def replay_counts(self) -> dict:
+        """What one replay adds to the counters (empty until the capture)."""
+        return dict(self._delta)

@@ -114,6 +114,10 @@ class PagedKVCache(NamedTuple):
         bs = self.k.shape[4]
         return bs * 2 if self.k.dtype == torch.uint8 else bs
 
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[1]
+
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      dtype=torch.float32, device="cuda", kv_dtype: str | None = None

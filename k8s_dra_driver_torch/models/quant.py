@@ -36,6 +36,10 @@ class QuantizedMatrix:
     def shape(self):
         return tuple(self.q.shape)
 
+    @property
+    def ndim(self):
+        return self.q.ndim
+
     @classmethod
     def quantize(cls, w: torch.Tensor, dtype=None) -> "QuantizedMatrix":
         dtype = dtype or w.dtype
@@ -63,6 +67,10 @@ class Quantized4Matrix:
     @property
     def shape(self):
         return (self.packed.shape[0] * 2, self.packed.shape[1])
+
+    @property
+    def ndim(self):
+        return 2
 
     @classmethod
     def quantize(cls, w: torch.Tensor, group_size: int = 64, dtype=None):

@@ -732,6 +732,18 @@ def _snapshot_request(st: _Slot, temp: float, key, adapter: int = 0,
 
 
 @terminal_retirer
+def full_stream_tokens(entry: dict) -> int:
+    """A snapshot entry's token footprint at full growth: the prompt plus
+    the request's whole generation budget (reference ``serve.py:773``).
+    The disaggregated router's KV-demand ledger (``models/disagg.py``)
+    reserves decode blocks against this bound."""
+    tokens = entry.get("tokens") or ()
+    return max(
+        int(entry.get("prompt_len", len(tokens))) + int(entry.get("max_tokens", 0)),
+        len(tokens),
+    )
+
+
 def _unrestorable(engine, req: dict, why: str) -> None:
     """A snapshot entry this engine cannot rebuild (history past the prompt
     bucket, or no free slot) is delivered as an "error" completion rather

@@ -545,6 +545,19 @@ class EngineTelemetry:
             tr.engines.append(self._engine_kind)
         self._traces[request_id] = tr
 
+    @staticmethod
+    def annotate_trace_doc(doc: dict | None, name: str, t: float, **attrs) -> None:
+        """Append an event to an exported trace doc (the dict riding in a
+        snapshot entry) while the request is between engines: the
+        disaggregated router stamps the handoff's begin, transfer and
+        fallback on it (reference ``telemetry.py:571``).  No-op on None
+        (telemetry off at the source engine)."""
+        if doc is None:
+            return
+        events = doc.setdefault("events", [])
+        if len(events) < MAX_EVENTS_PER_TRACE:
+            events.append({"event": name, "t": t, **attrs})
+
     def drop_trace(self, request_id: int) -> None:
         """Forget a request that migrated AWAY from this engine (the
         router's release-after-evacuation path): no terminal status, no

@@ -1,19 +1,24 @@
-"""The KV transport's worker half (``k8s_dra_driver_tpu/models/transport.py``,
-copied: the port imports nothing of the JAX package): one worker process
-hosts a pool of port engines behind the reference's framed socket protocol.
+"""The real multi-process KV transport for disaggregated serving
+(``k8s_dra_driver_tpu/models/transport.py``, copied: the port imports
+nothing of the JAX package).  Every frame is the reference's byte for
+byte, and the metric names, journal events and fault draws are its own.
 
     python -m k8s_dra_driver_torch.models.transport cfg.json [--device cpu]
 
-``cfg.json`` is the reference's worker document unchanged: ``cfg`` (the
-``ModelConfig`` fields), ``engines`` (a list of ``{"kind": "dense" |
-"paged", ...engine keyword arguments}``), ``seed``, and the supervisor's
-``host``/``port``, the worker's ``name`` and ``role`` ("prefill" submits
-every request with ``handoff=True``), ``hold_ticks``, ``telem_interval_s``,
-``prefix_gossip`` and ``redial_attempts``.  The worker runs on the card
-unless ``--device cpu`` is given; without a card it exits 2 before it
-dials.  It prints ``{"ready": true, "pid": ...}`` once it has dialed, and
-on exit one line to stderr, ``worker kernel launches: {...}``, the kernel
-launches it made by ``module:kernel``.
+runs one worker process.  ``cfg.json`` is the reference's worker document
+unchanged: ``cfg`` (the ``ModelConfig`` fields), ``engines`` (a list of
+``{"kind": "dense" | "paged", ...engine keyword arguments}``), ``seed``,
+and the supervisor's ``host``/``port``, the worker's ``name`` and
+``role`` ("prefill" submits every request with ``handoff=True``),
+``hold_ticks``, ``telem_interval_s``, ``prefix_gossip`` and
+``redial_attempts``.  The worker runs on the card unless ``--device cpu``
+is given; without a card it exits 2 before it dials.  It prints
+``{"ready": true, "pid": ...}`` once it has dialed, and on exit one line
+to stderr, ``worker kernel launches: {...}``, the kernel launches it made
+by ``module:kernel`` since it started or since the last
+``CONTROL {"op": "zero_launches"}``, the port's own op (a reference worker
+ignores it), which sets the counts to 0 so that a supervisor's warm-up
+stays out of them.
 
 Layers, bottom up:
 
@@ -26,41 +31,99 @@ Layers, bottom up:
   socket-level fault hooks fire (``utils/faults``: ``sock_truncate``,
   ``sock_reset``, ``sock_latency_ms``, ``sock_partition``, ``peer_hang``);
   a dead peer is a typed :class:`PeerDiedError`;
-* :class:`PoolWorker`: the protocol loop around one ``FleetRouter``: it
-  answers PING, SUBMIT, PLACE, KV (the receiver's ``KVSlice.from_wire`` is
-  the integrity check; its verdict is the ACK), CONTROL (hold, resume,
-  reset, cancel, release, reseed, telem_flush, prefix_resync) and
-  PREFIXREQ, and ships COMPLETION, HANDOFF, TELEM and the prefix gossip.
+* the supervisor half (reference ``:347-1575``, ``:1886-1983``):
+  :class:`PeerLink` (one supervised peer: PING/PONG heartbeats with RTT
+  and an NTP half-RTT clock offset, liveness, a per-peer
+  ``CircuitBreaker`` at ``transport/<peer>``, backoff-paced reconnect);
+  :class:`TransportChannel`, a ``disagg.HandoffChannel`` whose
+  ``complete()`` sends the payload through the link and waits for the
+  receiver's ACK (the receiver's ``KVSlice.from_wire`` is the integrity
+  check; the wire adds ``reset``/``truncated``/``hang``/
+  ``transport_down`` to the channel's outcomes);
+  :class:`WireReceiver`, the minimal far end; :class:`RemotePool`, the
+  ``FleetRouter`` drive surface over a worker's pool, which keeps every
+  shipped entry KV-less (``_pending`` until PLACED, ``_resident`` until
+  its completion) so a dead worker's streams drain through
+  ``take_failed`` and re-serve locally, their ids in ``link.reclaimed``;
+  :class:`RemoteWorkerEngine` and :func:`make_remote_engine_factory`, one
+  engine replica behind a link; :class:`TransportHub`, the listening
+  side that routes each worker's HELLO to its link; and
+  :func:`debug_transport_doc`;
+* the worker half: :class:`PoolWorker`, the protocol loop around one
+  ``FleetRouter``: it answers PING, SUBMIT, PLACE, KV (its verdict is the
+  ACK), CONTROL (hold, resume, reset, cancel, release, reseed,
+  telem_flush, prefix_resync, and the port's zero_launches) and
+  PREFIXREQ, and ships COMPLETION, HANDOFF, TELEM and the prefix gossip; :func:`build_worker_router` and
+  :func:`worker_main`.
 
-The supervisor half (``PeerLink``, ``TransportChannel``, ``RemotePool``,
-``RemoteWorkerEngine``, ``TransportHub``, ``WireReceiver``) holds no JAX
-and is not needed to run a worker: it stays in the reference, which
-drives a port worker as it drives its own.  Every frame here is the
-reference's byte for byte.
+Degradation ladder: live socket, then channel fallback (KV-less delivery,
+the decode side re-prefills), then unified collapse (the whole transport
+down: streams serve on the local pool) -- never a lost or duplicated
+stream.  The module imports no engine at module scope.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import socket
 import struct
 import sys
 import time
+import weakref
 from collections import deque
 
-from k8s_dra_driver_torch.models.obs_plane import TELEM_BUDGET_BYTES, TelemetryShipper
+from k8s_dra_driver_torch.models import disagg
+from k8s_dra_driver_torch.models.disagg import (
+    CORRUPT,
+    DEADLINE,
+    DROPPED,
+    OK,
+    HandoffChannel,
+)
+from k8s_dra_driver_torch.models.obs_plane import (
+    FLEET,
+    TELEM_BUDGET_BYTES,
+    TelemetryShipper,
+)
+from k8s_dra_driver_torch.models.telemetry import terminal_retirer
 from k8s_dra_driver_torch.utils.journal import JOURNAL
-from k8s_dra_driver_torch.utils.retry import Backoff, RetryPolicy
+from k8s_dra_driver_torch.utils.metrics import REGISTRY
+from k8s_dra_driver_torch.utils.retry import Backoff, CircuitBreaker, RetryPolicy
 from k8s_dra_driver_torch.utils.tracing import TRACES
 
-# the receiver's verdicts on a KV frame (the reference's disagg vocabulary)
-OK = "ok"
-CORRUPT = "corrupt"
-# what the real wire adds to it
+_M_FRAMES = REGISTRY.counter(
+    "tpu_transport_frames_total",
+    "Transport frames processed, by outcome "
+    "(ok/truncated/reset/hang/decode_error)",
+)
+_M_RECONNECTS = REGISTRY.counter(
+    "tpu_transport_reconnects_total",
+    "Successful peer reconnects after a transport failure",
+)
+_M_PEER_UP = REGISTRY.gauge(
+    "tpu_transport_peer_up",
+    "1 while the peer's link is connected, 0 while it is down, by endpoint",
+)
+_M_RTT = REGISTRY.histogram(
+    "tpu_transport_rtt_seconds",
+    "Heartbeat round-trip time per transport peer",
+    buckets=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0),
+)
+_M_CLOCK_OFFSET = REGISTRY.gauge(
+    "tpu_transport_clock_offset_seconds",
+    "Estimated peer monotonic-clock offset (NTP half-rtt model over "
+    "PING/PONG), by endpoint — what skew-normalizes federated spans",
+)
+
+# Additional transfer outcomes the REAL wire introduces on top of the
+# HandoffChannel vocabulary (ok/dropped/deadline/corrupt/no_capacity) —
+# every one lands on rung 3 of the fallback ladder.
 RESET = "reset"            # peer connection died mid-transfer
 TRUNCATED = "truncated"    # frame cut mid-body (EOF inside a frame)
 HANG = "hang"              # peer alive but silent past the ack deadline
+TRANSPORT_DOWN = "transport_down"  # breaker open: not even attempted
 
 # Frame types.
 HELLO = 1
@@ -96,6 +159,16 @@ class PeerDiedError(OSError):
         self.peer = peer
         self.reason = reason
         self.request_id = int(request_id)
+
+
+class TransportDownError(OSError):
+    """The peer's link is down and its breaker refuses traffic — the
+    caller must degrade (fallback ladder / unified collapse), not retry
+    inline."""
+
+    def __init__(self, peer: str):
+        super().__init__(f"transport to peer {peer!r} is down")
+        self.peer = peer
 
 
 class FrameBuffer:
@@ -276,10 +349,1233 @@ class SocketConn:
             pass
 
 
+class PeerLink:
+    """One supervised transport peer: framing, heartbeats, liveness,
+    per-peer breaker, paced reconnect, and per-type frame inboxes.
+
+    Everything is pumped on the caller's thread (:meth:`pump`), the same
+    externally-driven discipline as the engines and routers — no I/O
+    threads, so chaos tests replay deterministically."""
+
+    def __init__(
+        self,
+        peer: str,
+        conn=None,
+        *,
+        connect_fn=None,
+        clock=time.monotonic,
+        heartbeat_interval_s: float = 0.5,
+        liveness_timeout_s: float = 5.0,
+        ack_timeout_s: float = 5.0,
+        breaker: CircuitBreaker | None = None,
+        reconnect_policy: RetryPolicy | None = None,
+    ):
+        self.peer = peer
+        self.endpoint = f"transport/{peer}"
+        self.conn = conn
+        self.connect_fn = connect_fn
+        self.clock = clock
+        self.heartbeat_interval_s = heartbeat_interval_s
+        self.liveness_timeout_s = liveness_timeout_s
+        self.ack_timeout_s = ack_timeout_s
+        self.breaker = breaker or CircuitBreaker(
+            endpoint=self.endpoint, clock=clock
+        )
+        self.backoff = Backoff(reconnect_policy or RetryPolicy())
+        self.frames_in = FrameBuffer()
+        self.inbox: dict[int, deque] = {}
+        self.dead = conn is None
+        self.death_reason = "" if conn is not None else "never connected"
+        self.reconnects = 0
+        self.in_flight_rid = -1  # attributed to mid-frame deaths
+        # rids whose streams the supervisor reclaimed (re-served locally)
+        # after a death/hang: late frames for them are dropped, never
+        # double-delivered.
+        self.reclaimed: set[int] = set()
+        self.on_reconnect: list = []  # callbacks, called after adopt()
+        now = clock()
+        self._last_pong_at = now
+        self._last_ping_at = 0.0
+        self._retry_at = 0.0
+        self.last_rtt_s = None
+        # NTP half-rtt skew estimate: (peer_clock - local_clock), EWMA'd
+        # across heartbeats.  None until the first timestamped PONG lands.
+        self.clock_offset_s: float | None = None
+        _M_PEER_UP.set(0.0 if self.dead else 1.0, endpoint=self.endpoint)
+
+    # -- liveness ------------------------------------------------------------
+
+    def alive(self) -> bool:
+        return not self.dead
+
+    def _die(self, reason: str, request_id: int = -1) -> None:
+        if self.dead:
+            return
+        self.dead = True
+        self.death_reason = reason
+        rid = request_id if request_id >= 0 else self.in_flight_rid
+        if self.conn is not None:
+            self.conn.close()
+        self.breaker.trip()  # direct evidence: the endpoint is a corpse
+        _M_PEER_UP.set(0.0, endpoint=self.endpoint)
+        if TRUNCATED in reason:
+            outcome = TRUNCATED
+        elif "heartbeat" in reason or HANG in reason:
+            outcome = HANG
+        else:  # eof / econnreset / closed conn: connection-level death
+            outcome = RESET
+        _M_FRAMES.inc(outcome=outcome)
+        JOURNAL.record(
+            "transport", "peer.dead", correlation=self.endpoint,
+            reason=reason, request_id=rid,
+        )
+
+    def adopt(self, conn) -> None:
+        """Install a fresh connection for this peer (a worker redialed the
+        hub, or ``connect_fn`` produced a new pipe).  A live inbound
+        connection IS the successful probe — the breaker closes and the
+        backoff resets."""
+        self.conn = conn
+        self.frames_in = FrameBuffer()
+        was_dead = self.dead
+        self.dead = False
+        self.death_reason = ""
+        now = self.clock()
+        self._last_pong_at = now
+        self._last_ping_at = 0.0
+        self.breaker.on_success()
+        self.backoff.reset()
+        _M_PEER_UP.set(1.0, endpoint=self.endpoint)
+        if was_dead:
+            self.reconnects += 1
+            _M_RECONNECTS.inc()
+            JOURNAL.record(
+                "transport", "peer.reconnected", correlation=self.endpoint,
+                reconnects=self.reconnects,
+            )
+            for cb in list(self.on_reconnect):
+                cb(self)
+
+    def try_reconnect(self) -> bool:
+        """Paced by BOTH the breaker cooldown (half-open probe admission)
+        and the jittered backoff — a flapping worker can't be hammered."""
+        if not self.dead or self.connect_fn is None:
+            return False
+        if self.clock() < self._retry_at:
+            return False
+        if not self.breaker.allow():
+            return False
+        try:
+            conn = self.connect_fn()
+        except OSError:
+            conn = None
+        if conn is None:
+            self.breaker.on_failure()
+            self._retry_at = self.clock() + self.backoff.next_delay()
+            return False
+        self.adopt(conn)
+        return True
+
+    # -- I/O -----------------------------------------------------------------
+
+    def send_frame(self, ftype: int, body: bytes, request_id: int = -1) -> float:
+        if self.dead:
+            raise TransportDownError(self.peer)
+        self.in_flight_rid = request_id
+        try:
+            return self.conn.send(encode_frame(ftype, body), request_id)
+        except PeerDiedError as exc:
+            self._die(exc.reason, exc.request_id)
+            raise
+        finally:
+            self.in_flight_rid = -1
+
+    def send_json(self, ftype: int, doc: dict) -> float:
+        return self.send_frame(ftype, json.dumps(doc).encode())
+
+    def pump(self) -> int:
+        """One poll: reconnect if due, read every available frame into the
+        per-type inboxes, answer pings, track pong liveness.  Returns the
+        number of frames processed (progress signal for the routers)."""
+        if self.dead:
+            self.try_reconnect()
+            if self.dead:
+                return 0
+        n = 0
+        try:
+            data = self.conn.recv_available()
+        except PeerDiedError as exc:
+            truncated = self.frames_in.partial_bytes > 0
+            self._die(TRUNCATED if truncated else exc.reason)
+            return 0
+        if data:
+            self.frames_in.feed(data)
+            try:
+                for ftype, body in self.frames_in.frames():
+                    n += 1
+                    self._dispatch(ftype, body)
+            except ValueError as exc:  # insane frame length: stream corrupt
+                _M_FRAMES.inc(outcome="decode_error")
+                self._die(f"corrupt stream: {exc}")
+                return n
+        now = self.clock()
+        if now - self._last_ping_at >= self.heartbeat_interval_s:
+            self._last_ping_at = now
+            try:
+                self.send_json(PING, {"t": now})
+            except (PeerDiedError, TransportDownError):
+                return n
+        if now - self._last_pong_at > self.liveness_timeout_s:
+            self._die("heartbeat: pong overdue")
+        return n
+
+    def _dispatch(self, ftype: int, body: bytes) -> None:
+        if ftype == PING:
+            doc = json.loads(body.decode())
+            # Stamp OUR clock into the echo so the pinger can estimate
+            # the skew between the two monotonic domains.
+            doc["pt"] = self.clock()
+            try:
+                self.send_json(PONG, doc)
+            except (PeerDiedError, TransportDownError):
+                pass
+            return
+        if ftype == PONG:
+            doc = json.loads(body.decode())
+            now = self.clock()
+            self._last_pong_at = now
+            rtt = max(0.0, now - float(doc.get("t", now)))
+            self.last_rtt_s = rtt
+            _M_RTT.observe(rtt)
+            if "pt" in doc:
+                # Classic NTP single-exchange estimate: the peer stamped
+                # pt halfway through a round trip that took rtt, so
+                # offset = pt - (t + rtt/2) maps the peer's monotonic
+                # domain onto ours.  EWMA smooths jittered exchanges.
+                offset = float(doc["pt"]) - (float(doc.get("t", now)) + rtt / 2.0)
+                if self.clock_offset_s is None:
+                    self.clock_offset_s = offset
+                else:
+                    self.clock_offset_s = (
+                        0.8 * self.clock_offset_s + 0.2 * offset
+                    )
+                _M_CLOCK_OFFSET.set(self.clock_offset_s, endpoint=self.endpoint)
+            return
+        self.inbox.setdefault(ftype, deque()).append(body)
+
+    def take(self, ftype: int):
+        q = self.inbox.get(ftype)
+        if q:
+            return q.popleft()
+        return None
+
+    def stats(self) -> dict:
+        return {
+            "peer": self.peer,
+            "endpoint": self.endpoint,
+            "alive": not self.dead,
+            "death_reason": self.death_reason,
+            "breaker": self.breaker.state,
+            "breaker_cooldown_s": round(self.breaker.cooldown_remaining(), 3),
+            "reconnects": self.reconnects,
+            "last_rtt_s": self.last_rtt_s,
+            "clock_offset_s": self.clock_offset_s,
+            "pong_age_s": round(self.clock() - self._last_pong_at, 3),
+            "reclaimed": len(self.reclaimed),
+        }
+
+
+class TransportChannel(HandoffChannel):
+    """A :class:`HandoffChannel` whose transfers physically cross a
+    :class:`PeerLink`: ``complete()`` wire-encodes the payload
+    (``KVSlice.to_wire``), sends it, and pumps for the receiver's decode
+    ACK — so the checksum verdict comes from the bytes that actually
+    crossed, not from the sender's own copy.  Budget/deadline arithmetic,
+    in-flight accounting and the outcome vocabulary are inherited; the
+    real wire adds ``reset`` / ``truncated`` / ``hang`` /
+    ``transport_down``, all landing on the same fallback rung.
+
+    ``peer_pump`` is the in-process far end's poll (a
+    :class:`WireReceiver` or :class:`PoolWorker`) for single-process
+    rigs; with a real worker process it is None and the link's socket is
+    polled directly.
+
+    A TransportChannel is a valid :class:`~k8s_dra_driver_torch.models.
+    disagg.ChannelSet` member: pass prebuilt instances (one per physical
+    link to the peer) and the set scores them like replicas, failing a
+    mid-transfer link over to a sibling before the router's re-prefill
+    ladder runs."""
+
+    def __init__(self, link: PeerLink, *, peer_pump=None, remote_place=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.link = link
+        self.peer_pump = peer_pump
+        self.remote_place = remote_place
+        # rid -> (trace_id, span_id, parent_id, t_send): the in-flight
+        # wire hop, recorded as a SpanRecord when the transfer resolves.
+        self._wire_spans: dict[int, tuple] = {}
+        _LIVE_TRANSPORTS.add(self)
+
+    @property
+    def down(self) -> bool:
+        return self.link.dead
+
+    def tick(self) -> int:
+        """Pump the link once (heartbeats, liveness, reconnect) — called
+        by the router ahead of driving staged transfers."""
+        n = self.link.pump()
+        if self.peer_pump is not None and not self.link.dead:
+            n += self.peer_pump()
+            n += self.link.pump()
+        return n
+
+    def complete(self, transfer, kv, entry=None) -> str:
+        """Resolve one transfer over the real wire.  Outcome order mirrors
+        the in-process channel: injected drop, then the deadline ladder on
+        ACCOUNTED latency (bytes/bandwidth + injected handoff/sock
+        latency — checked BEFORE the send so a stale payload is never
+        delivered remotely), then the physical send/ACK exchange."""
+        rid = transfer.request_id
+        latency = transfer.nbytes / max(self.bandwidth_gbps * 1e9 / 8.0, 1.0)
+        inj = self.fault_injector
+        if inj is not None:
+            latency += inj.take_handoff_latency()
+            latency += inj.take_sock_latency()
+        transfer.latency_s = latency
+        if inj is not None and inj.take_handoff_drop(rid):
+            return self._finish(transfer, DROPPED)
+        if latency > self.transfer_deadline_s:
+            return self._finish(transfer, DEADLINE)
+        if self.link.dead and not self.link.try_reconnect():
+            return self._finish(transfer, TRANSPORT_DOWN)
+        wire = kv.to_wire(rid)
+        if inj is not None and inj.take_handoff_corrupt(rid):
+            # Flip a payload bit ON THE WIRE — the receiver's from_wire
+            # checksum must catch it; the sender's copy stays pristine.
+            wire = bytearray(wire)
+            wire[-9] ^= 0x20
+            wire = bytes(wire)
+        meta = _sanitize_entry(entry) if entry is not None else {
+            "request_id": rid
+        }
+        meta["_correlation"] = f"handoff-req-{rid}"
+        # Distributed-tracing context: the wire hop gets its own span
+        # (parented to the prefill hop when the HANDOFF frame named one),
+        # and the receiver parents its decode hop to the wire span.  The
+        # hop note survives the worker: if the peer dies mid-transfer the
+        # supervisor attributes the dead hop into the same tree.
+        ctx = FLEET.hop_ctx(rid) or {}
+        trace_id = ctx.get("trace_id") or f"req-{rid}"
+        wire_span_id = TRACES.mint_id("hop.wire")
+        meta["_trace"] = {"tid": trace_id, "parent": wire_span_id}
+        FLEET.note_hop(rid, trace_id, wire_span_id, instance=self.link.peer)
+        self._wire_spans[rid] = (
+            trace_id, wire_span_id, ctx.get("parent_id", ""), time.monotonic()
+        )
+        try:
+            latency += self.link.send_frame(
+                KV, encode_meta_frame(KV, meta, wire)[_FRAME_HEADER.size:],
+                request_id=rid,
+            )
+            transfer.latency_s = latency
+        except (PeerDiedError, TransportDownError) as exc:
+            reason = getattr(exc, "reason", RESET)
+            outcome = TRUNCATED if TRUNCATED in reason else RESET
+            return self._finish(transfer, outcome)
+        ack = self._await_ack(rid)
+        if ack is None:
+            # Peer died or went silent mid-transfer: typed, rid-attributed.
+            self.link.reclaimed.add(rid)
+            if self.link.dead:
+                outcome = (
+                    TRUNCATED
+                    if TRUNCATED in self.link.death_reason else RESET
+                )
+            else:
+                outcome = HANG
+                self.link.breaker.on_failure()
+                JOURNAL.record(
+                    "transport", "transfer.hang",
+                    correlation=f"req-{rid}", peer=self.link.peer,
+                )
+            return self._finish(transfer, outcome)
+        outcome = str(ack.get("outcome", CORRUPT))
+        if outcome == OK:
+            _M_FRAMES.inc(outcome=OK)
+            if entry is not None and ack.get("placed"):
+                entry["_placed_remote"] = True
+        else:
+            _M_FRAMES.inc(outcome="decode_error")
+        return self._finish(transfer, outcome)
+
+    def _await_ack(self, rid: int) -> dict | None:
+        """Pump until the receiver's ACK for ``rid`` arrives, the peer
+        dies, or ``ack_timeout_s`` of wall clock elapses (the mid-transfer
+        hang bound — liveness pings continue underneath).  Stale ACKs for
+        reclaimed rids are dropped."""
+        deadline = time.monotonic() + self.link.ack_timeout_s
+        while True:
+            self.link.pump()
+            if self.peer_pump is not None and not self.link.dead:
+                self.peer_pump()
+            while True:
+                body = self.link.take(ACK)
+                if body is None:
+                    break
+                doc = json.loads(body.decode())
+                arid = int(doc.get("rid", -1))
+                if arid == rid:
+                    return doc
+                if arid not in self.link.reclaimed:
+                    # An ack we weren't waiting for — protocol skew.
+                    JOURNAL.record(
+                        "transport", "ack.unexpected",
+                        correlation=f"req-{arid}", peer=self.link.peer,
+                    )
+            if self.link.dead:
+                return None
+            if time.monotonic() >= deadline:
+                return None
+            if self.peer_pump is None:
+                time.sleep(0.002)
+
+    def _finish(self, transfer, outcome: str) -> str:
+        transfer.outcome = outcome
+        span = self._wire_spans.pop(transfer.request_id, None)
+        if span is not None:
+            trace_id, span_id, parent_id, t_send = span
+            TRACES.record(
+                trace_id, "hop.wire", t_send, time.monotonic(),
+                span_id=span_id, parent_id=parent_id,
+                peer=self.link.peer, outcome=outcome,
+                nbytes=transfer.nbytes, request_id=transfer.request_id,
+            )
+        self._in_flight.pop(transfer.request_id, None)
+        self.in_flight_bytes -= transfer.nbytes
+        # Metric + counts + journal via the parent's bookkeeping path.
+        disagg._M_INFLIGHT.set(self.in_flight_bytes)
+        disagg._M_XFER_BYTES.observe(float(transfer.nbytes))
+        self._count(outcome)
+        if outcome == OK:
+            self.bytes_moved += transfer.nbytes
+        JOURNAL.record_lazy(
+            "transport", f"transfer.{outcome}",
+            correlation=f"req-{transfer.request_id}",
+            attrs=lambda: dict(
+                nbytes=transfer.nbytes,
+                latency_s=round(transfer.latency_s, 6),
+                peer=self.link.peer,
+                channel=self.claim.name,
+            ),
+        )
+        return outcome
+
+    def stats(self) -> dict:
+        doc = super().stats()
+        doc["link"] = self.link.stats()
+        return doc
+
+
 def _sanitize_entry(entry: dict) -> dict:
-    """The JSON half of a snapshot entry (everything but the KVSlice and
-    the transport's own ``_`` keys): what rides in a frame's meta."""
-    return {k: v for k, v in entry.items() if k != "kv" and not k.startswith("_")}
+    """The JSON-safe half of a snapshot entry (everything but the KVSlice
+    and transport-internal keys) — what rides in a frame's meta document
+    and what the supervisor retains for zero-loss recovery."""
+    return {
+        k: v for k, v in entry.items()
+        if k != "kv" and not k.startswith("_")
+    }
+
+
+class WireReceiver:
+    """The minimal far end: decodes KV frames off a conn, ACKs with the
+    integrity verdict, answers pings.  Used by the in-process storms and
+    by ``check_transport_overhead`` so the full encode→wire→decode path
+    runs without a worker process.  Decoded payloads are handed back via
+    ``delivered`` — the supervisor installs the bytes that CROSSED, not
+    its own copy."""
+
+    def __init__(self, conn, fault_injector=None, clock=time.monotonic):
+        self.conn = conn
+        self.fault_injector = fault_injector
+        self.clock = clock
+        self.frames = FrameBuffer()
+        self.delivered: dict[int, object] = {}
+        self.dead = False
+
+    def pump(self) -> int:
+        from k8s_dra_driver_torch.models.serve import KVSlice, WireFormatError
+
+        if self.dead:
+            return 0
+        inj = self.fault_injector
+        if inj is not None and inj.take_peer_hang():
+            return 0  # silent stall: frames buffered, heartbeats unanswered
+        try:
+            data = self.conn.recv_available()
+        except PeerDiedError:
+            self.dead = True
+            return 0
+        n = 0
+        if not data:
+            return 0
+        self.frames.feed(data)
+        for ftype, body in self.frames.frames():
+            n += 1
+            if ftype == PING:
+                try:
+                    doc = json.loads(body.decode())
+                except ValueError:
+                    doc = {}
+                doc["pt"] = self.clock()
+                self._send_json(PONG, doc)
+            elif ftype == KV:
+                meta, wire = decode_meta_frame(body)
+                rid = int(meta.get("request_id", -1))
+                try:
+                    wrid, kv = KVSlice.from_wire(wire)
+                    if wrid != rid:
+                        raise WireFormatError(
+                            f"frame rid {wrid} != meta rid {rid}", wrid
+                        )
+                    self.delivered[rid] = kv
+                    self._send_json(ACK, {
+                        "rid": rid, "outcome": OK, "placed": False,
+                    })
+                except WireFormatError as exc:
+                    self._send_json(ACK, {
+                        "rid": rid if rid >= 0 else exc.request_id,
+                        "outcome": CORRUPT, "error": str(exc),
+                    })
+        return n
+
+    def _send(self, ftype: int, body: bytes) -> None:
+        try:
+            self.conn.send(encode_frame(ftype, body))
+        except PeerDiedError:
+            self.dead = True
+
+    def _send_json(self, ftype: int, doc: dict) -> None:
+        self._send(ftype, json.dumps(doc).encode())
+
+
+class RemotePool:
+    """Supervisor-side proxy for a pool hosted in a worker process,
+    presenting the FleetRouter drive surface DisaggRouter consumes:
+    ``submit`` / ``place`` / ``tick`` / ``completions`` / ``idle`` /
+    ``take_handoffs`` / ``_owner`` / ``stats``.
+
+    Zero-loss contract: every entry shipped to the worker is retained
+    KV-less (``_pending`` until the worker acknowledges placement,
+    ``_resident`` until its completion lands).  When the peer dies, all
+    retained entries drain through :meth:`take_failed` and the router
+    re-serves them locally — and their rids join ``link.reclaimed`` so a
+    half-dead worker's late completions are dropped, never duplicated."""
+
+    _seq = 0
+
+    def __init__(self, link: PeerLink, name: str = "", clock=time.monotonic,
+                 peer_pump=None):
+        RemotePool._seq += 1
+        self.seq = RemotePool._seq
+        self.link = link
+        self.name = name or f"remote-{link.peer}"
+        self.clock = clock
+        self.peer_pump = peer_pump  # in-process far end's poll (tests)
+        self._owner: dict[int, str] = {}
+        self._pending: dict[int, dict] = {}
+        self._resident: dict[int, dict] = {}
+        # rids whose handoff/completion frame arrived BEFORE the submit
+        # response registered them (the worker can finish a short prompt
+        # inside the submit RPC window) — their registration is skipped.
+        self._departed: set[int] = set()
+        self._failed: list[dict] = []
+        self._completions: list = []
+        self._handoffs: list[dict] = []
+        self._submit_seq = 0
+        self.replicas = ()  # the real replicas live in the worker
+        link.on_reconnect.append(self._on_reconnect)
+        _LIVE_REMOTE_POOLS.add(self)
+
+    # -- FleetRouter surface -------------------------------------------------
+
+    def _normalize(self, req) -> dict:
+        if isinstance(req, dict):
+            out = dict(req)
+            out["prompt"] = list(out["prompt"])
+            return out
+        prompt, max_tokens = req
+        return {"prompt": list(prompt), "max_tokens": max_tokens}
+
+    def submit(self, prompt, max_tokens: int, **kwargs) -> int:
+        """Synchronous submit RPC.  Raises RuntimeError when the worker
+        refuses (pool full) or the link is down — the same contract as
+        ``FleetRouter.submit``, so admission FIFO semantics hold (the
+        queue head waits, nothing is lost)."""
+        if self.link.dead and not self.link.try_reconnect():
+            raise RuntimeError(f"remote pool {self.name}: transport down")
+        self._submit_seq += 1
+        seq = self._submit_seq
+        doc = {
+            "seq": seq, "prompt": [int(t) for t in prompt],
+            "max_tokens": int(max_tokens),
+            "kwargs": {
+                k: v for k, v in kwargs.items() if not k.startswith("_")
+            },
+        }
+        try:
+            self.link.send_json(SUBMIT, doc)
+        except (PeerDiedError, TransportDownError):
+            self._collect_failures()
+            raise RuntimeError(f"remote pool {self.name}: peer died on submit")
+        deadline = time.monotonic() + self.link.ack_timeout_s
+        while True:
+            self.link.pump()
+            if self.peer_pump is not None and not self.link.dead:
+                self.peer_pump()
+            self._drain_frames()
+            body = self.link.take(SUBMITTED)
+            if body is not None:
+                resp = json.loads(body.decode())
+                if int(resp.get("seq", -1)) != seq:
+                    continue
+                if not resp.get("ok"):
+                    raise RuntimeError(
+                        f"remote pool {self.name} refused submit: "
+                        f"{resp.get('error', 'full')}"
+                    )
+                rid = int(resp["rid"])
+                if rid in self._departed:
+                    self._departed.discard(rid)
+                    return rid
+                self._owner[rid] = self.link.peer
+                FLEET.note_hop(rid, f"req-{rid}", instance=self.link.peer)
+                # Submit-time retention is a RESUBMIT doc, not a snapshot
+                # entry: the sampler key lives in the worker's engine, so
+                # on crash the router re-submits the original request
+                # (same prompt, same seed kwargs) instead of place()-ing.
+                self._resident[rid] = {
+                    "request_id": rid,
+                    "prompt": doc["prompt"],
+                    "max_tokens": doc["max_tokens"],
+                    "kwargs": {
+                        k: v for k, v in doc["kwargs"].items()
+                        if k != "handoff"
+                    },
+                    "_resubmit": True,
+                }
+                return rid
+            if self.link.dead:
+                self._collect_failures()
+                raise RuntimeError(
+                    f"remote pool {self.name}: peer died awaiting submit ack"
+                )
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"remote pool {self.name}: submit ack timed out"
+                )
+            time.sleep(0.002)
+
+    def place(self, entries, correlation: str = "") -> list[int]:
+        """Deliver entries to the worker pool.  Entries the channel
+        already landed (``_placed_remote``) just transfer ownership; the
+        rest ship KV-less as PLACE frames (the fallback rung — the worker
+        re-prefills).  Raises :class:`TransportDownError` when the link is
+        down so the router can collapse to unified serving."""
+        placed = []
+        for entry in entries:
+            rid = int(entry["request_id"])
+            keep = copy.deepcopy(_sanitize_entry(entry))
+            if entry.pop("_placed_remote", False):
+                self._owner[rid] = self.link.peer
+                self._resident[rid] = keep
+                placed.append(rid)
+                continue
+            if self.link.dead and not self.link.try_reconnect():
+                raise TransportDownError(self.link.peer)
+            meta = dict(keep)
+            meta["_correlation"] = correlation or f"req-{rid}"
+            ctx = FLEET.hop_ctx(rid) or {}
+            trace_id = ctx.get("trace_id") or f"req-{rid}"
+            meta["_trace"] = {
+                "tid": trace_id, "parent": ctx.get("parent_id", ""),
+            }
+            FLEET.note_hop(rid, trace_id, ctx.get("parent_id", ""),
+                           instance=self.link.peer)
+            try:
+                self.link.send_frame(
+                    PLACE,
+                    encode_meta_frame(PLACE, meta)[_FRAME_HEADER.size:],
+                    request_id=rid,
+                )
+            except (PeerDiedError, TransportDownError):
+                self._collect_failures()
+                raise TransportDownError(self.link.peer)
+            self._pending[rid] = keep
+        return placed
+
+    def tick(self) -> int:
+        n = self.link.pump()
+        if self.peer_pump is not None and not self.link.dead:
+            n += self.peer_pump()
+            n += self.link.pump()
+        self._drain_frames()
+        if self.link.dead:
+            self._collect_failures()
+            self.link.try_reconnect()
+        return n
+
+    def completions(self) -> list:
+        out, self._completions = self._completions, []
+        return out
+
+    def take_handoffs(self) -> list[dict]:
+        out, self._handoffs = self._handoffs, []
+        return out
+
+    def take_failed(self) -> list[dict]:
+        """Entries whose worker died while they were pending or resident —
+        the router re-serves them (unified collapse).  Their rids are
+        already in ``link.reclaimed``."""
+        out, self._failed = self._failed, []
+        return out
+
+    def idle(self) -> bool:
+        return not (self._pending or self._resident or self._failed)
+
+    def admittable_replicas(self):
+        return () if self.link.dead else (self,)
+
+    def stats(self) -> dict:
+        return {
+            "name": self.name,
+            "kind": "remote_pool",
+            "link": self.link.stats(),
+            "pending": len(self._pending),
+            "resident": len(self._resident),
+            "failed": len(self._failed),
+        }
+
+    # -- internals -----------------------------------------------------------
+
+    @terminal_retirer
+    def _drain_frames(self) -> None:
+        # Legal Completion re-materialization point: the worker's engine
+        # already retired the stream through its own funnel (journal +
+        # telemetry ran in the worker process); this side only decodes
+        # the COMPLETION frame back into the typed object.
+        from k8s_dra_driver_torch.models.serve import (
+            Completion,
+            KVSlice,
+            WireFormatError,
+        )
+
+        while True:
+            body = self.link.take(PLACED)
+            if body is None:
+                break
+            doc = json.loads(body.decode())
+            rid = int(doc.get("rid", -1))
+            entry = self._pending.pop(rid, None)
+            if entry is not None:
+                self._resident[rid] = entry
+                self._owner[rid] = self.link.peer
+        while True:
+            body = self.link.take(COMPLETION)
+            if body is None:
+                break
+            doc = json.loads(body.decode())
+            rid = int(doc.get("request_id", -1))
+            if rid in self.link.reclaimed:
+                JOURNAL.record(
+                    "transport", "completion.stale_dropped",
+                    correlation=f"req-{rid}", peer=self.link.peer,
+                )
+                continue
+            was_pending = self._pending.pop(rid, None) is not None
+            was_resident = self._resident.pop(rid, None) is not None
+            if not (was_pending or was_resident):
+                self._departed.add(rid)
+            self._owner.pop(rid, None)
+            FLEET.forget_hop(rid)
+            self._completions.append(Completion(
+                request_id=rid,
+                tokens=[int(t) for t in doc.get("tokens", [])],
+                generated=[int(t) for t in doc.get("generated", [])],
+                error=str(doc.get("error", "")),
+                status=str(doc.get("status", "ok")),
+            ))
+        while True:
+            body = self.link.take(HANDOFF)
+            if body is None:
+                break
+            meta, wire = decode_meta_frame(body)
+            rid = int(meta.get("request_id", -1))
+            trace = meta.get("_trace") or {}
+            if trace:
+                # The prefill worker named its hop span; note it so the
+                # wire span (TransportChannel.complete) parents to it.
+                FLEET.note_hop(
+                    rid, str(trace.get("tid") or f"req-{rid}"),
+                    str(trace.get("parent", "")), instance=self.link.peer,
+                )
+            # The stream has left the worker pool — from here the router
+            # supervises it (staging area → channel → decode pool), so
+            # the crash-recovery retention ends.
+            was_pending = self._pending.pop(rid, None) is not None
+            was_resident = self._resident.pop(rid, None) is not None
+            if not (was_pending or was_resident):
+                self._departed.add(rid)
+            entry = {k: v for k, v in meta.items() if not k.startswith("_")}
+            if wire:
+                try:
+                    wrid, kv = KVSlice.from_wire(wire)
+                    if wrid == rid:
+                        entry["kv"] = kv
+                    else:
+                        _M_FRAMES.inc(outcome="decode_error")
+                except WireFormatError:
+                    _M_FRAMES.inc(outcome="decode_error")
+                    # KV-less handoff: the decode side re-prefills.
+            self._owner.pop(rid, None)
+            self._handoffs.append(entry)
+        while True:
+            body = self.link.take(TELEM)
+            if body is None:
+                break
+            FLEET.ingest_wire(
+                self.link.peer, body,
+                clock_offset_s=self.link.clock_offset_s,
+            )
+
+    def _collect_failures(self) -> None:
+        """Peer death: every retained stream drains to ``take_failed`` and
+        joins the reclaimed set (a late completion from a half-dead worker
+        must not double-deliver)."""
+        if not (self._pending or self._resident):
+            return
+        moved = list(self._pending.items()) + list(self._resident.items())
+        self._pending.clear()
+        self._resident.clear()
+        for rid, entry in moved:
+            self.link.reclaimed.add(rid)
+            self._owner.pop(rid, None)
+            self._failed.append(entry)
+            # The worker that owned these hops is a corpse: whatever spans
+            # it flushed before death already federated; mark the gap.
+            FLEET.attribute_dead_hop(
+                rid, self.link.peer, reason=self.link.death_reason
+            )
+        JOURNAL.record(
+            "transport", "pool.reclaim", correlation=self.link.endpoint,
+            streams=len(moved), reason=self.link.death_reason,
+        )
+
+    def _on_reconnect(self, link: PeerLink) -> None:
+        """A peer adopted a fresh connection: tell it to drop residual
+        state (a no-op for a fresh process).  The reclaimed set is kept —
+        a worker that survived a connection-only blip may still finish
+        streams the supervisor already re-served locally, and those late
+        completions must keep being dropped, never double-delivered."""
+        try:
+            link.send_json(CONTROL, {"op": "reset"})
+        except (PeerDiedError, TransportDownError):
+            return
+
+
+class RemoteWorkerEngine:
+    """Engine-protocol replica whose real engine lives behind a
+    :class:`PeerLink` in a worker process (or an in-process
+    :class:`PoolWorker` over a loopback pair — same protocol loop
+    ``worker_main`` drives).  This is what lets ``FleetAutoscaler`` scale
+    up by SPAWNING A PROCESS instead of constructing an engine in the
+    supervisor: ``add_replica`` protocol-checks it, seeds its id stride
+    (forwarded to the worker as a ``reseed`` CONTROL frame, partitioned
+    across the worker's own replicas), and routes to it like any local
+    engine.
+
+    Zero-loss contract, inherited from :class:`RemotePool`: every
+    submitted stream is retained as a KV-less snapshot entry until its
+    COMPLETION frame lands.  When the worker dies the fleet router's
+    stall/heartbeat detectors fire (tokens stop advancing while slots
+    stay resident), the replica is evacuated through the ordinary
+    ``snapshot_active`` → ``release_active`` path, and the retained
+    entries re-prefill on surviving replicas — the ids join
+    ``link.reclaimed`` so a half-dead worker's late completions are
+    dropped, never double-delivered."""
+
+    def __init__(self, link: PeerLink, *, n_slots: int = 8,
+                 sync_interval: int = 8, name: str = "",
+                 clock=time.monotonic, peer_pump=None):
+        from k8s_dra_driver_torch.models.telemetry import _next_seq
+
+        self.link = link
+        self.n_slots = int(n_slots)
+        self.sync_interval = int(sync_interval)
+        self.name = name or f"remote-engine-{link.peer}"
+        self.clock = clock
+        self.peer_pump = peer_pump  # in-process far end's poll (tests)
+        self.engine_seq = _next_seq()
+        self._resident: dict[int, dict] = {}
+        self._completions: list = []
+        self._departed: set[int] = set()
+        self._submit_seq = 0
+        self._next_id = 0
+        self.bursts = 0
+        self.tokens_generated = 0
+        self._completed = 0
+        self._statuses: dict[str, int] = {}
+        self._created_at = clock()
+        self._last_progress_t = self._created_at
+        self._last_burst_t = self._created_at
+        self._last_step_s = 0.0
+        self._stat_reads = 0
+
+    # -- admission -----------------------------------------------------------
+
+    def free_slots(self) -> int:
+        return self.n_slots - len(self._resident)
+
+    def submit(self, prompt, max_tokens: int, **kwargs) -> int:
+        """Synchronous submit RPC (the :meth:`RemotePool.submit` shape):
+        SUBMIT out, pump until the seq-matched SUBMITTED lands.  Raises
+        RuntimeError on a full pool, a refused submit, a dead link or an
+        ack timeout — the same surface local engines present, so the
+        router's admission/breaker paths need no special casing."""
+        if self.free_slots() <= 0:
+            raise RuntimeError("no free slot")
+        if self.link.dead and not self.link.try_reconnect():
+            raise RuntimeError(f"{self.name}: transport down")
+        self._submit_seq += 1
+        seq = self._submit_seq
+        prompt = [int(t) for t in prompt]
+        doc = {
+            "seq": seq, "prompt": prompt, "max_tokens": int(max_tokens),
+            "kwargs": {
+                k: v for k, v in kwargs.items() if not k.startswith("_")
+            },
+        }
+        try:
+            self.link.send_json(SUBMIT, doc)
+        except (PeerDiedError, TransportDownError):
+            raise RuntimeError(f"{self.name}: peer died on submit")
+        deadline = time.monotonic() + self.link.ack_timeout_s
+        while True:
+            self.link.pump()
+            if self.peer_pump is not None and not self.link.dead:
+                self.peer_pump()
+            self._drain_completions()
+            body = self.link.take(SUBMITTED)
+            if body is not None:
+                resp = json.loads(body.decode())
+                if int(resp.get("seq", -1)) != seq:
+                    continue
+                if not resp.get("ok"):
+                    raise RuntimeError(
+                        f"{self.name} refused submit: "
+                        f"{resp.get('error', 'full')}"
+                    )
+                rid = int(resp["rid"])
+                self._next_id = max(self._next_id, rid + 1)
+                now = self.clock()
+                self._last_progress_t = now
+                if rid in self._departed:
+                    # Completed inside the RPC window (short prompt).
+                    self._departed.discard(rid)
+                    return rid
+                FLEET.note_hop(rid, f"req-{rid}", instance=self.link.peer)
+                # KV-less snapshot retention: enough for a surviving
+                # replica's restore() to re-prefill the stream verbatim.
+                self._resident[rid] = {
+                    "request_id": rid,
+                    "tokens": prompt,
+                    "generated": [],
+                    "max_tokens": int(max_tokens),
+                    "prompt_len": len(prompt),
+                    "ttft_slo_s": kwargs.get("ttft_slo_s"),
+                    "tpot_slo_s": kwargs.get("tpot_slo_s"),
+                    "queued_at": kwargs.get("queued_at", now),
+                    "t_first": None,
+                }
+                return rid
+            if self.link.dead:
+                raise RuntimeError(
+                    f"{self.name}: peer died awaiting submit ack"
+                )
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"{self.name}: submit ack timed out")
+            time.sleep(0.002)
+
+    # -- stepping ------------------------------------------------------------
+
+    def step_burst(self) -> int:
+        now = self.clock()
+        self._last_step_s = max(now - self._last_burst_t, 0.0)
+        self._last_burst_t = now
+        self.bursts += 1
+        self.link.pump()
+        if self.peer_pump is not None and not self.link.dead:
+            self.peer_pump()
+            self.link.pump()
+        self._drain_completions()
+        if self.link.dead:
+            self.link.try_reconnect()
+        return len(self._resident)
+
+    @terminal_retirer
+    def _drain_completions(self) -> None:
+        # Legal re-materialization point: the worker's engine retired the
+        # stream through its own funnel; this side only decodes frames.
+        from k8s_dra_driver_torch.models.serve import Completion
+
+        while True:
+            body = self.link.take(COMPLETION)
+            if body is None:
+                break
+            doc = json.loads(body.decode())
+            rid = int(doc.get("request_id", -1))
+            if rid in self.link.reclaimed:
+                JOURNAL.record(
+                    "transport", "completion.stale_dropped",
+                    correlation=f"req-{rid}", peer=self.link.peer,
+                )
+                continue
+            if self._resident.pop(rid, None) is None:
+                self._departed.add(rid)
+            status = str(doc.get("status", "ok"))
+            generated = [int(t) for t in doc.get("generated", [])]
+            self._completed += 1
+            self._statuses[status] = self._statuses.get(status, 0) + 1
+            self.tokens_generated += len(generated)
+            self._last_progress_t = self.clock()
+            FLEET.forget_hop(rid)
+            self._completions.append(Completion(
+                request_id=rid,
+                tokens=[int(t) for t in doc.get("tokens", [])],
+                generated=generated,
+                error=str(doc.get("error", "")),
+                status=status,
+            ))
+        while True:
+            body = self.link.take(TELEM)
+            if body is None:
+                break
+            FLEET.ingest_wire(
+                self.link.peer, body,
+                clock_offset_s=self.link.clock_offset_s,
+            )
+
+    def completions(self) -> list:
+        self._drain_completions()
+        out, self._completions = self._completions, []
+        return out
+
+    def cancel(self, request_id: int) -> bool:
+        if request_id not in self._resident:
+            return False
+        try:
+            self.link.send_json(CONTROL, {"op": "cancel", "rid": request_id})
+        except (PeerDiedError, TransportDownError):
+            return False
+        # The cancelled Completion rides back on the next pump.
+        return True
+
+    # -- snapshot / restore / release (live migration) -----------------------
+
+    def snapshot_active(self) -> dict:
+        return {
+            "engine": type(self).__name__,
+            "next_id": self._next_id,
+            "requests": [dict(e) for e in self._resident.values()],
+        }
+
+    def restore(self, snapshot: dict, merge: bool = False) -> list:
+        """The add_replica id-seed doc forwards to the worker as a
+        ``reseed`` CONTROL frame (stride partitioned across its
+        replicas); non-empty snapshots ship entry-by-entry as KV-less
+        PLACE frames and block for the PLACED acks."""
+        from k8s_dra_driver_torch.models.fleet import ID_STRIDE
+
+        entries = list(snapshot.get("requests", ()))
+        if not merge and self._resident:
+            raise RuntimeError("restore needs an idle engine (use merge=True)")
+        if len(entries) > self.free_slots():
+            raise RuntimeError(
+                f"restore needs {len(entries)} slots, {self.free_slots()} free"
+            )
+        if self.link.dead and not self.link.try_reconnect():
+            raise RuntimeError(f"{self.name}: transport down")
+        base = int(snapshot.get("next_id", 0))
+        self._next_id = max(self._next_id, base)
+        try:
+            self.link.send_json(CONTROL, {
+                "op": "reseed", "next_id": base, "stride": ID_STRIDE,
+            })
+        except (PeerDiedError, TransportDownError):
+            raise RuntimeError(f"{self.name}: peer died on reseed")
+        restored: list = []
+        pending: set = set()
+        for e in entries:
+            keep = copy.deepcopy(_sanitize_entry(e))
+            rid = int(keep["request_id"])
+            try:
+                self.link.send_frame(
+                    PLACE,
+                    encode_meta_frame(
+                        PLACE, dict(keep, _correlation=f"req-{rid}"),
+                    )[_FRAME_HEADER.size:],
+                    request_id=rid,
+                )
+            except (PeerDiedError, TransportDownError):
+                raise RuntimeError(f"{self.name}: peer died on restore")
+            pending.add(rid)
+            self._resident[rid] = keep
+            restored.append(rid)
+        deadline = time.monotonic() + self.link.ack_timeout_s
+        while pending:
+            self.link.pump()
+            if self.peer_pump is not None and not self.link.dead:
+                self.peer_pump()
+            body = self.link.take(PLACED)
+            if body is not None:
+                pending.discard(int(json.loads(body.decode()).get("rid", -1)))
+                continue
+            if self.link.dead or time.monotonic() >= deadline:
+                for rid in restored:
+                    self._resident.pop(rid, None)
+                raise RuntimeError(f"{self.name}: restore acks lost")
+            time.sleep(0.002)
+        if restored:
+            self._last_progress_t = self.clock()
+        return restored
+
+    def release_active(self) -> int:
+        n = len(self._resident)
+        for rid in self._resident:
+            self.link.reclaimed.add(rid)
+        self._resident.clear()
+        try:
+            self.link.send_json(CONTROL, {"op": "release"})
+        except (PeerDiedError, TransportDownError):
+            pass  # dead worker holds nothing worth releasing
+        return n
+
+    # -- protocol conformance pump -------------------------------------------
+
+    def pump(self, requests, max_steps: int = 100_000,
+             queue_limit: int | None = None) -> list:
+        queue = []
+        for r in requests:
+            if isinstance(r, dict):
+                queue.append(dict(r))
+            else:
+                prompt, max_tokens = r
+                queue.append({"prompt": list(prompt), "max_tokens": max_tokens})
+        out: list = []
+        for _ in range(max_steps):
+            while queue:
+                kw = dict(queue[0])
+                try:
+                    self.submit(kw.pop("prompt"), kw.pop("max_tokens"), **kw)
+                except RuntimeError:
+                    break
+                queue.pop(0)
+            advance = getattr(self.clock, "advance", None)
+            if callable(advance):
+                advance(0.05)
+            self.step_burst()
+            out.extend(self.completions())
+            if not queue and not self._resident:
+                return out
+        raise RuntimeError(f"remote pump did not drain in {max_steps} steps")
+
+    # -- the load-signal contract --------------------------------------------
+
+    def stats(self):
+        """Local-knowledge EngineStats — no stats RPC per tick.  The
+        detector-relevant fields behave like a real engine's: ``bursts``
+        advances per step, ``uptime_s`` strictly advances per read, and
+        ``heartbeat_age_s``/``tokens_generated`` freeze when the worker
+        stops delivering completions — which is exactly how a dead worker
+        trips the stall/heartbeat verdicts and gets evacuated."""
+        from k8s_dra_driver_torch.models.telemetry import EngineStats
+
+        now = self.clock()
+        self._stat_reads += 1
+        return EngineStats(
+            engine=type(self).__name__,
+            engine_seq=self.engine_seq,
+            n_slots=self.n_slots,
+            resident_slots=len(self._resident),
+            free_slots=self.free_slots(),
+            queue_depth=0,
+            admitting=0,
+            preempted=0,
+            free_blocks=None,
+            quarantined=0,
+            shed_count=0,
+            in_flight=len(self._resident),
+            completed=self._completed,
+            statuses=dict(self._statuses),
+            tokens_generated=self.tokens_generated,
+            bursts=self.bursts,
+            host_syncs=self.bursts,
+            last_step_s=self._last_step_s,
+            sync_interval=self.sync_interval,
+            uptime_s=(now - self._created_at) + self._stat_reads * 1e-9,
+            heartbeat_age_s=max(0.0, now - self._last_progress_t),
+            ttft_p50_s=0.0, ttft_p90_s=0.0, ttft_p99_s=0.0,
+            tpot_p50_s=0.0, tpot_p90_s=0.0, tpot_p99_s=0.0,
+            queue_wait_p50_s=0.0, queue_wait_p90_s=0.0,
+        )
+
+
+def make_remote_engine_factory(worker_factory=None, *, link_factory=None,
+                               n_slots: int = 8, sync_interval: int = 8,
+                               name_prefix: str = "rworker",
+                               clock=time.monotonic, link_kwargs=None):
+    """Zero-arg engine factory for :class:`FleetAutoscaler`'s flagged
+    remote-spawn path (``autoscaler.select_engine_factory``).
+
+    Two rigs, one protocol:
+
+    * ``worker_factory`` — in-process: each call builds a fresh
+      ``LoopbackConn`` pair and a :class:`PoolWorker` around the router
+      ``worker_factory()`` returns (the same protocol loop
+      ``worker_main`` drives, minus the process), pumped via
+      ``peer_pump``.  This is what the chaos tests use.
+    * ``link_factory`` — process-backed: each call returns a live
+      :class:`PeerLink` (e.g. ``hub.link_for(name)`` after spawning
+      ``python -m k8s_dra_driver_torch.models.transport config.json``);
+      the worker pumps itself.
+
+    Exactly one of the two must be provided."""
+    if (worker_factory is None) == (link_factory is None):
+        raise ValueError(
+            "make_remote_engine_factory needs exactly one of "
+            "worker_factory (in-process rig) or link_factory (PeerLink)"
+        )
+    counter = [0]
+
+    def factory() -> RemoteWorkerEngine:
+        counter[0] += 1
+        name = f"{name_prefix}-{counter[0]}"
+        if link_factory is not None:
+            return RemoteWorkerEngine(
+                link_factory(), n_slots=n_slots,
+                sync_interval=sync_interval, name=name, clock=clock,
+            )
+        near, far = LoopbackConn.pair()
+        worker = PoolWorker(far, worker_factory())
+        link = PeerLink(name, near, clock=clock, **(link_kwargs or {}))
+        return RemoteWorkerEngine(
+            link, n_slots=n_slots, sync_interval=sync_interval,
+            name=name, clock=clock, peer_pump=worker.pump_once,
+        )
+
+    return factory
+
+
 
 
 class PoolWorker:
@@ -475,6 +1771,11 @@ class PoolWorker:
             self.prefix_epoch = int(doc.get("epoch", 0))
             if self.gossip is not None:
                 self.gossip.resync(self.prefix_epoch)
+        elif op == "zero_launches":
+            # the port's own op: the exit line counts from here on
+            from k8s_dra_driver_torch.models import graphs
+
+            graphs.add_launch_counts({key: -n for key, n in graphs.launch_counts().items()})
         elif op == "reseed":
             # the supervisor reserved ONE id stride for this worker: its
             # engines partition that stride
@@ -542,6 +1843,106 @@ class PoolWorker:
 
     def _send_json(self, ftype: int, doc: dict) -> None:
         self._send(ftype, json.dumps(doc).encode())
+
+
+class TransportHub:
+    """The supervisor's listening side: workers dial in and identify with
+    a HELLO frame; the hub routes each connection to (or creates) the
+    named :class:`PeerLink`.  A redial for a known-dead peer becomes that
+    link's reconnect."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 clock=time.monotonic, fault_injector=None, **link_kwargs):
+        self.clock = clock
+        self.fault_injector = fault_injector
+        self.link_kwargs = link_kwargs
+        self.links: dict[str, PeerLink] = {}
+        self._half: list[tuple[socket.socket, FrameBuffer, float]] = []
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((host, port))
+        self._listener.listen(16)
+        self._listener.setblocking(False)
+        self.host, self.port = self._listener.getsockname()[:2]
+
+    def poll(self) -> None:
+        """Accept pending dials and route HELLOs.  Non-blocking; called
+        from the drive loop alongside the links' own pumps."""
+        while True:
+            try:
+                sock, _ = self._listener.accept()
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError:
+                break
+            sock.setblocking(False)
+            self._half.append((sock, FrameBuffer(), self.clock() + 10.0))
+        still = []
+        for sock, buf, deadline in self._half:
+            routed = False
+            try:
+                while True:
+                    try:
+                        data = sock.recv(1 << 16)
+                    except (BlockingIOError, InterruptedError):
+                        break
+                    if not data:
+                        raise OSError("closed before hello")
+                    buf.feed(data)
+                for ftype, body in buf.frames():
+                    if ftype != HELLO:
+                        continue
+                    doc = json.loads(body.decode())
+                    self._route(str(doc.get("name", "worker")), sock, doc)
+                    routed = True
+                    break
+            except (OSError, ValueError):
+                sock.close()
+                continue
+            if not routed:
+                if self.clock() > deadline:
+                    sock.close()
+                else:
+                    still.append((sock, buf, deadline))
+        self._half = still
+
+    def _route(self, name: str, sock: socket.socket, hello: dict) -> None:
+        conn = SocketConn(sock, peer=name, fault_injector=self.fault_injector)
+        link = self.links.get(name)
+        JOURNAL.record(
+            "transport", "hello", correlation=f"transport/{name}",
+            pid=hello.get("pid"), role=hello.get("role"),
+        )
+        if link is None:
+            link = PeerLink(name, conn, clock=self.clock, **self.link_kwargs)
+            self.links[name] = link
+        else:
+            link.adopt(conn)
+
+    def link_for(self, name: str, timeout_s: float = 30.0) -> PeerLink:
+        """Wait for the named worker to dial in (startup barrier)."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            self.poll()
+            link = self.links.get(name)
+            if link is not None and not link.dead:
+                return link
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"worker {name!r} did not dial the transport hub in "
+                    f"{timeout_s}s"
+                )
+            time.sleep(0.01)
+
+    def close(self) -> None:
+        for sock, _, _ in self._half:
+            sock.close()
+        self._half = []
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+
 
 
 def dial(host: str, port: int, name: str, role: str = "decode",
@@ -700,6 +2101,23 @@ def _worker_redial(config, fault_injector, deadline_s: float = 10.0):
         except OSError:
             backoff.sleep()
     return None
+
+
+# -- observability ------------------------------------------------------------
+
+_LIVE_TRANSPORTS: "weakref.WeakSet[TransportChannel]" = weakref.WeakSet()
+_LIVE_REMOTE_POOLS: "weakref.WeakSet[RemotePool]" = weakref.WeakSet()
+
+
+def debug_transport_doc() -> dict:
+    """The /debug/transport payload: every live transport channel's claim/
+    budget/outcome view (including its link: breaker state, cooldown, RTT,
+    reconnects) and every live remote pool's retained-stream counts."""
+    pools = sorted(_LIVE_REMOTE_POOLS, key=lambda p: p.seq)
+    return {
+        "channels": [ch.stats() for ch in _LIVE_TRANSPORTS],
+        "remote_pools": [p.stats() for p in pools],
+    }
 
 
 if __name__ == "__main__":

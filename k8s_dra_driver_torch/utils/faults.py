@@ -1,7 +1,7 @@
-"""Fault injection for the serving engines, the fleet router and the
-transport's worker half: those kinds of
-``k8s_dra_driver_tpu/utils/faults.py`` (the API-server, scheduler,
-autoscaler and handoff-channel kinds stay in the reference).
+"""Fault injection for the serving engines, the fleet router, the
+disaggregated handoff channel and the transport: those kinds of
+``k8s_dra_driver_tpu/utils/faults.py`` (the API-server, scheduler and
+autoscaler kinds stay in the reference).
 
 A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
 
@@ -11,6 +11,10 @@ A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
 * by the fleet router once per (replica, tick) before that replica's
   burst: a :class:`ReplicaCrash`, a wedge (no burst this tick) or a stale
   ``stats()`` read;
+* by the handoff channel once per transfer, before the payload reaches
+  the decode pool (``models/disagg.py``): a dropped transfer, accounted
+  latency, a corrupted payload; and by a ``ChannelSet`` per link consult:
+  a link that dies, or a bandwidth brownout;
 * at the transport's send and receive seams (``models/transport.py``):
   a frame cut mid-body, a reset, accounted latency, a one-way partition,
   or a receiver poll that stalls.
@@ -71,6 +75,14 @@ class FaultProfile:
     replica_wedge_rate: float = 0.0  # probability a replica hangs this tick
     stats_stale_rate: float = 0.0  # probability stats() serves a frozen copy
     replicas: tuple = ()  # e.g. (1,); empty = all replicas
+    # handoff-channel kinds, per transfer (latency accounted, never slept)
+    handoff_drop_rate: float = 0.0  # probability a transfer is dropped in flight
+    handoff_latency_s: float = 0.0  # simulated seconds added per transfer
+    handoff_corrupt_rate: float = 0.0  # probability payload bytes arrive corrupted
+    # link kinds, per ChannelSet consult of a link
+    channel_down_rate: float = 0.0  # probability a scoped link dies this consult
+    channel_degrade: float = 0.0  # bandwidth multiplier (0 < f <= 1) when armed
+    channels: tuple = ()  # e.g. ("ici-1",); empty = all links
     # transport kinds, per frame (latency accounted, never slept)
     sock_truncate_rate: float = 0.0  # probability a sent frame is cut mid-body
     sock_reset_rate: float = 0.0  # probability the peer resets mid-transfer
@@ -161,6 +173,57 @@ class FaultInjector:
                 return True
         return False
 
+    # -- handoff-channel decision points (reference ``:398-471``) -----------------
+
+    def take_handoff_drop(self, request_id: int) -> bool:
+        """Channel hook: should this KV transfer be dropped in flight?"""
+        for p in self._matching_engine(None, None):
+            if p.handoff_drop_rate and self._roll(p, p.handoff_drop_rate, "handoff_drop"):
+                return True
+        return False
+
+    def take_handoff_latency(self) -> float:
+        """Channel hook: simulated seconds added to this transfer
+        (accounted into its deadline, never slept)."""
+        total = 0.0
+        for p in self._matching_engine(None, None):
+            if p.handoff_latency_s > 0:
+                with self._lock:
+                    if not self._budget_ok(p):
+                        continue
+                    self._record(p, "handoff_latency")
+                total += p.handoff_latency_s
+        return total
+
+    def take_handoff_corrupt(self, request_id: int) -> bool:
+        """Channel hook: should this transfer's payload arrive corrupted?"""
+        for p in self._matching_engine(None, None):
+            if p.handoff_corrupt_rate and self._roll(
+                p, p.handoff_corrupt_rate, "handoff_corrupt"
+            ):
+                return True
+        return False
+
+    def take_channel_down(self, channel: str) -> bool:
+        """Link hook: should this interconnect link die now?"""
+        for p in self._matching_channel(channel):
+            if p.channel_down_rate and self._roll(p, p.channel_down_rate, "channel_down"):
+                return True
+        return False
+
+    def channel_bandwidth_factor(self, channel: str) -> float:
+        """Link hook: this link's bandwidth multiplier (1.0: no brownout),
+        accounted into the transfer's latency, never slept."""
+        factor = 1.0
+        for p in self._matching_channel(channel):
+            if 0.0 < p.channel_degrade < 1.0:
+                with self._lock:
+                    if not self._budget_ok(p):
+                        continue
+                    self._record(p, "channel_degrade")
+                factor *= p.channel_degrade
+        return factor
+
     # -- transport decision points ------------------------------------------------
 
     def take_sock_truncate(self, peer: str) -> bool:
@@ -223,6 +286,10 @@ class FaultInjector:
                 and (step is None or not p.steps or step in p.steps)
             ]
 
+    def _matching_channel(self, channel: str) -> list[FaultProfile]:
+        with self._lock:
+            return [p for p in self._profiles if not p.channels or channel in p.channels]
+
     def _matching_replica(self, replica: int, tick: int) -> list[FaultProfile]:
         with self._lock:
             return [
@@ -264,7 +331,7 @@ class FaultInjector:
         """Parse a ``DRA_FAULTS`` spec (``replica_wedge_rate=1.0,replicas=0,
         steps=2+3,seed=7``) into an injector armed with one profile named
         "env".  Any other key (a typo, or a kind only the reference injects:
-        API-server, scheduler, autoscaler, handoff channel) raises
+        API-server, scheduler, autoscaler) raises
         ValueError naming it: a chaos run that silently injects nothing
         proves the wrong thing."""
         fields = {}
@@ -284,8 +351,8 @@ class FaultInjector:
                 fields[key] = float(value)
             elif key in ("peer_hang", "limit"):
                 fields[key] = int(value)
-            elif key == "peers":
-                fields["peers"] = tuple(value.split("+"))
+            elif key in ("peers", "channels"):
+                fields[key] = tuple(value.split("+"))
             elif key in ("slots", "steps", "replicas"):
                 fields[key] = tuple(int(v) for v in value.split("+"))
             else:
@@ -295,9 +362,14 @@ class FaultInjector:
         return injector
 
 
-_MS_KEYS = {"step_latency_ms": "step_latency_s", "sock_latency_ms": "sock_latency_s"}
+_MS_KEYS = {"step_latency_ms": "step_latency_s", "sock_latency_ms": "sock_latency_s",
+            "handoff_latency_ms": "handoff_latency_s"}
 _RATE_ALIASES = {"sock_truncate": "sock_truncate_rate", "sock_reset": "sock_reset_rate",
-                 "sock_partition": "sock_partition_rate"}
+                 "sock_partition": "sock_partition_rate", "handoff_drop": "handoff_drop_rate",
+                 "handoff_corrupt": "handoff_corrupt_rate", "channel_down": "channel_down_rate",
+                 "channel_degrade": "channel_degrade"}
 _FLOAT_KEYS = ("nan_logits_rate", "step_raise_rate", "step_latency_s", "replica_crash_rate",
-               "replica_wedge_rate", "stats_stale_rate", "sock_truncate_rate",
-               "sock_reset_rate", "sock_latency_s", "sock_partition_rate")
+               "replica_wedge_rate", "stats_stale_rate", "handoff_drop_rate",
+               "handoff_latency_s", "handoff_corrupt_rate", "channel_down_rate",
+               "sock_truncate_rate", "sock_reset_rate", "sock_latency_s",
+               "sock_partition_rate")

@@ -141,6 +141,14 @@ class TraceBuffer:
             records = list(self._records)[-limit:]
         return [r.to_json() for r in records]
 
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "capacity": self._records.maxlen,
+                "buffered": len(self._records),
+                "recorded": self._seq,
+            }
+
     def clear(self) -> None:
         with self._lock:
             self._records.clear()

@@ -361,3 +361,13 @@ def test_engine_checks(weights):
         tp.check_verify_window(4, 4, "cuda")
     for kv_dtype in KV:
         tp.check_verify_window(4, 4, "cuda", kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, *KV])
+@pytest.mark.parametrize("n_blocks", [6, 9])
+def test_pool_n_blocks_is_the_references(kv_dtype, n_blocks):
+    """``PagedKVCache.n_blocks`` (reference ``models/paged.py:122``) of a
+    float, int8 and int4 pool equals the JAX pool's."""
+    jc = jp.init_paged_cache(JCFG, n_blocks, 8, kv_dtype=kv_dtype)
+    tc = tp.init_paged_cache(TCFG, n_blocks, 8, device="cpu", kv_dtype=kv_dtype)
+    assert tc.n_blocks == jc.n_blocks == n_blocks

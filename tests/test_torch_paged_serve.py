@@ -449,11 +449,13 @@ def test_graphed_program_counts_each_call_once(zeroed_counters):
 
     prog = ts.GraphedProgram("stand-in", _program(runs), "cuda", capture=capture)
     assert prog() == "output" and prog.graph is None and _counts() == (2, 3, 3)
+    assert prog.replay_counts == {}
     for n in (2, 3, 4):
         assert prog() == "output"
         assert _counts() == (2 * n, 3 * n, 3 * n)
     assert len(runs) == 2 and len(graphs) == 1     # warm-up + capture
     assert graphs[0].replays == 3 and prog.calls == 4 and prog.capture_s >= 0
+    assert prog.replay_counts[(tpa.__name__, "append")] == 2
 
 
 def test_graphed_program_capture_failure_raises_and_leaves_counters(zeroed_counters):

@@ -108,3 +108,17 @@ def test_int4_logits_through_the_port_match_jax():
         tb.ModelConfig.from_reference(jcfg),
     ).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matrix_ndim_is_the_references(bits):
+    """``QuantizedMatrix.ndim`` and ``Quantized4Matrix.ndim`` (reference
+    ``models/quant.py:50``, ``:115``) equal the JAX matrices'."""
+    w = _weight(seed=3)
+    if bits == 8:
+        jm = jq.QuantizedMatrix.quantize(jnp.asarray(w))
+        tm = tq.QuantizedMatrix.quantize(torch.from_numpy(w))
+    else:
+        jm = jq.Quantized4Matrix.quantize(jnp.asarray(w))
+        tm = tq.Quantized4Matrix.quantize(torch.from_numpy(w))
+    assert tm.ndim == jm.ndim == 2

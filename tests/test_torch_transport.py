@@ -401,6 +401,33 @@ def test_submit_cancel_and_reseed_as_the_reference_worker(weights):
     assert stream == want[tuple(REQS[0]["prompt"])]
 
 
+def test_zero_launches_restarts_the_workers_counts(weights):
+    """``CONTROL {"op": "zero_launches"}``, the port worker's own op, sets
+    the launch counters to 0, so the exit line counts only what follows
+    (a supervisor's warm-up left out); the reference's worker ignores it.
+    Both then serve a bare JAX engine's stream."""
+    from k8s_dra_driver_torch.models import graphs
+    from k8s_dra_driver_torch.ops import paged_attention as tpa
+
+    want = _by_prompt(_engine(weights, "jax", "dense").pump([dict(REQS[0])]))
+    before = graphs.launch_counts()
+    try:
+        for pkg in ("port", "jax"):
+            graphs.add_launch_counts({(tpa.__name__, "append"): 3})
+            counted = graphs.launch_counts()
+            rig = _rig(weights, pkg)
+            _control(rig, {"op": "zero_launches"})
+            after = graphs.launch_counts()
+            assert set(after.values()) == {0} if pkg == "port" else after == counted
+            r = REQS[0]
+            rig.pool.submit(r["prompt"], r["max_tokens"], seed=r["seed"])
+            assert _by_prompt(_drain(rig, 1)) == want
+            _close(rig)
+    finally:
+        now = graphs.launch_counts()
+        graphs.add_launch_counts({key: before.get(key, 0) - n for key, n in now.items()})
+
+
 def _frames(rig, ftype) -> list:
     out = []
     while (body := rig.link.take(ftype)) is not None:
