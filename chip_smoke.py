@@ -367,12 +367,35 @@ exits 2 before any result):
     (c) (a)'s router with its channel dropping one transfer, putting one
     over its deadline and corrupting one: those three fall back under
     their reasons and re-prefill (teacher-forced), the others ``ok``, no
-    block leaked.
+    block leaked;
+29. (run right after phase 28) the fleet prefix tier, the autoscaler and
+    the workload generator ("serve fleet"), FLAGSHIP_MODERN in bf16,
+    paged engines of 4 slots, block 16, bucket 256, each after a warm-up:
+    (a) ``workload.generate_shared_prefix`` (seed 11: 32 arrivals over 4
+    system prompts of 128 tokens) through a ``FleetRouter`` of 3 engines
+    with 128-block prefix stores and the port's ``FleetPrefixTier``, then
+    through 3 more without a tier: remote pulls > 0, each pull's injected
+    blocks the owner's export byte for byte, the index the stores'
+    prefixes, no block leaked, every stream the tier-less run's or within
+    the 0.25 gap (both runs teacher-forced); pull ms (export, wire,
+    inject), TTFT by admission kind, tokens/s; the append kernel against
+    its plain version on engine A's first warm-up decode window; (b)
+    ``workload.generate`` with a 6x flash crowd (70 arrivals) through a
+    ``FleetAutoscaler`` over one engine on a simulated clock, new engines
+    built on the card: a scale-up whose replica serves and launches the
+    append kernel, a scale-down that moves live streams, every stream
+    once and teacher-forced, blocks back, the events under their
+    correlations; spawn ms, the spawned engine's graphs, drain ms,
+    replicas over time; (c) the same traffic through a ``DisaggRouter``
+    of 2 + 2 engines while a ``PoolRebalancer`` moves one replica between
+    the pools with streams in flight: every stream once and
+    teacher-forced, blocks back, one correlation for the move.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
 after a handoff, in this process and in the decode workers, the
-disaggregated router's engines and its decode worker, the sharded
+disaggregated router's engines and its decode worker, the fleet phase's
+measured runs, the sharded
 engine's ranks, training, LoRA, MoE and mesh training, the serving demo
 and the dry run at 8) and their times; the last line is the JSON device
 record.
@@ -6687,6 +6710,552 @@ def phase_serve_disagg(torch, cfg, params, handoff, *, card, tol=0.25):
     return out["launches"] + workers
 
 
+# -- serve fleet ------------------------------------------------------------------------
+
+FLEET = dict(n_slots=4, block_size=16, prompt_bucket=256, sync_interval=8,
+             preempt_on_stall=False)
+FLEET_STORE = 128  # prefix store blocks: more than leg (a) stores, so nothing is evicted
+# leg (a): every slot at its longest stream (a 192-token prompt and 32 new
+# tokens, 14 blocks), the store full, and the null block
+FLEET_PREFIX_POOL = 4 * 14 + FLEET_STORE + 1
+FLEET_POOL = 4 * 15 + 1  # legs (b), (c): a 200-token prompt and 32 new tokens, 15 blocks a slot
+# leg (a)'s trace: the reference's shared-prefix family, 32 arrivals over 4
+# system prompts of 128 tokens (Zipf), 12 users, turns of 16 tokens
+FLEET_SHARED = dict(base=dict(seed=11, duration_s=36.0, base_rate_rps=1.0, stream_len_max=32),
+                    n_system_prompts=4, system_len_tokens=128, n_users=12, turn_tokens=16,
+                    max_turns=4)
+# legs (b), (c): a diurnal trace with a 6x flash crowd, prompts up to 200
+# tokens (median about 100), streams up to 32
+FLEET_CROWD = dict(seed=5, duration_s=30.0, base_rate_rps=1.0, prompt_len_mu=4.6,
+                   prompt_len_max=200, stream_len_max=32)
+FLEET_CROWD_AT = (8.0, 8.0, 6.0)  # start s, duration s, multiplier
+# scales up under the crowd's queue, down while the tail still streams
+FLEET_POLICY = dict(min_replicas=1, max_replicas=3, up_ticks=2, down_ticks=3, cooldown_s=2.0,
+                    target_util_low=0.5)
+FLEET_DT = 0.5  # simulated seconds a tick of legs (b) and (c)
+FLEET_WARMUP = dict(prompt=200, max_tokens=8, n=2)  # a warm-up engine's requests, one at a time
+
+
+def _fleet_engine(cfg, params, cache_dtype, n_blocks, **kw):
+    from k8s_dra_driver_torch.models.paged import PagedServeEngine
+
+    return PagedServeEngine(params=params, cfg=cfg, cache_dtype=cache_dtype, device=DEV,
+                            n_blocks=n_blocks, **FLEET, **kw)
+
+
+def _fleet_warmup(eng, vocab: int, seed: int) -> None:
+    """Each program of a fresh engine runs eagerly once and captures on its
+    second call: two requests, one at a time (no prefix of the traffic)."""
+    w = FLEET_WARMUP
+    for i in range(w["n"]):
+        prompt = np.random.RandomState(seed + i).randint(0, vocab, size=w["prompt"]).tolist()
+        eng.pump([dict(prompt=prompt, max_tokens=w["max_tokens"])])
+
+
+def _program_calls(engines) -> dict:
+    return {(id(e), name): prog.calls for e in engines for name, prog in e.graphs.items()}
+
+
+def _fleet_drive(torch, router, reqs, on_tick=None, on_submit=None, engines=(),
+                 max_ticks: int = 20000):
+    """Submit ``reqs`` in order as the fleet admits them (a request it cannot
+    admit waits at the head), one router tick between rounds, until every
+    stream is back.  ``on_submit(i, rid)`` after each admission (synchronized,
+    so its time is the admission's), ``on_tick()`` after each tick.  Returns
+    (completions, request index by id, admission seconds by request index,
+    the indices whose admission ran one of ``engines``' programs for the
+    first or second time (eagerly, or capturing it), wall seconds)."""
+    pending, comps, adm, ids, first_use = list(range(len(reqs))), [], {}, {}, set()
+    t0 = time.perf_counter()
+    for _ in range(max_ticks):
+        while pending:
+            r = reqs[pending[0]]
+            calls = _program_calls(engines)
+            ts = time.perf_counter()
+            try:
+                rid = router.submit(r["prompt"], r["max_tokens"])
+            except RuntimeError:
+                break
+            sync(torch)
+            adm[pending[0]] = time.perf_counter() - ts
+            if any(n <= 2 and n > calls.get(key, 0) for key, n in _program_calls(engines).items()):
+                first_use.add(pending[0])
+            ids[rid] = pending[0]
+            if on_submit is not None:
+                on_submit(pending[0], rid)
+            pending.pop(0)
+        router.tick()
+        if on_tick is not None:
+            on_tick()
+        comps += router.completions()
+        if not pending and len(comps) >= len(reqs) and _router_idle(router):
+            break
+    else:
+        raise AssertionError(f"{len(comps)} of {len(reqs)} streams back in {max_ticks} ticks")
+    sync(torch)
+    return comps, ids, adm, first_use, time.perf_counter() - t0
+
+
+def _router_idle(router) -> bool:
+    if hasattr(router, "idle"):
+        return router.idle()
+    return router.prefill.idle() and router.decode.idle() and not router._staged
+
+
+def _autoscale_events():
+    """Tee the port journal's ``autoscale`` records (the journal is a
+    bounded ring).  Returns (events, restore)."""
+    from k8s_dra_driver_torch.utils.journal import JOURNAL
+
+    events, record = [], JOURNAL.record
+
+    def spy(component, event, correlation="", **attrs):
+        if component == "autoscale":
+            events.append((event, correlation, dict(attrs)))
+        return record(component, event, correlation=correlation, **attrs)
+
+    JOURNAL.record = spy
+
+    def restore():
+        JOURNAL.record = record
+
+    return events, restore
+
+
+def _balanced(label, engines, store=False):
+    """Every engine's blocks back: free (plus stored, with a prefix store)
+    equal to the pool less the null block."""
+    got = [e.free_blocks + (sum(len(s) for s in e._prefix_stores) if store else 0)
+           for e in engines]
+    if got != [e.n_blocks - 1 for e in engines]:
+        raise AssertionError(f"{label}: blocks free{' + stored' if store else ''} {got}, pools "
+                             f"{[e.n_blocks - 1 for e in engines]}")
+
+
+def _served_by_id(label, reqs, comps, ids) -> dict:
+    """Every request completed once, ok, with its prompt and token count,
+    matched by the id it was admitted under (``ids``: id -> request index;
+    a trace may repeat a prompt).  Returns the requests by id."""
+    got = sorted(c.request_id for c in comps)
+    bad = [c.request_id for c in comps if c.request_id not in ids or c.status != "ok"
+           or _prompt_of(c) != tuple(reqs[ids[c.request_id]]["prompt"])
+           or len(c.generated) != reqs[ids[c.request_id]]["max_tokens"]]
+    if got != sorted(ids) or len(ids) != len(reqs) or bad:
+        raise AssertionError(f"{label}: {len(comps)} completions of {len(reqs)} requests "
+                             f"({len(ids)} admitted), duplicated or missing "
+                             f"{sorted(set(got) ^ set(ids))[:8]}, short or not ok {bad}")
+    return {rid: reqs[i] for rid, i in ids.items()}
+
+
+def _held_or_gapped(torch, label, cfg, params, reqs, comps, ids, want, cache_dtype, tol):
+    """Streams against ``want`` (by request index): equal ones counted, every
+    token teacher-forced within ``tol`` of the plain dense argmax.  Returns
+    the count of equal streams."""
+    by_id = _served_by_id(label, reqs, comps, ids)
+    same = sum(tuple(c.generated) == tuple(want[ids[c.request_id]]) for c in comps)
+    _teacher_forced_all(torch, label, cfg, params, reqs, comps, cache_dtype, tol, by_id=by_id)
+    return same
+
+
+def _fleet_prefix_leg(torch, label, cfg, params, cache_dtype, tol, card) -> int:
+    """Leg (a): the shared-prefix trace through three paged engines behind a
+    ``FleetRouter`` with the port's ``FleetPrefixTier`` (a
+    ``LocalPrefixSource`` each), then the same trace through a tier-less
+    fleet of three more.  Returns the measured runs' append launches."""
+    from k8s_dra_driver_torch.models import fleet, fleet_prefix, serve, workload
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    w = workload
+    kw = dict(FLEET_SHARED)
+    spec = w.SharedPrefixSpec(base=w.WorkloadSpec(**kw.pop("base")), **kw)
+    trace = list(w.generate_shared_prefix(spec))
+    reqs = [dict(prompt=w.shared_prefix_tokens(a, vocab=cfg.vocab_size), max_tokens=a.max_tokens)
+            for a in trace]
+    append = (pa.__name__, "append")
+    tokens = sum(r["max_tokens"] for r in reqs)
+    runs: dict = {}
+    launches = 0
+    for tiered in (True, False):
+        tag = f"{label} (a) {'with the tier' if tiered else 'without a tier'}"
+        engines = {n: _fleet_engine(cfg, params, cache_dtype, FLEET_PREFIX_POOL,
+                                    prefix_cache_blocks=FLEET_STORE) for n in ("A", "B", "C")}
+        router = fleet.FleetRouter(list(engines.items()))
+        tier = None
+        if tiered:
+            tier = fleet_prefix.FleetPrefixTier(fleet_prefix.FleetPrefixIndex())
+            router.attach_prefix_tier(tier)  # a LocalPrefixSource per engine
+        if tiered:
+            rec, restore = _record_append_windows(torch, pa, 1, pools=[engines["A"]._cache.k])
+            try:
+                _fleet_warmup(engines["A"], cfg.vocab_size, SEED + 95)
+            finally:
+                restore()
+            _hold_append_windows(torch, f"{tag} (engine A's first warm-up decode window)", pa,
+                                 rec, cfg, cache_dtype)
+        else:
+            _fleet_warmup(engines["A"], cfg.vocab_size, SEED + 95)
+        for i, n in enumerate(("B", "C")):
+            _fleet_warmup(engines[n], cfg.vocab_size, SEED + 97 + 2 * i)
+        kinds, pulls, exports, injects, checked = {}, [], [], [], []
+        hits0 = {n: e.prefix_hits for n, e in engines.items()}
+        if tiered:
+            prepare = tier.prepare
+            last = {}
+
+            def prepared(name, engine, prompt, **k):
+                last["kind"] = prepare(name, engine, prompt, **k)
+                return last["kind"]
+
+            tier.prepare = prepared
+            for n, eng in engines.items():
+                src = tier._sources[n]
+                pull, export, inject = src.pull, eng.export_prefix_kv, eng.inject_prefix_kv
+
+                def timed_pull(*a, _pull=pull, **k):
+                    t0 = time.perf_counter()
+                    kv = _pull(*a, **k)
+                    pulls.append(time.perf_counter() - t0)
+                    return kv
+
+                def timed_export(*a, _export=export, **k):
+                    t0 = time.perf_counter()
+                    kv = _export(*a, **k)
+                    exports.append(time.perf_counter() - t0)
+                    return kv
+
+                def timed_inject(prompt, kv, *a, _inject=inject, _eng=eng, _own=export, **k):
+                    sync(torch)
+                    t0 = time.perf_counter()
+                    n_tok = _inject(prompt, kv, *a, **k)
+                    sync(torch)
+                    injects.append(time.perf_counter() - t0)
+                    if n_tok:  # the blocks written hold the owner's export's bytes
+                        have = _eng.local_prefix_depth(prompt)
+                        mine = _own(prompt)
+                        lo = have - n_tok
+                        checked.append(all(
+                            np.array_equal(getattr(mine, p)[:, lo:have], getattr(kv, p)[:, lo:have])
+                            for p in ("k", "v")))
+                    return n_tok
+
+                src.pull, eng.export_prefix_kv, eng.inject_prefix_kv = (
+                    timed_pull, timed_export, timed_inject)
+
+            def submitted(i, rid):
+                kinds[i] = last.pop("kind")
+        else:
+            before = {}
+
+            def submitted(i, rid):
+                eng = router._owner[rid].engine
+                kinds[i] = "local" if eng.prefix_hits > before.get(id(eng), 0) else "cold"
+                before.update({id(e): e.prefix_hits for e in engines.values()})
+
+            before.update({id(e): e.prefix_hits for e in engines.values()})
+        sync(torch)
+        _zero_serving_counts()
+        comps, ids, adm, first_use, wall = _fleet_drive(torch, router, reqs, on_submit=submitted,
+                                                        engines=engines.values())
+        launches += serve.launch_counts().get(append, 0)
+        _balanced(tag, engines.values(), store=True)
+        runs[tiered] = dict(comps=comps, ids=ids, adm=adm, kinds=kinds, wall=wall)
+        by = {k: [adm[i] for i, v in kinds.items() if v == k] for k in ("local", "remote", "cold")}
+        warm = {k: [adm[i] for i, v in kinds.items() if v == k and i not in first_use]
+                for k in ("local", "remote", "cold")}
+        line = (f"{tag}: FleetRouter over 3 paged engines ({FLEET['n_slots']} slots, "
+                f"{FLEET_PREFIX_POOL} blocks, store {FLEET_STORE} blocks), {len(reqs)} arrivals "
+                f"of generate_shared_prefix (4 system prompts of 128 tokens), {tokens} tokens in "
+                f"{wall:.3f} s, {tokens / wall:.1f} tokens/s; admissions "
+                f"{ {k: len(v) for k, v in by.items()} }; TTFT (router.submit to the first token "
+                f"on the card, synchronized) by admission: "
+                + "; ".join(f"{k} {_tails(v)}" for k, v in by.items())
+                + f"; of the {len(reqs) - len(first_use)} admissions whose programs all replayed "
+                "(the others ran a program eagerly or captured it): "
+                + "; ".join(f"{k} {len(v)}, {_tails(v)}" for k, v in warm.items()))
+        if tiered:
+            if not tier.counts["remote"]:
+                raise AssertionError(f"{tag}: no remote pull; tier counts {tier.counts}, "
+                                     f"fallbacks {tier.fallbacks}")
+            if not checked or not all(checked):
+                raise AssertionError(f"{tag}: injected blocks equal to the owner's export: "
+                                     f"{checked}")
+            stores = {n: {fleet_prefix.prefix_digest(k) for k in e._prefix_stores[0]}
+                      for n, e in engines.items()}
+            index = tier.index
+            held = set().union(*stores.values())
+            strays = [e.key for e in index._entries.values() if e.key not in stores[e.owner]]
+            if set(index._entries) != held or strays:
+                raise AssertionError(f"{tag}: index entries {len(index)}, stored prefixes "
+                                     f"{len(held)}, entries whose owner lacks them {len(strays)}")
+            led = index.ledger()
+            med = lambda xs: float(np.median(xs)) * 1e3 if xs else float("nan")  # noqa: E731
+            wire = [p - e for p, e in zip(pulls, exports)]
+            line += (f"; tier counts {tier.counts}, fallbacks {tier.fallbacks}; pulls "
+                     f"{len(pulls)}: median ms export {med(exports):.3f}, wire (to_wire + "
+                     f"from_wire) {med(wire):.3f}, inject {med(injects):.3f}, pull (export + "
+                     f"wire) {med(pulls):.3f}; injected blocks equal to the owner's export: "
+                     f"{len(checked)} of {len(checked)}; index {led.entries} entries "
+                     f"{dict(led.blocks)} by owner = the {len(held)} prefixes the engines' "
+                     f"stores hold ({ {n: len(s) for n, s in stores.items()} } blocks)")
+        else:
+            line += "; engines' own prefix hits (blocks) " + str(
+                {n: e.prefix_hits - hits0[n] for n, e in engines.items()})
+        log(line + f" ({card})")
+    plain = runs[False]
+    want = {plain["ids"][c.request_id]: c.generated for c in plain["comps"]}
+    tag = f"{label} (a)"
+    same = _held_or_gapped(torch, tag, cfg, params, reqs, runs[True]["comps"], runs[True]["ids"],
+                           want, cache_dtype, tol)
+    _held_or_gapped(torch, f"{tag} without a tier", cfg, params, reqs, plain["comps"],
+                    plain["ids"], want, cache_dtype, tol)
+    pulled = [i for i, k in runs[True]["kinds"].items() if k == "remote"]
+    log(f"{tag}: streams with the tier equal to the tier-less run's: {same} of {len(reqs)}; the "
+        f"{len(pulled)} pulled requests' TTFT with the tier {_tails([runs[True]['adm'][i] for i in pulled])}"
+        f", the same requests without a tier {_tails([runs[False]['adm'][i] for i in pulled])} "
+        f"({card})")
+    return launches
+
+
+def _crowd_traffic(vocab: int):
+    from k8s_dra_driver_torch.models import workload as w
+
+    spec = w.WorkloadSpec(flash_crowds=(w.FlashCrowd(*FLEET_CROWD_AT),), **FLEET_CROWD)
+    trace = list(w.generate(spec))
+    return trace, [dict(prompt=w.prompt_tokens(a, vocab=vocab, limit=None),
+                        max_tokens=a.max_tokens) for a in trace]
+
+
+def _autoscale_leg(torch, label, cfg, params, cache_dtype, tol, card, trace, reqs, want):
+    """Leg (b): the port's ``FleetAutoscaler`` over a ``FleetRouter`` that
+    starts with one paged engine, the crowd trace arriving on a simulated
+    clock.  Returns the measured run's append launches."""
+    from k8s_dra_driver_torch.models import autoscaler, fleet, serve, workload
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    tag = f"{label} (b) autoscaler"
+    append = (pa.__name__, "append")
+    clock = workload.SimClock()
+    base = _fleet_engine(cfg, params, cache_dtype, FLEET_POOL)
+    _fleet_warmup(base, cfg.vocab_size, SEED + 101)
+    spawned, spawn_s = [], {}
+
+    def factory():
+        t0 = time.perf_counter()
+        eng = _fleet_engine(cfg, params, cache_dtype, FLEET_POOL)
+        burst = eng.step_burst
+
+        def first_burst(*a, **k):
+            out = burst(*a, **k)
+            if id(eng) not in spawn_s:
+                sync(torch)
+                spawn_s[id(eng)] = time.perf_counter() - t0
+            return out
+
+        eng.step_burst = first_burst
+        spawned.append(eng)
+        return eng
+
+    router = fleet.FleetRouter([("as-base", base)], clock=clock)
+    asc = autoscaler.FleetAutoscaler(router, engine_factory=factory, clock=clock,
+                                     policy=autoscaler.AutoscalerPolicy(**FLEET_POLICY))
+    drains, drain = [], router.drain
+
+    def timed_drain(name, reason="scale_down"):
+        t0 = time.perf_counter()
+        moved = drain(name, reason)
+        sync(torch)
+        drains.append((name, len(moved), time.perf_counter() - t0))
+        return moved
+
+    router.drain = timed_drain
+    events, restore = _autoscale_events()
+    arrivals = iter(enumerate(trace))
+    nxt = next(arrivals, None)
+    backlog, comps, over_time, ids = [], [], [], {}
+    sync(torch)
+    _zero_serving_counts()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(20000):
+            now = clock.advance(FLEET_DT)
+            while nxt is not None and nxt[1].t <= now:
+                backlog.append(nxt[0])
+                nxt = next(arrivals, None)
+            while backlog:
+                r = reqs[backlog[0]]
+                try:
+                    ids[router.submit(r["prompt"], r["max_tokens"])] = backlog[0]
+                except RuntimeError:
+                    break
+                backlog.pop(0)
+            router.tick()
+            asc.tick(queue_depth=len(backlog))
+            comps += router.completions()
+            live = sum(1 for r in router.replicas if r.state != fleet.DRAINED)
+            if not over_time or over_time[-1][1] != live:
+                over_time.append((round(now, 1), live))
+            if nxt is None and not backlog and len(comps) >= len(reqs) and router.idle():
+                break
+        else:
+            raise AssertionError(f"{tag}: {len(comps)} of {len(reqs)} streams back")
+        sync(torch)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = serve.launch_counts().get(append, 0)
+    same = _held_or_gapped(torch, tag, cfg, params, reqs, comps, ids, want, cache_dtype, tol)
+    _balanced(tag, [base] + spawned)
+    names = [e for e, _, _ in events]
+    begins = {c: e.split(".")[0] for e, c, _ in events if e.endswith(".begin")}
+    resumed = {c: e.split(".")[0] for e, c, _ in events if e.endswith(".resumed")}
+    ups = [c for c, kind in resumed.items() if kind == "scale_up"]
+    downs = [(c, a) for e, c, a in events if e == "scale_down.resumed"]
+    live_moves = [a for c, a in downs if a["moved"] > 0]
+    served = [e.stats().tokens_generated for e in spawned]
+    spawned_appends = {i: _graph_launches([e]).get(append, 0) for i, e in enumerate(spawned)}
+    if (not ups or not downs or not live_moves or resumed.items() - begins.items()
+            or any(not c.startswith("scale-") for c in begins)):
+        raise AssertionError(f"{tag}: autoscale events {events}")
+    if not any(served) or (DEV == "cuda" and not any(spawned_appends.values())):
+        raise AssertionError(f"{tag}: spawned replicas' tokens {served}, append launches in "
+                             f"their graphs {spawned_appends}")
+    log(f"{tag}: AutoscalerPolicy({FLEET_POLICY}) over a FleetRouter of one paged engine "
+        f"({FLEET['n_slots']} slots, {FLEET_POOL} blocks), {len(reqs)} arrivals of generate() with "
+        f"a {FLEET_CROWD_AT[2]:g}x flash crowd at {FLEET_CROWD_AT[0]:g}-"
+        f"{FLEET_CROWD_AT[0] + FLEET_CROWD_AT[1]:g} s, {FLEET_DT} simulated s a tick: actions "
+        f"{asc.actions}, spawn failures {asc.spawn_failures}; replicas over (simulated s, live) "
+        f"{over_time}; journal {names}; scale-downs' streams moved "
+        f"{[a['moved'] for _, a in downs]}; every request once, lost 0, duplicated 0; streams "
+        f"equal to one engine's: {same} of {len(reqs)}; every pool's blocks back; "
+        f"{sum(len(c.generated) for c in comps)} tokens in {wall:.3f} s, "
+        f"{sum(len(c.generated) for c in comps) / wall:.1f} tokens/s ({card})")
+    for i, eng in enumerate(spawned):
+        log(f"{tag}: spawned replica {i}: factory call to its first burst "
+            f"{spawn_s.get(id(eng), float('nan')) * 1e3:.1f} ms, {served[i]} tokens served, append "
+            f"launches in its graphs {spawned_appends[i]}")
+        if DEV == "cuda":
+            graph_bookkeeping(torch, f"{tag} spawned replica {i}", eng)
+    for name, moved, s in drains:
+        log(f"{tag}: drain of {name}: {moved} streams snapshotted and merge-restored onto the "
+            f"survivors in {s * 1e3:.1f} ms")
+    return launches
+
+
+def _pool_move_leg(torch, label, cfg, params, cache_dtype, tol, card, reqs, want):
+    """Leg (c): ``PoolRebalancer`` over the port's ``DisaggRouter`` (two
+    prefill and two decode paged engines) moving one replica between the
+    pools through ``FleetAutoscaler.scale_move`` while streams are in
+    flight.  Returns the measured run's append launches."""
+    from k8s_dra_driver_torch.models import autoscaler, disagg, serve
+    from k8s_dra_driver_torch.ops import paged_attention as pa
+
+    tag = f"{label} (c) pool move"
+    append = (pa.__name__, "append")
+    engines = [_fleet_engine(cfg, params, cache_dtype, FLEET_POOL) for _ in range(4)]
+    for i, eng in enumerate(engines):
+        _fleet_warmup(eng, cfg.vocab_size, SEED + 103 + 2 * i)
+    router = disagg.DisaggRouter(prefill=engines[:2], decode=engines[2:])
+    policy = autoscaler.AutoscalerPolicy(min_replicas=1, max_replicas=4)
+    pre_s = autoscaler.FleetAutoscaler(router.prefill, lambda: None, policy=policy)
+    dec_s = autoscaler.FleetAutoscaler(router.decode, lambda: None, policy=policy)
+    # any imbalance votes, one vote acts, and the cooldown holds it to one move
+    rb = autoscaler.PoolRebalancer(router, pre_s, dec_s, autoscaler.RebalancePolicy(
+        dominance=1.0, min_samples=1, vote_ticks=1, cooldown_s=1e9))
+    state = {"submitted": 0, "done": 0, "in_flight_at_move": None}
+
+    def on_submit(i, rid):
+        state["submitted"] += 1
+
+    def on_tick():
+        d = rb.tick()
+        if d["corr"] is not None:
+            state["in_flight_at_move"] = state["submitted"] - state["done"]
+            state["decision"] = d
+
+    events, restore = _autoscale_events()
+    completions = router.completions
+
+    def counted():
+        out = completions()
+        state["done"] += len(out)
+        return out
+
+    router.completions = counted
+    sync(torch)
+    _zero_serving_counts()
+    try:
+        comps, ids, _, _, wall = _fleet_drive(torch, router, reqs, on_tick=on_tick,
+                                              on_submit=on_submit)
+    finally:
+        restore()
+    launches = serve.launch_counts().get(append, 0)
+    same = _held_or_gapped(torch, tag, cfg, params, reqs, comps, ids, want, cache_dtype, tol)
+    _balanced(tag, engines)
+    moves = [(e, c) for e, c, _ in events if e.startswith("scale_move")]
+    corrs = {c for _, c in moves}
+    if (rb.moves != 1 or [e for e, _ in moves] != ["scale_move.begin", "scale_move.resumed"]
+            or len(corrs) != 1 or not next(iter(corrs)).startswith("scale-")
+            or not state["in_flight_at_move"]):
+        raise AssertionError(f"{tag}: moves {rb.moves}, events {events}, in flight at the move "
+                             f"{state['in_flight_at_move']}")
+    d = state["decision"]
+    log(f"{tag}: DisaggRouter over 2 prefill and 2 decode paged engines ({FLEET['n_slots']} "
+        f"slots, {FLEET_POOL} blocks), PoolRebalancer (dominance 1, one vote, one move): vote "
+        f"{d['vote']} under {d['corr']} with {state['in_flight_at_move']} streams in flight "
+        f"(stage attribution {json.dumps(d['attribution'], sort_keys=True)}); pools now "
+        f"prefill {[r.name for r in router.prefill.replicas]}, decode "
+        f"{[(r.name, r.state) for r in router.decode.replicas]}; handoffs {router.handoffs}, "
+        f"fallbacks {router.fallbacks}; every request once; streams equal to one engine's: "
+        f"{same} of {len(reqs)}; every pool's blocks back; "
+        f"{sum(len(c.generated) for c in comps)} tokens in {wall:.3f} s ({card})")
+    return launches
+
+
+def phase_serve_fleet(torch, cfg, params, *, card, tol=0.25):
+    """The port's fleet prefix tier, autoscaler and workload generator on
+    the card ("serve fleet"), FLAGSHIP_MODERN in bf16, paged engines of 4
+    slots, block 16, bucket 256, sync interval 8, each after a warm-up.
+    (a) ``generate_shared_prefix`` (32 arrivals over 4 system prompts of
+    128 tokens) through a ``FleetRouter`` of 3 engines with prefix stores
+    and the port's ``FleetPrefixTier`` (a ``LocalPrefixSource`` each), then
+    through 3 more without a tier: remote pulls > 0, the blocks each pull
+    injected equal to the owner's export, the index equal to the engines'
+    stores, no block leaked, every stream equal to the tier-less run's or
+    teacher-forced within the 0.25 gap (both runs teacher-forced); pull
+    times (export, wire, inject) and TTFT by admission kind.  The append
+    kernel is held against its plain version on the first warm-up decode
+    window of engine A.  (b) ``generate`` with a flash crowd through a
+    ``FleetAutoscaler`` over a router of one engine, new engines built on
+    the card by its factory: at least one scale-up whose replica serves
+    (append launches in its graphs), one scale-down that moves live
+    streams, every stream once and teacher-forced, blocks back, the
+    journal's events under their correlations.  (c) the same requests
+    through a ``DisaggRouter`` of 2 + 2 engines while a ``PoolRebalancer``
+    moves one replica between the pools (``scale_move``) with streams in
+    flight: every stream once and teacher-forced, blocks back, the move's
+    two events under one correlation.  Returns the measured runs' append
+    launches."""
+    label = "serve fleet"
+    cache_dtype = torch.bfloat16
+    t0 = time.perf_counter()
+    launches = _fleet_prefix_leg(torch, label, cfg, params, cache_dtype, tol, card)
+    log(f"{label}: leg (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trace, reqs = _crowd_traffic(cfg.vocab_size)
+    single = _fleet_engine(cfg, params, cache_dtype, FLEET_POOL)
+    _fleet_warmup(single, cfg.vocab_size, SEED + 111)
+    one = single.pump([dict(r) for r in reqs])
+    _check_served(f"{label} one engine", reqs, one)  # the crowd's prompts are unique
+    index = {tuple(r["prompt"]): i for i, r in enumerate(reqs)}
+    want = {index[_prompt_of(c)]: c.generated for c in one}
+    launches += _autoscale_leg(torch, label, cfg, params, cache_dtype, tol, card, trace, reqs, want)
+    log(f"{label}: leg (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches += _pool_move_leg(torch, label, cfg, params, cache_dtype, tol, card, reqs, want)
+    log(f"{label}: leg (c) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_selftest(torch, card):
     """``tpuinfo.selftest.run_selftest()`` (its subprocess, the card by
     default): ``ok``, platform "gpu", one device a visible card, each with
@@ -7462,6 +8031,11 @@ def main() -> int:
 
     run("serve disagg", serve_disagg)
 
+    def serve_fleet():
+        launches["fleet"] = phase_serve_fleet(torch, cfg, params, card=card)
+
+    run("serve fleet", serve_fleet)
+
     def serve_mesh():
         launches["mesh"] = phase_serve_mesh(torch, cfg, params, reqs, card=card)
 
@@ -7522,14 +8096,16 @@ def main() -> int:
     # run's flash and appends at 8, summed over its ranks); the
     # serve workers phase adds its decode workers' appends, read from
     # their launch lines; the serve disagg phase its disaggregated run's
-    # appends (prefill and decode engines) and its decode worker's
+    # appends (prefill and decode engines) and its decode worker's; the
+    # serve fleet phase its measured runs' appends (both fleets of (a), the
+    # autoscaled fleet with its spawned replicas, the pool move's engines)
     tel, lora_serve, moe = launches["telemetry"], launches["lora"], launches["moe"]
     main_counts = {
         "paged_attention": (launches["bf16"]["paged_attention"]
                             + launches["spec"]["paged_attention"] + tel["paged_attention"]
                             + lora_serve["paged_attention"] + moe["paged_attention"]
                             + launches["handoff"]["paged_attention"] + launches["mesh"]
-                            + launches["workers"] + launches["disagg"]),
+                            + launches["workers"] + launches["disagg"] + launches["fleet"]),
         "paged_attention_window": launches["bf16"]["paged_attention_window"],
         "int4_matmul": (launches["int4"]["int4_matmul"] + tel["int4_matmul"]
                         + lora_serve["int4_matmul"] + moe["int4_matmul"]),

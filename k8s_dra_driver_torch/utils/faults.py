@@ -1,7 +1,7 @@
 """Fault injection for the serving engines, the fleet router, the
 disaggregated handoff channel and the transport: those kinds of
-``k8s_dra_driver_tpu/utils/faults.py`` (the API-server, scheduler and
-autoscaler kinds stay in the reference).
+``k8s_dra_driver_tpu/utils/faults.py``, and its autoscaler kinds (the
+API-server and scheduler kinds stay in the reference).
 
 A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
 
@@ -15,6 +15,9 @@ A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
   the decode pool (``models/disagg.py``): a dropped transfer, accounted
   latency, a corrupted payload; and by a ``ChannelSet`` per link consult:
   a link that dies, or a bandwidth brownout;
+* by the autoscaler once per scale-up attempt, before the replica
+  factory runs (``models/autoscaler.py``): a :class:`SpawnFault`, or
+  accounted spawn latency;
 * at the transport's send and receive seams (``models/transport.py``):
   a frame cut mid-body, a reset, accounted latency, a one-way partition,
   or a receiver poll that stalls.
@@ -43,6 +46,16 @@ class StepFault(RuntimeError):
     def __init__(self, slot: int, message: str):
         super().__init__(message)
         self.slot = slot
+
+
+class SpawnFault(RuntimeError):
+    """An injected replica-factory failure, raised by
+    :meth:`FaultInjector.maybe_fail_spawn` before the factory runs, so a
+    failed spawn never leaves a half-registered replica."""
+
+    def __init__(self, attempt: int, message: str):
+        super().__init__(message)
+        self.attempt = attempt
 
 
 class ReplicaCrash(RuntimeError):
@@ -75,6 +88,10 @@ class FaultProfile:
     replica_wedge_rate: float = 0.0  # probability a replica hangs this tick
     stats_stale_rate: float = 0.0  # probability stats() serves a frozen copy
     replicas: tuple = ()  # e.g. (1,); empty = all replicas
+    # autoscaler kinds, per scale-up attempt (``steps`` = attempt numbers;
+    # latency accounted, never slept)
+    spawn_fail_rate: float = 0.0  # probability a replica spawn errors
+    spawn_latency_s: float = 0.0  # simulated seconds before a spawn is ready
     # handoff-channel kinds, per transfer (latency accounted, never slept)
     handoff_drop_rate: float = 0.0  # probability a transfer is dropped in flight
     handoff_latency_s: float = 0.0  # simulated seconds added per transfer
@@ -172,6 +189,31 @@ class FaultInjector:
             if p.stats_stale_rate and self._roll(p, p.stats_stale_rate, "stats_stale"):
                 return True
         return False
+
+    # -- autoscaler decision points (reference ``:364-398``) -----------------------
+
+    def maybe_fail_spawn(self, attempt: int) -> None:
+        """Raise a :class:`SpawnFault` for this scale-up attempt, or
+        return.  Scoped by ``steps`` (= spawn attempt numbers)."""
+        for p in self._matching_engine(None, attempt):
+            if p.spawn_fail_rate and self._roll(p, p.spawn_fail_rate, "spawn_fail"):
+                raise SpawnFault(
+                    attempt,
+                    f"fault injected by profile {p.name!r} (spawn attempt {attempt})",
+                )
+
+    def take_spawn_latency(self, attempt: int) -> float:
+        """Simulated seconds before this spawn is ready (accounted by the
+        autoscaler, never slept)."""
+        total = 0.0
+        for p in self._matching_engine(None, attempt):
+            if p.spawn_latency_s > 0:
+                with self._lock:
+                    if not self._budget_ok(p):
+                        continue
+                    self._record(p, "spawn_latency")
+                total += p.spawn_latency_s
+        return total
 
     # -- handoff-channel decision points (reference ``:398-471``) -----------------
 
@@ -331,7 +373,7 @@ class FaultInjector:
         """Parse a ``DRA_FAULTS`` spec (``replica_wedge_rate=1.0,replicas=0,
         steps=2+3,seed=7``) into an injector armed with one profile named
         "env".  Any other key (a typo, or a kind only the reference injects:
-        API-server, scheduler, autoscaler) raises
+        API-server, scheduler) raises
         ValueError naming it: a chaos run that silently injects nothing
         proves the wrong thing."""
         fields = {}
@@ -363,13 +405,13 @@ class FaultInjector:
 
 
 _MS_KEYS = {"step_latency_ms": "step_latency_s", "sock_latency_ms": "sock_latency_s",
-            "handoff_latency_ms": "handoff_latency_s"}
+            "handoff_latency_ms": "handoff_latency_s", "spawn_latency_ms": "spawn_latency_s"}
 _RATE_ALIASES = {"sock_truncate": "sock_truncate_rate", "sock_reset": "sock_reset_rate",
                  "sock_partition": "sock_partition_rate", "handoff_drop": "handoff_drop_rate",
                  "handoff_corrupt": "handoff_corrupt_rate", "channel_down": "channel_down_rate",
-                 "channel_degrade": "channel_degrade"}
+                 "channel_degrade": "channel_degrade", "spawn_fail": "spawn_fail_rate"}
 _FLOAT_KEYS = ("nan_logits_rate", "step_raise_rate", "step_latency_s", "replica_crash_rate",
                "replica_wedge_rate", "stats_stale_rate", "handoff_drop_rate",
                "handoff_latency_s", "handoff_corrupt_rate", "channel_down_rate",
                "sock_truncate_rate", "sock_reset_rate", "sock_latency_s",
-               "sock_partition_rate")
+               "sock_partition_rate", "spawn_fail_rate", "spawn_latency_s")

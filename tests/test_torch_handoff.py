@@ -19,7 +19,8 @@ GQA model and the 1-layer one of ``tests/test_torch_fleet.py``.
   refunds its blocks.  Speculation re-prefills the draft; LoRA carries
   the adapter.
 * Port replicas behind the reference's ``DisaggRouter`` (its channel clean
-  or corrupting every payload) and ``FleetPrefixTier`` serve every stream
+  or corrupting every payload) and behind either package's
+  ``FleetPrefixTier`` serve every stream
   as one port engine does; the tier's pulled prefix injects and the next
   admission hits, the engines' hooks firing with the reference's
   arguments."""
@@ -31,6 +32,8 @@ import pytest
 import torch
 
 from k8s_dra_driver_torch.models import burnin as tb
+from k8s_dra_driver_torch.models import fleet as tfleet
+from k8s_dra_driver_torch.models import fleet_prefix as tfp
 from k8s_dra_driver_torch.models import paged as tp
 from k8s_dra_driver_torch.models import serve as ts
 from k8s_dra_driver_torch.models.weights import bank_from_jax, params_from_jax
@@ -519,16 +522,17 @@ def test_torch_replicas_behind_the_disagg_router(models, pre, dec, channel):
 
 # -- the fleet prefix tier ---------------------------------------------------------------
 
-def _tier_run(engines: dict, warm: list, pulled: list):
-    """The reference's tier over ``engines`` {"A", "B"} behind a
-    ``FleetRouter``: A serves ``warm`` then ``pulled`` (its store keeps the
+def _tier_run(engines: dict, warm: list, pulled: list, tier_pkg: str = "reference"):
+    """The tier of ``tier_pkg`` ("reference" or "port") over ``engines``
+    {"A", "B"} behind that package's ``FleetRouter``: A serves ``warm`` then ``pulled`` (its store keeps the
     last and evicts the first), A's slots fill, and the router sends
     ``pulled`` to B, which pulls the prefix from A through the tier's wire
     round trip.  Returns (B's completion, tier, every hook call, A's cold
     completion)."""
+    fleet, fp = (jfleet, jfp) if tier_pkg == "reference" else (tfleet, tfp)
     clock = SimClock()
-    router = jfleet.FleetRouter(list(engines.items()), clock=clock)
-    tier = jfp.FleetPrefixTier(jfp.FleetPrefixIndex(clock=clock), clock=clock)
+    router = fleet.FleetRouter(list(engines.items()), clock=clock)
+    tier = fp.FleetPrefixTier(fp.FleetPrefixIndex(clock=clock), clock=clock)
     router.attach_prefix_tier(tier)
     calls = []
     for name, eng in engines.items():
@@ -552,10 +556,16 @@ def _tier_run(engines: dict, warm: list, pulled: list):
     return mine, tier, calls, cold
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_torch_replicas_behind_the_fleet_prefix_tier(models, kind):
-    """Two port replicas behind the reference's ``FleetPrefixTier``: the
-    hooks publish and withdraw (their calls, replica by replica, the JAX
+# the reference's tier keeps the ids "dense" and "paged" it had before the port's tier came
+TIER_CASES = [(k, t) for t in ("reference", "port") for k in KINDS]
+
+
+@pytest.mark.parametrize("kind,tier_pkg", TIER_CASES,
+                         ids=[k if t == "reference" else f"{k}-port_tier" for k, t in TIER_CASES])
+def test_torch_replicas_behind_the_fleet_prefix_tier(models, kind, tier_pkg):
+    """Two port replicas behind the ``FleetPrefixTier`` and ``FleetRouter``
+    of ``tier_pkg`` (the JAX engines behind the reference's): the hooks
+    publish and withdraw (their calls, replica by replica, the JAX
     engines' in the same run), B pulls the prefix A holds, it injects, B's
     admission hits it, and the stream is A's cold one."""
     kw = dict(prefix_cache_blocks=3) if kind == "paged" else dict(prefix_bucket=8,
@@ -564,7 +574,8 @@ def test_torch_replicas_behind_the_fleet_prefix_tier(models, kind):
     runs = {}
     for pkg in ("jax", "port"):
         engines = {n: _engine(models, "fleet", kind, pkg, **kw) for n in ("A", "B")}
-        runs[pkg] = (*_tier_run(engines, warm, pulled), engines["B"])
+        runs[pkg] = (*_tier_run(engines, warm, pulled, tier_pkg if pkg == "port" else "reference"),
+                     engines["B"])
     (mine, tier, calls, cold, b), (_, jtier, jcalls, _, _) = runs["port"], runs["jax"]
     assert calls == jcalls
     assert {h for _, h, _ in calls} == {"on_prefix_store", "on_prefix_evict"}
