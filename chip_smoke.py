@@ -390,14 +390,29 @@ exits 2 before any result):
     of 2 + 2 engines while a ``PoolRebalancer`` moves one replica between
     the pools with streams in flight: every stream once and
     teacher-forced, blocks back, one correlation for the move.
+30. (run right after phase 24) the driver's node half ("driver node"):
+    (a) the enumerator's shim built, then real-mode enumeration in a child
+    that never imports torch, against nvidia-smi and torch (count, UUID,
+    memory, SMs, PCI address, the node present and healthy), the child
+    holding no context on the card, cold and warm ms; (b) ``Driver``
+    publishing the card into the port's in-memory API server; (c) the
+    self-test sweep on the idle card (overlay empty), a stub report
+    failing card 0 (published ``selftest-failed``, its prepare refused),
+    a passing one restoring it; (d) a one-card claim prepared, its CDI
+    nodes present, the consumer child in the spec's environment through
+    ``--check --serve-demo`` with phase 24 (a)'s gates, in turns with
+    (a)'s command, two runs each, and not slower than it, its append
+    launches counted, unprepare removing spec and checkpoint entry; (e) a
+    TimeSlicing claim with the port's host-mode daemon: two consumer
+    children's leased card work never overlaps.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
 after a handoff, in this process and in the decode workers, the
 disaggregated router's engines and its decode worker, the fleet phase's
 measured runs, the sharded
-engine's ranks, training, LoRA, MoE and mesh training, the serving demo
-and the dry run at 8) and their times; the last line is the JSON device
+engine's ranks, training, LoRA, MoE and mesh training, the serving demo,
+the prepared consumer's demo and the dry run at 8) and their times; the last line is the JSON device
 record.
 """
 
@@ -7517,6 +7532,31 @@ POD_KERNEL_ROWS = {
 }
 
 
+WANT_DEMO = dict(completed=4, generated_tokens=36, sharded_over=0)
+
+
+def _demo_gates(sub, summary, shards):
+    """The consumer demo's summary: 4 requests, 36 tokens, sharded over
+    ``shards``, a prefix hit and free blocks left."""
+    log(f"{sub}: summary {json.dumps(summary, sort_keys=True)}")
+    bad = {k: summary.get(k) for k, v in dict(WANT_DEMO, sharded_over=shards).items()
+           if summary.get(k) != v}
+    if bad or not summary["prefix_block_hits"] > 0 or not summary["pool_free_blocks"] > 0:
+        raise AssertionError(f"{sub}: the demo's summary is off: {summary}")
+
+
+def _demo_stderr(sub, err: str) -> dict:
+    """The consumer's stderr line after its demo: ``serve_demo_seconds``
+    and ``kernel_launches`` by ``module:kernel``."""
+    for line in reversed(err.strip().splitlines()):
+        if line.startswith('{"kernel_launches"'):
+            doc = json.loads(line)
+            log(f"{sub}: the demo took {doc['serve_demo_seconds']:.2f} s in the child, "
+                f"launches {doc['kernel_launches']}")
+            return doc
+    raise AssertionError(f"{sub}: no launch line on the consumer's stderr:\n{err[-2000:]}")
+
+
 def _pod_command(args, env_extra: dict, timeout: float = 600):
     """``python -m <args>`` from the repository root in an environment
     without the claim variables of this process, plus ``env_extra``:
@@ -7643,14 +7683,6 @@ def phase_pod_entry_points(torch, card, tol=0.25):
 
     label = "pod entry points"
     total: dict = {}
-    want_demo = dict(completed=4, generated_tokens=36, sharded_over=0)
-
-    def demo_gates(sub, summary, shards):
-        log(f"{sub}: summary {json.dumps(summary, sort_keys=True)}")
-        bad = {k: summary.get(k) for k, v in dict(want_demo, sharded_over=shards).items()
-               if summary.get(k) != v}
-        if bad or not summary["prefix_block_hits"] > 0 or not summary["pool_free_blocks"] > 0:
-            raise AssertionError(f"{sub}: the demo's summary is off: {summary}")
 
     sub = f"{label} (a) consumer --check --serve-demo, TPU_VISIBLE_DEVICES=0"
     rc, out, err, secs = _pod_command(["k8s_dra_driver_torch.consumer", "--check",
@@ -7658,7 +7690,7 @@ def phase_pod_entry_points(torch, card, tol=0.25):
     log(f"{sub}: exit {rc} in {secs:.1f} s; stdout:\n" + out.rstrip())
     if rc != 0:
         raise AssertionError(f"{sub}: exit {rc}; stderr tail:\n{err[-3000:]}")
-    demo_gates(sub, json.loads(out.strip().splitlines()[-1])["serve_demo"], 0)
+    _demo_gates(sub, json.loads(out.strip().splitlines()[-1])["serve_demo"], 0)
 
     sub = f"{label} (b) consumer --check --serve-demo, TPU_VISIBLE_DEVICES=0,1 on one card"
     rc, out, err, secs = _pod_command(["k8s_dra_driver_torch.consumer", "--check",
@@ -7691,7 +7723,7 @@ def phase_pod_entry_points(torch, card, tol=0.25):
             restore()
     appends = pa.launches["append"]
     log(f"{sub}: {time.perf_counter() - t0:.1f} s, append launches {appends}")
-    demo_gates(sub, summary, 0)
+    _demo_gates(sub, summary, 0)
     pool_dtype = next(iter(recs[1].values()))[3].dtype
     _demo_streams_held(torch, sub, params, single, pool_dtype, tol)
     for nq, rec in recs.items():
@@ -7710,7 +7742,7 @@ def phase_pod_entry_points(torch, card, tol=0.25):
     head = results[0]
     if results[1]["streams"] != head["streams"] or results[1]["summary"] != head["summary"]:
         raise AssertionError(f"{sub}: the two ranks' streams or summaries differ")
-    demo_gates(sub, head["summary"], 2)
+    _demo_gates(sub, head["summary"], 2)
     _demo_streams_held(torch, sub, params, head["streams"], pool_dtype, tol)
     equal = sum(head["streams"][rid] == single[rid] for rid in single)
     log(f"{sub}: {equal}/{len(single)} streams equal to (c)'s single-card streams (a rank's "
@@ -7719,6 +7751,435 @@ def phase_pod_entry_points(torch, card, tol=0.25):
         raise AssertionError(f"{sub}: a rank never launched the append kernel")
     total["paged_attention"] += sum(r["append"] for r in results)
     return total
+
+
+# "driver node": the driver's node half on the card.  The enumeration
+# child imports no torch; the time-sliced consumers hold the lease around
+# TS_WORK matmuls of TS_SIZE x TS_SIZE in bf16 (about 0.25 s on an H100)
+ENUM_CHILD = r"""
+import dataclasses, json, sys, time
+from k8s_dra_driver_torch.tpuinfo import binding
+t0 = time.perf_counter()
+topo = binding.enumerate_topology()
+t1 = time.perf_counter()
+binding.enumerate_topology()
+t2 = time.perf_counter()
+print(json.dumps({"topology": dataclasses.asdict(topo), "cold_ms": (t1 - t0) * 1e3,
+                  "warm_ms": (t2 - t1) * 1e3, "torch": "torch" in sys.modules}), flush=True)
+sys.stdin.readline()  # held open while the parent looks for a context
+"""
+TS_SIZE, TS_WORK = 4096, 1000
+TS_CHILD = r"""
+import json, sys, time
+import torch
+from k8s_dra_driver_torch import consumer
+ctx = consumer.attach(init_distributed=False)
+dev = torch.device(sys.argv[2])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+a = torch.randn(%(n)d, %(n)d, device=dev, dtype=torch.bfloat16)
+for _ in range(3):
+    a @ a
+sync()
+print(json.dumps({"ready": True}), flush=True)
+sys.stdin.readline()  # the go: both children ask for the lease together
+asked = time.time()
+with ctx.lease(consumer_id=sys.argv[1]) as grant:
+    t0 = time.time()
+    for _ in range(%(work)d):
+        a @ a
+    sync()
+    t1 = time.time()
+print(json.dumps({"asked": asked, "t0": t0, "t1": t1, "grant": grant,
+                  "strategy": ctx.sharing_strategy}), flush=True)
+""" % {"n": TS_SIZE, "work": TS_WORK}
+CUDA_NODES = ("/dev/nvidiactl", "/dev/nvidia-uvm", "/dev/nvidia-uvm-tools")
+
+
+def _smi_cards() -> list[dict]:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid,pci.bus_id,memory.total,name",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=30)
+    cards = []
+    for line in out.stdout.strip().splitlines():
+        index, uuid, bus, mem, name = [x.strip() for x in line.split(",")]
+        # a sandboxed nvidia-smi may print "[N/A]" for the bus id: torch's is checked too
+        cards.append(dict(index=int(index), uuid=uuid.lower(),
+                          pci=bus.lower()[-12:] if ":" in bus else None,
+                          mem_mib=int(mem), name=name))
+    return cards
+
+
+def _compute_pids() -> list[int]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def _child_env() -> dict:
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "TPUINFO_", "MEGASCALE_", "JAX_COORDINATOR"))
+           and k != "LOCAL_RANK"}
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (str(root), env.get("PYTHONPATH", "")) if x)
+    return env
+
+
+def _driver_enumeration(torch, label, card) -> dict:
+    """Leg (a): real-mode enumeration in a child that never imports torch,
+    against nvidia-smi and torch; the child holds no context while alive."""
+    import os
+
+    from k8s_dra_driver_torch.tpuinfo import binding
+
+    sub = f"{label} (a) enumeration"
+    t0 = time.perf_counter()
+    binding.library_path().unlink(missing_ok=True)
+    binding.build()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    free_before = torch.cuda.mem_get_info(0)[0]
+    child = subprocess.Popen([sys.executable, "-c", ENUM_CHILD], env=_child_env(),
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        line = child.stdout.readline()
+        if not line:
+            raise AssertionError(f"{sub}: the child printed nothing: {child.stderr.read()[-2000:]}")
+        doc = json.loads(line)
+        pids = _compute_pids()
+        free_during = torch.cuda.mem_get_info(0)[0]
+    finally:
+        child.stdin.close()
+        child.wait(timeout=60)
+    topo = doc["topology"]
+    log(f"{sub}: shim built in {build_ms:.0f} ms; enumeration cold {doc['cold_ms']:.2f} ms, "
+        f"warm {doc['warm_ms']:.3f} ms ({card}); {json.dumps(topo)}")
+    log(f"{sub}: compute apps {pids} (this process {os.getpid()}, the child {child.pid}); "
+        f"the card's free memory {free_before / 2**20:.0f} MiB before the child, "
+        f"{free_during / 2**20:.0f} MiB while it lived")
+    if doc["torch"]:
+        raise AssertionError(f"{sub}: the enumeration child imported torch")
+    if child.pid in pids or free_before - free_during > 64 * 2**20:
+        raise AssertionError(f"{sub}: the enumeration child holds a context on the card")
+    smi = _smi_cards()
+    n = torch.cuda.device_count()
+    if topo["mode"] != "real" or len(topo["chips"]) != n or len(smi) != n:
+        raise AssertionError(f"{sub}: {len(topo['chips'])} cards enumerated, torch sees {n}, "
+                             f"nvidia-smi {len(smi)}")
+    if topo["dims"] != [n, 1, 1] or topo["host_count"] != 1 or topo["topology"] != f"{n}x1":
+        raise AssertionError(f"{sub}: not an {n} x 1 slice: {topo}")
+    by_pci = {}
+    for i in range(n):
+        p = torch.cuda.get_device_properties(i)
+        pci = f"{getattr(p, 'pci_domain_id', 0):04x}:{getattr(p, 'pci_bus_id', 0):02x}:" \
+              f"{getattr(p, 'pci_device_id', 0):02x}.0"
+        by_pci[pci] = p
+    for chip, want in zip(topo["chips"], smi):  # both in PCI bus order
+        p = by_pci.get(chip["pci_address"])
+        if p is None and n == 1 and not hasattr(torch.cuda.get_device_properties(0),
+                                                "pci_bus_id"):
+            p = torch.cuda.get_device_properties(0)  # this torch reports no PCI address
+        torch_uuid = str(getattr(p, "uuid", "")).lower().removeprefix("gpu-")
+        checks = {
+            "uuid": chip["uuid"].lower() == want["uuid"],
+            "pci": want["pci"] in (None, chip["pci_address"]),
+            "torch pci": p is not None,
+            "memory": p is not None and chip["hbm_bytes"] == p.total_memory,
+            "smi memory": abs(chip["hbm_bytes"] / 2**20 - want["mem_mib"]) < 0.02 * want["mem_mib"],
+            "sms": p is not None and chip["cores"] == p.multi_processor_count,
+            "torch uuid": len(torch_uuid) != 36 or chip["uuid"].lower() == f"gpu-{torch_uuid}",
+            "node": os.path.exists(chip["device_path"]),
+            "healthy": chip["healthy"] and not chip["health_reason"],
+        }
+        log(f"{sub}: {chip['device_path']} {chip['uuid']} {chip['pci_address']} "
+            f"{chip['hbm_bytes']} B (nvidia-smi {want['mem_mib']} MiB) {chip['cores']} SMs: "
+            f"{checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"{sub}: the enumeration disagrees: {checks}")
+    return {"build_ms": build_ms, "cold_ms": doc["cold_ms"], "warm_ms": doc["warm_ms"]}
+
+
+class _StubRun:
+    def __init__(self, report):
+        self._report = report
+
+    def cancel(self):
+        pass
+
+    def result(self):
+        return self._report
+
+
+def _card_health(server, name) -> tuple:
+    for s in server.list("ResourceSlice"):
+        for d in s.spec.devices:
+            if d.name == name:
+                attrs = d.basic.attributes
+                return (attrs["healthy"].value,
+                        attrs["healthReason"].value if "healthReason" in attrs else "")
+    raise AssertionError(f"no published device {name}")
+
+
+def _claim(objects, name, uid, device, config=None):
+    """A claim as kube-scheduler leaves it: one result on this node's pool."""
+    doc = {"apiVersion": "resource.k8s.io/v1beta1", "kind": "ResourceClaim",
+           "metadata": {"name": name, "namespace": "default", "uid": uid},
+           "spec": {"devices": {"requests": [{"name": "gpu",
+                                              "deviceClassName": "tpu.google.com"}]}},
+           "status": {"allocation": {"devices": {
+               "results": [{"request": "gpu", "driver": "tpu.google.com", "pool": "node-0",
+                            "device": device}],
+               "config": [] if config is None else [{
+                   "source": "FromClaim", "requests": [],
+                   "opaque": {"driver": "tpu.google.com", "parameters": config}}]}}}}
+    return objects.from_json(doc)
+
+
+def _claim_container(cdi_root, uid, cdi_ids) -> tuple[dict, list]:
+    """What a CDI runtime gives the claim's container: the environment
+    (the base spec's common edits, then each named device's) and the
+    device nodes of every CDI id the claim's result names."""
+    from pathlib import Path
+
+    specs = [json.loads(p.read_text()) for p in sorted(Path(cdi_root).glob("*.json"))]
+    base = next(s for s in specs if "containerEdits" in s)
+    env = dict(e.split("=", 1) for e in base["containerEdits"].get("env", []))
+    nodes = []
+    for cdi_id in cdi_ids:
+        name = cdi_id.split("=", 1)[1]
+        (dev,) = [d for s in specs for d in s["devices"] if d["name"] == name]
+        edits = dev["containerEdits"]
+        env.update(dict(e.split("=", 1) for e in edits.get("env", [])))
+        nodes += [n["path"] for n in edits.get("deviceNodes", []) if n["path"] not in nodes]
+    return env, nodes
+
+
+def phase_driver_node(torch, card):
+    """The driver's node half on the card ("driver node"), each leg timed:
+    (a) the shim built, then real-mode enumeration in a child without
+    torch, against nvidia-smi and torch (count, UUID, memory, SMs, PCI
+    address, node present and healthy), the child holding no context on
+    the card (``nvidia-smi --query-compute-apps``, the card's free memory);
+    (b) ``Driver`` publishing into the port's in-memory API server, the
+    slice printed; (c) the self-test sweep on the idle card (the overlay
+    stays empty), then a stub report failing card 0: published unhealthy
+    ``selftest-failed`` and its prepare refused; a passing stub restores
+    it; (d) a one-card claim written as kube-scheduler would, prepared:
+    the CDI ids' device nodes exist, the consumer child with the spec's
+    environment exits 0 from ``--check --serve-demo`` with "pod entry
+    points" (a)'s gates and its append launches counted, twice, in turns
+    with (a)'s command (the faster prepared demo within 1.25 x + 0.5 s of
+    the faster plain one), unprepare removes the spec and the checkpoint
+    entry; (e) a TimeSlicing claim (interval Long, a 20 ms
+    quantum) with the port's host-mode daemon as a process: two consumer
+    children hold ``lease()`` around ``TS_WORK`` matmuls, their host-clock
+    spans do not overlap.  Returns the launches by kernels-line row."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from k8s_dra_driver_torch.kube import objects
+    from k8s_dra_driver_torch.kube.fakeserver import InMemoryAPIServer
+    from k8s_dra_driver_torch.plugin import driver as pdriver
+    from k8s_dra_driver_torch.tpuinfo import selftest
+
+    label = "driver node"
+    if DEV == "cpu":  # a rehearsal: a fake host of 4 chips, no enumeration leg
+        os.environ["TPUINFO_FAKE_TOPOLOGY"] = "v5e-4"
+        times = {}
+    else:
+        os.environ.pop("TPUINFO_FAKE_TOPOLOGY", None)  # the card, never a fake topology
+        times = _driver_enumeration(torch, label, card)
+
+    sub = f"{label} (b) publish"
+    tmp = Path(tempfile.mkdtemp(prefix="driver-node-"))
+    server = InMemoryAPIServer()
+    t0 = time.perf_counter()
+    drv = pdriver.Driver(server, pdriver.DriverConfig(
+        node_name="node-0", cdi_root=str(tmp / "cdi"), checkpoint_path=str(tmp / "cp.json"),
+        socket_dir=str(tmp / "s"), publish=False, selftest_interval_s=3600.0))
+    times["driver_init_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    if not drv.publish_resources():
+        raise AssertionError(f"{sub}: publishing failed")
+    times["publish_ms"] = (time.perf_counter() - t0) * 1e3
+    drv.config.publish = True  # the sweeps below republish on change
+    (published,) = server.list("ResourceSlice")
+    log(f"{sub}: Driver() {times['driver_init_ms']:.1f} ms (enumeration and the base CDI spec), "
+        f"publish {times['publish_ms']:.2f} ms ({card}); the slice: "
+        f"{json.dumps(objects.to_json(published))}")
+    chips = drv.state.topology.chips
+    cards = [d for d in published.spec.devices if d.basic.attributes["type"].value == "tpu"]
+    if len(cards) != len(chips) or {d.basic.attributes["uuid"].value for d in cards} != \
+            {c.uuid for c in chips}:
+        raise AssertionError(f"{sub}: the slice's cards are not the enumerated ones")
+    first = f"tpu-{chips[0].index}"
+
+    sub = f"{label} (c) self-test sweep"
+    reports = []
+    real_start = selftest.start_selftest
+
+    def recorded(**kw):
+        run = real_start(**kw, device=DEV)
+        result = run.result
+
+        def keep():
+            reports.append(result())
+            return reports[-1]
+
+        run.result = keep
+        return run
+
+    drv._selftest_join_grace_s = 300.0  # the probe folds into this sweep
+    selftest.start_selftest = recorded
+    try:
+        t0 = time.perf_counter()
+        drv.refresh_inventory()
+        times["selftest_sweep_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        selftest.start_selftest = real_start
+    (report,) = reports
+    log(f"{sub}: the sweep took {times['selftest_sweep_ms']:.0f} ms with the probe ({card}); "
+        f"report {json.dumps(report, sort_keys=True)}")
+    times["probe_latency_ms"] = [d.get("latency_ms") for d in report.get("devices", [])]
+    if not report.get("ok") or report.get("platform") != ("gpu" if DEV == "cuda" else "cpu") \
+            or drv.state._health_overlay \
+            or _card_health(server, first) != (True, ""):
+        raise AssertionError(f"{sub}: the idle card did not pass: {report}, overlay "
+                             f"{drv.state._health_overlay}")
+    n = len(chips)
+    outcomes = []
+    for oks in ([False] + [True] * (n - 1), [True] * n):
+        selftest.start_selftest = lambda **kw: _StubRun({  # noqa: E731
+            "ok": all(oks), "platform": "gpu",
+            "devices": [{"id": i, "platform": "gpu", "ok": ok} for i, ok in enumerate(oks)]})
+        try:
+            drv._last_selftest = 0.0
+            drv.refresh_inventory()
+        finally:
+            selftest.start_selftest = real_start
+        claim = server.create(_claim(objects, f"probe-{len(outcomes)}",
+                                     f"uid-probe-{len(outcomes)}", first))
+        res = drv.node_prepare_resources([pdriver.ClaimRef(
+            claim.metadata.uid, claim.metadata.name, "default")])[claim.metadata.uid]
+        drv.node_unprepare_resources([pdriver.ClaimRef(
+            claim.metadata.uid, claim.metadata.name, "default")])
+        outcomes.append((_card_health(server, first), res.error))
+    log(f"{sub}: a failing stub report: {outcomes[0]}; a passing one: {outcomes[1]}")
+    if outcomes[0][0] != (False, "selftest-failed") or "unhealthy" not in outcomes[0][1] \
+            or outcomes[1] != ((True, ""), ""):
+        raise AssertionError(f"{sub}: the overlay did not fence and restore the card: "
+                             f"{outcomes}")
+
+    sub = f"{label} (d) prepared consumer"
+    claim = server.create(_claim(objects, "demo", "uid-demo", first))
+    ref = pdriver.ClaimRef("uid-demo", "demo", "default")
+    t0 = time.perf_counter()
+    res = drv.node_prepare_resources([ref])["uid-demo"]
+    times["prepare_ms"] = (time.perf_counter() - t0) * 1e3
+    if res.error:
+        raise AssertionError(f"{sub}: prepare failed: {res.error}")
+    env, nodes = _claim_container(tmp / "cdi", "uid-demo", res.devices[0]["cdi_device_ids"])
+    log(f"{sub}: prepared in {times['prepare_ms']:.2f} ms ({card}): {res.devices}; "
+        f"environment {env}; device nodes {nodes}")
+    missing = [p for p in nodes if not os.path.exists(p)]
+    want_nodes = [chips[0].device_path] + [p for p in CUDA_NODES if os.path.exists(p)]
+    if DEV == "cpu":  # a fake topology's nodes do not exist
+        missing = []
+    if missing or nodes != want_nodes or env.get("TPU_VISIBLE_DEVICES") != str(chips[0].index):
+        raise AssertionError(f"{sub}: the spec's nodes {nodes} (missing {missing}) or its "
+                             f"environment {env} are off")
+    # the demo as "pod entry points" (a) runs it and in the claim's
+    # environment, in turns: the host's noise moves both alike
+    seconds: dict = {"plain": [], "prepared": []}
+    appends = 0
+    for which in ("plain", "prepared", "prepared", "plain"):
+        rc, out, err, secs = _pod_command(
+            ["k8s_dra_driver_torch.consumer", "--check", "--serve-demo"],
+            env if which == "prepared" else {"TPU_VISIBLE_DEVICES": "0"})
+        log(f"{sub} [{which}]: exit {rc} in {secs:.1f} s; stdout:\n" + out.rstrip())
+        if rc != 0:
+            raise AssertionError(f"{sub} [{which}]: exit {rc}; stderr tail:\n{err[-3000:]}")
+        _demo_gates(f"{sub} [{which}]", json.loads(out.strip().splitlines()[-1])["serve_demo"], 0)
+        demo = _demo_stderr(f"{sub} [{which}]", err)
+        seconds[which].append(demo["serve_demo_seconds"])
+        if which == "prepared":
+            n = demo["kernel_launches"].get("paged_attention:append", 0)
+            if not n and DEV == "cuda":
+                raise AssertionError(f"{sub}: the append kernel was never launched")
+            appends += n
+    times["demo_s"] = seconds
+    limit = 1.25 * min(seconds["plain"]) + 0.5
+    log(f"{sub}: the demo {seconds['prepared']} s prepared against {seconds['plain']} s as "
+        f"pod entry points (a) runs it (limit on the faster prepared run {limit:.2f} s)")
+    if min(seconds["prepared"]) > limit:
+        raise AssertionError(f"{sub}: the demo is slower in the prepared environment")
+    t0 = time.perf_counter()
+    res = drv.node_unprepare_resources([ref])["uid-demo"]
+    times["unprepare_ms"] = (time.perf_counter() - t0) * 1e3
+    checkpoint = json.loads((tmp / "cp.json").read_text())
+    if res.error or (tmp / "cdi" / "k8s.tpu.google.com-claim-uid-demo.json").exists() \
+            or "uid-demo" in checkpoint["preparedClaims"]:
+        raise AssertionError(f"{sub}: unprepare left the claim behind: {res}")
+    log(f"{sub}: unprepared in {times['unprepare_ms']:.2f} ms ({card})")
+
+    sub = f"{label} (e) time slicing"
+    config = {"apiVersion": "resource.tpu.google.com/v1alpha1", "kind": "TpuConfig",
+              "sharing": {"strategy": "TimeSlicing", "timeSlicingConfig": {"interval": "Long"}}}
+    server.create(_claim(objects, "shared", "uid-shared", first, config))
+    ref = pdriver.ClaimRef("uid-shared", "shared", "default")
+    res = drv.node_prepare_resources([ref])["uid-shared"]
+    if res.error:
+        raise AssertionError(f"{sub}: prepare failed: {res.error}")
+    env, _ = _claim_container(tmp / "cdi", "uid-shared", res.devices[0]["cdi_device_ids"])
+    log(f"{sub}: environment {env}")
+    child_env = _child_env()
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "k8s_dra_driver_torch.plugin.topology_daemon", "--host-mode",
+         "--socket-dir", str(tmp / "s")], env=child_env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    consumers = []
+    try:
+        log(f"{sub}: {daemon.stdout.readline().strip()}")
+        for name in ("consumer-a", "consumer-b"):
+            consumers.append(subprocess.Popen(
+                [sys.executable, "-c", TS_CHILD, name, DEV], env={**child_env, **env},
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        for c in consumers:
+            if not c.stdout.readline():
+                raise AssertionError(f"{sub}: a consumer died: {c.stderr.read()[-2000:]}")
+        for c in consumers:
+            c.stdin.write("go\n")
+            c.stdin.flush()
+        spans = []
+        for c in consumers:
+            line, err = c.communicate(timeout=300)
+            if c.returncode != 0:
+                raise AssertionError(f"{sub}: a consumer exited {c.returncode}: {err[-2000:]}")
+            spans.append(json.loads(line.strip().splitlines()[-1]))
+    finally:
+        for c in consumers:
+            if c.poll() is None:
+                c.kill()
+        daemon.terminate()
+        daemon.wait(timeout=30)
+    spans.sort(key=lambda s: s["t0"])
+    first_span, second = spans
+    times["lease_wait_ms"] = [(s["t0"] - s["asked"]) * 1e3 for s in spans]
+    log(f"{sub}: spans {[(round(s['t0'], 4), round(s['t1'], 4)) for s in spans]} (host clock), "
+        f"each {[round((s['t1'] - s['t0']) * 1e3, 1) for s in spans]} ms; the lease waits "
+        f"{[round(w, 1) for w in times['lease_wait_ms']]} ms ({card}); grants "
+        f"{[s['grant'] for s in spans]}")
+    if any(s["strategy"] != "time-slicing" for s in spans) or first_span["t1"] > second["t0"]:
+        raise AssertionError(f"{sub}: the time-sliced spans overlap: {spans}")
+    drv.node_unprepare_resources([ref])
+    log(f"{label}: times {json.dumps(times)} ({card})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"paged_attention": appends}
 
 
 def forward_flops(cfg, batch: int, seq: int) -> int:
@@ -8071,6 +8532,11 @@ def main() -> int:
 
     run("pod entry points", pod_entry_points)
 
+    def driver_node():
+        launches["driver"] = phase_driver_node(torch, card)
+
+    run("driver node", driver_node)
+
     def entry_point():
         launches["entry"] = phase_entry_point(torch, card)
 
@@ -8091,7 +8557,8 @@ def main() -> int:
     # inject run the append kernel too, and so do the sharded paged
     # engine's ranks (summed over ranks); the mesh legs' flash launches,
     # summed over ranks, join the bf16 and f32 flash rows (leg (e) also its
-    # graphed twin's run); so do the pod entry points' (the demo's appends
+    # graphed twin's run); so do the driver node's (the prepared consumer's
+    # demo, read from its launch line) and the pod entry points' (the demo's appends
     # in this process and on its two ranks) and the entry point's (the dry
     # run's flash and appends at 8, summed over its ranks); the
     # serve workers phase adds its decode workers' appends, read from
@@ -8123,7 +8590,7 @@ def main() -> int:
         kernels.append({
             "name": name, **meta,
             "launches": (main_counts[name] + launches["pod"].get(name, 0)
-                         + launches["entry"].get(name, 0)),
+                         + launches["driver"].get(name, 0) + launches["entry"].get(name, 0)),
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
             "library_ms": nums["library_ms"],

@@ -41,6 +41,7 @@ import functools
 import json
 import os
 import sys
+import threading
 import time
 import uuid
 from dataclasses import dataclass, field
@@ -245,7 +246,14 @@ class ClaimContext:
         (``TPU_VISIBLE_DEVICES`` joined with commas, or ``*``), held for the
         ``with`` block; a no-op context (yielding None) for every other
         strategy or without a daemon, so training code need not know the
-        strategy."""
+        strategy.
+
+        The daemon takes a lease back from a holder silent for 4 quanta
+        (a crashed holder cannot wedge the card), so while the block runs
+        a thread renews it once a quantum (the holder's ``acquire``
+        re-grants at once): a block longer than 4 quanta keeps the card to
+        itself.  A renewal that fails stops renewing, with a line on
+        stderr."""
         if self.sharing_strategy != "time-slicing" or not self.daemon_socket:
             yield None
             return
@@ -259,7 +267,15 @@ class ClaimContext:
                     f"run lease not granted: {grant.get('error')} "
                     f"(holder: {grant.get('holder')})"
                 )
-            yield grant
+            stop = threading.Event()
+            renewer = threading.Thread(target=_renew_lease, daemon=True,
+                                       args=(client, scope, grant["lease_ms"], stop))
+            renewer.start()
+            try:
+                yield grant
+            finally:
+                stop.set()
+                renewer.join()
         finally:
             try:
                 client.release(scope=scope)
@@ -272,6 +288,17 @@ class ClaimContext:
             for k, v in self.__dict__.items()
             if v not in (None, "", []) and not k.startswith("_")
         }
+
+
+def _renew_lease(client, scope: str, quantum_ms: int, stop) -> None:
+    """Re-acquire the held lease on ``client`` every ``quantum_ms`` until
+    ``stop`` is set; a refusal (the lease was lost) ends the renewals."""
+    while not stop.wait(quantum_ms / 1000.0):
+        reply = client.acquire(quantum_ms=quantum_ms, timeout_ms=0, scope=scope)
+        if not reply.get("ok"):
+            print(f"run lease on {scope} lost to {reply.get('holder')}: "
+                  f"{reply.get('error')}", file=sys.stderr)
+            return
 
 
 def attach(environ=None, init_distributed: bool = True,
@@ -430,8 +457,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     ``--serve-demo`` then joins the claim's group (``"nccl"`` on cards,
     ``"gloo"`` on the CPU) when the claim shows several cards, and runs
     :func:`serve_demo` on ``LOCAL_RANK`` 0 and 1 of each host (the others
-    take no part), printing its summary line.  The device is ``--device``'s
-    value, the card by default."""
+    take no part), printing its summary line, and on stderr its seconds
+    and the kernel launches it made by ``module:kernel``.  The device is
+    ``--device``'s value, the card by default."""
     argv = sys.argv[1:] if argv is None else list(argv)
     device = "cuda"
     if "--device" in argv:
@@ -466,7 +494,10 @@ def main(argv: Optional[list[str]] = None) -> int:
         return 0
     import torch.distributed as dist
 
+    from k8s_dra_driver_torch.models import graphs
+
     ctx.initialize_distributed("nccl" if dev.type == "cuda" else "gloo")
+    t0 = time.perf_counter()
     try:
         summary = claim_serve_demo(ctx, dev)
     finally:
@@ -474,6 +505,10 @@ def main(argv: Optional[list[str]] = None) -> int:
             dist.destroy_process_group()
     if summary is not None:
         print(json.dumps({"serve_demo": summary}, sort_keys=True))
+        launches = {f"{mod.rsplit('.', 1)[-1]}:{key}": n
+                    for (mod, key), n in graphs.launch_counts().items() if n}
+        print(json.dumps({"serve_demo_seconds": time.perf_counter() - t0,
+                          "kernel_launches": launches}, sort_keys=True), file=sys.stderr)
     return 0
 
 

@@ -5,13 +5,14 @@ A shared claim's containers talk to the claim's daemon over a unix socket,
 one JSON object a line each way: a request ``{"op": ..., "consumer": ...,
 **fields}`` and its reply.  The ops are ``info``, ``register`` (a spatial
 consumer gets its partition record back), ``acquire`` and ``release`` (the
-time-slicing run lease, scoped to a set of chips).  The daemon itself runs
-beside the driver and is not part of the port.
+time-slicing run lease, scoped to a set of chips).  The daemon is
+``plugin/topology_daemon.py``, which re-exports this client.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import socket
 from typing import Optional
 
@@ -28,6 +29,14 @@ class TopologyDaemonClient:
             self._sock.close()
             raise
         self._rfile = self._sock.makefile("rb")
+
+    @classmethod
+    def from_env(cls, consumer: str, environ=os.environ) -> "TopologyDaemonClient":
+        """Dial the socket ``TPU_TOPOLOGY_DAEMON_SOCKET`` names."""
+        path = environ.get("TPU_TOPOLOGY_DAEMON_SOCKET")
+        if not path:
+            raise RuntimeError("TPU_TOPOLOGY_DAEMON_SOCKET is not set")
+        return cls(path, consumer)
 
     def call(self, op: str, **kwargs) -> dict:
         req = {"op": op, "consumer": self.consumer, **kwargs}

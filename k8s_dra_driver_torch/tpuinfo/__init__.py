@@ -1,3 +1,3 @@
-"""The card's runtime self-test (``tpuinfo/selftest.py``); the
-reference's ``tpuinfo`` C++ shim and its binding enumerate TPU chips and
-have no counterpart here."""
+"""Card enumeration (``tpuinfo/binding.py`` over the native shim in
+``tpuinfo/cpp``) and the card's runtime self-test
+(``tpuinfo/selftest.py``)."""

@@ -150,7 +150,9 @@ def start_selftest(timeout_s: float = DEFAULT_TIMEOUT_S, size: int = DEFAULT_SIZ
                    device: str = "cuda") -> SelftestRun:
     """Launch the probe subprocess (``--timeout 0``: the child probes
     in-process, this layer is the watchdog) in this environment, the
-    repository root on its path."""
+    repository root on its path and ``CUDA_DEVICE_ORDER=PCI_BUS_ID``: its
+    devices in PCI bus order, the enumerator's card order, so report entry
+    ``i`` is published card ``i``."""
     cmd = [sys.executable, "-m", "k8s_dra_driver_torch.tpuinfo.selftest",
            "--json", "--size", str(size), "--timeout", "0"]
     if device != "cuda":
@@ -158,6 +160,7 @@ def start_selftest(timeout_s: float = DEFAULT_TIMEOUT_S, size: int = DEFAULT_SIZ
     env = dict(os.environ)
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = os.pathsep.join(p for p in (repo_root, env.get("PYTHONPATH", "")) if p)
+    env["CUDA_DEVICE_ORDER"] = "PCI_BUS_ID"
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             env=env)
     return SelftestRun(proc, timeout_s)

@@ -2,7 +2,8 @@
 copied: the port imports nothing of the JAX package).
 
 :data:`TRACER` keeps finished presentation spans (``Span``, wall time) in
-a bounded ring; :data:`TRACES` keeps flat :class:`SpanRecord` s in the
+a bounded ring (``TRACER.span`` times a block: the node driver's prepare
+steps); :data:`TRACES` keeps flat :class:`SpanRecord` s in the
 recording process's monotonic clock.  ``models/telemetry`` adds one of
 each when a request retires; a worker's telemetry shipper reads the
 records it has not shipped yet through ``TraceBuffer.export_since``.
@@ -14,6 +15,7 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 
@@ -45,6 +47,29 @@ class Tracer:
     def __init__(self, capacity: int = 256):
         self._lock = threading.Lock()
         self._finished: deque[Span] = deque(maxlen=capacity)
+        self._local = threading.local()
+
+    @contextmanager
+    def span(self, name: str, **attributes):
+        """Time the ``with`` block as a span; nested spans become the
+        enclosing one's children, a root span lands in the ring."""
+        s = Span(name=name, start=time.time(), attributes=dict(attributes))
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        parent = stack[-1] if stack else None
+        stack.append(s)
+        t0 = time.perf_counter()
+        try:
+            yield s
+        finally:
+            s.duration_ms = (time.perf_counter() - t0) * 1000
+            stack.pop()
+            if parent is not None:
+                parent.children.append(s)
+            else:
+                with self._lock:
+                    self._finished.append(s)
 
     def add(self, span: Span) -> None:
         """Record an externally-constructed root span: a request's

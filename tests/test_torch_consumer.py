@@ -5,7 +5,8 @@ against the reference's, on the CPU.
   against the reference's ``TopologyDaemonServer`` (started in the test as
   ``tests/test_consumer.py`` starts it), the reference's cases; each reply
   equal to the reference client's reply to the same call on the same
-  daemon.
+  daemon; and every such case again against the port's own daemon
+  (``TestPortDaemon``).
 * ``main``: ``--check`` on a claim of 2 cards in a process that sees 1
   returns 1 with the reference's message and starts no process group; the
   claim-context line is the reference's ``to_json()`` (apart from the
@@ -31,6 +32,7 @@ import torch
 from k8s_dra_driver_torch import consumer as tc
 from k8s_dra_driver_torch.models import weights
 from k8s_dra_driver_torch.parallel.ranks import RankPool
+from k8s_dra_driver_torch.plugin.topology_daemon import TopologyDaemonServer as PortDaemonServer
 from k8s_dra_driver_tpu import consumer as jc
 from k8s_dra_driver_tpu.models import burnin as jb
 from k8s_dra_driver_tpu.models import lora as jl
@@ -44,9 +46,8 @@ def _both(env):
             jc.attach(environ=env, init_distributed=False))
 
 
-@pytest.fixture
-def daemon(tmp_path):
-    server = TopologyDaemonServer(
+def _daemon(server_class, tmp_path):
+    server = server_class(
         str(tmp_path / "c.sock"),
         claim_uid="uid-c",
         partition_spec="2,1,1",
@@ -61,12 +62,19 @@ def daemon(tmp_path):
     server.stop()
 
 
+@pytest.fixture
+def daemon(tmp_path):
+    yield from _daemon(TopologyDaemonServer, tmp_path)
+
+
 def _env(daemon, strategy, **extra):
     return {"TPU_SHARING_STRATEGY": strategy, "TPU_TOPOLOGY_DAEMON_SOCKET": daemon.socket_path,
             **extra}
 
 
 class TestDaemon:
+    SERVER = TopologyDaemonServer
+
     def test_spatial_consumer_observes_its_partition(self, daemon):
         port, ref = _both(_env(daemon, "spatial-partition", TPU_PARTITION_INDEX="1"))
         reg = port.register(consumer_id="container-b")
@@ -123,7 +131,7 @@ class TestDaemon:
             assert grant is None and ref_grant is None
 
     def test_two_containers_of_a_pod_get_distinct_ids(self, tmp_path):
-        server = TopologyDaemonServer(str(tmp_path / "c.sock"), quantum_ms=1000)
+        server = self.SERVER(str(tmp_path / "c.sock"), quantum_ms=1000)
         server.start()
         try:
             env = {"TPU_SHARING_STRATEGY": "time-slicing",
@@ -152,7 +160,7 @@ class TestDaemon:
         env = {"TPU_SHARING_STRATEGY": "spatial-partition",
                "TPU_TOPOLOGY_DAEMON_SOCKET": str(sock)}
         port, ref = _both(env)
-        server = TopologyDaemonServer(str(sock), quantum_ms=5)
+        server = self.SERVER(str(sock), quantum_ms=5)
         t = threading.Timer(0.4, server.start)
         t.start()
         try:
@@ -187,6 +195,17 @@ class TestDaemon:
         ref.register()
         assert port.to_json() == {**before, "local_rank": 0}
         assert ref.to_json() == {**before, "_consumer_id": ref._consumer_id}
+
+
+class TestPortDaemon(TestDaemon):
+    """Every case of :class:`TestDaemon` against the port's own daemon
+    (``plugin/topology_daemon.py``)."""
+
+    SERVER = PortDaemonServer
+
+    @pytest.fixture
+    def daemon(self, tmp_path):
+        yield from _daemon(PortDaemonServer, tmp_path)
 
 
 class TestMain:

@@ -1,8 +1,8 @@
 """Import hygiene of the PyTorch port: in a fresh interpreter whose
 meta-path finder refuses ``jax`` (and ``jaxlib``) and the JAX package
 ``k8s_dra_driver_tpu``, every module of ``k8s_dra_driver_torch`` (found by
-``pkgutil.walk_packages``) and ``chip_smoke.py`` (imported as a module,
-its ``main`` not run) import."""
+``pkgutil.walk_packages``; the driver's node half among them) and
+``chip_smoke.py`` (imported as a module, its ``main`` not run) import."""
 
 import json
 import subprocess
@@ -67,4 +67,12 @@ def test_every_port_module_and_the_smoke_import_without_jax(tmp_path):
     names = set(doc["modules"])
     assert {"k8s_dra_driver_torch.models.disagg", "k8s_dra_driver_torch.models.transport",
             "k8s_dra_driver_torch.models.obs_plane", "k8s_dra_driver_torch.entry"} <= names
-    assert len(names) >= 40
+    node_half = {f"k8s_dra_driver_torch.{m}" for m in (
+        "version", "utils.fileio", "kube", "kube.quantity", "kube.objects", "kube.serde",
+        "kube.fakeserver", "kube.resourceslice_controller", "api", "api.sharing",
+        "api.tpuconfig", "api.decoder", "tpuinfo.binding", "plugin", "plugin.geometry",
+        "plugin.parted", "plugin.deviceinfo", "plugin.root", "plugin.cdi", "plugin.checkpoint",
+        "plugin.prepared", "plugin.topology_daemon", "plugin.sharing", "plugin.device_state",
+        "plugin.driver")}
+    assert node_half <= names
+    assert len(names) >= 75
