@@ -405,6 +405,23 @@ exits 2 before any result):
     launches counted, unprepare removing spec and checkpoint entry; (e) a
     TimeSlicing claim with the port's host-mode daemon: two consumer
     children's leased card work never overlaps.
+31. (right after phase 30) the closed loop ("driver loop"): one node over
+    the real card (the port's in-memory API server with the reference's
+    DeviceClasses, a real-mode ``Driver``, the port's ``Allocator``) and a
+    ``DiagnosticsServer``. (a) ``apply_spec(tpu-test2)``: the class's CEL
+    picks the published card, the allocator gives it to the pod, the CDI
+    nodes exist, the consumer child in the claim's environment passes
+    ``--check --serve-demo`` with phase 24 (a)'s gates, its append launches
+    counted; (b) ``tpu-test1``'s second pod is refused by the spec runner
+    with nothing half-done; (c) ``tpu-test3``'s shared claim goes with its
+    last pod; (d) a stub self-test report fences the card: the allocator
+    refuses a claim, a passing report restores it; (g) ``/metrics``,
+    ``/debug/journal`` and ``/debug/state`` show the loop; (e) the
+    kubelet's gRPC face: the handshake, 100 claim-to-prepared cycles over
+    the socket against 100 in process (p50/p99 ms, host clock), and the
+    plugin binary with ``--fake-cluster`` as a child; (f) the reference
+    bench's scheduler throughput over 4 fake v5e-16 hosts (allocations/s,
+    CEL evaluations an allocation, index hits and misses).
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
@@ -412,7 +429,8 @@ after a handoff, in this process and in the decode workers, the
 disaggregated router's engines and its decode worker, the fleet phase's
 measured runs, the sharded
 engine's ranks, training, LoRA, MoE and mesh training, the serving demo,
-the prepared consumer's demo and the dry run at 8) and their times; the last line is the JSON device
+the prepared consumer's demos, the closed loop's demo and the dry run at 8)
+and their times; the last line is the JSON device
 record.
 """
 
@@ -8182,6 +8200,450 @@ def phase_driver_node(torch, card):
     return {"paged_attention": appends}
 
 
+# "driver loop": the closed loop on the card, from a quickstart spec to a
+# consumer running in the prepared claim's environment
+LOOP_NODE = "node-0"
+LOOP_CYCLES, LOOP_ROUND = 100, 25  # claim-to-prepared cycles a kind, cycles a round
+
+
+def _loop_claims(server, namespace) -> dict:
+    return {c.metadata.name: c for c in server.list("ResourceClaim", namespace=namespace)}
+
+
+def _http(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read()
+
+
+def _cycle_ms(samples) -> dict:
+    a = np.asarray(samples)
+    return {"p50": float(np.percentile(a, 50)), "p99": float(np.percentile(a, 99)),
+            "n": int(a.size)}
+
+
+def _plugin_main_child(label, n_devices, root, card) -> dict:
+    """Leg (e)'s last part: ``python -m k8s_dra_driver_torch.plugin.main
+    --fake-cluster`` as a child (the card in real mode; a fake host on the
+    CPU): it publishes, serves the handshake and ``/healthz`` and exits 0
+    on SIGTERM."""
+    import re
+    import signal
+    import threading
+    from pathlib import Path
+
+    from k8s_dra_driver_torch.plugin import grpc_service
+
+    sub = f"{label} (e) plugin main"
+    args = [sys.executable, "-m", "k8s_dra_driver_torch.plugin.main", "--fake-cluster",
+            "--node-name", "node-main", "--cdi-root", str(root / "cdi"),
+            "--plugin-path", str(root / "p"), "--registry-path", str(root / "r"),
+            "--parted-state-path", str(root / "parted.json"), "--http-port", "0",
+            "--cleanup-interval-s", "1"]
+    if DEV == "cpu":  # a rehearsal: the fake host of the other legs
+        args += ["--fake-topology", "v5e-4", "--fake-host-id", "0"]
+    lines: list[str] = []
+    t0 = time.perf_counter()
+    child = subprocess.Popen(args, env=_child_env(), cwd=Path(__file__).resolve().parent,
+                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    reader = threading.Thread(target=lambda: lines.extend(child.stderr), daemon=True)
+    reader.start()
+    try:
+        while not any("serving on" in ln for ln in lines):
+            if child.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError(f"{sub}: no serving line:\n{''.join(lines)[-3000:]}")
+            time.sleep(0.02)
+        ready_ms = (time.perf_counter() - t0) * 1e3
+        text = "".join(lines)
+        published = int(re.search(r"; (\d+) devices published", text)[1])
+        port = int(re.search(r"diagnostics on http://127\.0\.0\.1:(\d+)/metrics", text)[1])
+        healthz = _http(port, "/healthz")
+        client = grpc_service.RegistrationClient(str(root / "r" / "tpu.google.com-reg.sock"))
+        try:
+            info = client.handshake()
+        finally:
+            client.close()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    reader.join(timeout=10)
+    text = "".join(lines)
+    log(f"{sub}: serving {ready_ms:.0f} ms after spawn ({card}); {published} devices "
+        f"published; /healthz {healthz!r}; handshake {info.type} {info.name} "
+        f"{info.endpoint}; exit {rc} on SIGTERM; stderr:\n{text.rstrip()}")
+    if rc != 0 or healthz != b"ok" or published != n_devices or "Traceback" in text \
+            or info.endpoint != str(root / "p" / "dra.sock") or "shutting down" not in text:
+        raise AssertionError(f"{sub}: the plugin binary misbehaved (exit {rc}, "
+                             f"{published} of {n_devices} devices)")
+    return {"main_ready_ms": ready_ms}
+
+
+def _scheduler_throughput(label, card, hosts=4, claims_per_round=16, rounds=6) -> dict:
+    """Leg (f): the reference bench's ``run_scheduler_throughput`` shape
+    (``bench.py:87``) over the port's allocator: 4 fake v5e-16 hosts, 16
+    single-chip claims a round round-robin (every chip taken), then freed;
+    round 0 warms the index and the verdict memos."""
+    import tempfile
+
+    from k8s_dra_driver_torch.e2e import harness
+    from k8s_dra_driver_torch.utils.metrics import REGISTRY
+
+    sub = f"{label} (f) scheduler throughput"
+    cluster = harness.make_cluster(hosts=hosts, topology="v5e-16",
+                                   work_dir=tempfile.mkdtemp(prefix="driver-loop-sched-"))
+    nodes = [f"tpu-host-{i}" for i in range(hosts)]
+    labels = {n: cluster.node_labels(n) for n in nodes}
+    counters = {k: REGISTRY.counter(f"dra_{k}_total") for k in
+                ("cel_evals", "alloc_index_hits", "alloc_index_misses")}
+
+    def one_round(r: int) -> None:
+        names = []
+        for k in range(claims_per_round):
+            node = nodes[k % hosts]
+            name = f"thr-{r}-{k}"
+            claim = cluster.server.create(harness.simple_claim(name))
+            cluster.allocator.allocate(claim, node_name=node, node_labels=labels[node])
+            names.append(name)
+        for name in names:
+            cluster.allocator.deallocate(cluster.server.get("ResourceClaim", name, "default"))
+            cluster.server.delete("ResourceClaim", name, "default")
+
+    one_round(0)
+    before = {k: c.value() for k, c in counters.items()}
+    t0 = time.perf_counter()
+    for r in range(1, rounds):
+        one_round(r)
+    elapsed = time.perf_counter() - t0
+    n = (rounds - 1) * claims_per_round
+    got = {k: int(c.value() - before[k]) for k, c in counters.items()}
+    out = {"allocations": n, "allocations_per_s": n / elapsed,
+           "cel_evals_per_allocation": got["cel_evals"] / n, **got}
+    log(f"{sub}: {hosts} hosts, {claims_per_round} claims a round, {rounds - 1} steady rounds: "
+        f"{out['allocations_per_s']:.1f} allocations/s (host clock, {card}); CEL evaluations "
+        f"{got['cel_evals']} ({out['cel_evals_per_allocation']:.3f} an allocation); index hits "
+        f"{got['alloc_index_hits']}, misses {got['alloc_index_misses']}")
+    if got["cel_evals"] != 0 or got["alloc_index_misses"] != 0 or not got["alloc_index_hits"]:
+        raise AssertionError(f"{sub}: the steady rounds re-evaluated selectors or rebuilt pools")
+    return out
+
+
+def phase_driver_loop(torch, card):
+    """The closed loop on the card ("driver loop"): one node over the real
+    card (the port's ``InMemoryAPIServer`` with ``install_device_classes``,
+    a real-mode ``Driver``, the port's ``Allocator`` in ``e2e.harness.
+    Cluster``) and a ``DiagnosticsServer`` on port 0.  (a) ``apply_spec``
+    of ``tpu-test2`` (two containers sharing a one-chip template claim):
+    the DeviceClass's CEL picks exactly the published cards, the allocator
+    gives the pod the card, the CDI ids' nodes exist, both containers'
+    claim names the card, and the consumer child in the claim's
+    environment exits 0 from ``--check --serve-demo`` with "pod entry
+    points" (a)'s gates, its append launches counted; (b) ``tpu-test1``'s
+    two one-chip pods on one card (a fake host's other chips held): the
+    second raises the spec runner's ``SpecError`` after its unwind, its
+    claim unallocated and the checkpoint holding the first claim only;
+    (c) ``tpu-test3``: deleting ``pod0`` leaves the shared claim prepared,
+    deleting ``pod1`` unprepares and deallocates it; (d) a stub self-test
+    report fences every card: a one-chip claim fails in the allocator on
+    the class's ``healthy == true`` and never reaches the node; a passing
+    report restores the cards and the same claim schedules and prepares;
+    (g) the diagnostics server's ``/metrics`` carries the allocator's
+    families, ``/debug/journal?component=e2e`` the harness's events and
+    ``/debug/state`` the prepared claim; (e) the kubelet's face:
+    ``PluginServer`` on short sockets, the registration handshake, the
+    reference bench's claim-to-prepared cycle (``bench.py:34``) over the
+    socket and in process in alternating rounds, the CDI ids over the wire
+    equal to the in-process ones, and ``python -m
+    k8s_dra_driver_torch.plugin.main --fake-cluster`` as a child; (f) the
+    reference bench's scheduler throughput (``bench.py:87``).  Returns the
+    launches by kernels-line row."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from k8s_dra_driver_torch.e2e import harness, spec_runner
+    from k8s_dra_driver_torch.kube import objects
+    from k8s_dra_driver_torch.kube.fakeserver import InMemoryAPIServer
+    from k8s_dra_driver_torch.plugin import driver as pdriver
+    from k8s_dra_driver_torch.plugin import grpc_service
+    from k8s_dra_driver_torch.scheduler import allocator as palloc
+    from k8s_dra_driver_torch.tpuinfo import selftest
+    from k8s_dra_driver_torch.utils.diagnostics import DiagnosticsServer
+    from k8s_dra_driver_torch.utils.metrics import parse_prom_text
+
+    label = "driver loop"
+    specs = Path(__file__).resolve().parent / "demo" / "specs" / "quickstart"
+    if DEV == "cpu":  # a rehearsal: a fake host of 4 chips
+        os.environ["TPUINFO_FAKE_TOPOLOGY"] = "v5e-4"
+    else:
+        os.environ.pop("TPUINFO_FAKE_TOPOLOGY", None)  # the card, never a fake topology
+    tmp = Path(tempfile.mkdtemp(prefix="driver-loop-"))
+    sock_root = Path(tempfile.mkdtemp(prefix="dra-", dir="/tmp"))
+    server = InMemoryAPIServer()
+    harness.install_device_classes(server)
+    server.create(objects.Node(metadata=objects.ObjectMeta(
+        name=LOOP_NODE, labels={"kubernetes.io/hostname": LOOP_NODE})))
+    drv = pdriver.Driver(server, pdriver.DriverConfig(
+        node_name=LOOP_NODE, cdi_root=str(tmp / "cdi"), checkpoint_path=str(tmp / "cp.json"),
+        socket_dir=str(tmp / "s"), selftest_interval_s=3600.0))
+    cluster = harness.Cluster(server=server)
+    cluster.nodes[LOOP_NODE] = harness.FakeNode(name=LOOP_NODE, state=drv.state)
+    diag = DiagnosticsServer(port=0, bind_host="127.0.0.1", state_provider=lambda: {
+        "node": LOOP_NODE, "allocatable": sorted(drv.state.allocatable.devices),
+        "prepared_claims": drv.state.prepared_claim_uids()})
+    diag.start()
+    times: dict = {"allocate_ms": []}
+    real_allocate = cluster.allocator.allocate
+
+    def timed_allocate(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_allocate(*args, **kw)
+        finally:
+            times["allocate_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    cluster.allocator.allocate = timed_allocate
+    try:
+        (published,) = server.list("ResourceSlice")
+        devices = published.spec.devices
+        cards = [d.name for d in devices if d.basic.attributes["type"].value == "tpu"]
+        index = {d.name: d.basic.attributes["index"].value for d in devices if d.name in cards}
+        (tpu_class,) = [dc for dc in server.list("DeviceClass")
+                        if dc.metadata.name == harness.TPU_CLASS]
+        picked = [d.name for d in devices if palloc._matches_selectors(
+            palloc._Candidate(driver=published.spec.driver, pool=published.spec.pool.name,
+                              device=d), tpu_class.spec.selectors)]
+        log(f"{label}: the slice publishes {[d.name for d in devices]}; the class "
+            f"{harness.TPU_CLASS}'s CEL {[s.cel.expression for s in tpu_class.spec.selectors]} "
+            f"picks {picked}")
+        if picked != cards or not cards or (DEV == "cuda"
+                                            and len(cards) != torch.cuda.device_count()):
+            raise AssertionError(f"{label}: the class picks {picked}, the cards are {cards}")
+
+        sub = f"{label} (a) tpu-test2"
+        t0 = time.perf_counter()
+        (pod,) = spec_runner.apply_spec(cluster, specs / "tpu-test2.yaml")
+        times["apply_ms"] = (time.perf_counter() - t0) * 1e3
+        (claim,) = _loop_claims(server, "tpu-test2").values()
+        (dev,) = pod.devices
+        results = [r.device for r in claim.status.allocation.devices.results]
+        env, nodes = _claim_container(tmp / "cdi", claim.metadata.uid, dev["cdi_device_ids"])
+        pod_doc = server.get("Pod", pod.name, pod.namespace)
+        claimed = [[c["name"] for c in ctr["resources"]["claims"]]
+                   for ctr in pod_doc.spec["containers"]]
+        log(f"{sub}: apply_spec {times['apply_ms']:.2f} ms, allocate "
+            f"{times['allocate_ms'][-1]:.3f} ms (host clock, {card}); the pod on {pod.node} with "
+            f"{pod.devices}; containers' claims {claimed}; environment {env}; device nodes {nodes}")
+        want_index = str(index.get(dev["device_name"]))
+        missing = [p for p in nodes if not os.path.exists(p)] if DEV == "cuda" else []
+        if results != [dev["device_name"]] or dev["device_name"] not in cards \
+                or claimed != [["shared-tpu"], ["shared-tpu"]] or missing \
+                or env.get("TPU_VISIBLE_DEVICES") != want_index \
+                or pod.env.get("TPU_VISIBLE_DEVICES") != want_index:
+            raise AssertionError(f"{sub}: the allocation {results}, the containers' claims "
+                                 f"{claimed}, missing nodes {missing} or the environment is off")
+        rc, out, err, secs = _pod_command(
+            ["k8s_dra_driver_torch.consumer", "--check", "--serve-demo"], env)
+        log(f"{sub}: the consumer exited {rc} in {secs:.1f} s; stdout:\n" + out.rstrip())
+        if rc != 0:
+            raise AssertionError(f"{sub}: exit {rc}; stderr tail:\n{err[-3000:]}")
+        _demo_gates(sub, json.loads(out.strip().splitlines()[-1])["serve_demo"], 0)
+        demo = _demo_stderr(sub, err)
+        appends = demo["kernel_launches"].get("paged_attention:append", 0)
+        if not appends and DEV == "cuda":
+            raise AssertionError(f"{sub}: the append kernel was never launched")
+        times["demo_s"] = demo["serve_demo_seconds"]
+        cluster.delete_pod(pod.name, pod.namespace)
+        if server.get("ResourceClaim", claim.metadata.name, "tpu-test2").status.allocation \
+                or drv.state.cdi.claim_spec_path(claim.metadata.uid).exists():
+            raise AssertionError(f"{sub}: deleting the pod left its claim behind")
+
+        sub = f"{label} (b) tpu-test1"
+        hog = None
+        if len(cards) > 1:  # a fake host: hold every chip but one
+            hog = cluster.allocator.allocate(
+                server.create(harness.simple_claim("hog", count=len(cards) - 1)),
+                node_name=LOOP_NODE)
+        try:
+            spec_runner.apply_spec(cluster, specs / "tpu-test1.yaml")
+        except spec_runner.SpecError as exc:
+            message = str(exc)
+        else:
+            raise AssertionError(f"{sub}: two one-chip pods fitted on one card")
+        claims = _loop_claims(server, "tpu-test1")
+        held = {uid for uid in json.loads((tmp / "cp.json").read_text())["preparedClaims"]}
+        pods = sorted(p.metadata.name for p in server.list("Pod", namespace="tpu-test1"))
+        first, second = claims["pod0-tpu"], claims["pod1-tpu"]
+        log(f"{sub}: SpecError {message!r}; pods {pods}; the checkpoint holds "
+            f"{sorted(held)} (pod0-tpu {first.metadata.uid})")
+        if "tpu-test1/pod1 is unschedulable" not in message or pods != ["pod0"] \
+                or first.status.allocation is None or second.status.allocation is not None \
+                or held != {first.metadata.uid}:
+            raise AssertionError(f"{sub}: the failed pod left something half-done")
+        cluster.delete_pod("pod0", "tpu-test1")
+        if hog is not None:
+            cluster.allocator.deallocate(server.get("ResourceClaim", "hog", "default"))
+
+        sub = f"{label} (c) tpu-test3"
+        pods = spec_runner.apply_spec(cluster, specs / "tpu-test3.yaml")
+        shared = server.get("ResourceClaim", "shared-tpu", "tpu-test3")
+        uid = shared.metadata.uid
+        steps = []
+        for name in ("pod0", "pod1"):
+            cluster.delete_pod(name, "tpu-test3")
+            c = server.get("ResourceClaim", "shared-tpu", "tpu-test3")
+            cp = json.loads((tmp / "cp.json").read_text())["preparedClaims"]
+            steps.append((c.status.allocation is not None, len(c.status.reserved_for),
+                          uid in drv.state.prepared_claim_uids(),
+                          drv.state.cdi.claim_spec_path(uid).exists(), uid in cp))
+        log(f"{sub}: pods {[(p.name, p.devices[0]['device_name']) for p in pods]}; after "
+            f"deleting pod0, pod1 (allocated, consumers, prepared, spec file, checkpoint): "
+            f"{steps}")
+        if len({p.devices[0]["device_name"] for p in pods}) != 1 \
+                or steps != [(True, 1, True, True, True), (False, 0, False, False, False)]:
+            raise AssertionError(f"{sub}: the shared claim's teardown is off: {steps}")
+
+        sub = f"{label} (d) the fence"
+        real_start = selftest.start_selftest
+
+        def sweep(oks):
+            selftest.start_selftest = lambda **kw: _StubRun({  # noqa: E731
+                "ok": all(oks), "platform": "gpu",
+                "devices": [{"id": i, "platform": "gpu", "ok": ok} for i, ok in enumerate(oks)]})
+            try:
+                drv._last_selftest = 0.0
+                drv.refresh_inventory()
+            finally:
+                selftest.start_selftest = real_start
+            return [_card_health(server, c) for c in cards]
+
+        fenced = sweep([False] * len(cards))
+        claim = server.create(harness.simple_claim("fenced-claim"))
+        try:
+            cluster.schedule_and_prepare(claim, LOOP_NODE)
+        except palloc.AllocationError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError(f"{sub}: a fenced card was allocated")
+        seen = (drv.state.prepared_claim_uids(),
+                drv.state.cdi.claim_spec_path(claim.metadata.uid).exists())
+        restored = sweep([True] * len(cards))
+        claim = server.get("ResourceClaim", "fenced-claim", "default")
+        t0 = time.perf_counter()
+        prepared = cluster.schedule_and_prepare(claim, LOOP_NODE)
+        times["schedule_and_prepare_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"{sub}: fenced {fenced}; the allocator refused: {refusal!r}; the node saw "
+            f"{seen}; restored {restored}; then scheduled and prepared in "
+            f"{times['schedule_and_prepare_ms']:.2f} ms ({card}): {prepared}")
+        if any(h != (False, "selftest-failed") for h in fenced) or "cannot satisfy" not in refusal \
+                or seen != ([], False) or any(h != (True, "") for h in restored) \
+                or [d["device_name"] for d in prepared][0] not in cards:
+            raise AssertionError(f"{sub}: the fence did not close the loop")
+
+        sub = f"{label} (g) diagnostics"
+        metrics = parse_prom_text(_http(diag.port, "/metrics").decode())
+        families = {k: sum(metrics.get(k, {}).values()) for k in (
+            "dra_alloc_index_hits_total", "dra_alloc_index_misses_total", "dra_cel_evals_total",
+            "dra_cel_memo_hits_total", "dra_cel_memo_misses_total")}
+        journal = json.loads(_http(diag.port, "/debug/journal?component=e2e&limit=1000"))
+        events = {(e["event"], (e.get("attrs") or {}).get("pod") or
+                   (e.get("attrs") or {}).get("claim")) for e in journal["events"]}
+        state = json.loads(_http(diag.port, "/debug/state"))
+        log(f"{sub}: /metrics {families}; /debug/journal?component=e2e {sorted(events)}; "
+            f"/debug/state {state}")
+        want_events = {("delete_pod", "pod"), ("delete_pod", "pod0"), ("delete_pod", "pod1"),
+                       ("schedule_and_prepare", "fenced-claim")}
+        if any(k not in metrics for k in families) or not families["dra_cel_evals_total"] \
+                or not families["dra_alloc_index_hits_total"] or not want_events <= events \
+                or state["prepared_claims"] != [claim.metadata.uid]:
+            raise AssertionError(f"{sub}: the diagnostics server does not show the loop")
+        cluster.unprepare_and_deallocate(claim, LOOP_NODE)
+        cluster.allocator.allocate = real_allocate
+
+        sub = f"{label} (e) kubelet face"
+        plugin = grpc_service.PluginServer(drv, plugin_dir=str(sock_root / "p"),
+                                           registry_dir=str(sock_root / "r"))
+        sockets = [plugin.plugin_socket, plugin.registry_socket]
+        if any(len(s.encode()) >= 100 for s in sockets):
+            raise AssertionError(f"{sub}: socket paths too long for a unix socket: {sockets}")
+        plugin.start()
+        client = registration = None
+        try:
+            registration = grpc_service.RegistrationClient(plugin.registry_socket)
+            info = registration.handshake()
+            if (info.type, info.name, info.endpoint, list(info.supported_versions)) != (
+                    "DRAPlugin", "tpu.google.com", plugin.plugin_socket, ["v1beta1"]) \
+                    or not plugin.registered.is_set():
+                raise AssertionError(f"{sub}: the handshake is off: {info}")
+            client = grpc_service.DRAClient(plugin.plugin_socket)
+            samples: dict = {"wire": [], "in process": []}
+            mismatched = []
+
+            def cycle(i, kind):
+                name = f"cycle-{i}"
+                t0 = time.perf_counter()
+                claim = server.create(harness.simple_claim(name))
+                allocated = cluster.allocator.allocate(
+                    claim, node_name=LOOP_NODE, node_labels=cluster.node_labels(LOOP_NODE))
+                ref = pdriver.ClaimRef(allocated.metadata.uid, name, "default")
+                if kind == "wire":
+                    res = client.node_prepare_resources([ref]).claims[ref.uid]
+                    error, ids = res.error, [list(d.cdi_device_ids) for d in res.devices]
+                else:
+                    res = drv.node_prepare_resources([ref])[ref.uid]
+                    error, ids = res.error, [d["cdi_device_ids"] for d in res.devices]
+                samples[kind].append((time.perf_counter() - t0) * 1e3)
+                if error:
+                    raise AssertionError(f"{sub}: prepare of {name} failed: {error}")
+                if kind == "wire":  # the in-process answer (prepare is idempotent)
+                    again = drv.node_prepare_resources([ref])[ref.uid]
+                    if ids != [d["cdi_device_ids"] for d in again.devices]:
+                        mismatched.append((name, ids))
+                    client.node_unprepare_resources([ref])
+                else:
+                    drv.node_unprepare_resources([ref])
+                cluster.allocator.deallocate(server.get("ResourceClaim", name, "default"))
+                server.delete("ResourceClaim", name, "default")
+
+            i = 0
+            for kind in ("wire", "in process", "in process", "wire") * (
+                    LOOP_CYCLES // LOOP_ROUND // 2):
+                for _ in range(LOOP_ROUND):
+                    cycle(i, kind)
+                    i += 1
+        finally:
+            for c in (client, registration):
+                if c is not None:
+                    c.close()
+            plugin.stop()
+        cycles = {k: _cycle_ms(v) for k, v in samples.items()}
+        times["cycle_ms"] = cycles
+        log(f"{sub}: sockets {sockets}; handshake {info.type} {info.name}; claim-to-prepared "
+            f"(create, allocate, NodePrepareResources; host clock, {card}) over the socket "
+            f"p50 {cycles['wire']['p50']:.3f} / p99 {cycles['wire']['p99']:.3f} ms, in process "
+            f"p50 {cycles['in process']['p50']:.3f} / p99 {cycles['in process']['p99']:.3f} ms, "
+            f"{LOOP_CYCLES} cycles each in alternating rounds of {LOOP_ROUND} (the reference "
+            f"bench's budget 1000 ms)")
+        if mismatched or drv.state.prepared_claim_uids():
+            raise AssertionError(f"{sub}: the CDI ids over the wire differ from the "
+                                 f"in-process ones ({mismatched[:2]}) or a claim stayed")
+        times.update(_plugin_main_child(label, len(devices), sock_root / "main", card))
+        times["throughput"] = _scheduler_throughput(label, card)
+    finally:
+        cluster.allocator.allocate = real_allocate
+        diag.stop()
+        shutil.rmtree(sock_root, ignore_errors=True)
+    times["allocate_ms"] = {"n": len(times["allocate_ms"]),
+                            "median": float(np.median(times["allocate_ms"]))}
+    log(f"{label}: times {json.dumps(times)} ({card})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"paged_attention": appends}
+
+
 def forward_flops(cfg, batch: int, seq: int) -> int:
     """FLOPs of one forward: 2 per weight per token (the tied logits'
     table included) plus QK^T and PV, 4·B·H·S²·hd a layer."""
@@ -8537,6 +8999,11 @@ def main() -> int:
 
     run("driver node", driver_node)
 
+    def driver_loop():
+        launches["loop"] = phase_driver_loop(torch, card)
+
+    run("driver loop", driver_loop)
+
     def entry_point():
         launches["entry"] = phase_entry_point(torch, card)
 
@@ -8558,7 +9025,9 @@ def main() -> int:
     # engine's ranks (summed over ranks); the mesh legs' flash launches,
     # summed over ranks, join the bf16 and f32 flash rows (leg (e) also its
     # graphed twin's run); so do the driver node's (the prepared consumer's
-    # demo, read from its launch line) and the pod entry points' (the demo's appends
+    # demo, read from its launch line), the driver loop's (the consumer's demo
+    # in the claim the allocator gave tpu-test2's pod, read from its launch
+    # line) and the pod entry points' (the demo's appends
     # in this process and on its two ranks) and the entry point's (the dry
     # run's flash and appends at 8, summed over its ranks); the
     # serve workers phase adds its decode workers' appends, read from
@@ -8590,7 +9059,8 @@ def main() -> int:
         kernels.append({
             "name": name, **meta,
             "launches": (main_counts[name] + launches["pod"].get(name, 0)
-                         + launches["driver"].get(name, 0) + launches["entry"].get(name, 0)),
+                         + launches["driver"].get(name, 0) + launches["loop"].get(name, 0)
+                         + launches["entry"].get(name, 0)),
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
             "library_ms": nums["library_ms"],

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: in a fresh interpreter whose
 meta-path finder refuses ``jax`` (and ``jaxlib``) and the JAX package
 ``k8s_dra_driver_tpu``, every module of ``k8s_dra_driver_torch`` (found by
-``pkgutil.walk_packages``; the driver's node half among them) and
+``pkgutil.walk_packages``; the driver's node half, the allocator, the
+closed-loop harness and the kubelet's gRPC face among them) and
 ``chip_smoke.py`` (imported as a module, its ``main`` not run) import."""
 
 import json
@@ -75,4 +76,9 @@ def test_every_port_module_and_the_smoke_import_without_jax(tmp_path):
         "plugin.prepared", "plugin.topology_daemon", "plugin.sharing", "plugin.device_state",
         "plugin.driver")}
     assert node_half <= names
-    assert len(names) >= 75
+    closed_loop = {f"k8s_dra_driver_torch.{m}" for m in (
+        "utils.logging", "utils.diagnostics", "scheduler", "scheduler.cel", "scheduler.index",
+        "scheduler.allocator", "e2e.harness", "e2e.spec_runner", "plugin.grpc_service",
+        "plugin.main")}
+    assert closed_loop <= names
+    assert len(names) >= 85
