@@ -422,6 +422,28 @@ exits 2 before any result):
     plugin binary with ``--fake-cluster`` as a child; (f) the reference
     bench's scheduler throughput over 4 fake v5e-16 hosts (allocations/s,
     CEL evaluations an allocation, index hits and misses).
+32. (right after phase 31) the driver against an API server over HTTP and
+    the multi-host slice controller ("driver cluster"): the port's
+    ``MockKubeAPI`` on localhost with a bearer token and a kubeconfig. (a)
+    the port's ``RESTClient`` at client-go's 5 QPS / burst 10: CRUD, a
+    namespaced kind, a label-selected list, a wrong token (401) and 409s,
+    p50/p99 ms a verb over 200 requests; a watch's server-side create to
+    callback p50/p99; an ``ERROR`` frame and a 410 with a node deleted in
+    the gap, recovered through relist (the DELETED synthesised,
+    ``dra_watch_reconnects_total`` counted); (b) the plugin binary with
+    ``--kubeconfig`` in real mode: its slice visible in the mock (ms from
+    spawn) and read back over REST, the handshake, ``/healthz``, exit 0 on
+    SIGTERM; (c) two ``controller.main --leader-elect`` children: one lease
+    holder, 64 Nodes of one v5e-256 domain to 64 seats (ms, requests at the
+    mock by verb, the limiter's share), the leader SIGTERMed and the
+    standby leading within a renew period plus 2 s, the seats unwritten;
+    (d) node-0 and node-1 in a 2-host domain, a real-mode ``Driver`` each on
+    the card, two claims of a card and a seat allocated over REST and
+    prepared (node-0's over the kubelet's socket), their consumers
+    ``--check``ed and in one gloo group as workers 0 and 1, worker 0's
+    ``serve_demo`` launching the paged append kernel; (e) ``apply_spec`` of
+    ``slice-test1`` and ``multislice-test1`` under the port's
+    ``SliceManager`` over REST.
 
 The line before the last lists the kernels with their launch counts on the
 paths that run them (serving, LoRA and MoE serving, the decode engines
@@ -429,7 +451,8 @@ after a handoff, in this process and in the decode workers, the
 disaggregated router's engines and its decode worker, the fleet phase's
 measured runs, the sharded
 engine's ranks, training, LoRA, MoE and mesh training, the serving demo,
-the prepared consumer's demos, the closed loop's demo and the dry run at 8)
+the prepared consumer's demos, the closed loop's demo, the multi-host
+claim's worker 0 and the dry run at 8)
 and their times; the last line is the JSON device
 record.
 """
@@ -8644,6 +8667,712 @@ def phase_driver_loop(torch, card):
     return {"paged_attention": appends}
 
 
+CLUSTER_TOKEN = "driver-cluster-token"
+CLUSTER_REQUESTS = 200  # leg (a): requests at the limiter's defaults, 40 a verb
+CLUSTER_WATCH_SAMPLES = 50  # leg (a): server-side creates timed to their callback
+CLUSTER_DOMAIN = ("v5e-256-a", 64)  # leg (c): GKE's 16x16 v5e slice, 64 hosts of 4 chips
+CLUSTER_PAIR = "v5e-2h"  # leg (d): the two-host domain of node-0 and node-1
+CLUSTER_TIMEOUT_S = 120  # any wait of the phase beyond this fails it
+MH_CHILD = r"""
+import json, sys, time
+from k8s_dra_driver_torch import consumer
+argv = sys.argv[1:]
+rc = consumer.main(["--check", *argv])
+if rc:
+    sys.exit(rc)
+dev = "cpu" if "cpu" in argv else "cuda"
+ctx = consumer.attach(init_distributed=False)
+import torch.distributed as dist
+ctx.initialize_distributed("gloo")
+gathered = [None] * dist.get_world_size()
+dist.all_gather_object(gathered, ctx.worker_id)
+out = {"worker_id": ctx.worker_id, "host_count": ctx.host_count,
+       "coordinator": ctx.coordinator_address, "rank": dist.get_rank(),
+       "world": dist.get_world_size(), "gathered": gathered}
+dist.destroy_process_group()
+if ctx.worker_id == 0:
+    from k8s_dra_driver_torch.models import graphs
+    t0 = time.perf_counter()
+    summary, _ = consumer.serve_demo(dev)
+    out["serve_demo"] = summary
+    out["serve_demo_seconds"] = time.perf_counter() - t0
+    out["kernel_launches"] = {f"{mod.rsplit('.', 1)[-1]}:{key}": n
+                              for (mod, key), n in graphs.launch_counts().items() if n}
+print(json.dumps(out), flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_for(what, pred, timeout=CLUSTER_TIMEOUT_S, interval=0.01):
+    """Poll ``pred`` until it returns a true value (returned), or fail."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(interval)
+
+
+def _kubeconfig_file(path, url: str, token: str):
+    """A kubeconfig naming ``url`` and ``token``, as ``kubectl`` writes one."""
+    path.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "mock", "user": "smoke"}}],
+        "clusters": [{"name": "mock", "cluster": {"server": url}}],
+        "users": [{"name": "smoke", "user": {"token": token}}]}))
+    return path
+
+
+def _count_requests(api) -> dict:
+    """Count the mock's requests by (verb, resource), WATCH and LIST apart
+    from GET, from now on; returns the live counter."""
+    import threading
+    from urllib.parse import parse_qs, urlparse
+
+    from k8s_dra_driver_torch.e2e import mock_api
+
+    counts: dict = {}
+    lock = threading.Lock()
+    handler = api._httpd.RequestHandlerClass
+    for verb in ("GET", "POST", "PUT", "DELETE"):
+        real = getattr(handler, f"do_{verb}")
+
+        def counted(self, real=real, verb=verb):
+            url = urlparse(self.path)
+            m = mock_api._PATH_RE.match(url.path)
+            what = m.group("plural") if m else url.path
+            if verb == "GET" and m and not m.group("name"):
+                verb = "WATCH" if parse_qs(url.query).get("watch") == ["true"] else "LIST"
+            with lock:
+                counts[(verb, what)] = counts.get((verb, what), 0) + 1
+            return real(self)
+
+        setattr(handler, f"do_{verb}", counted)
+    return counts
+
+
+def _spawn(args, env_extra=None, stdin=False):
+    """``python -m <args>`` from the repository root, stderr gathered by a
+    thread: (process, its stderr lines)."""
+    import threading
+    from pathlib import Path
+
+    env = _child_env()
+    env.update(env_extra or {})
+    child = subprocess.Popen([sys.executable, "-m", *args], env=env,
+                             cwd=Path(__file__).resolve().parent,
+                             stdin=subprocess.PIPE if stdin else subprocess.DEVNULL,
+                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines: list[str] = []
+    threading.Thread(target=lambda: lines.extend(child.stderr), daemon=True).start()
+    return child, lines
+
+
+def _stop(child, sig=None, timeout=60) -> int:
+    import signal
+
+    if child.poll() is None:
+        child.send_signal(sig or signal.SIGTERM)
+    try:
+        return child.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait(timeout=30)
+        raise
+
+
+def _rest_face(label, api, kubeconfig, card) -> dict:
+    """Leg (a): the port's ``RESTClient`` from a kubeconfig, the limiter at
+    client-go's defaults, against the port's ``MockKubeAPI``."""
+    from k8s_dra_driver_torch.kube import objects
+    from k8s_dra_driver_torch.kube.fakeserver import AlreadyExists, APIError, Conflict, NotFound
+    from k8s_dra_driver_torch.kube.restclient import KubeClientConfig, RESTClient
+    from k8s_dra_driver_torch.utils.faults import FaultProfile
+    from k8s_dra_driver_torch.utils.metrics import REGISTRY
+
+    sub = f"{label} (a) REST face"
+    cfg = KubeClientConfig.load(str(kubeconfig))
+    if (cfg.server, cfg.token, cfg.qps, cfg.burst) != (api.url, CLUSTER_TOKEN, 5.0, 10):
+        raise AssertionError(f"{sub}: the kubeconfig loads as {cfg}")
+    client = RESTClient(cfg)
+    waits: list = []
+    real_wait = client._limiter.wait
+
+    def timed_wait():
+        t0 = time.perf_counter()
+        real_wait()
+        waits.append((time.perf_counter() - t0) * 1e3)
+
+    client._limiter.wait = timed_wait
+    samples: dict = {v: [] for v in ("create", "get", "list", "update", "delete")}
+    wait_of: dict = {v: [] for v in samples}
+    node = lambda name, **labels: objects.Node(  # noqa: E731
+        metadata=objects.ObjectMeta(name=name, labels={"smoke": "rest", **labels}))
+    calls = {
+        "create": lambda i: client.create(node(f"rest-{i}", i=str(i))),
+        "get": lambda i: client.get("Node", f"rest-{i}"),
+        "list": lambda i: client.list("Node", label_selector={"i": str(i)}),
+        "update": lambda i: client.update(client_get_cache[i]),
+        "delete": lambda i: client.delete("Node", f"rest-{i}"),
+    }
+    client_get_cache: dict = {}
+    t_all = time.perf_counter()
+    for i in range(CLUSTER_REQUESTS // len(samples)):
+        for verb, call in calls.items():
+            n_waits = len(waits)
+            t0 = time.perf_counter()
+            got = call(i)
+            samples[verb].append((time.perf_counter() - t0) * 1e3)
+            wait_of[verb].append(sum(waits[n_waits:]))
+            if verb == "get":
+                got.metadata.labels["touched"] = "1"
+                client_get_cache[i] = got
+            if verb == "list" and [n.metadata.name for n in got] != [f"rest-{i}"]:
+                raise AssertionError(f"{sub}: the label-selected list gave {got}")
+    seconds = time.perf_counter() - t_all
+    per_verb = {v: {**_cycle_ms(s), "limiter_wait_p50": float(np.percentile(wait_of[v], 50))}
+                for v, s in samples.items()}
+    log(f"{sub}: {CLUSTER_REQUESTS} requests in {seconds:.2f} s at qps 5 / burst 10 (host clock, "
+        f"{card}); ms by verb (p50 / p99, the limiter's wait at p50): " + "; ".join(
+            f"{v} {d['p50']:.2f} / {d['p99']:.2f} ({d['limiter_wait_p50']:.2f})"
+            for v, d in per_verb.items()))
+    if api.server.list("Node", label_selector={"smoke": "rest"}):
+        raise AssertionError(f"{sub}: the deletes left nodes behind")
+
+    fast = RESTClient(KubeClientConfig(server=api.url, token=CLUSTER_TOKEN, qps=1e6, burst=10**6))
+    claim = objects.ResourceClaim(metadata=objects.ObjectMeta(name="rest-claim", namespace="team-a"))
+    fast.create(claim)
+    scoped = ([c.metadata.name for c in fast.list("ResourceClaim", namespace="team-a")],
+              fast.list("ResourceClaim", namespace="team-b"),
+              fast.get("ResourceClaim", "rest-claim", "team-a").metadata.namespace)
+    fast.create(node("rest-x"))
+    a, b = fast.get("Node", "rest-x"), fast.get("Node", "rest-x")
+    fast.update(a)
+    refusals = {}
+    for what, call, kind in (
+            ("stale update", lambda: fast.update(b), Conflict),
+            ("duplicate create", lambda: fast.create(node("rest-x")), AlreadyExists),
+            ("missing get", lambda: fast.get("Node", "rest-missing"), NotFound),
+            ("wrong token", lambda: RESTClient(KubeClientConfig(
+                server=api.url, token="wrong", qps=1e6, burst=10**6)).get("Node", "rest-x"),
+             APIError)):
+        try:
+            call()
+        except kind as exc:
+            refusals[what] = (type(exc).__name__, exc.code)
+        else:
+            raise AssertionError(f"{sub}: the {what} was not refused")
+    fast.delete("Node", "rest-x")
+    fast.delete("ResourceClaim", "rest-claim", "team-a")
+    log(f"{sub}: team-a lists {scoped[0]}, team-b {scoped[1]}, the claim's namespace "
+        f"{scoped[2]!r}; refused: {refusals}")
+    if scoped != (["rest-claim"], [], "team-a") or refusals["wrong token"] != ("APIError", 401) \
+            or refusals["stale update"][1] != 409 or refusals["duplicate create"][1] != 409:
+        raise AssertionError(f"{sub}: the namespaced kind or a refusal is off")
+
+    seen: dict = {}
+    events: list = []
+
+    def on_event(e):
+        seen[e.object.metadata.name] = time.perf_counter()
+        events.append((e.type, e.object.metadata.name))
+
+    w = fast.watch("Node", on_event)
+    try:
+        _wait_for("the watch stream", lambda: any(x.kind == "Node" for x in api.server._watches))
+        lat = []
+        for i in range(CLUSTER_WATCH_SAMPLES):
+            name = f"watch-{i}"
+            t0 = time.perf_counter()
+            api.server.create(node(name))
+            _wait_for(f"{name}'s event", lambda name=name: name in seen, interval=0.0002)
+            lat.append((seen[name] - t0) * 1e3)
+        watch_ms = _cycle_ms(lat)
+        reconnects = REGISTRY.counter("dra_watch_reconnects_total")
+        before = reconnects.value(kind="Node")
+        # an ERROR frame mid stream: the client relists and streams again
+        api.server.faults.arm(FaultProfile(name="smoke-frame", watch_error_frames=1,
+                                           kinds=("Node",)))
+        _wait_for("the ERROR frame", lambda: api.server.faults.stats().get("watch_error_frames"))
+        api.server.create(node("after-frame"))
+        _wait_for("the event after the ERROR frame", lambda: "after-frame" in seen)
+        # the streams dropped, a 410 on the reconnect, and a node deleted in the gap
+        api.server.faults.arm(FaultProfile(name="smoke-gone", watch_gone=1, kinds=("Node",)))
+        for sw in [x for x in api.server._watches if x.kind == "Node"]:
+            sw.stop()
+        api.server.delete("Node", "watch-7")
+        _wait_for("the synthesised DELETED", lambda: ("DELETED", "watch-7") in events)
+        api.server.create(node("after-gone"))
+        _wait_for("the event after the 410", lambda: "after-gone" in seen)
+        known = sorted(n for _, n in w.known)
+        want = sorted(n.metadata.name for n in api.server.list("Node"))
+        stats = api.server.faults.stats()
+        n_reconnects = reconnects.value(kind="Node") - before
+    finally:
+        w.stop()
+        api.server.faults.disarm()
+    for n in api.server.list("Node", label_selector={"smoke": "rest"}):
+        api.server.delete("Node", n.metadata.name)
+    log(f"{sub}: watch, server-side create to callback p50 {watch_ms['p50']:.3f} / p99 "
+        f"{watch_ms['p99']:.3f} ms over {watch_ms['n']} ({card}); faults {stats}; reconnects "
+        f"{n_reconnects:.0f}; the watch knows {len(known)} nodes, the server holds {len(want)}")
+    if known != want or stats != {"watch_error_frames": 1, "watch_gone": 1} \
+            or n_reconnects < 2 or events.count(("DELETED", "watch-7")) != 1:
+        raise AssertionError(f"{sub}: the watch did not recover through relist")
+    return {"rest_seconds": seconds, "rest_ms": per_verb, "watch_ms": watch_ms,
+            "watch_reconnects": n_reconnects}
+
+
+def _plugin_over_rest(label, api, kubeconfig, root, card) -> dict:
+    """Leg (b): ``python -m k8s_dra_driver_torch.plugin.main`` without
+    ``--fake-cluster`` (real mode over the card), dialling the mock."""
+    import re
+
+    from k8s_dra_driver_torch.kube import objects
+    from k8s_dra_driver_torch.kube.restclient import KubeClientConfig, RESTClient
+    from k8s_dra_driver_torch.plugin import grpc_service
+
+    sub = f"{label} (b) plugin binary"
+    args = ["k8s_dra_driver_torch.plugin.main", "--kubeconfig", str(kubeconfig),
+            "--node-name", LOOP_NODE, "--cdi-root", str(root / "cdi"),
+            "--plugin-path", str(root / "p"), "--registry-path", str(root / "r"),
+            "--parted-state-path", str(root / "parted.json"), "--http-port", "0",
+            "--cleanup-interval-s", "1"]
+    if DEV == "cpu":  # a rehearsal: a fake host
+        args += ["--fake-topology", "v5e-4", "--fake-host-id", "0"]
+    t0 = time.perf_counter()
+    child, lines = _spawn(args)
+    try:
+        published = _wait_for("node-0's slice in the mock", lambda: [
+            s for s in api.server.list("ResourceSlice") if s.spec.pool.name == LOOP_NODE])
+        visible_ms = (time.perf_counter() - t0) * 1e3
+        _wait_for("the serving line", lambda: child.poll() is not None or any(
+            "serving on" in ln for ln in lines))
+        text = "".join(lines)
+        port = int(re.search(r"diagnostics on http://127\.0\.0\.1:(\d+)/metrics", text)[1])
+        healthz = _http(port, "/healthz")
+        reader = RESTClient(KubeClientConfig.load(str(kubeconfig)))
+        read_back = [objects.to_json(s) for s in reader.list("ResourceSlice")
+                     if s.spec.pool.name == LOOP_NODE]
+        registration = grpc_service.RegistrationClient(str(root / "r" / "tpu.google.com-reg.sock"))
+        try:
+            info = registration.handshake()
+        finally:
+            registration.close()
+        rc = _stop(child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    text = "".join(lines)
+    after = [s for s in api.server.list("ResourceSlice") if s.spec.pool.name == LOOP_NODE]
+    log(f"{sub}: its slice visible in the mock {visible_ms:.0f} ms after spawn ({card}): "
+        f"{[(s.metadata.name, [d.name for d in s.spec.devices]) for s in published]}; read back "
+        f"over REST equal: {read_back == [objects.to_json(s) for s in published]}; /healthz "
+        f"{healthz!r}; handshake {info.type} {info.name} {info.endpoint}; exit {rc} on SIGTERM, "
+        f"the slice left published {[s.metadata.name for s in after]}; stderr:\n{text.rstrip()}")
+    if rc != 0 or healthz != b"ok" or "Traceback" in text or "shutting down" not in text \
+            or read_back != [objects.to_json(s) for s in published] \
+            or info.endpoint != str(root / "p" / "dra.sock") \
+            or [s.metadata.uid for s in after] != [s.metadata.uid for s in published]:
+        raise AssertionError(f"{sub}: the plugin binary misbehaved over REST (exit {rc})")
+    return {"plugin_slice_visible_ms": visible_ms, "slice_uid": published[0].metadata.uid}
+
+
+def _seats(api, pool: str) -> list:
+    return sorted((d.basic.attributes["workerId"].value,
+                   d.basic.attributes["coordinatorAddress"].value, s.metadata.name,
+                   s.spec.pool.generation)
+                  for s in api.server.list("ResourceSlice") if s.spec.pool.name == pool
+                  for d in s.spec.devices)
+
+
+def _controllers(label, api, kubeconfig, counts, card, spawned: list) -> tuple:
+    """Leg (c): two ``controller.main --leader-elect`` children (each added
+    to ``spawned`` as it starts); 64 Nodes of one v5e-256 domain; the
+    leader SIGTERMed.  Returns the numbers and the surviving controller."""
+    from k8s_dra_driver_torch.controller.leaderelection import LeaderElectionConfig
+    from k8s_dra_driver_torch.controller.slice_manager import (
+        DEFAULT_COORDINATOR_PORT,
+        SLICE_DOMAIN_LABEL,
+        SLICE_HOST_ID_LABEL,
+    )
+    from k8s_dra_driver_torch.kube import objects
+
+    sub = f"{label} (c) controllers"
+    cfg = LeaderElectionConfig()
+    kids = {}
+    for name in ("controller-a", "controller-b"):
+        kids[name] = _spawn(["k8s_dra_driver_torch.controller.main", "--kubeconfig",
+                             str(kubeconfig), "--leader-elect"], {"POD_NAME": name})
+        spawned.append(kids[name][0])
+
+    def lease():
+        try:
+            return api.server.get("Lease", cfg.lease_name, cfg.namespace)
+        except Exception:
+            return None
+
+    holder = _wait_for("a leader", lambda: (lease() or None) and lease().spec.holder_identity)
+    _wait_for("the leader's Node watch", lambda: any(w.kind == "Node" for w in api.server._watches))
+    time.sleep(cfg.renew_period_s)  # a renew period: the standby stays standby
+    standby = next(n for n in kids if n != holder)
+    leading = {n: "acquired leadership" in "".join(lines) for n, (_, lines) in kids.items()}
+    if lease().spec.holder_identity != holder or leading != {holder: True, standby: False}:
+        raise AssertionError(f"{sub}: not exactly one leader: {leading}, lease "
+                             f"{lease().spec.holder_identity!r}")
+    domain, hosts = CLUSTER_DOMAIN
+    pool = f"slice-{domain}"
+    counts.clear()
+    t0 = time.perf_counter()
+    for h in range(hosts):
+        api.server.create(objects.Node(metadata=objects.ObjectMeta(name=f"{domain}-{h}", labels={
+            "kubernetes.io/hostname": f"{domain}-{h}", SLICE_DOMAIN_LABEL: domain,
+            SLICE_HOST_ID_LABEL: str(h)})))
+    _wait_for(f"{hosts} seats", lambda: len(_seats(api, pool)) == hosts, interval=0.002)
+    publish_ms = (time.perf_counter() - t0) * 1e3
+    requests = dict(sorted(counts.items()))
+    n_requests = sum(requests.values())
+    seats = _seats(api, pool)
+    (published,) = [s for s in api.server.list("ResourceSlice") if s.spec.pool.name == pool]
+    selector = objects.to_json(published.spec.node_selector)
+    log(f"{sub}: {holder} leads, {standby} stands by; {hosts} nodes of {domain} to {len(seats)} "
+        f"seats in {publish_ms:.0f} ms (host clock, {card}); requests at the mock meanwhile "
+        f"{n_requests}: {requests}; the limiter explains ({n_requests} - 10) / 5 = "
+        f"{(n_requests - 10) / 5:.1f} s; pool generation {published.spec.pool.generation}, "
+        f"selector {selector}")
+    want_coord = f"{domain}-0:{DEFAULT_COORDINATOR_PORT}"
+    if [s[0] for s in seats] != list(range(hosts)) or {s[1] for s in seats} != {want_coord} \
+            or len({s[2] for s in seats}) != 1 \
+            or selector["nodeSelectorTerms"][0]["matchExpressions"][0]["values"] != [domain]:
+        raise AssertionError(f"{sub}: the seats are off: {seats[:3]} ...")
+
+    seen: list = []
+    watch = api.server.watch("ResourceSlice", lambda e: seen.append(
+        (e.type, e.object.spec.pool.name, len(e.object.spec.devices))), replay=False)
+    child, lines = kids[holder]
+    lists = counts.get(("LIST", "resourceslices"), 0)
+    t0 = time.perf_counter()
+    rc = _stop(child)
+    released_ms = (time.perf_counter() - t0) * 1e3
+    _wait_for("the standby's lease", lambda: lease().spec.holder_identity == standby)
+    handover_ms = (time.perf_counter() - t0) * 1e3
+    # the new leader's manager replays the Nodes, then its publish lists its
+    # slices; a write would follow within the limiter's 0.2 s: wait for 2 s
+    # without a ResourceSlice request
+    _wait_for("the new leader's publish",
+              lambda: counts.get(("LIST", "resourceslices"), 0) > lists)
+    quiet = {"n": -1, "since": 0.0}
+
+    def settled():
+        n = sum(v for (_, what), v in counts.items() if what == "resourceslices")
+        if n != quiet["n"]:
+            quiet.update(n=n, since=time.perf_counter())
+        return time.perf_counter() - quiet["since"] >= 2.0
+
+    _wait_for("the new leader's slice traffic to settle", settled, interval=0.05)
+    watch.stop()
+    after = _seats(api, pool)
+    text = "".join(lines)
+    log(f"{sub}: the leader exited {rc} {released_ms:.0f} ms after SIGTERM; the standby holds "
+        f"the lease {handover_ms:.0f} ms after it (renew period {cfg.renew_period_s} s, "
+        f"{card}); slice events a watcher saw meanwhile {seen}; the seats after "
+        f"{'unchanged' if after == seats else after[:3]}")
+    bound_ms = (cfg.renew_period_s + 2.0) * 1e3
+    if rc != 0 or "Traceback" in text or handover_ms > bound_ms or after != seats \
+            or any(p == pool for _, p, _ in seen):
+        raise AssertionError(f"{sub}: the handover lost or rewrote the seats (exit {rc}, "
+                             f"{handover_ms:.0f} ms of at most {bound_ms:.0f})")
+    return ({"controller_publish_ms": publish_ms, "controller_requests": n_requests,
+             "limiter_s": (n_requests - 10) / 5, "handover_ms": handover_ms},
+            kids[standby])
+
+
+def _consumer_pair(label, envs) -> list:
+    """Leg (d)'s pods: one child a claim, ``--check``, then one gloo group
+    of world 2 at the coordinator re-pointed to localhost; worker 0 serves."""
+    from pathlib import Path
+
+    port = _free_port()
+    kids = []
+    argv = ["--device", "cpu"] if DEV == "cpu" else []
+    for env in envs:
+        child_env = _child_env()
+        child_env.update(env)
+        child_env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+        kids.append(subprocess.Popen([sys.executable, "-c", MH_CHILD, *argv], env=child_env,
+                                     cwd=Path(__file__).resolve().parent,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for kid in kids:
+            out, err = kid.communicate(timeout=300)
+            if kid.returncode != 0:
+                raise AssertionError(f"{label} (d): a consumer exited {kid.returncode}:\n"
+                                     f"{err[-3000:]}")
+            outs.append((out, err))
+    finally:
+        for kid in kids:
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait(timeout=30)
+    return outs
+
+
+def _multi_host_claims(label, api, kubeconfig, root, sock_root, slice_uid, card) -> dict:
+    """Leg (d): node-0 and node-1 labelled into a 2-host domain, a real-mode
+    ``Driver`` each (one card, two checkpoints and CDI roots), the
+    controller's seats, two claims of a card and a seat allocated over REST
+    and prepared (node-0's over the kubelet's socket), the pods' consumers
+    in one gloo group, worker 0's serving demo on the card."""
+    from k8s_dra_driver_torch.controller.slice_manager import (
+        SLICE_DOMAIN_LABEL,
+        SLICE_HOST_ID_LABEL,
+    )
+    from k8s_dra_driver_torch.e2e import harness
+    from k8s_dra_driver_torch.kube import objects
+    from k8s_dra_driver_torch.kube.restclient import KubeClientConfig, RESTClient
+    from k8s_dra_driver_torch.plugin import driver as pdriver
+    from k8s_dra_driver_torch.plugin import grpc_service
+    from k8s_dra_driver_torch.scheduler.allocator import Allocator
+
+    sub = f"{label} (d) multi-host claim"
+    client = RESTClient(KubeClientConfig.load(str(kubeconfig)))
+    nodes = [LOOP_NODE, "node-1"]
+    labels = {}
+    for host, name in enumerate(nodes):
+        try:
+            node = client.get("Node", name)
+        except Exception:
+            node = client.create(objects.Node(metadata=objects.ObjectMeta(
+                name=name, labels={"kubernetes.io/hostname": name})))
+        node.metadata.labels.update({SLICE_DOMAIN_LABEL: CLUSTER_PAIR,
+                                     SLICE_HOST_ID_LABEL: str(host)})
+        labels[name] = dict(client.update(node).metadata.labels)
+    drivers = {name: pdriver.Driver(client, pdriver.DriverConfig(
+        node_name=name, cdi_root=str(root / name / "cdi"),
+        checkpoint_path=str(root / name / "cp.json"), socket_dir=str(root / name / "s"),
+        selftest_interval_s=3600.0)) for name in nodes}
+    adopted = [s.metadata.uid for s in api.server.list("ResourceSlice")
+               if s.spec.pool.name == LOOP_NODE]
+    seats = _wait_for("the pair's seats", lambda: len(_seats(api, f"slice-{CLUSTER_PAIR}")) == 2
+                      and _seats(api, f"slice-{CLUSTER_PAIR}"))
+    plugin = grpc_service.PluginServer(drivers[LOOP_NODE], plugin_dir=str(sock_root / "p0"),
+                                       registry_dir=str(sock_root / "r0"))
+    plugin.start()
+    dra = None
+    envs, results = [], []
+    try:
+        dra = grpc_service.DRAClient(plugin.plugin_socket)
+        allocator = Allocator(client)
+        t0 = time.perf_counter()
+        for host, name in enumerate(nodes):
+            claim = client.create(objects.from_json({
+                "apiVersion": "resource.k8s.io/v1beta1", "kind": "ResourceClaim",
+                "metadata": {"name": f"worker-{host}", "namespace": "default"},
+                "spec": {"devices": {"requests": [
+                    {"name": "card", "deviceClassName": harness.TPU_CLASS},
+                    {"name": "seat", "deviceClassName": harness.MEMBERSHIP_CLASS}]}}}))
+            claim = allocator.allocate(claim, node_name=name, node_labels=labels[name])
+            ref = pdriver.ClaimRef(claim.metadata.uid, claim.metadata.name, "default")
+            if name == LOOP_NODE:
+                res = dra.node_prepare_resources([ref]).claims[ref.uid]
+                error, ids = res.error, [i for d in res.devices for i in d.cdi_device_ids]
+            else:
+                res = drivers[name].node_prepare_resources([ref])[ref.uid]
+                error, ids = res.error, [i for d in res.devices for i in d["cdi_device_ids"]]
+            if error:
+                raise AssertionError(f"{sub}: preparing {claim.metadata.name} failed: {error}")
+            results.append(sorted((r.pool, r.device)
+                                  for r in claim.status.allocation.devices.results))
+            env, dev_nodes = _claim_container(root / name / "cdi", claim.metadata.uid, ids)
+            envs.append(env)
+        claims_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if dra is not None:
+            dra.close()
+        plugin.stop()
+    log(f"{sub}: node-0's slice adopted in place: {adopted == [slice_uid]}; seats {seats}; "
+        f"claims {results} allocated over REST and prepared in {claims_ms:.0f} ms ({card}); "
+        f"environments {[{k: v for k, v in e.items() if k.startswith(('TPU_', 'JAX_'))} for e in envs]}")
+    if adopted != [slice_uid] or [r[1][0] for r in results] != [f"slice-{CLUSTER_PAIR}"] * 2:
+        raise AssertionError(f"{sub}: node-0's slice was re-created or a seat is missing")
+    outs = _consumer_pair(label, envs)
+    docs = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    for (out, _), doc in zip(outs, docs):
+        log(f"{sub}: worker {doc['worker_id']}'s consumer: stdout:\n{out.rstrip()}")
+    ids = sorted(d["worker_id"] for d in docs)
+    worker0 = next(d for d in docs if d["worker_id"] == 0)
+    if ids != [0, 1] or {d["host_count"] for d in docs} != {2} \
+            or {e.get("JAX_COORDINATOR_ADDRESS") for e in envs} != {f"{LOOP_NODE}:8476"} \
+            or len({d["coordinator"] for d in docs}) != 1 \
+            or any(d["gathered"] != [0, 1] or d["world"] != 2 or d["rank"] != d["worker_id"]
+                   for d in docs):
+        raise AssertionError(f"{sub}: the pair did not rendezvous as workers 0 and 1: {docs}")
+    _demo_gates(sub, worker0["serve_demo"], 0)
+    appends = worker0["kernel_launches"].get("paged_attention:append", 0)
+    log(f"{sub}: worker 0's demo {worker0['serve_demo_seconds']:.2f} s, launches "
+        f"{worker0['kernel_launches']}")
+    if not appends and DEV == "cuda":
+        raise AssertionError(f"{sub}: the append kernel was never launched")
+    for name, drv in drivers.items():
+        for uid in drv.state.prepared_claim_uids():
+            error = drv.node_unprepare_resources([pdriver.ClaimRef(uid, "", "default")])[uid].error
+            if error or uid in drv.state.prepared_claim_uids():
+                raise AssertionError(f"{sub}: unpreparing {uid} on {name} failed: {error}")
+    return {"claims_ms": claims_ms, "demo_s": worker0["serve_demo_seconds"], "appends": appends}
+
+
+def _slice_specs(label, card) -> dict:
+    """Leg (e): ``apply_spec`` of slice-test1 and multislice-test1 over fake
+    v5e-16 hosts, the port's ``SliceManager`` in process over a
+    ``RESTClient`` to a mock of the cluster's store."""
+    import tempfile
+    from pathlib import Path
+
+    from k8s_dra_driver_torch import consumer
+    from k8s_dra_driver_torch.controller.slice_manager import SliceManager
+    from k8s_dra_driver_torch.e2e import harness, mock_api, spec_runner
+    from k8s_dra_driver_torch.kube.restclient import KubeClientConfig, RESTClient
+
+    specs = Path(__file__).resolve().parent / "demo" / "specs" / "quickstart"
+    out = {}
+    for spec, kw, pools in (
+            ("slice-test1", dict(slice_domain="v5e-16-demo"), 1),
+            ("multislice-test1", dict(slice_domain="ms", slices=2, slice_group="g"), 4)):
+        sub = f"{label} (e) {spec}"
+        cluster = harness.make_cluster(hosts=4, topology="v5e-16",
+                                       work_dir=tempfile.mkdtemp(prefix=f"{spec}-"), **kw)
+        api = mock_api.MockKubeAPI(server=cluster.server, token=CLUSTER_TOKEN).start()
+        manager = SliceManager(RESTClient(KubeClientConfig(server=api.url, token=CLUSTER_TOKEN)))
+        try:
+            manager.start()
+            _wait_for("the seats", lambda: len({s.spec.pool.name for s in cluster.server.list(
+                "ResourceSlice") if s.metadata.labels.get("dra.tpu.google.com/owner")
+                == "controller"}) == pools)
+            t0 = time.perf_counter()
+            pods = spec_runner.apply_spec(cluster, specs / f"{spec}.yaml")
+            ms = (time.perf_counter() - t0) * 1e3
+            ctxs = [consumer.attach(environ=p.env, init_distributed=False) for p in pods]
+        finally:
+            manager.stop()
+            api._closing.set()
+            api.stop()
+        seats = sorted(d["device_name"] for p in pods for d in p.devices
+                       if d["device_name"].startswith("membership-"))
+        ident = sorted((c.global_worker_id, c.worker_id, c.host_count, c.num_slices,
+                        c.coordinator_address, c.megascale_coordinator) for c in ctxs)
+        log(f"{sub}: apply_spec {ms:.2f} ms (host clock, {card}); pods on "
+            f"{sorted(p.node for p in pods)}; seats {seats}; identities {ident}")
+        chips = all(any(d["device_name"].startswith("tpu-slice-2x2") for d in p.devices)
+                    for p in pods)
+        if len(pods) != 4 or len({p.node for p in pods}) != 4 or not chips \
+                or len({(p.node, s) for p in pods for s in [d["device_name"] for d in p.devices
+                        if d["device_name"].startswith("membership-")]}) != 4:
+            raise AssertionError(f"{sub}: not 4 pods on 4 nodes, each a 2x2 block and a seat")
+        if spec == "slice-test1":
+            ok = ([i[1] for i in ident] == [0, 1, 2, 3] and {i[2] for i in ident} == {4}
+                  and len({i[4] for i in ident}) == 1)
+        else:
+            ok = ([i[0] for i in ident] == [0, 1, 2, 3] and {i[3] for i in ident} == {2}
+                  and len({i[5] for i in ident}) == 1 and ident[0][5].endswith(":8081")
+                  and {p.env.get("MEGASCALE_NUM_SLICES") for p in pods} == {"2"})
+        if not ok:
+            raise AssertionError(f"{sub}: the identities are off: {ident}")
+        out[spec] = ms
+    return {"apply_spec_ms": out}
+
+
+def phase_driver_cluster(torch, card):
+    """The driver against an API server over HTTP, and the multi-host slice
+    controller ("driver cluster"), each leg timed on the host clock:
+    (a) the port's ``MockKubeAPI`` on localhost with a bearer token and a
+    kubeconfig; the port's ``RESTClient`` through CRUD, a namespaced kind,
+    a label-selected list, a wrong token and 409s, 200 requests at
+    client-go's 5 QPS / burst 10 (p50/p99 ms a verb); a watch's
+    server-side create to callback (p50/p99); an ``ERROR`` frame mid
+    stream and a 410 on reconnect with a node deleted in the gap: every
+    object seen, the DELETED synthesised, ``dra_watch_reconnects_total``;
+    (b) ``python -m k8s_dra_driver_torch.plugin.main --kubeconfig`` in
+    real mode over the card: its slice in the mock and read back over
+    REST, the handshake, ``/healthz``, exit 0 on SIGTERM with the slice
+    left published (as the reference's binary leaves it); (c) two
+    ``controller.main --leader-elect`` children: one lease holder; 64
+    Nodes of one v5e-256 domain to 64 seats (worker ids 0-63, coordinator
+    host 0) under the domain's selector, ms and the requests at the mock;
+    the leader SIGTERMed: the standby leads within a renew period plus 2 s
+    and no watcher sees the seat pool written; (d) node-0 and node-1 in a
+    2-host domain, a real-mode ``Driver`` each over REST on the one card,
+    the controller's seats, two claims of a card and a seat allocated by
+    the port's ``Allocator`` over REST and prepared (node-0's through the
+    kubelet's socket), their consumers ``--check``ed and in one gloo group
+    of world 2 as workers 0 and 1, worker 0's ``serve_demo`` launching the
+    paged append kernel; (e) ``slice-test1`` and ``multislice-test1``
+    under an in-process ``SliceManager`` over REST.  Returns the launches
+    by kernels-line row."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from k8s_dra_driver_torch.e2e import harness, mock_api
+    from k8s_dra_driver_torch.kube import objects
+    from k8s_dra_driver_torch.kube.fakeserver import InMemoryAPIServer
+    from k8s_dra_driver_torch.utils.faults import FaultInjector
+
+    label = "driver cluster"
+    if DEV == "cpu":  # a rehearsal: a fake host of 4 chips
+        os.environ["TPUINFO_FAKE_TOPOLOGY"] = "v5e-4"
+    else:
+        os.environ.pop("TPUINFO_FAKE_TOPOLOGY", None)  # the card, never a fake topology
+    tmp = Path(tempfile.mkdtemp(prefix="driver-cluster-"))
+    sock_root = Path(tempfile.mkdtemp(prefix="dra-", dir="/tmp"))
+    api = mock_api.MockKubeAPI(server=InMemoryAPIServer(fault_injector=FaultInjector(SEED)),
+                               token=CLUSTER_TOKEN).start()
+    harness.install_device_classes(api.server)
+    api.server.create(objects.Node(metadata=objects.ObjectMeta(
+        name=LOOP_NODE, labels={"kubernetes.io/hostname": LOOP_NODE})))
+    kubeconfig = _kubeconfig_file(tmp / "kubeconfig", api.url, CLUSTER_TOKEN)
+    counts = _count_requests(api)
+    times: dict = {}
+    kids: list = []
+    t_phase = time.perf_counter()
+    try:
+        times.update(_rest_face(label, api, kubeconfig, card))
+        times.update(_plugin_over_rest(label, api, kubeconfig, sock_root / "main", card))
+        numbers, survivor = _controllers(label, api, kubeconfig, counts, card, kids)
+        times.update(numbers)
+        got = _multi_host_claims(label, api, kubeconfig, tmp, sock_root, times.pop("slice_uid"),
+                                 card)
+        times.update(got)
+        rc = _stop(survivor[0])
+        if rc != 0 or "Traceback" in "".join(survivor[1]):
+            raise AssertionError(f"{label}: the surviving controller exited {rc}:\n"
+                                 f"{''.join(survivor[1])[-3000:]}")
+        times.update(_slice_specs(label, card))
+    finally:
+        for kid in kids:
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait(timeout=30)
+        api._closing.set()
+        api.stop()
+        shutil.rmtree(sock_root, ignore_errors=True)
+    times["phase_s"] = time.perf_counter() - t_phase
+    log(f"{label}: times {json.dumps(times)} ({card})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"paged_attention": times["appends"]}
+
+
 def forward_flops(cfg, batch: int, seq: int) -> int:
     """FLOPs of one forward: 2 per weight per token (the tied logits'
     table included) plus QK^T and PV, 4·B·H·S²·hd a layer."""
@@ -9004,6 +9733,11 @@ def main() -> int:
 
     run("driver loop", driver_loop)
 
+    def driver_cluster():
+        launches["cluster"] = phase_driver_cluster(torch, card)
+
+    run("driver cluster", driver_cluster)
+
     def entry_point():
         launches["entry"] = phase_entry_point(torch, card)
 
@@ -9027,7 +9761,9 @@ def main() -> int:
     # graphed twin's run); so do the driver node's (the prepared consumer's
     # demo, read from its launch line), the driver loop's (the consumer's demo
     # in the claim the allocator gave tpu-test2's pod, read from its launch
-    # line) and the pod entry points' (the demo's appends
+    # line), the driver cluster's (worker 0's demo in the claim of a card and
+    # a controller-published seat, read from its output) and the pod entry
+    # points' (the demo's appends
     # in this process and on its two ranks) and the entry point's (the dry
     # run's flash and appends at 8, summed over its ranks); the
     # serve workers phase adds its decode workers' appends, read from
@@ -9060,7 +9796,7 @@ def main() -> int:
             "name": name, **meta,
             "launches": (main_counts[name] + launches["pod"].get(name, 0)
                          + launches["driver"].get(name, 0) + launches["loop"].get(name, 0)
-                         + launches["entry"].get(name, 0)),
+                         + launches["cluster"].get(name, 0) + launches["entry"].get(name, 0)),
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"], "plain_ms": nums["plain_ms"],
             "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
             "library_ms": nums["library_ms"],

@@ -15,6 +15,7 @@ events).  It is the test/bench backbone the reference never built (SURVEY.md
 
 from __future__ import annotations
 
+import os
 import threading
 import uuid as uuidlib
 from dataclasses import dataclass
@@ -78,10 +79,13 @@ class InMemoryAPIServer:
         self._objects: dict[tuple[str, str, str], Any] = {}
         self._rv = 0
         self._watches: list[Watch] = []
-        # Chaos hook: any object with ``before(verb, kind)``; every verb
-        # consults it BEFORE touching the store, so an injected failure
-        # never half-applies.  The port's utils/faults.py has no API-server
-        # kinds yet, so ``DRA_FAULTS`` does not arm it here.
+        # Chaos hook (utils/faults.py): every verb consults it BEFORE
+        # touching the store, so an injected failure never half-applies.
+        # ``DRA_FAULTS`` arms it from the environment for manual chaos runs.
+        if fault_injector is None and os.environ.get("DRA_FAULTS"):
+            from k8s_dra_driver_torch.utils.faults import FaultInjector
+
+            fault_injector = FaultInjector.from_env(os.environ["DRA_FAULTS"])
         self.faults = fault_injector
         # Admission-time invariant checks, the in-process analog of a
         # validating admission plugin: per kind, ``fn(current, updated)``

@@ -1,4 +1,4 @@
-"""The port of ``k8s_dra_driver_tpu/plugin/main.py`` (lines 1-231; copied: the port
+"""The port of ``k8s_dra_driver_tpu/plugin/main.py`` (copied: the port
 imports nothing of the JAX package).
 
 Kubelet-plugin binary: ``python -m k8s_dra_driver_torch.plugin.main``.
@@ -10,10 +10,11 @@ in-process API server (``--fake-cluster``), which is also how the kind-less
 demo harness exercises it; a real client-go-equivalent transport is a
 deployment concern this repo stubs deliberately (zero-egress environment).
 
-Without ``--fake-cluster`` the port logs that no API server is reachable
-and returns 2 (its REST client, ``kube/restclient.py``, is ROADMAP item
-21).  A node without a fake topology enumerates its NVIDIA cards through
-``tpuinfo/binding.py`` (the driver's real mode).
+Without ``--fake-cluster`` the port dials the API server through its REST
+client (``kube/restclient.py``: ``--kubeconfig``, then ``$KUBECONFIG``,
+then the in-cluster service account) and returns 2 when the probe fails,
+as the reference's does.  A node without a fake topology enumerates its
+NVIDIA cards through ``tpuinfo/binding.py`` (the driver's real mode).
 """
 
 from __future__ import annotations
@@ -148,14 +149,14 @@ def main(argv: list[str] | None = None) -> int:
         server = InMemoryAPIServer()
         install_device_classes(server)
     else:
-        # The REST client (the reference's kube/restclient.py) is not in
-        # the port yet, so no API server is reachable: fail as the
-        # reference's binary does when its probe fails.
-        log.error(
-            "cannot reach an API server (the port has no REST client yet: "
-            "kube/restclient.py is ROADMAP item 21); use --fake-cluster for demos"
-        )
-        return 2
+        from k8s_dra_driver_torch.kube.restclient import KubeClientConfig, RESTClient
+
+        try:
+            server = RESTClient(KubeClientConfig.load(args.kubeconfig))
+            server.probe()  # fail fast on unreachable server / bad auth
+        except Exception as exc:
+            log.error("cannot reach an API server (%s); use --fake-cluster for demos", exc)
+            return 2
     labels = None
     if (
         not (args.fake_topology and args.fake_host_id)

@@ -1,10 +1,16 @@
-"""Fault injection for the serving engines, the fleet router, the
-disaggregated handoff channel and the transport: those kinds of
-``k8s_dra_driver_tpu/utils/faults.py``, and its autoscaler kinds (the
-API-server and scheduler kinds stay in the reference).
+"""Fault injection (``k8s_dra_driver_tpu/utils/faults.py``, copied: the
+port imports nothing of the JAX package): every kind of the reference but
+its scheduler kinds (``before_sched_commit``), which stay with the
+scheduler extender and the contention harness, not ported yet.
 
 A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
 
+* by ``kube.fakeserver.InMemoryAPIServer`` ahead of every verb
+  (:meth:`FaultInjector.before`): injected 5xx/429 errors, 409 conflicts
+  and added latency, before the store mutates, so an injected failure never
+  half-applies; and by ``e2e.mock_api.MockKubeAPI`` at its HTTP-only seams:
+  a response cut mid-body, 410 on a watch connect, an ``ERROR`` frame mid
+  stream, a silent watch hang;
 * by the engine once per step before it dispatches: added step latency,
   an injected :class:`StepFault` attributable to one slot, or NaN logits
   for one slot;
@@ -24,8 +30,11 @@ A :class:`FaultInjector` armed with :class:`FaultProfile` s is consulted
 
 Decisions come from ``random.Random(seed)``, drawn in the reference's
 order, so an injector of each package armed alike makes the same
-decisions.  ``FaultInjector.from_env`` reads the reference's
-``DRA_FAULTS`` grammar for these kinds and refuses any other key by name.
+decisions.  Every injection counts on ``dra_faults_injected_total`` (by
+profile and fault) in the port's registry and journals ``inject.<fault>``
+under component ``faults``, as the reference's do.
+``FaultInjector.from_env`` reads the reference's ``DRA_FAULTS`` grammar
+and refuses any other key by name, the scheduler kinds' among them.
 """
 
 from __future__ import annotations
@@ -34,6 +43,13 @@ import random
 import threading
 import time
 from dataclasses import dataclass, field
+
+from k8s_dra_driver_torch.utils.journal import JOURNAL
+from k8s_dra_driver_torch.utils.metrics import REGISTRY
+
+_INJECTED = REGISTRY.counter(
+    "dra_faults_injected_total", "Faults injected, by profile and fault type"
+)
 
 ENV_VAR = "DRA_FAULTS"
 
@@ -72,11 +88,25 @@ class ReplicaCrash(RuntimeError):
 @dataclass
 class FaultProfile:
     """One armed fault source.  Rates are probabilities per matching
-    decision; ``slots``/``steps``/``replicas``/``peers`` scope it (empty =
-    all; ``steps`` are engine steps, router ticks or a connection's sent
+    decision; ``watch_*`` counts are storm budgets spent one per injection;
+    ``verbs``/``kinds`` scope the API-server kinds and
+    ``slots``/``steps``/``replicas``/``peers`` the others (empty = all;
+    ``steps`` are engine steps, router ticks or a connection's sent
     frames, by the hook); ``limit`` caps its injections (0 = unlimited)."""
 
     name: str = "fault"
+    # API-server kinds, per verb ahead of the store, and at the HTTP seams
+    error_rate: float = 0.0  # probability of an injected APIError
+    error_code: int = 500
+    conflict_rate: float = 0.0  # probability of an injected 409 Conflict
+    latency_s: float = 0.0  # slept before every matching operation
+    drop_rate: float = 0.0  # probability of a truncated HTTP response
+    watch_gone: int = 0  # next N watch connects answer 410 Gone
+    watch_error_frames: int = 0  # next N streams get an ERROR frame
+    watch_hangs: int = 0  # next N streams stall silently...
+    watch_hang_s: float = 0.0  # ...for this long before resuming
+    verbs: tuple = ()  # e.g. ("PUT",); empty = all verbs
+    kinds: tuple = ()  # e.g. ("ResourceSlice",); empty = all kinds
     # engine kinds, per (slot, step)
     nan_logits_rate: float = 0.0  # probability a slot's logits go NaN
     step_raise_rate: float = 0.0  # probability of a StepFault pre-dispatch
@@ -112,7 +142,8 @@ class FaultProfile:
 
 
 class FaultInjector:
-    """Deterministic, thread-safe source of engine faults."""
+    """Deterministic, thread-safe source of faults, shared by the
+    in-memory store and the HTTP facade."""
 
     def __init__(self, seed: int = 0):
         self._rng = random.Random(seed)
@@ -123,6 +154,11 @@ class FaultInjector:
     def arm(self, profile: FaultProfile) -> FaultProfile:
         with self._lock:
             self._profiles.append(profile)
+        JOURNAL.record(
+            "faults", "profile.arm", correlation=profile.name,
+            error_rate=profile.error_rate, conflict_rate=profile.conflict_rate,
+            drop_rate=profile.drop_rate, watch_gone=profile.watch_gone,
+        )
         return profile
 
     def disarm(self, name: str | None = None) -> None:
@@ -131,6 +167,47 @@ class FaultInjector:
                 self._profiles.clear()
             else:
                 self._profiles = [p for p in self._profiles if p.name != name]
+        JOURNAL.record("faults", "profile.disarm", correlation=name or "*")
+
+    # -- API-server decision points (reference ``:213-273``) ---------------------
+
+    def before(self, verb: str, kind: str) -> None:
+        """Store hook, ahead of every operation: may sleep (latency) and
+        may raise an injected ``Conflict`` or ``APIError``."""
+        from k8s_dra_driver_torch.kube.fakeserver import APIError, Conflict
+
+        for p in self._matching(verb, kind):
+            if p.latency_s > 0:
+                time.sleep(p.latency_s)
+            if p.conflict_rate and self._roll(p, p.conflict_rate, "conflict", verb, kind):
+                raise Conflict(f"fault injected by profile {p.name!r}")
+            if p.error_rate and self._roll(p, p.error_rate, "error", verb, kind):
+                raise APIError(p.error_code, f"fault injected by profile {p.name!r}")
+
+    def take_drop(self, verb: str, kind: str) -> bool:
+        """HTTP only: should this response be cut mid-body?"""
+        for p in self._matching(verb, kind):
+            if p.drop_rate and self._roll(p, p.drop_rate, "drop", verb, kind):
+                return True
+        return False
+
+    def take_watch_gone(self, kind: str) -> bool:
+        """HTTP only: should this watch connect be answered 410 Gone?"""
+        return self._take_counted(kind, "watch_gone")
+
+    def take_watch_error_frame(self, kind: str) -> bool:
+        """HTTP only: should this stream get an ERROR frame and close?"""
+        return self._take_counted(kind, "watch_error_frames")
+
+    def take_watch_hang(self, kind: str) -> float:
+        """HTTP only: seconds this stream should stall silently (0: none)."""
+        for p in self._matching("GET", kind):
+            with self._lock:
+                if p.watch_hangs > 0 and self._budget_ok(p):
+                    p.watch_hangs -= 1
+                    self._record(p, "watch_hang", "GET", kind)
+                    return p.watch_hang_s
+        return 0.0
 
     def take_step_latency(self) -> float:
         """Sleep each matching profile's step latency; return the seconds
@@ -141,7 +218,7 @@ class FaultInjector:
                 with self._lock:
                     if not self._budget_ok(p):
                         continue
-                    self._record(p, "step_latency")
+                    self._record(p, "step_latency", "STEP", "engine")
                 time.sleep(p.step_latency_s)
                 total += p.step_latency_s
         return total
@@ -149,7 +226,8 @@ class FaultInjector:
     def take_nan_logits(self, slot: int, step: int) -> bool:
         """Should this (slot, step)'s logits be poisoned to NaN?"""
         for p in self._matching_engine(slot, step):
-            if p.nan_logits_rate and self._roll(p, p.nan_logits_rate, "nan_logits"):
+            if p.nan_logits_rate and self._roll(
+                    p, p.nan_logits_rate, "nan_logits", f"slot-{slot}", f"step-{step}"):
                 return True
         return False
 
@@ -157,7 +235,8 @@ class FaultInjector:
         """Raise a :class:`StepFault` attributable to ``slot`` for this
         step, or return."""
         for p in self._matching_engine(slot, step):
-            if p.step_raise_rate and self._roll(p, p.step_raise_rate, "step_raise"):
+            if p.step_raise_rate and self._roll(
+                    p, p.step_raise_rate, "step_raise", f"slot-{slot}", f"step-{step}"):
                 raise StepFault(
                     slot,
                     f"fault injected by profile {p.name!r} (slot {slot}, step {step})",
@@ -169,7 +248,9 @@ class FaultInjector:
         """Raise a :class:`ReplicaCrash` for ``replica`` at this router
         tick, or return."""
         for p in self._matching_replica(replica, tick):
-            if p.replica_crash_rate and self._roll(p, p.replica_crash_rate, "replica_crash"):
+            if p.replica_crash_rate and self._roll(
+                    p, p.replica_crash_rate, "replica_crash", f"replica-{replica}",
+                    f"tick-{tick}"):
                 raise ReplicaCrash(
                     replica,
                     f"fault injected by profile {p.name!r} (replica {replica}, tick {tick})",
@@ -178,7 +259,9 @@ class FaultInjector:
     def take_replica_wedge(self, replica: int, tick: int) -> bool:
         """Should this replica hang (skip its burst) this tick?"""
         for p in self._matching_replica(replica, tick):
-            if p.replica_wedge_rate and self._roll(p, p.replica_wedge_rate, "replica_wedge"):
+            if p.replica_wedge_rate and self._roll(
+                    p, p.replica_wedge_rate, "replica_wedge", f"replica-{replica}",
+                    f"tick-{tick}"):
                 return True
         return False
 
@@ -186,7 +269,9 @@ class FaultInjector:
         """Should this replica's ``stats()`` read be served from the
         router's stale copy?"""
         for p in self._matching_replica(replica, tick):
-            if p.stats_stale_rate and self._roll(p, p.stats_stale_rate, "stats_stale"):
+            if p.stats_stale_rate and self._roll(
+                    p, p.stats_stale_rate, "stats_stale", f"replica-{replica}",
+                    f"tick-{tick}"):
                 return True
         return False
 
@@ -196,7 +281,8 @@ class FaultInjector:
         """Raise a :class:`SpawnFault` for this scale-up attempt, or
         return.  Scoped by ``steps`` (= spawn attempt numbers)."""
         for p in self._matching_engine(None, attempt):
-            if p.spawn_fail_rate and self._roll(p, p.spawn_fail_rate, "spawn_fail"):
+            if p.spawn_fail_rate and self._roll(
+                    p, p.spawn_fail_rate, "spawn_fail", f"spawn-{attempt}", "autoscaler"):
                 raise SpawnFault(
                     attempt,
                     f"fault injected by profile {p.name!r} (spawn attempt {attempt})",
@@ -211,7 +297,7 @@ class FaultInjector:
                 with self._lock:
                     if not self._budget_ok(p):
                         continue
-                    self._record(p, "spawn_latency")
+                    self._record(p, "spawn_latency", "SPAWN", "autoscaler")
                 total += p.spawn_latency_s
         return total
 
@@ -220,7 +306,8 @@ class FaultInjector:
     def take_handoff_drop(self, request_id: int) -> bool:
         """Channel hook: should this KV transfer be dropped in flight?"""
         for p in self._matching_engine(None, None):
-            if p.handoff_drop_rate and self._roll(p, p.handoff_drop_rate, "handoff_drop"):
+            if p.handoff_drop_rate and self._roll(
+                    p, p.handoff_drop_rate, "handoff_drop", f"request-{request_id}", "channel"):
                 return True
         return False
 
@@ -233,7 +320,7 @@ class FaultInjector:
                 with self._lock:
                     if not self._budget_ok(p):
                         continue
-                    self._record(p, "handoff_latency")
+                    self._record(p, "handoff_latency", "TRANSFER", "channel")
                 total += p.handoff_latency_s
         return total
 
@@ -241,7 +328,7 @@ class FaultInjector:
         """Channel hook: should this transfer's payload arrive corrupted?"""
         for p in self._matching_engine(None, None):
             if p.handoff_corrupt_rate and self._roll(
-                p, p.handoff_corrupt_rate, "handoff_corrupt"
+                p, p.handoff_corrupt_rate, "handoff_corrupt", f"request-{request_id}", "channel"
             ):
                 return True
         return False
@@ -249,7 +336,8 @@ class FaultInjector:
     def take_channel_down(self, channel: str) -> bool:
         """Link hook: should this interconnect link die now?"""
         for p in self._matching_channel(channel):
-            if p.channel_down_rate and self._roll(p, p.channel_down_rate, "channel_down"):
+            if p.channel_down_rate and self._roll(
+                    p, p.channel_down_rate, "channel_down", f"channel-{channel}", "channel"):
                 return True
         return False
 
@@ -262,7 +350,7 @@ class FaultInjector:
                 with self._lock:
                     if not self._budget_ok(p):
                         continue
-                    self._record(p, "channel_degrade")
+                    self._record(p, "channel_degrade", "TRANSFER", f"channel-{channel}")
                 factor *= p.channel_degrade
         return factor
 
@@ -272,14 +360,16 @@ class FaultInjector:
         """Send seam: should this frame be cut mid-body (then the
         connection dies)?"""
         for p in self._matching_engine(None, None):
-            if p.sock_truncate_rate and self._roll(p, p.sock_truncate_rate, "sock_truncate"):
+            if p.sock_truncate_rate and self._roll(
+                    p, p.sock_truncate_rate, "sock_truncate", f"peer-{peer}", "transport"):
                 return True
         return False
 
     def take_sock_reset(self, peer: str) -> bool:
         """Send seam: should the connection reset before this frame lands?"""
         for p in self._matching_engine(None, None):
-            if p.sock_reset_rate and self._roll(p, p.sock_reset_rate, "sock_reset"):
+            if p.sock_reset_rate and self._roll(
+                    p, p.sock_reset_rate, "sock_reset", f"peer-{peer}", "transport"):
                 return True
         return False
 
@@ -292,7 +382,7 @@ class FaultInjector:
                 with self._lock:
                     if not self._budget_ok(p):
                         continue
-                    self._record(p, "sock_latency")
+                    self._record(p, "sock_latency", "FRAME", "transport")
                 total += p.sock_latency_s
         return total
 
@@ -300,7 +390,8 @@ class FaultInjector:
         """Send seam: should this frame silently vanish, the connection
         left open (a one-way partition)?"""
         for p in self._matching_peer(peer, step):
-            if p.sock_partition_rate and self._roll(p, p.sock_partition_rate, "sock_partition"):
+            if p.sock_partition_rate and self._roll(
+                    p, p.sock_partition_rate, "sock_partition", f"peer-{peer}", "transport"):
                 return True
         return False
 
@@ -310,7 +401,7 @@ class FaultInjector:
             with self._lock:
                 if p.peer_hang > 0 and self._budget_ok(p):
                     p.peer_hang -= 1
-                    self._record(p, "peer_hang")
+                    self._record(p, "peer_hang", "POLL", "transport")
                     return True
         return False
 
@@ -318,6 +409,27 @@ class FaultInjector:
         """Injections so far by fault kind."""
         with self._lock:
             return dict(self._counts)
+
+    def total_injected(self) -> int:
+        with self._lock:
+            return sum(self._counts.values())
+
+    def _matching(self, verb: str, kind: str) -> list[FaultProfile]:
+        with self._lock:
+            return [
+                p
+                for p in self._profiles
+                if (not p.verbs or verb in p.verbs) and (not p.kinds or kind in p.kinds)
+            ]
+
+    def _take_counted(self, kind: str, attr: str) -> bool:
+        for p in self._matching("GET", kind):
+            with self._lock:
+                if getattr(p, attr) > 0 and self._budget_ok(p):
+                    setattr(p, attr, getattr(p, attr) - 1)
+                    self._record(p, attr, "GET", kind)
+                    return True
+        return False
 
     def _matching_engine(self, slot: int | None, step: int | None) -> list[FaultProfile]:
         with self._lock:
@@ -350,32 +462,36 @@ class FaultInjector:
                 and (step is None or not p.steps or step in p.steps)
             ]
 
-    def _roll(self, p: FaultProfile, rate: float, fault: str) -> bool:
+    def _roll(self, p: FaultProfile, rate: float, fault: str, verb: str, kind: str) -> bool:
         with self._lock:
             if not self._budget_ok(p):
                 return False
             if self._rng.random() >= rate:
                 return False
-            self._record(p, fault)
+            self._record(p, fault, verb, kind)
             return True
 
     def _budget_ok(self, p: FaultProfile) -> bool:
         # called with the lock held
         return p.limit <= 0 or p.injected < p.limit
 
-    def _record(self, p: FaultProfile, fault: str) -> None:
+    def _record(self, p: FaultProfile, fault: str, verb: str, kind: str) -> None:
         # called with the lock held
         p.injected += 1
         self._counts[fault] = self._counts.get(fault, 0) + 1
+        _INJECTED.inc(profile=p.name, fault=fault)
+        JOURNAL.record_lazy(
+            "faults", f"inject.{fault}", correlation=p.name,
+            attrs=lambda: dict(verb=verb, kind=kind),
+        )
 
     @staticmethod
     def from_env(raw: str) -> "FaultInjector":
-        """Parse a ``DRA_FAULTS`` spec (``replica_wedge_rate=1.0,replicas=0,
-        steps=2+3,seed=7``) into an injector armed with one profile named
-        "env".  Any other key (a typo, or a kind only the reference injects:
-        API-server, scheduler) raises
-        ValueError naming it: a chaos run that silently injects nothing
-        proves the wrong thing."""
+        """Parse a ``DRA_FAULTS`` spec (``error_rate=0.3,latency_ms=5,
+        verbs=PUT+POST,seed=7``) into an injector armed with one profile
+        named "env".  Any other key (a typo, or a scheduler kind, which only
+        the reference injects) raises ValueError naming it: a chaos run
+        that silently injects nothing proves the wrong thing."""
         fields = {}
         seed = 0
         for part in raw.split(","):
@@ -391,9 +507,10 @@ class FaultInjector:
                 fields[_RATE_ALIASES[key]] = float(value)
             elif key in _FLOAT_KEYS:
                 fields[key] = float(value)
-            elif key in ("peer_hang", "limit"):
+            elif key in ("error_code", "watch_gone", "watch_error_frames", "watch_hangs",
+                         "peer_hang", "limit"):
                 fields[key] = int(value)
-            elif key in ("peers", "channels"):
+            elif key in ("verbs", "kinds", "peers", "channels"):
                 fields[key] = tuple(value.split("+"))
             elif key in ("slots", "steps", "replicas"):
                 fields[key] = tuple(int(v) for v in value.split("+"))
@@ -404,13 +521,14 @@ class FaultInjector:
         return injector
 
 
-_MS_KEYS = {"step_latency_ms": "step_latency_s", "sock_latency_ms": "sock_latency_s",
+_MS_KEYS = {"latency_ms": "latency_s", "step_latency_ms": "step_latency_s", "sock_latency_ms": "sock_latency_s",
             "handoff_latency_ms": "handoff_latency_s", "spawn_latency_ms": "spawn_latency_s"}
 _RATE_ALIASES = {"sock_truncate": "sock_truncate_rate", "sock_reset": "sock_reset_rate",
                  "sock_partition": "sock_partition_rate", "handoff_drop": "handoff_drop_rate",
                  "handoff_corrupt": "handoff_corrupt_rate", "channel_down": "channel_down_rate",
                  "channel_degrade": "channel_degrade", "spawn_fail": "spawn_fail_rate"}
-_FLOAT_KEYS = ("nan_logits_rate", "step_raise_rate", "step_latency_s", "replica_crash_rate",
+_FLOAT_KEYS = ("error_rate", "conflict_rate", "drop_rate", "latency_s", "watch_hang_s",
+               "nan_logits_rate", "step_raise_rate", "step_latency_s", "replica_crash_rate",
                "replica_wedge_rate", "stats_stale_rate", "handoff_drop_rate",
                "handoff_latency_s", "handoff_corrupt_rate", "channel_down_rate",
                "sock_truncate_rate", "sock_reset_rate", "sock_latency_s",

@@ -1,15 +1,21 @@
-"""Backoff and the circuit breaker (``k8s_dra_driver_tpu/utils/retry.py``,
-the part the fleet router and the transport's ``dial`` use, copied: the
-port imports nothing of the JAX package).
+"""The port's retry, backoff and circuit-breaker policy
+(``k8s_dra_driver_tpu/utils/retry.py`` but its ``ContentionBackoff``,
+which only the multi-scheduler contention harness uses; copied: the port
+imports nothing of the JAX package).
 
 * :class:`RetryPolicy`: jittered exponential backoff parameters and the
-  retryable-error classification (:func:`is_retryable`).
+  retryable-error classification (:func:`is_retryable`: 429/5xx and
+  transport errors retry, other 4xx never do).
 * :class:`Backoff`: the schedule of one retry or reconnect loop.
+* :class:`RetryBudget`: a token bucket shared across calls, so a broad
+  outage cannot amplify into a retry storm.
 * :class:`CircuitBreaker`: closed, then open after N consecutive failures
   (fail fast), then half-open after a cooldown (one probe), then closed
   on success.  Its state is the ``dra_circuit_state`` gauge (0 closed, 1
   half-open, 2 open) of the port's registry and ``breaker.*`` journal
   events, as in the reference.
+* :func:`call_with_retry`: the one retry loop of the REST client,
+  counted on ``dra_api_retries_total`` and journalled as ``call.retry``.
 
 Thread-safe; clocks and sleeps are injectable.
 """
@@ -26,6 +32,10 @@ from typing import Callable, Optional
 from k8s_dra_driver_torch.utils.journal import JOURNAL
 from k8s_dra_driver_torch.utils.metrics import REGISTRY
 
+_RETRIES = REGISTRY.counter(
+    "dra_api_retries_total",
+    "Retried API operations, by op and failure reason",
+)
 _CIRCUIT_STATE = REGISTRY.gauge(
     "dra_circuit_state",
     "Circuit breaker state per endpoint class (0 closed, 1 half-open, 2 open)",
@@ -69,6 +79,9 @@ class RetryPolicy:
 
 
 DEFAULT_POLICY = RetryPolicy()
+# Watch reconnects have no attempt cap (the loop runs for the process
+# lifetime); only the schedule matters.
+DEFAULT_WATCH_POLICY = RetryPolicy(max_attempts=0, base_delay_s=0.2, max_delay_s=30.0)
 
 
 class Backoff:
@@ -103,6 +116,33 @@ class Backoff:
 
     def sleep(self) -> None:
         self._sleep(self.next_delay())
+
+
+class RetryBudget:
+    """Process-wide retry throttle: every retry spends a token, every
+    success refills ``refill_per_success`` up to ``cap``; under a broad
+    outage the budget drains and callers fail fast."""
+
+    def __init__(self, cap: float = 32.0, refill_per_success: float = 0.5):
+        self._cap = cap
+        self._refill = refill_per_success
+        self._tokens = cap
+        self._lock = threading.Lock()
+
+    def take(self) -> bool:
+        with self._lock:
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return True
+            return False
+
+    def on_success(self) -> None:
+        with self._lock:
+            self._tokens = min(self._cap, self._tokens + self._refill)
+
+    def remaining(self) -> float:
+        with self._lock:
+            return self._tokens
 
 
 class CircuitBreaker:
@@ -197,3 +237,53 @@ class CircuitBreaker:
         _CIRCUIT_TRANSITIONS.inc(endpoint=self.endpoint, to=to)
         JOURNAL.record("retry", f"breaker.{to}", correlation=self.endpoint,
                        failures=self._failures)
+
+
+def _reason(exc: BaseException) -> str:
+    code = getattr(exc, "code", None)
+    return str(code) if isinstance(code, int) else type(exc).__name__
+
+
+def call_with_retry(
+    fn: Callable[[], object],
+    *,
+    policy: RetryPolicy = DEFAULT_POLICY,
+    breaker: Optional[CircuitBreaker] = None,
+    budget: Optional[RetryBudget] = None,
+    op: str = "",
+    sleep: Callable[[float], None] = time.sleep,
+    rng: Optional[random.Random] = None,
+):
+    """Run ``fn`` under the policy.  Raises the last error when attempts,
+    budget or classification say stop; raises :class:`CircuitOpenError`
+    without calling ``fn`` while the breaker is open."""
+    backoff = Backoff(policy, rng=rng, sleep=sleep)
+    attempt = 1
+    while True:
+        if breaker is not None and not breaker.allow():
+            raise CircuitOpenError(f"circuit open for {breaker.endpoint or op or 'endpoint'}")
+        try:
+            result = fn()
+        except Exception as exc:
+            retryable = policy.retry_on(exc)
+            if breaker is not None and retryable:
+                breaker.on_failure()
+            if (
+                not retryable
+                or attempt >= policy.max_attempts
+                or (budget is not None and not budget.take())
+            ):
+                raise
+            _RETRIES.inc(op=op, reason=_reason(exc))
+            JOURNAL.record(
+                "retry", "call.retry", correlation=op,
+                attempt=attempt, error=f"{type(exc).__name__}: {exc}",
+            )
+            backoff.sleep()
+            attempt += 1
+        else:
+            if breaker is not None:
+                breaker.on_success()
+            if budget is not None:
+                budget.on_success()
+            return result

@@ -341,7 +341,7 @@ def test_fault_grammar_decides_as_the_reference():
         runs[pkg] = (seen, inj.stats())
     assert runs["port"] == runs["reference"]
     assert sum(runs["port"][1].values()) == 25
-    for key in ("error_rate=0.5", "sched_conflict_rate=0.5", "replica_wedge=1.0"):
+    for key in ("schedulers=0+1", "sched_conflict_rate=0.5", "replica_wedge=1.0"):
         with pytest.raises(ValueError, match=repr(key.split("=")[0])):
             tfaults.FaultInjector.from_env(key)
 

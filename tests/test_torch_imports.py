@@ -2,7 +2,8 @@
 meta-path finder refuses ``jax`` (and ``jaxlib``) and the JAX package
 ``k8s_dra_driver_tpu``, every module of ``k8s_dra_driver_torch`` (found by
 ``pkgutil.walk_packages``; the driver's node half, the allocator, the
-closed-loop harness and the kubelet's gRPC face among them) and
+closed-loop harness, the kubelet's gRPC face, the REST client, the mock
+API server and the cluster controller among them) and
 ``chip_smoke.py`` (imported as a module, its ``main`` not run) import."""
 
 import json
@@ -81,4 +82,8 @@ def test_every_port_module_and_the_smoke_import_without_jax(tmp_path):
         "scheduler.allocator", "e2e.harness", "e2e.spec_runner", "plugin.grpc_service",
         "plugin.main")}
     assert closed_loop <= names
-    assert len(names) >= 85
+    cluster_side = {f"k8s_dra_driver_torch.{m}" for m in (
+        "kube.restclient", "e2e.mock_api", "controller", "controller.leaderelection",
+        "controller.slice_manager", "controller.main")}
+    assert cluster_side <= names
+    assert len(names) >= 91

@@ -8,11 +8,15 @@ flags and node labels the same way.  Then the binary runs as a process:
 ``--fake-cluster`` on a fake v5e-16 host publishes its slice, serves the
 registration handshake and ``NodePrepareResources`` on its sockets (the
 reference's clients dial them), answers ``/healthz`` on its diagnostics
-port, and exits 0 on SIGTERM; without ``--fake-cluster`` it logs that no
-API server is reachable (the port's REST client is ROADMAP item 21) and
-returns 2, as the reference's does when its probe fails.
+port, and exits 0 on SIGTERM; without ``--fake-cluster`` it dials the
+API server of a kubeconfig through the port's REST client: against either
+package's mock API it publishes its fake host's slice over HTTP, serves
+the handshake and exits 0 on SIGTERM (the slice stays published, as the
+reference's binary leaves it), and with no node name or an unreachable
+server it returns 2, as the reference's does.
 """
 
+import json
 import os
 import re
 import shutil
@@ -92,12 +96,22 @@ def _env() -> dict:
     return env
 
 
-def test_without_a_cluster_it_returns_2():
+def _kubeconfig(path: Path, url: str, token: str = "") -> Path:
+    path.write_text(json.dumps({
+        "current-context": "c", "contexts": [{"name": "c", "context": {"cluster": "k",
+                                                                       "user": "u"}}],
+        "clusters": [{"name": "k", "cluster": {"server": url}}],
+        "users": [{"name": "u", "user": {"token": token}}]}))
+    return path
+
+
+def test_without_a_cluster_it_returns_2(tmp_path):
+    kubeconfig = _kubeconfig(tmp_path / "kc", "http://127.0.0.1:9")
     proc = subprocess.run([sys.executable, "-m", "k8s_dra_driver_torch.plugin.main",
-                           "--node-name", "n0"], env=_env(), capture_output=True, text=True,
-                          timeout=60, cwd=REPO_ROOT)
+                           "--node-name", "n0", "--kubeconfig", str(kubeconfig)], env=_env(),
+                          capture_output=True, text=True, timeout=60, cwd=REPO_ROOT)
     assert proc.returncode == 2, proc.stderr
-    assert "cannot reach an API server" in proc.stderr and "item 21" in proc.stderr
+    assert "cannot reach an API server" in proc.stderr and "Traceback" not in proc.stderr
     proc = subprocess.run([sys.executable, "-m", "k8s_dra_driver_torch.plugin.main",
                            "--fake-cluster"], env=_env(), capture_output=True, text=True,
                           timeout=60, cwd=REPO_ROOT)
@@ -147,3 +161,53 @@ def test_fake_cluster_serves_and_stops_on_sigterm():
             proc.kill()
             proc.wait(timeout=10)
         shutil.rmtree(root, ignore_errors=True)
+
+
+@pytest.mark.parametrize("mock", ["port", "reference"])
+def test_over_a_kubeconfig_it_publishes_and_stops_on_sigterm(tmp_path, mock):
+    """The binary without ``--fake-cluster``: its Node's labels (read over
+    HTTP) give the fake topology, its slice appears in the mock's store,
+    the handshake answers, and SIGTERM ends it with 0."""
+    from k8s_dra_driver_tpu.e2e import mock_api as ref_mock_api
+    from k8s_dra_driver_torch.e2e import mock_api as port_mock_api
+
+    mock_api, objects = ((port_mock_api, port_objects) if mock == "port"
+                         else (ref_mock_api, ref_objects))
+    api = mock_api.MockKubeAPI(token="t0k").start()
+    api.server.create(objects.Node(metadata=objects.ObjectMeta(name="tpu-host-1", labels={
+        "tpu.google.com/fake-topology": "v5e-16", "tpu.google.com/fake-host-id": "1"})))
+    root = Path(tempfile.mkdtemp(prefix="dra-rest-", dir="/tmp"))
+    lines: list[str] = []
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_dra_driver_torch.plugin.main", "--node-name", "tpu-host-1",
+         "--kubeconfig", str(_kubeconfig(tmp_path / "kc", api.url, "t0k")),
+         "--cdi-root", str(root / "cdi"), "--plugin-path", str(root / "p"),
+         "--registry-path", str(root / "r"), "--parted-state-path", str(root / "parted.json")],
+        env=_env(), cwd=REPO_ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    reader = threading.Thread(target=lambda: lines.extend(proc.stderr), daemon=True)
+    reader.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not any("serving on" in ln for ln in lines):
+            assert proc.poll() is None and time.monotonic() < deadline, "".join(lines)
+            time.sleep(0.05)
+        (published,) = api.server.list("ResourceSlice")
+        client = ref_grpc.RegistrationClient(str(root / "r" / "tpu.google.com-reg.sock"))
+        info = client.handshake()
+        client.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        reader.join(timeout=10)
+        after = [s.metadata.name for s in api.server.list("ResourceSlice")]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        api._closing.set()
+        api.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    text = "".join(lines)
+    assert "9 devices published" in text and "Traceback" not in text, text
+    assert published.spec.pool.name == "tpu-host-1" and len(published.spec.devices) == 9
+    assert info.endpoint == str(root / "p" / "dra.sock") and "shutting down" in text
+    assert after == [published.metadata.name]

@@ -11,12 +11,16 @@ pods).  The ``RunningPod``s must be equal (names, nodes, claims, devices,
 environment), and so must every CDI spec file and the checkpoint byte for
 byte once each work directory is written as ``<work>``; then every pod is
 deleted, in order, and after each deletion the files and the claims'
-allocations and reservations must be equal again.  ``slice-test1`` and
-``multislice-test1`` need the cluster controller's seats (ROADMAP item
-22): both packages refuse them with the same ``SpecError``.
+allocations and reservations must be equal again.  ``slice-test1`` (4
+hosts of one v5e-16 slice) and ``multislice-test1`` (2 slices of 2 hosts,
+one group) run with each package's ``SliceManager`` publishing the seats:
+the pods, their nodes, devices and environment, the files, the published
+ResourceSlices and the identity each pod's ``consumer.attach`` resolves
+must be equal, and every pod holds a distinct seat.
 """
 
 import dataclasses
+import importlib
 import uuid
 from pathlib import Path
 
@@ -122,21 +126,75 @@ def test_tpu_test3_teardown_follows_the_last_consumer(tmp_path, monkeypatch):
     assert [s[:2] for s in got["port"]] == [(True, 1), (False, 0)]
 
 
-@pytest.mark.parametrize("spec,kw", [
-    ("slice-test1", dict(slice_domain="v5e-16-demo")),
-    ("multislice-test1", dict(slice_domain="ms", slices=2, slice_group="g")),
-])
-def test_slice_specs_need_the_controller(tmp_path, monkeypatch, spec, kw):
-    got = {}
-    for name, (harness, spec_runner, _) in PACKAGES.items():
+SLICE_SPECS = {
+    "slice-test1": dict(slice_domain="v5e-16-demo"),
+    "multislice-test1": dict(slice_domain="ms", slices=2, slice_group="g"),
+}
+IDENTITY = ("worker_id", "host_count", "coordinator_address", "visible_devices", "num_slices",
+            "slice_id", "global_worker_id", "megascale_coordinator", "multi_host", "multi_slice")
+
+
+def _slices(cluster, name) -> tuple[list, dict]:
+    """The published slices without their resource versions and pool
+    generations (the seat pools' without their uids too), and the seat
+    pools' generations apart: the port's manager publishes the Node
+    informer's replay once, the reference's once a Node, so they write in
+    another order (``controller/slice_manager.py``'s docstring)."""
+    root = "k8s_dra_driver_tpu" if name == "reference" else "k8s_dra_driver_torch"
+    objects = importlib.import_module(f"{root}.kube.objects")
+    docs, seat_generations = [], {}
+    for s in sorted(cluster.server.list("ResourceSlice"), key=lambda s: s.metadata.name):
+        doc = objects.to_json(s)
+        del doc["metadata"]["resourceVersion"]
+        generation = doc["spec"]["pool"].pop("generation", 0)
+        if doc["metadata"]["labels"].get("dra.tpu.google.com/owner") == "controller":
+            del doc["metadata"]["uid"]
+            seat_generations[doc["spec"]["pool"]["name"]] = generation
+        docs.append(doc)
+    return docs, seat_generations
+
+
+@pytest.mark.parametrize("spec", SLICE_SPECS)
+def test_slice_specs_run_under_the_controller(tmp_path, monkeypatch, spec):
+    got, generations = {}, {}
+    for name, (harness, spec_runner, serde) in PACKAGES.items():
+        root = "k8s_dra_driver_tpu" if name == "reference" else "k8s_dra_driver_torch"
+        slice_manager = importlib.import_module(f"{root}.controller.slice_manager")
+        consumer = importlib.import_module(f"{root}.consumer")
         _deterministic_uids(monkeypatch)
-        cluster = harness.make_cluster(hosts=4, topology="v5e-16",
-                                       work_dir=str(tmp_path / name), **kw)
-        with pytest.raises(spec_runner.SpecError) as err:
-            spec_runner.apply_spec(cluster, SPECS / "quickstart" / f"{spec}.yaml")
-        got[name] = (str(err.value), _claims(cluster, PACKAGES[name][2]))
+        work = tmp_path / name
+        cluster = harness.make_cluster(hosts=4, topology="v5e-16", work_dir=str(work),
+                                       **SLICE_SPECS[spec])
+        manager = slice_manager.SliceManager(cluster.server)
+        manager.start()
+        try:
+            pods = spec_runner.apply_spec(cluster, SPECS / "quickstart" / f"{spec}.yaml")
+            ids = [{k: getattr(consumer.attach(environ=p.env, init_distributed=False), k)
+                    for k in IDENTITY} for p in pods]
+            docs, generations[name] = _slices(cluster, name)
+            got[name] = (_pods(pods, work), _files(work), _claims(cluster, serde), docs, ids)
+        finally:
+            manager.stop()
     assert got["port"] == got["reference"]
-    assert "is unschedulable" in got["port"][0]
+    assert generations["port"].keys() == generations["reference"].keys()
+    assert set(generations["port"].values()) == {0}
+    assert min(generations["reference"].values()) >= 1
+    pods, _, _, _, ids = got["port"]
+    assert len(pods) == 4 and len({p["node"] for p in pods}) == 4
+    seats = [d["device_name"] for p in pods for d in p["devices"]
+             if d["device_name"].startswith("membership-")]
+    assert len(seats) == 4 and all(any(d["device_name"].startswith("tpu-slice-2x2")
+                                       for d in p["devices"]) for p in pods)
+    if spec == "slice-test1":
+        assert sorted(i["worker_id"] for i in ids) == [0, 1, 2, 3]
+        assert len({i["coordinator_address"] for i in ids}) == 1
+        assert {i["host_count"] for i in ids} == {4}
+    else:
+        assert sorted(i["global_worker_id"] for i in ids) == [0, 1, 2, 3]
+        assert {i["num_slices"] for i in ids} == {2} and {i["host_count"] for i in ids} == {2}
+        (megascale,) = {i["megascale_coordinator"] for i in ids}
+        assert megascale.endswith(":8081")
+        assert {p["env"]["MEGASCALE_NUM_SLICES"] for p in pods} == {"2"}
 
 
 def test_a_pod_that_does_not_fit_leaves_nothing_behind(tmp_path, monkeypatch):
